@@ -8,16 +8,32 @@ H100:  ``python3 chip_smoke.py``. It
 2. builds every CUDA kernel from ``replication_faster_rcnn_tpu_torch/csrc``
    with nvcc for sm_90a (into ``build/torch_kernels/``) and prints the time;
 3. holds each kernel against its plain PyTorch version on the card at the
-   serving path's shapes (NMS bitwise; ROIAlign bitwise against its gather
-   twin and within atol 2e-5 / rtol 1e-5 of the einsum formulation) and
-   times both;
+   serving and training paths' shapes and times both: NMS bitwise (serving
+   8 x 3000 -> 300 and 8 x 6300 -> 100, training 8 x 12000 -> 600);
+   ROIAlign forward bitwise against its gather twin and within atol 2e-5 /
+   rtol 1e-5 of the einsum formulation; IoU matching bitwise in all four
+   outputs at the anchor site (8 x 12996 anchors x 32 gt) and the proposal
+   site (8 x 632 x 32); ROIAlign backward (8 x 128 rois on [38, 38, 256])
+   within atol 1e-4 / rtol 1e-5 in float32 and one bfloat16 ulp in bfloat16
+   of the plain scatter (both sum in float32 in other orders: the kernel
+   with atomics);
 4. serves ``voc12_resnet18_align`` at 600x600 (ResNet18, 21 classes, ROIAlign
    7x7 s=2, seeded random weights resident in bfloat16) through
    ``InferenceEngine``: one request, then 8 mixed-size images as one b8
    flush, with the kernels' launch counters reset just before and read just
    after; the same requests then go through the plain versions
    (``reference=True``) and every output must be equal;
-5. prints a ``{"kernels": [...]}`` line, the card line, and last
+5. trains ``voc12_resnet18_align`` at 600x600, batch 8 (bfloat16 compute,
+   float32 parameters, 12000 -> 600 proposals, 256 anchor and 128 roi
+   samples per image) with the ``Trainer`` on ``SyntheticDataset``: 2
+   warm-up steps, then ``TRAIN_REPS`` timed steps with the launch counters
+   reset just before and read just after (per step: NMS 1, IoU matching 2,
+   ROIAlign forward 1 and backward 1); every loss must be finite. One more
+   forward and backward from the same state and the same draws runs under
+   ``ops.reference_scope()``: targets, labels, the four losses and the new
+   BatchNorm statistics must be bitwise equal to the kernel pass, and each
+   parameter's gradient within a relative L2 error of ``GRAD_RTOL``;
+6. prints a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Without CUDA, or without
@@ -45,12 +61,28 @@ IOU_FLOPS = 16  # max/min x4, sub x6, mul x3, add x2, div x1 per IoU
 
 NMS_SRC = "replication_faster_rcnn_tpu_torch/csrc/nms_kernel.cu"
 ROI_SRC = "replication_faster_rcnn_tpu_torch/csrc/roi_align_kernel.cu"
+IOU_SRC = "replication_faster_rcnn_tpu_torch/csrc/iou_match_kernel.cu"
 NMS_TPU = "replication_faster_rcnn_tpu/ops/pallas/nms_kernel.py:101"
 ROI_TPU = "replication_faster_rcnn_tpu/ops/pallas/roi_kernel.py:41"
-NO_LIBRARY = "torch core has no NMS or ROIAlign operator (torchvision is not installed)"
+ROI_BWD_TPU = "replication_faster_rcnn_tpu/ops/pallas/roi_kernel.py:99"
+ROI_BWD_NOTE = ("the JAX package has no Pallas backward: its custom_vjp replays the XLA "
+                "einsum VJP; the port needs a kernel because its forward is hand-written")
+IOU_TPU = "replication_faster_rcnn_tpu/ops/pallas/iou_kernel.py:35"
+NO_LIBRARY = ("torch core has no NMS, ROIAlign or IoU-matching operator "
+              "(torchvision is not installed)")
 
 FEAT = (38, 38, 256)  # ResNet18 stride-16 features of a 600x600 image
-REPS = 10  # timed repetitions of the main path
+REPS = 10  # timed repetitions of the serving main path
+TRAIN_REPS = 10  # timed training steps
+# per-parameter relative L2 error of the kernel pass's gradients against the
+# plain pass's. The two ROIAlign backward formulations sum the same float32
+# products in other orders; the feature gradient is then rounded to bfloat16
+# and the trunk's backward runs in bfloat16 (relative step 2**-8), so a few
+# flipped roundings compound through the 14 conv layers below the features.
+# Measured on the CPU at 96x96 after 6 steps: 1.1e-2 in bfloat16, 1.8e-6 with
+# float32 compute.
+GRAD_RTOL = 5e-2
+ROI_BWD_TOL = {"float32": {"atol": 1e-4, "rtol": 1e-5}, "bfloat16": {"atol": 1e-4, "rtol": 2**-7}}
 
 
 def log(msg):
@@ -177,6 +209,74 @@ def check_roi(torch, name, feat, rois):
             "max_abs_err": err_gather, "max_abs_err_vs_einsum": err_einsum}
 
 
+def check_iou(torch, name, boxes, gt, mask, want_col):
+    from replication_faster_rcnn_tpu_torch.ops.cuda.iou_kernel import match_boxes_cuda
+    from replication_faster_rcnn_tpu_torch.ops.iou_match import match_boxes
+
+    got = match_boxes_cuda(boxes, gt, mask, want_col=True, want_iou=True)
+    want = match_boxes(boxes, gt, mask, want_col=True)
+    torch.cuda.synchronize()
+    for what, a, b in zip(("iou", "argmax", "max_iou", "col_argmax"), got, want):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"IoU matching {name}: kernel and plain {what} differ")
+    ms = time_ms(torch, lambda: match_boxes_cuda(boxes, gt, mask, want_col, want_iou=False), 20)
+    plain_ms = time_ms(torch, lambda: match_boxes(boxes, gt, mask, want_col), 10)
+    b, g = gt.shape[:2]
+    m = boxes.shape[1]
+    nbytes = (boxes.numel() * 4 + gt.numel() * 4 + mask.numel() + b * m * (8 + 4)
+              + (b * g * 8 if want_col else 0))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = b * m * g * IOU_FLOPS / F32_FLOPS * 1e3
+    bound_ms, bound_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    log(f"  iou_match {name}: all four outputs bitwise equal, kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": 0.0}
+
+
+def roi_bwd_bound(torch, grad_out, rois, feat_shape, feat_dtype, out, s):
+    """Bytes: grad_out and rois read once, grad_feat written once in the
+    feature's dtype. Operations: one division per output element and, per
+    in-range sample of this run's rois, 4 taps x (2 multiplies + 1 add)."""
+    from replication_faster_rcnn_tpu_torch.ops import roi_ops
+
+    n, h, w, c = feat_shape
+    rr, cc = roi_ops._sample_coords(rois.float(), out, s)
+    in_r = roi_ops._axis_taps(rr, h)[-1]
+    in_c = roi_ops._axis_taps(cc, w)[-1]
+    inside = int((in_r[..., :, None] & in_c[..., None, :]).sum())
+    elem = torch.empty((), dtype=feat_dtype).element_size()
+    nbytes = grad_out.numel() * 4 + rois.numel() * 4 + n * h * w * c * elem
+    flops = grad_out.numel() + inside * c * 12
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_roi_bwd(torch, name, grad_out, rois, feat_shape, feat_dtype):
+    from replication_faster_rcnn_tpu_torch.ops.cuda.roi_kernel import roi_align_backward_cuda
+    from replication_faster_rcnn_tpu_torch.ops.roi_ops import roi_align_backward
+
+    got = roi_align_backward_cuda(grad_out, rois, feat_shape, feat_dtype, 7, 2)
+    want = roi_align_backward(grad_out, rois, feat_shape, feat_dtype, 7, 2)
+    torch.cuda.synchronize()
+    tol = ROI_BWD_TOL[str(feat_dtype).split(".")[-1]]
+    if got.dtype != feat_dtype or got.shape != want.shape:
+        raise AssertionError(f"ROIAlign backward {name}: got {got.dtype} {tuple(got.shape)}")
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), **tol):
+        raise AssertionError(f"ROIAlign backward {name}: max err {err} beyond {tol}")
+    ms = time_ms(torch, lambda: roi_align_backward_cuda(grad_out, rois, feat_shape, feat_dtype,
+                                                        7, 2), 20)
+    plain_ms = time_ms(torch, lambda: roi_align_backward(grad_out, rois, feat_shape, feat_dtype,
+                                                         7, 2), 5, 1)
+    bound_ms, bound_by = roi_bwd_bound(torch, grad_out, rois, feat_shape, feat_dtype, 7, 2)
+    log(f"  roi_align_bwd {name}: max |kernel - plain| {err:.3e} ({tol}), kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err}
+
+
 def phase_kernels(torch):
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -211,6 +311,37 @@ def phase_kernels(torch):
                                 [2.2, 2.2, 2.2, 2.2], [-5.0, -5.0, -2.0, -1.5]], device=dev)
     res["roi_f32"] = check_roi(torch, f"f32 8x300 {list(FEAT)}", feat, rois)
     res["roi_bf16"] = check_roi(torch, f"bf16 8x300 {list(FEAT)}", feat.to(torch.bfloat16), rois)
+
+    # training shapes: proposal NMS 8 x 12000 sorted -> 600 at 0.7
+    boxes = torch.from_numpy(rand_boxes(rng, (b, 12000), 560, 250)).to(dev)
+    scores = torch.from_numpy(-np.sort(-rng.uniform(0, 1, (b, 12000)), axis=1)
+                              .astype(np.float32)).to(dev)
+    res["nms_train"] = check_nms(torch, "training 8x12000->600 thr 0.7", boxes, scores, 0.7, 600,
+                                 mask=torch.isfinite(scores), assume_sorted=True)
+    # IoU matching: the 12996 anchors of a 38x38 map against 32 padded gt
+    # boxes per image (with the column argmax), and 600 proposals + 32 gt
+    # against the gt (without it)
+    from replication_faster_rcnn_tpu_torch.config import AnchorConfig
+    from replication_faster_rcnn_tpu_torch.ops.anchors import make_anchors
+
+    anchors = torch.from_numpy(make_anchors(AnchorConfig(), FEAT[:2])).to(dev)[None]
+    gt = torch.from_numpy(rand_boxes(rng, (b, 32), 450, 300)).to(dev)
+    gmask = torch.arange(32, device=dev)[None, :] < torch.tensor(
+        [1, 3, 32, 5, 8, 2, 0, 17], device=dev)[:, None]
+    res["iou_anchor"] = check_iou(torch, "anchors 8x12996x32 + column argmax", anchors, gt, gmask,
+                                  True)
+    cand = torch.cat([torch.from_numpy(rand_boxes(rng, (b, 600), 500, 250)).to(dev), gt], dim=1)
+    res["iou_proposal"] = check_iou(torch, "proposals 8x632x32", cand, gt, gmask, False)
+    # ROIAlign backward at the head's training shape: 8 x 128 rois on [38, 38, 256]
+    rois = torch.from_numpy(rand_boxes(rng, (b, 128), 600, 300) * (FEAT[0] / 600)).to(dev)
+    rois[:, :4] = torch.tensor([[-0.9, -0.9, 3.0, 3.0], [35.0, 34.0, 40.0, 41.0],
+                                [2.2, 2.2, 2.2, 2.2], [-5.0, -5.0, -2.0, -1.5]], device=dev)
+    g = torch.from_numpy(rng.normal(0, 1, (b, 128, 7, 7, FEAT[2])).astype(np.float32)).to(dev)
+    shape = (b,) + FEAT
+    res["roi_bwd_f32"] = check_roi_bwd(torch, f"f32 8x128 {list(FEAT)}", g, rois, shape,
+                                       torch.float32)
+    res["roi_bwd_bf16"] = check_roi_bwd(torch, f"bf16 8x128 {list(FEAT)}", g, rois, shape,
+                                        torch.bfloat16)
     return res
 
 
@@ -346,6 +477,230 @@ def phase_serve(torch):
     return launches, serve
 
 
+class StageTimer:
+    """stage(name) context manager recording CUDA events; ms() sums them by
+    name after a synchronize."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.events = []
+
+    def __call__(self, name):
+        timer = self
+
+        class _Span:
+            def __enter__(self):
+                self.start = timer.torch.cuda.Event(enable_timing=True)
+                self.start.record()
+
+            def __exit__(self, *exc):
+                end = timer.torch.cuda.Event(enable_timing=True)
+                end.record()
+                timer.events.append((name, self.start, end))
+                return False
+
+        return _Span()
+
+    def ms(self):
+        self.torch.cuda.synchronize()
+        out = {}
+        for name, start, end in self.events:
+            out[name] = out.get(name, 0.0) + start.elapsed_time(end)
+        return out
+
+
+def device_timeline(torch, run, steps):
+    """torch.profiler over ``run`` (``steps`` training steps): the device's
+    busy time (union of kernel and copy intervals), the span from its first
+    to its last activity, the idle share of that span, and the kernels with
+    the most device time. None when the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    acts = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]  # kernels and copies
+    if not acts:
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in acts)
+    busy, (lo, hi) = 0.0, spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy += hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    busy += hi - lo
+    span = max(e for _, e in spans) - spans[0][0]
+    by_name = {}
+    for e in acts:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {
+        "device_busy_ms_per_step": busy / 1e3 / steps,
+        "device_span_ms_per_step": span / 1e3 / steps,
+        "device_idle_share": 1.0 - busy / span,
+        "device_activities_per_step": len(acts) / steps,
+        "top_device_ms_per_step": {name[:90]: us / 1e3 / steps for name, us in top},
+    }
+
+
+def phase_train(torch, cfg=None, device=None):
+    """``cfg``/``device`` default to the full configuration on the card (a
+    CPU rehearsal passes a small configuration and ``"cpu"``)."""
+    import dataclasses
+
+    from replication_faster_rcnn_tpu_torch import get_config, ops
+    from replication_faster_rcnn_tpu_torch.data.synthetic import SyntheticDataset
+    from replication_faster_rcnn_tpu_torch.models.resnet import BatchNorm
+    from replication_faster_rcnn_tpu_torch.ops.cuda import iou_kernel, nms_kernel, roi_kernel
+    from replication_faster_rcnn_tpu_torch.train.train_step import compute_losses
+    from replication_faster_rcnn_tpu_torch.train.trainer import Trainer
+
+    cfg = cfg or get_config("voc12_resnet18_align")
+    bsz = cfg.train.batch_size
+    log(f"[5] main path: train voc12_resnet18_align {cfg.data.image_size} batch {bsz}, "
+        f"compute {cfg.model.compute_dtype}, {cfg.proposals.pre_nms_train} -> "
+        f"{cfg.proposals.post_nms_train} proposals, Adam lr {cfg.train.lr}")
+    dataset = SyntheticDataset(cfg.data, length=2 * bsz)
+    trainer = Trainer(cfg, dataset, device=device, seed=0)
+    batches = [trainer.stage_batch(b) for b in trainer.batches(0)]
+    model, state = trainer.model, trainer.state
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  trainer on {trainer.device}, {n_params / 1e6:.2f} M parameters (float32), "
+        f"{trainer.steps_per_epoch} steps per epoch")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(2):  # warm-up: cuDNN handles and algorithm choice
+        m = trainer.train_one_batch(next(trainer.batches(0)))
+    log(f"  warm-up: 2 steps in {time.perf_counter() - t0:.2f} s, losses "
+        f"{ {k: round(m[k], 4) for k in ('rpn_cls_loss', 'rpn_reg_loss', 'head_cls_loss', 'head_reg_loss')} }")
+
+    counters = (nms_kernel, iou_kernel, roi_kernel)
+    for mod in counters:
+        mod.launches = 0
+    roi_kernel.backward_launches = 0
+    step_ms, history = [], []
+    for i in range(TRAIN_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = trainer.step_fn(state, batches[i % len(batches)])
+        end.record()
+        history.append({k: float(v) for k, v in metrics.items()})
+        step_ms.append(start.elapsed_time(end))
+    launches = {"nms": nms_kernel.launches, "iou_match": iou_kernel.launches,
+                "roi_align": roi_kernel.launches, "roi_align_bwd": roi_kernel.backward_launches}
+    log(f"  launches in {TRAIN_REPS} timed steps: {launches}")
+    want = {"nms": 1, "iou_match": 2, "roi_align": 1, "roi_align_bwd": 1}
+    if launches != {k: v * TRAIN_REPS for k, v in want.items()}:
+        raise AssertionError(f"expected per step {want}, got {launches} over {TRAIN_REPS} steps")
+    for row in history:
+        bad = [k for k in ("loss", "rpn_cls_loss", "rpn_reg_loss", "head_cls_loss",
+                           "head_reg_loss", "grad_norm") if not np.isfinite(row[k])]
+        if bad or row["skipped"] != 0.0:
+            raise AssertionError(f"non-finite training metrics {bad} (skipped {row['skipped']})")
+    log("  losses per step: " + ", ".join(f"{r['loss']:.4f}" for r in history))
+
+    # per-stage ms of one more step, CUDA events around each stage
+    timer = StageTimer(torch)
+    trainer.step_fn(state, batches[0], stage=timer)
+    stages = timer.ms()
+    log(f"  stage ms (one step, CUDA events): { {k: round(v, 3) for k, v in stages.items()} }")
+
+    # the device timeline of 3 more steps (torch.profiler)
+    def three_steps():
+        for i in range(3):
+            trainer.step_fn(state, batches[i % len(batches)])
+
+    timeline = device_timeline(torch, three_steps, 3)
+    if timeline is None:
+        log("  device timeline: the profiler saw no device activity (not measured)")
+    else:
+        log(f"  device timeline (torch.profiler, 3 steps): busy "
+            f"{timeline['device_busy_ms_per_step']:.2f} ms of a "
+            f"{timeline['device_span_ms_per_step']:.2f} ms span per step, idle share "
+            f"{timeline['device_idle_share']:.3f}, "
+            f"{timeline['device_activities_per_step']:.0f} device activities per step")
+        log(f"  most device time per step: "
+            f"{ {k: round(v, 3) for k, v in timeline['top_device_ms_per_step'].items()} }")
+
+    # the same state and draws: kernel pass vs plain pass (forward + backward)
+    batch = batches[1]
+    params = list(model.parameters())
+
+    def pass_(reference, draws, weights=None):
+        c = cfg if weights is None else cfg.replace(
+            train=dataclasses.replace(cfg.train, loss_weights=weights))
+        model.zero_grad(set_to_none=True)
+        record = {}
+        with ops.reference_scope(reference):
+            total, (metrics, stats) = compute_losses(model, c, batch, state.generator, draws,
+                                                     record)
+            total.backward()
+        grads = [None if p.grad is None else p.grad.detach().clone() for p in params]
+        stats = [(mean.clone(), var.clone()) for _, (mean, var) in stats]
+        for mod in model.modules():
+            if isinstance(mod, BatchNorm):
+                mod.pending_stats = None
+        return metrics, record, grads, stats
+
+    km, krec, kgrads, kstats = pass_(False, None)
+    before = (nms_kernel.launches, iou_kernel.launches, roi_kernel.launches,
+              roi_kernel.backward_launches)
+    pm, prec, pgrads, pstats = pass_(True, krec["draws"])
+    after = (nms_kernel.launches, iou_kernel.launches, roi_kernel.launches,
+             roi_kernel.backward_launches)
+    if before != after:
+        raise AssertionError("a kernel launched inside reference_scope")
+    for k, v in krec["targets"].items():
+        if not torch.equal(v, prec["targets"][k]):
+            raise AssertionError(f"target {k!r} differs between the kernel and plain passes")
+    for k in ("loss", "rpn_cls_loss", "rpn_reg_loss", "head_cls_loss", "head_reg_loss",
+              "n_pos_rpn", "n_pos_head"):
+        if not torch.equal(km[k], pm[k]):
+            raise AssertionError(f"{k} differs: kernel {float(km[k])} plain {float(pm[k])}")
+    if not all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(kstats, pstats)):
+        raise AssertionError("new BatchNorm statistics differ between the kernel and plain passes")
+    grad_err = 0.0
+    for p_k, p_p in zip(kgrads, pgrads):
+        if (p_k is None) != (p_p is None):
+            raise AssertionError("a parameter has a gradient in one pass only")
+        if p_k is not None:
+            denom = float(p_p.float().norm())
+            err = float((p_k.float() - p_p.float()).norm()) / max(denom, 1e-30)
+            grad_err = max(grad_err, err)
+    if grad_err > GRAD_RTOL:
+        raise AssertionError(f"gradients differ by relative L2 {grad_err} > {GRAD_RTOL}")
+    log(f"  kernel pass == plain pass (same state and draws): targets, labels, 4 losses and "
+        f"BatchNorm statistics bitwise; gradients max relative L2 error {grad_err:.3e} "
+        f"(tolerance {GRAD_RTOL})")
+    # the head's losses alone reach the trunk through the ROIAlign kernels
+    _, _, hgrads, _ = pass_(False, krec["draws"], (0.0, 0.0, 1.0, 1.0))
+    trunk = hgrads[[n for n, _ in model.named_parameters()].index("trunk.conv1.weight")]
+    if trunk is None or not float(trunk.abs().sum()) > 0:
+        raise AssertionError("the head's losses gave the trunk no gradient")
+    model.zero_grad(set_to_none=True)
+    log("  the head's losses alone give the trunk a gradient (ROIAlign forward + backward kernels)")
+
+    med = statistics.median(step_ms)
+    train = {
+        "step_ms": med,
+        "images_per_s": bsz / med * 1e3,
+        "step_ms_all": step_ms,
+        "stage_ms": stages,
+        "device_timeline": timeline,
+        "losses_first_last": [history[0]["loss"], history[-1]["loss"]],
+        "grad_max_rel_l2_err_vs_plain": grad_err,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    log(f"  train step {med:.2f} ms (median of {TRAIN_REPS}, CUDA events, batch staged on the "
+        f"card), {train['images_per_s']:.1f} images/s")
+    return launches, train
+
+
 def main():
     try:
         import torch
@@ -384,22 +739,29 @@ def main():
 
     res = phase_kernels(torch)
     launches, serve = phase_serve(torch)
+    tlaunches, train = phase_train(torch)
 
     nms, det, roi = res["nms_proposal"], res["nms_detection"], res["roi_bf16"]
+    nms_tr, bwd = res["nms_train"], res["roi_bwd_bf16"]
+    iou_a, iou_p = res["iou_anchor"], res["iou_proposal"]
+    timing = ("ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [
         {
             "name": "nms_greedy", "route": "cuda", "source": NMS_SRC, "replaces": NMS_TPU,
-            "launches": launches["nms"],
-            "parity": "bitwise vs nms_fixed_tiled (proposal, detection, clustered)",
+            "launches": launches["nms"] + tlaunches["nms"],
+            "launches_by_path": {"serve": launches["nms"], "train": tlaunches["nms"]},
+            "parity": "bitwise vs nms_fixed_tiled (proposal, detection, clustered, training)",
             "max_abs_err": max(r["max_abs_err"] for k, r in res.items() if k.startswith("nms")),
             "ms": nms["ms"], "plain_ms": nms["plain_ms"], "bound_ms": nms["bound_ms"],
             "bound_by": nms["bound_by"], "library_ms": None, "library_note": NO_LIBRARY,
             "shape": "proposal: 8 x 3000 sorted -> 300, thr 0.7",
-            "detection_site": {k: det[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "detection_site": {k: det[k] for k in timing},
+            "training_site": {k: nms_tr[k] for k in timing},
         },
         {
             "name": "roi_align_fwd", "route": "cuda", "source": ROI_SRC, "replaces": ROI_TPU,
-            "launches": launches["roi_align"],
+            "launches": launches["roi_align"] + tlaunches["roi_align"],
+            "launches_by_path": {"serve": launches["roi_align"], "train": tlaunches["roi_align"]},
             "parity": "bitwise vs roi_align(method='gather'); einsum within atol 2e-5 rtol 1e-5",
             "max_abs_err": max(res["roi_f32"]["max_abs_err"], roi["max_abs_err"]),
             "max_abs_err_vs_einsum": max(res["roi_f32"]["max_abs_err_vs_einsum"],
@@ -407,10 +769,34 @@ def main():
             "ms": roi["ms"], "plain_ms": roi["plain_ms"], "bound_ms": roi["bound_ms"],
             "bound_by": roi["bound_by"], "library_ms": None, "library_note": NO_LIBRARY,
             "shape": "bf16 feat 8 x [38, 38, 256], 300 rois, 7x7, s=2 -> f32",
-            "f32": {k: res["roi_f32"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "f32": {k: res["roi_f32"][k] for k in timing},
+        },
+        {
+            "name": "roi_align_bwd", "route": "cuda", "source": ROI_SRC, "replaces": ROI_BWD_TPU,
+            "replaces_note": ROI_BWD_NOTE,
+            "launches": tlaunches["roi_align_bwd"],
+            "launches_by_path": {"train": tlaunches["roi_align_bwd"]},
+            "parity": f"vs roi_ops.roi_align_backward: {ROI_BWD_TOL} (float atomics, "
+                      "not bitwise deterministic)",
+            "max_abs_err": max(res["roi_bwd_f32"]["max_abs_err"], bwd["max_abs_err"]),
+            "ms": bwd["ms"], "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+            "bound_by": bwd["bound_by"], "library_ms": None, "library_note": NO_LIBRARY,
+            "shape": "grad [8, 128, 7, 7, 256] f32 -> bf16 grad_feat 8 x [38, 38, 256], s=2",
+            "f32": {k: res["roi_bwd_f32"][k] for k in timing},
+        },
+        {
+            "name": "iou_match", "route": "cuda", "source": IOU_SRC, "replaces": IOU_TPU,
+            "launches": tlaunches["iou_match"],
+            "launches_by_path": {"train": tlaunches["iou_match"]},
+            "parity": "bitwise vs ops/iou_match.py::match_boxes (iou, argmax, max, column argmax)",
+            "max_abs_err": 0.0,
+            "ms": iou_a["ms"], "plain_ms": iou_a["plain_ms"], "bound_ms": iou_a["bound_ms"],
+            "bound_by": iou_a["bound_by"], "library_ms": None, "library_note": NO_LIBRARY,
+            "shape": "anchor site: 12996 anchors vs 8 x 32 gt, with the column argmax",
+            "proposal_site": {k: iou_p[k] for k in timing},
         },
     ]
-    log(json.dumps({"serve": serve, "card": card}))
+    log(json.dumps({"serve": serve, "train": train, "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

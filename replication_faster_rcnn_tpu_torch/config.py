@@ -1,9 +1,10 @@
-"""Configuration for the PyTorch/CUDA port — the subset the serving path reads.
+"""Configuration for the PyTorch/CUDA port — the subset the serving and
+training paths read.
 
 Field names, defaults and presets mirror ``replication_faster_rcnn_tpu.config``
 so a reader can hold the two side by side; knobs the port does not implement
-yet (FPN, VGG16, group norm, int8, training, fleet) are left out rather than
-accepted and ignored.
+yet (FPN, VGG16, group norm, int8, LAMB/LARS, warmup, K-step fusion,
+checkpointing, fleet) are left out rather than accepted and ignored.
 
 Box convention: boxes are ``[r1, c1, r2, c2]`` (``r`` along image rows,
 ``c`` along columns) and deltas ``[dr, dc, dh, dw]``.
@@ -46,11 +47,31 @@ class ProposalConfig:
 
 
 @dataclasses.dataclass(frozen=True)
-class ROITargetConfig:
-    """Only the regression normalisation the decode reads."""
+class RPNTargetConfig:
+    """First-stage (anchor) target sampling."""
 
+    n_sample: int = 256
+    pos_iou_thresh: float = 0.7
+    neg_iou_thresh: float = 0.3
+    pos_ratio: float = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class ROITargetConfig:
+    """Second-stage (head) target sampling, always exactly ``n_sample``
+    rois per image; ``reg_mean``/``reg_std`` also normalise the decode."""
+
+    n_sample: int = 128
+    pos_ratio: float = 0.5
+    pos_iou_thresh: float = 0.5
+    neg_iou_thresh_high: float = 0.5
+    neg_iou_thresh_low: float = 0.0
     reg_mean: Tuple[float, float, float, float] = (0.0, 0.0, 0.0, 0.0)
     reg_std: Tuple[float, float, float, float] = (0.1, 0.1, 0.2, 0.2)
+
+    @property
+    def n_pos_max(self) -> int:
+        return int(round(self.n_sample * self.pos_ratio))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,8 +96,53 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
     image_size: Tuple[int, int] = (600, 600)
+    max_boxes: int = 32  # gt boxes per image, padded with -1 labels
     pixel_mean: Tuple[float, float, float] = (0.485, 0.456, 0.406)
     pixel_std: Tuple[float, float, float] = (0.229, 0.224, 0.225)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimization: Adam with L2 weight decay added to the gradient and a
+    per-epoch cosine schedule (``train/train_step.py::make_optimizer``)."""
+
+    lr: float = 1e-4
+    weight_decay: float = 5e-6
+    n_epoch: int = 50
+    batch_size: int = 8
+    smooth_l1_sigma: float = 1.0
+    seed: int = 0
+    # rpn_cls, rpn_reg, head_cls, head_reg
+    loss_weights: Tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0)
+    sampling_strategy: str = "random"  # random | topk_iou
+    # a gradient with NaN/Inf: "skip" withholds the whole update (params,
+    # Adam state, BN statistics unchanged), "halt" withholds it and raises,
+    # "apply" applies it
+    nonfinite_policy: str = "skip"  # apply | skip | halt
+
+    def __post_init__(self):
+        object.__setattr__(
+            self, "loss_weights", tuple(float(w) for w in self.loss_weights)
+        )
+        if len(self.loss_weights) != 4:
+            raise ValueError(
+                f"train.loss_weights must have 4 entries, got {self.loss_weights!r}"
+            )
+        if self.n_epoch < 1 or self.batch_size < 1:
+            raise ValueError(
+                "train.n_epoch and train.batch_size must be >= 1, got "
+                f"{self.n_epoch}, {self.batch_size}"
+            )
+        if self.sampling_strategy not in ("random", "topk_iou"):
+            raise ValueError(
+                "sampling_strategy must be 'random' or 'topk_iou', got "
+                f"{self.sampling_strategy!r}"
+            )
+        if self.nonfinite_policy not in ("apply", "skip", "halt"):
+            raise ValueError(
+                "nonfinite_policy must be apply|skip|halt, got "
+                f"{self.nonfinite_policy!r}"
+            )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,9 +217,11 @@ class ServingConfig:
 class FasterRCNNConfig:
     anchors: AnchorConfig = dataclasses.field(default_factory=AnchorConfig)
     proposals: ProposalConfig = dataclasses.field(default_factory=ProposalConfig)
+    rpn_targets: RPNTargetConfig = dataclasses.field(default_factory=RPNTargetConfig)
     roi_targets: ROITargetConfig = dataclasses.field(default_factory=ROITargetConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
     serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
 

@@ -5,6 +5,10 @@ The stages are methods — ``extract_features`` / ``rpn_forward`` / ``propose``
 / ``head_forward`` — and ``forward`` composes them into the inference pass
 with the JAX model's seven outputs. Images and features are NHWC at every
 method boundary.
+``nn.Module.training`` switches every BatchNorm between its running and its
+batch statistics (the JAX methods' ``train`` argument); the training step
+(``train/train_step.py``) calls the stages one by one with
+``propose(train=True)``.
 """
 
 from __future__ import annotations

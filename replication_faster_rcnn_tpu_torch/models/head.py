@@ -1,5 +1,10 @@
 """Second-stage detection head: ROI features + ResNet tail + cls/reg Linear
-(counterpart of the JAX package's ``models/head.py::DetectionHead``)."""
+(counterpart of the JAX package's ``models/head.py::DetectionHead``), and
+:func:`select_class_deltas` for the head's regression loss.
+
+In training mode the tail's BatchNorm uses the batch statistics of the
+N * R crops, and the ROIAlign kernel passes the gradient back to the
+features (``ops/cuda/roi_kernel.py``)."""
 
 from __future__ import annotations
 
@@ -52,3 +57,13 @@ class DetectionHead(nn.Module):
         cls = F.linear(embed, self.cls.weight.float(), self.cls.bias.float())
         reg = F.linear(embed, self.reg.weight.float(), self.reg.bias.float())
         return cls.reshape(n, r, -1), reg.reshape(n, r, -1)
+
+
+def select_class_deltas(reg: Tensor, labels: Tensor) -> Tensor:
+    """Each roi's box deltas for its class: reg [..., R, C * 4], labels
+    [..., R] int -> [..., R, 4]. Labels are clamped into [0, C - 1] (the
+    filler label -1 picks class 0; the loss masks it out)."""
+    per_class = reg.reshape(reg.shape[:-1] + (-1, 4))  # [..., R, C, 4]
+    idx = torch.clamp(labels.long(), 0, per_class.shape[-2] - 1)
+    idx = idx[..., None, None].expand(labels.shape + (1, 4))
+    return torch.gather(per_class, -2, idx)[..., 0, :]

@@ -7,15 +7,17 @@ pooled ROI crops in the detection head.
 Modules take NCHW tensors; the model hands them channels-last views of its
 NHWC inputs, so cuDNN runs NHWC underneath without copies. Convolutions
 run in the input's dtype (the model's compute dtype) with weights cast per
-call, as the flax modules do. BatchNorm is in inference mode (running
-statistics, eps 1e-5) and computes in float32. Module and parameter names
+call, as the flax modules do. BatchNorm computes in float32 (eps 1e-5):
+in inference mode (``nn.Module.training`` False) with the running
+statistics, in training mode with the batch's (see :class:`BatchNorm`).
+Module and parameter names
 follow the flax tree (``conv1``, ``bn1``, ``layer1.0.downsample_conv``, ...)
 so ``models/convert.py`` is a pure name and layout mapping.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,8 +49,18 @@ def _conv(in_ch: int, out_ch: int, kernel: int, stride: int, padding: int, devic
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm: ``(x - mean) * (rsqrt(var + eps) * weight) + bias``
-    in float32, cast back to the input's dtype."""
+    """BatchNorm as flax computes it: ``(x - mean) * (rsqrt(var + eps) *
+    weight) + bias`` in float32, cast back to the input's dtype.
+
+    Inference mode uses the running statistics. Training mode uses the
+    batch's: ``mean = E[x]`` and the biased ``var = max(E[x^2] - E[x]^2, 0)``
+    over (N, H, W) in float32, differentiated through. The running update
+    ``running = 0.9 * running + 0.1 * batch`` (with the biased variance, as
+    flax keeps it) is not applied here: it is left in ``pending_stats`` for
+    the optimizer step to commit (``train/fault.py::guarded_update``), so a
+    withheld step leaves the buffers bit-identical."""
+
+    momentum = 0.9
 
     def __init__(self, channels: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -57,11 +69,29 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
         self.register_buffer("running_mean", torch.zeros(channels, device=device))
         self.register_buffer("running_var", torch.ones(channels, device=device))
+        self.pending_stats: Optional[Tuple[Tensor, Tensor]] = None
 
     def forward(self, x: Tensor) -> Tensor:
+        if self.training:
+            return self._train_forward(x)
         shape = (1, -1, 1, 1)
         mul = torch.rsqrt(self.running_var.float() + self.eps) * self.weight.float()
         y = (x.float() - self.running_mean.float().view(shape)) * mul.view(shape)
+        return (y + self.bias.float().view(shape)).to(x.dtype)
+
+    def _train_forward(self, x: Tensor) -> Tensor:
+        shape = (1, -1, 1, 1)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp(torch.square(xf).mean(dim=(0, 2, 3)) - torch.square(mean), min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.pending_stats = (
+                m * self.running_mean + (1 - m) * mean.detach(),
+                m * self.running_var + (1 - m) * var.detach(),
+            )
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (xf - mean.view(shape)) * mul.view(shape)
         return (y + self.bias.float().view(shape)).to(x.dtype)
 
 

@@ -23,7 +23,7 @@ from typing import Dict, Tuple
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES: Tuple[str, ...] = ("nms_kernel", "roi_align_kernel")
+SOURCES: Tuple[str, ...] = ("nms_kernel", "roi_align_kernel", "iou_match_kernel")
 
 # sm_90a: Hopper. -fmad=false: no product is contracted into an add, so the
 # kernels' float arithmetic is strict IEEE like the plain PyTorch versions'.

@@ -1,10 +1,16 @@
-"""Wrapper of the CUDA ROIAlign forward kernel (``csrc/roi_align_kernel.cu``).
+"""Wrappers of the CUDA ROIAlign kernels (``csrc/roi_align_kernel.cu``).
 
-Counterpart of the JAX package's ``ops/pallas/roi_kernel.py::roi_align_pallas``
-with the batch written out. A CPU tensor runs the plain version,
-``roi_ops.roi_align(method="gather")``, which the kernel matches bit for bit.
-The output is float32 for float32 and bfloat16 features, as the JAX package's
-default (einsum) path returns. Forward only: serving needs no gradient.
+The forward is the counterpart of the JAX package's
+``ops/pallas/roi_kernel.py::roi_align_pallas`` with the batch written out. A
+CPU tensor runs the plain version, ``roi_ops.roi_align(method="gather")``,
+which the kernel matches bit for bit. The output is float32 for float32 and
+bfloat16 features, as the JAX package's default (einsum) path returns.
+
+:func:`roi_align_cuda` is differentiable with respect to the features
+through a ``torch.autograd.Function`` whose backward is the backward kernel
+(plain version ``roi_ops.roi_align_backward`` on the CPU). The rois get no
+gradient: the Function raises if they require one, so a gradient is never
+dropped silently.
 """
 
 from __future__ import annotations
@@ -14,35 +20,126 @@ import ctypes
 import torch
 
 from replication_faster_rcnn_tpu_torch.ops.cuda import build
-from replication_faster_rcnn_tpu_torch.ops.roi_ops import roi_align
+from replication_faster_rcnn_tpu_torch.ops.roi_ops import roi_align, roi_align_backward
 
 Tensor = torch.Tensor
 
-# kernel launches since the last reset (the caller resets it to 0)
+# kernel launches since the last reset (the caller resets them to 0)
 launches = 0
+backward_launches = 0
 
 _fns = None
+
+_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p,
+]
 
 
 def _kernels():
     global _fns
     if _fns is None:
         lib = build.library("roi_align_kernel")
-        argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        for fn in (lib.roi_align_fwd_f32, lib.roi_align_fwd_bf16):
-            fn.argtypes = argtypes
+        for fn in (lib.roi_align_fwd_f32, lib.roi_align_fwd_bf16, lib.roi_align_bwd_f32):
+            fn.argtypes = _ARGTYPES
             fn.restype = ctypes.c_int
         lib.roi_align_error_string.argtypes = [ctypes.c_int]
         lib.roi_align_error_string.restype = ctypes.c_char_p
         _fns = (
             {torch.float32: lib.roi_align_fwd_f32, torch.bfloat16: lib.roi_align_fwd_bf16},
+            lib.roi_align_bwd_f32,
             lib.roi_align_error_string,
         )
     return _fns
+
+
+def _check_args(feat: Tensor, rois: Tensor, out_size: int, sampling_ratio: int) -> None:
+    if feat.dim() != 4:
+        raise ValueError(f"feat must be [N, H, W, C], got {tuple(feat.shape)}")
+    n = feat.shape[0]
+    if rois.dim() != 3 or rois.shape[0] != n or rois.shape[-1] != 4:
+        raise ValueError(f"rois must be [{n}, R, 4], got {tuple(rois.shape)}")
+    if rois.device != feat.device:
+        raise ValueError("feat and rois must be on the same device")
+    if out_size < 1 or sampling_ratio < 1:
+        raise ValueError(f"out_size and sampling_ratio must be >= 1, got {out_size}, {sampling_ratio}")
+
+
+def _forward_cuda(feat: Tensor, rois: Tensor, out_size: int, s: int) -> Tensor:
+    """The forward kernel on rois already in feature coordinates."""
+    fns, _, err = _kernels()
+    fn = fns.get(feat.dtype)
+    if fn is None:
+        raise TypeError(f"roi_align_cuda takes float32 or bfloat16 features, got {feat.dtype}")
+    n, h, w, c = feat.shape
+    feat = feat.contiguous()
+    r = rois.shape[1]
+    out = torch.empty(n, r, out_size, out_size, c, dtype=torch.float32, device=feat.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(feat.device):
+        stream = torch.cuda.current_stream(feat.device).cuda_stream
+        rc = fn(feat.data_ptr(), rois.data_ptr(), n, h, w, c, r, out_size, s,
+                out.data_ptr(), stream)
+    build.check(rc, err, "roi_align_kernel")
+    global launches
+    launches += 1
+    return out
+
+
+def roi_align_backward_cuda(
+    grad_out: Tensor, rois: Tensor, feat_shape, feat_dtype: torch.dtype, out_size: int, s: int
+) -> Tensor:
+    """The backward kernel: grad_out [N, R, out, out, C], rois [N, R, 4] in
+    feature coordinates -> grad_feat [N, H, W, C] in ``feat_dtype``. A CPU
+    tensor runs ``roi_ops.roi_align_backward``."""
+    if not grad_out.is_cuda:
+        return roi_align_backward(grad_out, rois, feat_shape, feat_dtype, out_size, s)
+    n, h, w, c = feat_shape
+    r = rois.shape[1]
+    if tuple(grad_out.shape) != (n, r, out_size, out_size, c):
+        raise ValueError(
+            f"grad_out must be {(n, r, out_size, out_size, c)}, got {tuple(grad_out.shape)}"
+        )
+    if not rois.is_cuda or rois.device != grad_out.device:
+        raise ValueError("grad_out and rois must be on the same CUDA device")
+    _, fn, err = _kernels()
+    grad_out = grad_out.float().contiguous()
+    rois = rois.float().contiguous()
+    grad = torch.empty(n, h, w, c, dtype=torch.float32, device=grad_out.device)
+    if grad.numel() == 0:
+        return grad.to(feat_dtype)
+    with torch.cuda.device(grad_out.device):
+        stream = torch.cuda.current_stream(grad_out.device).cuda_stream
+        rc = fn(grad_out.data_ptr(), rois.data_ptr(), n, h, w, c, r, out_size, s,
+                grad.data_ptr(), stream)
+    build.check(rc, err, "roi_align_bwd_kernel")
+    global backward_launches
+    backward_launches += 1
+    return grad.to(feat_dtype)
+
+
+class _RoIAlign(torch.autograd.Function):
+    """ROIAlign with the kernels on CUDA tensors and the plain versions on
+    CPU tensors, in both directions. Rois arrive in feature coordinates."""
+
+    @staticmethod
+    def forward(ctx, feat: Tensor, rois: Tensor, out_size: int, s: int) -> Tensor:
+        ctx.save_for_backward(rois)
+        ctx.feat_meta = (tuple(feat.shape), feat.dtype, out_size, s)
+        if feat.is_cuda:
+            return _forward_cuda(feat, rois, out_size, s)
+        return roi_align(feat, rois, out_size, s, method="gather")
+
+    @staticmethod
+    def backward(ctx, grad_out: Tensor):
+        (rois,) = ctx.saved_tensors
+        shape, dtype, out_size, s = ctx.feat_meta
+        grad = None
+        if ctx.needs_input_grad[0]:
+            grad = roi_align_backward_cuda(grad_out, rois, shape, dtype, out_size, s)
+        return grad, None, None, None
 
 
 def roi_align_cuda(
@@ -52,35 +149,13 @@ def roi_align_cuda(
     sampling_ratio: int = 2,
     spatial_scale: float = 1.0,
 ) -> Tensor:
-    """feat [N, H, W, C] (f32 or bf16), rois [N, R, 4] -> [N, R, out, out, C] f32."""
-    if not feat.is_cuda:
-        return roi_align(feat, rois, out_size, sampling_ratio, spatial_scale, method="gather")
-    if feat.dim() != 4:
-        raise ValueError(f"feat must be [N, H, W, C], got {tuple(feat.shape)}")
-    n, h, w, c = feat.shape
-    if rois.dim() != 3 or rois.shape[0] != n or rois.shape[-1] != 4:
-        raise ValueError(f"rois must be [{n}, R, 4], got {tuple(rois.shape)}")
-    if not rois.is_cuda or rois.device != feat.device:
-        raise ValueError("feat and rois must be on the same CUDA device")
-    if out_size < 1 or sampling_ratio < 1:
-        raise ValueError(f"out_size and sampling_ratio must be >= 1, got {out_size}, {sampling_ratio}")
-    fns, err = _kernels()
-    fn = fns.get(feat.dtype)
-    if fn is None:
-        raise TypeError(f"roi_align_cuda takes float32 or bfloat16 features, got {feat.dtype}")
-    feat = feat.contiguous()
-    rois = (rois.float() * spatial_scale).contiguous()
-    r = rois.shape[1]
-    out = torch.empty(n, r, out_size, out_size, c, dtype=torch.float32, device=feat.device)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(feat.device):
-        stream = torch.cuda.current_stream(feat.device).cuda_stream
-        rc = fn(
-            feat.data_ptr(), rois.data_ptr(), n, h, w, c, r, out_size,
-            sampling_ratio, out.data_ptr(), stream,
+    """feat [N, H, W, C] (f32 or bf16), rois [N, R, 4] -> [N, R, out, out, C]
+    f32, differentiable with respect to ``feat``."""
+    _check_args(feat, rois, out_size, sampling_ratio)
+    if rois.requires_grad and torch.is_grad_enabled():
+        raise ValueError(
+            "roi_align_cuda gives no gradient to the rois; detach them (the "
+            "training path's proposals and gt boxes carry none)"
         )
-    build.check(rc, err, "roi_align_kernel")
-    global launches
-    launches += 1
-    return out
+    rois = (rois.float() * spatial_scale).contiguous()
+    return _RoIAlign.apply(feat, rois, out_size, sampling_ratio)

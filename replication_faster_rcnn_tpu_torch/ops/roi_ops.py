@@ -13,6 +13,9 @@ Features are NHWC with the batch written out: feat [N, H, W, C], rois
     - ``method="einsum"``: the separable tent-weight contraction the JAX
       package runs by default, kept to hold both against it.
   Both return float32 (bf16 features are promoted, as in the JAX default).
+* :func:`roi_align_backward` — the gradient with respect to the features:
+  the plain version of the backward kernel (the same taps and weights,
+  scattered with ``index_add_``).
 * :func:`roi_pool` — quantized max pooling (Caffe/torchvision ROIPool).
 """
 
@@ -53,9 +56,12 @@ def _sample_coords(rois: Tensor, out_size: int, s: int):
 
 
 def _axis_taps(coords: Tensor, extent: int):
-    """Clamped tap pair, weights and in-range flag along one axis."""
+    """Clamped tap pair, weights and in-range flag along one axis. The clamp
+    is fmax/fmin, as in the kernel: a NaN coordinate (a diverged step's
+    proposal) becomes 0 and is out of range, so it reads pixel 0 with no
+    weight instead of indexing out of bounds."""
     in_range = (coords >= -1.0) & (coords <= extent)
-    x = torch.clamp(coords, 0.0, extent - 1.0)
+    x = torch.fmin(torch.fmax(coords, coords.new_zeros(())), coords.new_full((), extent - 1.0))
     x0 = torch.floor(x)
     frac = x - x0
     i0 = x0.long()
@@ -119,6 +125,44 @@ def roi_align(
         for ix in range(s):
             acc = acc + v[:, :, :, iy, :, ix]
     return _true_div(acc, s * s)
+
+
+def roi_align_backward(
+    grad_out: Tensor,
+    rois: Tensor,
+    feat_shape,
+    feat_dtype: torch.dtype,
+    out_size: int = 7,
+    sampling_ratio: int = 2,
+    spatial_scale: float = 1.0,
+) -> Tensor:
+    """Gradient of :func:`roi_align` with respect to ``feat``:
+    grad_out [N, R, out, out, C] -> [N, H, W, C] in ``feat_dtype``.
+
+    Each in-range sample scatters ``(grad / (s*s)) * (wy * wx)`` onto its
+    four taps (a border sample's two taps may be one pixel, which then
+    receives both); sums are float32, cast to ``feat_dtype`` at the end. The
+    rois get no gradient (proposals are detached and gt boxes are data)."""
+    n, h, w, c = feat_shape
+    s = sampling_ratio
+    rois = rois.float() * spatial_scale
+    r = rois.shape[1]
+    p = out_size * s
+    rr, cc = _sample_coords(rois, out_size, s)
+    y0, y1, wy0, wy1, in_r = _axis_taps(rr, h)  # [N, R, P]
+    x0, x1, wx0, wx1, in_c = _axis_taps(cc, w)  # [N, R, Q]
+    g = _true_div(grad_out.float(), s * s)  # [N, R, out, out, C]
+    g = g[:, :, :, None, :, None, :].expand(n, r, out_size, s, out_size, s, c)
+    g = g.reshape(n, r, p, p, c)
+    inside = in_r[..., :, None] & in_c[..., None, :]  # [N, R, P, Q]
+    base = (torch.arange(n, device=grad_out.device) * (h * w))[:, None, None, None]
+    grad = torch.zeros(n * h * w, c, dtype=torch.float32, device=grad_out.device)
+    for yi, wy in ((y0, wy0), (y1, wy1)):
+        for xi, wx in ((x0, wx0), (x1, wx1)):
+            weight = torch.where(inside, wy[..., :, None] * wx[..., None, :], 0.0)
+            flat = base + yi[..., :, None] * w + xi[..., None, :]  # [N, R, P, Q]
+            grad.index_add_(0, flat.reshape(-1), (g * weight[..., None]).reshape(-1, c))
+    return grad.view(n, h, w, c).to(feat_dtype)
 
 
 def roi_pool(

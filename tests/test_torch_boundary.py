@@ -58,7 +58,9 @@ def test_scanner_catches_forbidden_imports():
 def _entry_points():
     from replication_faster_rcnn_tpu_torch import config, resolve_device
     from replication_faster_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN, build_model
+    from replication_faster_rcnn_tpu_torch.data.synthetic import SyntheticDataset
     from replication_faster_rcnn_tpu_torch.serving.engine import InferenceEngine
+    from replication_faster_rcnn_tpu_torch.train.trainer import Trainer
 
     cfg = config.get_config("voc12_resnet18_align")
     return {
@@ -66,10 +68,13 @@ def _entry_points():
         "FasterRCNN": lambda **kw: FasterRCNN(cfg, **kw),
         "build_model": lambda **kw: build_model(cfg, **kw),
         "InferenceEngine": lambda **kw: InferenceEngine(cfg, **kw),
+        "Trainer": lambda **kw: Trainer(cfg, SyntheticDataset(cfg.data, length=8), **kw),
     }
 
 
-@pytest.mark.parametrize("name", ["resolve_device", "FasterRCNN", "build_model", "InferenceEngine"])
+@pytest.mark.parametrize(
+    "name", ["resolve_device", "FasterRCNN", "build_model", "InferenceEngine", "Trainer"]
+)
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """With no device argument an entry point targets cuda: without a GPU it
     raises; with device="cpu" it runs on the CPU."""
