@@ -16,14 +16,26 @@ H100:  ``python3 chip_smoke.py``. It
    site (8 x 632 x 32); ROIAlign backward (8 x 128 rois on [38, 38, 256])
    within atol 1e-4 / rtol 1e-5 in float32 and one bfloat16 ulp in bfloat16
    of the plain scatter (both sum in float32 in other orders: the kernel
-   with atomics);
+   with atomics); the int8 GEMM bitwise at the head's cls/reg shapes
+   ([300 or 2400, 512] x [512, 21 or 84]) and the dequantize bitwise on all
+   23 conv weights of the model, into float32 and bfloat16, with the
+   library calls ``torch._int_mm`` and ``torch.mul`` timed beside them;
 4. serves ``voc12_resnet18_align`` at 600x600 (ResNet18, 21 classes, ROIAlign
    7x7 s=2, seeded random weights resident in bfloat16) through
    ``InferenceEngine``: one request, then 8 mixed-size images as one b8
    flush, with the kernels' launch counters reset just before and read just
    after; the same requests then go through the plain versions
    (``reference=True``) and every output must be equal;
-5. trains ``voc12_resnet18_align`` at 600x600, batch 8 (bfloat16 compute,
+5. serves the same model in int8: calibrates it on the card with
+   ``quant.synthetic_calibration_batches`` and runs the sensitivity sweep
+   (``QuantConfig`` defaults), writes the sidecar under ``build/``, then
+   serves the same b1 and b8 requests as [4] with ``params_dtype="int8"``,
+   the launch counters reset just before and read after each flush (per
+   flush: int8 GEMM 2 and dequantize 23 when every group stays int8, NMS 2,
+   ROIAlign 1); the replay through the plain versions must give bitwise
+   equal detections; the resident tree must be under 0.4 x the float32
+   weights and the engine's device memory below the bfloat16 engine's;
+6. trains ``voc12_resnet18_align`` at 600x600, batch 8 (bfloat16 compute,
    float32 parameters, 12000 -> 600 proposals, 256 anchor and 128 roi
    samples per image) with the ``Trainer`` on ``SyntheticDataset``: 2
    warm-up steps, then ``TRAIN_REPS`` timed steps with the launch counters
@@ -33,7 +45,7 @@ H100:  ``python3 chip_smoke.py``. It
    ``ops.reference_scope()``: targets, labels, the four losses and the new
    BatchNorm statistics must be bitwise equal to the kernel pass, and each
    parameter's gradient within a relative L2 error of ``GRAD_RTOL``;
-6. prints a ``{"kernels": [...]}`` line, the card line, and last
+7. prints a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Without CUDA, or without
@@ -57,6 +69,7 @@ REPO = Path(__file__).resolve().parent
 # H100 SXM data-sheet peaks (dense): HBM3 bytes/s and non-tensor-core f32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+INT8_OPS = 1979e12  # dense int8 tensor-core operations per second
 IOU_FLOPS = 16  # max/min x4, sub x6, mul x3, add x2, div x1 per IoU
 
 NMS_SRC = "replication_faster_rcnn_tpu_torch/csrc/nms_kernel.cu"
@@ -68,10 +81,14 @@ ROI_BWD_TPU = "replication_faster_rcnn_tpu/ops/pallas/roi_kernel.py:99"
 ROI_BWD_NOTE = ("the JAX package has no Pallas backward: its custom_vjp replays the XLA "
                 "einsum VJP; the port needs a kernel because its forward is hand-written")
 IOU_TPU = "replication_faster_rcnn_tpu/ops/pallas/iou_kernel.py:35"
+QUANT_SRC = "replication_faster_rcnn_tpu_torch/csrc/quant_kernel.cu"
+GEMM_TPU = "replication_faster_rcnn_tpu/ops/pallas/quant_kernel.py:43"
+DEQUANT_TPU = "replication_faster_rcnn_tpu/ops/pallas/quant_kernel.py:84"
 NO_LIBRARY = ("torch core has no NMS, ROIAlign or IoU-matching operator "
               "(torchvision is not installed)")
 
 FEAT = (38, 38, 256)  # ResNet18 stride-16 features of a 600x600 image
+SLEEP_CYCLES = 10**8  # ~50 ms of device sleep at the H100's ~2 GHz clock
 REPS = 10  # timed repetitions of the serving main path
 TRAIN_REPS = 10  # timed training steps
 # per-parameter relative L2 error of the kernel pass's gradients against the
@@ -97,20 +114,27 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps, warmup=2):
-    """Median CUDA-event time of ``fn`` over ``reps`` runs, after warm-up."""
+def time_ms(torch, fn, reps, warmup=2, runs=5):
+    """Device ms of one call of ``fn``: the median over ``runs`` of CUDA-event
+    time around ``reps`` back-to-back calls, divided by ``reps``, after
+    warm-up. Each run is queued behind a device sleep of ``SLEEP_CYCLES``,
+    so the host has enqueued the calls before the start event executes and
+    the events time the card's work, not the host's enqueueing (a call that
+    synchronises inside still counts its host time)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -277,6 +301,143 @@ def check_roi_bwd(torch, name, grad_out, rois, feat_shape, feat_dtype):
             "max_abs_err": err}
 
 
+def bound(nbytes, ops, peak_ops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate for their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_int8_matmul(torch, name, x, w_t):
+    """``x [M, K] @ w_t.t()`` as the head calls it (the Linear weight
+    ``[N, K]`` seen as ``[K, N]``): kernel against the plain version
+    (bitwise), then the times; the library call is ``torch._int_mm`` on the
+    weight padded to a multiple of 8 columns, which it requires."""
+    from replication_faster_rcnn_tpu_torch.ops.cuda.quant_kernel import int8_matmul_cuda
+    from replication_faster_rcnn_tpu_torch.ops.quant_ops import int8_matmul_plain
+
+    w = w_t.t()
+    got = int8_matmul_cuda(x, w)
+    want = int8_matmul_plain(x, w)
+    torch.cuda.synchronize()
+    if got.dtype != torch.int32 or not torch.equal(got, want):
+        raise AssertionError(f"int8 GEMM {name}: kernel and plain version differ")
+    m, k = x.shape
+    n = w.shape[1]
+    n_pad = -(-n // 8) * 8
+    w_pad = torch.zeros((n_pad, k), dtype=torch.int8, device=x.device)
+    w_pad[:n] = w_t
+    w_pad = w_pad.t()  # column-major [K, N_pad], the layout cuBLASLt takes for int8
+    library = torch._int_mm(x, w_pad)
+    torch.cuda.synchronize()
+    if not torch.equal(library[:, :n], got):
+        raise AssertionError(f"int8 GEMM {name}: torch._int_mm disagrees with the kernel")
+    ms = time_ms(torch, lambda: int8_matmul_cuda(x, w), 20)
+    plain_ms = time_ms(torch, lambda: int8_matmul_plain(x, w), 10)
+    library_ms = time_ms(torch, lambda: torch._int_mm(x, w_pad), 20)
+    bound_ms, bound_by = bound(m * k + k * n + m * n * 4, 2 * m * n * k, INT8_OPS)
+    log(f"  int8_matmul {name}: bitwise equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch._int_mm (N padded to {n_pad}) {library_ms:.4f} ms, bound {bound_ms:.6f} ms "
+        f"({bound_by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "max_abs_err": 0.0}
+
+
+def dequantize_bound(w_q, out_dtype):
+    elem = 4 if out_dtype == "float32" else 2
+    return bound(w_q.numel() * (1 + elem) + w_q.shape[0] * 4, w_q.numel(), F32_FLOPS)
+
+
+def check_dequantize(torch, name, w_q, scale, out_dtype):
+    """Per-output-channel dequantize of a port-layout weight (channel first)
+    against the plain version (bitwise), then the times; for a float32
+    output the library call ``torch.mul(w_q, scale)`` computes the same
+    function by type promotion."""
+    from replication_faster_rcnn_tpu_torch.ops.cuda.quant_kernel import dequantize_cuda
+    from replication_faster_rcnn_tpu_torch.ops.quant_ops import dequantize_plain
+
+    dtype = getattr(torch, out_dtype)
+    got = dequantize_cuda(w_q, scale, 0, dtype)
+    want = dequantize_plain(w_q, scale, 0, dtype)
+    torch.cuda.synchronize()
+    if got.dtype != dtype or not torch.equal(got, want):
+        raise AssertionError(f"dequantize {name} {out_dtype}: kernel and plain version differ")
+    ms = time_ms(torch, lambda: dequantize_cuda(w_q, scale, 0, dtype), 20)
+    plain_ms = time_ms(torch, lambda: dequantize_plain(w_q, scale, 0, dtype), 20)
+    library_ms = None
+    if dtype == torch.float32:
+        s_b = scale.view((-1,) + (1,) * (w_q.dim() - 1))
+        if not torch.equal(torch.mul(w_q, s_b), got):
+            raise AssertionError(f"dequantize {name}: torch.mul disagrees with the kernel")
+        library_ms = time_ms(torch, lambda: torch.mul(w_q, s_b), 20)
+    bound_ms, bound_by = dequantize_bound(w_q, out_dtype)
+    lib = "—" if library_ms is None else f"{library_ms:.4f} ms"
+    log(f"  dequantize {name} -> {out_dtype}: bitwise equal, kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, torch.mul {lib}, bound {bound_ms:.6f} ms ({bound_by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "max_abs_err": 0.0}
+
+
+def conv_weight_shapes(torch):
+    """The state-dict shapes of the serving model's 23 conv weights (OIHW):
+    the leaves the int8 path dequantizes on every flush."""
+    from replication_faster_rcnn_tpu_torch import get_config
+    from replication_faster_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN
+
+    model = FasterRCNN(get_config("voc12_resnet18_align"), device="meta")
+    return [tuple(v.shape) for v in model.state_dict().values() if v.dim() == 4]
+
+
+def check_int8_kernels(torch, rng, dev):
+    """Phase [3] for the int8 slice: the GEMM at the head's b1 and b8 cls/reg
+    shapes and the dequantize on every conv weight of the model."""
+    from replication_faster_rcnn_tpu_torch.ops.cuda.quant_kernel import dequantize_cuda
+    from replication_faster_rcnn_tpu_torch.ops.quant_ops import dequantize_plain
+
+    def int8(shape):
+        return torch.from_numpy(rng.integers(-128, 128, shape, dtype=np.int8)).to(dev)
+
+    res = {}
+    for m in (300, 2400):
+        x = int8((m, 512))
+        for name, n in (("cls", 21), ("reg", 84)):
+            res[f"gemm_b{m // 300}_{name}"] = check_int8_matmul(
+                torch, f"b{m // 300} {name} [{m}, 512] x [512, {n}]", x, int8((n, 512)))
+    leaves = []
+    for shape in conv_weight_shapes(torch):
+        w_q = int8(shape)
+        scale = torch.from_numpy(rng.uniform(1e-4, 0.05, shape[0]).astype(np.float32)).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            if not torch.equal(dequantize_cuda(w_q, scale, 0, dtype),
+                               dequantize_plain(w_q, scale, 0, dtype)):
+                raise AssertionError(f"dequantize {shape} {dtype}: kernel and plain differ")
+        leaves.append((w_q, scale))
+    log(f"  dequantize: all {len(leaves)} conv weights bitwise equal to the plain version "
+        "(float32 and bfloat16 outputs)")
+    largest = max(leaves, key=lambda ws: ws[0].numel())
+    name = "x".join(str(d) for d in largest[0].shape)
+    res["dequant_f32"] = check_dequantize(torch, name, *largest, "float32")
+    res["dequant_bf16"] = check_dequantize(torch, name, *largest, "bfloat16")
+
+    def flush(fn):
+        return lambda: [fn(w, s, 0, torch.bfloat16) for w, s in leaves]
+
+    nbytes = sum(w.numel() * 3 + w.shape[0] * 4 for w, _ in leaves)
+    ops = sum(w.numel() for w, _ in leaves)
+    bound_ms, bound_by = bound(nbytes, ops, F32_FLOPS)
+    res["dequant_flush"] = {
+        "ms": time_ms(torch, flush(dequantize_cuda), 20),
+        "plain_ms": time_ms(torch, flush(dequantize_plain), 10),
+        "bound_ms": bound_ms, "bound_by": bound_by, "launches": len(leaves),
+        "elements": ops,
+    }
+    log(f"  dequantize, one flush's {len(leaves)} weights into bfloat16 ({ops} elements): kernel "
+        f"{res['dequant_flush']['ms']:.4f} ms, plain {res['dequant_flush']['plain_ms']:.4f} ms, "
+        f"bound {bound_ms:.6f} ms ({bound_by})")
+    return res
+
+
 def phase_kernels(torch):
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -342,6 +503,7 @@ def phase_kernels(torch):
                                        torch.float32)
     res["roi_bwd_bf16"] = check_roi_bwd(torch, f"bf16 8x128 {list(FEAT)}", g, rois, shape,
                                         torch.bfloat16)
+    res.update(check_int8_kernels(torch, rng, dev))
     return res
 
 
@@ -477,6 +639,185 @@ def phase_serve(torch):
     return launches, serve
 
 
+def expected_int8_launches(artifact):
+    """(GEMMs, dequantizes) per flush under the artifact's plan: the head's
+    cls/reg layers run the GEMM when the head group stays int8; every other
+    int8 weight is dequantized once."""
+    from replication_faster_rcnn_tpu_torch.quant import QUANT_DENSE_PATHS
+
+    dense = {"/".join(p) for p in QUANT_DENSE_PATHS}
+    planned = [p for g, ps in artifact["groups"].items() if artifact["plan"][g] == "int8"
+               for p in ps]
+    gemm = sum(p in dense for p in planned)
+    return gemm, len(planned) - gemm
+
+
+def phase_int8_serve(torch, bf16, cfg=None, device=None):
+    """``bf16``: phase [4]'s serving numbers, printed beside these.
+    ``cfg``/``device`` default to the full configuration on the card (a CPU
+    rehearsal passes a small configuration and ``"cpu"``)."""
+    import dataclasses
+    import gc
+
+    from replication_faster_rcnn_tpu_torch import get_config, quant
+    from replication_faster_rcnn_tpu_torch.data.native_ops import resize_normalize
+    from replication_faster_rcnn_tpu_torch.models.faster_rcnn import build_model
+    from replication_faster_rcnn_tpu_torch.ops.cuda import nms_kernel, quant_kernel, roi_kernel
+    from replication_faster_rcnn_tpu_torch.quant.calibrate import activation_ranges
+    from replication_faster_rcnn_tpu_torch.serving.engine import InferenceEngine
+
+    cfg = cfg or get_config("voc12_resnet18_align")
+    dev = torch.device(device or "cuda")
+    size = cfg.data.image_size
+    cfg = cfg.replace(serving=dataclasses.replace(
+        cfg.serving, resolutions=(size,), batch_sizes=(1, 8), params_dtype="int8"))
+    qc = cfg.quant
+    log(f"[5] main path: voc12_resnet18_align {size} via InferenceEngine, params int8")
+
+    # calibration and the sensitivity sweep on the card, from the seeded
+    # float32 weights the bfloat16 engine of [4] served
+    model = build_model(cfg, device=dev, seed=0)
+    state = model.state_dict()
+    batches = quant.synthetic_calibration_batches(cfg, qc.calib_batches, qc.calib_batch_size)
+    t0 = time.perf_counter()
+    artifact = quant.calibrate(model, state, batches, cfg)
+    artifact = quant.sweep(model, state, artifact, batches, cfg)
+    calib_s = time.perf_counter() - t0
+    recon = {g: round(r["recon_rel_err"], 5) for g, r in artifact["sensitivity"].items()}
+    log(f"  calibrate + sweep ({qc.calib_batches} x {qc.calib_batch_size} synthetic images): "
+        f"{calib_s:.2f} s; embed range {artifact['activation_ranges']}; recon rel err {recon}; "
+        f"plan {artifact['plan']}")
+    # the range the served (normalized) images give, beside the calibrated
+    # one: the synthetic calibration images are un-normalized [0, 255) pixels
+    rng = np.random.default_rng(1)  # the requests of [4]
+    one = rng.integers(0, 256, size + (3,), dtype=np.uint8)
+    eight = mixed_images(rng)
+    served = np.stack([resize_normalize(img, size, cfg.data.pixel_mean, cfg.data.pixel_std)
+                       for img in eight])
+    served_range = activation_ranges(model, state, [served])[quant.EMBED_RANGE_KEY]
+    log(f"  embed range of the 8 served images (normalized): {served_range}")
+    path = REPO / "build" / "quant_artifact.json"
+    quant.save_artifact(str(path), artifact)
+    log(f"  sidecar: {path.relative_to(REPO)} ({path.stat().st_size} bytes, CRC-checked on load)")
+    gemm, deq = expected_int8_launches(artifact)
+    if gemm == 0 or deq == 0:
+        raise AssertionError(f"the sweep's plan {artifact['plan']} leaves no int8 GEMM or no "
+                             "dequantize on the main path")
+    f32_bytes = sum(t.numel() * 4 for t in state.values())
+    state = {k: v.cpu() for k, v in state.items()}
+    del model
+    gc.collect()
+
+    def allocated_by(make):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        obj = make()
+        torch.cuda.synchronize()
+        return obj, torch.cuda.memory_allocated() - base
+
+    bf16_cfg = cfg.replace(serving=dataclasses.replace(cfg.serving, params_dtype="bfloat16"))
+    eng, bf16_alloc = allocated_by(lambda: InferenceEngine(bf16_cfg, device=dev, state_dict=state))
+    eng.close()
+    del eng
+    engine, int8_alloc = allocated_by(
+        lambda: InferenceEngine(cfg, device=dev, state_dict=state, artifact_path=str(path)))
+    with engine:
+        log(f"  engine on {engine.device}: resident int8 tree {engine.params_bytes} bytes "
+            f"({engine.params_bytes / f32_bytes:.4f} of the float32 weights' {f32_bytes}); "
+            f"device memory after construction {int8_alloc} bytes against the bfloat16 "
+            f"engine's {bf16_alloc}")
+        if not engine.params_bytes < 0.4 * f32_bytes:
+            raise AssertionError(f"int8 params {engine.params_bytes} >= 0.4 x {f32_bytes}")
+        if not int8_alloc < bf16_alloc:
+            raise AssertionError(f"int8 engine holds {int8_alloc} bytes, bf16 {bf16_alloc}")
+        engine.predict(eight)  # warm-up: cuDNN handles and algorithm choice
+        engine.submit(one).result(timeout=300)
+
+        counters = (("int8_matmul", quant_kernel, "matmul_launches"),
+                    ("dequantize", quant_kernel, "dequantize_launches"),
+                    ("nms", nms_kernel, "launches"), ("roi_align", roi_kernel, "launches"))
+
+        def reset():
+            for _, mod, attr in counters:
+                setattr(mod, attr, 0)
+
+        def read():
+            return {name: getattr(mod, attr) for name, mod, attr in counters}
+
+        want = {"int8_matmul": gemm, "dequantize": deq, "nms": 2, "roi_align": 1}
+        log0 = len(engine.flush_log)
+        reset()
+        r1 = engine.submit(one).result(timeout=300)
+        per_b1 = read()
+        reset()
+        r8 = engine.predict(eight)
+        per_b8 = read()
+        launches = {k: per_b1[k] + per_b8[k] for k in per_b1}
+        flushes = engine.flush_log[log0:]
+        log(f"  launches in the main-path run: b1 flush {per_b1}, b8 flush {per_b8}; "
+            f"flushes {flushes}")
+        if flushes != [((size, False), 1), ((size, False), 8)]:
+            raise AssertionError(f"expected one b1 and one b8 flush, got {flushes}")
+        if per_b1 != want or per_b8 != want:
+            raise AssertionError(f"expected per flush {want}, got {per_b1} and {per_b8}")
+        for res, img in zip([r1] + r8, [one] + eight):
+            if res["boxes"].shape != (cfg.eval.max_detections, 4):
+                raise AssertionError(f"bad boxes shape {res['boxes'].shape}")
+            if not (np.isfinite(res["boxes"]).all() and np.isfinite(res["scores"]).all()):
+                raise AssertionError("non-finite detections")
+            h, w = img.shape[:2]
+            if (res["boxes"][:, 0::2] > h + 1e-3).any() or (res["boxes"][:, 1::2] > w + 1e-3).any():
+                raise AssertionError("boxes outside the original image")
+        n_det = [int(r["valid"].sum()) for r in [r1] + r8]
+        if sum(n_det) == 0:
+            raise AssertionError("no detections at all: the detection NMS saw no candidates")
+        log(f"  detections per image (b1, then b8): {n_det}")
+
+        ref1 = engine.submit(one, reference=True).result(timeout=600)
+        ref8 = engine.predict(eight, reference=True)
+        for got, plain in zip([r1] + r8, [ref1] + ref8):
+            for k in got:
+                if not np.array_equal(got[k], plain[k]):
+                    raise AssertionError(f"int8 output {k!r} differs from the plain run")
+        log("  kernel pass == plain pass: every int8 detection bitwise")
+
+        lat = []
+        for _ in range(REPS):
+            t0 = time.perf_counter()
+            engine.submit(one).result(timeout=300)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        b8 = []
+        for _ in range(REPS):
+            t0 = time.perf_counter()
+            engine.predict(eight)
+            b8.append(time.perf_counter() - t0)
+        flush = list(engine.flush_seconds)[-2 * REPS:]
+        serve = {
+            "b1_latency_ms": statistics.median(lat),
+            "b1_flush_ms": statistics.median(flush[:REPS]) * 1e3,
+            "b8_images_per_s": 8 / statistics.median(b8),
+            "b8_flush_ms": statistics.median(flush[REPS:]) * 1e3,
+            "params_bytes": engine.params_bytes,
+            "f32_params_bytes": f32_bytes,
+            "device_bytes_after_construction": int8_alloc,
+            "bf16_device_bytes_after_construction": bf16_alloc,
+            "calibrate_and_sweep_s": calib_s,
+            "embed_range_calibrated": artifact["activation_ranges"][quant.EMBED_RANGE_KEY],
+            "embed_range_served": served_range,
+            "plan": artifact["plan"],
+            "recon_rel_err": recon,
+            "launches_per_flush": want,
+            "bf16_same_run": {k: bf16[k] for k in ("b1_latency_ms", "b1_flush_ms",
+                                                   "b8_images_per_s", "b8_flush_ms")},
+        }
+    log(f"  int8: b1 latency {serve['b1_latency_ms']:.2f} ms (bf16 {bf16['b1_latency_ms']:.2f}), "
+        f"b1 flush {serve['b1_flush_ms']:.2f} ms (bf16 {bf16['b1_flush_ms']:.2f}); b8 "
+        f"{serve['b8_images_per_s']:.1f} images/s (bf16 {bf16['b8_images_per_s']:.1f}), b8 flush "
+        f"{serve['b8_flush_ms']:.2f} ms (bf16 {bf16['b8_flush_ms']:.2f})")
+    return launches, serve
+
+
 class StageTimer:
     """stage(name) context manager recording CUDA events; ms() sums them by
     name after a synchronize."""
@@ -561,7 +902,7 @@ def phase_train(torch, cfg=None, device=None):
 
     cfg = cfg or get_config("voc12_resnet18_align")
     bsz = cfg.train.batch_size
-    log(f"[5] main path: train voc12_resnet18_align {cfg.data.image_size} batch {bsz}, "
+    log(f"[6] main path: train voc12_resnet18_align {cfg.data.image_size} batch {bsz}, "
         f"compute {cfg.model.compute_dtype}, {cfg.proposals.pre_nms_train} -> "
         f"{cfg.proposals.post_nms_train} proposals, Adam lr {cfg.train.lr}")
     dataset = SyntheticDataset(cfg.data, length=2 * bsz)
@@ -739,17 +1080,20 @@ def main():
 
     res = phase_kernels(torch)
     launches, serve = phase_serve(torch)
+    qlaunches, serve_int8 = phase_int8_serve(torch, serve)
     tlaunches, train = phase_train(torch)
 
     nms, det, roi = res["nms_proposal"], res["nms_detection"], res["roi_bf16"]
     nms_tr, bwd = res["nms_train"], res["roi_bwd_bf16"]
     iou_a, iou_p = res["iou_anchor"], res["iou_proposal"]
+    gemm, deq = res["gemm_b8_cls"], res["dequant_f32"]
     timing = ("ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [
         {
             "name": "nms_greedy", "route": "cuda", "source": NMS_SRC, "replaces": NMS_TPU,
-            "launches": launches["nms"] + tlaunches["nms"],
-            "launches_by_path": {"serve": launches["nms"], "train": tlaunches["nms"]},
+            "launches": launches["nms"] + qlaunches["nms"] + tlaunches["nms"],
+            "launches_by_path": {"serve": launches["nms"], "serve_int8": qlaunches["nms"],
+                                 "train": tlaunches["nms"]},
             "parity": "bitwise vs nms_fixed_tiled (proposal, detection, clustered, training)",
             "max_abs_err": max(r["max_abs_err"] for k, r in res.items() if k.startswith("nms")),
             "ms": nms["ms"], "plain_ms": nms["plain_ms"], "bound_ms": nms["bound_ms"],
@@ -760,8 +1104,10 @@ def main():
         },
         {
             "name": "roi_align_fwd", "route": "cuda", "source": ROI_SRC, "replaces": ROI_TPU,
-            "launches": launches["roi_align"] + tlaunches["roi_align"],
-            "launches_by_path": {"serve": launches["roi_align"], "train": tlaunches["roi_align"]},
+            "launches": launches["roi_align"] + qlaunches["roi_align"] + tlaunches["roi_align"],
+            "launches_by_path": {"serve": launches["roi_align"],
+                                 "serve_int8": qlaunches["roi_align"],
+                                 "train": tlaunches["roi_align"]},
             "parity": "bitwise vs roi_align(method='gather'); einsum within atol 2e-5 rtol 1e-5",
             "max_abs_err": max(res["roi_f32"]["max_abs_err"], roi["max_abs_err"]),
             "max_abs_err_vs_einsum": max(res["roi_f32"]["max_abs_err_vs_einsum"],
@@ -795,8 +1141,34 @@ def main():
             "shape": "anchor site: 12996 anchors vs 8 x 32 gt, with the column argmax",
             "proposal_site": {k: iou_p[k] for k in timing},
         },
+        {
+            "name": "int8_matmul", "route": "cuda", "source": QUANT_SRC, "replaces": GEMM_TPU,
+            "launches": qlaunches["int8_matmul"],
+            "launches_by_path": {"serve_int8": qlaunches["int8_matmul"]},
+            "parity": "bitwise vs ops/quant_ops.py::int8_matmul_plain (exact float64 product)",
+            "max_abs_err": 0.0,
+            **{k: gemm[k] for k in timing + ("library_ms",)},
+            "library_note": "torch._int_mm with the weight padded to N = 24 (it needs N a "
+                            "multiple of 8); the padding is outside the timed call",
+            "shape": "b8 cls: [2400, 512] x [512, 21] int8 -> int32",
+            "sites": {k: {f: res[k][f] for f in timing + ("library_ms",)}
+                      for k in ("gemm_b8_reg", "gemm_b1_cls", "gemm_b1_reg")},
+        },
+        {
+            "name": "dequantize", "route": "cuda", "source": QUANT_SRC, "replaces": DEQUANT_TPU,
+            "launches": qlaunches["dequantize"],
+            "launches_by_path": {"serve_int8": qlaunches["dequantize"]},
+            "parity": "bitwise vs ops/quant_ops.py::dequantize_plain on all 23 conv weights, "
+                      "float32 and bfloat16 outputs",
+            "max_abs_err": 0.0,
+            **{k: deq[k] for k in timing + ("library_ms",)},
+            "library_note": "torch.mul(w_q, scale) (int8 x float32 promotes to float32)",
+            "shape": "layer4 conv [512, 512, 3, 3] int8 -> float32 (the Pallas kernel's output)",
+            "main_path_bfloat16": {k: res["dequant_bf16"][k] for k in timing},
+            "per_flush_bfloat16": res["dequant_flush"],
+        },
     ]
-    log(json.dumps({"serve": serve, "train": train, "card": card}))
+    log(json.dumps({"serve": serve, "serve_int8": serve_int8, "train": train, "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -3,7 +3,7 @@ training paths read.
 
 Field names, defaults and presets mirror ``replication_faster_rcnn_tpu.config``
 so a reader can hold the two side by side; knobs the port does not implement
-yet (FPN, VGG16, group norm, int8, LAMB/LARS, warmup, K-step fusion,
+yet (FPN, VGG16, group norm, LAMB/LARS, warmup, K-step fusion,
 checkpointing, fleet) are left out rather than accepted and ignored.
 
 Box convention: boxes are ``[r1, c1, r2, c2]`` (``r`` along image rows,
@@ -161,7 +161,9 @@ class ServingConfig:
     batch_sizes: Tuple[int, ...] = (1, 8)
     max_delay_ms: float = 10.0
     queue_depth: int = 64
-    params_dtype: str = "bfloat16"  # float32 | bfloat16
+    # float32 | bfloat16 | int8 (int8 needs the calibration sidecar:
+    # quant/artifact.py, path from quant.artifact)
+    params_dtype: str = "bfloat16"
     oversize: str = "downscale"  # downscale | reject
 
     def __post_init__(self):
@@ -190,10 +192,10 @@ class ServingConfig:
             raise ValueError(
                 f"serving.queue_depth must be >= 1, got {self.queue_depth}"
             )
-        if self.params_dtype not in ("float32", "bfloat16"):
+        if self.params_dtype not in ("float32", "bfloat16", "int8"):
             raise ValueError(
-                "serving.params_dtype must be float32|bfloat16 (int8 serving "
-                f"is not ported yet), got {self.params_dtype!r}"
+                "serving.params_dtype must be float32|bfloat16|int8, got "
+                f"{self.params_dtype!r}"
             )
         if self.oversize not in ("downscale", "reject"):
             raise ValueError(
@@ -214,6 +216,50 @@ class ServingConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    """Post-training int8 quantization (``quant/``).
+
+    Calibration collects per-channel symmetric int8 weight scales plus the
+    activation range of the cls/reg input from a small sweep through the
+    inference forward, and writes them as a CRC-manifested sidecar. The
+    sensitivity sweep quantizes one layer group at a time and plans bf16
+    for a group whose response-reconstruction error or mAP drop exceeds
+    its threshold.
+    """
+
+    # sidecar path for serving.params_dtype="int8"; "" means
+    # "<checkpoint_dir>/quant_artifact.json" (quant/artifact.py)
+    artifact: str = ""
+    # calibration sweep size: batches x batch_size images in dataset order
+    calib_batches: int = 2
+    calib_batch_size: int = 2
+    # per-group fallback thresholds of the sensitivity sweep
+    sensitivity_map_drop_pt: float = 0.1
+    sensitivity_recon_rel_err: float = 0.25
+
+    def __post_init__(self):
+        if self.calib_batches < 1:
+            raise ValueError(
+                f"quant.calib_batches must be >= 1, got {self.calib_batches}"
+            )
+        if self.calib_batch_size < 1:
+            raise ValueError(
+                "quant.calib_batch_size must be >= 1, got "
+                f"{self.calib_batch_size}"
+            )
+        if self.sensitivity_map_drop_pt < 0:
+            raise ValueError(
+                "quant.sensitivity_map_drop_pt must be >= 0, got "
+                f"{self.sensitivity_map_drop_pt}"
+            )
+        if self.sensitivity_recon_rel_err <= 0:
+            raise ValueError(
+                "quant.sensitivity_recon_rel_err must be > 0, got "
+                f"{self.sensitivity_recon_rel_err}"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
 class FasterRCNNConfig:
     anchors: AnchorConfig = dataclasses.field(default_factory=AnchorConfig)
     proposals: ProposalConfig = dataclasses.field(default_factory=ProposalConfig)
@@ -224,6 +270,7 @@ class FasterRCNNConfig:
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
     serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
+    quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
 
     def replace(self, **kwargs) -> "FasterRCNNConfig":
         return dataclasses.replace(self, **kwargs)

@@ -33,15 +33,32 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
     return out
 
 
+def kernel_from_flax(kernel: np.ndarray) -> np.ndarray:
+    """A flax conv (HWIO) or Dense ([in, out]) kernel in the port's weight
+    layout (OIHW, [out, in]), contiguous, any dtype."""
+    if kernel.ndim == 4:
+        return np.ascontiguousarray(kernel.transpose(3, 2, 0, 1))
+    if kernel.ndim == 2:
+        return np.ascontiguousarray(kernel.T)
+    raise ValueError(f"expected a rank-2 or rank-4 kernel, got {kernel.shape}")
+
+
+def kernel_to_flax(weight: np.ndarray) -> np.ndarray:
+    """The inverse of :func:`kernel_from_flax`."""
+    if weight.ndim == 4:
+        return np.ascontiguousarray(weight.transpose(2, 3, 1, 0))
+    if weight.ndim == 2:
+        return np.ascontiguousarray(weight.T)
+    raise ValueError(f"expected a rank-2 or rank-4 weight, got {weight.shape}")
+
+
 def from_flax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """``{"params": ..., "batch_stats": ...}`` (numpy leaves) -> state dict."""
     state: Dict[str, torch.Tensor] = {}
     for path, value in _flatten(variables.get("params", {})).items():
         module, leaf = path.rsplit(".", 1)
-        if leaf == "kernel" and value.ndim == 4:
-            state[f"{module}.weight"] = torch.from_numpy(np.ascontiguousarray(value.transpose(3, 2, 0, 1)))
-        elif leaf == "kernel" and value.ndim == 2:
-            state[f"{module}.weight"] = torch.from_numpy(np.ascontiguousarray(value.T))
+        if leaf == "kernel" and value.ndim in (2, 4):
+            state[f"{module}.weight"] = torch.from_numpy(kernel_from_flax(value))
         elif leaf == "scale":
             state[f"{module}.weight"] = torch.from_numpy(value.copy())
         elif leaf == "bias":
@@ -85,10 +102,8 @@ def to_flax_variables(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
                 put(stats, f"{module}.var", value.copy())
             else:
                 raise ValueError(f"unexpected BatchNorm entry {key!r}")
-        elif leaf == "weight" and value.ndim == 4:
-            put(params, f"{module}.kernel", np.ascontiguousarray(value.transpose(2, 3, 1, 0)))
-        elif leaf == "weight" and value.ndim == 2:
-            put(params, f"{module}.kernel", np.ascontiguousarray(value.T))
+        elif leaf == "weight" and value.ndim in (2, 4):
+            put(params, f"{module}.kernel", kernel_to_flax(value))
         elif leaf == "bias":
             put(params, f"{module}.bias", value.copy())
         else:

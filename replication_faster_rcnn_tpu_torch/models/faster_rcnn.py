@@ -102,20 +102,32 @@ class FasterRCNN(nn.Module):
             anchors, logits, deltas, img_h, img_w, self.config.proposals, train
         )
 
-    def head_forward(self, feat: Tensor, rois: Tensor, img_h: float, img_w: float
-                     ) -> Tuple[Tensor, Tensor]:
-        """(cls [N, R, num_classes], reg [N, R, num_classes * 4])."""
-        return self.head(feat, rois, img_h, img_w)
+    def head_forward(self, feat: Tensor, rois: Tensor, img_h: float, img_w: float,
+                     quant: Optional[dict] = None) -> Tuple[Tensor, Tensor]:
+        """(cls [N, R, num_classes], reg [N, R, num_classes * 4]); ``quant``:
+        the int8 serving path's ``{"head": {"cls"|"reg": ...}}``."""
+        return self.head(feat, rois, img_h, img_w, (quant or {}).get("head"))
 
-    def forward(self, images: Tensor):
+    def forward(self, images: Tensor, quant: Optional[dict] = None):
         """Inference pass -> (rpn_logits, rpn_deltas, rois, roi_valid, cls,
         reg, anchors)."""
         img_h, img_w = float(images.shape[1]), float(images.shape[2])
         feat = self.extract_features(images)
         logits, deltas, anchors = self.rpn_forward(feat)
         rois, valid = self.propose(logits, deltas, anchors, img_h, img_w)
-        cls, reg = self.head_forward(feat, rois, img_h, img_w)
+        cls, reg = self.head_forward(feat, rois, img_h, img_w, quant)
         return logits, deltas, rois, valid, cls, reg, anchors
+
+
+def functional_forward(model: FasterRCNN, params: Dict[str, Tensor], images: Tensor,
+                       quant: Optional[dict] = None):
+    """``model(images, quant)`` in inference mode with every parameter and
+    buffer taken from ``params`` (a full state dict; the module's own
+    tensors are not read, so it may live on the ``meta`` device)."""
+    with torch.inference_mode():
+        return torch.func.functional_call(
+            model, params, (images,), {"quant": quant}, strict=True
+        )
 
 
 def init_parameters(model: FasterRCNN, seed: int = 0) -> FasterRCNN:

@@ -4,28 +4,43 @@
 
 In training mode the tail's BatchNorm uses the batch statistics of the
 N * R crops, and the ROIAlign kernel passes the gradient back to the
-features (``ops/cuda/roi_kernel.py``)."""
+features (``ops/cuda/roi_kernel.py``). In int8 serving the cls/reg layers
+run as true int8 GEMMs (:func:`_head_dense`)."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from replication_faster_rcnn_tpu_torch.models.resnet import ResNetTail, tail_channels
-from replication_faster_rcnn_tpu_torch.ops import roi_ops
+from replication_faster_rcnn_tpu_torch.ops import quant_ops, roi_ops
 
 Tensor = torch.Tensor
 
 
+def _head_dense(layer: nn.Linear, x: Tensor, qinfo: Optional[Dict[str, Any]]) -> Tensor:
+    """cls/reg projection of the float32 embedding: the float Linear, or,
+    when the caller passes quantization info for this layer, its int8 twin
+    (the JAX package's ``QuantDense``): the same parameters with ``weight``
+    int8 ``[out, in]``, computed by ``ops/quant_ops.py::quant_dense`` with
+    the calibrated activation scale."""
+    if qinfo is not None:
+        return quant_ops.quant_dense(x, layer.weight.t(), qinfo["w_scale"], qinfo["x_scale"],
+                                     layer.bias)
+    return F.linear(x, layer.weight.float(), layer.bias.float())
+
+
 class DetectionHead(nn.Module):
-    """forward(feat NHWC [N, H, W, C], rois [N, R, 4] image coords, img_h, img_w)
-    -> (cls [N, R, num_classes], reg [N, R, num_classes * 4]) float32.
+    """forward(feat NHWC [N, H, W, C], rois [N, R, 4] image coords, img_h, img_w,
+    quant=None) -> (cls [N, R, num_classes], reg [N, R, num_classes * 4])
+    float32.
 
     The tail runs in the feature's dtype; cls/reg run in float32 on the
-    embedding cast to float32."""
+    embedding cast to float32, as int8 GEMMs for the layers named in
+    ``quant`` (``{"cls": {"w_scale", "x_scale"}, ...}``)."""
 
     def __init__(self, arch: str = "resnet18", num_classes: int = 21,
                  roi_size: int = 7, roi_op: str = "align", sampling_ratio: int = 2,
@@ -39,8 +54,8 @@ class DetectionHead(nn.Module):
         self.cls = nn.Linear(ch, num_classes, device=device)
         self.reg = nn.Linear(ch, num_classes * 4, device=device)
 
-    def forward(self, feat: Tensor, rois: Tensor, img_h: float, img_w: float
-                ) -> Tuple[Tensor, Tensor]:
+    def forward(self, feat: Tensor, rois: Tensor, img_h: float, img_w: float,
+                quant: Optional[Dict[str, Any]] = None) -> Tuple[Tensor, Tensor]:
         n, r = rois.shape[0], rois.shape[1]
         fh, fw = feat.shape[1], feat.shape[2]
         # image -> feature coordinates; the ratios are Python floats
@@ -54,8 +69,9 @@ class DetectionHead(nn.Module):
         )  # [N, R, s, s, C]
         crops = crops.reshape((n * r,) + crops.shape[2:]).to(feat.dtype)
         embed = self.tail(crops.permute(0, 3, 1, 2)).float()  # [N*R, C_tail]
-        cls = F.linear(embed, self.cls.weight.float(), self.cls.bias.float())
-        reg = F.linear(embed, self.reg.weight.float(), self.reg.bias.float())
+        quant = quant or {}
+        cls = _head_dense(self.cls, embed, quant.get("cls"))
+        reg = _head_dense(self.reg, embed, quant.get("reg"))
         return cls.reshape(n, r, -1), reg.reshape(n, r, -1)
 
 

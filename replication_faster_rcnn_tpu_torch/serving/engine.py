@@ -7,17 +7,24 @@ package's ``serving/engine.py``).
   smallest of ``serving.batch_sizes`` that fits.
 * **Resident params.** The model's parameters and buffers are cast once to
   ``serving.params_dtype`` and stay on the device; requests ship images.
+  Under ``params_dtype="int8"`` the resident tree is the quantized one
+  (``quant/apply.py``: int8 weights + per-channel scales, the rest bfloat16,
+  driven by the CRC-checked calibration sidecar); every flush reconstructs
+  the compute-dtype weights through the dequantize kernel and runs the
+  detection head's cls/reg layers as int8 GEMMs. No float copy of the
+  weights stays on the device, and nothing reconstructed is kept between
+  flushes.
 * **Continuous micro-batching.** ``MicroBatcher`` groups requests by
   (bucket, reference) and flushes on size or ``serving.max_delay_ms``;
   each request's boxes are de-normalised back to its original image size.
 
-Hot-swap, fleet, SLO control, admission control and int8 residency are not
-ported yet.
+Hot-swap, fleet, SLO control and admission control are not ported yet.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 import threading
 import time
 from concurrent.futures import Future
@@ -28,9 +35,16 @@ import torch
 
 from replication_faster_rcnn_tpu_torch.config import FasterRCNNConfig
 from replication_faster_rcnn_tpu_torch.data.native_ops import resize_normalize
-from replication_faster_rcnn_tpu_torch.device import DeviceLike
-from replication_faster_rcnn_tpu_torch.eval.evaluator import make_infer_fn
-from replication_faster_rcnn_tpu_torch.models.faster_rcnn import build_model
+from replication_faster_rcnn_tpu_torch.device import DeviceLike, resolve_device
+from replication_faster_rcnn_tpu_torch.eval.evaluator import make_infer_fn, make_int8_infer_fn
+from replication_faster_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN, build_model
+from replication_faster_rcnn_tpu_torch.quant import (
+    default_artifact_path,
+    load_artifact,
+    quantize_variables,
+    quantized_params_bytes,
+)
+from replication_faster_rcnn_tpu_torch.quant.apply import tree_to
 from replication_faster_rcnn_tpu_torch.serving.batcher import MicroBatcher
 
 __all__ = ["InferenceEngine", "OversizedImageError", "select_bucket"]
@@ -66,7 +80,12 @@ def select_bucket(
 class InferenceEngine:
     """Micro-batched detector serving for one config on one device (default
     ``cuda``), with the weights of ``state_dict`` (e.g. bridged from the JAX
-    package by ``models/convert.py``) or a seeded random init."""
+    package by ``models/convert.py``) or a seeded random init.
+
+    ``params_dtype="int8"`` needs the calibration sidecar: ``artifact_path``,
+    else ``quant.artifact``, else ``./quant_artifact.json``
+    (``quant/artifact.py::default_artifact_path``); a missing or corrupt one
+    raises :class:`QuantArtifactError` before anything is built."""
 
     def __init__(
         self,
@@ -74,19 +93,37 @@ class InferenceEngine:
         device: DeviceLike = None,
         state_dict: Optional[dict] = None,
         seed: int = 0,
+        artifact_path: Optional[str] = None,
     ) -> None:
-        model = build_model(config, device=device, seed=seed, state_dict=state_dict)
         self.config = config
-        self.device = model.device
-        self.model = model.to(getattr(torch, config.serving.params_dtype))
         self.params_dtype = config.serving.params_dtype
-        self.params_bytes = sum(
-            t.numel() * t.element_size()
-            for t in list(self.model.parameters()) + list(self.model.buffers())
-        )
         self.buckets = config.serving.bucket_resolutions(config.data.image_size)
         self.batch_sizes = tuple(sorted(set(config.serving.batch_sizes)))
-        self._infer = {b: make_infer_fn(self.model, config, b) for b in self.buckets}
+        self.quant_artifact_path: Optional[str] = None
+        if self.params_dtype == "int8":
+            self.quant_artifact_path = artifact_path or default_artifact_path(config)
+            artifact = load_artifact(self.quant_artifact_path)
+            self.device = resolve_device(device)
+            if state_dict is None:  # the seeded init, drawn on the serving device
+                state_dict = build_model(config, device=self.device, seed=seed).state_dict()
+            # the structure only: the weights come from the resident tree per flush
+            self.model = FasterRCNN(config, device="meta")
+            self.qvars = tree_to(quantize_variables(state_dict, artifact), self.device)
+            del state_dict
+            self.params_bytes = quantized_params_bytes(self.qvars)
+            self._infer = {
+                b: functools.partial(make_int8_infer_fn(self.model, config, b), self.qvars)
+                for b in self.buckets
+            }
+        else:
+            model = build_model(config, device=device, seed=seed, state_dict=state_dict)
+            self.device = model.device
+            self.model = model.to(getattr(torch, self.params_dtype))
+            self.params_bytes = sum(
+                t.numel() * t.element_size()
+                for t in list(self.model.parameters()) + list(self.model.buffers())
+            )
+            self._infer = {b: make_infer_fn(self.model, config, b) for b in self.buckets}
         self._stats_lock = threading.Lock()
         self._stats = {"requests": 0, "flushes": 0, "padded_slots": 0}
         # wall seconds of recent flushes (transfer + forward + decode + copy back)

@@ -27,12 +27,13 @@ def _boxes(rng, shape, size=100.0):
     return torch.from_numpy(np.concatenate([p1, p1 + wh], -1).astype(np.float32))
 
 
-@pytest.mark.parametrize(
-    "b,n,max_out,thresh",
-    [(1, 1, 1, 0.5), (3, 255, 50, 0.5), (2, 257, 300, 0.3), (4, 700, 5, 0.7),
-     (2, 3000, 3000, 0.7)],  # the last needs > 48 KB of shared memory
-)
-def test_nms_kernel_matches_plain(dev, b, n, max_out, thresh):
+def test_nms_kernel_matches_plain(dev):
+    for case in [(1, 1, 1, 0.5), (3, 255, 50, 0.5), (2, 257, 300, 0.3), (4, 700, 5, 0.7),
+                 (2, 3000, 3000, 0.7)]:  # the last needs > 48 KB of shared memory
+        _nms_case(dev, *case)
+
+
+def _nms_case(dev, b, n, max_out, thresh):
     from replication_faster_rcnn_tpu_torch.ops.cuda.nms_kernel import nms_fixed_cuda
     from replication_faster_rcnn_tpu_torch.ops.nms_tiled import nms_fixed_tiled
 
@@ -65,9 +66,13 @@ def test_nms_kernel_empty_and_all_masked(dev):
         nms_kernel.nms_fixed_cuda(boxes, torch.zeros(2, 39, device=dev), 0.5, 10)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c,out,s,scale", [(3, 7, 2, 1.0), (130, 5, 3, 0.5), (64, 1, 1, 0.25)])
-def test_roi_align_kernel_matches_gather(dev, dtype, c, out, s, scale):
+def test_roi_align_kernel_matches_gather(dev):
+    for dtype in (torch.float32, torch.bfloat16):
+        for c, out, s, scale in [(3, 7, 2, 1.0), (130, 5, 3, 0.5), (64, 1, 1, 0.25)]:
+            _roi_case(dev, dtype, c, out, s, scale)
+
+
+def _roi_case(dev, dtype, c, out, s, scale):
     from replication_faster_rcnn_tpu_torch.ops.cuda.roi_kernel import roi_align_cuda
     from replication_faster_rcnn_tpu_torch.ops.roi_ops import roi_align
 
@@ -197,3 +202,65 @@ def test_training_reaches_the_trunk_through_roi_align_cuda(dev):
     assert float(model.rpn.cls.weight.grad.abs().sum()) == 0.0
     metrics = trainer.train_one_batch(next(trainer.batches(0)))
     assert np.isfinite(metrics["loss"]) and metrics["skipped"] == 0.0
+
+
+# -------------------------------------------------------------- int8 kernels
+
+
+def test_int8_kernels_bitwise(dev):
+    """The int8 GEMM at M in {1, 15, 2400}, N in {1, 21, 84} and K not a
+    multiple of 4 (byte loads) or a multiple (word loads), over the whole
+    int8 range; non-contiguous operands (copied by the wrapper); and the
+    dequantize on rank-1 to rank-4 weights along either end axis, into
+    float32 and bfloat16."""
+    from replication_faster_rcnn_tpu_torch.ops import quant_ops
+    from replication_faster_rcnn_tpu_torch.ops.cuda import quant_kernel
+
+    rng = np.random.default_rng(8)
+
+    def int8(shape):
+        x = rng.integers(-128, 128, shape, dtype=np.int8)
+        x.flat[:3] = (-128, 127, -127)
+        return torch.from_numpy(x).to(dev)
+
+    for m in (1, 15, 2400):
+        for n in (1, 21, 84):
+            for k in (1, 7, 70, 512, 1027):
+                x, w = int8((m, k)), int8((k, n))
+                n0 = quant_kernel.matmul_launches
+                got = quant_kernel.int8_matmul_cuda(x, w)
+                torch.cuda.synchronize()
+                assert quant_kernel.matmul_launches == n0 + 1
+                assert got.dtype == torch.int32 and got.shape == (m, n)
+                assert torch.equal(got, quant_ops.int8_matmul_plain(x, w)), (m, n, k)
+    extreme = torch.full((15, 520), -128, dtype=torch.int8, device=dev)
+    got = quant_kernel.int8_matmul_cuda(extreme, extreme.t()[:, :21])
+    assert int(got.max()) == 520 * 128 * 128
+    x, w = int8((40, 2 * 70)), int8((84, 2 * 70))
+    for a, b in ((x[:, ::2], w[:, ::2].t()), (x.t().contiguous().t(), w.t())):
+        assert not (a.is_contiguous() and b.is_contiguous())
+        assert torch.equal(quant_kernel.int8_matmul_cuda(a, b), quant_ops.int8_matmul_plain(a, b))
+    with pytest.raises(TypeError):
+        quant_kernel.int8_matmul_cuda(x.float(), w.t())
+    with pytest.raises(ValueError):
+        quant_kernel.int8_matmul_cuda(x, w)
+
+    for shape in [(7,), (21, 512), (512, 512, 3, 3), (3, 3, 64, 64), (5, 1, 1, 3)]:
+        w = int8(shape)
+        # the same values as a non-contiguous view (copied by the wrapper)
+        views = (w, w.transpose(0, -1).contiguous().transpose(0, -1)) if w.dim() > 1 else (w,)
+        for axis in (0, -1):
+            scale = torch.from_numpy(
+                rng.uniform(1e-4, 0.1, shape[axis]).astype(np.float32)).to(dev)
+            for t in views:
+                for dtype in (torch.float32, torch.bfloat16):
+                    n0 = quant_kernel.dequantize_launches
+                    got = quant_kernel.dequantize_cuda(t, scale, axis, dtype)
+                    torch.cuda.synchronize()
+                    assert quant_kernel.dequantize_launches == n0 + 1
+                    want = quant_ops.dequantize_plain(t, scale, axis, dtype)
+                    assert got.dtype == dtype and torch.equal(got, want), (shape, axis, dtype)
+    with pytest.raises(ValueError):
+        quant_kernel.dequantize_cuda(int8((4, 5)), torch.ones(4, device=dev))
+    with pytest.raises(TypeError):
+        quant_kernel.dequantize_cuda(int8((4, 5)), torch.ones(5, device=dev), -1, torch.float16)
