@@ -9,7 +9,8 @@ H100:  ``python3 chip_smoke.py``. It
    with nvcc for sm_90a (into ``build/torch_kernels/``) and prints the time;
 3. holds each kernel against its plain PyTorch version on the card at the
    serving and training paths' shapes and times both: NMS bitwise (serving
-   8 x 3000 -> 300 and 8 x 6300 -> 100, training 8 x 12000 -> 600);
+   8 x 3000 -> 300 and 8 x 6300 -> 100, training 8 x 12000 -> 600 on random
+   boxes and on clustered boxes, which overlap like the step's proposals);
    ROIAlign forward bitwise against its gather twin and within atol 2e-5 /
    rtol 1e-5 of the einsum formulation; IoU matching bitwise in all four
    outputs at the anchor site (8 x 12996 anchors x 32 gt) and the proposal
@@ -40,7 +41,9 @@ H100:  ``python3 chip_smoke.py``. It
    samples per image) with the ``Trainer`` on ``SyntheticDataset``: 2
    warm-up steps, then ``TRAIN_REPS`` timed steps with the launch counters
    reset just before and read just after (per step: NMS 1, IoU matching 2,
-   ROIAlign forward 1 and backward 1); every loss must be finite. One more
+   ROIAlign forward 1 and backward 1); every loss must be finite; the
+   profiler's timeline of 3 more steps gives the NMS kernels' device ms per
+   step (mask and walk). One more
    forward and backward from the same state and the same draws runs under
    ``ops.reference_scope()``: targets, labels, the four losses and the new
    BatchNorm statistics must be bitwise equal to the kernel pass, and each
@@ -187,8 +190,11 @@ def roi_bound(feat, rois, out, s):
 
 
 def check_nms(torch, name, boxes, scores, thresh, max_out, mask=None, assume_sorted=False):
+    """Kernel against the plain version (bitwise), then the times; ``prep_ms``
+    is the part of the kernel's call that runs outside the kernels (score
+    clean-up and, unless ``assume_sorted``, the stable sort)."""
     from replication_faster_rcnn_tpu_torch.ops.cuda.nms_kernel import nms_fixed_cuda
-    from replication_faster_rcnn_tpu_torch.ops.nms_tiled import nms_fixed_tiled
+    from replication_faster_rcnn_tpu_torch.ops.nms_tiled import nms_fixed_tiled, prepare_candidates
 
     kw = dict(mask=mask, assume_sorted=assume_sorted)
     idx, valid = nms_fixed_cuda(boxes, scores, thresh, max_out, **kw)
@@ -200,11 +206,13 @@ def check_nms(torch, name, boxes, scores, thresh, max_out, mask=None, assume_sor
     kept = valid.sum(dim=1).tolist()
     ms = time_ms(torch, lambda: nms_fixed_cuda(boxes, scores, thresh, max_out, **kw), 20)
     plain_ms = time_ms(torch, lambda: nms_fixed_tiled(boxes, scores, thresh, max_out, **kw), 5, 1)
+    prep_ms = time_ms(torch, lambda: prepare_candidates(boxes, scores, mask, assume_sorted), 20)
     bound_ms, bound_by = nms_bound(torch, boxes, scores, mask, idx, valid, assume_sorted, max_out)
-    log(f"  nms {name}: bitwise equal, kept per image {kept}, kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+    log(f"  nms {name}: bitwise equal, kept per image {kept}, kernel {ms:.4f} ms (of which "
+        f"{prep_ms:.4f} outside the kernels), plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+        f"({bound_by})")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "max_abs_err": 0.0}
+            "prep_ms": prep_ms, "max_abs_err": 0.0}
 
 
 def check_roi(torch, name, feat, rois):
@@ -479,6 +487,15 @@ def phase_kernels(torch):
                               .astype(np.float32)).to(dev)
     res["nms_train"] = check_nms(torch, "training 8x12000->600 thr 0.7", boxes, scores, 0.7, 600,
                                  mask=torch.isfinite(scores), assume_sorted=True)
+    # the training shape with the overlap of the step's proposals (own
+    # generator: the draws of the cases below stay as they were)
+    crng = np.random.default_rng(4)
+    cb = torch.from_numpy(clustered_boxes(crng, b, 12000)).to(dev)
+    cscores = torch.from_numpy(-np.sort(-crng.uniform(0, 1, (b, 12000)), axis=1)
+                               .astype(np.float32)).to(dev)
+    res["nms_train_clustered"] = check_nms(torch, "clustered 8x12000->600 thr 0.7", cb, cscores,
+                                           0.7, 600, mask=torch.isfinite(cscores),
+                                           assume_sorted=True)
     # IoU matching: the 12996 anchors of a 38x38 map against 32 padded gt
     # boxes per image (with the column argmax), and 600 proposals + 32 gt
     # against the gt (without it)
@@ -850,11 +867,15 @@ class StageTimer:
         return out
 
 
+NMS_KERNELS = ("nms_mask_kernel", "nms_walk_kernel")
+
+
 def device_timeline(torch, run, steps):
     """torch.profiler over ``run`` (``steps`` training steps): the device's
     busy time (union of kernel and copy intervals), the span from its first
-    to its last activity, the idle share of that span, and the kernels with
-    the most device time. None when the profiler saw no device activity."""
+    to its last activity, the idle share of that span, the kernels with the
+    most device time, and the NMS kernels' device ms per step (mask and walk
+    apart and summed). None when the profiler saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -879,7 +900,11 @@ def device_timeline(torch, run, steps):
     for e in acts:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    nms = {k: sum(us for name, us in by_name.items() if k in name) / 1e3 / steps
+           for k in NMS_KERNELS}
     return {
+        "nms_device_ms_per_step": sum(nms.values()),
+        "nms_device_ms_per_step_by_kernel": nms,
         "device_busy_ms_per_step": busy / 1e3 / steps,
         "device_span_ms_per_step": span / 1e3 / steps,
         "device_idle_share": 1.0 - busy / span,
@@ -967,6 +992,11 @@ def phase_train(torch, cfg=None, device=None):
             f"{timeline['device_activities_per_step']:.0f} device activities per step")
         log(f"  most device time per step: "
             f"{ {k: round(v, 3) for k, v in timeline['top_device_ms_per_step'].items()} }")
+        by_kernel = timeline["nms_device_ms_per_step_by_kernel"]
+        log(f"  NMS device time per step: {timeline['nms_device_ms_per_step']:.4f} ms "
+            f"({ {k: round(v, 4) for k, v in by_kernel.items()} })")
+        if not timeline["nms_device_ms_per_step"] > 0:
+            raise AssertionError("the profiler saw device activity but no NMS kernel")
 
     # the same state and draws: kernel pass vs plain pass (forward + backward)
     batch = batches[1]
@@ -1084,23 +1114,33 @@ def main():
     tlaunches, train = phase_train(torch)
 
     nms, det, roi = res["nms_proposal"], res["nms_detection"], res["roi_bf16"]
-    nms_tr, bwd = res["nms_train"], res["roi_bwd_bf16"]
+    nms_tr, nms_cl, bwd = res["nms_train"], res["nms_train_clustered"], res["roi_bwd_bf16"]
     iou_a, iou_p = res["iou_anchor"], res["iou_proposal"]
     gemm, deq = res["gemm_b8_cls"], res["dequant_f32"]
     timing = ("ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [
         {
-            "name": "nms_greedy", "route": "cuda", "source": NMS_SRC, "replaces": NMS_TPU,
+            "name": "nms_mask_walk", "route": "cuda", "source": NMS_SRC, "replaces": NMS_TPU,
+            "kernels": list(NMS_KERNELS),
+            "note": "one call = the card-wide IoU bitmask kernel + the per-image greedy walk; "
+                    "ms, launches and bound cover both",
             "launches": launches["nms"] + qlaunches["nms"] + tlaunches["nms"],
             "launches_by_path": {"serve": launches["nms"], "serve_int8": qlaunches["nms"],
                                  "train": tlaunches["nms"]},
-            "parity": "bitwise vs nms_fixed_tiled (proposal, detection, clustered, training)",
+            "parity": "bitwise vs nms_fixed_tiled (proposal, detection, clustered, training, "
+                      "clustered training)",
             "max_abs_err": max(r["max_abs_err"] for k, r in res.items() if k.startswith("nms")),
             "ms": nms["ms"], "plain_ms": nms["plain_ms"], "bound_ms": nms["bound_ms"],
             "bound_by": nms["bound_by"], "library_ms": None, "library_note": NO_LIBRARY,
             "shape": "proposal: 8 x 3000 sorted -> 300, thr 0.7",
             "detection_site": {k: det[k] for k in timing},
             "training_site": {k: nms_tr[k] for k in timing},
+            "training_site_clustered": {k: nms_cl[k] for k in timing},
+            "outside_kernels_ms": {"proposal": nms["prep_ms"], "detection": det["prep_ms"],
+                                   "training": nms_tr["prep_ms"],
+                                   "training_clustered": nms_cl["prep_ms"]},
+            "train_step_device_ms": None if train["device_timeline"] is None
+            else train["device_timeline"]["nms_device_ms_per_step"],
         },
         {
             "name": "roi_align_fwd", "route": "cuda", "source": ROI_SRC, "replaces": ROI_TPU,

@@ -10,21 +10,37 @@
 // result is bitwise equal to the Pallas kernel and to the plain version
 // (replication_faster_rcnn_tpu_torch/ops/quant_ops.py::int8_matmul_plain).
 //
-// What bounds it on the H100: bytes. The serving head's GEMMs are
-// [300 or 2400, 512] x [512, 21 or 84]: at M = 2400, N = 21 they move ~1.4 MB
-// (0.4 us at 3.35 TB/s) for 52 M int8 operations (0.03 us at 1979 TOP/s).
+// What bounds it on the H100: neither bytes nor operations but latency. The
+// serving head's GEMMs are [300 or 2400, 512] x [512, 21 or 84]: at M = 2400,
+// N = 84 they move ~1.4 MB (0.6 us at 3.35 TB/s) for 206 M int8 operations
+// (0.1 us at 1979 TOP/s). A kernel that walks K in steps of load, barrier,
+// multiply, barrier pays one memory latency per step with nothing in flight
+// while it computes (eight steps of 64 bytes take ~16 us at every shape), and
+// large output tiles leave most of the 132 SMs idle at these M.
 //
-// What the design does about it: a simple shared-memory tiled kernel. The TPU
-// kernel pads both operands to its (32, 128) int8 tile in device memory; here
-// nothing is padded in device memory. A 256-thread block owns a 64 x 32 output
-// tile and walks K in 64-byte steps: it stages 64 rows of x and 32 rows of wt
-// as 32-bit words (4 int8 each) in shared memory, zero-filling past M, N and K
-// (so any M, N and K work, K need not be a multiple of 4), and each thread
-// accumulates 8 outputs of one column with __dp4a (4 signed byte products
-// added to an int32 per instruction). The wt rows are padded to 17 words so
-// that the 32 lanes of a warp read 32 banks; the x rows are read by the whole
-// warp at once (a broadcast). Tensor cores (mma.sync / wgmma s8) and TMA are
-// left for a later version: at these sizes the launch dominates.
+// What this design does about it:
+//   * Tensor cores: mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32. x [M, K]
+//     and wt [N, K] are both K-major, which is what the A (row) and B (col)
+//     operands take, so nothing is transposed. N is padded up to a multiple
+//     of 8 (21 -> 24, 84 -> 88) in shared memory only, with zeros.
+//   * One-shot staging: a 256-thread block owns 32 rows of x and up to 128
+//     columns (all of N on the head). It issues every load of its K range at
+//     the start as 16-byte cp.async copies (32 x 512 + 88 x 512 bytes = 60 KB
+//     at the head's reg shape), waits once and computes: one memory latency
+//     instead of eight. K longer than 512 is staged in 512-byte chunks through
+//     a two-stage ring, the next chunk in flight while this one is multiplied.
+//   * Blocks: ceil(M / 32) x ceil(N / 128), 75 at M = 2400 (10 at M = 300).
+//     Warp w multiplies rows 16 (w % 2) .. +15 against the 8-column tiles
+//     w / 2, w / 2 + 4, ...; its A fragment is loaded once per 64 bytes of K
+//     and reused across its column tiles.
+//   * K order: integer sums are exact, so any permutation of K applied to both
+//     operands gives the same result. Each thread loads 16 contiguous bytes of
+//     a row (two k32 steps' worth) with one 128-bit shared load and feeds them
+//     to the fragment slots of two MMAs; rows are padded so that these loads
+//     hit 32 distinct banks per quarter warp.
+//   * Any M, N, K: rows past M or N and bytes past K are zero-filled (cp.async
+//     with a source size below 16). When K is not a multiple of 16 or a base
+//     is not 16-byte aligned, the same tiles are filled byte by byte.
 //
 // dequantize_kernel replaces:
 //   replication_faster_rcnn_tpu/ops/pallas/quant_kernel.py::_dequant_kernel
@@ -52,74 +68,147 @@
 
 namespace {
 
-constexpr int MM_THREADS = 256;
-constexpr int TILE_M = 64;
-constexpr int TILE_N = 32;
-constexpr int TILE_K = 64;                  // bytes of K per step
-constexpr int K_WORDS = TILE_K / 4;         // 16 words of 4 int8
-constexpr int LDS = K_WORDS + 1;            // padded shared-memory row, in words
-constexpr int ROWS_PER_THREAD = TILE_M / (MM_THREADS / TILE_N);  // 8
+constexpr int MM_THREADS = 256;  // 8 warps
+constexpr int MM_BM = 32;        // rows of x per block: two 16-row MMA tiles
+constexpr int MM_MAX_NT = 16;    // 8-column MMA tiles per block (128 columns)
+constexpr int MM_KC = 512;       // bytes of K staged at once
+constexpr int MM_KB = 64;        // bytes of K per inner step: two k32 MMAs
 
-// 4 int8 of row `row` starting at column k, packed little-endian (byte j of
-// the word is column k + j) as __dp4a reads them; zero past the edges.
-__device__ __forceinline__ int load_word(const int8_t* __restrict__ a, int row, int rows,
-                                         int k, int cols, bool vec) {
-  if (row >= rows || k >= cols) return 0;
-  const int8_t* p = a + static_cast<long long>(row) * cols + k;
-  if (vec && k + 4 <= cols) return *reinterpret_cast<const int*>(p);
-  uint32_t word = 0;
-  for (int j = 0; j < 4 && k + j < cols; ++j) {
-    word |= static_cast<uint32_t>(static_cast<uint8_t>(p[j])) << (8 * j);
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, int bytes) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(bytes) : "memory");
+}
+
+// Stage K bytes [k0, k0 + span) of x rows m0 .. m0 + MM_BM - 1 and wt rows
+// n0 .. n0 + rows_w - 1 into xs [MM_BM][lds] and ws [rows_w][lds], zero past
+// M, N and K. span is a multiple of MM_KB.
+__device__ __forceinline__ void stage_chunk(int8_t* xs, int8_t* ws, const int8_t* x,
+                                            const int8_t* wt, int m0, int n0, int rows_w,
+                                            int m, int n, int k, int k0, int span, int lds,
+                                            bool vec) {
+  const int rows = MM_BM + rows_w;
+  if (vec) {
+    const int segs = span / 16;
+    for (int t = threadIdx.x; t < rows * segs; t += MM_THREADS) {
+      const int r = t / segs;
+      const int kpos = k0 + (t - r * segs) * 16;
+      const bool is_x = r < MM_BM;
+      const int row = is_x ? m0 + r : n0 + r - MM_BM;
+      const int8_t* base = is_x ? x : wt;
+      int8_t* dst = is_x ? xs + r * lds : ws + (r - MM_BM) * lds;
+      const int left = (row < (is_x ? m : n)) ? k - kpos : 0;
+      const int bytes = left < 0 ? 0 : (left > 16 ? 16 : left);
+      const int8_t* src = bytes > 0 ? base + static_cast<long long>(row) * k + kpos : base;
+      cp_async16_zfill(dst + (kpos - k0), src, bytes);
+    }
+  } else {
+    for (int t = threadIdx.x; t < rows * span; t += MM_THREADS) {
+      const int r = t / span;
+      const int c = t - r * span;
+      const bool is_x = r < MM_BM;
+      const int row = is_x ? m0 + r : n0 + r - MM_BM;
+      const int8_t* base = is_x ? x : wt;
+      int8_t* dst = is_x ? xs + r * lds : ws + (r - MM_BM) * lds;
+      const bool in = row < (is_x ? m : n) && k0 + c < k;
+      dst[c] = in ? base[static_cast<long long>(row) * k + k0 + c] : int8_t(0);
+    }
   }
-  return static_cast<int>(word);
+}
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], unsigned a0, unsigned a1, unsigned a2,
+                                       unsigned a3, unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 __global__ void __launch_bounds__(MM_THREADS)
 int8_matmul_kernel(const int8_t* __restrict__ x,   // [M, K]
                    const int8_t* __restrict__ wt,  // [N, K]
                    int32_t* __restrict__ out,      // [M, N]
-                   int m_rows, int n_cols, int k_len, bool vec) {
-  __shared__ int xs[TILE_M * LDS];
-  __shared__ int ws[TILE_N * LDS];
-  const int tid = threadIdx.x;
-  const int tx = tid % TILE_N;  // output column within the tile
-  const int ty = tid / TILE_N;  // rows ty * 8 .. ty * 8 + 7 of the tile
-  const int m0 = blockIdx.y * TILE_M;
-  const int n0 = blockIdx.x * TILE_N;
+                   int m, int n, int k, int kc, int lds, int rows_w_max, bool vec) {
+  extern __shared__ __align__(16) int8_t mm_smem[];
+  const int stage_bytes = (MM_BM + rows_w_max) * lds;
+  const int nt_all = (n + 7) / 8;
+  const int nt0 = blockIdx.y * MM_MAX_NT;
+  const int nt_blk = min(MM_MAX_NT, nt_all - nt0);
+  const int rows_w = nt_blk * 8;
+  const int m0 = blockIdx.x * MM_BM;
+  const int n0 = nt0 * 8;
+  const int chunks = (k + kc - 1) / kc;
 
-  int acc[ROWS_PER_THREAD];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;    // fragment row (A) / column (B, C)
+  const int tig = lane & 3;   // thread in group: which 16 bytes of a 64-byte step
+  const int mt = warp & 1;    // 16-row MMA tile
+  const int wn = warp >> 1;   // first 8-column tile; then every 4th
+
+  int acc[MM_MAX_NT / 4][4];
 #pragma unroll
-  for (int r = 0; r < ROWS_PER_THREAD; ++r) acc[r] = 0;
+  for (int j = 0; j < MM_MAX_NT / 4; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
 
-  for (int k0 = 0; k0 < k_len; k0 += TILE_K) {
-    for (int i = tid; i < TILE_M * K_WORDS; i += MM_THREADS) {
-      const int r = i / K_WORDS, w = i % K_WORDS;
-      xs[r * LDS + w] = load_word(x, m0 + r, m_rows, k0 + 4 * w, k_len, vec);
-    }
-    for (int i = tid; i < TILE_N * K_WORDS; i += MM_THREADS) {
-      const int r = i / K_WORDS, w = i % K_WORDS;
-      ws[r * LDS + w] = load_word(wt, n0 + r, n_cols, k0 + 4 * w, k_len, vec);
+  auto stage = [&](int c) {
+    int8_t* xs = mm_smem + (c & 1) * stage_bytes;
+    const int k0 = c * kc;
+    const int span = ((min(kc, k - k0) + MM_KB - 1) / MM_KB) * MM_KB;
+    stage_chunk(xs, xs + MM_BM * lds, x, wt, m0, n0, rows_w, m, n, k, k0, span, lds, vec);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  if (chunks > 0) stage(0);
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) {
+      stage(c + 1);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     }
     __syncthreads();
+    const int8_t* xs = mm_smem + (c & 1) * stage_bytes;
+    const int8_t* ws = xs + MM_BM * lds;
+    const int steps = (min(kc, k - c * kc) + MM_KB - 1) / MM_KB;
+    const int8_t* xa = xs + (mt * 16 + g) * lds + tig * 16;
+    for (int kb = 0; kb < steps; ++kb) {
+      // bytes 0-7 of the thread's 16 feed the first k32 MMA (A slots a0/a2 of
+      // row g, a1/a3 of row g + 8; B slots b0/b1), bytes 8-15 the second
+      const uint4 lo = *reinterpret_cast<const uint4*>(xa + kb * MM_KB);
+      const uint4 hi = *reinterpret_cast<const uint4*>(xa + 8 * lds + kb * MM_KB);
 #pragma unroll
-    for (int w = 0; w < K_WORDS; ++w) {
-      const int b = ws[tx * LDS + w];
-#pragma unroll
-      for (int r = 0; r < ROWS_PER_THREAD; ++r) {
-        acc[r] = __dp4a(xs[(ty * ROWS_PER_THREAD + r) * LDS + w], b, acc[r]);
+      for (int j = 0; j < MM_MAX_NT / 4; ++j) {
+        const int nt = wn + 4 * j;
+        if (nt < nt_blk) {
+          const uint4 b =
+              *reinterpret_cast<const uint4*>(ws + (nt * 8 + g) * lds + kb * MM_KB + tig * 16);
+          mma_s8(acc[j], lo.x, hi.x, lo.y, hi.y, b.x, b.y);
+          mma_s8(acc[j], lo.z, hi.z, lo.w, hi.w, b.z, b.w);
+        }
       }
     }
-    __syncthreads();
+    __syncthreads();  // this stage is refilled two chunks on
   }
 
-  const int n = n0 + tx;
-  if (n >= n_cols) return;
+  // C fragment: c0, c1 at row g, columns 2 tig, 2 tig + 1; c2, c3 at row g + 8
 #pragma unroll
-  for (int r = 0; r < ROWS_PER_THREAD; ++r) {
-    const int m = m0 + ty * ROWS_PER_THREAD + r;
-    if (m < m_rows) out[static_cast<long long>(m) * n_cols + n] = acc[r];
+  for (int j = 0; j < MM_MAX_NT / 4; ++j) {
+    const int nt = wn + 4 * j;
+    if (nt >= nt_blk) continue;
+    const int col = n0 + nt * 8 + tig * 2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + mt * 16 + g + 8 * h;
+      if (row >= m) continue;
+      int32_t* o = out + static_cast<long long>(row) * n + col;
+      if (col < n) o[0] = acc[j][2 * h];
+      if (col + 1 < n) o[1] = acc[j][2 * h + 1];
+    }
   }
 }
+
+int g_mm_smem_set = 48 * 1024;  // dynamic shared memory the GEMM may use so far
 
 constexpr int DQ_THREADS = 256;
 
@@ -194,16 +283,29 @@ int dequantize_launch(const void* w, const void* scale, void* out, long long n,
 extern "C" {
 
 // x [m, k] and wt [n, k] int8, row-major; out [m, n] int32. vec != 0 when k
-// is a multiple of 4 and both bases are 4-byte aligned (word loads).
+// is a multiple of 16 and both bases are 16-byte aligned (cp.async copies).
 // Returns the CUDA error of the launch (0 = cudaSuccess).
 int int8_matmul_launch(const void* x, const void* wt, void* out, int m, int n, int k, int vec,
                        void* stream) {
-  if (m > 0 && n > 0) {
-    const dim3 grid((n + TILE_N - 1) / TILE_N, (m + TILE_M - 1) / TILE_M);
-    int8_matmul_kernel<<<grid, MM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(x), static_cast<const int8_t*>(wt),
-        static_cast<int32_t*>(out), m, n, k, vec != 0);
+  if (m <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
+  const int kc = k <= 0 ? MM_KB : (k < MM_KC ? (k + MM_KB - 1) / MM_KB * MM_KB : MM_KC);
+  // rows of 16 bytes x 4 threads: a row stride of 16 mod 32 words spreads
+  // each quarter warp's 128-bit loads (rows g, g + 1) over all 32 banks
+  const int lds = kc + ((kc / 4) % 32 == 0 ? 64 : 0);
+  const int nt_all = (n + 7) / 8;
+  const int rows_w_max = (nt_all < MM_MAX_NT ? nt_all : MM_MAX_NT) * 8;
+  const int stages = k > kc ? 2 : 1;
+  const int smem = stages * (MM_BM + rows_w_max) * lds;
+  if (smem > g_mm_smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        int8_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    g_mm_smem_set = smem;
   }
+  const dim3 grid((m + MM_BM - 1) / MM_BM, (nt_all + MM_MAX_NT - 1) / MM_MAX_NT);
+  int8_matmul_kernel<<<grid, MM_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(wt), static_cast<int32_t*>(out),
+      m, n, k, kc, lds, rows_w_max, vec != 0);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,9 +1,12 @@
-"""Wrapper of the CUDA greedy-NMS kernel (``csrc/nms_kernel.cu``).
+"""Wrapper of the CUDA greedy-NMS kernels (``csrc/nms_kernel.cu``).
 
 Counterpart of the JAX package's ``ops/pallas/nms_kernel.py::nms_fixed_pallas``.
 As there, score clean-up and the stable descending sort run outside the
-kernel (``nms_tiled.prepare_candidates``); the kernel walks the sorted
-candidates. A CPU tensor runs the plain version ``nms_fixed_tiled``.
+kernels (``nms_tiled.prepare_candidates``). One call computes the
+suppression bitmasks of the sorted candidates across the card and walks them
+greedily, one block per image, in chunks of candidates (a mask and a walk
+kernel per chunk; the chunks after the walk reaches ``max_out`` exit at
+once). A CPU tensor runs the plain version ``nms_fixed_tiled``.
 """
 
 from __future__ import annotations
@@ -35,13 +38,20 @@ def _kernel():
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
         lib.nms_error_string.argtypes = [ctypes.c_int]
         lib.nms_error_string.restype = ctypes.c_char_p
         _fn = (fn, lib.nms_error_string)
     return _fn
+
+
+def scratch_words(bsz: int, n: int) -> int:
+    """uint64 words of the kernels' scratch, per image: each candidate's mask
+    row within its chunk (32 words), the chunk's removed set (32 words) and
+    2 int32 of state."""
+    return bsz * (n * 32 + 32 + 1)
 
 
 def nms_fixed_cuda(
@@ -54,7 +64,8 @@ def nms_fixed_cuda(
 ) -> Tuple[Tensor, Tensor]:
     """Same contract as :func:`nms_fixed_tiled` (bit-identical selections):
     boxes [N, 4] or [B, N, 4] -> (idx int64, valid bool) of [max_out] /
-    [B, max_out]. One thread block per image."""
+    [B, max_out]. The kernels' scratch, :func:`scratch_words` uint64, is
+    24.6 MB at 8 x 12000."""
     if not boxes.is_cuda:
         return nms_fixed_tiled(
             boxes, scores, iou_thresh, max_out, mask=mask, assume_sorted=assume_sorted
@@ -85,15 +96,16 @@ def nms_fixed_cuda(
         order = order.contiguous()
         idx = torch.empty(bsz, max_out, dtype=torch.int64, device=dev)
         valid = torch.empty(bsz, max_out, dtype=torch.bool, device=dev)
+        scratch = torch.empty(scratch_words(bsz, n), dtype=torch.int64, device=dev)
         fn, err = _kernel()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = fn(
                 b_sorted.data_ptr(), s_sorted.data_ptr(), order.data_ptr(),
-                bsz, n, float(iou_thresh), int(max_out),
+                bsz, n, float(iou_thresh), int(max_out), scratch.data_ptr(),
                 idx.data_ptr(), valid.data_ptr(), stream,
             )
-        build.check(rc, err, "nms_greedy_kernel")
+        build.check(rc, err, "nms kernels")
         global launches
         launches += 1
     if unbatched:

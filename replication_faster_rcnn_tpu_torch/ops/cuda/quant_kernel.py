@@ -82,7 +82,7 @@ def int8_matmul_cuda(x_q: Tensor, w_q: Tensor) -> Tensor:
     if m == 0 or n == 0:
         return out
     fn, _, err = _kernels()
-    vec = int(k % 4 == 0 and x.data_ptr() % 4 == 0 and wt.data_ptr() % 4 == 0)
+    vec = int(k % 16 == 0 and x.data_ptr() % 16 == 0 and wt.data_ptr() % 16 == 0)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), wt.data_ptr(), out.data_ptr(), m, n, k, vec, _stream(x.device))
     build.check(rc, err, "int8_matmul_kernel")

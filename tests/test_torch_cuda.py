@@ -28,9 +28,49 @@ def _boxes(rng, shape, size=100.0):
 
 
 def test_nms_kernel_matches_plain(dev):
+    # N at and around the 64-candidate mask word, several row chunks, and a
+    # walk whose prefetch buffers exceed 48 KB of shared memory (N >= 3000)
     for case in [(1, 1, 1, 0.5), (3, 255, 50, 0.5), (2, 257, 300, 0.3), (4, 700, 5, 0.7),
-                 (2, 3000, 3000, 0.7)]:  # the last needs > 48 KB of shared memory
+                 (2, 63, 63, 0.5), (2, 64, 64, 0.5), (2, 65, 65, 0.5),
+                 (2, 3000, 3000, 0.7), (2, 4097, 4097, 0.6),
+                 (1, 15000, 700, 0.7)]:  # rows beyond the walk's shared-memory window
         _nms_case(dev, *case)
+    _nms_walk_cases(dev)
+
+
+def _nms_walk_cases(dev):
+    """max_out reached in the middle of a mask word, the training shape with
+    long suppression chains, and dead candidates interleaved in a sorted
+    input (assume_sorted with a mask: -inf in place, no re-sort)."""
+    from replication_faster_rcnn_tpu_torch.ops.cuda.nms_kernel import nms_fixed_cuda
+    from replication_faster_rcnn_tpu_torch.ops.nms_tiled import nms_fixed_tiled
+
+    def same(boxes, scores, thresh, max_out, **kw):
+        got = nms_fixed_cuda(boxes, scores, thresh, max_out, **kw)
+        want = nms_fixed_tiled(boxes, scores, thresh, max_out, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        return want
+
+    rng = np.random.default_rng(5)
+    # disjoint boxes: every candidate is kept, so max_out = 100 stops inside word 1
+    side = torch.arange(200, dtype=torch.float32)[:, None] * 10.0
+    disjoint = torch.cat([side, side, side + 5.0, side + 5.0], dim=1)[None].to(dev)
+    _, valid = same(disjoint, torch.linspace(1, 0, 200, device=dev)[None], 0.5, 100)
+    assert int(valid.sum()) == 100
+    # clustered 2 x 12000 -> 600 at 0.7, scores sorted
+    centres = _boxes(rng, (2, 40), 500.0).numpy()
+    pick = rng.integers(0, 40, (2, 12000))
+    clustered = np.take_along_axis(centres, pick[..., None], axis=1)
+    clustered = clustered + rng.normal(0, 6, (2, 12000, 4))
+    scores = -np.sort(-rng.uniform(0, 1, (2, 12000)), axis=1)
+    boxes = torch.from_numpy(clustered.astype(np.float32)).to(dev)
+    s = torch.from_numpy(scores.astype(np.float32)).to(dev)
+    same(boxes, s, 0.7, 600, mask=torch.isfinite(s), assume_sorted=True)
+    # dead candidates anywhere in the sorted order
+    mask = torch.from_numpy(rng.uniform(size=(2, 12000)) > 0.3).to(dev)
+    mask[:, 60:70] = False
+    mask[:, 128:192] = False  # a whole dead word
+    same(boxes, s, 0.7, 600, mask=mask, assume_sorted=True)
 
 
 def _nms_case(dev, b, n, max_out, thresh):
@@ -208,11 +248,13 @@ def test_training_reaches_the_trunk_through_roi_align_cuda(dev):
 
 
 def test_int8_kernels_bitwise(dev):
-    """The int8 GEMM at M in {1, 15, 2400}, N in {1, 21, 84} and K not a
-    multiple of 4 (byte loads) or a multiple (word loads), over the whole
-    int8 range; non-contiguous operands (copied by the wrapper); and the
-    dequantize on rank-1 to rank-4 weights along either end axis, into
-    float32 and bfloat16."""
+    """The int8 GEMM at M around its 16-row MMA and 32-row block tiles, N
+    around the 8-column MMA tile and the head's 21 and 84, and K not a
+    multiple of 16 (byte-filled tiles), a multiple (cp.async copies) or
+    longer than the 512 bytes staged at once (the two-stage ring), over the
+    whole int8 range; non-contiguous operands (copied by the wrapper) and a
+    base that is not 16-byte aligned; and the dequantize on rank-1 to rank-4
+    weights along either end axis, into float32 and bfloat16."""
     from replication_faster_rcnn_tpu_torch.ops import quant_ops
     from replication_faster_rcnn_tpu_torch.ops.cuda import quant_kernel
 
@@ -223,9 +265,9 @@ def test_int8_kernels_bitwise(dev):
         x.flat[:3] = (-128, 127, -127)
         return torch.from_numpy(x).to(dev)
 
-    for m in (1, 15, 2400):
-        for n in (1, 21, 84):
-            for k in (1, 7, 70, 512, 1027):
+    for m in (1, 15, 16, 17, 33, 2400):
+        for n in (1, 8, 21, 24, 84, 88, 130):
+            for k in (1, 7, 16, 32, 70, 512, 1027, 1040):
                 x, w = int8((m, k)), int8((k, n))
                 n0 = quant_kernel.matmul_launches
                 got = quant_kernel.int8_matmul_cuda(x, w)
@@ -233,6 +275,12 @@ def test_int8_kernels_bitwise(dev):
                 assert quant_kernel.matmul_launches == n0 + 1
                 assert got.dtype == torch.int32 and got.shape == (m, n)
                 assert torch.equal(got, quant_ops.int8_matmul_plain(x, w)), (m, n, k)
+    # contiguous operands whose base is one byte past a 16-byte boundary
+    buf_x, buf_w = int8((33 * 512 + 1,)), int8((24 * 512 + 1,))
+    x, wt = buf_x[1:].view(33, 512), buf_w[1:].view(24, 512)
+    assert x.is_contiguous() and x.data_ptr() % 16 and wt.data_ptr() % 16
+    assert torch.equal(quant_kernel.int8_matmul_cuda(x, wt.t()),
+                       quant_ops.int8_matmul_plain(x, wt.t()))
     extreme = torch.full((15, 520), -128, dtype=torch.int8, device=dev)
     got = quant_kernel.int8_matmul_cuda(extreme, extreme.t()[:, :21])
     assert int(got.max()) == 520 * 128 * 128
