@@ -65,8 +65,8 @@ class DetectionHead(nn.Module):
         )
         crops = roi_ops.extract_roi_features(
             feat, rois * scale, op=self.roi_op, out_size=self.roi_size,
-            sampling_ratio=self.sampling_ratio,
-        )  # [N, R, s, s, C]
+            sampling_ratio=self.sampling_ratio, out_dtype=feat.dtype,
+        )  # [N, R, s, s, C] in the feature's dtype (the kernel stores it directly)
         crops = crops.reshape((n * r,) + crops.shape[2:]).to(feat.dtype)
         embed = self.tail(crops.permute(0, 3, 1, 2)).float()  # [N*R, C_tail]
         quant = quant or {}

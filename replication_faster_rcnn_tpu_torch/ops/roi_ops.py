@@ -21,6 +21,8 @@ Features are NHWC with the batch written out: feat [N, H, W, C], rois
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from replication_faster_rcnn_tpu_torch import ops
@@ -230,19 +232,24 @@ def extract_roi_features(
     out_size: int = 7,
     sampling_ratio: int = 2,
     spatial_scale: float = 1.0,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> Tensor:
     """ROIAlign or ROIPool by config string. ROIAlign launches the CUDA
     kernel for a CUDA tensor and runs its plain gather version on the CPU or
-    inside :class:`ops.reference_scope`."""
+    inside :class:`ops.reference_scope`. ``out_dtype`` is the output's dtype
+    (default: float32 for ROIAlign, the feature's dtype for ROIPool); the
+    kernel stores it directly, the plain versions cast to it."""
     if op == "align":
+        out_dtype = out_dtype or torch.float32
         if ops.reference_requested():
             return roi_align(
                 feat, rois, out_size, sampling_ratio, spatial_scale, method="gather"
-            )
+            ).to(out_dtype)
         # imported here: the kernel wrapper imports this module's plain version
         from replication_faster_rcnn_tpu_torch.ops.cuda.roi_kernel import roi_align_cuda
 
-        return roi_align_cuda(feat, rois, out_size, sampling_ratio, spatial_scale)
+        return roi_align_cuda(feat, rois, out_size, sampling_ratio, spatial_scale, out_dtype)
     if op == "pool":
-        return roi_pool(feat, rois, out_size, spatial_scale)
+        pooled = roi_pool(feat, rois, out_size, spatial_scale)
+        return pooled if out_dtype is None else pooled.to(out_dtype)
     raise ValueError(f"unknown roi op {op!r}")

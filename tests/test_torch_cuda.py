@@ -107,13 +107,19 @@ def test_nms_kernel_empty_and_all_masked(dev):
 
 
 def test_roi_align_kernel_matches_gather(dev):
+    # C not a multiple of 8 (the scalar path), multiples (16-byte vectors,
+    # one channel tile or a second, nearly empty one),
+    # bins split over several blocks (few rois) or not, float32 and
+    # bfloat16 features and outputs
     for dtype in (torch.float32, torch.bfloat16):
-        for c, out, s, scale in [(3, 7, 2, 1.0), (130, 5, 3, 0.5), (64, 1, 1, 0.25)]:
+        for c, out, s, scale in [(3, 7, 2, 1.0), (12, 7, 2, 1.0), (130, 5, 3, 0.5),
+                                 (64, 1, 1, 0.25), (256, 7, 2, 1.0), (264, 7, 2, 1.0)]:
             _roi_case(dev, dtype, c, out, s, scale)
+    _roi_edge_cases(dev)
 
 
 def _roi_case(dev, dtype, c, out, s, scale):
-    from replication_faster_rcnn_tpu_torch.ops.cuda.roi_kernel import roi_align_cuda
+    from replication_faster_rcnn_tpu_torch.ops.cuda.roi_kernel import _forward_cuda, roi_align_cuda
     from replication_faster_rcnn_tpu_torch.ops.roi_ops import roi_align
 
     rng = np.random.default_rng(c)
@@ -127,7 +133,38 @@ def _roi_case(dev, dtype, c, out, s, scale):
     assert got.dtype == torch.float32 and torch.equal(got, want)
     einsum = roi_align(feat, rois, out, s, scale, method="einsum")
     torch.testing.assert_close(got, einsum, atol=2e-5, rtol=1e-5)
+    # the bfloat16 store rounds the float32 value once, as .to() does
+    got16 = roi_align_cuda(feat, rois, out, s, scale, out_dtype=torch.bfloat16)
+    assert got16.dtype == torch.bfloat16 and torch.equal(got16, want.to(torch.bfloat16))
+    # one block per roi gives the same bits as the split launch
+    one = _forward_cuda(feat, rois * scale, out, s, torch.float32, splits=1)
+    assert torch.equal(one, got)
     assert roi_align_cuda(feat, rois[:, :0], out, s, scale).shape == (2, 0, out, out, c)
+
+
+def _roi_edge_cases(dev):
+    """A feature base one element off 16-byte alignment, N = 1, R = 0 and a
+    NaN roi (a diverged step's proposal: it reads nothing)."""
+    from replication_faster_rcnn_tpu_torch.ops.cuda.roi_kernel import roi_align_cuda
+    from replication_faster_rcnn_tpu_torch.ops.roi_ops import roi_align
+
+    rng = np.random.default_rng(9)
+    rois = _boxes(rng, (1, 20), 40.0)
+    rois[0, 0] = torch.tensor([float("nan"), 2.0, 9.0, 9.0])
+    rois[0, 1] = float("nan")
+    rois[0, 2] = torch.tensor([1.0, 2.0, float("nan"), 9.0])  # only the far corner
+    rois = rois.to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        flat = torch.from_numpy(rng.normal(0, 1, 13 * 11 * 64 + 1).astype(np.float32))
+        feat = flat.to(dev, dtype)[1:].view(1, 13, 11, 64)  # N = 1, misaligned base
+        assert feat.is_contiguous() and feat.data_ptr() % 16
+        want = roi_align(feat, rois, 7, 2, method="gather")
+        assert torch.isfinite(want).all() and not want[0, :3].any()
+        for out_dtype in (torch.float32, torch.bfloat16):
+            got = roi_align_cuda(feat, rois, 7, 2, out_dtype=out_dtype)
+            assert got.dtype == out_dtype and torch.equal(got, want.to(out_dtype))
+        empty = roi_align_cuda(feat, rois[:, :0], 7, 2, out_dtype=torch.bfloat16)
+        assert empty.shape == (1, 0, 7, 7, 64) and empty.dtype == torch.bfloat16
 
 
 # ------------------------------------------------------------- IoU matching
@@ -181,34 +218,78 @@ def _iou_case(dev, b, m, g, shared, case):
 
 
 def test_roi_align_backward_kernel_matches_plain(dev):
+    # C not a multiple of 8 or of the 256-channel tile, float32 and
+    # bfloat16 gradients and features, s*s a power of two or not, N = 1
     for dtype in (torch.float32, torch.bfloat16):
-        for c, h, w, r in [(3, 13, 11, 37), (256, 38, 38, 128)]:
-            _roi_bwd_case(dev, dtype, c, h, w, r)
+        for grad_dtype in (torch.float32, torch.bfloat16):
+            for c, h, w, r, out, s, n in [(3, 13, 11, 37, 7, 2, 2), (12, 13, 11, 37, 7, 2, 2),
+                                          (130, 9, 70, 20, 5, 3, 1), (256, 38, 38, 128, 7, 2, 2),
+                                          (264, 9, 11, 10, 7, 2, 1)]:
+                _roi_bwd_case(dev, dtype, grad_dtype, c, h, w, r, out, s, n)
+    _roi_bwd_edge_cases(dev)
 
 
-def _roi_bwd_case(dev, dtype, c, h, w, r):
-    from replication_faster_rcnn_tpu_torch.ops.cuda import roi_kernel
-    from replication_faster_rcnn_tpu_torch.ops.roi_ops import roi_align_backward
-
-    rng = np.random.default_rng(c + r)
-    n = 2
+def _roi_bwd_rois(rng, n, r, h, w):
     rois = _boxes(rng, (n, r), float(max(h, w)))
     rois[:, :5] = torch.tensor([[-0.9, -0.9, 3.0, 3.0],              # at the top-left border
                                 [h - 3.0, w - 4.0, h + 2.0, w + 3.0],  # beyond the bottom-right
                                 [2.2, 2.2, 2.2, 2.2],                # a 1-pixel roi
                                 [-5.0, -5.0, -2.0, -1.5],            # entirely out of range
                                 [h - 1.0, w - 1.0, h - 0.5, w - 0.2]])  # taps collapse at the edge
-    rois = rois.to(dev)
-    g = torch.from_numpy(rng.normal(0, 1, (n, r, 7, 7, c)).astype(np.float32)).to(dev)
+    return rois
+
+
+def _roi_bwd_check(dev, g, rois, shape, dtype, out, s):
+    """Kernel within tolerance of the plain scatter, and bitwise the same in
+    a second launch."""
+    from replication_faster_rcnn_tpu_torch.ops.cuda import roi_kernel
+    from replication_faster_rcnn_tpu_torch.ops.roi_ops import roi_align_backward
+
     n0 = roi_kernel.backward_launches
-    got = roi_kernel.roi_align_backward_cuda(g, rois, (n, h, w, c), dtype, 7, 2)
-    want = roi_align_backward(g, rois, (n, h, w, c), dtype, 7, 2)
+    got = roi_kernel.roi_align_backward_cuda(g, rois, shape, dtype, out, s)
+    again = roi_kernel.roi_align_backward_cuda(g, rois, shape, dtype, out, s)
+    want = roi_align_backward(g, rois, shape, dtype, out, s)
     torch.cuda.synchronize()
-    assert roi_kernel.backward_launches == n0 + 1 and got.dtype == dtype
-    if dtype == torch.float32:  # atomics: float sums in another order
+    assert roi_kernel.backward_launches == n0 + 2 and got.dtype == dtype
+    assert torch.equal(got, again)  # deterministic: no atomics, a fixed order
+    if dtype == torch.float32:  # the same float32 products summed in another order
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
     else:  # the float32 sums rounded once to bfloat16: one bf16 ulp
         torch.testing.assert_close(got.float(), want.float(), atol=1e-4, rtol=2**-7)
+
+
+def _roi_bwd_case(dev, dtype, grad_dtype, c, h, w, r, out, s, n):
+    rng = np.random.default_rng(c + r)
+    rois = _roi_bwd_rois(rng, n, r, h, w).to(dev)
+    g = torch.from_numpy(rng.normal(0, 1, (n, r, out, out, c)).astype(np.float32))
+    _roi_bwd_check(dev, g.to(dev, grad_dtype), rois, (n, h, w, c), dtype, out, s)
+
+
+def _roi_bwd_edge_cases(dev):
+    """R = 0 (a zero gradient, written by the kernel), a NaN roi, a gradient
+    base one element off alignment, and 128 identical rois per image, where
+    every roi adds to the same pixels."""
+    from replication_faster_rcnn_tpu_torch.ops.cuda import roi_kernel
+
+    rng = np.random.default_rng(31)
+    shape = (2, 13, 11, 16)
+    zero = roi_kernel.roi_align_backward_cuda(torch.zeros(2, 0, 7, 7, 16, device=dev),
+                                              torch.zeros(2, 0, 4, device=dev), shape,
+                                              torch.bfloat16, 7, 2)
+    assert zero.dtype == torch.bfloat16 and zero.shape == shape and not zero.any()
+    rois = _roi_bwd_rois(rng, 2, 12, 13, 11)
+    rois[1, 5] = torch.tensor([float("nan"), 1.0, 6.0, 7.0])
+    rois[1, 6] = torch.tensor([1.0, 2.0, 6.0, float("nan")])
+    rois = rois.to(dev)
+    flat = torch.from_numpy(rng.normal(0, 1, 2 * 12 * 49 * 16 + 1).astype(np.float32)).to(dev)
+    g = flat[1:].view(2, 12, 7, 7, 16)
+    assert g.is_contiguous() and g.data_ptr() % 8
+    for dtype in (torch.float32, torch.bfloat16):
+        _roi_bwd_check(dev, g, rois, shape, dtype, 7, 2)
+    same = torch.tensor([5.3, 7.1, 30.2, 33.9], device=dev).expand(2, 128, 4).contiguous()
+    g = torch.from_numpy(rng.normal(0, 1, (2, 128, 7, 7, 256)).astype(np.float32)).to(dev)
+    for grad_dtype in (torch.float32, torch.bfloat16):
+        _roi_bwd_check(dev, g.to(grad_dtype), same, (2, 38, 38, 256), torch.bfloat16, 7, 2)
 
 
 def test_training_reaches_the_trunk_through_roi_align_cuda(dev):

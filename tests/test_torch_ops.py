@@ -276,6 +276,17 @@ def test_roi_align_bf16_features_promote_to_f32():
     assert got.dtype == torch.float32
     want = t_roi.roi_align(fb.float(), t(rois), 7, 2, method="gather")
     assert torch.equal(got, want)  # bf16 -> f32 is exact
+    # out_dtype: the float32 result rounded once, on every CPU path
+    assert t_roi.extract_roi_features(fb, t(rois), "align", 7, 2).dtype == torch.float32
+    for f in (fb, t(feat)):
+        cast = t_roi.roi_align(f, t(rois), 7, 2, method="gather").to(torch.bfloat16)
+        for out in (t_roi.extract_roi_features(f, t(rois), "align", 7, 2,
+                                               out_dtype=torch.bfloat16),
+                    roi_align_cuda(f, t(rois), 7, 2, out_dtype=torch.bfloat16)):
+            assert out.dtype == torch.bfloat16 and torch.equal(out, cast)
+        with ops.reference_scope():
+            out = t_roi.extract_roi_features(f, t(rois), "align", 7, 2, out_dtype=torch.bfloat16)
+        assert out.dtype == torch.bfloat16 and torch.equal(out, cast)
 
 
 def test_roi_pool_bitwise():

@@ -326,6 +326,16 @@ def test_roi_align_backward_bf16():
     out.backward(t(g))
     assert f.grad.dtype == torch.bfloat16
     np.testing.assert_allclose(f.grad.float().numpy(), want, rtol=2**-7, atol=1e-6)
+    # a bfloat16 output hands the backward a bfloat16 gradient: the same
+    # gradient as the float32 output given that gradient upcast, bit for bit
+    g16 = t(g).to(torch.bfloat16)
+    f16 = t(feat).to(torch.bfloat16).requires_grad_()
+    out16 = roi_align_cuda(f16, t(rois), 7, 2, out_dtype=torch.bfloat16)
+    assert out16.dtype == torch.bfloat16 and torch.equal(out16, out.to(torch.bfloat16))
+    out16.backward(g16)
+    f32 = t(feat).to(torch.bfloat16).requires_grad_()
+    roi_align_cuda(f32, t(rois), 7, 2).backward(g16.float())
+    assert f16.grad.dtype == torch.bfloat16 and torch.equal(f16.grad, f32.grad)
 
 
 def test_roi_align_function_refuses_roi_gradients():

@@ -46,6 +46,8 @@ from replication_faster_rcnn_tpu_torch.models.convert import from_flax_variables
 from replication_faster_rcnn_tpu_torch.models.faster_rcnn import build_model
 from replication_faster_rcnn_tpu_torch.models.head import select_class_deltas
 from replication_faster_rcnn_tpu_torch.models.resnet import BatchNorm
+from replication_faster_rcnn_tpu_torch.ops import roi_ops
+from replication_faster_rcnn_tpu_torch.ops.roi_ops import extract_roi_features
 from replication_faster_rcnn_tpu_torch.train import losses
 from replication_faster_rcnn_tpu_torch.train.fault import NonFiniteEscalation
 from replication_faster_rcnn_tpu_torch.train.trainer import Trainer
@@ -165,7 +167,18 @@ def test_trunk_gets_a_gradient_through_roi_align(one_step):
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, loss_weights=(0.0, 0.0, 1.0, 1.0)))
     model = st.model
     model.zero_grad(set_to_none=True)
-    total, _ = compute_losses(model, cfg, one_step["batch"], draws=one_step["draws"])
+    crops = []
+
+    def extract(feat, *args, **kw):  # the head asks for crops in the feature's dtype
+        out = extract_roi_features(feat, *args, **kw)
+        assert kw["out_dtype"] == feat.dtype and out.dtype == feat.dtype
+        crops.append(out)
+        return out
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(roi_ops, "extract_roi_features", extract)
+        total, _ = compute_losses(model, cfg, one_step["batch"], draws=one_step["draws"])
+    assert len(crops) == 1 and crops[0].requires_grad
     total.backward()  # the head's two losses only
     assert float(model.rpn.cls.weight.grad.abs().sum()) == 0.0
     conv = model.trunk.layer3[1].conv2.weight.grad
