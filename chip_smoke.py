@@ -15,16 +15,20 @@ H100:  ``python3 chip_smoke.py``. It
    dtype) at serving 8 x 300 and 1 x 300 and training 8 x 128 rois, float32
    and bfloat16 features and outputs, and within atol 2e-5 / rtol 1e-5 of
    the einsum formulation for float32 outputs; IoU matching bitwise in all four
-   outputs at the anchor site (8 x 12996 anchors x 32 gt) and the proposal
-   site (8 x 632 x 32); ROIAlign backward (8 x 128 rois on [38, 38, 256])
-   within atol 1e-4 / rtol 1e-5 in float32 and one bfloat16 ulp in bfloat16
+   outputs, two launches bitwise equal and one launch per call, at the anchor
+   site (8 x 12996 anchors x 32 gt, and x 64 gt), the proposal site (8 x 632
+   x 32) and with exact ties across lanes, warps and blocks; ROIAlign
+   backward (8 x 128 rois on [38, 38, 256]) within atol 1e-4 / rtol 1e-5 in
+   float32 and one bfloat16 ulp in bfloat16
    of the plain scatter (the kernel groups the same terms by bin and sums
    in float32 in another order), from float32 and bfloat16 gradients, and
    bitwise equal across two launches, also with 128 identical rois per
    image; the int8 GEMM bitwise at the head's cls/reg shapes
    ([300 or 2400, 512] x [512, 21 or 84]) and the dequantize bitwise on all
-   23 conv weights of the model, into float32 and bfloat16, with the
-   library calls ``torch._int_mm`` and ``torch.mul`` timed beside them;
+   23 conv weights of the model, into float32 and bfloat16, one by one and
+   all at once in one grouped launch (``dequantize_many``, timed beside the
+   per-leaf loop), with the library calls ``torch._int_mm`` and
+   ``torch.mul`` timed beside them;
 4. serves ``voc12_resnet18_align`` at 600x600 (ResNet18, 21 classes, ROIAlign
    7x7 s=2, seeded random weights resident in bfloat16) through
    ``InferenceEngine``: one request, then 8 mixed-size images as one b8
@@ -36,9 +40,9 @@ H100:  ``python3 chip_smoke.py``. It
    (``QuantConfig`` defaults), writes the sidecar under ``build/``, then
    serves the same b1 and b8 requests as [4] with ``params_dtype="int8"``,
    the launch counters reset just before and read after each flush (per
-   flush: int8 GEMM 2 and dequantize 23 when every group stays int8, NMS 2,
-   ROIAlign 1); the replay through the plain versions must give bitwise
-   equal detections; the resident tree must be under 0.4 x the float32
+   flush: int8 GEMM 2 and dequantize 1 (one grouped launch) when every group
+   stays int8, NMS 2, ROIAlign 1); the replay through the plain versions must
+   give bitwise equal detections; the resident tree must be under 0.4 x the float32
    weights and the engine's device memory below the bfloat16 engine's;
 6. trains ``voc12_resnet18_align`` at 600x600, batch 8 (bfloat16 compute,
    float32 parameters, 12000 -> 600 proposals, 256 anchor and 128 roi
@@ -47,9 +51,9 @@ H100:  ``python3 chip_smoke.py``. It
    reset just before and read just after (per step: NMS 1, IoU matching 2,
    ROIAlign forward 1 and backward 1); every loss must be finite; the
    profiler's timeline of 3 more steps gives the NMS kernels' (mask and
-   walk) and the ROIAlign kernels' (forward and backward) device ms per
-   step. One more forward and backward from the same state and the same
-   draws runs under
+   walk), the ROIAlign kernels' (forward and backward) and the IoU-matching
+   kernel's device ms per step. One more forward and backward from the same
+   state and the same draws runs under
    ``ops.reference_scope()``: targets, labels, the four losses and the new
    BatchNorm statistics must be bitwise equal to the kernel pass, and each
    parameter's gradient within a relative L2 error of ``GRAD_RTOL``;
@@ -263,15 +267,32 @@ def check_roi(torch, name, feat, rois, out_dtype=None, unsplit=False):
 
 
 def check_iou(torch, name, boxes, gt, mask, want_col):
+    """Kernel against the plain version in all four outputs (bitwise), a
+    second launch bitwise equal to the first, one counted launch per call
+    (the wrapper's count; [6] counts the kernel's activities in the
+    profiler); then the times of the main path's call (no IoU matrix).
+    The operations bound counts the IoUs of unpadded gt columns only: the
+    kernel computes no other."""
+    from replication_faster_rcnn_tpu_torch.ops.cuda import iou_kernel
     from replication_faster_rcnn_tpu_torch.ops.cuda.iou_kernel import match_boxes_cuda
     from replication_faster_rcnn_tpu_torch.ops.iou_match import match_boxes
 
+    n0 = iou_kernel.launches
     got = match_boxes_cuda(boxes, gt, mask, want_col=True, want_iou=True)
+    again = match_boxes_cuda(boxes, gt, mask, want_col=True, want_iou=True)
+    lean = match_boxes_cuda(boxes, gt, mask, want_col, want_iou=False)
     want = match_boxes(boxes, gt, mask, want_col=True)
     torch.cuda.synchronize()
-    for what, a, b in zip(("iou", "argmax", "max_iou", "col_argmax"), got, want):
-        if a.dtype != b.dtype or not torch.equal(a, b):
+    if iou_kernel.launches != n0 + 3:
+        raise AssertionError(f"IoU matching {name}: {iou_kernel.launches - n0} launches for 3 calls")
+    for what, a, b, c in zip(("iou", "argmax", "max_iou", "col_argmax"), got, again, want):
+        if a.dtype != c.dtype or not torch.equal(a, c):
             raise AssertionError(f"IoU matching {name}: kernel and plain {what} differ")
+        if not torch.equal(a, b):
+            raise AssertionError(f"IoU matching {name}: two launches differ in {what}")
+    if not (torch.equal(lean[1], want[1]) and torch.equal(lean[2], want[2])
+            and (lean[3] is None) != want_col and (not want_col or torch.equal(lean[3], want[3]))):
+        raise AssertionError(f"IoU matching {name}: the main path's call differs")
     ms = time_ms(torch, lambda: match_boxes_cuda(boxes, gt, mask, want_col, want_iou=False), 20)
     plain_ms = time_ms(torch, lambda: match_boxes(boxes, gt, mask, want_col), 10)
     b, g = gt.shape[:2]
@@ -279,10 +300,11 @@ def check_iou(torch, name, boxes, gt, mask, want_col):
     nbytes = (boxes.numel() * 4 + gt.numel() * 4 + mask.numel() + b * m * (8 + 4)
               + (b * g * 8 if want_col else 0))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = b * m * g * IOU_FLOPS / F32_FLOPS * 1e3
+    t_ops = m * int(mask.sum()) * IOU_FLOPS / F32_FLOPS * 1e3
     bound_ms, bound_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-    log(f"  iou_match {name}: all four outputs bitwise equal, kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+    log(f"  iou_match {name}: all four outputs bitwise equal, two launches bitwise equal, one "
+        f"launch per call, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+        f"({bound_by})")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "max_abs_err": 0.0}
 
@@ -423,9 +445,60 @@ def conv_weight_shapes(torch):
     return [tuple(v.shape) for v in model.state_dict().values() if v.dim() == 4]
 
 
+def check_dequantize_many(torch, leaves):
+    """One flush's reconstruction: the grouped kernel (through a table built
+    once, as the int8 engine keeps one with its tree) against the plain loop,
+    every output bitwise, one launch per call, in float32 and bfloat16; then
+    the times of the bfloat16 flush, beside the per-leaf kernel loop it
+    replaces. The launch count is the wrapper's, one per call."""
+    from replication_faster_rcnn_tpu_torch.ops.cuda import quant_kernel
+    from replication_faster_rcnn_tpu_torch.ops.quant_ops import (
+        dequantize_many, dequantize_many_plain)
+
+    triples = [(w, s, 0) for w, s in leaves]
+    tables = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tables[dtype] = quant_kernel.DequantizeTable(triples, dtype)
+        n0 = quant_kernel.dequantize_launches
+        got = tables[dtype]()
+        again = dequantize_many(triples, dtype)  # a table built for this call
+        want = dequantize_many_plain(triples, dtype)
+        torch.cuda.synchronize()
+        if quant_kernel.dequantize_launches != n0 + 2:
+            raise AssertionError(f"dequantize_many: {quant_kernel.dequantize_launches - n0} "
+                                 "launches for 2 calls")
+        for i, (a, b, c) in enumerate(zip(got, again, want)):
+            if a.dtype != dtype or not (torch.equal(a, c) and torch.equal(b, c)):
+                raise AssertionError(f"dequantize_many {dtype}: leaf {i} {tuple(c.shape)} differs "
+                                     "from dequantize_plain")
+            if a.data_ptr() % 256:
+                raise AssertionError(f"dequantize_many: leaf {i}'s output is not 256-byte aligned")
+    log(f"  dequantize_many: all {len(leaves)} conv weights in one launch, each output bitwise "
+        "equal to dequantize_plain (float32 and bfloat16)")
+    bf16 = torch.bfloat16
+    table = tables[bf16]
+    nbytes = sum(w.numel() * 3 + w.shape[0] * 4 for w, _ in leaves)
+    ops = sum(w.numel() for w, _ in leaves)
+    bound_ms, bound_by = bound(nbytes, ops, F32_FLOPS)
+    res = {
+        "ms": time_ms(torch, table, 20),
+        "per_leaf_kernels_ms": time_ms(
+            torch, lambda: [quant_kernel.dequantize_cuda(w, s, 0, bf16) for w, s in leaves], 20),
+        "plain_ms": time_ms(torch, lambda: dequantize_many_plain(triples, bf16), 10),
+        "bound_ms": bound_ms, "bound_by": bound_by, "launches": 1, "elements": ops,
+        "max_abs_err": 0.0,
+    }
+    log(f"  dequantize_many, one flush's {len(leaves)} weights into bfloat16 ({ops} elements): "
+        f"one launch {res['ms']:.4f} ms, the per-leaf kernel loop ({len(leaves)} launches) "
+        f"{res['per_leaf_kernels_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by})")
+    return res
+
+
 def check_int8_kernels(torch, rng, dev):
     """Phase [3] for the int8 slice: the GEMM at the head's b1 and b8 cls/reg
-    shapes and the dequantize on every conv weight of the model."""
+    shapes, the dequantize on every conv weight of the model, and the grouped
+    dequantize of all of them at once."""
     from replication_faster_rcnn_tpu_torch.ops.cuda.quant_kernel import dequantize_cuda
     from replication_faster_rcnn_tpu_torch.ops.quant_ops import dequantize_plain
 
@@ -453,22 +526,7 @@ def check_int8_kernels(torch, rng, dev):
     name = "x".join(str(d) for d in largest[0].shape)
     res["dequant_f32"] = check_dequantize(torch, name, *largest, "float32")
     res["dequant_bf16"] = check_dequantize(torch, name, *largest, "bfloat16")
-
-    def flush(fn):
-        return lambda: [fn(w, s, 0, torch.bfloat16) for w, s in leaves]
-
-    nbytes = sum(w.numel() * 3 + w.shape[0] * 4 for w, _ in leaves)
-    ops = sum(w.numel() for w, _ in leaves)
-    bound_ms, bound_by = bound(nbytes, ops, F32_FLOPS)
-    res["dequant_flush"] = {
-        "ms": time_ms(torch, flush(dequantize_cuda), 20),
-        "plain_ms": time_ms(torch, flush(dequantize_plain), 10),
-        "bound_ms": bound_ms, "bound_by": bound_by, "launches": len(leaves),
-        "elements": ops,
-    }
-    log(f"  dequantize, one flush's {len(leaves)} weights into bfloat16 ({ops} elements): kernel "
-        f"{res['dequant_flush']['ms']:.4f} ms, plain {res['dequant_flush']['plain_ms']:.4f} ms, "
-        f"bound {bound_ms:.6f} ms ({bound_by})")
+    res["dequant_flush"] = check_dequantize_many(torch, leaves)
     return res
 
 
@@ -541,6 +599,7 @@ def phase_kernels(torch):
     # against the gt (without it)
     from replication_faster_rcnn_tpu_torch.config import AnchorConfig
     from replication_faster_rcnn_tpu_torch.ops.anchors import make_anchors
+    from replication_faster_rcnn_tpu_torch.ops.iou_match import match_boxes as match_boxes_plain
 
     anchors = torch.from_numpy(make_anchors(AnchorConfig(), FEAT[:2])).to(dev)[None]
     gt = torch.from_numpy(rand_boxes(rng, (b, 32), 450, 300)).to(dev)
@@ -550,6 +609,27 @@ def phase_kernels(torch):
                                   True)
     cand = torch.cat([torch.from_numpy(rand_boxes(rng, (b, 600), 500, 250)).to(dev), gt], dim=1)
     res["iou_proposal"] = check_iou(torch, "proposals 8x632x32", cand, gt, gmask, False)
+    # G = 64: two 32-column chunks per lane (own generator: the draws of the
+    # cases below stay as they were)
+    grng = np.random.default_rng(6)
+    gt64 = torch.from_numpy(rand_boxes(grng, (b, 64), 450, 300)).to(dev)
+    gmask64 = torch.arange(64, device=dev)[None, :] < torch.tensor(
+        [1, 33, 64, 40, 8, 2, 0, 63], device=dev)[:, None]
+    res["iou_anchor_g64"] = check_iou(torch, "anchors 8x12996x64 + column argmax", anchors, gt64,
+                                      gmask64, True)
+    # exact ties: IoU 1 with gt 0 at rows in two warps of block 0 and in later
+    # blocks (the lowest row wins the column), and gt 7 equal to gt 0 (the
+    # lower column wins the row)
+    tied = anchors.expand(b, -1, -1).clone()
+    tgt = gt.clone()
+    tgt[:, 7] = tgt[:, 0]
+    tied[:, [40, 70, 300, 5000, 12995]] = tgt[:, :1]
+    tmask = gmask.clone()
+    tmask[:, [0, 7]] = True
+    res["iou_ties"] = check_iou(torch, "ties 8x12996x32 + column argmax", tied, tgt, tmask, True)
+    _, t_arg, _, t_col = match_boxes_plain(tied, tgt, tmask)
+    if not (bool((t_col[:, 0] == 40).all()) and bool((t_arg[:, [40, 70, 300]] == 0).all())):
+        raise AssertionError("the ties row has no ties: column 0's best row is not 40")
     # ROIAlign backward at the head's training shape: 8 x 128 rois on [38, 38, 256]
     rois = torch.from_numpy(rand_boxes(rng, (b, 128), 600, 300) * (FEAT[0] / 600)).to(dev)
     rois[:, :4] = torch.tensor([[-0.9, -0.9, 3.0, 3.0], [35.0, 34.0, 40.0, 41.0],
@@ -707,14 +787,14 @@ def phase_serve(torch):
 def expected_int8_launches(artifact):
     """(GEMMs, dequantizes) per flush under the artifact's plan: the head's
     cls/reg layers run the GEMM when the head group stays int8; every other
-    int8 weight is dequantized once."""
+    int8 weight is dequantized, all of them in one grouped launch."""
     from replication_faster_rcnn_tpu_torch.quant import QUANT_DENSE_PATHS
 
     dense = {"/".join(p) for p in QUANT_DENSE_PATHS}
     planned = [p for g, ps in artifact["groups"].items() if artifact["plan"][g] == "int8"
                for p in ps]
     gemm = sum(p in dense for p in planned)
-    return gemm, len(planned) - gemm
+    return gemm, int(len(planned) > gemm)
 
 
 def phase_int8_serve(torch, bf16, cfg=None, device=None):
@@ -917,6 +997,7 @@ class StageTimer:
 
 NMS_KERNELS = ("nms_mask_kernel", "nms_walk_kernel")
 ROI_KERNELS = {"forward": "roi_align_kernel", "backward": "roi_align_bwd_kernel"}
+IOU_KERNEL = "iou_match_kernel"
 
 
 def device_timeline(torch, run, steps):
@@ -924,8 +1005,9 @@ def device_timeline(torch, run, steps):
     busy time (union of kernel and copy intervals), the span from its first
     to its last activity, the idle share of that span, the kernels with the
     most device time, the NMS kernels' device ms per step (mask and walk
-    apart and summed) and the ROIAlign kernels' (forward and backward). None
-    when the profiler saw no device activity."""
+    apart and summed), the ROIAlign kernels' (forward and backward) and the
+    IoU-matching kernel's (both sites, with its count of activities per
+    step). None when the profiler saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -958,6 +1040,8 @@ def device_timeline(torch, run, steps):
         "nms_device_ms_per_step": sum(nms.values()),
         "nms_device_ms_per_step_by_kernel": nms,
         "roi_align_device_ms_per_step": {k: per_step(v) for k, v in ROI_KERNELS.items()},
+        "iou_match_device_ms_per_step": per_step(IOU_KERNEL),
+        "iou_match_activities_per_step": sum(IOU_KERNEL in e.name for e in acts) / steps,
         "device_busy_ms_per_step": busy / 1e3 / steps,
         "device_span_ms_per_step": span / 1e3 / steps,
         "device_idle_share": 1.0 - busy / span,
@@ -1055,6 +1139,14 @@ def phase_train(torch, cfg=None, device=None):
             f"{roi_ms['backward']:.4f} ms")
         if not (roi_ms["forward"] > 0 and roi_ms["backward"] > 0):
             raise AssertionError("the profiler saw device activity but no ROIAlign kernel")
+        iou_ms = timeline["iou_match_device_ms_per_step"]
+        iou_n = timeline["iou_match_activities_per_step"]
+        log(f"  IoU matching device time per step (anchor and proposal sites): {iou_ms:.4f} ms "
+            f"in {iou_n:g} kernel activities")
+        if not iou_ms > 0:
+            raise AssertionError("the profiler saw device activity but no IoU-matching kernel")
+        if iou_n != 2:  # one kernel per call, no second finalize kernel
+            raise AssertionError(f"{iou_n:g} IoU-matching kernel activities per step, not 2")
 
     # the same state and draws: kernel pass vs plain pass (forward + backward)
     batch = batches[1]
@@ -1175,6 +1267,7 @@ def main():
     nms_tr, nms_cl, bwd = res["nms_train"], res["nms_train_clustered"], res["roi_bwd_bf16"]
     in_step = (train["device_timeline"] or {}).get("roi_align_device_ms_per_step", {})
     iou_a, iou_p = res["iou_anchor"], res["iou_proposal"]
+    iou_step = (train["device_timeline"] or {}).get("iou_match_device_ms_per_step")
     gemm, deq = res["gemm_b8_cls"], res["dequant_f32"]
     timing = ("ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [
@@ -1246,12 +1339,17 @@ def main():
             "name": "iou_match", "route": "cuda", "source": IOU_SRC, "replaces": IOU_TPU,
             "launches": tlaunches["iou_match"],
             "launches_by_path": {"train": tlaunches["iou_match"]},
-            "parity": "bitwise vs ops/iou_match.py::match_boxes (iou, argmax, max, column argmax)",
+            "parity": "bitwise vs ops/iou_match.py::match_boxes (iou, argmax, max, column "
+                      "argmax) at G = 32 and 64 and with exact ties; two launches bitwise "
+                      "equal; one launch per call",
             "max_abs_err": 0.0,
             "ms": iou_a["ms"], "plain_ms": iou_a["plain_ms"], "bound_ms": iou_a["bound_ms"],
             "bound_by": iou_a["bound_by"], "library_ms": None, "library_note": NO_LIBRARY,
             "shape": "anchor site: 12996 anchors vs 8 x 32 gt, with the column argmax",
             "proposal_site": {k: iou_p[k] for k in timing},
+            "anchor_site_g64": {k: res["iou_anchor_g64"][k] for k in timing},
+            "ties": {k: res["iou_ties"][k] for k in timing},
+            "train_step_device_ms": iou_step,
         },
         {
             "name": "int8_matmul", "route": "cuda", "source": QUANT_SRC, "replaces": GEMM_TPU,
@@ -1271,13 +1369,16 @@ def main():
             "launches": qlaunches["dequantize"],
             "launches_by_path": {"serve_int8": qlaunches["dequantize"]},
             "parity": "bitwise vs ops/quant_ops.py::dequantize_plain on all 23 conv weights, "
-                      "float32 and bfloat16 outputs",
+                      "float32 and bfloat16 outputs, through dequantize_cuda and through "
+                      "dequantize_many (one launch per call)",
             "max_abs_err": 0.0,
             **{k: deq[k] for k in timing + ("library_ms",)},
             "library_note": "torch.mul(w_q, scale) (int8 x float32 promotes to float32)",
             "shape": "layer4 conv [512, 512, 3, 3] int8 -> float32 (the Pallas kernel's output)",
             "main_path_bfloat16": {k: res["dequant_bf16"][k] for k in timing},
             "per_flush_bfloat16": res["dequant_flush"],
+            "note": "the int8 flush runs the grouped launch (dequantize_many_kernel, 1 per "
+                    "flush); per_leaf_kernels_ms is the same flush as 23 dequantize_cuda calls",
         },
     ]
     log(json.dumps({"serve": serve, "serve_int8": serve_int8, "train": train, "card": card}))

@@ -52,15 +52,36 @@
 // outer = 1 the port's (channel first: OIHW, Linear [out, in]). Plain version:
 // ops/quant_ops.py::dequantize_plain, equal bit for bit.
 //
+// dequantize_many_kernel is the same computation over every leaf of a list
+// in one launch (ops/quant_ops.py::dequantize_many): the int8 serving path
+// reconstructs all of its conv weights with it once per flush.
+//
 // What bounds it on the H100: bytes (1 byte read and 2 or 4 written per
 // element, one multiply). The largest leaf on the serving path, layer4's
-// 3x3x512x512 conv, is 2.4 M elements: 7.1 MB with a bfloat16 output, ~2 us.
+// 3x3x512x512 conv, is 2.4 M elements: 7.1 MB with a bfloat16 output, ~2 us;
+// one flush's 23 conv weights are 11.8 M elements, 35 MB, ~10.5 us. A launch
+// per leaf made the flush cost 23 launches and their tails: most leaves are
+// small enough that the launch is their whole time.
 //
-// What the design does about it: one pass, each thread 4 consecutive elements
-// with one 4-byte load and one 8- or 16-byte store when aligned; the channel
-// of the first element costs one division, the next three step a counter.
-// Writing the compute dtype directly halves the bytes written against f32
-// followed by a cast.
+// What the design does about it:
+//   * 16 elements per thread, as two 8-byte loads and two 16-byte stores
+//     (bfloat16) or four 4-byte loads and four 16-byte stores (float32), laid
+//     out so that every load and store instruction of a warp covers one
+//     contiguous span (one 16-byte load and 32 or 64 contiguous bytes of
+//     stores per thread write half sectors, and measured slower in float32
+//     than 4 elements per thread); a block covers 4096 elements, and all of a
+//     thread's loads are in flight before its first store.
+//   * The channel is found once per vector, with 32-bit index arithmetic
+//     wherever the launch's indices fit; in the port's channel-first layout a
+//     vector lies in one channel, so it loads one scale.
+//   * Misaligned bases and the ragged end take a scalar path.
+//   * Grouped: the wrapper builds a descriptor table once for a fixed list of
+//     leaves (int8 and scale pointers, n, inner, channels, the output's offset
+//     in one arena, the leaf's first block); block b finds its leaf by binary
+//     search over the first blocks. The outputs are 256-byte aligned views of
+//     one arena allocated per call, so no float copy outlives it.
+//   * Writing the compute dtype directly halves the bytes written against f32
+//     followed by a cast.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -211,70 +232,197 @@ int8_matmul_kernel(const int8_t* __restrict__ x,   // [M, K]
 int g_mm_smem_set = 48 * 1024;  // dynamic shared memory the GEMM may use so far
 
 constexpr int DQ_THREADS = 256;
+constexpr int DQ_PER_THREAD = 16;                     // elements per thread
+constexpr int DQ_WARP = 32 * DQ_PER_THREAD;             // elements per warp
+constexpr int DQ_BLOCK = DQ_THREADS * DQ_PER_THREAD;  // elements per block
 
-__device__ __forceinline__ void store4(float* out, long long i, const float v[4], int count,
-                                       bool vec) {
-  if (vec && count == 4) {
-    *reinterpret_cast<float4*>(out + i) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-    for (int e = 0; e < count; ++e) out[i + e] = v[e];
+// One leaf of a grouped dequantize, as the wrapper writes it: 8 int64 words.
+struct DqLeaf {
+  long long w;         // const int8_t*
+  long long scale;     // const float*
+  long long n;         // elements
+  long long inner;     // elements per step of the channel
+  long long channels;
+  long long out_off;   // byte offset of the output in the arena (a multiple of 256)
+  long long vec;       // w is 4- (float32) or 8-byte (bfloat16) aligned: vector loads
+  long long block0;    // first block of the leaf: prefix sum of ceil(n / DQ_BLOCK)
+};
+
+// A thread's 16 elements are DQ_PER_THREAD / E vectors of E elements, E = 4
+// for a float32 output (a 4-byte load, a 16-byte store) and 8 for bfloat16
+// (an 8-byte load, a 16-byte store). Vector q of lane l starts at element
+// q * 32 * E + l * E of its warp's DQ_WARP, so every load and store instruction
+// of a warp covers one contiguous span.
+template <typename Out> struct DqVec;
+template <> struct DqVec<float> {
+  static constexpr int E = 4;
+  using Raw = int;
+};
+template <> struct DqVec<__nv_bfloat16> {
+  static constexpr int E = 8;
+  using Raw = int2;
+};
+
+// element offset of vector q of lane `lane` in its warp's span
+template <int E>
+__device__ __forceinline__ int vec_offset(int q, int lane) {
+  return q * 32 * E + lane * E;
+}
+
+__device__ __forceinline__ float byte_at(int raw, int k) {
+  return static_cast<float>(static_cast<int8_t>(raw >> (8 * k)));
+}
+__device__ __forceinline__ float byte_at(int2 raw, int k) {
+  return byte_at(k < 4 ? raw.x : raw.y, k & 3);
+}
+
+__device__ __forceinline__ void store_vec(float* out, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(out) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+__device__ __forceinline__ void store_vec(__nv_bfloat16* out, const float (&v)[8]) {
+  *reinterpret_cast<uint4*>(out) = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                                              pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+}
+
+__device__ __forceinline__ void store1(float* out, float v) { *out = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* out, float v) { *out = __float2bfloat16_rn(v); }
+
+// The 16 elements of lane `lane` in the warp span starting at element `base`
+// of one tensor seen as [outer, channels, inner]. I is the index type: int
+// where every index of the launch fits, else long long. vec: w is E-byte and
+// out 16-byte aligned.
+template <typename Out, typename I>
+__device__ __forceinline__ void dequant_lane(const int8_t* __restrict__ w,
+                                             const float* __restrict__ scale,
+                                             Out* __restrict__ out, I n, I inner, I channels,
+                                             bool vec, I base, int lane) {
+  constexpr int E = DqVec<Out>::E;
+  constexpr int V = DQ_PER_THREAD / E;
+  using Raw = typename DqVec<Out>::Raw;
+  Raw raw[V];
+  if (vec) {  // every load in flight before the first store
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      const I i = base + static_cast<I>(vec_offset<E>(q, lane));
+      if (n - i >= E) raw[q] = __ldg(reinterpret_cast<const Raw*>(w + i));
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < V; ++q) {
+    const I i = base + static_cast<I>(vec_offset<E>(q, lane));
+    if (i >= n) return;
+    const I outer = i / inner;
+    I j = i - outer * inner;  // position along inner
+    I c = outer % channels;
+    if (vec && n - i >= E) {
+      float v[E];
+      if (j + E <= inner) {  // one channel for the whole vector: the port's layout
+        const float s = scale[c];
+#pragma unroll
+        for (int e = 0; e < E; ++e) v[e] = __fmul_rn(byte_at(raw[q], e), s);
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          v[e] = __fmul_rn(byte_at(raw[q], e), scale[c]);
+          if (++j == inner) {
+            j = 0;
+            if (++c == channels) c = 0;
+          }
+        }
+      }
+      store_vec(out + i, v);
+    } else {  // a misaligned base or the ragged end
+      const int count = n - i < E ? static_cast<int>(n - i) : E;
+      for (int e = 0; e < count; ++e) {
+        store1(out + i + e, __fmul_rn(static_cast<float>(w[i + e]), scale[c]));
+        if (++j == inner) {
+          j = 0;
+          if (++c == channels) c = 0;
+        }
+      }
+    }
   }
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* out, long long i, const float v[4],
-                                       int count, bool vec) {
-  if (vec && count == 4) {
-    __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-    __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-    uint2 packed;
-    packed.x = *reinterpret_cast<uint32_t*>(&lo);
-    packed.y = *reinterpret_cast<uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(out + i) = packed;
-  } else {
-    for (int e = 0; e < count; ++e) out[i + e] = __float2bfloat16_rn(v[e]);
-  }
-}
-
-template <typename Out>
+template <typename Out, typename I>
 __global__ void __launch_bounds__(DQ_THREADS)
 dequantize_kernel(const int8_t* __restrict__ w,      // [outer, C, inner]
                   const float* __restrict__ scale,   // [C]
                   Out* __restrict__ out,             // like w
-                  long long n, long long inner, int channels, bool vec) {
-  const long long i0 = (static_cast<long long>(blockIdx.x) * DQ_THREADS + threadIdx.x) * 4;
-  if (i0 >= n) return;
-  const int count = n - i0 < 4 ? static_cast<int>(n - i0) : 4;
-  int8_t q[4];
-  if (vec && count == 4) {
-    const char4 c4 = *reinterpret_cast<const char4*>(w + i0);
-    q[0] = c4.x; q[1] = c4.y; q[2] = c4.z; q[3] = c4.w;
-  } else {
-    for (int e = 0; e < count; ++e) q[e] = w[i0 + e];
-  }
-  const long long outer_idx = i0 / inner;
-  long long j = i0 - outer_idx * inner;        // position along inner
-  int c = static_cast<int>(outer_idx % channels);
-  float v[4];
-  for (int e = 0; e < count; ++e) {
-    v[e] = __fmul_rn(static_cast<float>(q[e]), scale[c]);
-    if (++j == inner) {
-      j = 0;
-      if (++c == channels) c = 0;
+                  I n, I inner, I channels, bool vec) {
+  const I base = static_cast<I>(blockIdx.x) * DQ_BLOCK + static_cast<I>(threadIdx.x >> 5) * DQ_WARP;
+  dequant_lane<Out, I>(w, scale, out, n, inner, channels, vec, base, threadIdx.x & 31);
+}
+
+// Every leaf of a flush in one grid: block b belongs to the last leaf whose
+// first block is <= b (empty leaves own no block).
+template <typename Out, typename I>
+__global__ void __launch_bounds__(DQ_THREADS)
+dequantize_many_kernel(const DqLeaf* __restrict__ table, int leaves,
+                       unsigned char* __restrict__ arena) {
+  const long long b = blockIdx.x;
+  int lo = 0;
+  int hi = leaves - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (__ldg(&table[mid].block0) <= b) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
     }
   }
-  store4(out, i0, v, count, vec);
+  const DqLeaf* leaf = table + lo;
+  const I base = static_cast<I>(b - __ldg(&leaf->block0)) * DQ_BLOCK +
+                 static_cast<I>(threadIdx.x >> 5) * DQ_WARP;
+  dequant_lane<Out, I>(reinterpret_cast<const int8_t*>(__ldg(&leaf->w)),
+                       reinterpret_cast<const float*>(__ldg(&leaf->scale)),
+                       reinterpret_cast<Out*>(arena + __ldg(&leaf->out_off)),
+                       static_cast<I>(__ldg(&leaf->n)), static_cast<I>(__ldg(&leaf->inner)),
+                       static_cast<I>(__ldg(&leaf->channels)), __ldg(&leaf->vec) != 0, base,
+                       threadIdx.x & 31);
 }
+
+// int indices are enough when every index a launch forms stays below 2^31
+bool narrow(long long n) { return n <= 0x7fffffffLL - DQ_BLOCK; }
 
 template <typename Out>
 int dequantize_launch(const void* w, const void* scale, void* out, long long n,
                       long long inner, int channels, int vec, void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const long long threads_needed = (n + 3) / 4;
-  const long long blocks = (threads_needed + DQ_THREADS - 1) / DQ_THREADS;
-  dequantize_kernel<Out><<<static_cast<unsigned>(blocks), DQ_THREADS, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(w), static_cast<const float*>(scale), static_cast<Out*>(out),
-      n, inner, channels, vec != 0);
+  const unsigned blocks = static_cast<unsigned>((n + DQ_BLOCK - 1) / DQ_BLOCK);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* wq = static_cast<const int8_t*>(w);
+  const auto* sc = static_cast<const float*>(scale);
+  auto* o = static_cast<Out*>(out);
+  if (narrow(n)) {
+    dequantize_kernel<Out, int><<<blocks, DQ_THREADS, 0, s>>>(
+        wq, sc, o, static_cast<int>(n), static_cast<int>(inner), channels, vec != 0);
+  } else {
+    dequantize_kernel<Out, long long><<<blocks, DQ_THREADS, 0, s>>>(
+        wq, sc, o, n, inner, static_cast<long long>(channels), vec != 0);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Out>
+int dequantize_many_launch(const void* table, int leaves, long long blocks, long long max_n,
+                           void* arena, void* stream) {
+  if (leaves <= 0 || blocks <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* t = static_cast<const DqLeaf*>(table);
+  auto* a = static_cast<unsigned char*>(arena);
+  if (narrow(max_n)) {
+    dequantize_many_kernel<Out, int><<<static_cast<unsigned>(blocks), DQ_THREADS, 0, s>>>(t, leaves, a);
+  } else {
+    dequantize_many_kernel<Out, long long><<<static_cast<unsigned>(blocks), DQ_THREADS, 0, s>>>(
+        t, leaves, a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -310,8 +458,8 @@ int int8_matmul_launch(const void* x, const void* wt, void* out, int m, int n, i
 }
 
 // w int8 and out (float32 / bfloat16) hold n elements, seen as [outer, channels,
-// inner]; scale [channels] float32. vec != 0 when w is 4-byte and out 16- /
-// 8-byte aligned (vector loads and stores).
+// inner]; scale [channels] float32. vec != 0 when w is 4-byte (float32 out)
+// or 8-byte (bfloat16 out) aligned and out 16-byte aligned.
 int dequantize_launch_f32(const void* w, const void* scale, void* out, long long n,
                           long long inner, int channels, int vec, void* stream) {
   return dequantize_launch<float>(w, scale, out, n, inner, channels, vec, stream);
@@ -321,6 +469,21 @@ int dequantize_launch_bf16(const void* w, const void* scale, void* out, long lon
                            long long inner, int channels, int vec, void* stream) {
   return dequantize_launch<__nv_bfloat16>(w, scale, out, n, inner, channels, vec, stream);
 }
+
+// table: leaves x 8 int64 on the card (DqLeaf); blocks: the total of
+// ceil(n / 4096) over the leaves; max_n: the largest leaf; arena: the
+// outputs, each at its byte offset (256-byte aligned).
+int dequantize_many_launch_f32(const void* table, int leaves, long long blocks, long long max_n,
+                               void* arena, void* stream) {
+  return dequantize_many_launch<float>(table, leaves, blocks, max_n, arena, stream);
+}
+
+int dequantize_many_launch_bf16(const void* table, int leaves, long long blocks, long long max_n,
+                                void* arena, void* stream) {
+  return dequantize_many_launch<__nv_bfloat16>(table, leaves, blocks, max_n, arena, stream);
+}
+
+int dequantize_block_elements() { return DQ_BLOCK; }
 
 const char* quant_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

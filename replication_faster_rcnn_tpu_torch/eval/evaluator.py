@@ -54,9 +54,10 @@ def make_int8_infer_fn(
     """``infer(qvars, images, reference=False) -> detections``: the int8
     serving program. Each call reconstructs the weights from the resident
     int8 tree ``qvars`` (``quant/apply.py::build_infer_variables``: one
-    dequantize per int8 conv weight, straight into the compute dtype), then
-    runs the same forward and decode as :func:`make_infer_fn` through
-    ``torch.func.functional_call``, with the cls/reg layers as int8 GEMMs.
+    grouped dequantize of every int8 conv weight, straight into the compute
+    dtype), then runs the same forward and decode as :func:`make_infer_fn`
+    through ``torch.func.functional_call``, with the cls/reg layers as int8
+    GEMMs.
     ``model`` supplies only the structure, so it may live on ``meta``."""
     h, w = image_size if image_size is not None else config.data.image_size
 

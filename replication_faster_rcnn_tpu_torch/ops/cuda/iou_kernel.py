@@ -9,7 +9,7 @@ which the kernel matches bit for bit.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -22,6 +22,9 @@ Tensor = torch.Tensor
 launches = 0
 
 _fn = None
+# per (device, stream): the column argmax's keys and ticket counters, zero
+# between launches
+_states: Dict[Tuple[int, int], Tensor] = {}
 
 
 def _kernel():
@@ -33,13 +36,27 @@ def _kernel():
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
         lib.iou_match_error_string.argtypes = [ctypes.c_int]
         lib.iou_match_error_string.restype = ctypes.c_char_p
         _fn = (fn, lib.iou_match_error_string)
     return _fn
+
+
+def _column_state(dev: torch.device, stream: int, batch: int, g: int) -> Tensor:
+    """The column argmax's state for launches on ``stream``: ``batch * g``
+    64-bit keys, then ``batch`` 32-bit ticket counters. Zeroed once here;
+    every launch leaves it 0 again (the last block of each image swaps its
+    keys for 0 and resets its counter), so a call makes no memset."""
+    key = (dev.index, stream)
+    need = batch * g + (batch + 1) // 2
+    state = _states.get(key)
+    if state is None or state.numel() < need:
+        state = torch.zeros(max(need, 1024), dtype=torch.int64, device=dev)
+        _states[key] = state
+    return state
 
 
 def match_boxes_cuda(
@@ -53,7 +70,8 @@ def match_boxes_cuda(
     boxes [M, 4] or [B or 1, M, 4], gt [B, G, 4], gt_mask [B, G] bool ->
     (ious [B, M, G] or None unless ``want_iou``, argmax [B, M] int64,
     max_iou [B, M] f32, col_argmax [B, G] int64 or None unless
-    ``want_col``). One launch for the whole batch."""
+    ``want_col``). One launch for the whole batch (none when there is
+    nothing to compute)."""
     if not gt.is_cuda:
         ious, argmax, max_iou, col = match_boxes(boxes, gt, gt_mask, want_col)
         return (ious if want_iou else None), argmax, max_iou, col
@@ -66,6 +84,8 @@ def match_boxes_cuda(
         raise ValueError(f"gt_mask must be bool {(bsz, g)}, got {gt_mask.dtype} {tuple(gt_mask.shape)}")
     if not (boxes.is_cuda and gt_mask.is_cuda) or not (boxes.device == gt.device == gt_mask.device):
         raise ValueError("boxes, gt and gt_mask must be on the same CUDA device")
+    if want_col and m == 0:
+        raise ValueError("the column argmax needs at least one box")
     dev = gt.device
     boxes = boxes.float().contiguous()
     gt = gt.float().contiguous()
@@ -74,15 +94,19 @@ def match_boxes_cuda(
     argmax = torch.empty(bsz, m, dtype=torch.int64, device=dev)
     max_iou = torch.empty(bsz, m, dtype=torch.float32, device=dev)
     col = torch.empty(bsz, g, dtype=torch.int64, device=dev) if want_col else None
+    if bsz == 0 or m == 0:
+        return ious, argmax, max_iou, col
     fn, err = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        state = _column_state(dev, stream, bsz, g) if want_col else None
         rc = fn(
             boxes.data_ptr(), m if boxes.shape[0] == bsz and bsz > 1 else 0,
             gt.data_ptr(), gt_mask.data_ptr(), bsz, m, g,
             ious.data_ptr() if ious is not None else None,
             argmax.data_ptr(), max_iou.data_ptr(),
             col.data_ptr() if col is not None else None,
+            state.data_ptr() if state is not None else None,
             stream,
         )
     build.check(rc, err, "iou_match_kernel")

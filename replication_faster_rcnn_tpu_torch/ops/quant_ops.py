@@ -11,12 +11,15 @@ compute-dtype values on the way into each matmul/conv:
   cls/reg layers, ``models/head.py``);
 * :func:`quant_conv` — weight-only quantization: per-channel dequantize,
   then the convolution in the input's dtype;
-* :func:`dequantize` — the shared per-channel reconstruction.
+* :func:`dequantize` — the shared per-channel reconstruction, and
+  :func:`dequantize_many` the same over a list of leaves in one launch (the
+  int8 flush's conv weights).
 
-:func:`int8_matmul` and :func:`dequantize` are the dispatch points
-(``ops/__init__.py``): a CUDA tensor launches the hand-written kernel
-(``ops/cuda/quant_kernel.py``, a failed build or launch raises), a CPU
-tensor or :class:`ops.reference_scope` runs the plain version below.
+:func:`int8_matmul`, :func:`dequantize` and :func:`dequantize_many` are the
+dispatch points (``ops/__init__.py``): a CUDA tensor launches the
+hand-written kernel (``ops/cuda/quant_kernel.py``, a failed build or launch
+raises), a CPU tensor or :class:`ops.reference_scope` runs the plain version
+below.
 Integer arithmetic does not round, so kernel and plain GEMM are bitwise
 equal; the dequantize is one float32 multiply, bitwise equal as well.
 
@@ -28,7 +31,7 @@ so both are served; ``int8_matmul`` keeps JAX's ``[M, K] @ [K, N]``.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -123,6 +126,14 @@ def dequantize_plain(
     return (w_q.float() * _broadcast(scale, w_q, channel_axis)).to(out_dtype)
 
 
+def dequantize_many_plain(
+    leaves: Sequence[Tuple[Tensor, Tensor, int]], out_dtype: torch.dtype = torch.float32
+) -> List[Tensor]:
+    """The plain version of the grouped dequantize kernel: one
+    :func:`dequantize_plain` per leaf ``(w_q, scale, channel_axis)``."""
+    return [dequantize_plain(w_q, scale, axis, out_dtype) for w_q, scale, axis in leaves]
+
+
 def int8_matmul(x_q: Tensor, w_q: Tensor) -> Tensor:
     """int8 ``[M, K] @ [K, N] -> int32``: the kernel on a CUDA tensor, the
     plain version on a CPU tensor or inside ``ops.reference_scope``."""
@@ -145,6 +156,20 @@ def dequantize(
     from replication_faster_rcnn_tpu_torch.ops.cuda.quant_kernel import dequantize_cuda
 
     return dequantize_cuda(w_q, scale, channel_axis, out_dtype)
+
+
+def dequantize_many(
+    leaves: Sequence[Tuple[Tensor, Tensor, int]], out_dtype: torch.dtype = torch.float32
+) -> List[Tensor]:
+    """:func:`dequantize` of every leaf ``(w_q, scale, channel_axis)``: one
+    launch of the grouped kernel for CUDA leaves, the plain loop for CPU
+    leaves or inside ``ops.reference_scope``. Each output is bitwise
+    :func:`dequantize_plain` of its leaf."""
+    if ops.reference_requested():
+        return dequantize_many_plain(leaves, out_dtype)
+    from replication_faster_rcnn_tpu_torch.ops.cuda.quant_kernel import dequantize_many_cuda
+
+    return dequantize_many_cuda(leaves, out_dtype)
 
 
 def quant_dense(

@@ -13,7 +13,8 @@ The calibrate -> sweep -> serve workflow:
 * ``artifact.py`` — the ``quant_artifact/v1`` sidecar: JSON with a CRC32
   per scale, written atomically, byte-compatible with the JAX package's.
 * ``apply.py`` — the resident int8 tree the serving engine keeps on the
-  device, and the per-call reconstruction through the dequantize kernel.
+  device, and the per-call reconstruction through the grouped dequantize
+  kernel (one launch per call).
 """
 
 from replication_faster_rcnn_tpu_torch.quant.artifact import (  # noqa: F401

@@ -11,10 +11,11 @@ weights stay int8 and get a ``quant`` entry (``w_scale`` + the calibrated
 ``x_scale``) so the head runs them as true int8 GEMMs.
 
 :func:`build_infer_variables` is the per-call half: every other int8
-weight is reconstructed through ``ops/quant_ops.py::dequantize`` (the CUDA
-kernel on the card) straight into the compute dtype, and the bf16 leaves
-are cast to it. Nothing is cached across calls: the int8 tree is what
-stays resident.
+weight is reconstructed through ``ops/quant_ops.py::dequantize_many`` (one
+launch of the grouped CUDA kernel on the card) straight into the compute
+dtype, and the bf16 leaves are cast to it. No weight is cached across
+calls: the int8 tree is what stays resident, with the grouped kernel's
+descriptor table (built at the first call).
 
 :func:`fake_quant_variables` is the sensitivity sweep's simulator: float
 variables with one layer group's weights replaced by their
@@ -32,6 +33,7 @@ import numpy as np
 import torch
 
 from replication_faster_rcnn_tpu_torch.models.convert import kernel_from_flax, to_flax_variables
+from replication_faster_rcnn_tpu_torch import ops
 from replication_faster_rcnn_tpu_torch.ops import quant_ops
 from replication_faster_rcnn_tpu_torch.quant.calibrate import (
     EMBED_RANGE_KEY,
@@ -111,9 +113,13 @@ def build_infer_variables(
 ) -> Dict[str, Any]:
     """Per-call reconstruction: dequantize every int8 weight except the
     cls/reg ones into the compute dtype (``config.model.compute_dtype``;
-    bfloat16 without a config) and cast the other float leaves to it.
-    Returns ``{"params": state dict, "quant": ...}`` for
-    ``models/faster_rcnn.py::functional_forward``.
+    bfloat16 without a config), all in one grouped dequantize, and cast the
+    other float leaves to it. Returns ``{"params": state dict, "quant":
+    ...}`` for ``models/faster_rcnn.py::functional_forward``.
+
+    On the card the grouped kernel's descriptor table is built at the first
+    call for each compute dtype and kept in ``qvars["dequantize_tables"]``;
+    on the CPU or inside ``ops.reference_scope`` the plain loop runs.
 
     Residency and compute are decoupled as in the JAX package: the resident
     tree stays int8 + bf16, and each call builds the compute-dtype weights,
@@ -123,12 +129,23 @@ def build_infer_variables(
             getattr(torch, config.model.compute_dtype) if config is not None else torch.bfloat16
         )
     qscales = qvars.get("qscales", {})
+    keys = [key for key, tensor in qvars["params"].items()
+            if tensor.dtype == torch.int8 and key not in _DENSE_STATE_KEYS]
+    leaves = [(qvars["params"][key], qscales[key], 0) for key in keys]
+    if leaves and leaves[0][0].is_cuda and not ops.reference_requested():
+        from replication_faster_rcnn_tpu_torch.ops.cuda.quant_kernel import DequantizeTable
+
+        tables = qvars.setdefault("dequantize_tables", {})
+        if compute_dtype not in tables:
+            tables[compute_dtype] = DequantizeTable(leaves, compute_dtype)
+        outs = tables[compute_dtype]()
+    else:
+        outs = quant_ops.dequantize_many(leaves, compute_dtype)
+    dequantized = dict(zip(keys, outs))
     params = {}
     for key, tensor in qvars["params"].items():
-        if tensor.dtype == torch.int8 and key not in _DENSE_STATE_KEYS:
-            params[key] = quant_ops.dequantize(
-                tensor, qscales[key], channel_axis=0, out_dtype=compute_dtype
-            )
+        if key in dequantized:
+            params[key] = dequantized[key]
         elif tensor.is_floating_point():
             params[key] = tensor.to(compute_dtype)
         else:

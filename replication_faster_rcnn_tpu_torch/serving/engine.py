@@ -10,7 +10,8 @@ package's ``serving/engine.py``).
   Under ``params_dtype="int8"`` the resident tree is the quantized one
   (``quant/apply.py``: int8 weights + per-channel scales, the rest bfloat16,
   driven by the CRC-checked calibration sidecar); every flush reconstructs
-  the compute-dtype weights through the dequantize kernel and runs the
+  the compute-dtype weights with one launch of the grouped dequantize
+  kernel (its descriptor table built at the first flush) and runs the
   detection head's cls/reg layers as int8 GEMMs. No float copy of the
   weights stays on the device, and nothing reconstructed is kept between
   flushes.

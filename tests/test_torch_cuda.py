@@ -176,11 +176,28 @@ def test_iou_match_kernel_bitwise(dev):
                  (2, 300, 4, False, "all_padded"),   # every gt column padded
                  (2, 700, 6, True, "ties"),          # exact ties between rows in different blocks
                  (8, 12996, 32, True, "random"),     # the anchor site
-                 (8, 632, 32, False, "random")]:     # the proposal site
+                 (8, 632, 32, False, "random"),      # the proposal site
+                 (2, 300, 33, True, "random"),       # lane chunks: 32 + 1 columns
+                 (2, 1000, 64, False, "random"),     # two full chunks
+                 (3, 520, 100, True, "random"),      # four chunks, the last one ragged
+                 (2, 300, 600, False, "random"),     # > 48 KB of dynamic shared memory
+                 (2, 1, 7, False, "random"),         # M = 1
+                 (2, 32, 9, True, "random"),         # one full warp tile
+                 (2, 33, 9, False, "random"),        # a warp tile and one row
+                 (2, 256, 40, True, "random"),       # one full block
+                 (2, 512, 9, False, "random"),       # two full blocks
+                 (2, 800, 40, False, "lane_warp_block_ties"),
+                 (2, 300, 35, True, "nonfinite"),
+                 (8, 12996, 32, True, "few_gt"),     # the train step's 1-4 objects, one image none
+                 (3, 700, 70, False, "few_gt")]:     # unpadded columns spread over three chunks
         _iou_case(dev, *case)
 
 
 def _iou_case(dev, b, m, g, shared, case):
+    """All four outputs bitwise equal to the plain version with and without
+    the column argmax and the IoU matrix, two launches bitwise equal, one
+    counted launch per call (the wrapper's count; ``chip_smoke.py`` [6]
+    counts the kernel's activities in the profiler)."""
     from replication_faster_rcnn_tpu_torch.ops.cuda import iou_kernel
     from replication_faster_rcnn_tpu_torch.ops.iou_match import match_boxes
 
@@ -197,21 +214,47 @@ def _iou_case(dev, b, m, g, shared, case):
         boxes[0, 517] = gt[0, 0].to(dev)
         gt[:, -1] = gt[:, 0]              # equal columns: the first wins the row
         mask[:, -1] = True
+    if case == "lane_warp_block_ties":
+        # gt 3 repeated in lanes 9 and 37 (the second chunk): the row goes to
+        # column 3; IoU 1 with gt 3 at rows in three warps of block 0 and in
+        # blocks 1 and 3: the column goes to row 40
+        for col in (9, 37):
+            gt[:, col] = gt[:, 3]
+        mask[:, [3, 9, 37]] = True
+        for row in (40, 70, 200, 300, 799):
+            boxes[:, row] = gt[:, 3].to(dev)
+    if case == "few_gt":
+        mask[:] = False
+        for i in range(1, b):
+            mask[i, rng.choice(g, size=1 + i % 4, replace=False)] = True
+    if case == "nonfinite":
+        nan, inf = float("nan"), float("inf")
+        boxes[0, :6] = torch.tensor([[nan, 1, 50, 50], [0, 0, inf, 50], [-inf, 0, inf, 50],
+                                     [nan, nan, nan, nan], [inf, inf, inf, inf],
+                                     [0, 0, 1e30, 1e30]], device=dev)
+        gt[0, 1] = torch.tensor([0, 0, inf, nan])
+        gt[1, 2] = torch.tensor([-inf, -inf, inf, inf])
+        mask[:, 1:3] = True
     gt, mask = gt.to(dev), mask.to(dev)
     want = match_boxes(boxes, gt, mask)
-    for want_iou in (True, False):
-        n0 = iou_kernel.launches
-        got = iou_kernel.match_boxes_cuda(boxes, gt, mask, want_col=True, want_iou=want_iou)
-        torch.cuda.synchronize()
-        assert iou_kernel.launches == n0 + 1
-        for a, w in zip(got, want):
-            if a is not None:
-                assert a.dtype == w.dtype and torch.equal(a, w)
+    for want_col in (True, False):
+        for want_iou in (True, False):
+            n0 = iou_kernel.launches
+            got = iou_kernel.match_boxes_cuda(boxes, gt, mask, want_col, want_iou)
+            again = iou_kernel.match_boxes_cuda(boxes, gt, mask, want_col, want_iou)
+            torch.cuda.synchronize()
+            assert iou_kernel.launches == n0 + 2
+            assert (got[0] is None) != want_iou and (got[3] is None) != want_col
+            for a, a2, w in zip(got, again, want):
+                if a is not None:
+                    assert a.dtype == w.dtype and torch.equal(a, w), (case, want_col, want_iou)
+                    assert torch.equal(a, a2)
     if case == "ties":
         assert int(want[3][0, 0]) == 260
-    _, argmax, max_iou, col = iou_kernel.match_boxes_cuda(boxes, gt, mask, want_col=False,
-                                                          want_iou=False)
-    assert col is None and torch.equal(argmax, want[1]) and torch.equal(max_iou, want[2])
+    if case == "lane_warp_block_ties":
+        assert (want[3][:, 3] == 40).all() and (want[1][:, [40, 70, 200]] == 3).all()
+    if case == "nonfinite":
+        assert torch.isfinite(want[0]).all() and (want[0][0, :5] <= 0).all()
 
 
 # ------------------------------------------------------------ ROIAlign backward
@@ -393,3 +436,86 @@ def test_int8_kernels_bitwise(dev):
         quant_kernel.dequantize_cuda(int8((4, 5)), torch.ones(4, device=dev))
     with pytest.raises(TypeError):
         quant_kernel.dequantize_cuda(int8((4, 5)), torch.ones(5, device=dev), -1, torch.float16)
+    _dequantize_many_cases(dev, rng, int8)
+
+
+def _dequantize_many_cases(dev, rng, int8):
+    """The grouped dequantize: every output bitwise equal to
+    ``dequantize_plain`` of its leaf, one launch per call (none when no
+    leaf has an element), over the model's 23 conv weights, mixed ranks and
+    axes, a source one byte off alignment, a zero-element leaf, a single
+    leaf and an empty list; a table built once (as ``build_infer_variables``
+    keeps one per resident tree) serves repeated calls."""
+    from replication_faster_rcnn_tpu_torch import get_config
+    from replication_faster_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN
+    from replication_faster_rcnn_tpu_torch.ops import quant_ops
+    from replication_faster_rcnn_tpu_torch.ops.cuda import quant_kernel
+
+    def leaf(shape, axis=0, w=None):
+        w = int8(shape) if w is None else w
+        scale = torch.from_numpy(rng.uniform(1e-4, 0.1, w.shape[axis]).astype(np.float32))
+        return w, scale.to(dev), axis
+
+    def check(leaves, dtype, run=None):
+        n0 = quant_kernel.dequantize_launches
+        got = run() if run is not None else quant_ops.dequantize_many(leaves, dtype)
+        torch.cuda.synchronize()
+        launched = int(any(w.numel() for w, _, _ in leaves))
+        assert quant_kernel.dequantize_launches == n0 + launched
+        assert len(got) == len(leaves)
+        for out, (w, s, axis) in zip(got, leaves):
+            want = quant_ops.dequantize_plain(w, s, axis, dtype)
+            assert out.dtype == dtype and out.shape == w.shape and torch.equal(out, want)
+            assert out.data_ptr() % 256 == 0 or out.numel() == 0
+        return got
+
+    model = FasterRCNN(get_config("voc12_resnet18_align"), device="meta")
+    convs = [leaf(tuple(v.shape)) for v in model.state_dict().values() if v.dim() == 4]
+    assert len(convs) == 23
+    buf = int8((3 * 3 * 64 * 64 + 1,))
+    misaligned = buf[1:].view(3, 3, 64, 64)
+    assert misaligned.is_contiguous() and misaligned.data_ptr() % 16
+    half = buf[4:4 + 8 * 600].view(8, 600)  # 4- but not 8-byte aligned: vectors in float32 only
+    assert half.data_ptr() % 8 == 4
+    w = int8((3, 3, 16, 24))
+    mixed = [leaf((7,)), leaf((21, 512), -1), leaf((0, 5), -1), leaf((5, 1, 1, 3)),
+             leaf(None, -1, misaligned), leaf((4097,)), leaf((33, 17), 0), leaf(None, 0, half),
+             leaf(None, 1, w.transpose(0, 3)), leaf((1,))]  # the last but one is copied
+    for dtype in (torch.float32, torch.bfloat16):
+        for leaves in (convs, mixed, mixed[:1], mixed[2:3], mixed[4:5], []):
+            check(leaves, dtype)
+        table = quant_kernel.DequantizeTable(convs, dtype)
+        first = check(convs, dtype, table)
+        second = check(convs, dtype, table)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+        assert first[0].data_ptr() != second[0].data_ptr()  # a fresh arena per call
+        with ops_reference():
+            n0 = quant_kernel.dequantize_launches
+            check_plain = quant_ops.dequantize_many(convs, dtype)
+            assert quant_kernel.dequantize_launches == n0
+            assert all(torch.equal(a, b) for a, b in zip(check_plain, first))
+    with pytest.raises(TypeError):
+        quant_ops.dequantize_many(convs, torch.float16)
+    # the int8 flush's reconstruction: one launch per call through the table
+    # that the first call builds and keeps with the tree
+    from replication_faster_rcnn_tpu_torch.quant import build_infer_variables
+
+    keys = [f"conv{i}.weight" for i in range(len(convs))]
+    qvars = {"params": {k: w for k, (w, _, _) in zip(keys, convs)},
+             "qscales": {k: s for k, (_, s, _) in zip(keys, convs)}}
+    tables = []
+    for _ in range(2):
+        n0 = quant_kernel.dequantize_launches
+        got = build_infer_variables(qvars, compute_dtype=torch.bfloat16)["params"]
+        torch.cuda.synchronize()
+        assert quant_kernel.dequantize_launches == n0 + 1
+        tables.append(qvars["dequantize_tables"][torch.bfloat16])
+        for k, (w, s, _) in zip(keys, convs):
+            assert torch.equal(got[k], quant_ops.dequantize_plain(w, s, 0, torch.bfloat16))
+    assert tables[0] is tables[1] and list(qvars["dequantize_tables"]) == [torch.bfloat16]
+
+
+def ops_reference():
+    from replication_faster_rcnn_tpu_torch import ops
+
+    return ops.reference_scope()

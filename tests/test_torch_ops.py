@@ -265,6 +265,26 @@ def test_roi_align_matches_jax_einsum(method):
         )
         np.testing.assert_allclose(got[i], want, atol=2e-5, rtol=1e-5)
     assert got.dtype == np.float32
+    # bf16 features. s = 2: the same tolerance. s = 3: JAX's XLA path rounds
+    # its sample offsets ((arange + 0.5) / s) to the features' dtype, the
+    # port (like the Pallas kernel) keeps them float32; the port then equals
+    # JAX on the same values in float32 and diverges from JAX in bf16.
+    fb = t(feat).to(torch.bfloat16)
+    fb32 = fb.float().numpy()
+    for s in (2, 3):
+        got = t_roi.roi_align(fb, t(rois), 7, s, 0.5, method=method).numpy()
+        assert got.dtype == np.float32
+        for i in range(n):
+            j_bf16 = np.asarray(j_roi.roi_align(jnp.asarray(fb32[i]).astype(jnp.bfloat16),
+                                                jnp.asarray(rois[i]), 7, s, 0.5, method="einsum"))
+            j_f32 = np.asarray(j_roi.roi_align(jnp.asarray(fb32[i]), jnp.asarray(rois[i]), 7, s,
+                                               0.5, method="einsum"))
+            np.testing.assert_allclose(got[i], j_f32, atol=2e-5, rtol=1e-5)
+            if s == 2:
+                np.testing.assert_allclose(got[i], j_bf16, atol=2e-5, rtol=1e-5)
+            else:
+                assert j_bf16.dtype == np.float32
+                assert np.abs(got[i] - j_bf16).max() > 1e-3
 
 
 def test_roi_align_bf16_features_promote_to_f32():

@@ -118,6 +118,26 @@ def test_int8_ops_match_pallas_kernels():
             )
     with pytest.raises(ValueError):
         quant_ops.dequantize(torch.from_numpy(_int8(rng, (4, 5))), torch.ones(4))
+    # dequantize_many: leaf by leaf the Pallas kernel's output, in the JAX
+    # layout and in the port's (a zero-element leaf and mixed ranks among them)
+    shapes = [(3, 3, 64, 64), (7,), (512, 84), (0, 5), (1, 1, 128, 256), (5, 1, 1, 3)]
+    w_qs = [_int8(rng, shape) if np.prod(shape) else np.zeros(shape, np.int8) for shape in shapes]
+    scales = [rng.uniform(1e-4, 0.1, shape[-1]).astype(np.float32) for shape in shapes]
+    wants = [np.array(pk.dequantize_pallas(jnp.asarray(w), jnp.asarray(s), interpret=True))
+             if w.size else np.zeros(w.shape, np.float32) for w, s in zip(w_qs, scales)]
+    got = quant_ops.dequantize_many(
+        [(torch.from_numpy(w), torch.from_numpy(s), -1) for w, s in zip(w_qs, scales)])
+    for out, want in zip(got, wants):
+        assert out.dtype == torch.float32
+        np.testing.assert_array_equal(out.numpy(), want)
+    port = [(torch.from_numpy(np.ascontiguousarray(np.moveaxis(w, -1, 0))), torch.from_numpy(s), 0)
+            for w, s in zip(w_qs, scales)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for out, want in zip(quant_ops.dequantize_many(port, dtype), wants):
+            assert out.dtype == dtype
+            np.testing.assert_array_equal(np.moveaxis(out.float().numpy(), 0, -1),
+                                          torch.from_numpy(want).to(dtype).float().numpy())
+    assert quant_ops.dequantize_many([]) == []
     # activation quantization bitwise, quant_dense within the JAX test's 1e-6
     j_quant_dense = jax.jit(jquant_ops.quant_dense)
     for lead, k, n in [((300,), 512, 21), ((3, 5), 16, 6), ((2400,), 512, 84)]:
@@ -280,6 +300,7 @@ def test_int8_slice_matches_jax(tiny, tmp_path):
     jout = jax.jit(lambda v, x: tiny["jmodel"].apply(v, x, train=False))(
         jinfer_vars, jnp.asarray(images))
     tvars = tquant.build_infer_variables(tres, tcfg)
+    assert "dequantize_tables" not in tres  # the CPU path keeps no kernel table
     assert all(v.dtype != torch.int8 or k in ("head.cls.weight", "head.reg.weight")
                for k, v in tvars["params"].items())
     tout = functional_forward(meta, tvars["params"], torch.from_numpy(images), tvars["quant"])
