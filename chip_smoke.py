@@ -9,8 +9,9 @@ H100:  ``python3 chip_smoke.py``. It
    with nvcc for sm_90a (into ``build/torch_kernels/``) and prints the time;
 3. holds each kernel against its plain PyTorch version on the card at the
    serving and training paths' shapes and times both: NMS bitwise (serving
-   8 x 3000 -> 300 and 8 x 6300 -> 100, training 8 x 12000 -> 600 on random
-   boxes and on clustered boxes, which overlap like the step's proposals);
+   8 x 3000 -> 300 and 8 x 6300 -> 100, the flip-TTA decode's 8 x 12600 ->
+   100, training 8 x 12000 -> 600 on random boxes and on clustered boxes,
+   which overlap like the step's proposals);
    ROIAlign forward bitwise against its gather twin (cast to the output
    dtype) at serving 8 x 300 and 1 x 300 and training 8 x 128 rois, float32
    and bfloat16 features and outputs, and within atol 2e-5 / rtol 1e-5 of
@@ -57,7 +58,23 @@ H100:  ``python3 chip_smoke.py``. It
    ``ops.reference_scope()``: targets, labels, the four losses and the new
    BatchNorm statistics must be bitwise equal to the kernel pass, and each
    parameter's gradient within a relative L2 error of ``GRAD_RTOL``;
-7. prints a ``{"kernels": [...]}`` line, the card line, and last
+7. evaluates ``voc12_resnet18_align`` at 600x600 (bfloat16 compute, the
+   seeded weights) with ``Evaluator`` over 64 VOC-sized uint8 images with
+   planted boxes, batch 8, flip TTA off and on: the C++ resize bitwise
+   against its numpy specification and both timed; per mode, one batch's
+   NMS call shapes (8 x 3000 -> 300 per forward, then 8 x 6300 or, with
+   TTA, 8 x 12600 -> 100) and its detections bitwise against the plain
+   run; the launch counters reset just before and read just after the
+   sweep (per batch: NMS 2 and ROIAlign 1, with TTA 3 and 2) and a finite
+   mAP in [0, 1]; then images/s over ``EVAL_SWEEPS`` more sweeps per mode,
+   the modes alternating. Then the JAX package's overfit recipe
+   (``benchmarks/map_overfit.py``: 128x128 float32, 48 synthetic images,
+   360 steps) trained by the port's ``Trainer`` must reach a train-set
+   mAP@0.5 of ``OVERFIT_MAP_FLOOR``, printed beside the JAX CPU record, and
+   the same weights calibrated as in [5] (and, beside it, on the training
+   images, with the sweep's plan and with every group int8) are scored in
+   int8;
+8. prints a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Without CUDA, or without
@@ -530,6 +547,23 @@ def check_int8_kernels(torch, rng, dev):
     return res
 
 
+def tta_detection_candidates(torch, dev, b, r=300, c=21):
+    """The flip-TTA decode's NMS input (own generator: the draws of the other
+    cases stay as they were): each image's 300 rois and, as the mirrored
+    pass reflected back, the same rois moved by ~2 px, each roi x 21 class
+    boxes with class offsets -> 8 x 12600 candidates, masked as the decode
+    masks them (class > 0, score >= 0.05)."""
+    rng = np.random.default_rng(7)
+    rb = rand_boxes(rng, (b, r), 560, 200)
+    rb = np.concatenate([rb, rb + rng.normal(0, 2, rb.shape)], axis=1)  # [b, 2r, 4]
+    det = np.repeat(rb[:, :, None], c, axis=2) + rng.normal(0, 2, (b, 2 * r, c, 4))
+    det = torch.from_numpy(det.reshape(b, 2 * r * c, 4).astype(np.float32)).to(dev)
+    cls = torch.arange(c, device=dev).repeat(2 * r)
+    det = det + cls.float()[None, :, None] * (det.amax(dim=(1, 2), keepdim=True) + 1.0)
+    scores = torch.from_numpy(rng.uniform(0, 0.2, (b, 2 * r * c)).astype(np.float32)).to(dev)
+    return det, scores, (cls[None] > 0) & (scores >= 0.05)
+
+
 def phase_kernels(torch):
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -553,6 +587,9 @@ def phase_kernels(torch):
     dmask = (cls[None] > 0) & (dscores >= 0.05)
     res["nms_detection"] = check_nms(torch, "detection 8x6300->100 thr 0.3", det, dscores,
                                      0.3, 100, mask=dmask)
+    tboxes, tscores, tmask = tta_detection_candidates(torch, dev, b)
+    res["nms_detection_tta"] = check_nms(torch, "TTA detection 8x12600->100 thr 0.3", tboxes,
+                                         tscores, 0.3, 100, mask=tmask)
     # clustered boxes: long suppression chains across tiles
     cb = torch.from_numpy(clustered_boxes(rng, b, 3000)).to(dev)
     cscores = torch.from_numpy(rng.uniform(0, 1, (b, 3000)).astype(np.float32)).to(dev)
@@ -679,6 +716,15 @@ def mixed_images(rng):
     return [rng.integers(0, 256, s + (3,), dtype=np.uint8) for s in shapes]
 
 
+def resize_ms_per_image(fn, images, cfg):
+    """Host ms per image of ``fn`` (``resize_normalize`` or its numpy
+    specification) to the configured size, over ``images``."""
+    t0 = time.perf_counter()
+    for img in images:
+        fn(img, cfg.data.image_size, cfg.data.pixel_mean, cfg.data.pixel_std)
+    return (time.perf_counter() - t0) * 1e3 / len(images)
+
+
 def phase_serve(torch):
     import dataclasses
 
@@ -749,12 +795,9 @@ def phase_serve(torch):
         log("  kernel pass == plain pass: rois, valid, cls, reg and all detections bitwise")
 
         stages = {f"b{n}": time_stages(torch, engine.model, cfg, batch[:n]) for n in (1, 8)}
-        t0 = time.perf_counter()
-        for img in eight:
-            resize_normalize(img, size, cfg.data.pixel_mean, cfg.data.pixel_std)
-        resize_ms = (time.perf_counter() - t0) * 1e3 / len(eight)
+        resize_ms = resize_ms_per_image(resize_normalize, eight, cfg)
         log(f"  stage ms (CUDA events, median of 5): {json.dumps(stages)}")
-        log(f"  host resize_normalize: {resize_ms:.2f} ms per image (numpy)")
+        log(f"  host resize_normalize: {resize_ms:.2f} ms per image (C++)")
 
         lat = []
         for _ in range(REPS):
@@ -1222,6 +1265,312 @@ def phase_train(torch, cfg=None, device=None):
     return launches, train
 
 
+VOC_SIZES = ((375, 500), (500, 333), (333, 500), (500, 375), (480, 640), (366, 500),
+             (500, 400), (281, 500))  # (H, W) shapes common in Pascal VOC
+
+
+class VOCLikeDataset:
+    """``n`` seeded uint8 images of VOC's common sizes, each with 1-4 planted
+    class-coloured rectangles (about 1 in 8 marked difficult), held as
+    decoded pixels: ``__getitem__`` runs the C++ resize and box scaling as
+    the VOC reader does after its decode, so no JPEG codec is needed.
+    Samples are the VOC reader's (``data/voc.py``)."""
+
+    def __init__(self, data_cfg, n=64, seed=0, num_classes=21):
+        rng = np.random.default_rng(seed)
+        self.cfg = data_cfg
+        m = data_cfg.max_boxes
+        self.images, self.boxes, self.labels, self.difficult = [], [], [], []
+        for i in range(n):
+            h, w = VOC_SIZES[i % len(VOC_SIZES)]
+            img = rng.integers(0, 60, (h, w, 3), dtype=np.uint8)
+            boxes = np.full((m, 4), -1.0, np.float32)
+            labels = np.full((m,), -1, np.int32)
+            difficult = np.zeros((m,), bool)
+            for j in range(int(rng.integers(1, 5))):
+                bh, bw = int(rng.integers(h // 6, h // 2)), int(rng.integers(w // 6, w // 2))
+                r1, c1 = int(rng.integers(0, h - bh)), int(rng.integers(0, w - bw))
+                cls = int(rng.integers(1, num_classes))
+                colour = 80 + 170 * np.asarray([cls % 3, (cls // 3) % 3, (cls // 9) % 3]) / 2
+                img[r1:r1 + bh, c1:c1 + bw] = np.clip(
+                    colour + rng.integers(-12, 13, (bh, bw, 3)), 0, 255).astype(np.uint8)
+                boxes[j] = [r1, c1, r1 + bh, c1 + bw]
+                labels[j] = cls
+                difficult[j] = rng.uniform() < 0.125
+            self.images.append(img)
+            self.boxes.append(boxes)
+            self.labels.append(labels)
+            self.difficult.append(difficult)
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, i):
+        from replication_faster_rcnn_tpu_torch.data.native_ops import resize_normalize, scale_boxes
+
+        h, w = self.images[i].shape[:2]
+        new_h, new_w = self.cfg.image_size
+        labels, difficult = self.labels[i], self.difficult[i]
+        real = labels >= 0
+        return {
+            "image": resize_normalize(self.images[i], self.cfg.image_size, self.cfg.pixel_mean,
+                                      self.cfg.pixel_std),
+            "boxes": scale_boxes(self.boxes[i], labels, new_h / h, new_w / w),
+            "labels": labels,
+            "mask": real & ~difficult,
+            "difficult": difficult & real,
+        }
+
+
+EVAL_BATCH = 8
+EVAL_SWEEPS = 8  # timed sweeps per mode, after the counted one
+EVAL_PREDICT_REPS = 10
+# the train-set mAP@0.5 of benchmarks/map_overfit.py's recipe in the JAX
+# package (benchmarks/map_overfit_result.json: a CPU float32 run, not a card
+# number)
+JAX_OVERFIT_MAP = 0.9591666666666667
+OVERFIT_MAP_FLOOR = 0.5
+OVERFIT_STEPS = 360  # 60 epochs of 48 images at batch 8
+
+
+def phase_evaluate(torch, cfg=None, device=None, n_images=64):
+    """Phase [7]: the ``Evaluator`` over a VOC-like dataset at batch 8, flip
+    TTA off and on. ``cfg``/``device`` default to the full configuration on
+    the card (a CPU rehearsal passes a small configuration and ``"cpu"``)."""
+    import dataclasses
+
+    from replication_faster_rcnn_tpu_torch import get_config
+    from replication_faster_rcnn_tpu_torch.data.loader import collate
+    from replication_faster_rcnn_tpu_torch.data.native_ops import (
+        resize_normalize, resize_normalize_plain)
+    from replication_faster_rcnn_tpu_torch.eval.evaluator import Evaluator
+    from replication_faster_rcnn_tpu_torch.models.faster_rcnn import build_model
+    from replication_faster_rcnn_tpu_torch.ops import nms as nms_ops
+    from replication_faster_rcnn_tpu_torch.ops.cuda import nms_kernel, roi_kernel
+
+    cfg = cfg or get_config("voc12_resnet18_align")
+    dev = torch.device(device or "cuda")
+    size = cfg.data.image_size
+    log(f"[7] main path: evaluate voc12_resnet18_align {size} (compute "
+        f"{cfg.model.compute_dtype}) via Evaluator over {n_images} VOC-sized images, batch "
+        f"{EVAL_BATCH}, {cfg.proposals.pre_nms_test} -> {cfg.proposals.post_nms_test} proposals, "
+        f"detection NMS at {cfg.eval.nms_thresh} -> {cfg.eval.max_detections}")
+    ds = VOCLikeDataset(cfg.data, n_images)
+    for img in ds.images:
+        got = resize_normalize(img, size, cfg.data.pixel_mean, cfg.data.pixel_std)
+        if not np.array_equal(got, resize_normalize_plain(img, size, cfg.data.pixel_mean,
+                                                          cfg.data.pixel_std)):
+            raise AssertionError(f"C++ resize of a {img.shape} image differs from numpy")
+    resize = {"cpp_ms_per_image": resize_ms_per_image(resize_normalize, ds.images, cfg),
+              "numpy_ms_per_image": resize_ms_per_image(resize_normalize_plain,
+                                                        ds.images[:16], cfg)}
+    log(f"  host resize_normalize to {size}: C++ {resize['cpp_ms_per_image']:.3f} ms per image "
+        f"(over {len(ds)}), numpy {resize['numpy_ms_per_image']:.3f} ms (over 16); bitwise equal "
+        f"on all {len(ds)}")
+
+    model = build_model(cfg, device=dev, seed=0)
+    probe = collate([ds[i] for i in range(EVAL_BATCH)])["image"]
+    n_batches = -(-len(ds) // EVAL_BATCH)
+    evaluators, sweeps, launches = {}, {}, {"nms": 0, "roi_align": 0}
+    for tta in (False, True):
+        mode = "tta" if tta else "plain"
+        ev = evaluators[mode] = Evaluator(
+            cfg.replace(eval=dataclasses.replace(cfg.eval, tta_hflip=tta)), device=dev)
+        # one batch with the NMS calls' shapes recorded (and as the warm-up)
+        shapes, real = [], nms_ops.nms_fixed_cuda
+
+        def record(boxes, scores, thresh, max_out, **kw):
+            shapes.append((tuple(boxes.shape[:2]), max_out))
+            return real(boxes, scores, thresh, max_out, **kw)
+
+        nms_ops.nms_fixed_cuda = record
+        try:
+            got = ev.predict_batch(model, probe)
+        finally:
+            nms_ops.nms_fixed_cuda = real
+        r, c = cfg.proposals.post_nms_test, cfg.model.num_classes
+        want = ([((EVAL_BATCH, cfg.proposals.pre_nms_test), r)] * (2 if tta else 1)
+                + [((EVAL_BATCH, (2 if tta else 1) * r * c), cfg.eval.max_detections)])
+        if shapes != want:
+            raise AssertionError(f"{mode}: NMS calls {shapes}, expected {want}")
+        plain = ev.predict_batch(model, probe, reference=True)
+        for k in got:
+            if not np.array_equal(got[k], plain[k]):
+                raise AssertionError(f"{mode}: detections {k!r} differ from the plain run")
+        log(f"  {mode}: NMS calls of one batch {shapes}; kernel detections == plain "
+            f"(reference_scope) detections, bitwise ({int(got['valid'].sum())} valid)")
+
+        nms_kernel.launches = 0
+        roi_kernel.launches = 0
+        result = ev.evaluate(model, ds, batch_size=EVAL_BATCH)
+        run = {"nms": nms_kernel.launches, "roi_align": roi_kernel.launches}
+        per_batch = {"nms": 3 if tta else 2, "roi_align": 2 if tta else 1}
+        log(f"  {mode}: launches in the main-path run {run} over {n_batches} batches; "
+            f"mAP@0.5 {result['mAP']:.4f} (random weights)")
+        if run != {k: v * n_batches for k, v in per_batch.items()}:
+            raise AssertionError(f"{mode}: expected per batch {per_batch}, got {run}")
+        if not (np.isfinite(result["mAP"]) and 0.0 <= result["mAP"] <= 1.0):
+            raise AssertionError(f"{mode}: mAP {result['mAP']} is not in [0, 1]")
+        predict_ms = []
+        for _ in range(EVAL_PREDICT_REPS):
+            t1 = time.perf_counter()
+            ev.predict_batch(model, probe)
+            predict_ms.append((time.perf_counter() - t1) * 1e3)
+        sweeps[mode] = {
+            "predict_batch_ms": statistics.median(predict_ms), "mAP": result["mAP"],
+            "launches": run, "launches_per_batch": per_batch, "nms_calls_per_batch": shapes,
+            "sweep_s": [], "score_s": [],
+        }
+        for k in launches:
+            launches[k] += run[k]
+
+    # the rate: EVAL_SWEEPS whole sweeps per mode, the modes alternating, so
+    # each mode's total spans a few seconds and both see the same host
+    for _ in range(EVAL_SWEEPS):
+        for mode, ev in evaluators.items():
+            rec, score = sweeps[mode], ev._score
+
+            def timed_score(*args, rec=rec, score=score):
+                t0 = time.perf_counter()
+                out = score(*args)
+                rec["score_s"].append(time.perf_counter() - t0)
+                return out
+
+            ev._score = timed_score
+            t0 = time.perf_counter()
+            ev.evaluate(model, ds, batch_size=EVAL_BATCH)
+            rec["sweep_s"].append(time.perf_counter() - t0)
+            ev._score = score
+    for mode, rec in sweeps.items():
+        total = sum(rec["sweep_s"])
+        rates = [len(ds) / t for t in rec["sweep_s"]]
+        rec.update({
+            "sweeps": EVAL_SWEEPS, "images": EVAL_SWEEPS * len(ds), "total_s": total,
+            "images_per_s": EVAL_SWEEPS * len(ds) / total,
+            "ms_per_batch": total / (EVAL_SWEEPS * n_batches) * 1e3,
+            "sweep_images_per_s_min_max": [min(rates), max(rates)],
+            "score_ms": statistics.median(rec["score_s"]) * 1e3,
+        })
+        log(f"  {mode}: evaluate {rec['images_per_s']:.1f} images/s over {EVAL_SWEEPS} sweeps of "
+            f"{len(ds)} images ({total:.3f} s; one sweep {min(rates):.1f}-{max(rates):.1f}), "
+            f"{rec['ms_per_batch']:.2f} ms per batch (loader, forward, decode, copy back, "
+            f"scoring); one batch's predict {rec['predict_batch_ms']:.2f} ms (median of "
+            f"{EVAL_PREDICT_REPS}); scoring {rec['score_ms']:.2f} ms per sweep")
+    return launches, {"resize": resize, "sweeps": sweeps}
+
+
+def overfit_config():
+    """The recipe of the JAX package's ``benchmarks/map_overfit.py``:
+    ``voc_resnet18`` with the ROIAlign head, anchor scales (1, 2, 4), float32,
+    128x128 synthetic images with up to 8 boxes, batch 8, Adam lr 3e-4,
+    60 epochs."""
+    import dataclasses
+
+    from replication_faster_rcnn_tpu_torch import get_config
+    from replication_faster_rcnn_tpu_torch.config import DataConfig, TrainConfig
+
+    base = get_config("voc_resnet18")
+    return base.replace(
+        anchors=dataclasses.replace(base.anchors, scales=(1.0, 2.0, 4.0)),
+        model=dataclasses.replace(base.model, roi_op="align", compute_dtype="float32"),
+        data=DataConfig(image_size=(128, 128), max_boxes=8),
+        train=TrainConfig(batch_size=8, n_epoch=60, lr=3e-4, seed=0),
+    )
+
+
+def int8_map(torch, state, dataset, calibration, cfg, dev, sweep=True):
+    """Calibrate (weight scales, the embed range from ``calibration``, then
+    the sensitivity sweep unless ``sweep`` is false: [5]'s procedure), build
+    the int8 resident tree and score its detections on ``dataset`` with
+    ``voc_ap``. Without the sweep every layer group stays int8."""
+    from replication_faster_rcnn_tpu_torch import quant
+    from replication_faster_rcnn_tpu_torch.data.loader import DataLoader
+    from replication_faster_rcnn_tpu_torch.eval.evaluator import make_int8_infer_fn
+    from replication_faster_rcnn_tpu_torch.eval.voc_eval import voc_ap
+    from replication_faster_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN, build_model
+    from replication_faster_rcnn_tpu_torch.quant.apply import tree_to
+
+    model = build_model(cfg, device=dev, state_dict=state)
+    artifact = quant.calibrate(model, state, calibration, cfg)
+    if sweep:
+        artifact = quant.sweep(model, state, artifact, calibration, cfg)
+    qvars = tree_to(quant.quantize_variables({k: v.cpu() for k, v in state.items()}, artifact),
+                    dev)
+    infer = make_int8_infer_fn(FasterRCNN(cfg, device="meta"), cfg)
+    dets, gts = [], []
+    for batch in DataLoader(dataset, EVAL_BATCH, drop_last=False, prefetch=0):
+        out = infer(qvars, torch.from_numpy(batch["image"]).to(dev))
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        for i in range(len(batch["image"])):
+            v = out["valid"][i]
+            dets.append({k: out[k][i][v] for k in ("boxes", "scores", "classes")})
+            real = batch["labels"][i] >= 0
+            gts.append({"boxes": batch["boxes"][i][real], "labels": batch["labels"][i][real]})
+    return {"mAP": voc_ap(dets, gts, cfg.model.num_classes)["mAP"],
+            "embed_range": artifact["activation_ranges"][quant.EMBED_RANGE_KEY],
+            "plan": artifact["plan"]}
+
+
+def phase_overfit(torch, cfg=None, device=None, steps=OVERFIT_STEPS, length=48):
+    """Phase [7], quality: the JAX package's overfit recipe trained with the
+    port's ``Trainer`` and scored by its ``Evaluator`` on the training set
+    (mAP@0.5 at least ``OVERFIT_MAP_FLOOR``), then the same weights in int8.
+    ``cfg``/``steps``/``device`` default to the recipe on the card."""
+    from replication_faster_rcnn_tpu_torch import quant
+    from replication_faster_rcnn_tpu_torch.data.synthetic import SyntheticDataset
+    from replication_faster_rcnn_tpu_torch.eval.evaluator import Evaluator
+    from replication_faster_rcnn_tpu_torch.ops.cuda import iou_kernel, nms_kernel, roi_kernel
+    from replication_faster_rcnn_tpu_torch.train.trainer import Trainer
+
+    cfg = cfg or overfit_config()
+    dev = torch.device(device or "cuda")
+    log(f"[7] quality: the JAX overfit recipe on the port: {cfg.data.image_size} "
+        f"{cfg.model.compute_dtype}, anchor scales {cfg.anchors.scales}, {length} synthetic "
+        f"images, batch {cfg.train.batch_size}, {steps} steps, lr {cfg.train.lr}")
+    ds = SyntheticDataset(cfg.data, "train", length=length)
+    trainer = Trainer(cfg, ds, device=dev, seed=0)
+    for mod in (nms_kernel, iou_kernel, roi_kernel):
+        mod.launches = 0
+    roi_kernel.backward_launches = 0
+    t0 = time.perf_counter()
+    history = trainer.train(steps)
+    train_s = time.perf_counter() - t0
+    launches = {"nms": nms_kernel.launches, "iou_match": iou_kernel.launches,
+                "roi_align": roi_kernel.launches, "roi_align_bwd": roi_kernel.backward_launches}
+    want = {"nms": 1, "iou_match": 2, "roi_align": 1, "roi_align_bwd": 1}
+    if launches != {k: v * steps for k, v in want.items()}:
+        raise AssertionError(f"expected per step {want}, got {launches} over {steps} steps")
+    losses = [h["loss"] for h in history]
+    if not np.isfinite(losses).all() or any(h["skipped"] for h in history):
+        raise AssertionError("a non-finite or skipped training step in the overfit run")
+    log(f"  {steps} steps in {train_s:.1f} s ({steps / train_s:.1f} steps/s, host collate "
+        f"included); loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches {launches}")
+    result = Evaluator(cfg, device=dev).evaluate(trainer.model, ds, batch_size=EVAL_BATCH)
+    f32 = result["mAP"]
+    log(f"  train-set mAP@0.5 {f32:.4f} (port, float32, on {dev}) beside the JAX package's "
+        f"{JAX_OVERFIT_MAP:.4f} (benchmarks/map_overfit_result.json, a CPU float32 run)")
+    if not f32 >= OVERFIT_MAP_FLOOR:
+        raise AssertionError(f"train-set mAP {f32} < {OVERFIT_MAP_FLOOR}: the port did not "
+                             "learn the planted rectangles")
+    state = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    qc = cfg.quant
+    synthetic = quant.synthetic_calibration_batches(cfg, qc.calib_batches, qc.calib_batch_size)
+    images = quant.dataset_calibration_batches(ds, qc.calib_batches, qc.calib_batch_size)
+    int8 = {
+        "synthetic_calibration": int8_map(torch, state, ds, synthetic, cfg, dev),
+        "dataset_calibration": int8_map(torch, state, ds, images, cfg, dev),
+        "dataset_calibration_all_int8": int8_map(torch, state, ds, images, cfg, dev, sweep=False),
+    }
+    for name, rec in int8.items():
+        log(f"  int8 ({name.replace('_', ' ')}: embed range {rec['embed_range']:.3f}, plan "
+            f"{rec['plan']}): train-set mAP@0.5 {rec['mAP']:.4f} against float32 {f32:.4f}")
+        if not (np.isfinite(rec["mAP"]) and 0.0 <= rec["mAP"] <= 1.0):
+            raise AssertionError(f"int8 mAP {rec['mAP']} is not in [0, 1]")
+    return launches, {"steps": steps, "train_s": train_s, "loss_first_last": [losses[0],
+                      losses[-1]], "train_set_mAP": f32, "jax_cpu_record_mAP": JAX_OVERFIT_MAP,
+                      "int8": int8}
+
+
 def main():
     try:
         import torch
@@ -1262,6 +1611,9 @@ def main():
     launches, serve = phase_serve(torch)
     qlaunches, serve_int8 = phase_int8_serve(torch, serve)
     tlaunches, train = phase_train(torch)
+    elaunches, evaluate = phase_evaluate(torch)
+    olaunches, overfit = phase_overfit(torch)
+    evaluate["overfit"] = overfit
 
     nms, det, roi = res["nms_proposal"], res["nms_detection"], res["roi_bf16"]
     nms_tr, nms_cl, bwd = res["nms_train"], res["nms_train_clustered"], res["roi_bwd_bf16"]
@@ -1276,19 +1628,23 @@ def main():
             "kernels": list(NMS_KERNELS),
             "note": "one call = the card-wide IoU bitmask kernel + the per-image greedy walk; "
                     "ms, launches and bound cover both",
-            "launches": launches["nms"] + qlaunches["nms"] + tlaunches["nms"],
+            "launches": (launches["nms"] + qlaunches["nms"] + tlaunches["nms"]
+                         + elaunches["nms"] + olaunches["nms"]),
             "launches_by_path": {"serve": launches["nms"], "serve_int8": qlaunches["nms"],
-                                 "train": tlaunches["nms"]},
-            "parity": "bitwise vs nms_fixed_tiled (proposal, detection, clustered, training, "
-                      "clustered training)",
+                                 "train": tlaunches["nms"], "evaluate": elaunches["nms"],
+                                 "overfit_train": olaunches["nms"]},
+            "parity": "bitwise vs nms_fixed_tiled (proposal, detection, TTA detection, "
+                      "clustered, training, clustered training)",
             "max_abs_err": max(r["max_abs_err"] for k, r in res.items() if k.startswith("nms")),
             "ms": nms["ms"], "plain_ms": nms["plain_ms"], "bound_ms": nms["bound_ms"],
             "bound_by": nms["bound_by"], "library_ms": None, "library_note": NO_LIBRARY,
             "shape": "proposal: 8 x 3000 sorted -> 300, thr 0.7",
             "detection_site": {k: det[k] for k in timing},
+            "tta_detection_site": {k: res["nms_detection_tta"][k] for k in timing},
             "training_site": {k: nms_tr[k] for k in timing},
             "training_site_clustered": {k: nms_cl[k] for k in timing},
             "outside_kernels_ms": {"proposal": nms["prep_ms"], "detection": det["prep_ms"],
+                                   "tta_detection": res["nms_detection_tta"]["prep_ms"],
                                    "training": nms_tr["prep_ms"],
                                    "training_clustered": nms_cl["prep_ms"]},
             "train_step_device_ms": None if train["device_timeline"] is None
@@ -1296,10 +1652,13 @@ def main():
         },
         {
             "name": "roi_align_fwd", "route": "cuda", "source": ROI_SRC, "replaces": ROI_TPU,
-            "launches": launches["roi_align"] + qlaunches["roi_align"] + tlaunches["roi_align"],
+            "launches": (launches["roi_align"] + qlaunches["roi_align"] + tlaunches["roi_align"]
+                         + elaunches["roi_align"] + olaunches["roi_align"]),
             "launches_by_path": {"serve": launches["roi_align"],
                                  "serve_int8": qlaunches["roi_align"],
-                                 "train": tlaunches["roi_align"]},
+                                 "train": tlaunches["roi_align"],
+                                 "evaluate": elaunches["roi_align"],
+                                 "overfit_train": olaunches["roi_align"]},
             "parity": "bitwise vs roi_align(method='gather') cast to the output dtype; "
                       "float32 outputs vs einsum within atol 2e-5 rtol 1e-5",
             "max_abs_err": max(r["max_abs_err"] for k, r in res.items()
@@ -1320,8 +1679,9 @@ def main():
         {
             "name": "roi_align_bwd", "route": "cuda", "source": ROI_SRC, "replaces": ROI_BWD_TPU,
             "replaces_note": ROI_BWD_NOTE,
-            "launches": tlaunches["roi_align_bwd"],
-            "launches_by_path": {"train": tlaunches["roi_align_bwd"]},
+            "launches": tlaunches["roi_align_bwd"] + olaunches["roi_align_bwd"],
+            "launches_by_path": {"train": tlaunches["roi_align_bwd"],
+                                 "overfit_train": olaunches["roi_align_bwd"]},
             "parity": f"vs roi_ops.roi_align_backward: {ROI_BWD_TOL} (the same terms grouped "
                       "by bin and summed in float32 in another order); two launches bitwise "
                       "equal (deterministic, no atomics)",
@@ -1337,8 +1697,9 @@ def main():
         },
         {
             "name": "iou_match", "route": "cuda", "source": IOU_SRC, "replaces": IOU_TPU,
-            "launches": tlaunches["iou_match"],
-            "launches_by_path": {"train": tlaunches["iou_match"]},
+            "launches": tlaunches["iou_match"] + olaunches["iou_match"],
+            "launches_by_path": {"train": tlaunches["iou_match"],
+                                 "overfit_train": olaunches["iou_match"]},
             "parity": "bitwise vs ops/iou_match.py::match_boxes (iou, argmax, max, column "
                       "argmax) at G = 32 and 64 and with exact ties; two launches bitwise "
                       "equal; one launch per call",
@@ -1381,7 +1742,8 @@ def main():
                     "flush); per_leaf_kernels_ms is the same flush as 23 dequantize_cuda calls",
         },
     ]
-    log(json.dumps({"serve": serve, "serve_int8": serve_int8, "train": train, "card": card}))
+    log(json.dumps({"serve": serve, "serve_int8": serve_int8, "train": train,
+                    "evaluate": evaluate, "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

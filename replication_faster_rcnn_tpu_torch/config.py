@@ -1,10 +1,11 @@
-"""Configuration for the PyTorch/CUDA port — the subset the serving and
-training paths read.
+"""Configuration for the PyTorch/CUDA port — the subset the serving,
+training and evaluation paths read.
 
 Field names, defaults and presets mirror ``replication_faster_rcnn_tpu.config``
 so a reader can hold the two side by side; knobs the port does not implement
 yet (FPN, VGG16, group norm, LAMB/LARS, warmup, K-step fusion,
-checkpointing, fleet) are left out rather than accepted and ignored.
+checkpointing, fleet, COCO data, caches, augmentation) are left out rather
+than accepted and ignored.
 
 Box convention: boxes are ``[r1, c1, r2, c2]`` (``r`` along image rows,
 ``c`` along columns) and deltas ``[dr, dc, dh, dw]``.
@@ -15,7 +16,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
-VOC_NUM_CLASSES = 21  # 20 VOC classes + background
+VOC_CLASSES: Tuple[str, ...] = (
+    "__background__",
+    "aeroplane", "bicycle", "bird", "boat",
+    "bottle", "bus", "car", "cat", "chair",
+    "cow", "diningtable", "dog", "horse",
+    "motorbike", "person", "pottedplant",
+    "sheep", "sofa", "train", "tvmonitor",
+)
+VOC_NUM_CLASSES = len(VOC_CLASSES)  # 20 VOC classes + background
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,10 +104,16 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
+    root_dir: str = "data/voc/VOCdevkit/VOC2012"
     image_size: Tuple[int, int] = (600, 600)
     max_boxes: int = 32  # gt boxes per image, padded with -1 labels
+    # difficult objects join the training mask (evaluation always ignores them)
+    use_difficult: bool = False
     pixel_mean: Tuple[float, float, float] = (0.485, 0.456, 0.406)
     pixel_std: Tuple[float, float, float] = (0.229, 0.224, 0.225)
+    # threaded loader (data/loader.py): -1 = min(4, the cores this process may use)
+    loader_workers: int = -1
+    loader_prefetch: int = 2  # batches built ahead of the consumer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,6 +165,17 @@ class EvalConfig:
     score_thresh: float = 0.05
     nms_thresh: float = 0.3
     max_detections: int = 100
+    iou_thresh: float = 0.5  # mAP@0.5
+    use_07_metric: bool = False  # area under the PR curve; True = 11-point
+    metric: str = "voc"  # "voc" (mAP@iou_thresh) | "coco" (mAP@[.50:.95])
+    # flip test-time augmentation: a second forward on the mirrored image,
+    # its candidates reflected back and merged before the one per-class NMS
+    # (eval/detect.py::batched_decode_tta)
+    tta_hflip: bool = False
+
+    def __post_init__(self):
+        if self.metric not in ("voc", "coco"):
+            raise ValueError(f"metric must be 'voc' or 'coco', got {self.metric!r}")
 
 
 @dataclasses.dataclass(frozen=True)

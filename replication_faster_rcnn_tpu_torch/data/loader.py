@@ -1,9 +1,25 @@
-"""Batch assembly (the JAX package's ``data/loader.py::collate``, numpy only;
-the threaded loader, caching and augmentation are not ported yet)."""
+"""Batch assembly and a threaded loader (counterpart of the JAX package's
+``data/loader.py``: ``collate`` and the ``worker_mode="thread"`` loader).
+
+A producer thread builds batches ahead of the consumer into a bounded
+queue; a pool of worker threads builds the samples of each batch. Samples
+are numpy only: the JPEG decode and the resize are ctypes calls into the
+host library, which release the interpreter lock, so the workers run them in
+parallel. Workers never touch a CUDA tensor: every device call stays on the
+consumer's thread. Batches come out in order.
+
+Not ported yet: the shuffled epoch order (the trainer shuffles its own
+batches), worker processes, the RAM cache, augmentation, sample-fault
+containment and multi-process sharding.
+"""
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+import os
+import queue
+import threading
+from concurrent import futures
+from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -11,3 +27,96 @@ import numpy as np
 def collate(samples: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
     """Stack per-sample dicts into one batch dict."""
     return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
+
+class DataLoader:
+    """Iterable over collated batches of a map-style dataset, in index order.
+
+    ``drop_last``: drop the trailing partial batch. ``prefetch``: batches
+    built ahead (0 builds each batch on the consumer's thread).
+    ``num_workers``: threads building the samples of a batch; negative means
+    min(4, the cores this process may run on)."""
+
+    def __init__(
+        self,
+        dataset,
+        batch_size: int,
+        drop_last: bool = True,
+        prefetch: int = 2,
+        num_workers: int = 4,
+    ) -> None:
+        if batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.drop_last = drop_last
+        self.prefetch = prefetch
+        if num_workers < 0:
+            num_workers = min(4, len(os.sched_getaffinity(0)))
+        self.num_workers = max(1, num_workers)
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def _batches(self) -> Iterator[np.ndarray]:
+        n = len(self.dataset)
+        for i in range(len(self)):
+            yield np.arange(i * self.batch_size, min((i + 1) * self.batch_size, n))
+
+    def _build(self, idxs: np.ndarray,
+               pool: Optional[futures.ThreadPoolExecutor]) -> Dict[str, np.ndarray]:
+        if pool is None or len(idxs) == 1:
+            return collate([self.dataset[int(i)] for i in idxs])
+        return collate(list(pool.map(lambda i: self.dataset[int(i)], idxs)))
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        pool = futures.ThreadPoolExecutor(self.num_workers) if self.num_workers > 1 else None
+        try:
+            if self.prefetch <= 0:
+                for idxs in self._batches():
+                    yield self._build(idxs, pool)
+                return
+            yield from self._prefetched(pool)
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True, cancel_futures=True)
+
+    def _prefetched(self, pool) -> Iterator[Dict[str, np.ndarray]]:
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+        err: list = []
+
+        def put(item) -> bool:
+            """A bounded put that gives up once the consumer has gone."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer() -> None:
+            try:
+                for idxs in self._batches():
+                    if stop.is_set() or not put(self._build(idxs, pool)):
+                        return
+            except BaseException as e:  # handed to the consumer, which raises it
+                err.append(e)
+            finally:
+                put(None)
+
+        thread = threading.Thread(target=producer, name="data-loader", daemon=True)
+        thread.start()
+        try:
+            while True:
+                batch = q.get()
+                if batch is None:
+                    if err:
+                        raise err[0]
+                    return
+                yield batch
+        finally:
+            stop.set()
+            thread.join(timeout=60)

@@ -1,26 +1,55 @@
-"""The inference program: forward + decode as one function (counterpart of
-the JAX package's ``eval/evaluator.py::make_infer_fn`` and of
-``train/warmup.py::make_int8_infer_fn``; the mAP evaluator is not ported
-yet)."""
+"""The inference program and the dataset evaluator (counterpart of the JAX
+package's ``eval/evaluator.py`` and of ``train/warmup.py::make_int8_infer_fn``).
+
+:func:`make_infer_fn` is forward + decode as one function, with flip
+test-time augmentation when ``eval.tta_hflip`` is set; the serving engine
+builds one per bucket. :class:`Evaluator` runs it over a dataset (the
+threaded loader builds the batches on the host) and scores the detections
+on the host: VOC mAP@``eval.iou_thresh`` or the COCO summary.
+
+Not ported: the data-parallel eval mesh, the strict-mode gate and the
+device and RAM caches of the evaluation set.
+"""
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+import contextlib
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
+from torch import nn
 
 from replication_faster_rcnn_tpu_torch import ops
 from replication_faster_rcnn_tpu_torch.config import FasterRCNNConfig
-from replication_faster_rcnn_tpu_torch.eval.detect import batched_decode
+from replication_faster_rcnn_tpu_torch.data.loader import DataLoader
+from replication_faster_rcnn_tpu_torch.device import DeviceLike, resolve_device
+from replication_faster_rcnn_tpu_torch.eval.coco_eval import coco_summary
+from replication_faster_rcnn_tpu_torch.eval.detect import batched_decode, batched_decode_tta
+from replication_faster_rcnn_tpu_torch.eval.voc_eval import voc_ap
 from replication_faster_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN, functional_forward
 from replication_faster_rcnn_tpu_torch.quant.apply import build_infer_variables
 
 Tensor = torch.Tensor
+Outputs = Tuple[Tensor, Tensor, Tensor, Tensor]  # rois, roi_valid, cls, reg
 
 
 def _check_size(images: Tensor, h: int, w: int) -> None:
     if tuple(images.shape[1:3]) != (h, w):
         raise ValueError(f"expected [N, {h}, {w}, 3] images, got {tuple(images.shape)}")
+
+
+def _detect(forward: Callable[[Tensor], Outputs], images: Tensor, h: int, w: int,
+            config: FasterRCNNConfig) -> Dict[str, Tensor]:
+    """Forward + decode; with ``eval.tta_hflip`` a second forward on the
+    images mirrored along W (NHWC dim 2), whose candidates the decode
+    reflects back and merges."""
+    plain = forward(images)
+    if config.eval.tta_hflip:
+        mirrored = forward(torch.flip(images, dims=[2]))
+        return batched_decode_tta(plain, mirrored, float(h), float(w),
+                                  config.eval, config.roi_targets)
+    return batched_decode(*plain, float(h), float(w), config.eval, config.roi_targets)
 
 
 def make_infer_fn(
@@ -29,19 +58,15 @@ def make_infer_fn(
     image_size: Optional[Tuple[int, int]] = None,
 ) -> Callable[..., Dict[str, Tensor]]:
     """``infer(images, reference=False) -> detections`` for NHWC images of
-    ``image_size`` (default ``config.data.image_size``; the serving engine
-    builds one per bucket). ``reference=True`` runs the plain PyTorch
-    versions of the kernels (:class:`ops.reference_scope`)."""
+    ``image_size`` (default ``config.data.image_size``) and a model in
+    inference mode. ``reference=True`` runs the plain PyTorch versions of
+    the kernels (:class:`ops.reference_scope`)."""
     h, w = image_size if image_size is not None else config.data.image_size
 
     def infer(images: Tensor, reference: bool = False) -> Dict[str, Tensor]:
         _check_size(images, h, w)
         with torch.inference_mode(), ops.reference_scope(reference):
-            _, _, rois, valid, cls, reg, _ = model(images)
-            return batched_decode(
-                rois, valid, cls, reg, float(h), float(w),
-                config.eval, config.roi_targets,
-            )
+            return _detect(lambda x: model(x)[2:6], images, h, w, config)
 
     return infer
 
@@ -66,12 +91,98 @@ def make_int8_infer_fn(
         _check_size(images, h, w)
         with torch.inference_mode(), ops.reference_scope(reference):
             variables = build_infer_variables(qvars, config)
-            _, _, rois, valid, cls, reg, _ = functional_forward(
-                model, variables["params"], images, variables.get("quant")
-            )
-            return batched_decode(
-                rois, valid, cls, reg, float(h), float(w),
-                config.eval, config.roi_targets,
-            )
+
+            def forward(x: Tensor) -> Outputs:
+                return functional_forward(
+                    model, variables["params"], x, variables.get("quant"))[2:6]
+
+            return _detect(forward, images, h, w, config)
 
     return infer
+
+
+ModelOrParams = Union[nn.Module, Dict[str, Tensor]]
+
+
+class Evaluator:
+    """``Evaluator(config, model=None, device=None)``: the device defaults to
+    ``cuda`` (raising without a GPU). ``model`` receives the weights when
+    :meth:`evaluate` is given a state dict instead of a model; without one,
+    the first state dict builds a :class:`FasterRCNN` on the device."""
+
+    def __init__(self, config: FasterRCNNConfig, model: Optional[FasterRCNN] = None,
+                 device: DeviceLike = None):
+        self.config = config
+        self.device = resolve_device(device)
+        self.model = model
+
+    def _model(self, model_or_params: ModelOrParams) -> nn.Module:
+        if isinstance(model_or_params, nn.Module):
+            return model_or_params
+        if self.model is None:
+            self.model = FasterRCNN(self.config, device=self.device)
+        self.model.load_state_dict(model_or_params)
+        return self.model
+
+    @contextlib.contextmanager
+    def _inference(self, model_or_params: ModelOrParams):
+        """The model in inference mode (BatchNorm on its running statistics)
+        for the block; a model that was training is switched back after."""
+        model = self._model(model_or_params)
+        was_training = model.training
+        model.eval()
+        try:
+            yield model
+        finally:
+            model.train(was_training)
+
+    def _predict(self, model: nn.Module, images: np.ndarray,
+                 reference: bool = False) -> Dict[str, np.ndarray]:
+        dev = next(model.parameters()).device
+        batch = torch.from_numpy(np.ascontiguousarray(images, np.float32)).to(dev)
+        h, w = batch.shape[1:3]
+        out = make_infer_fn(model, self.config, (h, w))(batch, reference=reference)
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def predict_batch(self, model_or_params: ModelOrParams, images: np.ndarray,
+                      reference: bool = False) -> Dict[str, np.ndarray]:
+        """Detections of one NHWC float32 batch, as numpy arrays of [N, D, ...]."""
+        with self._inference(model_or_params) as model:
+            return self._predict(model, images, reference)
+
+    def _score(self, detections: List[Dict[str, np.ndarray]],
+               gts: List[Dict[str, np.ndarray]]) -> Dict[str, Any]:
+        if self.config.eval.metric == "coco":
+            return coco_summary(detections, gts, self.config.model.num_classes,
+                                max_dets=self.config.eval.max_detections)
+        return voc_ap(detections, gts, self.config.model.num_classes,
+                      iou_thresh=self.config.eval.iou_thresh,
+                      use_07_metric=self.config.eval.use_07_metric)
+
+    def evaluate(self, model_or_params: ModelOrParams, dataset, batch_size: int = 8,
+                 max_images: Optional[int] = None) -> Dict[str, Any]:
+        """Detect over ``dataset`` in order and score against its ground
+        truth: ``{'mAP', 'ap_per_class', ...}`` as the JAX evaluator returns
+        it. A short tail batch runs at its own size (the outputs of an image
+        do not depend on the others in its batch, so nothing is padded).
+        Difficult objects are ground truth marked ``ignore``."""
+        data = self.config.data
+        loader = DataLoader(dataset, batch_size=batch_size, drop_last=False,
+                            prefetch=data.loader_prefetch, num_workers=data.loader_workers)
+        detections: List[Dict[str, np.ndarray]] = []
+        gts: List[Dict[str, np.ndarray]] = []
+        with self._inference(model_or_params) as model:
+            for batch in loader:
+                out = self._predict(model, batch["image"])
+                for i in range(len(batch["image"])):
+                    valid = out["valid"][i]
+                    detections.append({k: out[k][i][valid] for k in ("boxes", "scores", "classes")})
+                    lab = batch["labels"][i]
+                    diff = batch.get("difficult")
+                    diff = diff[i] if diff is not None else np.zeros_like(lab, bool)
+                    real = lab >= 0
+                    gts.append({"boxes": batch["boxes"][i][real], "labels": lab[real],
+                                "ignore": diff[real]})
+                if max_images is not None and len(detections) >= max_images:
+                    break
+        return self._score(detections, gts)

@@ -59,6 +59,7 @@ def _entry_points():
     from replication_faster_rcnn_tpu_torch import config, resolve_device
     from replication_faster_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN, build_model
     from replication_faster_rcnn_tpu_torch.data.synthetic import SyntheticDataset
+    from replication_faster_rcnn_tpu_torch.eval.evaluator import Evaluator
     from replication_faster_rcnn_tpu_torch.serving.engine import InferenceEngine
     from replication_faster_rcnn_tpu_torch.train.trainer import Trainer
 
@@ -69,26 +70,28 @@ def _entry_points():
         "build_model": lambda **kw: build_model(cfg, **kw),
         "InferenceEngine": lambda **kw: InferenceEngine(cfg, **kw),
         "Trainer": lambda **kw: Trainer(cfg, SyntheticDataset(cfg.data, length=8), **kw),
+        "Evaluator": lambda **kw: Evaluator(cfg, **kw),
     }
 
 
-@pytest.mark.parametrize(
-    "name", ["resolve_device", "FasterRCNN", "build_model", "InferenceEngine", "Trainer"]
-)
-def test_entry_points_default_to_cuda(name, monkeypatch):
-    """With no device argument an entry point targets cuda: without a GPU it
-    raises; with device="cpu" it runs on the CPU."""
+def test_entry_points_default_to_cuda(monkeypatch):
+    """With no device argument every entry point targets cuda: without a GPU
+    it raises; with device="cpu" it runs on the CPU. One test id walks all
+    of them (each test id costs the fast tier's budget)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    make = _entry_points()[name]
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        make()
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        make(device="cuda")
-    obj = make(device="cpu")
-    dev = obj if isinstance(obj, torch.device) else obj.device
-    assert dev.type == "cpu"
-    if hasattr(obj, "close"):
-        obj.close()
+    entry_points = _entry_points()
+    assert list(entry_points) == ["resolve_device", "FasterRCNN", "build_model",
+                                  "InferenceEngine", "Trainer", "Evaluator"]
+    for name, make in entry_points.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(device="cuda")
+        obj = make(device="cpu")
+        dev = obj if isinstance(obj, torch.device) else obj.device
+        assert dev.type == "cpu", name
+        if hasattr(obj, "close"):
+            obj.close()
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
