@@ -29,13 +29,22 @@ H100:  ``python3 chip_smoke.py``. It
    23 conv weights of the model, into float32 and bfloat16, one by one and
    all at once in one grouped launch (``dequantize_many``, timed beside the
    per-leaf loop), with the library calls ``torch._int_mm`` and
-   ``torch.mul`` timed beside them;
-4. serves ``voc12_resnet18_align`` at 600x600 (ResNet18, 21 classes, ROIAlign
-   7x7 s=2, seeded random weights resident in bfloat16) through
-   ``InferenceEngine``: one request, then 8 mixed-size images as one b8
-   flush, with the kernels' launch counters reset just before and read just
-   after; the same requests then go through the plain versions
-   (``reference=True``) and every output must be equal;
+   ``torch.mul`` timed beside them; ROIPool forward bitwise against the
+   plain masked maxes at serving 8 x 300 and 1 x 300 and training 8 x 128
+   rois, float32 and bfloat16, integer-valued features (exact ties) and
+   maps with NaN and +-inf, and its backward (8 x 128) bitwise across two
+   launches and within ``ROI_POOL_BWD`` of the plain VJP on float32 copies;
+4. serves ``voc12_resnet18_align`` (ResNet18, 21 classes, ROIAlign 7x7 s=2)
+   and then the flagship ``voc_resnet18`` (ROIPool 7x7) at 600x600, seeded
+   random weights resident in bfloat16, through ``InferenceEngine``: one
+   request, then 8 mixed-size images as one b8 flush, with the kernels'
+   launch counters reset just before and read just after each flush (per
+   flush: NMS 2, the preset's ROI forward 1, the other ROI op 0); the same
+   requests then go through the plain versions (``reference=True``) and
+   every output must be equal. Then one b1 forward each of ``voc_resnet50``,
+   ``coco_resnet50`` and ``coco_vgg16`` at 600x600, launch counts asserted,
+   bitwise equal to the plain replay, with the flush time and the resident
+   bytes;
 5. serves the same model in int8: calibrates it on the card with
    ``quant.synthetic_calibration_batches`` and runs the sensitivity sweep
    (``QuantConfig`` defaults), writes the sidecar under ``build/``, then
@@ -45,15 +54,17 @@ H100:  ``python3 chip_smoke.py``. It
    stays int8, NMS 2, ROIAlign 1); the replay through the plain versions must
    give bitwise equal detections; the resident tree must be under 0.4 x the float32
    weights and the engine's device memory below the bfloat16 engine's;
-6. trains ``voc12_resnet18_align`` at 600x600, batch 8 (bfloat16 compute,
-   float32 parameters, 12000 -> 600 proposals, 256 anchor and 128 roi
-   samples per image) with the ``Trainer`` on ``SyntheticDataset``: 2
-   warm-up steps, then ``TRAIN_REPS`` timed steps with the launch counters
-   reset just before and read just after (per step: NMS 1, IoU matching 2,
-   ROIAlign forward 1 and backward 1); every loss must be finite; the
-   profiler's timeline of 3 more steps gives the NMS kernels' (mask and
-   walk), the ROIAlign kernels' (forward and backward) and the IoU-matching
-   kernel's device ms per step. One more forward and backward from the same
+6. trains ``voc12_resnet18_align``, then ``voc_resnet18``, at 600x600, batch
+   8 (bfloat16 compute, float32 parameters, 12000 -> 600 proposals, 256
+   anchor and 128 roi samples per image) with the ``Trainer`` on
+   ``SyntheticDataset``: 2 warm-up steps, then ``TRAIN_REPS`` timed steps
+   with the launch counters reset just before and read just after (per
+   step: NMS 1, IoU matching 2, the preset's ROI forward 1 and backward 1,
+   the other ROI op 0); every loss must be finite; the profiler's timeline
+   of 3 more steps gives the NMS kernels' (mask and walk), the ROI
+   kernels' (forward and backward) and the IoU-matching kernel's device ms
+   per step, and the device's idle share; the peak device memory of the
+   warm-up and timed steps. One more forward and backward from the same
    state and the same draws runs under
    ``ops.reference_scope()``: targets, labels, the four losses and the new
    BatchNorm statistics must be bitwise equal to the kernel pass, and each
@@ -115,6 +126,10 @@ GEMM_TPU = "replication_faster_rcnn_tpu/ops/pallas/quant_kernel.py:43"
 DEQUANT_TPU = "replication_faster_rcnn_tpu/ops/pallas/quant_kernel.py:84"
 NO_LIBRARY = ("torch core has no NMS, ROIAlign or IoU-matching operator "
               "(torchvision is not installed)")
+POOL_SRC = "replication_faster_rcnn_tpu_torch/csrc/roi_pool_kernel.cu"
+POOL_JAX = "replication_faster_rcnn_tpu/ops/roi_ops.py:159"
+POOL_NOTE = "not a Pallas kernel: the JAX package runs ROIPool as XLA masked maxes"
+NO_POOL_LIBRARY = "torch core has no ROIPool operator (torchvision is not installed)"
 
 FEAT = (38, 38, 256)  # ResNet18 stride-16 features of a 600x600 image
 SLEEP_CYCLES = 10**8  # ~50 ms of device sleep at the H100's ~2 GHz clock
@@ -129,6 +144,14 @@ TRAIN_REPS = 10  # timed training steps
 # float32 compute.
 GRAD_RTOL = 5e-2
 ROI_BWD_TOL = {"float32": {"atol": 1e-4, "rtol": 1e-5}, "bfloat16": {"atol": 1e-4, "rtol": 2**-7}}
+# the ROIPool backward kernel against the plain VJP on float32 copies of the
+# same values: the same terms summed in float32 in another order (float32
+# features: max 5.7e-6 measured on the H100 at 8 x 128 rois), and for
+# bfloat16 features one bfloat16 ulp of that gradient rounded once, or the
+# float32 atol where a sum cancels to near zero (the two float32 orders then
+# differ by more than one bfloat16 ulp of the small result)
+ROI_POOL_BWD = {"float32": {"atol": 1e-5, "rtol": 1e-6},
+                "bfloat16": "one bfloat16 ulp of the value, or atol 1e-5"}
 
 
 def log(msg):
@@ -370,6 +393,114 @@ def check_roi_bwd(torch, name, grad_out, rois, feat_shape, feat_dtype):
     bound_ms, bound_by = roi_bwd_bound(torch, grad_out, rois, feat_shape, feat_dtype, 7, 2)
     log(f"  roi_align_bwd {name}: max |kernel - plain| {err:.3e} ({tol}), two launches bitwise "
         f"equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err, "deterministic": True}
+
+
+def pool_bin_elements(torch, rois, out, h, w):
+    """Feature pixels summed over every ROIPool bin of ``rois`` (feature
+    coordinates), with ``roi_ops.roi_pool``'s bin edges: the maxima the
+    forward takes per channel."""
+    from replication_faster_rcnn_tpu_torch.ops.roi_ops import _reciprocal
+
+    r = rois.float()
+    inv = _reciprocal(out)
+    p = torch.arange(out, dtype=torch.float32, device=r.device)
+
+    def extents(a, b, extent):
+        start, end = torch.round(a), torch.round(b)
+        size = torch.clamp(end - start + 1.0, min=1.0) * inv
+        lo = torch.clamp(torch.floor(p * size[..., None]) + start[..., None], 0, extent)
+        hi = torch.clamp(torch.ceil((p + 1) * size[..., None]) + start[..., None], 0, extent)
+        return torch.nan_to_num(torch.clamp(hi - lo, min=0.0))  # [N, R, out]
+
+    rows, cols = extents(r[..., 0], r[..., 2], h), extents(r[..., 1], r[..., 3], w)
+    return int((rows[..., :, None] * cols[..., None, :]).sum())
+
+
+def check_roi_pool(torch, name, feat, rois):
+    """ROIPool forward kernel against the plain masked maxes (bitwise: the
+    same maxima, the same zeros for non-finite bins), then the times. Bound:
+    the map, the rois and the output once; one comparison per channel and
+    bin pixel of this run's rois."""
+    from replication_faster_rcnn_tpu_torch.ops.cuda.roi_kernel import roi_pool_cuda
+    from replication_faster_rcnn_tpu_torch.ops.roi_ops import roi_pool
+
+    got = roi_pool_cuda(feat, rois, 7)
+    want = roi_pool(feat, rois, 7)
+    torch.cuda.synchronize()
+    if got.dtype != feat.dtype or got.shape != want.shape:
+        raise AssertionError(f"ROIPool {name}: got {got.dtype} {tuple(got.shape)}")
+    if not torch.equal(got, want):
+        err = float((got.float() - want.float()).abs().max())
+        raise AssertionError(f"ROIPool {name}: kernel differs from the plain version by {err}")
+    ms = time_ms(torch, lambda: roi_pool_cuda(feat, rois, 7), 20)
+    plain_ms = time_ms(torch, lambda: roi_pool(feat, rois, 7), 2, 1, runs=3)
+    n, h, w, c = feat.shape
+    nbytes = (feat.numel() + got.numel()) * feat.element_size() + rois.numel() * 4
+    bound_ms, bound_by = bound(nbytes, pool_bin_elements(torch, rois, 7, h, w) * c, F32_FLOPS)
+    log(f"  roi_pool {name}: bitwise equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.5f} ms ({bound_by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": 0.0}
+
+
+def bf16_ulp(torch, x):
+    """One bfloat16 ulp at each |x| (8 significant bits; subnormal spacing at 0)."""
+    _, e = torch.frexp(x.float())
+    return torch.where(x != 0, torch.ldexp(torch.ones_like(x.float()), e - 8),
+                       torch.full_like(x.float(), 2.0**-133))
+
+
+def check_roi_pool_bwd(torch, name, grad_out, feat, rois):
+    """ROIPool backward kernel: two launches bitwise equal, finite, and
+    against the plain VJP on float32 copies of the same values (``ROI_POOL_BWD``
+    tolerances) wherever that is finite (a NaN in a bin spreads along its
+    channel in the plain VJP; the kernel passes nothing through it). Bound:
+    grad_out, the map and the rois read once, grad_feat written once; per
+    channel and bin pixel a comparison in each pass, and a division per bin."""
+    from replication_faster_rcnn_tpu_torch.ops.cuda.roi_kernel import roi_pool_backward_cuda
+    from replication_faster_rcnn_tpu_torch.ops.roi_ops import roi_pool_backward
+
+    got = roi_pool_backward_cuda(grad_out, feat, rois, 7)
+    again = roi_pool_backward_cuda(grad_out, feat, rois, 7)
+    want = roi_pool_backward(grad_out, feat.float(), rois, 7)
+    torch.cuda.synchronize()
+    if got.dtype != feat.dtype or got.shape != feat.shape:
+        raise AssertionError(f"ROIPool backward {name}: got {got.dtype} {tuple(got.shape)}")
+    bits = torch.int32 if got.dtype == torch.float32 else torch.int16
+    if not torch.equal(got.view(bits), again.view(bits)):
+        raise AssertionError(f"ROIPool backward {name}: two launches on the same inputs differ")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"ROIPool backward {name}: a non-finite gradient")
+    fin = torch.isfinite(want)
+    g, p = got.float()[fin], want[fin]
+    err = float((g - p).abs().max()) if g.numel() else 0.0
+    if feat.dtype == torch.float32:
+        ok = torch.allclose(g, p, **ROI_POOL_BWD["float32"])
+    else:
+        ref = p.to(torch.bfloat16).float()  # the plain gradient rounded once
+        tol = torch.clamp(bf16_ulp(torch, ref), min=ROI_POOL_BWD["float32"]["atol"])
+        excess = (g - ref).abs() - tol
+        ok = bool((excess <= 0).all())
+        if not ok:
+            i = int(excess.argmax())
+            err = f"{err} (worst: kernel {float(g[i])}, plain rounded {float(ref[i])})"
+    if not ok:
+        raise AssertionError(f"ROIPool backward {name}: max err {err} beyond "
+                             f"{ROI_POOL_BWD[str(feat.dtype).split('.')[-1]]}")
+    ms = time_ms(torch, lambda: roi_pool_backward_cuda(grad_out, feat, rois, 7), 20)
+    plain_ms = time_ms(torch, lambda: roi_pool_backward(grad_out, feat.float(), rois, 7), 1, 1,
+                       runs=3)
+    n, h, w, c = feat.shape
+    nbytes = ((grad_out.numel() * grad_out.element_size() + rois.numel() * 4)
+              + 2 * feat.numel() * feat.element_size())
+    ops = 2 * pool_bin_elements(torch, rois, 7, h, w) * c + grad_out.numel()
+    bound_ms, bound_by = bound(nbytes, ops, F32_FLOPS)
+    log(f"  roi_pool_bwd {name}: two launches bitwise equal, max |kernel - plain| {err:.3e} "
+        f"over {int(fin.sum())} of {fin.numel()} finite plain entries "
+        f"({ROI_POOL_BWD[str(feat.dtype).split('.')[-1]]}), kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "max_abs_err": err, "deterministic": True}
 
@@ -685,7 +816,61 @@ def phase_kernels(torch):
     same = torch.tensor([5.3, 7.1, 30.2, 33.9], device=dev).expand(b, 128, 4).contiguous()
     res["roi_bwd_identical"] = check_roi_bwd(torch, "bf16 grad 8x128 identical rois", g16, same,
                                              shape, torch.bfloat16)
+    res.update(check_roi_pool_kernels(torch, dev, b))
     res.update(check_int8_kernels(torch, rng, dev))
+    return res
+
+
+def check_roi_pool_kernels(torch, dev, b):
+    """Phase [3] for ROIPool (own generator: the draws of the other cases
+    stay as they were): the forward at serving 8 x 300 and 1 x 300 and
+    training 8 x 128 rois on [38, 38, 256], float32 and bfloat16 features,
+    integer-valued features (exact ties) and maps with NaN and +-inf; the
+    backward at 8 x 128 from float32 and bfloat16 gradients, with ties, with
+    non-finite maps and with 128 identical rois per image."""
+    rng = np.random.default_rng(8)
+    bf16 = torch.bfloat16
+
+    def boxes(r):
+        rois = torch.from_numpy(rand_boxes(rng, (b, r), 600, 300) * (FEAT[0] / 600)).to(dev)
+        rois[:, :5] = torch.tensor([[-0.9, -0.9, 3.0, 3.0], [35.0, 34.0, 40.0, 41.0],
+                                    [2.2, 2.2, 2.2, 2.2], [-5.0, -5.0, -2.0, -1.5],
+                                    [float("nan"), 3.0, 9.0, 9.0]], device=dev)
+        return rois
+
+    feat = torch.from_numpy(rng.normal(0, 1, (b,) + FEAT).astype(np.float32)).to(dev)
+    ties = torch.from_numpy(rng.integers(-3, 4, (b,) + FEAT).astype(np.float32)).to(dev)
+    bad = feat.clone()
+    for value in (float("nan"), float("inf"), float("-inf")):  # 24 of each
+        flat = torch.from_numpy(rng.integers(0, bad.numel(), 24)).to(dev)
+        bad.view(-1)[flat] = value
+    rois, trois = boxes(300), boxes(128)
+    res = {
+        "pool_f32": check_roi_pool(torch, f"f32 8x300 {list(FEAT)}", feat, rois),
+        "pool_bf16": check_roi_pool(torch, f"bf16 8x300 {list(FEAT)}", feat.to(bf16), rois),
+        "pool_b1_bf16": check_roi_pool(torch, f"bf16 1x300 {list(FEAT)}", feat[:1].to(bf16),
+                                       rois[:1].contiguous()),
+        "pool_train_bf16": check_roi_pool(torch, f"bf16 8x128 {list(FEAT)}", feat.to(bf16),
+                                          trois),
+        "pool_ties_bf16": check_roi_pool(torch, "bf16 8x300 integer-valued (ties)",
+                                         ties.to(bf16), rois),
+        "pool_nonfinite_f32": check_roi_pool(torch, "f32 8x300 with NaN and +-inf", bad, rois),
+    }
+    g = torch.from_numpy(rng.normal(0, 1, (b, 128, 7, 7, FEAT[2])).astype(np.float32)).to(dev)
+    same = torch.tensor([5.3, 7.1, 30.2, 33.9], device=dev).expand(b, 128, 4).contiguous()
+    res.update({
+        "pool_bwd_f32": check_roi_pool_bwd(torch, f"f32 8x128 {list(FEAT)}", g, feat, trois),
+        "pool_bwd_bf16": check_roi_pool_bwd(torch, f"bf16 grad, bf16 8x128 {list(FEAT)}",
+                                            g.to(bf16), feat.to(bf16), trois),
+        "pool_bwd_ties_f32": check_roi_pool_bwd(torch, "f32 8x128 integer-valued (ties)", g,
+                                                ties, trois),
+        "pool_bwd_ties_bf16": check_roi_pool_bwd(torch, "bf16 grad, bf16 8x128 integer-valued",
+                                                 g.to(bf16), ties.to(bf16), trois),
+        "pool_bwd_nonfinite": check_roi_pool_bwd(torch, "f32 8x128 with NaN and +-inf", g, bad,
+                                                 trois),
+        "pool_bwd_identical": check_roi_pool_bwd(torch, "bf16 grad 8x128 identical rois",
+                                                 g.to(bf16), feat.to(bf16), same),
+    })
     return res
 
 
@@ -725,61 +910,107 @@ def resize_ms_per_image(fn, images, cfg):
     return (time.perf_counter() - t0) * 1e3 / len(images)
 
 
-def phase_serve(torch):
+def roi_counters():
+    """The ROI kernels' launch counters: (name, module, attribute)."""
+    from replication_faster_rcnn_tpu_torch.ops.cuda import roi_kernel
+
+    return (("roi_align", roi_kernel, "launches"), ("roi_align_bwd", roi_kernel, "backward_launches"),
+            ("roi_pool", roi_kernel, "pool_launches"),
+            ("roi_pool_bwd", roi_kernel, "pool_backward_launches"))
+
+
+def roi_launches(op, forward=1, backward=0):
+    """Expected ROI kernel launches: ``forward`` (and ``backward``) of the
+    config's op (``align`` or ``pool``), none of the other."""
+    want = {"roi_align": 0, "roi_align_bwd": 0, "roi_pool": 0, "roi_pool_bwd": 0}
+    want[f"roi_{op}"], want[f"roi_{op}_bwd"] = forward, backward
+    return want
+
+
+def check_served(results, images, cfg, require_detections=True):
+    """Detections of the right shape, finite and inside the original images,
+    and (``require_detections``) at least one; returns the valid count per
+    image."""
+    for res, img in zip(results, images):
+        if res["boxes"].shape != (cfg.eval.max_detections, 4):
+            raise AssertionError(f"bad boxes shape {res['boxes'].shape}")
+        if not (np.isfinite(res["boxes"]).all() and np.isfinite(res["scores"]).all()):
+            raise AssertionError("non-finite detections")
+        h, w = img.shape[:2]
+        if (res["boxes"][:, 0::2] > h + 1e-3).any() or (res["boxes"][:, 1::2] > w + 1e-3).any():
+            raise AssertionError("boxes outside the original image")
+    n_det = [int(r["valid"].sum()) for r in results]
+    if require_detections and sum(n_det) == 0:
+        raise AssertionError("no detections at all: the detection NMS saw no candidates")
+    return n_det
+
+
+def same_results(got, want, what):
+    for g, w in zip(got, want):
+        for k in g:
+            if not np.array_equal(g[k], w[k]):
+                raise AssertionError(f"{what}: output {k!r} differs from the plain run")
+
+
+def phase_serve(torch, name="voc12_resnet18_align"):
+    """Phase [4] for one preset: b1 and b8 flushes through ``InferenceEngine``
+    in bfloat16, launch counts per flush (NMS 2, the preset's ROI forward 1,
+    the other ROI op 0), every output bitwise against the plain replay, then
+    stage ms and ``REPS`` timed requests of each size."""
     import dataclasses
 
     from replication_faster_rcnn_tpu_torch import get_config, ops
     from replication_faster_rcnn_tpu_torch.data.native_ops import resize_normalize
-    from replication_faster_rcnn_tpu_torch.ops.cuda import nms_kernel, roi_kernel
+    from replication_faster_rcnn_tpu_torch.ops.cuda import nms_kernel
     from replication_faster_rcnn_tpu_torch.serving.engine import InferenceEngine
 
-    cfg = get_config("voc12_resnet18_align")
+    cfg = get_config(name)
     size = cfg.data.image_size
-    log(f"[4] main path: voc12_resnet18_align {size} via InferenceEngine, params bfloat16")
+    log(f"[4] main path: {name} {size} (ROI op {cfg.model.roi_op}) via InferenceEngine, params "
+        "bfloat16")
     cfg = cfg.replace(serving=dataclasses.replace(
         cfg.serving, resolutions=(size,), batch_sizes=(1, 8), params_dtype="bfloat16"))
     rng = np.random.default_rng(1)
     one = rng.integers(0, 256, size + (3,), dtype=np.uint8)
     eight = mixed_images(rng)
+    counters = (("nms", nms_kernel, "launches"),) + roi_counters()
+
+    def reset():
+        for _, mod, attr in counters:
+            setattr(mod, attr, 0)
+
+    def read():
+        return {k: getattr(mod, attr) for k, mod, attr in counters}
+
     with InferenceEngine(cfg, seed=0) as engine:
         log(f"  engine on {engine.device}, params {engine.params_bytes / 2**20:.1f} MiB "
             f"in {engine.params_dtype}, buckets {engine.buckets} x {engine.batch_sizes}")
         engine.predict(eight)  # warm-up: cuDNN handles and algorithm choice
         engine.submit(one).result(timeout=300)
 
-        nms_kernel.launches = 0
-        roi_kernel.launches = 0
+        want = {"nms": 2, **roi_launches(cfg.model.roi_op)}
         log0 = len(engine.flush_log)
+        reset()
         r1 = engine.submit(one).result(timeout=300)
+        per_b1 = read()
+        reset()
         r8 = engine.predict(eight)
-        launches = {"nms": nms_kernel.launches, "roi_align": roi_kernel.launches}
+        per_b8 = read()
+        launches = {k: per_b1[k] + per_b8[k] for k in per_b1}
         flushes = engine.flush_log[log0:]
-        log(f"  launches in the main-path run: {launches}; flushes {flushes}")
+        log(f"  launches in the main-path run: b1 flush {per_b1}, b8 flush {per_b8}; "
+            f"flushes {flushes}")
         if flushes != [((size, False), 1), ((size, False), 8)]:
             raise AssertionError(f"expected one b1 and one b8 flush, got {flushes}")
-        if launches["nms"] != 4 or launches["roi_align"] != 2:
-            raise AssertionError(f"expected 4 NMS and 2 ROIAlign launches, got {launches}")
-
-        for res, img in zip([r1] + r8, [one] + eight):
-            if res["boxes"].shape != (cfg.eval.max_detections, 4):
-                raise AssertionError(f"bad boxes shape {res['boxes'].shape}")
-            if not (np.isfinite(res["boxes"]).all() and np.isfinite(res["scores"]).all()):
-                raise AssertionError("non-finite detections")
-            h, w = img.shape[:2]
-            if (res["boxes"][:, 0::2] > h + 1e-3).any() or (res["boxes"][:, 1::2] > w + 1e-3).any():
-                raise AssertionError("boxes outside the original image")
-        n_det = [int(r["valid"].sum()) for r in [r1] + r8]
-        if sum(n_det) == 0:
-            raise AssertionError("no detections at all: the detection NMS saw no candidates")
+        if per_b1 != want or per_b8 != want:
+            raise AssertionError(f"expected per flush {want}, got {per_b1} and {per_b8}")
+        n_det = check_served([r1] + r8, [one] + eight, cfg)
         log(f"  detections per image (b1, then b8): {n_det}")
 
         # the same requests through the plain versions: every output equal
         ref1 = engine.submit(one, reference=True).result(timeout=600)
         ref8 = engine.predict(eight, reference=True)
-        for got, want in zip([r1] + r8, [ref1] + ref8):
-            for k in got:
-                if not np.array_equal(got[k], want[k]):
-                    raise AssertionError(f"main path output {k!r} differs from the plain run")
+        same_results([r1] + r8, [ref1] + ref8, name)
         batch = torch.zeros((8,) + size + (3,), device=engine.device)
         for i, img in enumerate(eight):
             batch[i] = torch.from_numpy(resize_normalize(
@@ -789,9 +1020,9 @@ def phase_serve(torch):
             with ops.reference_scope():
                 p_out = engine.model(batch)
         names = ("rpn_logits", "rpn_deltas", "rois", "roi_valid", "cls", "reg")
-        for name, a, b in zip(names, k_out, p_out):
+        for what, a, b in zip(names, k_out, p_out):
             if not torch.equal(a, b):
-                raise AssertionError(f"{name} differs between kernel and plain passes")
+                raise AssertionError(f"{what} differs between kernel and plain passes")
         log("  kernel pass == plain pass: rois, valid, cls, reg and all detections bitwise")
 
         stages = {f"b{n}": time_stages(torch, engine.model, cfg, batch[:n]) for n in (1, 8)}
@@ -811,20 +1042,90 @@ def phase_serve(torch):
             b8.append(time.perf_counter() - t0)
         flush = list(engine.flush_seconds)[-2 * REPS:]  # REPS b1 flushes, then REPS b8
         serve = {
+            "config": name,
             "b1_latency_ms": statistics.median(lat),
             "b1_latency_note": f"submit->result, includes serving.max_delay_ms={cfg.serving.max_delay_ms}",
             "b1_flush_ms": statistics.median(flush[:REPS]) * 1e3,
             "b8_images_per_s": 8 / statistics.median(b8),
             "b8_flush_ms": statistics.median(flush[REPS:]) * 1e3,
             "b8_note": "predict(8 mixed-size uint8 images): host resize + one b8 flush",
+            "reps": REPS,
             "stage_ms": stages,
             "host_resize_ms_per_image": resize_ms,
+            "params_bytes": engine.params_bytes,
+            "launches_per_flush": want,
         }
-    log(f"  b1 latency {serve['b1_latency_ms']:.2f} ms (median of {REPS}, incl. "
+    log(f"  {name}: b1 latency {serve['b1_latency_ms']:.2f} ms (median of {REPS}, incl. "
         f"{cfg.serving.max_delay_ms} ms batching delay), b1 flush {serve['b1_flush_ms']:.2f} ms; "
         f"b8 {serve['b8_images_per_s']:.1f} images/s end to end, b8 flush "
         f"{serve['b8_flush_ms']:.2f} ms")
     return launches, serve
+
+
+NEW_PRESETS = ("voc_resnet50", "coco_resnet50", "coco_vgg16")
+
+
+def phase_presets(torch, device=None, size=None):
+    """Phase [4] for the presets that only serve here: one b1 forward each
+    through ``InferenceEngine`` in bfloat16 (seeded random weights), launch
+    counts of the flush (NMS 2, the preset's ROI forward 1), detections
+    bitwise equal to the plain replay, the flush time and the resident
+    bytes; and the model's outputs (rois, valid, cls, reg) on the same image
+    bitwise equal under ``ops.reference_scope()``, since an 81-class head
+    with random weights may score no class above ``eval.score_thresh``.
+    ``device``/``size`` default to the card and the preset's 600x600 (a CPU
+    rehearsal passes ``"cpu"`` and a small size)."""
+    import dataclasses
+
+    from replication_faster_rcnn_tpu_torch import get_config, ops
+    from replication_faster_rcnn_tpu_torch.data.native_ops import resize_normalize
+    from replication_faster_rcnn_tpu_torch.ops.cuda import nms_kernel
+    from replication_faster_rcnn_tpu_torch.serving.engine import InferenceEngine
+
+    counters = (("nms", nms_kernel, "launches"),) + roi_counters()
+    launches = {k: 0 for k, _, _ in counters}
+    out = {}
+    for name in NEW_PRESETS:
+        cfg = get_config(name)
+        if size is not None:
+            cfg = cfg.replace(data=dataclasses.replace(cfg.data, image_size=size))
+        res = cfg.data.image_size
+        cfg = cfg.replace(serving=dataclasses.replace(
+            cfg.serving, resolutions=(res,), batch_sizes=(1,), params_dtype="bfloat16"))
+        one = np.random.default_rng(1).integers(0, 256, res + (3,), dtype=np.uint8)
+        with InferenceEngine(cfg, device=device, seed=0) as engine:
+            engine.submit(one).result(timeout=300)  # warm-up
+            for _, mod, attr in counters:
+                setattr(mod, attr, 0)
+            got = engine.submit(one).result(timeout=300)
+            run = {k: getattr(mod, attr) for k, mod, attr in counters}
+            flush_ms = engine.flush_seconds[-1] * 1e3
+            want = {"nms": 2, **roi_launches(cfg.model.roi_op)}
+            if run != want:
+                raise AssertionError(f"{name}: expected per flush {want}, got {run}")
+            n_det = check_served([got], [one], cfg, require_detections=False)
+            same_results([got], [engine.submit(one, reference=True).result(timeout=600)], name)
+            image = torch.from_numpy(resize_normalize(
+                one, res, cfg.data.pixel_mean, cfg.data.pixel_std))[None].to(engine.device)
+            with torch.inference_mode():
+                k_out = engine.model(image)
+                with ops.reference_scope():
+                    p_out = engine.model(image)
+            for what, a, b in zip(("rpn_logits", "rpn_deltas", "rois", "roi_valid", "cls", "reg"),
+                                  k_out, p_out):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name}: {what} differs between kernel and plain passes")
+            out[name] = {"b1_flush_ms": flush_ms, "params_bytes": engine.params_bytes,
+                         "backbone": cfg.model.backbone, "roi_op": cfg.model.roi_op,
+                         "num_classes": cfg.model.num_classes, "detections": n_det[0],
+                         "launches_per_flush": want}
+        for k in launches:
+            launches[k] += run[k]
+        log(f"[4] preset {name} ({cfg.model.backbone}, ROI {cfg.model.roi_op}, "
+            f"{cfg.model.num_classes} classes) {res} b1 bfloat16: launches {run}; rois, cls, reg "
+            f"and {n_det[0]} detections bitwise equal to the plain replay; flush {flush_ms:.2f} "
+            f"ms, params {engine.params_bytes} bytes")
+    return launches, out
 
 
 def expected_int8_launches(artifact):
@@ -949,25 +1250,12 @@ def phase_int8_serve(torch, bf16, cfg=None, device=None):
             raise AssertionError(f"expected one b1 and one b8 flush, got {flushes}")
         if per_b1 != want or per_b8 != want:
             raise AssertionError(f"expected per flush {want}, got {per_b1} and {per_b8}")
-        for res, img in zip([r1] + r8, [one] + eight):
-            if res["boxes"].shape != (cfg.eval.max_detections, 4):
-                raise AssertionError(f"bad boxes shape {res['boxes'].shape}")
-            if not (np.isfinite(res["boxes"]).all() and np.isfinite(res["scores"]).all()):
-                raise AssertionError("non-finite detections")
-            h, w = img.shape[:2]
-            if (res["boxes"][:, 0::2] > h + 1e-3).any() or (res["boxes"][:, 1::2] > w + 1e-3).any():
-                raise AssertionError("boxes outside the original image")
-        n_det = [int(r["valid"].sum()) for r in [r1] + r8]
-        if sum(n_det) == 0:
-            raise AssertionError("no detections at all: the detection NMS saw no candidates")
+        n_det = check_served([r1] + r8, [one] + eight, cfg)
         log(f"  detections per image (b1, then b8): {n_det}")
 
         ref1 = engine.submit(one, reference=True).result(timeout=600)
         ref8 = engine.predict(eight, reference=True)
-        for got, plain in zip([r1] + r8, [ref1] + ref8):
-            for k in got:
-                if not np.array_equal(got[k], plain[k]):
-                    raise AssertionError(f"int8 output {k!r} differs from the plain run")
+        same_results([r1] + r8, [ref1] + ref8, "int8")
         log("  kernel pass == plain pass: every int8 detection bitwise")
 
         lat = []
@@ -1039,18 +1327,24 @@ class StageTimer:
 
 
 NMS_KERNELS = ("nms_mask_kernel", "nms_walk_kernel")
-ROI_KERNELS = {"forward": "roi_align_kernel", "backward": "roi_align_bwd_kernel"}
+# the ROI kernels of each op, by direction (the ROIPool backward is two kernels)
+ROI_KERNELS = {
+    "align": {"forward": ("roi_align_kernel",), "backward": ("roi_align_bwd_kernel",)},
+    "pool": {"forward": ("roi_pool_kernel",),
+             "backward": ("roi_pool_bwd_bins_kernel", "roi_pool_bwd_kernel")},
+}
 IOU_KERNEL = "iou_match_kernel"
 
 
-def device_timeline(torch, run, steps):
+def device_timeline(torch, run, steps, roi_op="align"):
     """torch.profiler over ``run`` (``steps`` training steps): the device's
     busy time (union of kernel and copy intervals), the span from its first
     to its last activity, the idle share of that span, the kernels with the
     most device time, the NMS kernels' device ms per step (mask and walk
     apart and summed), the ROIAlign kernels' (forward and backward) and the
     IoU-matching kernel's (both sites, with its count of activities per
-    step). None when the profiler saw no device activity."""
+    step); the ROI kernels are those of ``roi_op``. None when the profiler
+    saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1082,7 +1376,8 @@ def device_timeline(torch, run, steps):
     return {
         "nms_device_ms_per_step": sum(nms.values()),
         "nms_device_ms_per_step_by_kernel": nms,
-        "roi_align_device_ms_per_step": {k: per_step(v) for k, v in ROI_KERNELS.items()},
+        "roi_device_ms_per_step": {k: sum(per_step(n) for n in names)
+                                   for k, names in ROI_KERNELS[roi_op].items()},
         "iou_match_device_ms_per_step": per_step(IOU_KERNEL),
         "iou_match_activities_per_step": sum(IOU_KERNEL in e.name for e in acts) / steps,
         "device_busy_ms_per_step": busy / 1e3 / steps,
@@ -1093,21 +1388,25 @@ def device_timeline(torch, run, steps):
     }
 
 
-def phase_train(torch, cfg=None, device=None):
-    """``cfg``/``device`` default to the full configuration on the card (a
-    CPU rehearsal passes a small configuration and ``"cpu"``)."""
+def phase_train(torch, name="voc12_resnet18_align", cfg=None, device=None):
+    """Phase [6] for one preset. ``cfg``/``device`` default to the preset's
+    full configuration on the card (a CPU rehearsal passes a small
+    configuration and ``"cpu"``)."""
     import dataclasses
 
     from replication_faster_rcnn_tpu_torch import get_config, ops
     from replication_faster_rcnn_tpu_torch.data.synthetic import SyntheticDataset
     from replication_faster_rcnn_tpu_torch.models.resnet import BatchNorm
-    from replication_faster_rcnn_tpu_torch.ops.cuda import iou_kernel, nms_kernel, roi_kernel
+    from replication_faster_rcnn_tpu_torch.ops.cuda import iou_kernel, nms_kernel
     from replication_faster_rcnn_tpu_torch.train.train_step import compute_losses
     from replication_faster_rcnn_tpu_torch.train.trainer import Trainer
 
-    cfg = cfg or get_config("voc12_resnet18_align")
+    cfg = cfg or get_config(name)
     bsz = cfg.train.batch_size
-    log(f"[6] main path: train voc12_resnet18_align {cfg.data.image_size} batch {bsz}, "
+    op = cfg.model.roi_op
+    op_name = {"align": "ROIAlign", "pool": "ROIPool"}[op]
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[6] main path: train {name} {cfg.data.image_size} batch {bsz} (ROI op {op}), "
         f"compute {cfg.model.compute_dtype}, {cfg.proposals.pre_nms_train} -> "
         f"{cfg.proposals.post_nms_train} proposals, Adam lr {cfg.train.lr}")
     dataset = SyntheticDataset(cfg.data, length=2 * bsz)
@@ -1124,10 +1423,14 @@ def phase_train(torch, cfg=None, device=None):
     log(f"  warm-up: 2 steps in {time.perf_counter() - t0:.2f} s, losses "
         f"{ {k: round(m[k], 4) for k in ('rpn_cls_loss', 'rpn_reg_loss', 'head_cls_loss', 'head_reg_loss')} }")
 
-    counters = (nms_kernel, iou_kernel, roi_kernel)
-    for mod in counters:
-        mod.launches = 0
-    roi_kernel.backward_launches = 0
+    counters = (("nms", nms_kernel, "launches"), ("iou_match", iou_kernel, "launches")
+                ) + roi_counters()
+
+    def read():
+        return {k: getattr(mod, attr) for k, mod, attr in counters}
+
+    for _, mod, attr in counters:
+        setattr(mod, attr, 0)
     step_ms, history = [], []
     for i in range(TRAIN_REPS):
         start = torch.cuda.Event(enable_timing=True)
@@ -1137,10 +1440,10 @@ def phase_train(torch, cfg=None, device=None):
         end.record()
         history.append({k: float(v) for k, v in metrics.items()})
         step_ms.append(start.elapsed_time(end))
-    launches = {"nms": nms_kernel.launches, "iou_match": iou_kernel.launches,
-                "roi_align": roi_kernel.launches, "roi_align_bwd": roi_kernel.backward_launches}
+    launches = read()
+    peak = torch.cuda.max_memory_allocated()  # the warm-up and timed steps only
     log(f"  launches in {TRAIN_REPS} timed steps: {launches}")
-    want = {"nms": 1, "iou_match": 2, "roi_align": 1, "roi_align_bwd": 1}
+    want = {"nms": 1, "iou_match": 2, **roi_launches(op, 1, 1)}
     if launches != {k: v * TRAIN_REPS for k, v in want.items()}:
         raise AssertionError(f"expected per step {want}, got {launches} over {TRAIN_REPS} steps")
     for row in history:
@@ -1161,7 +1464,7 @@ def phase_train(torch, cfg=None, device=None):
         for i in range(3):
             trainer.step_fn(state, batches[i % len(batches)])
 
-    timeline = device_timeline(torch, three_steps, 3)
+    timeline = device_timeline(torch, three_steps, 3, op)
     if timeline is None:
         log("  device timeline: the profiler saw no device activity (not measured)")
     else:
@@ -1177,11 +1480,11 @@ def phase_train(torch, cfg=None, device=None):
             f"({ {k: round(v, 4) for k, v in by_kernel.items()} })")
         if not timeline["nms_device_ms_per_step"] > 0:
             raise AssertionError("the profiler saw device activity but no NMS kernel")
-        roi_ms = timeline["roi_align_device_ms_per_step"]
-        log(f"  ROIAlign device time per step: forward {roi_ms['forward']:.4f} ms, backward "
+        roi_ms = timeline["roi_device_ms_per_step"]
+        log(f"  {op_name} device time per step: forward {roi_ms['forward']:.4f} ms, backward "
             f"{roi_ms['backward']:.4f} ms")
         if not (roi_ms["forward"] > 0 and roi_ms["backward"] > 0):
-            raise AssertionError("the profiler saw device activity but no ROIAlign kernel")
+            raise AssertionError(f"the profiler saw device activity but no {op_name} kernel")
         iou_ms = timeline["iou_match_device_ms_per_step"]
         iou_n = timeline["iou_match_activities_per_step"]
         log(f"  IoU matching device time per step (anchor and proposal sites): {iou_ms:.4f} ms "
@@ -1212,12 +1515,9 @@ def phase_train(torch, cfg=None, device=None):
         return metrics, record, grads, stats
 
     km, krec, kgrads, kstats = pass_(False, None)
-    before = (nms_kernel.launches, iou_kernel.launches, roi_kernel.launches,
-              roi_kernel.backward_launches)
+    before = read()
     pm, prec, pgrads, pstats = pass_(True, krec["draws"])
-    after = (nms_kernel.launches, iou_kernel.launches, roi_kernel.launches,
-             roi_kernel.backward_launches)
-    if before != after:
+    if before != read():
         raise AssertionError("a kernel launched inside reference_scope")
     for k, v in krec["targets"].items():
         if not torch.equal(v, prec["targets"][k]):
@@ -1241,16 +1541,18 @@ def phase_train(torch, cfg=None, device=None):
     log(f"  kernel pass == plain pass (same state and draws): targets, labels, 4 losses and "
         f"BatchNorm statistics bitwise; gradients max relative L2 error {grad_err:.3e} "
         f"(tolerance {GRAD_RTOL})")
-    # the head's losses alone reach the trunk through the ROIAlign kernels
+    # the head's losses alone reach the trunk through the ROI kernels
     _, _, hgrads, _ = pass_(False, krec["draws"], (0.0, 0.0, 1.0, 1.0))
     trunk = hgrads[[n for n, _ in model.named_parameters()].index("trunk.conv1.weight")]
     if trunk is None or not float(trunk.abs().sum()) > 0:
         raise AssertionError("the head's losses gave the trunk no gradient")
     model.zero_grad(set_to_none=True)
-    log("  the head's losses alone give the trunk a gradient (ROIAlign forward + backward kernels)")
+    log(f"  the head's losses alone give the trunk a gradient ({op_name} forward + backward "
+        "kernels)")
 
     med = statistics.median(step_ms)
     train = {
+        "config": name,
         "step_ms": med,
         "images_per_s": bsz / med * 1e3,
         "step_ms_all": step_ms,
@@ -1258,10 +1560,14 @@ def phase_train(torch, cfg=None, device=None):
         "device_timeline": timeline,
         "losses_first_last": [history[0]["loss"], history[-1]["loss"]],
         "grad_max_rel_l2_err_vs_plain": grad_err,
-        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "peak_memory_gib": peak / 2**30,
+        "peak_memory_note": "torch.cuda.max_memory_allocated over the warm-up and timed steps",
     }
-    log(f"  train step {med:.2f} ms (median of {TRAIN_REPS}, CUDA events, batch staged on the "
-        f"card), {train['images_per_s']:.1f} images/s")
+    idle = (timeline or {}).get("device_idle_share")
+    log(f"  {name}: train step {med:.2f} ms (median of {TRAIN_REPS}, CUDA events, batch staged on the "
+        f"card), {train['images_per_s']:.1f} images/s, device idle share "
+        f"{'not measured' if idle is None else f'{idle:.3f}'}, peak device memory "
+        f"{train['peak_memory_gib']:.2f} GiB")
     return launches, train
 
 
@@ -1609,15 +1915,26 @@ def main():
 
     res = phase_kernels(torch)
     launches, serve = phase_serve(torch)
+    plaunches, serve_pool = phase_serve(torch, "voc_resnet18")
+    slaunches, presets = phase_presets(torch)
     qlaunches, serve_int8 = phase_int8_serve(torch, serve)
     tlaunches, train = phase_train(torch)
+    ptlaunches, train_pool = phase_train(torch, "voc_resnet18")
     elaunches, evaluate = phase_evaluate(torch)
     olaunches, overfit = phase_overfit(torch)
     evaluate["overfit"] = overfit
+    paths = {"serve": launches, "serve_pool": plaunches, "serve_presets": slaunches,
+             "serve_int8": qlaunches, "train": tlaunches, "train_pool": ptlaunches,
+             "evaluate": elaunches, "overfit_train": olaunches}
+
+    def by_path(key):
+        """A counter's launches on every main path that reads it."""
+        return {path: counts[key] for path, counts in paths.items() if key in counts}
 
     nms, det, roi = res["nms_proposal"], res["nms_detection"], res["roi_bf16"]
     nms_tr, nms_cl, bwd = res["nms_train"], res["nms_train_clustered"], res["roi_bwd_bf16"]
-    in_step = (train["device_timeline"] or {}).get("roi_align_device_ms_per_step", {})
+    in_step = (train["device_timeline"] or {}).get("roi_device_ms_per_step", {})
+    pool_step = (train_pool["device_timeline"] or {}).get("roi_device_ms_per_step", {})
     iou_a, iou_p = res["iou_anchor"], res["iou_proposal"]
     iou_step = (train["device_timeline"] or {}).get("iou_match_device_ms_per_step")
     gemm, deq = res["gemm_b8_cls"], res["dequant_f32"]
@@ -1628,11 +1945,8 @@ def main():
             "kernels": list(NMS_KERNELS),
             "note": "one call = the card-wide IoU bitmask kernel + the per-image greedy walk; "
                     "ms, launches and bound cover both",
-            "launches": (launches["nms"] + qlaunches["nms"] + tlaunches["nms"]
-                         + elaunches["nms"] + olaunches["nms"]),
-            "launches_by_path": {"serve": launches["nms"], "serve_int8": qlaunches["nms"],
-                                 "train": tlaunches["nms"], "evaluate": elaunches["nms"],
-                                 "overfit_train": olaunches["nms"]},
+            "launches": sum(by_path("nms").values()),
+            "launches_by_path": by_path("nms"),
             "parity": "bitwise vs nms_fixed_tiled (proposal, detection, TTA detection, "
                       "clustered, training, clustered training)",
             "max_abs_err": max(r["max_abs_err"] for k, r in res.items() if k.startswith("nms")),
@@ -1652,13 +1966,8 @@ def main():
         },
         {
             "name": "roi_align_fwd", "route": "cuda", "source": ROI_SRC, "replaces": ROI_TPU,
-            "launches": (launches["roi_align"] + qlaunches["roi_align"] + tlaunches["roi_align"]
-                         + elaunches["roi_align"] + olaunches["roi_align"]),
-            "launches_by_path": {"serve": launches["roi_align"],
-                                 "serve_int8": qlaunches["roi_align"],
-                                 "train": tlaunches["roi_align"],
-                                 "evaluate": elaunches["roi_align"],
-                                 "overfit_train": olaunches["roi_align"]},
+            "launches": sum(by_path("roi_align").values()),
+            "launches_by_path": by_path("roi_align"),
             "parity": "bitwise vs roi_align(method='gather') cast to the output dtype; "
                       "float32 outputs vs einsum within atol 2e-5 rtol 1e-5",
             "max_abs_err": max(r["max_abs_err"] for k, r in res.items()
@@ -1679,9 +1988,8 @@ def main():
         {
             "name": "roi_align_bwd", "route": "cuda", "source": ROI_SRC, "replaces": ROI_BWD_TPU,
             "replaces_note": ROI_BWD_NOTE,
-            "launches": tlaunches["roi_align_bwd"] + olaunches["roi_align_bwd"],
-            "launches_by_path": {"train": tlaunches["roi_align_bwd"],
-                                 "overfit_train": olaunches["roi_align_bwd"]},
+            "launches": sum(by_path("roi_align_bwd").values()),
+            "launches_by_path": by_path("roi_align_bwd"),
             "parity": f"vs roi_ops.roi_align_backward: {ROI_BWD_TOL} (the same terms grouped "
                       "by bin and summed in float32 in another order); two launches bitwise "
                       "equal (deterministic, no atomics)",
@@ -1696,10 +2004,47 @@ def main():
             "train_step_device_ms": in_step.get("backward"),
         },
         {
+            "name": "roi_pool_fwd", "route": "cuda", "source": POOL_SRC, "replaces": POOL_JAX,
+            "replaces_note": POOL_NOTE,
+            "launches": sum(by_path("roi_pool").values()),
+            "launches_by_path": by_path("roi_pool"),
+            "parity": "bitwise vs roi_ops.roi_pool (the masked maxes) at serving 8 x 300 and "
+                      "1 x 300 and training 8 x 128, float32 and bfloat16, integer-valued "
+                      "features (ties), NaN and +-inf in the map",
+            "max_abs_err": 0.0,
+            **{k: res["pool_bf16"][k] for k in timing},
+            "library_ms": None, "library_note": NO_POOL_LIBRARY,
+            "shape": "bf16 feat 8 x [38, 38, 256], 300 rois, 7x7 -> bf16",
+            "f32": {k: res["pool_f32"][k] for k in timing},
+            "b1_bf16": {k: res["pool_b1_bf16"][k] for k in timing},
+            "train_bf16": {k: res["pool_train_bf16"][k] for k in timing},
+            "ties_bf16": {k: res["pool_ties_bf16"][k] for k in timing},
+            "train_step_device_ms": pool_step.get("forward"),
+        },
+        {
+            "name": "roi_pool_bwd", "route": "cuda", "source": POOL_SRC, "replaces": POOL_JAX,
+            "replaces_note": POOL_NOTE + "; the backward replaces the VJP of those maxes",
+            "kernels": list(ROI_KERNELS["pool"]["backward"]),
+            "note": "one call = the bins pass + the gather pass; ms, launches and bound cover both",
+            "launches": sum(by_path("roi_pool_bwd").values()),
+            "launches_by_path": by_path("roi_pool_bwd"),
+            "parity": f"vs roi_ops.roi_pool_backward (the plain VJP on float32 copies): "
+                      f"{ROI_POOL_BWD} where the plain gradient is finite; two launches bitwise "
+                      "equal (deterministic, no atomics); ties split evenly as the JAX VJP does",
+            "max_abs_err": max(r["max_abs_err"] for k, r in res.items()
+                               if k.startswith("pool_bwd")),
+            **{k: res["pool_bwd_bf16"][k] for k in timing},
+            "library_ms": None, "library_note": NO_POOL_LIBRARY,
+            "shape": "bf16 grad [8, 128, 7, 7, 256] -> bf16 grad_feat 8 x [38, 38, 256]",
+            "f32": {k: res["pool_bwd_f32"][k] for k in timing},
+            "ties_bf16": {k: res["pool_bwd_ties_bf16"][k] for k in timing},
+            "identical_rois": {k: res["pool_bwd_identical"][k] for k in timing},
+            "train_step_device_ms": pool_step.get("backward"),
+        },
+        {
             "name": "iou_match", "route": "cuda", "source": IOU_SRC, "replaces": IOU_TPU,
-            "launches": tlaunches["iou_match"] + olaunches["iou_match"],
-            "launches_by_path": {"train": tlaunches["iou_match"],
-                                 "overfit_train": olaunches["iou_match"]},
+            "launches": sum(by_path("iou_match").values()),
+            "launches_by_path": by_path("iou_match"),
             "parity": "bitwise vs ops/iou_match.py::match_boxes (iou, argmax, max, column "
                       "argmax) at G = 32 and 64 and with exact ties; two launches bitwise "
                       "equal; one launch per call",
@@ -1742,7 +2087,8 @@ def main():
                     "flush); per_leaf_kernels_ms is the same flush as 23 dequantize_cuda calls",
         },
     ]
-    log(json.dumps({"serve": serve, "serve_int8": serve_int8, "train": train,
+    log(json.dumps({"serve": serve, "serve_pool": serve_pool, "presets": presets,
+                    "serve_int8": serve_int8, "train": train, "train_pool": train_pool,
                     "evaluate": evaluate, "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)

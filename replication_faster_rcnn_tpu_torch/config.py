@@ -3,9 +3,9 @@ training and evaluation paths read.
 
 Field names, defaults and presets mirror ``replication_faster_rcnn_tpu.config``
 so a reader can hold the two side by side; knobs the port does not implement
-yet (FPN, VGG16, group norm, LAMB/LARS, warmup, K-step fusion,
-checkpointing, fleet, COCO data, caches, augmentation) are left out rather
-than accepted and ignored.
+yet (FPN, group norm, frozen BN, LAMB/LARS, warmup, K-step fusion,
+checkpointing, fleet, COCO data (``dataset``, the COCO ``root_dir``), caches,
+augmentation) are left out rather than accepted and ignored.
 
 Box convention: boxes are ``[r1, c1, r2, c2]`` (``r`` along image rows,
 ``c`` along columns) and deltas ``[dr, dc, dh, dw]``.
@@ -25,6 +25,10 @@ VOC_CLASSES: Tuple[str, ...] = (
     "sheep", "sofa", "train", "tvmonitor",
 )
 VOC_NUM_CLASSES = len(VOC_CLASSES)  # 20 VOC classes + background
+COCO_NUM_CLASSES = 81  # 80 COCO-2017 categories + background
+
+# ResNet trunks (models/resnet.py) and the VGG16 trunk (models/vgg.py)
+BACKBONES = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152", "vgg16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +98,8 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"  # float32 | bfloat16
 
     def __post_init__(self):
+        if self.backbone not in BACKBONES:
+            raise ValueError(f"backbone must be one of {BACKBONES}, got {self.backbone!r}")
         if self.roi_op not in ("align", "pool"):
             raise ValueError(f"roi_op must be 'align' or 'pool', got {self.roi_op!r}")
         if self.compute_dtype not in ("float32", "bfloat16"):
@@ -307,9 +313,30 @@ CONFIGS = {
     "voc_resnet18": FasterRCNNConfig(
         model=ModelConfig(backbone="resnet18", roi_op="pool"),
     ),
+    # ResNet50 (Bottleneck) backbone, ROIPool head
+    "voc_resnet50": FasterRCNNConfig(
+        model=ModelConfig(backbone="resnet50", roi_op="pool"),
+    ),
     # the same network with the ROIAlign head (7x7, 2x2 samples per bin)
     "voc12_resnet18_align": FasterRCNNConfig(
         model=ModelConfig(backbone="resnet18", roi_op="align"),
+    ),
+    # COCO-2017: 81 classes, ROIAlign, up to 100 boxes, batch 32, COCO mAP
+    "coco_resnet50": FasterRCNNConfig(
+        model=ModelConfig(backbone="resnet50", num_classes=COCO_NUM_CLASSES, roi_op="align"),
+        data=DataConfig(max_boxes=100),
+        train=TrainConfig(batch_size=32),
+        eval=EvalConfig(metric="coco"),
+    ),
+    # the py-faster-rcnn VGG16 COCO net: 512-wide RPN conv, 12 anchors (3
+    # ratios x 4 scales), ROIPool 7x7, fc6/fc7 tail, 81 classes
+    "coco_vgg16": FasterRCNNConfig(
+        model=ModelConfig(
+            backbone="vgg16", num_classes=COCO_NUM_CLASSES, roi_op="pool", rpn_mid_channels=512,
+        ),
+        anchors=AnchorConfig(scales=(4.0, 8.0, 16.0, 32.0)),
+        data=DataConfig(max_boxes=100),
+        eval=EvalConfig(metric="coco"),
     ),
 }
 

@@ -28,6 +28,7 @@ from replication_faster_rcnn_tpu_torch.models.resnet import (
     trunk_channels,
 )
 from replication_faster_rcnn_tpu_torch.models.rpn import RPNHead, batched_proposals
+from replication_faster_rcnn_tpu_torch.models.vgg import VGG16_TRUNK_CHANNELS, VGG16Trunk
 from replication_faster_rcnn_tpu_torch.ops import anchors as anchor_ops
 
 Tensor = torch.Tensor
@@ -46,10 +47,14 @@ class FasterRCNN(nn.Module):
         cfg = config
         self.config = cfg
         self.compute_dtype = getattr(torch, cfg.model.compute_dtype)
-        self.trunk = ResNetTrunk(cfg.model.backbone, device=dev)
+        if cfg.model.backbone == "vgg16":
+            self.trunk = VGG16Trunk(device=dev)
+            feat_channels = VGG16_TRUNK_CHANNELS
+        else:
+            self.trunk = ResNetTrunk(cfg.model.backbone, device=dev)
+            feat_channels = trunk_channels(cfg.model.backbone)
         self.rpn = RPNHead(
-            trunk_channels(cfg.model.backbone), cfg.anchors.num_base_anchors,
-            cfg.model.rpn_mid_channels, device=dev,
+            feat_channels, cfg.anchors.num_base_anchors, cfg.model.rpn_mid_channels, device=dev,
         )
         self.head = DetectionHead(
             cfg.model.backbone, cfg.model.num_classes, cfg.model.roi_size,
@@ -60,7 +65,7 @@ class FasterRCNN(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.trunk.conv1.weight.device
+        return next(self.parameters()).device
 
     def preprocess(self, images: Tensor) -> Tensor:
         """uint8 NHWC -> normalized float32; float input passes through."""
@@ -103,10 +108,12 @@ class FasterRCNN(nn.Module):
         )
 
     def head_forward(self, feat: Tensor, rois: Tensor, img_h: float, img_w: float,
-                     quant: Optional[dict] = None) -> Tuple[Tensor, Tensor]:
+                     quant: Optional[dict] = None,
+                     generator: Optional[torch.Generator] = None) -> Tuple[Tensor, Tensor]:
         """(cls [N, R, num_classes], reg [N, R, num_classes * 4]); ``quant``:
-        the int8 serving path's ``{"head": {"cls"|"reg": ...}}``."""
-        return self.head(feat, rois, img_h, img_w, (quant or {}).get("head"))
+        the int8 serving path's ``{"head": {"cls"|"reg": ...}}``;
+        ``generator``: the VGG16 tail's dropout draws in training mode."""
+        return self.head(feat, rois, img_h, img_w, (quant or {}).get("head"), generator)
 
     def forward(self, images: Tensor, quant: Optional[dict] = None):
         """Inference pass -> (rpn_logits, rpn_deltas, rois, roi_valid, cls,

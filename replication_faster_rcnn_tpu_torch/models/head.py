@@ -1,11 +1,12 @@
-"""Second-stage detection head: ROI features + ResNet tail + cls/reg Linear
-(counterpart of the JAX package's ``models/head.py::DetectionHead``), and
-:func:`select_class_deltas` for the head's regression loss.
+"""Second-stage detection head: ROI features + backbone tail (ResNet layer4,
+or VGG16's fc6/fc7) + cls/reg Linear (counterpart of the JAX package's
+``models/head.py::DetectionHead``), and :func:`select_class_deltas` for the
+head's regression loss.
 
-In training mode the tail's BatchNorm uses the batch statistics of the
-N * R crops, and the ROIAlign kernel passes the gradient back to the
-features (``ops/cuda/roi_kernel.py``). In int8 serving the cls/reg layers
-run as true int8 GEMMs (:func:`_head_dense`)."""
+In training mode the ResNet tail's BatchNorm uses the batch statistics of
+the N * R crops, and the ROI kernels (ROIAlign or ROIPool) pass the
+gradient back to the features (``ops/cuda/roi_kernel.py``). In int8
+serving the cls/reg layers run as true int8 GEMMs (:func:`_head_dense`)."""
 
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from replication_faster_rcnn_tpu_torch.models.resnet import ResNetTail, tail_channels
+from replication_faster_rcnn_tpu_torch.models.vgg import VGG16_TAIL_CHANNELS, VGG16Tail
 from replication_faster_rcnn_tpu_torch.ops import quant_ops, roi_ops
 
 Tensor = torch.Tensor
@@ -35,12 +37,13 @@ def _head_dense(layer: nn.Linear, x: Tensor, qinfo: Optional[Dict[str, Any]]) ->
 
 class DetectionHead(nn.Module):
     """forward(feat NHWC [N, H, W, C], rois [N, R, 4] image coords, img_h, img_w,
-    quant=None) -> (cls [N, R, num_classes], reg [N, R, num_classes * 4])
-    float32.
+    quant=None, generator=None) -> (cls [N, R, num_classes], reg
+    [N, R, num_classes * 4]) float32.
 
     The tail runs in the feature's dtype; cls/reg run in float32 on the
     embedding cast to float32, as int8 GEMMs for the layers named in
-    ``quant`` (``{"cls": {"w_scale", "x_scale"}, ...}``)."""
+    ``quant`` (``{"cls": {"w_scale", "x_scale"}, ...}``). ``generator``
+    draws the VGG16 tail's dropout in training mode."""
 
     def __init__(self, arch: str = "resnet18", num_classes: int = 21,
                  roi_size: int = 7, roi_op: str = "align", sampling_ratio: int = 2,
@@ -49,13 +52,18 @@ class DetectionHead(nn.Module):
         self.roi_size = roi_size
         self.roi_op = roi_op
         self.sampling_ratio = sampling_ratio
-        self.tail = ResNetTail(arch, device=device)
-        ch = tail_channels(arch)
+        if arch == "vgg16":
+            self.tail = VGG16Tail(roi_size, device=device)
+            ch = VGG16_TAIL_CHANNELS
+        else:
+            self.tail = ResNetTail(arch, device=device)
+            ch = tail_channels(arch)
         self.cls = nn.Linear(ch, num_classes, device=device)
         self.reg = nn.Linear(ch, num_classes * 4, device=device)
 
     def forward(self, feat: Tensor, rois: Tensor, img_h: float, img_w: float,
-                quant: Optional[Dict[str, Any]] = None) -> Tuple[Tensor, Tensor]:
+                quant: Optional[Dict[str, Any]] = None,
+                generator: Optional[torch.Generator] = None) -> Tuple[Tensor, Tensor]:
         n, r = rois.shape[0], rois.shape[1]
         fh, fw = feat.shape[1], feat.shape[2]
         # image -> feature coordinates; the ratios are Python floats
@@ -68,7 +76,7 @@ class DetectionHead(nn.Module):
             sampling_ratio=self.sampling_ratio, out_dtype=feat.dtype,
         )  # [N, R, s, s, C] in the feature's dtype (the kernel stores it directly)
         crops = crops.reshape((n * r,) + crops.shape[2:]).to(feat.dtype)
-        embed = self.tail(crops.permute(0, 3, 1, 2)).float()  # [N*R, C_tail]
+        embed = self.tail(crops, generator).float()  # [N*R, C_tail]
         quant = quant or {}
         cls = _head_dense(self.cls, embed, quant.get("cls"))
         reg = _head_dense(self.reg, embed, quant.get("reg"))

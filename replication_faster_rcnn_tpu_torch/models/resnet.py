@@ -194,13 +194,16 @@ class ResNetTrunk(nn.Module):
 
 
 class ResNetTail(nn.Module):
-    """layer4 + global average pool: NCHW [R, C, h, w] -> [R, C_out]."""
+    """layer4 + global average pool: pooled ROI crops NHWC [R, h, w, C] ->
+    [R, C_out]. ``generator`` is unused (the tail draws nothing); it keeps
+    the head's one call for every tail."""
 
     def __init__(self, arch: str = "resnet18", device=None):
         super().__init__()
         self.layer4 = _stage(arch, _WIDTHS[2] * _block(arch).expansion, 3, 2, device)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, generator: Optional[torch.Generator] = None) -> Tensor:
+        x = x.permute(0, 3, 1, 2)
         for block in self.layer4:
             x = block(x)
         # mean accumulated in float32, rounded to the compute dtype

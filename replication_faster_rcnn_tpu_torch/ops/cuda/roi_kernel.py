@@ -1,4 +1,5 @@
-"""Wrappers of the CUDA ROIAlign kernels (``csrc/roi_align_kernel.cu``).
+"""Wrappers of the CUDA ROI kernels: ROIAlign (``csrc/roi_align_kernel.cu``)
+and ROIPool (``csrc/roi_pool_kernel.cu``).
 
 The forward is the counterpart of the JAX package's
 ``ops/pallas/roi_kernel.py::roi_align_pallas`` with the batch written out. A
@@ -15,6 +16,13 @@ kernel reads float32 or bfloat16 gradients as they come, writes the
 feature's dtype, and sums in a fixed order: it is bitwise reproducible from
 run to run. The rois get no gradient: the Function raises if they require
 one, so a gradient is never dropped silently.
+
+:func:`roi_pool_cuda` is the ROIPool forward kernel, bitwise equal to the
+plain ``roi_ops.roi_pool`` (which a CPU tensor runs), differentiable with
+respect to the features through ``_RoIPool``, whose backward is the
+two-pass backward kernel (plain version ``roi_ops.roi_pool_backward``): it
+splits a tied maximum's gradient as the plain VJP does, sums in float32 in
+a fixed order and writes the feature's dtype.
 """
 
 from __future__ import annotations
@@ -24,19 +32,29 @@ import ctypes
 import torch
 
 from replication_faster_rcnn_tpu_torch.ops.cuda import build
-from replication_faster_rcnn_tpu_torch.ops.roi_ops import roi_align, roi_align_backward
+from replication_faster_rcnn_tpu_torch.ops.roi_ops import (
+    roi_align,
+    roi_align_backward,
+    roi_pool,
+    roi_pool_backward,
+)
 
 Tensor = torch.Tensor
 
-# kernel launches since the last reset (the caller resets them to 0)
+# kernel launches since the last reset (the caller resets them to 0); a
+# ROIPool backward call (two kernels) counts once
 launches = 0
 backward_launches = 0
+pool_launches = 0
+pool_backward_launches = 0
 
-# the most samples (out_size * sampling_ratio) along one axis the kernels take
+# the most samples (out_size * sampling_ratio, ROIPool: out_size) along one
+# axis the kernels take
 MAX_SAMPLES = 224
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernels' dtype flags
 
 _fns = None
+_pool_fns = None
 
 
 def _kernels():
@@ -54,10 +72,25 @@ def _kernels():
     return _fns
 
 
+def _pool_kernels():
+    global _pool_fns
+    if _pool_fns is None:
+        lib = build.library("roi_pool_kernel")
+        i, p = ctypes.c_int, ctypes.c_void_p
+        lib.roi_pool_fwd.argtypes = [p, i, p, i, i, i, i, i, i, p, p]
+        lib.roi_pool_bwd.argtypes = [p, i, p, i, p, i, i, i, i, i, i, p, p, p, p]
+        lib.roi_pool_fwd.restype = ctypes.c_int
+        lib.roi_pool_bwd.restype = ctypes.c_int
+        lib.roi_pool_error_string.argtypes = [ctypes.c_int]
+        lib.roi_pool_error_string.restype = ctypes.c_char_p
+        _pool_fns = (lib.roi_pool_fwd, lib.roi_pool_bwd, lib.roi_pool_error_string)
+    return _pool_fns
+
+
 def _dtype_flag(dtype: torch.dtype, what: str) -> int:
     flag = _DTYPES.get(dtype)
     if flag is None:
-        raise TypeError(f"the ROIAlign kernels take float32 or bfloat16 {what}, got {dtype}")
+        raise TypeError(f"the ROI kernels take float32 or bfloat16 {what}, got {dtype}")
     return flag
 
 
@@ -178,3 +211,102 @@ def roi_align_cuda(
         )
     rois = (rois.float() * spatial_scale).contiguous()
     return _RoIAlign.apply(feat, rois, out_size, sampling_ratio, out_dtype)
+
+
+def _pool_forward_cuda(feat: Tensor, rois: Tensor, out_size: int) -> Tensor:
+    """The ROIPool forward kernel on rois already in feature coordinates."""
+    fwd, _, err = _pool_kernels()
+    flag = _dtype_flag(feat.dtype, "features")
+    n, h, w, c = feat.shape
+    feat = feat.contiguous()
+    r = rois.shape[1]
+    out = torch.empty(n, r, out_size, out_size, c, dtype=feat.dtype, device=feat.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(feat.device):
+        stream = torch.cuda.current_stream(feat.device).cuda_stream
+        rc = fwd(feat.data_ptr(), flag, rois.data_ptr(), n, h, w, c, r, out_size, out.data_ptr(),
+                 stream)
+    build.check(rc, err, "roi_pool_kernel")
+    global pool_launches
+    pool_launches += 1
+    return out
+
+
+def roi_pool_backward_cuda(grad_out: Tensor, feat: Tensor, rois: Tensor, out_size: int) -> Tensor:
+    """The backward kernels: grad_out [N, R, out, out, C] (float32 or
+    bfloat16), the forward's features and rois (feature coordinates) ->
+    grad_feat [N, H, W, C] in the feature's dtype, the same bits in every
+    run. Two launches (the bins pass, then the gather), counted once. Their
+    float32 scratch is two arrays of grad_out's shape, freed on return. A CPU
+    tensor runs ``roi_ops.roi_pool_backward``."""
+    if not grad_out.is_cuda:
+        return roi_pool_backward(grad_out, feat, rois, out_size)
+    n, h, w, c = feat.shape
+    r = rois.shape[1]
+    if tuple(grad_out.shape) != (n, r, out_size, out_size, c):
+        raise ValueError(
+            f"grad_out must be {(n, r, out_size, out_size, c)}, got {tuple(grad_out.shape)}"
+        )
+    if not (feat.is_cuda and rois.is_cuda) or len({grad_out.device, feat.device, rois.device}) > 1:
+        raise ValueError("grad_out, feat and rois must be on the same CUDA device")
+    _, bwd, err = _pool_kernels()
+    feat_flag = _dtype_flag(feat.dtype, "features")
+    grad_flag = _dtype_flag(grad_out.dtype, "gradients")
+    grad_out, feat = grad_out.contiguous(), feat.contiguous()
+    rois = rois.float().contiguous()
+    grad = torch.empty(n, h, w, c, dtype=feat.dtype, device=feat.device)
+    if grad.numel() == 0:
+        return grad
+    bin_max = torch.empty(grad_out.shape, dtype=torch.float32, device=feat.device)
+    row_share = torch.empty_like(bin_max)
+    with torch.cuda.device(feat.device):
+        stream = torch.cuda.current_stream(feat.device).cuda_stream
+        rc = bwd(feat.data_ptr(), feat_flag, grad_out.data_ptr(), grad_flag, rois.data_ptr(), n, h,
+                 w, c, r, out_size, bin_max.data_ptr(), row_share.data_ptr(), grad.data_ptr(),
+                 stream)
+    build.check(rc, err, "roi_pool_bwd_kernel")
+    global pool_backward_launches
+    pool_backward_launches += 1
+    return grad
+
+
+class _RoIPool(torch.autograd.Function):
+    """ROIPool with the kernels in both directions (CUDA tensors only). Rois
+    arrive in feature coordinates; the forward keeps references to its
+    inputs for the backward, no copies."""
+
+    @staticmethod
+    def forward(ctx, feat: Tensor, rois: Tensor, out_size: int) -> Tensor:
+        ctx.save_for_backward(feat, rois)
+        ctx.out_size = out_size
+        return _pool_forward_cuda(feat, rois, out_size)
+
+    @staticmethod
+    def backward(ctx, grad_out: Tensor):
+        feat, rois = ctx.saved_tensors
+        grad = None
+        if ctx.needs_input_grad[0]:
+            grad = roi_pool_backward_cuda(grad_out, feat, rois, ctx.out_size)
+        return grad, None, None
+
+
+def roi_pool_cuda(
+    feat: Tensor,
+    rois: Tensor,
+    out_size: int = 7,
+    spatial_scale: float = 1.0,
+) -> Tensor:
+    """feat [N, H, W, C] (f32 or bf16), rois [N, R, 4] -> [N, R, out, out, C]
+    in the feature's dtype, differentiable with respect to ``feat``. A CPU
+    tensor runs the plain ``roi_ops.roi_pool``."""
+    _check_args(feat, rois, out_size, 1)
+    if not feat.is_cuda:
+        return roi_pool(feat, rois, out_size, spatial_scale)
+    if rois.requires_grad and torch.is_grad_enabled():
+        raise ValueError(
+            "roi_pool_cuda gives no gradient to the rois; detach them (the "
+            "training path's proposals and gt boxes carry none)"
+        )
+    rois = (rois.float() * spatial_scale).contiguous()
+    return _RoIPool.apply(feat, rois, out_size)

@@ -16,7 +16,11 @@ Features are NHWC with the batch written out: feat [N, H, W, C], rois
 * :func:`roi_align_backward` — the gradient with respect to the features:
   the plain version of the backward kernel (the same taps and weights,
   scattered with ``index_add_``).
-* :func:`roi_pool` — quantized max pooling (Caffe/torchvision ROIPool).
+* :func:`roi_pool` — quantized max pooling (Caffe/torchvision ROIPool), the
+  plain version of ``csrc/roi_pool_kernel.cu``'s forward (bitwise), and
+  :func:`roi_pool_backward`, its gradient: the VJP of the same masked maxes
+  on float32 copies, which splits a tied maximum's gradient evenly as the
+  JAX VJP does.
 """
 
 from __future__ import annotations
@@ -225,6 +229,26 @@ def roi_pool(
     return torch.where(torch.isfinite(pooled), pooled, pooled.new_zeros(()))
 
 
+def roi_pool_backward(
+    grad_out: Tensor,
+    feat: Tensor,
+    rois: Tensor,
+    out_size: int = 7,
+    spatial_scale: float = 1.0,
+) -> Tensor:
+    """Gradient of :func:`roi_pool` with respect to ``feat``: grad_out
+    [N, R, out, out, C] -> [N, H, W, C] in ``feat``'s dtype. Autograd of the
+    masked maxes on float32 copies of ``feat`` and ``grad_out`` (the values
+    are exact in float32, so ties are the same), sums in float32, cast once.
+    A NaN in a bin makes autograd divide 0 by 0, so the NaN spreads along
+    its channel; the backward kernel passes nothing through a NaN instead."""
+    with torch.enable_grad():
+        f = feat.detach().float().requires_grad_(True)
+        pooled = roi_pool(f, rois.detach(), out_size, spatial_scale)
+        (grad,) = torch.autograd.grad(pooled, f, grad_out.float())
+    return grad.to(feat.dtype)
+
+
 def extract_roi_features(
     feat: Tensor,
     rois: Tensor,
@@ -234,11 +258,12 @@ def extract_roi_features(
     spatial_scale: float = 1.0,
     out_dtype: Optional[torch.dtype] = None,
 ) -> Tensor:
-    """ROIAlign or ROIPool by config string. ROIAlign launches the CUDA
-    kernel for a CUDA tensor and runs its plain gather version on the CPU or
-    inside :class:`ops.reference_scope`. ``out_dtype`` is the output's dtype
-    (default: float32 for ROIAlign, the feature's dtype for ROIPool); the
-    kernel stores it directly, the plain versions cast to it."""
+    """ROIAlign or ROIPool by config string. Each launches its CUDA kernels
+    for a CUDA tensor and runs its plain version (ROIAlign's gather twin,
+    ROIPool's masked maxes) on the CPU or inside :class:`ops.reference_scope`.
+    ``out_dtype`` is the output's dtype (default: float32 for ROIAlign, the
+    feature's dtype for ROIPool); the ROIAlign kernel stores it directly, the
+    other paths cast to it."""
     if op == "align":
         out_dtype = out_dtype or torch.float32
         if ops.reference_requested():
@@ -250,6 +275,11 @@ def extract_roi_features(
 
         return roi_align_cuda(feat, rois, out_size, sampling_ratio, spatial_scale, out_dtype)
     if op == "pool":
-        pooled = roi_pool(feat, rois, out_size, spatial_scale)
+        if ops.reference_requested():
+            pooled = roi_pool(feat, rois, out_size, spatial_scale)
+        else:
+            from replication_faster_rcnn_tpu_torch.ops.cuda.roi_kernel import roi_pool_cuda
+
+            pooled = roi_pool_cuda(feat, rois, out_size, spatial_scale)
         return pooled if out_dtype is None else pooled.to(out_dtype)
     raise ValueError(f"unknown roi op {op!r}")

@@ -172,7 +172,8 @@ def compute_losses(
             strategy=config.train.sampling_strategy,
         )
     with stage("head"):
-        cls_out, reg_out = model.head_forward(feat, sample_rois, img_h, img_w)
+        cls_out, reg_out = model.head_forward(feat, sample_rois, img_h, img_w,
+                                              generator=generator)
     with stage("losses"):
         reg_sel = select_class_deltas(reg_out, lab_t2)
         head_reg_loss = losses.loc_loss(reg_sel, reg_t2, lab_t2, sigma)

@@ -116,6 +116,13 @@ def test_roi_align_kernel_matches_gather(dev):
                                  (64, 1, 1, 0.25), (256, 7, 2, 1.0), (264, 7, 2, 1.0)]:
             _roi_case(dev, dtype, c, out, s, scale)
     _roi_edge_cases(dev)
+    # the other ROI forward kernel of ops/cuda/roi_kernel.py: ROIPool, bitwise
+    # against the plain masked maxes at the same kinds of shapes
+    for dtype in (torch.float32, torch.bfloat16):
+        for c, out, scale in [(3, 7, 1.0), (12, 7, 1.0), (130, 5, 0.5), (64, 1, 0.25),
+                              (256, 7, 1.0 / 16), (264, 7, 1.0)]:
+            _pool_case(dev, dtype, c, out, scale)
+    _pool_edge_cases(dev)
 
 
 def _roi_case(dev, dtype, c, out, s, scale):
@@ -165,6 +172,100 @@ def _roi_edge_cases(dev):
             assert got.dtype == out_dtype and torch.equal(got, want.to(out_dtype))
         empty = roi_align_cuda(feat, rois[:, :0], 7, 2, out_dtype=torch.bfloat16)
         assert empty.shape == (1, 0, 7, 7, 64) and empty.dtype == torch.bfloat16
+
+
+def _pool_rois(rng, n, r, h, w, scale):
+    """Random rois with the edge cases (in image coordinates: / scale)."""
+    rois = _boxes(rng, (n, r), float(max(h, w)))
+    rois[:, :6] = torch.tensor([[-0.9, -0.9, 3.0, 3.0],              # at the top-left border
+                                [h - 3.0, w - 4.0, h + 2.0, w + 3.0],  # beyond the bottom-right
+                                [2.2, 2.2, 2.2, 2.2],                # degenerate
+                                [-5.0, -5.0, -2.0, -1.5],            # entirely out of the map
+                                [2.5, 3.5, 4.5, 5.5],                # corners at .5: half to even
+                                [float("nan"), 1.0, 6.0, 7.0]])      # a diverged proposal
+    return rois / scale
+
+
+def _pool_case(dev, dtype, c, out, scale, feat=None, n=2, r=37):
+    """Forward bitwise against the plain version; the backward (from
+    float32 and bfloat16 gradients) bitwise across two launches, finite,
+    and against the plain VJP on float32 copies where that is finite:
+    float32 within atol 1e-5 / rtol 1e-6, bfloat16 within one bfloat16 ulp
+    of the plain gradient rounded once or atol 1e-5 (chip_smoke's
+    ROI_POOL_BWD)."""
+    from replication_faster_rcnn_tpu_torch.ops.cuda import roi_kernel
+    from replication_faster_rcnn_tpu_torch.ops.roi_ops import roi_pool, roi_pool_backward
+
+    rng = np.random.default_rng(c + out)
+    h, w = 13, 11
+    if feat is None:
+        feat = torch.from_numpy(rng.normal(0, 1, (n, h, w, c)).astype(np.float32))
+    feat = feat.to(dev, dtype)
+    rois = _pool_rois(rng, feat.shape[0], r, h, w, scale).to(dev)
+    n0 = roi_kernel.pool_launches
+    got = roi_kernel.roi_pool_cuda(feat, rois, out, scale)
+    assert roi_kernel.pool_launches == n0 + 1 and got.dtype == dtype
+    assert torch.equal(got, roi_pool(feat, rois, out, scale))
+    frois = (rois * scale).contiguous()
+    g = torch.from_numpy(rng.normal(0, 1, tuple(got.shape)).astype(np.float32)).to(dev)
+    want = roi_pool_backward(g, feat.float(), frois, out)
+    fin = torch.isfinite(want)
+    for gd in (torch.float32, torch.bfloat16):
+        b0 = roi_kernel.pool_backward_launches
+        k = roi_kernel.roi_pool_backward_cuda(g.to(gd), feat, frois, out)
+        again = roi_kernel.roi_pool_backward_cuda(g.to(gd), feat, frois, out)
+        torch.cuda.synchronize()
+        assert roi_kernel.pool_backward_launches == b0 + 2 and k.dtype == dtype
+        bits = torch.int32 if dtype == torch.float32 else torch.int16
+        assert torch.equal(k.view(bits), again.view(bits)) and torch.isfinite(k).all()
+        p = (want if gd == torch.float32 else
+             roi_pool_backward(g.to(gd), feat.float(), frois, out))
+        if dtype == torch.float32:
+            torch.testing.assert_close(k[fin], p[fin], atol=1e-5, rtol=1e-6)
+        else:
+            ref = p[fin].to(torch.bfloat16).float()
+            _, e = torch.frexp(ref)
+            ulp = torch.where(ref != 0, torch.ldexp(torch.ones_like(ref), e - 8),
+                              torch.zeros_like(ref))
+            assert ((k[fin].float() - ref).abs() <= torch.clamp(ulp, min=1e-5)).all()
+
+
+def _pool_edge_cases(dev):
+    """Integer-valued features (exact ties), NaN and +-inf in the map, a
+    feature base one element off 16-byte alignment (the scalar path), N = 1,
+    R = 0, rois that need no gradient through autograd, and 128 identical
+    rois per image."""
+    from replication_faster_rcnn_tpu_torch.ops.cuda import roi_kernel
+
+    rng = np.random.default_rng(41)
+    ties = torch.from_numpy(rng.integers(-2, 3, (2, 13, 11, 16)).astype(np.float32))
+    bad = torch.from_numpy(rng.normal(0, 1, (2, 13, 11, 16)).astype(np.float32))
+    bad[0, 3, 4, 1], bad[0, 7, 2, 3], bad[1, 5, 5, 0] = float("nan"), float("inf"), -float("inf")
+    bad[1, 0, :, 2] = -float("inf")
+    for dtype in (torch.float32, torch.bfloat16):
+        _pool_case(dev, dtype, 16, 7, 0.5, feat=ties)
+        _pool_case(dev, dtype, 16, 7, 0.5, feat=bad)
+        flat = torch.from_numpy(rng.normal(0, 1, 13 * 11 * 64 + 1).astype(np.float32))
+        _pool_case(dev, dtype, 64, 7, 1.0, feat=flat[1:].view(1, 13, 11, 64), n=1)
+        empty = roi_kernel.roi_pool_cuda(ties.to(dev, dtype), torch.zeros(2, 0, 4, device=dev))
+        assert empty.shape == (2, 0, 7, 7, 16) and empty.dtype == dtype
+        zero = roi_kernel.roi_pool_backward_cuda(torch.zeros(2, 0, 7, 7, 16, device=dev),
+                                                 ties.to(dev, dtype), torch.zeros(2, 0, 4,
+                                                                                  device=dev), 7)
+        assert zero.shape == (2, 13, 11, 16) and not zero.any()
+    # through autograd: the Function's backward is the backward kernel
+    feat = torch.from_numpy(rng.normal(0, 1, (2, 38, 38, 256)).astype(np.float32)).to(dev)
+    same = torch.tensor([5.3, 7.1, 30.2, 33.9], device=dev).expand(2, 128, 4).contiguous()
+    leaf = feat.to(torch.bfloat16).requires_grad_(True)
+    b0 = roi_kernel.pool_backward_launches
+    out = roi_kernel.roi_pool_cuda(leaf, same, 7)
+    g = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    out.backward(g.to(out.dtype))
+    assert roi_kernel.pool_backward_launches == b0 + 1
+    direct = roi_kernel.roi_pool_backward_cuda(g.to(torch.bfloat16), leaf.detach(), same, 7)
+    assert torch.equal(leaf.grad, direct)
+    with pytest.raises(ValueError):
+        roi_kernel.roi_pool_cuda(leaf, same.clone().requires_grad_(True), 7)
 
 
 # ------------------------------------------------------------- IoU matching

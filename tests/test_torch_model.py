@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from replication_faster_rcnn_tpu import config as jconfig
 from replication_faster_rcnn_tpu.eval import detect as j_detect
@@ -36,7 +37,7 @@ from replication_faster_rcnn_tpu.ops import anchors as j_anchors
 from replication_faster_rcnn_tpu_torch import config as tconfig
 from replication_faster_rcnn_tpu_torch.eval import detect as t_detect
 from replication_faster_rcnn_tpu_torch.eval.evaluator import make_infer_fn
-from replication_faster_rcnn_tpu_torch.models.convert import from_flax_variables
+from replication_faster_rcnn_tpu_torch.models.convert import from_flax_variables, to_flax_variables
 from replication_faster_rcnn_tpu_torch.models.faster_rcnn import build_model
 from replication_faster_rcnn_tpu_torch.models.rpn import batched_proposals
 
@@ -181,3 +182,131 @@ def test_make_infer_fn_matches_jax(models):
     np.testing.assert_allclose(got["boxes"].numpy(), np.asarray(want["boxes"]), rtol=0, atol=1e-2)
     np.testing.assert_allclose(got["scores"].numpy(), np.asarray(want["scores"]), rtol=0, atol=1e-4)
     assert np.asarray(want["valid"]).sum() > 0
+
+
+# ------------------------------------------------------- the other presets
+
+
+def _preset_pair(name, rng):
+    """The JAX model and bridged variables of preset ``name`` at 96x96 in
+    float32 (BatchNorm statistics, biases and the RPN/head weights
+    randomised as in ``models``), and the port's model from them."""
+    jcfg = jconfig.get_config(name)
+    jcfg = jcfg.replace(
+        model=dataclasses.replace(jcfg.model, compute_dtype="float32"),
+        data=dataclasses.replace(jcfg.data, image_size=SIZE),
+    )
+    tcfg = tconfig.get_config(name)
+    tcfg = tcfg.replace(
+        model=dataclasses.replace(tcfg.model, compute_dtype="float32"),
+        data=dataclasses.replace(tcfg.data, image_size=SIZE),
+    )
+    jmodel, variables = init_variables(jcfg, jax.random.PRNGKey(0))
+    raw = jax.tree_util.tree_map(np.array, dict(variables))
+    variables = _randomise(raw, rng)
+    tmodel = build_model(tcfg, device="cpu", state_dict=from_flax_variables(variables))
+    return jcfg, tcfg, jmodel, raw, variables, tmodel
+
+
+def _assert_round_trip(raw, name):
+    back = to_flax_variables(from_flax_variables(raw))
+    for coll in ("params", "batch_stats"):
+        want = jax.tree_util.tree_leaves_with_path(raw.get(coll, {}))
+        got = dict(jax.tree_util.tree_leaves_with_path(back.get(coll, {})))
+        assert len(got) == len(want), (name, coll)
+        for path, leaf in want:
+            assert got[path].dtype == leaf.dtype and np.array_equal(got[path], leaf), (name, path)
+
+
+def _close(got, want, name):
+    """rtol 1e-4, and atol 1e-5 of the array's largest magnitude: the two
+    frameworks sum the convolutions in other orders, so the error scales
+    with the largest operands (values reach ~40 here; measured up to 1.2e-4
+    absolute on an RPN delta of 0.2)."""
+    want = np.asarray(want)
+    atol = 1e-5 * max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=atol, err_msg=name)
+
+
+def _assert_stages(jmodel, jvars, tmodel, images, name):
+    """Each stage fed the JAX stage's own output, compared with ``_close``."""
+    jfeat = _apply(jmodel, jvars, jnp.asarray(images), method=JFasterRCNN.extract_features)
+    with torch.inference_mode():
+        tfeat = tmodel.extract_features(torch.from_numpy(images))
+    _close(tfeat.numpy(), jfeat, name)
+    jl, jd, ja = _apply(jmodel, jvars, jfeat, method=JFasterRCNN.rpn_forward)
+    feat_np = np.array(jfeat)
+    with torch.inference_mode():
+        tl, td, ta = tmodel.rpn_forward(torch.from_numpy(feat_np))
+    _close(tl.numpy(), jl, name)
+    _close(td.numpy(), jd, name)
+    np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+    jrois, _ = j_batched_proposals(ja, jl, jd, 96.0, 96.0, jmodel.config.proposals, False)
+    jc, jr = _apply(jmodel, jvars, jfeat, jrois, 96.0, 96.0, method=JFasterRCNN.head_forward)
+    with torch.inference_mode():
+        tc, tr = tmodel.head_forward(torch.from_numpy(feat_np), torch.from_numpy(np.array(jrois)),
+                                     96.0, 96.0)
+    _close(tc.numpy(), jc, name)
+    _close(tr.numpy(), jr, name)
+    return tc
+
+
+def test_presets_match_jax():
+    """The presets beside ``voc12_resnet18_align`` at 96x96 in float32 from
+    bridged weights (tolerances as in the module docstring): the flagship
+    ``voc_resnet18`` (ROIPool head) stage by stage and its whole program
+    against JAX ``make_infer_fn``; ``voc_resnet50`` (Bottleneck, ROIPool),
+    ``coco_resnet50`` (ROIAlign, 81 classes) and ``coco_vgg16`` (VGG16
+    trunk, 512-wide RPN, 12 anchors, fc6/fc7 tail, ROIPool, 81 classes)
+    stage by stage in eval mode (``_close``; detections as in
+    ``test_make_infer_fn_matches_jax``); the weight bridge round-trips every
+    preset's JAX tree bitwise; and the VGG16 tail's dropout is the identity
+    in eval mode and drops about half from a seeded generator in train
+    mode."""
+    rng = np.random.default_rng(7)
+    images = rng.integers(0, 256, (2,) + SIZE + (3,), dtype=np.uint8)
+    heads = {}
+    for name in ("voc_resnet18", "voc_resnet50", "coco_resnet50", "coco_vgg16",
+                 "voc12_resnet18_align"):
+        jcfg, tcfg, jmodel, raw, variables, tmodel = _preset_pair(name, rng)
+        _assert_round_trip(raw, name)
+        if name == "voc12_resnet18_align":  # its stages: test_stages_match
+            continue
+        jvars = jax.tree_util.tree_map(jnp.asarray, variables)
+        heads[name] = _assert_stages(jmodel, jvars, tmodel, images, name)
+        if name == "voc_resnet18":
+            want = jax.jit(j_make_infer_fn(jmodel, jcfg))(jvars, jnp.asarray(images))
+            got = make_infer_fn(tmodel, tcfg)(torch.from_numpy(images))
+            np.testing.assert_array_equal(got["valid"].numpy(), np.asarray(want["valid"]))
+            np.testing.assert_array_equal(got["classes"].numpy(), np.asarray(want["classes"]))
+            np.testing.assert_allclose(got["boxes"].numpy(), np.asarray(want["boxes"]), rtol=0,
+                                       atol=1e-2)
+            np.testing.assert_allclose(got["scores"].numpy(), np.asarray(want["scores"]), rtol=0,
+                                       atol=1e-4)
+            assert np.asarray(want["valid"]).sum() > 0
+        if name == "coco_vgg16":
+            _assert_vgg_dropout(tmodel.head.tail)
+        del jmodel, raw, variables, tmodel
+    assert heads["coco_resnet50"].shape[-1] == 81 and heads["coco_vgg16"].shape[-1] == 81
+    assert heads["voc_resnet50"].shape[-1] == 21
+
+
+def _assert_vgg_dropout(tail):
+    x = torch.from_numpy(np.random.default_rng(3).normal(0, 1, (6, 7, 7, 512)).astype(np.float32))
+    plain = F.relu(tail.fc7(F.relu(tail.fc6(x.reshape(6, -1)))))
+    with torch.no_grad():
+        assert torch.equal(tail.eval()(x), plain)
+        tail.train()
+        with pytest.raises(ValueError):
+            tail(x)
+        out = tail(x, torch.Generator().manual_seed(5))
+        assert torch.equal(out, tail(x, torch.Generator().manual_seed(5)))
+        gen = torch.Generator().manual_seed(5)  # the same draws, by hand
+        h = F.relu(tail.fc6(x.reshape(6, -1)))
+        keep6 = torch.rand(h.shape, generator=gen) < 0.5
+        h = F.relu(tail.fc7(torch.where(keep6, h / 0.5, 0.0)))
+        keep7 = torch.rand(h.shape, generator=gen) < 0.5
+        assert torch.equal(out, torch.where(keep7, h / 0.5, 0.0))
+    for keep in (keep6, keep7):
+        assert abs(keep.float().mean().item() - 0.5) < 0.01
+    tail.eval()
