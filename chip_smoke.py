@@ -33,7 +33,9 @@ H100:  ``python3 chip_smoke.py``. It
    plain masked maxes at serving 8 x 300 and 1 x 300 and training 8 x 128
    rois, float32 and bfloat16, integer-valued features (exact ties) and
    maps with NaN and +-inf, and its backward (8 x 128) bitwise across two
-   launches and within ``ROI_POOL_BWD`` of the plain VJP on float32 copies;
+   launches and within ``ROI_POOL_BWD`` of the plain VJP on float32 copies,
+   both also on clustered rois that overlap like the train step's proposals
+   (with the backward's scratch bytes per call, measured);
 4. serves ``voc12_resnet18_align`` (ResNet18, 21 classes, ROIAlign 7x7 s=2)
    and then the flagship ``voc_resnet18`` (ROIPool 7x7) at 600x600, seeded
    random weights resident in bfloat16, through ``InferenceEngine``: one
@@ -458,11 +460,18 @@ def check_roi_pool_bwd(torch, name, grad_out, feat, rois):
     tolerances) wherever that is finite (a NaN in a bin spreads along its
     channel in the plain VJP; the kernel passes nothing through it). Bound:
     grad_out, the map and the rois read once, grad_feat written once; per
-    channel and bin pixel a comparison in each pass, and a division per bin."""
+    channel and bin pixel a comparison in each pass, and a division per bin.
+    ``scratch_bytes`` is the device memory one call allocates beyond its
+    output (the peak over the call, measured)."""
     from replication_faster_rcnn_tpu_torch.ops.cuda.roi_kernel import roi_pool_backward_cuda
     from replication_faster_rcnn_tpu_torch.ops.roi_ops import roi_pool_backward
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     got = roi_pool_backward_cuda(grad_out, feat, rois, 7)
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated() - base - got.numel() * got.element_size()
     again = roi_pool_backward_cuda(grad_out, feat, rois, 7)
     want = roi_pool_backward(grad_out, feat.float(), rois, 7)
     torch.cuda.synchronize()
@@ -500,9 +509,9 @@ def check_roi_pool_bwd(torch, name, grad_out, feat, rois):
     log(f"  roi_pool_bwd {name}: two launches bitwise equal, max |kernel - plain| {err:.3e} "
         f"over {int(fin.sum())} of {fin.numel()} finite plain entries "
         f"({ROI_POOL_BWD[str(feat.dtype).split('.')[-1]]}), kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), scratch {scratch} bytes")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "max_abs_err": err, "deterministic": True}
+            "max_abs_err": err, "deterministic": True, "scratch_bytes": scratch}
 
 
 def bound(nbytes, ops, peak_ops):
@@ -827,7 +836,9 @@ def check_roi_pool_kernels(torch, dev, b):
     training 8 x 128 rois on [38, 38, 256], float32 and bfloat16 features,
     integer-valued features (exact ties) and maps with NaN and +-inf; the
     backward at 8 x 128 from float32 and bfloat16 gradients, with ties, with
-    non-finite maps and with 128 identical rois per image."""
+    non-finite maps and with 128 identical rois per image; both directions
+    at 8 x 128 on ``clustered_boxes``, which overlap like the train step's
+    proposals."""
     rng = np.random.default_rng(8)
     bf16 = torch.bfloat16
 
@@ -870,6 +881,13 @@ def check_roi_pool_kernels(torch, dev, b):
                                                  trois),
         "pool_bwd_identical": check_roi_pool_bwd(torch, "bf16 grad 8x128 identical rois",
                                                  g.to(bf16), feat.to(bf16), same),
+    })
+    crois = torch.from_numpy(clustered_boxes(rng, b, 128) * (FEAT[0] / 600)).to(dev)
+    res.update({
+        "pool_clustered_bf16": check_roi_pool(torch, "bf16 8x128 clustered rois", feat.to(bf16),
+                                              crois),
+        "pool_bwd_clustered": check_roi_pool_bwd(torch, "bf16 grad 8x128 clustered rois",
+                                                 g.to(bf16), feat.to(bf16), crois),
     })
     return res
 
@@ -2009,8 +2027,8 @@ def main():
             "launches": sum(by_path("roi_pool").values()),
             "launches_by_path": by_path("roi_pool"),
             "parity": "bitwise vs roi_ops.roi_pool (the masked maxes) at serving 8 x 300 and "
-                      "1 x 300 and training 8 x 128, float32 and bfloat16, integer-valued "
-                      "features (ties), NaN and +-inf in the map",
+                      "1 x 300 and training 8 x 128 (random and clustered rois), float32 and "
+                      "bfloat16, integer-valued features (ties), NaN and +-inf in the map",
             "max_abs_err": 0.0,
             **{k: res["pool_bf16"][k] for k in timing},
             "library_ms": None, "library_note": NO_POOL_LIBRARY,
@@ -2019,6 +2037,7 @@ def main():
             "b1_bf16": {k: res["pool_b1_bf16"][k] for k in timing},
             "train_bf16": {k: res["pool_train_bf16"][k] for k in timing},
             "ties_bf16": {k: res["pool_ties_bf16"][k] for k in timing},
+            "clustered_bf16": {k: res["pool_clustered_bf16"][k] for k in timing},
             "train_step_device_ms": pool_step.get("forward"),
         },
         {
@@ -2039,6 +2058,8 @@ def main():
             "f32": {k: res["pool_bwd_f32"][k] for k in timing},
             "ties_bf16": {k: res["pool_bwd_ties_bf16"][k] for k in timing},
             "identical_rois": {k: res["pool_bwd_identical"][k] for k in timing},
+            "clustered_bf16": {k: res["pool_bwd_clustered"][k] for k in timing},
+            "scratch_bytes_per_call": res["pool_bwd_bf16"]["scratch_bytes"],
             "train_step_device_ms": pool_step.get("backward"),
         },
         {

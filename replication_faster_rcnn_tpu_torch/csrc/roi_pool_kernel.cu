@@ -8,7 +8,7 @@
 // masked-max formulation: for each of the out columns a torch.where over
 // [N, R, H, W, C], then one per row over [N, R, H, out, C]. That plain
 // version writes and reads tens of gigabytes at the serving shape; these
-// kernels read each bin of the map once per roi.
+// kernels read each roi's window of the map once.
 //
 // Semantics, which the forward repeats bit for bit (built with -fmad=false):
 //   * roi corners (already in feature coordinates) round half to even;
@@ -40,34 +40,59 @@
 // shape (8 images, 300 rois, [38, 38, 256] bfloat16): the map once (5.9 MB,
 // it stays in L2) and the output once (60.2 MB): 0.0197 ms. Backward at the
 // training shape (8 x 128 rois): grad_out once (25.7 MB in bfloat16), the
-// map once and grad_feat once (5.9 MB each): ~0.011 ms. In practice each
-// bin's pixels are gathered from L2 by the warp that owns the bin, once per
-// roi, and the backward's two passes add their scratch traffic.
+// map once and grad_feat once (5.9 MB each): ~0.011 ms. In practice both
+// are bound by latency and by per-channel instructions: the tie rule costs
+// comparisons, counts and float32 divisions per channel. No element these
+// kernels load is read by more than one thread, so staging it in shared
+// memory buys no reuse: tools/roi_pool_staged.cu (the roi's rows staged
+// through a ring by TMA, then column-pooled; the gather's slabs staged ahead
+// of use) is bitwise equal to this source and measured 1.5-2.8x slower
+// (tools/roi_pool_variants.py). These kernels instead keep many
+// independent loads and warps in flight.
 //
-// Forward design (roi_pool_kernel): one 256-thread block per (image, roi),
-// its bins split over a few blocks when there are too few rois to fill the
-// card. The block computes the roi's 2 * out bin edges once into shared
-// memory; a warp then takes one bin at a time and each lane 8 consecutive
-// channels (16-byte loads and stores), or single channels where C is not a
-// multiple of 8 or a base is not 16-byte aligned (a second instantiation).
+// Forward design (roi_pool_kernel): a 128-thread block per roi (its bins
+// split over a few blocks when there are too few rois for two waves, as at
+// b1) with the roi's bin edges in shared memory; a warp per bin, a lane per
+// 8 channels (16-byte loads and stores, or single channels when C is not a
+// multiple of 8 or a base is not 16-byte aligned). A lane issues the loads
+// of FWD_LOADS of the bin's pixels together before it reduces them, with
+// one __hmax2_nan per bfloat16 pair (float32: a NaN-propagating maximum).
+// The maximum is exact and its NaN does not depend on the order, so it
+// equals the plain one.
 //
 // Backward design: two passes, deterministic, no atomics.
-//   1. roi_pool_bwd_bins_kernel, laid out like the forward: for every roi
-//      bin and channel, the bin's maximum m and the number of its rows whose
-//      column maximum equals m, in one walk over the bin; it writes m and the
-//      row share a = g / count (0 where m is not finite) to two float32
-//      scratch arrays [N, R, out, out, C] that the wrapper allocates: 51.4 MB
-//      each at 8 x 128 x 7 x 7 x 256, freed when the backward returns. The
-//      forward saves nothing but references to its inputs.
-//   2. roi_pool_bwd_kernel gathers: a warp owns one pixel and a lane 8
-//      channels (a block, 8 pixels of one row and 256 channels). It walks the
-//      image's rois in index order, their bin edges staged in shared memory a
-//      chunk at a time; for each roi and column bin that hold the pixel it
-//      computes the column maximum of the pixel's row over the bin and its
-//      tie count, and where the pixel equals it, adds the row shares of the
-//      row bins that hold the pixel and whose m equals that maximum, divided
-//      by the count. Each pixel is written once, in the feature's dtype, with
-//      the same sums in the same order in every run.
+//   1. roi_pool_bwd_bins_kernel, the forward's bin walk with a tie count:
+//      per roi bin and channel, each row's column maximum, folded in row
+//      order into the bin's maximum m and the number of rows whose column
+//      maximum equals m. It writes m in the feature's dtype (raw: +-inf and
+//      NaN kept; exact, since m is one of the map's values) and the count
+//      in uint8 (maps of at most 255 rows, else TOO_MANY_ROWS): [N, R, out,
+//      out, C] each, 25.7 MB + 12.8 MB at 8 x 128 x 7 x 7 x 256 in bfloat16
+//      (the first design wrote m and g / count in float32: 103 MB). The
+//      wrapper allocates this scratch and frees it when the backward
+//      returns. It does not read grad_out.
+//   2. roi_pool_bwd_kernel owns one feature row: a 256-thread block per
+//      (image, row y, tile of 64 channels). The row's [W, 64] features and
+//      a float32 accumulator of the same shape sit in shared memory. The
+//      block lists the image's rois whose rows hold y, in index order (a
+//      chunk at a time), then takes them GATHER_GROUP at a time in two
+//      phases, a lane per 8 channels. Phase A, items (roi, column bin j,
+//      lane) all independent: the row's maximum cm and tie count over
+//      segment j (bfloat16: __hmax2_nan); s, the sum over the row bins i
+//      that hold y, ascending, of g(i, j) / count(i, j) where m(i, j) == cm
+//      (grad_out and the scratch read from L2 in 16-byte loads; a count of 1
+//      divides by nothing); q = s / ties. Phase B, items (pixel x, lane):
+//      for the group's rois in index order and their column bins holding x
+//      (a per-pixel table of bin ranges, built beside phase A) in ascending
+//      order, add q where feat[y, x] == cm. Each pixel thus receives the
+//      same float32 terms in the same order as in the first design (roi
+//      index, column bin; row bins ascending inside q): the gradient is
+//      bitwise the first design's, written once in the feature's dtype.
+//      Each scratch and grad_out entry is read once per row of its bin, not
+//      once per covered pixel and column bin.
+//
+// Shared memory bounds the gather's shapes: a [W, 64] row twice, so a map
+// too wide for the card's shared memory returns SHAPE_TOO_LARGE.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,13 +101,23 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_OUT = 256;  // bins along one axis
-constexpr int EDGE_BUDGET = 24 * 1024;  // shared bytes of staged roi edges in pass 2
+constexpr int FWD_THREADS = 128;       // forward and bins pass: threads per block
+constexpr int FWD_WARPS = FWD_THREADS / 32;
+constexpr int FWD_LOADS = 8;           // pixels whose loads a bfloat16 forward lane issues together
+constexpr int FWD_LOADS_F32 = 4;       // the same for float32 (twice the registers a pixel)
+constexpr int BINS_LOADS = 2;          // the same in the bins pass
+constexpr int GATHER_THREADS = 256;    // gather pass: threads per block
+constexpr int GATHER_CT = 64;          // gather pass: channels per block, 8 per lane
+constexpr int GATHER_GROUP = 8;        // rois per phase of the gather (8 spans: 16 bytes)
+constexpr int GATHER_ROIS = 128;       // rois per listed chunk (<= GATHER_THREADS)
+constexpr int MAX_OUT = 255;           // bins along one axis (uint8 bin indices in the list)
+constexpr int MAX_ROWS = 255;          // map rows the uint8 tie counts take
+constexpr int SHAPE_TOO_LARGE = -1;
+constexpr int TOO_MANY_ROWS = -2;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(uint8_t v) { return static_cast<float>(v); }
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
@@ -118,29 +153,110 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
   *reinterpret_cast<uint4*>(p) = u;
 }
 
+// amax's maximum: NaN propagates
+__device__ __forceinline__ float max_nan(float m, float v) { return (v > m || isnan(v)) ? v : m; }
+
+// x / d for a count d >= 1 (as float32), rounded to nearest: x / 1 is x, so
+// only a tie pays for the division.
+__device__ __forceinline__ float div_count(float x, float d) {
+  return d == 1.f ? x : __fdiv_rn(x, d);
+}
+
+// Running maximum and the number of values equal to it (NaN sticks).
+__device__ __forceinline__ void max_count(float v, float& m, int& n) {
+  if (isnan(m)) return;
+  if (isnan(v) || v > m) {
+    m = v;
+    n = 1;
+  } else if (v == m) {
+    ++n;
+  }
+}
+
 // A lane's 8 channel slots: 8 consecutive channels from p (VEC), or every
 // 32nd channel from p, the first nch of them. Missing slots read -inf.
 template <bool VEC, typename T>
 __device__ __forceinline__ void load_lane(const T* p, int nch, float (&v)[8]) {
-  if (VEC) {
+  if constexpr (VEC) {
     load8(p, v);
-    return;
-  }
+  } else {
 #pragma unroll
-  for (int k = 0; k < 8; ++k) v[k] = k < nch ? to_f32(p[32 * k]) : -INFINITY;
+    for (int k = 0; k < 8; ++k) v[k] = k < nch ? to_f32(p[32 * k]) : -INFINITY;
+  }
 }
 
 template <bool VEC, typename T>
 __device__ __forceinline__ void store_lane(T* p, int nch, const float (&v)[8]) {
-  if (VEC) {
+  if constexpr (VEC) {
     store8(p, v);
-    return;
-  }
+  } else {
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    if (k < nch) store1(p + 32 * k, v[k]);
+    for (int k = 0; k < 8; ++k) {
+      if (k < nch) store1(p + 32 * k, v[k]);
+    }
   }
 }
+
+// A lane's first channel and how many of its 8 slots are real.
+template <bool VEC>
+__device__ __forceinline__ int lane_channels(int base, int lane, int c, int& ch) {
+  ch = base + (VEC ? 8 * lane : lane);
+  if (VEC) return max(0, min(8, c - ch));
+  int n = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) n += ch + 32 * k < c;
+  return n;
+}
+
+// A lane's running maximum over its 8 channel slots, NaN propagating. Pixels
+// are loaded (load) apart from being taken (take), so a lane can have several
+// loads in flight.
+template <typename T, bool VEC>
+struct Lane8 {
+  struct Raw {
+    float v[8];
+  };
+  float v[8];
+  static __device__ __forceinline__ Raw load(const T* p, int nch) {
+    Raw r;
+    load_lane<VEC>(p, nch, r.v);
+    return r;
+  }
+  __device__ __forceinline__ void fill() {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = -INFINITY;
+  }
+  __device__ __forceinline__ void take(const Raw& r) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = max_nan(v[k], r.v[k]);
+  }
+  __device__ __forceinline__ float get(int k) const { return v[k]; }
+};
+
+// 8 consecutive bfloat16 channels as four pairs: one __hmax2_nan per pair
+template <>
+struct Lane8<__nv_bfloat16, true> {
+  using Raw = uint4;
+  uint4 raw;
+  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p, int) {
+    return *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ __forceinline__ void fill() {
+    const __nv_bfloat162 neg = __float2bfloat162_rn(-INFINITY);
+    const unsigned u = *reinterpret_cast<const unsigned*>(&neg);
+    raw = make_uint4(u, u, u, u);
+  }
+  __device__ __forceinline__ void take(const Raw& r) {
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+    const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) h[k] = __hmax2_nan(h[k], q[k]);
+  }
+  __device__ __forceinline__ float get(int k) const {
+    const __nv_bfloat162 h = reinterpret_cast<const __nv_bfloat162*>(&raw)[k >> 1];
+    return (k & 1) ? __high2float(h) : __low2float(h);
+  }
+};
 
 // Bins along one axis: [lo, hi), empty when lo >= hi.
 struct Span {
@@ -153,6 +269,7 @@ __device__ __forceinline__ float clamp_keep_nan(float x, float lo, float hi) {
 }
 
 // Bin p of a roi along one axis, from its two corners (feature coordinates).
+// Both edges are non-decreasing in p, so the bins that hold a row are one run.
 __device__ __forceinline__ Span bin_span(float a, float b, int p, float inv_out, int extent) {
   const float start = rintf(a);
   float ext = __fadd_rn(__fsub_rn(rintf(b), start), 1.f);
@@ -174,238 +291,435 @@ __device__ __forceinline__ Span bin_span(float a, float b, int p, float inv_out,
   return s;
 }
 
-// The 2 * out spans of a roi into shared memory: rows first, then columns.
-__device__ __forceinline__ void roi_spans(const float* roi, int out, int h, int w, Span* spans,
-                                          int t, int stride) {
+__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~static_cast<size_t>(15); }
+
+// q / d for 0 <= q < 2^16 and 1 <= d <= 255 without an integer division:
+// the float32 quotient of q + 0.5 lies at least 1 / 510 from an integer,
+// far beyond its rounding error.
+__device__ __forceinline__ int div_small(int q, float inv_d) {
+  return __float2int_rd(__fmul_rn(static_cast<float>(q) + 0.5f, inv_d));
+}
+
+// One (roi, split) block: the roi's 2 * out spans in shared memory, then a
+// warp per bin and a lane per 8 channels, each lane with FWD_LOADS pixels'
+// loads in flight. COUNT (the bins pass) reduces each row of the bin to its
+// column maximum, folds those in row order with a tie count and writes the
+// maximum and the count raw; the forward writes the maximum, a non-finite
+// one as 0.
+template <typename T, bool VEC, bool COUNT>
+__device__ __forceinline__ void pool_bins(const T* __restrict__ feat,
+                                          const float* __restrict__ rois, int h, int w, int c,
+                                          int r, int out, T* __restrict__ dst,
+                                          uint8_t* __restrict__ ties) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Span* spans = reinterpret_cast<Span*>(smem);  // [out] rows, then [out] columns
+  using Lanes = Lane8<T, VEC>;
+  constexpr int LOADS = COUNT ? BINS_LOADS : (sizeof(T) == 2 ? FWD_LOADS : FWD_LOADS_F32);
+  const int64_t nr = blockIdx.x;
+  const int n = static_cast<int>(nr / r);
+  const float* roi = rois + nr * 4;
   const float inv_out = __fdiv_rn(1.f, static_cast<float>(out));
-  for (int k = t; k < 2 * out; k += stride) {
+  for (int k = threadIdx.x; k < 2 * out; k += blockDim.x) {
     spans[k] = k < out ? bin_span(roi[0], roi[2], k, inv_out, h)
                        : bin_span(roi[1], roi[3], k - out, inv_out, w);
   }
-}
-
-// amax's maximum: NaN propagates
-__device__ __forceinline__ float max_nan(float m, float v) { return (v > m || isnan(v)) ? v : m; }
-
-// Running maximum and the number of values equal to it (NaN sticks).
-__device__ __forceinline__ void max_count(float v, float& m, int& n) {
-  if (isnan(m)) return;
-  if (isnan(v) || v > m) {
-    m = v;
-    n = 1;
-  } else if (v == m) {
-    ++n;
-  }
-}
-
-// A lane's first channel and how many of its 8 slots are real.
-template <bool VEC>
-__device__ __forceinline__ int lane_channels(int base, int lane, int c, int& ch) {
-  ch = base + (VEC ? 8 * lane : lane);
-  if (VEC) return max(0, min(8, c - ch));
-  int n = 0;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) n += ch + 32 * k < c;
-  return n;
-}
-
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(THREADS)
-roi_pool_kernel(const T* __restrict__ feat,      // [N, H, W, C]
-                const float* __restrict__ rois,  // [N, R, 4] feature coords
-                int h, int w, int c, int r, int out,
-                T* __restrict__ dst) {           // [N, R, out, out, C]
-  extern __shared__ Span spans[];                // [out] rows, then [out] columns
-  const int64_t nr = blockIdx.x;
-  const int n = static_cast<int>(nr / r);
-  roi_spans(rois + nr * 4, out, h, w, spans, threadIdx.x, blockDim.x);
   __syncthreads();
 
   const T* img = feat + static_cast<int64_t>(n) * h * w * c;
   const int lane = threadIdx.x & 31;
   const int bins = out * out;
-  for (int b = blockIdx.y * WARPS + (threadIdx.x >> 5); b < bins; b += gridDim.y * WARPS) {
-    const Span ry = spans[b / out], rx = spans[out + b % out];
-    T* o = dst + (nr * bins + b) * c;
-    for (int base = 0; base < c; base += 256) {
-      int ch;
-      const int nch = lane_channels<VEC>(base, lane, c, ch);
-      if (nch <= 0) break;
-      float m[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) m[k] = -INFINITY;
-      for (int y = ry.lo; y < ry.hi; ++y) {
-        const T* row = img + static_cast<int64_t>(y) * w * c + ch;
-        for (int x = rx.lo; x < rx.hi; ++x) {
-          float v[8];
-          load_lane<VEC>(row + static_cast<int64_t>(x) * c, nch, v);
-#pragma unroll
-          for (int k = 0; k < 8; ++k) m[k] = max_nan(m[k], v[k]);
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < 8; ++k) m[k] = isfinite(m[k]) ? m[k] : 0.f;
-      store_lane<VEC>(o + ch, nch, m);
-    }
-  }
-}
-
-// Pass 1 of the backward: per roi bin and channel, the maximum m and the row
-// share a = g / (rows of the bin whose column maximum equals m).
-template <typename T, typename G, bool VEC>
-__global__ void __launch_bounds__(THREADS)
-roi_pool_bwd_bins_kernel(const T* __restrict__ feat,      // [N, H, W, C]
-                         const G* __restrict__ grad_out,  // [N, R, out, out, C]
-                         const float* __restrict__ rois,  // [N, R, 4] feature coords
-                         int h, int w, int c, int r, int out,
-                         float* __restrict__ bin_max,     // [N, R, out, out, C]
-                         float* __restrict__ row_share) { // [N, R, out, out, C]
-  extern __shared__ Span spans[];
-  const int64_t nr = blockIdx.x;
-  const int n = static_cast<int>(nr / r);
-  roi_spans(rois + nr * 4, out, h, w, spans, threadIdx.x, blockDim.x);
-  __syncthreads();
-
-  const T* img = feat + static_cast<int64_t>(n) * h * w * c;
-  const int lane = threadIdx.x & 31;
-  const int bins = out * out;
-  for (int b = blockIdx.y * WARPS + (threadIdx.x >> 5); b < bins; b += gridDim.y * WARPS) {
-    const Span ry = spans[b / out], rx = spans[out + b % out];
+  for (int b = blockIdx.y * FWD_WARPS + (threadIdx.x >> 5); b < bins;
+       b += gridDim.y * FWD_WARPS) {
+    const int bi = div_small(b, inv_out);
+    const Span ry = spans[bi], rx = spans[out + b - bi * out];
+    const int bw = rx.hi - rx.lo;
+    const int area = ry.hi > ry.lo && bw > 0 ? (ry.hi - ry.lo) * bw : 0;
     const int64_t at = (nr * bins + b) * c;
     for (int base = 0; base < c; base += 256) {
       int ch;
       const int nch = lane_channels<VEC>(base, lane, c, ch);
       if (nch <= 0) break;
-      float m[8];
+      Lanes m, rm;  // the bin's maximum; COUNT: the current row's
+      m.fill();
+      rm.fill();
+      float mc[8];  // COUNT: the maximum of the row maxima and its tie count
       int cnt[8];
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
-        m[k] = -INFINITY;
+        mc[k] = -INFINITY;
         cnt[k] = 0;
       }
-      for (int y = ry.lo; y < ry.hi; ++y) {
-        const T* row = img + static_cast<int64_t>(y) * w * c + ch;
-        float rm[8];
+      const T* p0 = img + ch;
+      int y = ry.lo, x = rx.lo;
+      for (int p = 0; p < area; p += LOADS) {
+        typename Lanes::Raw u[LOADS];
+        bool row_end[LOADS];
 #pragma unroll
-        for (int k = 0; k < 8; ++k) rm[k] = -INFINITY;
-        for (int x = rx.lo; x < rx.hi; ++x) {
-          float v[8];
-          load_lane<VEC>(row + static_cast<int64_t>(x) * c, nch, v);
-#pragma unroll
-          for (int k = 0; k < 8; ++k) rm[k] = max_nan(rm[k], v[k]);
+        for (int k = 0; k < LOADS; ++k) {
+          if (p + k < area) {
+            u[k] = Lanes::load(p0 + (static_cast<int64_t>(y) * w + x) * c, nch);
+            row_end[k] = x == rx.hi - 1;
+            if (++x == rx.hi) {
+              x = rx.lo;
+              ++y;
+            }
+          }
         }
 #pragma unroll
-        for (int k = 0; k < 8; ++k) max_count(rm[k], m[k], cnt[k]);
-      }
-      float g[8], a[8];
-      load_lane<VEC>(grad_out + at + ch, nch, g);
+        for (int k = 0; k < LOADS; ++k) {
+          if (p + k >= area) break;
+          if constexpr (COUNT) {
+            rm.take(u[k]);
+            if (row_end[k]) {
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        a[k] = isfinite(m[k]) ? __fdiv_rn(g[k], static_cast<float>(cnt[k])) : 0.f;
+              for (int q = 0; q < 8; ++q) max_count(rm.get(q), mc[q], cnt[q]);
+              rm.fill();
+            }
+          } else {
+            m.take(u[k]);
+          }
+        }
       }
-      store_lane<VEC>(bin_max + at + ch, nch, m);
-      store_lane<VEC>(row_share + at + ch, nch, a);
+      if constexpr (COUNT) {
+        store_lane<VEC>(dst + at + ch, nch, mc);
+        if constexpr (VEC) {
+          uint2 packed;
+          uint8_t* bytes = reinterpret_cast<uint8_t*>(&packed);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) bytes[k] = static_cast<uint8_t>(cnt[k]);
+          *reinterpret_cast<uint2*>(ties + at + ch) = packed;
+        } else {
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            if (k < nch) ties[at + ch + 32 * k] = static_cast<uint8_t>(cnt[k]);
+          }
+        }
+      } else {
+        float f[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          f[k] = m.get(k);
+          f[k] = isfinite(f[k]) ? f[k] : 0.f;
+        }
+        store_lane<VEC>(dst + at + ch, nch, f);
+      }
     }
   }
 }
 
-// Pass 2 of the backward: a warp per pixel gathers what the rois' bins give
-// it (see the note at the top).
 template <typename T, bool VEC>
-__global__ void __launch_bounds__(THREADS)
-roi_pool_bwd_kernel(const T* __restrict__ feat,            // [N, H, W, C]
-                    const float* __restrict__ rois,        // [N, R, 4] feature coords
-                    const float* __restrict__ bin_max,     // [N, R, out, out, C]
-                    const float* __restrict__ row_share,   // [N, R, out, out, C]
-                    int h, int w, int c, int r, int out, int tiles_x, int chunk,
-                    T* __restrict__ grad_feat) {           // [N, H, W, C]
-  extern __shared__ Span spans[];                          // [chunk][2 * out]
-  int idx = blockIdx.x;
-  const int x = (idx % tiles_x) * WARPS + (threadIdx.x >> 5);
-  idx /= tiles_x;
-  const int y = idx % h;
-  const int n = idx / h;
-  const int lane = threadIdx.x & 31;
-  int ch;
-  const int nch = lane_channels<VEC>(blockIdx.y * 256, lane, c, ch);
-  const bool active = x < w && nch > 0;
+__global__ void __launch_bounds__(FWD_THREADS)
+roi_pool_kernel(const T* __restrict__ feat,      // [N, H, W, C]
+                const float* __restrict__ rois,  // [N, R, 4] feature coords
+                int h, int w, int c, int r, int out,
+                T* __restrict__ dst) {           // [N, R, out, out, C]
+  pool_bins<T, VEC, false>(feat, rois, h, w, c, r, out, dst, nullptr);
+}
 
-  const T* pix_row = feat + (static_cast<int64_t>(n) * h + y) * w * c + ch;
-  float v[8], acc[8];
+// Pass 1 of the backward: per roi bin and channel, the maximum m and the
+// number of the bin's rows whose column maximum equals m.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(FWD_THREADS)
+roi_pool_bwd_bins_kernel(const T* __restrict__ feat,        // [N, H, W, C]
+                         const float* __restrict__ rois,    // [N, R, 4] feature coords
+                         int h, int w, int c, int r, int out,
+                         T* __restrict__ bin_max,           // [N, R, out, out, C]
+                         uint8_t* __restrict__ tie_rows) {  // [N, R, out, out, C]
+  pool_bins<T, VEC, true>(feat, rois, h, w, c, r, out, bin_max, tie_rows);
+}
+
+// Shared memory of the gather (pass 2): the listed rois (index, first and
+// last row bin holding the row, column spans), the row [w][64] and its
+// float32 accumulator, a group's per-column-bin maximum (feature dtype) and
+// share q (float32) [GATHER_GROUP][out][64], the column bins holding each
+// pixel per roi of the group [w][GATHER_GROUP], and the list's warp counts.
+struct GatherLayout {
+  size_t bins, cols, row, acc, cm, q, tab, warps, total;
+};
+
+template <typename T>
+__host__ __device__ inline GatherLayout gather_layout(int w, int out, int chunk) {
+  GatherLayout l;
+  const size_t group = static_cast<size_t>(GATHER_GROUP) * out * GATHER_CT;
+  l.bins = align16(chunk * sizeof(int));
+  l.cols = align16(l.bins + chunk * sizeof(uchar2));
+  l.row = align16(l.cols + static_cast<size_t>(chunk) * out * sizeof(short2));
+  l.acc = align16(l.row + static_cast<size_t>(w) * GATHER_CT * sizeof(T));
+  l.cm = align16(l.acc + static_cast<size_t>(w) * GATHER_CT * sizeof(float));
+  l.q = align16(l.cm + group * sizeof(T));
+  l.tab = align16(l.q + group * sizeof(float));
+  l.warps = align16(l.tab + static_cast<size_t>(GATHER_GROUP) * w * sizeof(uchar2));
+  l.total = l.warps + (GATHER_THREADS / 32) * sizeof(int);
+  return l;
+}
+
+// 8 uint8 counts from an 8-byte aligned address, as float32
+__device__ __forceinline__ void load8(const uint8_t* p, float (&v)[8]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[k] = static_cast<float>((u.x >> (8 * k)) & 0xffu);
+    v[4 + k] = static_cast<float>((u.y >> (8 * k)) & 0xffu);
+  }
+}
+
+// A gather lane's 8 channels cl.. of the tile from a global array: one
+// vector load (VEC: C a multiple of 8, 16-byte aligned bases) or one load
+// each; channels past the tile read 0 and are never stored.
+template <bool VEC, typename T>
+__device__ __forceinline__ void load_lane8(const T* p, int cl, int nc, float (&v)[8]) {
+  if constexpr (VEC) {
+    if (cl < nc) {
+      load8(p, v);
+      return;
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = 0.f;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = cl + k < nc ? to_f32(p[k]) : 0.f;
+  }
+}
+
+// The maximum of a row segment [lo, hi) of 8 channels (row stride
+// GATHER_CT), NaN propagating, and its number of ties where it is finite
+// (elsewhere the gather uses neither): max_count's maximum and count.
+__device__ __forceinline__ void segment_max(const float* row, int lo, int hi, float (&m)[8],
+                                            float (&ties)[8]) {
+  int n[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    v[k] = -INFINITY;
-    acc[k] = 0.f;
+    m[k] = -INFINITY;
+    n[k] = 0;
   }
-  if (active) load_lane<VEC>(pix_row + static_cast<int64_t>(x) * c, nch, v);
-  const int bins = out * out;
-  const int per_roi = 2 * out;
+  for (int x = lo; x < hi; ++x) {
+    float u[8];
+    load8(row + x * GATHER_CT, u);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) max_count(u[k], m[k], n[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) ties[k] = static_cast<float>(n[k]);
+}
+
+// bfloat16: the maximum with one __hmax2_nan per pixel and pair, then the ties
+__device__ __forceinline__ void segment_max(const __nv_bfloat16* row, int lo, int hi,
+                                            float (&m)[8], float (&ties)[8]) {
+  Lane8<__nv_bfloat16, true> m8;
+  m8.fill();
+  for (int x = lo; x < hi; ++x) m8.take(Lane8<__nv_bfloat16, true>::load(row + x * GATHER_CT, 8));
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    m[k] = m8.get(k);
+    ties[k] = 0.f;
+  }
+  for (int x = lo; x < hi; ++x) {
+    float u[8];
+    load8(row + x * GATHER_CT, u);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) ties[k] += u[k] == m[k] ? 1.f : 0.f;
+  }
+}
+
+// Pass 2 of the backward: a block owns one feature row and gathers what the
+// rois' bins give it (see the note at the top).
+template <typename T, typename G, bool VEC>
+__global__ void __launch_bounds__(GATHER_THREADS)
+roi_pool_bwd_kernel(const T* __restrict__ feat,              // [N, H, W, C]
+                    const float* __restrict__ rois,          // [N, R, 4] feature coords
+                    const G* __restrict__ grad_out,          // [N, R, out, out, C]
+                    const T* __restrict__ bin_max,           // [N, R, out, out, C]
+                    const uint8_t* __restrict__ tie_rows,    // [N, R, out, out, C]
+                    int h, int w, int c, int r, int out, int chunk,
+                    T* __restrict__ grad_feat) {             // [N, H, W, C]
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int CT = GATHER_CT;
+  constexpr int LANES = CT / 8;  // a lane per 8 channels of the tile
+  const GatherLayout lay = gather_layout<T>(w, out, chunk);
+  int* l_roi = reinterpret_cast<int*>(smem);
+  uchar2* l_bins = reinterpret_cast<uchar2*>(smem + lay.bins);
+  short2* l_cols = reinterpret_cast<short2*>(smem + lay.cols);
+  T* row = reinterpret_cast<T*>(smem + lay.row);
+  float* acc = reinterpret_cast<float*>(smem + lay.acc);
+  T* g_cm = reinterpret_cast<T*>(smem + lay.cm);  // [GATHER_GROUP][out][CT]
+  float* g_q = reinterpret_cast<float*>(smem + lay.q);
+  uchar2* g_tab = reinterpret_cast<uchar2*>(smem + lay.tab);  // [w][GATHER_GROUP]
+  int* warp_hits = reinterpret_cast<int*>(smem + lay.warps);
+
+  const int y = blockIdx.x % h;
+  const int n = blockIdx.x / h;
+  const int c0 = blockIdx.y * CT;
+  const int nc = min(CT, c - c0);
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int64_t pix0 = (static_cast<int64_t>(n) * h + y) * w;
+  for (int q = t; q < w * CT; q += GATHER_THREADS) {
+    const int k = q % CT;
+    store1(row + q, k < nc ? to_f32(feat[(pix0 + q / CT) * c + c0 + k]) : 0.f);
+    acc[q] = 0.f;
+  }
+  const float inv_out = __fdiv_rn(1.f, static_cast<float>(out));
+  const int64_t img_rois = static_cast<int64_t>(n) * r;
 
   for (int r0 = 0; r0 < r; r0 += chunk) {
     const int m_rois = min(chunk, r - r0);
-    __syncthreads();  // the previous chunk's spans are no longer read
-    for (int k = threadIdx.x; k < m_rois * per_roi; k += blockDim.x) {
-      const int j = k / per_roi;
-      roi_spans(rois + (static_cast<int64_t>(n) * r + r0 + j) * 4, out, h, w,
-                spans + j * per_roi, k - j * per_roi, per_roi);
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int j = 0; j < m_rois; ++j) {
-      const Span* ry = spans + j * per_roi;
-      const Span* rx = ry + out;
-      if (y < ry[0].lo || y >= ry[out - 1].hi || x < rx[0].lo || x >= rx[out - 1].hi) continue;
-      const int64_t roi_at = ((static_cast<int64_t>(n) * r + r0 + j) * bins) * c + ch;
-      for (int bj = 0; bj < out; ++bj) {
-        const Span sx = rx[bj];
-        if (x < sx.lo || x >= sx.hi) continue;
-        // the column maximum of this row over column bin bj, and its ties
-        float cm[8];
-        int cnt[8];
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          cm[k] = -INFINITY;
-          cnt[k] = 0;
-        }
-        for (int xx = sx.lo; xx < sx.hi; ++xx) {
-          float u[8];
-          load_lane<VEC>(pix_row + static_cast<int64_t>(xx) * c, nch, u);
-#pragma unroll
-          for (int k = 0; k < 8; ++k) max_count(u[k], cm[k], cnt[k]);
-        }
-        bool hit[8], any = false;
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          hit[k] = v[k] == cm[k] && isfinite(cm[k]);
-          any = any || hit[k];
-        }
-        if (!any) continue;
-        float s[8];
-#pragma unroll
-        for (int k = 0; k < 8; ++k) s[k] = 0.f;
-        for (int bi = 0; bi < out; ++bi) {
-          if (y < ry[bi].lo || y >= ry[bi].hi) continue;
-          const int64_t at = roi_at + static_cast<int64_t>(bi * out + bj) * c;
-          float m[8], a[8];
-          load_lane<VEC>(bin_max + at, nch, m);
-          load_lane<VEC>(row_share + at, nch, a);
-#pragma unroll
-          for (int k = 0; k < 8; ++k) {
-            if (hit[k] && cm[k] == m[k]) s[k] = __fadd_rn(s[k], a[k]);
+    __syncthreads();  // the row is staged; the previous chunk's list is no longer read
+    // the list: the chunk's rois whose rows hold y, in index order
+    int blo = 0, bhi = -1;
+    float a1 = 0.f, a3 = 0.f;
+    if (t < m_rois) {
+      const float* roi = rois + (img_rois + r0 + t) * 4;
+      const float a0 = roi[0], a2 = roi[2];
+      a1 = roi[1];
+      a3 = roi[3];
+      if (bin_span(a0, a2, 0, inv_out, h).lo <= y && y < bin_span(a0, a2, out - 1, inv_out, h).hi) {
+        for (int p = 0; p < out; ++p) {
+          const Span s = bin_span(a0, a2, p, inv_out, h);
+          if (s.lo <= y && y < s.hi) {
+            if (bhi < 0) blo = p;
+            bhi = p;
           }
-        }
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          if (hit[k]) acc[k] = __fadd_rn(acc[k], __fdiv_rn(s[k], static_cast<float>(cnt[k])));
         }
       }
     }
+    const bool hit = bhi >= 0;
+    const unsigned mask = __ballot_sync(0xffffffffu, hit);
+    if (lane == 0) warp_hits[warp] = __popc(mask);
+    __syncthreads();
+    int pos = __popc(mask & ((1u << lane) - 1u)), hits = 0;
+    for (int k = 0; k < GATHER_THREADS / 32; ++k) {
+      pos += k < warp ? warp_hits[k] : 0;
+      hits += warp_hits[k];
+    }
+    if (hit) {
+      l_roi[pos] = r0 + t;
+      l_bins[pos] = make_uchar2(static_cast<unsigned char>(blo), static_cast<unsigned char>(bhi));
+      for (int p = 0; p < out; ++p) {
+        const Span s = bin_span(a1, a3, p, inv_out, w);
+        l_cols[pos * out + p] = make_short2(static_cast<short>(s.lo), static_cast<short>(s.hi));
+      }
+    }
+    __syncthreads();
+
+    for (int e0 = 0; e0 < hits; e0 += GATHER_GROUP) {
+      const int ng = min(GATHER_GROUP, hits - e0);
+      // the column bins [lo, hi) that hold each pixel, per roi of the group
+      for (int it = t; it < w * GATHER_GROUP; it += GATHER_THREADS) {
+        const int g = it % GATHER_GROUP;
+        const int x = it / GATHER_GROUP;
+        int lo = 0, hi = 0;  // edges rise with the bin: count, do not search
+        if (g < ng) {
+          const short2* cols = l_cols + (e0 + g) * out;
+          for (int bj = 0; bj < out; ++bj) {
+            const short2 sx = cols[bj];
+            lo += sx.y <= x;
+            hi += sx.x <= x;
+          }
+        }
+        g_tab[it] = make_uchar2(static_cast<unsigned char>(lo), static_cast<unsigned char>(hi));
+      }
+      // phase A: per (roi, column bin, 8 channels) the segment's maximum and
+      // ties, then q = (sum over the row bins holding y of g / count where
+      // m equals that maximum) / ties
+      for (int it = t; it < ng * out * LANES; it += GATHER_THREADS) {
+        const int cl = 8 * (it % LANES);
+        const int gb = it / LANES;  // g * out + bj
+        const int g = div_small(gb, inv_out);
+        const int e = e0 + g;
+        const int bj = gb - g * out;
+        const short2 sx = l_cols[e * out + bj];
+        float cm[8], ties[8], s[8];
+        segment_max(row + cl, sx.x, sx.y, cm, ties);
+        bool f[8], any = false;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          f[k] = isfinite(cm[k]);
+          any = any || f[k];
+          s[k] = 0.f;
+        }
+        if (any) {
+          // the row bins holding y, ascending
+          const uchar2 bins = l_bins[e];
+          const int64_t stride = static_cast<int64_t>(out) * c;  // one row of bins
+          int64_t at = ((img_rois + l_roi[e]) * out + bins.x) * stride + bj * c + c0 + cl;
+          for (int bi = bins.x; bi <= bins.y; ++bi, at += stride) {
+            float m[8], gr[8], cnt[8];
+            load_lane8<VEC>(bin_max + at, cl, nc, m);
+            load_lane8<VEC>(grad_out + at, cl, nc, gr);
+            load_lane8<VEC>(tie_rows + at, cl, nc, cnt);
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+              if (f[k] && m[k] == cm[k]) s[k] = __fadd_rn(s[k], div_count(gr[k], cnt[k]));
+            }
+          }
+        }
+        float q[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) q[k] = f[k] ? div_count(s[k], ties[k]) : 0.f;
+        const int st = gb * CT + cl;
+        store8(g_cm + st, cm);
+        store8(g_q + st, q);
+      }
+      __syncthreads();
+      // phase B: per (pixel, 8 channels), the group's rois in index order
+      // and their column bins holding the pixel in ascending order
+      for (int it = t; it < w * LANES; it += GATHER_THREADS) {
+        const int x = it / LANES;
+        const int cl = 8 * (it % LANES);
+        float u[8], a[8];
+        load8(row + x * CT + cl, u);
+        load8(acc + x * CT + cl, a);
+        const uint4 tab = *reinterpret_cast<const uint4*>(g_tab + x * GATHER_GROUP);
+        const unsigned words[4] = {tab.x, tab.y, tab.z, tab.w};
+#pragma unroll
+        for (int g = 0; g < GATHER_GROUP; ++g) {
+          if (g >= ng) break;
+          const unsigned span = words[g / 2] >> (16 * (g % 2));  // lo | hi << 8
+          for (int bj = span & 0xffu; bj < ((span >> 8) & 0xffu); ++bj) {
+            const int st = (g * out + bj) * CT + cl;
+            float cm[8], q[8];
+            load8(g_cm + st, cm);
+            load8(g_q + st, q);
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+              if (isfinite(cm[k]) && u[k] == cm[k]) a[k] = __fadd_rn(a[k], q[k]);
+            }
+          }
+        }
+        store8(acc + x * CT + cl, a);
+      }
+      __syncthreads();  // the group's maxima, shares and spans are written again
+    }
   }
-  if (active) {
-    store_lane<VEC>(grad_feat + (static_cast<int64_t>(n) * h + y) * w * c +
-                        static_cast<int64_t>(x) * c + ch,
-                    nch, acc);
+  __syncthreads();
+
+  // the row, every pixel once, in the feature's dtype
+  for (int q = t; q < w * CT; q += GATHER_THREADS) {
+    const int k = q % CT;
+    if (k < nc) store1(grad_feat + (pix0 + q / CT) * c + c0 + k, acc[q]);
   }
+}
+
+bool aligned(const void* p, uintptr_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+int ceil_div(int64_t a, int64_t b) { return static_cast<int>((a + b - 1) / b); }
+
+int max_shared() {
+  int dev = 0, bytes = 48 * 1024;
+  if (cudaGetDevice(&dev) == cudaSuccess) {
+    cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  return bytes;
+}
+
+// Let `kernel` take `bytes` of dynamic shared memory (above the default 48 KB).
+template <typename K>
+int allow_shared(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(bytes)));
 }
 
 int sm_count() {
@@ -416,17 +730,12 @@ int sm_count() {
   return sms;
 }
 
-bool aligned(const void* p, uintptr_t bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
-}
-
-int ceil_div(int64_t a, int64_t b) { return static_cast<int>((a + b - 1) / b); }
-
-// Blocks per roi: enough for two full waves of 256-thread blocks, at most
-// one bin per warp.
+// Forward and bins pass: a block per roi, its bins split over a few blocks
+// when there are too few rois for two full waves of the card, at most one
+// bin per warp.
 dim3 roi_grid(int64_t n_rois, int out) {
-  const int max_splits = ceil_div(static_cast<int64_t>(out) * out, WARPS);
-  const int splits = ceil_div(2LL * sm_count() * (2048 / THREADS), n_rois);
+  const int max_splits = ceil_div(static_cast<int64_t>(out) * out, FWD_WARPS);
+  const int splits = ceil_div(2LL * sm_count() * (2048 / FWD_THREADS), n_rois);
   return dim3(static_cast<unsigned int>(n_rois),
               static_cast<unsigned int>(max(1, min(splits, max_splits))));
 }
@@ -439,7 +748,7 @@ int launch_fwd(const void* feat, const void* rois, int batch, int h, int w, int 
   if (out < 1 || out > MAX_OUT) return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = c % 8 == 0 && aligned(feat, 16) && aligned(dst, 16);
   auto kernel = vec ? roi_pool_kernel<T, true> : roi_pool_kernel<T, false>;
-  kernel<<<roi_grid(n_rois, out), THREADS, 2 * out * sizeof(Span), stream>>>(
+  kernel<<<roi_grid(n_rois, out), FWD_THREADS, 2 * out * sizeof(Span), stream>>>(
       static_cast<const T*>(feat), static_cast<const float*>(rois), h, w, c, r, out,
       static_cast<T*>(dst));
   return static_cast<int>(cudaGetLastError());
@@ -447,33 +756,37 @@ int launch_fwd(const void* feat, const void* rois, int batch, int h, int w, int 
 
 template <typename T, typename G>
 int launch_bwd(const void* feat, const void* grad_out, const void* rois, int batch, int h,
-               int w, int c, int r, int out, void* bin_max, void* row_share, void* grad_feat,
+               int w, int c, int r, int out, void* bin_max, void* tie_rows, void* grad_feat,
                cudaStream_t stream) {
+  if (h > MAX_ROWS) return TOO_MANY_ROWS;
   const int64_t pixels = static_cast<int64_t>(batch) * h * w;
   if (pixels == 0 || c == 0) return 0;
   if (out < 1 || out > MAX_OUT) return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = c % 8 == 0 && aligned(feat, 16) && aligned(grad_out, 16) &&
-                   aligned(grad_feat, 16) && aligned(bin_max, 16) && aligned(row_share, 16);
+  const bool vec = c % 8 == 0 && aligned(feat, 16) && aligned(bin_max, 16) &&
+                   aligned(tie_rows, 16);
   const int64_t n_rois = static_cast<int64_t>(batch) * r;
+  const int chunk = max(1, min(r, GATHER_ROIS));
+  const size_t gather_bytes = gather_layout<T>(w, out, chunk).total;
+  if (gather_bytes > static_cast<size_t>(max_shared())) return SHAPE_TOO_LARGE;
   if (n_rois > 0) {
-    auto bins = vec ? roi_pool_bwd_bins_kernel<T, G, true> : roi_pool_bwd_bins_kernel<T, G, false>;
-    bins<<<roi_grid(n_rois, out), THREADS, 2 * out * sizeof(Span), stream>>>(
-        static_cast<const T*>(feat), static_cast<const G*>(grad_out),
-        static_cast<const float*>(rois), h, w, c, r, out, static_cast<float*>(bin_max),
-        static_cast<float*>(row_share));
-    const int err = static_cast<int>(cudaGetLastError());
-    if (err != 0) return err;
+    auto bins = vec ? roi_pool_bwd_bins_kernel<T, true> : roi_pool_bwd_bins_kernel<T, false>;
+    bins<<<roi_grid(n_rois, out), FWD_THREADS, 2 * out * sizeof(Span), stream>>>(
+        static_cast<const T*>(feat), static_cast<const float*>(rois), h, w, c, r, out,
+        static_cast<T*>(bin_max), static_cast<uint8_t*>(tie_rows));
+    const int launched = static_cast<int>(cudaGetLastError());
+    if (launched != 0) return launched;
   }
-  const int per_roi = 2 * out * static_cast<int>(sizeof(Span));
-  const int chunk = max(1, min(max(r, 1), EDGE_BUDGET / per_roi));
-  const int tiles_x = ceil_div(w, WARPS);
-  const dim3 grid(static_cast<unsigned int>(static_cast<int64_t>(batch) * h * tiles_x),
-                  static_cast<unsigned int>(ceil_div(c, 256)));
-  auto gather = vec ? roi_pool_bwd_kernel<T, true> : roi_pool_bwd_kernel<T, false>;
-  gather<<<grid, THREADS, chunk * per_roi, stream>>>(
+  auto gather = vec && aligned(grad_out, 16) ? roi_pool_bwd_kernel<T, G, true>
+                                              : roi_pool_bwd_kernel<T, G, false>;
+  const int err = allow_shared(gather, gather_bytes);
+  if (err != 0) return err;
+  const dim3 grid(static_cast<unsigned int>(pixels / w),
+                  static_cast<unsigned int>(ceil_div(c, GATHER_CT)));
+  gather<<<grid, GATHER_THREADS, gather_bytes, stream>>>(
       static_cast<const T*>(feat), static_cast<const float*>(rois),
-      static_cast<const float*>(bin_max), static_cast<const float*>(row_share), h, w, c, r, out,
-      tiles_x, chunk, static_cast<T*>(grad_feat));
+      static_cast<const G*>(grad_out), static_cast<const T*>(bin_max),
+      static_cast<const uint8_t*>(tie_rows), h, w, c, r, out, chunk,
+      static_cast<T*>(grad_feat));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -492,27 +805,35 @@ int roi_pool_fwd(const void* feat, int feat_bf16, const void* rois, int batch, i
 }
 
 // Backward: feat as in the forward, grad_out [batch, r, out, out, c] (bf16
-// when grad_bf16, else f32), two float32 scratch arrays of grad_out's shape
-// -> grad_feat [batch, h, w, c] in the feature's dtype, every element written
-// once. Two launches on the stream; returns the first CUDA error.
+// when grad_bf16, else f32), scratch of grad_out's shape: bin_max in the
+// feature's dtype and tie_rows in uint8 -> grad_feat [batch, h, w, c] in the
+// feature's dtype, every element written once. Two launches on the stream;
+// returns the first CUDA error, SHAPE_TOO_LARGE (-1) or TOO_MANY_ROWS (-2).
 int roi_pool_bwd(const void* feat, int feat_bf16, const void* grad_out, int grad_bf16,
                  const void* rois, int batch, int h, int w, int c, int r, int out,
-                 void* bin_max, void* row_share, void* grad_feat, void* stream) {
+                 void* bin_max, void* tie_rows, void* grad_feat, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (feat_bf16) {
     return grad_bf16 ? launch_bwd<__nv_bfloat16, __nv_bfloat16>(
-                           feat, grad_out, rois, batch, h, w, c, r, out, bin_max, row_share,
+                           feat, grad_out, rois, batch, h, w, c, r, out, bin_max, tie_rows,
                            grad_feat, st)
                      : launch_bwd<__nv_bfloat16, float>(feat, grad_out, rois, batch, h, w, c, r,
-                                                        out, bin_max, row_share, grad_feat, st);
+                                                        out, bin_max, tie_rows, grad_feat, st);
   }
   return grad_bf16 ? launch_bwd<float, __nv_bfloat16>(feat, grad_out, rois, batch, h, w, c, r,
-                                                      out, bin_max, row_share, grad_feat, st)
+                                                      out, bin_max, tie_rows, grad_feat, st)
                    : launch_bwd<float, float>(feat, grad_out, rois, batch, h, w, c, r, out,
-                                              bin_max, row_share, grad_feat, st);
+                                              bin_max, tie_rows, grad_feat, st);
 }
 
+// The message of a return code: the shapes the kernels refuse, else CUDA's.
 const char* roi_pool_error_string(int err) {
+  if (err == SHAPE_TOO_LARGE) {
+    return "the map is too wide for the ROIPool backward's shared-memory row";
+  }
+  if (err == TOO_MANY_ROWS) {
+    return "the ROIPool backward counts tied rows in uint8: the map may have at most 255 rows";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -22,7 +22,9 @@ plain ``roi_ops.roi_pool`` (which a CPU tensor runs), differentiable with
 respect to the features through ``_RoIPool``, whose backward is the
 two-pass backward kernel (plain version ``roi_ops.roi_pool_backward``): it
 splits a tied maximum's gradient as the plain VJP does, sums in float32 in
-a fixed order and writes the feature's dtype.
+a fixed order and writes the feature's dtype. A shape the backward refuses
+(a map too wide for its shared-memory row, or of more than 255 rows for its
+uint8 tie counts) raises ValueError with the kernel's message.
 """
 
 from __future__ import annotations
@@ -213,6 +215,14 @@ def roi_align_cuda(
     return _RoIAlign.apply(feat, rois, out_size, sampling_ratio, out_dtype)
 
 
+def _check_pool(rc: int, err, what: str, feat: Tensor) -> None:
+    """A negative return code is a shape the ROIPool kernels refuse
+    (ValueError with the kernel's message); a positive one a CUDA error."""
+    if rc < 0:
+        raise ValueError(f"{err(rc).decode()}: feat {tuple(feat.shape)}")
+    build.check(rc, err, what)
+
+
 def _pool_forward_cuda(feat: Tensor, rois: Tensor, out_size: int) -> Tensor:
     """The ROIPool forward kernel on rois already in feature coordinates."""
     fwd, _, err = _pool_kernels()
@@ -227,7 +237,7 @@ def _pool_forward_cuda(feat: Tensor, rois: Tensor, out_size: int) -> Tensor:
         stream = torch.cuda.current_stream(feat.device).cuda_stream
         rc = fwd(feat.data_ptr(), flag, rois.data_ptr(), n, h, w, c, r, out_size, out.data_ptr(),
                  stream)
-    build.check(rc, err, "roi_pool_kernel")
+    _check_pool(rc, err, "roi_pool_kernel", feat)
     global pool_launches
     pool_launches += 1
     return out
@@ -238,7 +248,8 @@ def roi_pool_backward_cuda(grad_out: Tensor, feat: Tensor, rois: Tensor, out_siz
     bfloat16), the forward's features and rois (feature coordinates) ->
     grad_feat [N, H, W, C] in the feature's dtype, the same bits in every
     run. Two launches (the bins pass, then the gather), counted once. Their
-    float32 scratch is two arrays of grad_out's shape, freed on return. A CPU
+    scratch, freed on return, is two arrays of grad_out's shape: each bin's
+    maximum in the feature's dtype and its tied-row count in uint8. A CPU
     tensor runs ``roi_ops.roi_pool_backward``."""
     if not grad_out.is_cuda:
         return roi_pool_backward(grad_out, feat, rois, out_size)
@@ -258,14 +269,14 @@ def roi_pool_backward_cuda(grad_out: Tensor, feat: Tensor, rois: Tensor, out_siz
     grad = torch.empty(n, h, w, c, dtype=feat.dtype, device=feat.device)
     if grad.numel() == 0:
         return grad
-    bin_max = torch.empty(grad_out.shape, dtype=torch.float32, device=feat.device)
-    row_share = torch.empty_like(bin_max)
+    bin_max = torch.empty(grad_out.shape, dtype=feat.dtype, device=feat.device)
+    tie_rows = torch.empty(grad_out.shape, dtype=torch.uint8, device=feat.device)
     with torch.cuda.device(feat.device):
         stream = torch.cuda.current_stream(feat.device).cuda_stream
         rc = bwd(feat.data_ptr(), feat_flag, grad_out.data_ptr(), grad_flag, rois.data_ptr(), n, h,
-                 w, c, r, out_size, bin_max.data_ptr(), row_share.data_ptr(), grad.data_ptr(),
+                 w, c, r, out_size, bin_max.data_ptr(), tie_rows.data_ptr(), grad.data_ptr(),
                  stream)
-    build.check(rc, err, "roi_pool_bwd_kernel")
+    _check_pool(rc, err, "roi_pool_bwd_kernel", feat)
     global pool_backward_launches
     pool_backward_launches += 1
     return grad

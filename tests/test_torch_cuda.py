@@ -36,6 +36,7 @@ def test_nms_kernel_matches_plain(dev):
                  (1, 15000, 700, 0.7)]:  # rows beyond the walk's shared-memory window
         _nms_case(dev, *case)
     _nms_walk_cases(dev)
+    _nms_empty_and_all_masked(dev)
 
 
 def _nms_walk_cases(dev):
@@ -92,7 +93,8 @@ def _nms_case(dev, b, n, max_out, thresh):
     assert torch.equal(one[0], want[0]) and torch.equal(one[1], want[1])
 
 
-def test_nms_kernel_empty_and_all_masked(dev):
+def _nms_empty_and_all_masked(dev):
+    """No candidates, every candidate masked, and a score row of the wrong length."""
     from replication_faster_rcnn_tpu_torch.ops.cuda import nms_kernel
 
     empty = nms_kernel.nms_fixed_cuda(torch.zeros(2, 0, 4, device=dev),
@@ -116,13 +118,6 @@ def test_roi_align_kernel_matches_gather(dev):
                                  (64, 1, 1, 0.25), (256, 7, 2, 1.0), (264, 7, 2, 1.0)]:
             _roi_case(dev, dtype, c, out, s, scale)
     _roi_edge_cases(dev)
-    # the other ROI forward kernel of ops/cuda/roi_kernel.py: ROIPool, bitwise
-    # against the plain masked maxes at the same kinds of shapes
-    for dtype in (torch.float32, torch.bfloat16):
-        for c, out, scale in [(3, 7, 1.0), (12, 7, 1.0), (130, 5, 0.5), (64, 1, 0.25),
-                              (256, 7, 1.0 / 16), (264, 7, 1.0)]:
-            _pool_case(dev, dtype, c, out, scale)
-    _pool_edge_cases(dev)
 
 
 def _roi_case(dev, dtype, c, out, s, scale):
@@ -174,19 +169,36 @@ def _roi_edge_cases(dev):
         assert empty.shape == (1, 0, 7, 7, 64) and empty.dtype == torch.bfloat16
 
 
+def test_roi_pool_kernels_match_plain(dev):
+    # C not a multiple of 8 (the scalar path), multiples (16-byte vectors,
+    # whole 64-channel tiles or a partial last one), maps 11, 38 and 70
+    # wide, out 1, 5 and 7, N = 1 and 2, float32 and bfloat16 features and
+    # gradients; then ties, NaN and +-inf, a misaligned base, no rois,
+    # autograd, and the shapes the backward refuses
+    for dtype in (torch.float32, torch.bfloat16):
+        for c, out, scale, hw, n in [(3, 7, 1.0, (13, 11), 2), (12, 5, 0.5, (13, 11), 1),
+                                     (130, 5, 0.5, (38, 38), 2), (64, 1, 0.25, (13, 11), 2),
+                                     (256, 7, 1.0 / 16, (38, 38), 2), (256, 5, 1.0, (38, 38), 1),
+                                     (264, 7, 1.0, (20, 70), 1)]:
+            _pool_case(dev, dtype, c, out, scale, n=n, hw=hw)
+    _pool_edge_cases(dev)
+
+
 def _pool_rois(rng, n, r, h, w, scale):
     """Random rois with the edge cases (in image coordinates: / scale)."""
     rois = _boxes(rng, (n, r), float(max(h, w)))
-    rois[:, :6] = torch.tensor([[-0.9, -0.9, 3.0, 3.0],              # at the top-left border
+    rois[:, :7] = torch.tensor([[-0.9, -0.9, 3.0, 3.0],              # at the top-left border
                                 [h - 3.0, w - 4.0, h + 2.0, w + 3.0],  # beyond the bottom-right
-                                [2.2, 2.2, 2.2, 2.2],                # degenerate
+                                [2.2, 2.2, 2.2, 2.2],                # one pixel
                                 [-5.0, -5.0, -2.0, -1.5],            # entirely out of the map
                                 [2.5, 3.5, 4.5, 5.5],                # corners at .5: half to even
-                                [float("nan"), 1.0, 6.0, 7.0]])      # a diverged proposal
+                                [float("nan"), 1.0, 6.0, 7.0],       # a diverged proposal
+                                [-3.0, -3.0, h + 3.0, w + 3.0]])     # the whole map
+    rois[:, 8:12] = rois[:, 7:8]  # identical rois
     return rois / scale
 
 
-def _pool_case(dev, dtype, c, out, scale, feat=None, n=2, r=37):
+def _pool_case(dev, dtype, c, out, scale, feat=None, n=2, r=37, hw=(13, 11)):
     """Forward bitwise against the plain version; the backward (from
     float32 and bfloat16 gradients) bitwise across two launches, finite,
     and against the plain VJP on float32 copies where that is finite:
@@ -197,7 +209,7 @@ def _pool_case(dev, dtype, c, out, scale, feat=None, n=2, r=37):
     from replication_faster_rcnn_tpu_torch.ops.roi_ops import roi_pool, roi_pool_backward
 
     rng = np.random.default_rng(c + out)
-    h, w = 13, 11
+    h, w = hw if feat is None else feat.shape[1:3]
     if feat is None:
         feat = torch.from_numpy(rng.normal(0, 1, (n, h, w, c)).astype(np.float32))
     feat = feat.to(dev, dtype)
@@ -233,9 +245,11 @@ def _pool_case(dev, dtype, c, out, scale, feat=None, n=2, r=37):
 def _pool_edge_cases(dev):
     """Integer-valued features (exact ties), NaN and +-inf in the map, a
     feature base one element off 16-byte alignment (the scalar path), N = 1,
-    R = 0, rois that need no gradient through autograd, and 128 identical
-    rois per image."""
+    R = 0, rois that need no gradient through autograd, 128 identical rois
+    per image, and the shapes the backward refuses (a map too wide for its
+    shared-memory row, more rows than its uint8 tie count)."""
     from replication_faster_rcnn_tpu_torch.ops.cuda import roi_kernel
+    from replication_faster_rcnn_tpu_torch.ops.roi_ops import roi_pool
 
     rng = np.random.default_rng(41)
     ties = torch.from_numpy(rng.integers(-2, 3, (2, 13, 11, 16)).astype(np.float32))
@@ -266,6 +280,15 @@ def _pool_edge_cases(dev):
     assert torch.equal(leaf.grad, direct)
     with pytest.raises(ValueError):
         roi_kernel.roi_pool_cuda(leaf, same.clone().requires_grad_(True), 7)
+    # the forward takes any width; the gather keeps a [W, 64] row twice in shared memory
+    wide = torch.from_numpy(rng.normal(0, 1, (1, 2, 8000, 8)).astype(np.float32)).to(dev)
+    box = torch.tensor([[[0.0, 0.0, 1.0, 7999.0]]], device=dev)
+    assert torch.equal(roi_kernel.roi_pool_cuda(wide, box, 7), roi_pool(wide, box, 7))
+    with pytest.raises(ValueError, match="too wide"):
+        roi_kernel.roi_pool_backward_cuda(torch.zeros(1, 1, 7, 7, 8, device=dev), wide, box, 7)
+    tall = torch.zeros(1, 256, 2, 8, device=dev)
+    with pytest.raises(ValueError, match="255 rows"):
+        roi_kernel.roi_pool_backward_cuda(torch.zeros(1, 1, 7, 7, 8, device=dev), tall, box, 7)
 
 
 # ------------------------------------------------------------- IoU matching
