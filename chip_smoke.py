@@ -82,12 +82,33 @@ H100:  ``python3 chip_smoke.py``. It
    mAP in [0, 1]; then images/s over ``EVAL_SWEEPS`` more sweeps per mode,
    the modes alternating. Then the JAX package's overfit recipe
    (``benchmarks/map_overfit.py``: 128x128 float32, 48 synthetic images,
-   360 steps) trained by the port's ``Trainer`` must reach a train-set
-   mAP@0.5 of ``OVERFIT_MAP_FLOOR``, printed beside the JAX CPU record, and
-   the same weights calibrated as in [5] (and, beside it, on the training
-   images, with the sweep's plan and with every group int8) are scored in
-   int8;
-8. prints a ``{"kernels": [...]}`` line, the card line, and last
+   360 steps) run as that script runs it: ``Trainer.train(log_every=5)``
+   with the val split evaluated every 2 epochs and a save every 15, the
+   launch counters reset just before and read just after (per step NMS 1,
+   IoU matching 2, ROIAlign 1 and its backward 1; per eval batch NMS 2 and
+   ROIAlign 1), then ``save()``; the train-set mAP@0.5 must reach
+   ``OVERFIT_MAP_FLOOR`` (printed beside the JAX CPU record), and a fresh
+   ``Trainer`` that ``restore()``s must score the final val mAP within
+   1e-9; the same weights calibrated as in [5] (and, beside it, on the
+   training images, with the sweep's plan and with every group int8) are
+   scored in int8;
+8. kills and resumes the flagship ``voc_resnet18`` at 600x600, batch 8, 24
+   synthetic images (3 steps an epoch), 3 epochs, one sample of step 3's
+   batch poisoned with a NaN (the step is skipped): (a) uninterrupted, twice,
+   bitwise equal in the whole state and the logged rows, launch counters
+   reset just before and read just after (per step NMS 1, IoU matching 2,
+   ROIPool 1 and its backward 1); (b) async saves every 2 steps; (c) sync
+   saves every 2 steps and SIGTERM after step 5, which must end in
+   ``Preempted`` at step 5 with an emergency manifest that verifies; (d) a
+   fresh ``Trainer(...).train(resume=True)`` on (c)'s directory. (b) and (d)
+   must end bitwise in (a)'s state (parameters, BatchNorm statistics, Adam
+   state, schedule, generator, step) with (a)'s logged rows. Then one b1
+   flush served from ``load_eval_variables`` must equal the same flush from
+   (a)'s weights, and with the newest step's file truncated ``restore()``
+   must fall back to the step before, log ``checkpoint_fallback`` and delete
+   the torn step. Prints the state's bytes, the save, snapshot, writer and
+   restore ms and the steps' ms;
+9. prints a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Without CUDA, or without
@@ -97,6 +118,7 @@ and reference passes see bit-identical convolution outputs.
 """
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1429,7 +1451,9 @@ def phase_train(torch, name="voc12_resnet18_align", cfg=None, device=None):
         f"{cfg.proposals.post_nms_train} proposals, Adam lr {cfg.train.lr}")
     dataset = SyntheticDataset(cfg.data, length=2 * bsz)
     trainer = Trainer(cfg, dataset, device=device, seed=0)
-    batches = [trainer.stage_batch(b) for b in trainer.batches(0)]
+    trainer.loader.set_epoch(0)
+    host = list(trainer.loader)  # epoch 0's batches in the trainer's order
+    batches = [trainer.stage_batch(b) for b in host]
     model, state = trainer.model, trainer.state
     n_params = sum(p.numel() for p in model.parameters())
     log(f"  trainer on {trainer.device}, {n_params / 1e6:.2f} M parameters (float32), "
@@ -1437,7 +1461,7 @@ def phase_train(torch, name="voc12_resnet18_align", cfg=None, device=None):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(2):  # warm-up: cuDNN handles and algorithm choice
-        m = trainer.train_one_batch(next(trainer.batches(0)))
+        m = trainer.train_one_batch(host[0])
     log(f"  warm-up: 2 steps in {time.perf_counter() - t0:.2f} s, losses "
         f"{ {k: round(m[k], 4) for k in ('rpn_cls_loss', 'rpn_reg_loss', 'head_cls_loss', 'head_reg_loss')} }")
 
@@ -1787,7 +1811,7 @@ def overfit_config():
     """The recipe of the JAX package's ``benchmarks/map_overfit.py``:
     ``voc_resnet18`` with the ROIAlign head, anchor scales (1, 2, 4), float32,
     128x128 synthetic images with up to 8 boxes, batch 8, Adam lr 3e-4,
-    60 epochs."""
+    60 epochs, the val split evaluated every 2 epochs, a save every 15."""
     import dataclasses
 
     from replication_faster_rcnn_tpu_torch import get_config
@@ -1797,9 +1821,42 @@ def overfit_config():
     return base.replace(
         anchors=dataclasses.replace(base.anchors, scales=(1.0, 2.0, 4.0)),
         model=dataclasses.replace(base.model, roi_op="align", compute_dtype="float32"),
-        data=DataConfig(image_size=(128, 128), max_boxes=8),
-        train=TrainConfig(batch_size=8, n_epoch=60, lr=3e-4, seed=0),
+        data=DataConfig(dataset="synthetic", image_size=(128, 128), max_boxes=8),
+        train=TrainConfig(batch_size=8, n_epoch=60, lr=3e-4, eval_every_epochs=2,
+                          checkpoint_every_epochs=15, seed=0),
     )
+
+
+def fresh_dir(path):
+    """``path`` emptied (under the repository's ignored ``build/``)."""
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return path
+
+
+def timed(record, fn):
+    """``fn`` wrapped to append each call's host ms to ``record``."""
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            record.append((time.perf_counter() - t0) * 1e3)
+    return call
+
+
+def quiet_logger(path):
+    """A metric logger whose rows go to the JSONL file ``path`` only."""
+    import io
+
+    from replication_faster_rcnn_tpu_torch.utils.logging import MetricLogger
+
+    return MetricLogger(stream=io.StringIO(), jsonl_path=str(path))
+
+
+def logged_rows(path):
+    """The step rows (those with a loss) of a metric JSONL file."""
+    return [r for r in map(json.loads, open(path)) if "step" in r and "loss" in r]
 
 
 def int8_map(torch, state, dataset, calibration, cfg, dev, sweep=True):
@@ -1835,12 +1892,16 @@ def int8_map(torch, state, dataset, calibration, cfg, dev, sweep=True):
             "plan": artifact["plan"]}
 
 
-def phase_overfit(torch, cfg=None, device=None, steps=OVERFIT_STEPS, length=48):
-    """Phase [7], quality: the JAX package's overfit recipe trained with the
-    port's ``Trainer`` and scored by its ``Evaluator`` on the training set
-    (mAP@0.5 at least ``OVERFIT_MAP_FLOOR``), then the same weights in int8.
-    ``cfg``/``steps``/``device`` default to the recipe on the card."""
+def phase_overfit(torch, cfg=None, device=None, length=48):
+    """Phase [7], quality: the JAX package's overfit recipe run as
+    ``benchmarks/map_overfit.py`` runs it, with the port's ``Trainer``:
+    ``train(log_every=5)`` (the val split evaluated every 2 epochs, a save
+    every 15), ``save()``, the train-set mAP@0.5 (at least
+    ``OVERFIT_MAP_FLOOR``), then a fresh ``Trainer`` that ``restore()``s must
+    score the final val mAP within 1e-9; then the same weights in int8.
+    ``cfg``/``device`` default to the recipe on the card."""
     from replication_faster_rcnn_tpu_torch import quant
+    from replication_faster_rcnn_tpu_torch.data.loader import make_dataset
     from replication_faster_rcnn_tpu_torch.data.synthetic import SyntheticDataset
     from replication_faster_rcnn_tpu_torch.eval.evaluator import Evaluator
     from replication_faster_rcnn_tpu_torch.ops.cuda import iou_kernel, nms_kernel, roi_kernel
@@ -1848,27 +1909,49 @@ def phase_overfit(torch, cfg=None, device=None, steps=OVERFIT_STEPS, length=48):
 
     cfg = cfg or overfit_config()
     dev = torch.device(device or "cuda")
+    tc = cfg.train
+    steps = tc.n_epoch * (length // tc.batch_size)
+    root = fresh_dir(REPO / "build" / "chip_smoke_overfit")
     log(f"[7] quality: the JAX overfit recipe on the port: {cfg.data.image_size} "
         f"{cfg.model.compute_dtype}, anchor scales {cfg.anchors.scales}, {length} synthetic "
-        f"images, batch {cfg.train.batch_size}, {steps} steps, lr {cfg.train.lr}")
+        f"images, batch {tc.batch_size}, {steps} steps, lr {tc.lr}, val mAP every "
+        f"{tc.eval_every_epochs} epochs, a save every {tc.checkpoint_every_epochs}")
     ds = SyntheticDataset(cfg.data, "train", length=length)
-    trainer = Trainer(cfg, ds, device=dev, seed=0)
+    trainer = Trainer(cfg, dataset=ds, device=dev, seed=0, workdir=str(root / "ckpt"))
+    trainer.logger = quiet_logger(root / "curve.jsonl")
+    save_ms = []
+    trainer.save = timed(save_ms, trainer.save)
     for mod in (nms_kernel, iou_kernel, roi_kernel):
         mod.launches = 0
     roi_kernel.backward_launches = 0
     t0 = time.perf_counter()
-    history = trainer.train(steps)
+    last = trainer.train(log_every=5)
     train_s = time.perf_counter() - t0
     launches = {"nms": nms_kernel.launches, "iou_match": iou_kernel.launches,
                 "roi_align": roi_kernel.launches, "roi_align_bwd": roi_kernel.backward_launches}
-    want = {"nms": 1, "iou_match": 2, "roi_align": 1, "roi_align_bwd": 1}
-    if launches != {k: v * steps for k, v in want.items()}:
-        raise AssertionError(f"expected per step {want}, got {launches} over {steps} steps")
-    losses = [h["loss"] for h in history]
-    if not np.isfinite(losses).all() or any(h["skipped"] for h in history):
-        raise AssertionError("a non-finite or skipped training step in the overfit run")
-    log(f"  {steps} steps in {train_s:.1f} s ({steps / train_s:.1f} steps/s, host collate "
-        f"included); loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches {launches}")
+    evals = tc.n_epoch // tc.eval_every_epochs
+    eval_batches = evals * -(-len(make_dataset(cfg.data, "val")) // tc.batch_size)
+    # per train step NMS 1, IoU matching 2, ROIAlign 1 + 1; per eval batch NMS 2, ROIAlign 1
+    want = {"nms": steps + 2 * eval_batches, "iou_match": 2 * steps,
+            "roi_align": steps + eval_batches, "roi_align_bwd": steps}
+    if launches != want:
+        raise AssertionError(f"expected {want} over {steps} steps and {eval_batches} eval "
+                             f"batches, got {launches}")
+    rows = logged_rows(root / "curve.jsonl")
+    losses = [r["loss"] for r in rows]
+    if (trainer.state.step != steps or len(rows) != steps // 5
+            or trainer.skip_monitor.total_skipped or not np.isfinite(losses).all()):
+        raise AssertionError(f"the overfit run ended at step {trainer.state.step} with "
+                             f"{trainer.skip_monitor.total_skipped} skipped steps")
+    val_curve = [r["mAP"] for r in map(json.loads, open(root / "curve.jsonl"))
+                 if "mAP" in r and "loss" not in r]
+    if len(val_curve) != evals or val_curve[-1] != last["mAP"]:
+        raise AssertionError(f"{len(val_curve)} in-training evaluations, expected {evals}")
+    trainer.save()  # the final state: already saved at the last epoch, so no write
+    log(f"  train(log_every=5): {steps} steps in {train_s:.1f} s with {evals} val evaluations "
+        f"and {len(save_ms) - 1} saves ({steps / train_s:.1f} steps/s); logged loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; val mAP@0.5 curve {val_curve[0]:.4f} -> "
+        f"{val_curve[-1]:.4f}; save ms {[round(x, 1) for x in save_ms]}; launches {launches}")
     result = Evaluator(cfg, device=dev).evaluate(trainer.model, ds, batch_size=EVAL_BATCH)
     f32 = result["mAP"]
     log(f"  train-set mAP@0.5 {f32:.4f} (port, float32, on {dev}) beside the JAX package's "
@@ -1876,6 +1959,20 @@ def phase_overfit(torch, cfg=None, device=None, steps=OVERFIT_STEPS, length=48):
     if not f32 >= OVERFIT_MAP_FLOOR:
         raise AssertionError(f"train-set mAP {f32} < {OVERFIT_MAP_FLOOR}: the port did not "
                              "learn the planted rectangles")
+    final_map = float(trainer.evaluate()["mAP"])
+    restored = Trainer(cfg, dataset=ds, device=dev, seed=0, workdir=str(root / "ckpt"))
+    restored.logger = quiet_logger(root / "restored.jsonl")
+    t0 = time.perf_counter()
+    restored_step = restored.restore()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    restored_map = float(restored.evaluate()["mAP"])
+    if restored_step != steps or abs(restored_map - final_map) > 1e-9:
+        raise AssertionError(f"restored step {restored_step} mAP {restored_map} != final "
+                             f"mAP {final_map}")
+    log(f"  a fresh Trainer's restore() (step {restored_step}, {restore_ms:.1f} ms with the "
+        f"CRC verify) scores val mAP@0.5 {restored_map:.6f} == the final state's "
+        f"{final_map:.6f} (within 1e-9)")
+    shutil.rmtree(root)
     state = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
     qc = cfg.quant
     synthetic = quant.synthetic_calibration_batches(cfg, qc.calib_batches, qc.calib_batch_size)
@@ -1890,9 +1987,220 @@ def phase_overfit(torch, cfg=None, device=None, steps=OVERFIT_STEPS, length=48):
             f"{rec['plan']}): train-set mAP@0.5 {rec['mAP']:.4f} against float32 {f32:.4f}")
         if not (np.isfinite(rec["mAP"]) and 0.0 <= rec["mAP"] <= 1.0):
             raise AssertionError(f"int8 mAP {rec['mAP']} is not in [0, 1]")
-    return launches, {"steps": steps, "train_s": train_s, "loss_first_last": [losses[0],
-                      losses[-1]], "train_set_mAP": f32, "jax_cpu_record_mAP": JAX_OVERFIT_MAP,
+    return launches, {"steps": steps, "train_s": train_s, "evaluations": evals,
+                      "save_ms": save_ms, "restore_ms": restore_ms,
+                      "logged_loss_first_last": [losses[0], losses[-1]],
+                      "val_mAP_first_last": [val_curve[0], val_curve[-1]],
+                      "final_val_mAP": final_map, "restored_val_mAP": restored_map,
+                      "train_set_mAP": f32, "jax_cpu_record_mAP": JAX_OVERFIT_MAP,
                       "int8": int8}
+
+
+def poisoned_and_killed(trainer, poison_step, term_after=None, step_ms=None):
+    """Drive ``trainer``'s steps: one sample of step ``poison_step``'s batch
+    gets a NaN (the guarded update skips that step), SIGTERM is raised after
+    step ``term_after``, and each step's host ms (the step synchronises)
+    goes to ``step_ms``."""
+    import signal
+
+    step_fn = trainer.train_one_batch
+
+    def train_one_batch(batch, **kw):
+        if trainer.state.step + 1 == poison_step:
+            batch = dict(batch, image=batch["image"].copy())
+            batch["image"][0, 3, 3, 0] = np.nan
+        t0 = time.perf_counter()
+        out = step_fn(batch, **kw)
+        if step_ms is not None:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        if trainer.state.step == term_after:
+            signal.raise_signal(signal.SIGTERM)
+        return out
+
+    trainer.train_one_batch = train_one_batch
+    return trainer
+
+
+def state_differences(torch, got, want):
+    """The leaves in which two trainers' whole states differ (parameters,
+    BatchNorm statistics, Adam state, schedule, generator, step), bitwise."""
+    from replication_faster_rcnn_tpu_torch.train import fault
+
+    a = dict(fault._leaves_with_path(got._host_state()))
+    b = dict(fault._leaves_with_path(want._host_state()))
+    if a.keys() != b.keys():
+        return sorted(set(a) ^ set(b))
+    return [k for k in a if not (torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+                                 else a[k] == b[k])]
+
+
+def same_rows(got, want):
+    """Logged rows equal but for the clock (NaN where both are NaN)."""
+    def key(r):
+        return {k: ("nan" if isinstance(v, float) and v != v else v)
+                for k, v in r.items() if k != "t"}
+    return [key(r) for r in got] == [key(r) for r in want]
+
+
+def phase_resume(torch, name="voc_resnet18", cfg=None, device=None, length=24):
+    """Phase [8], kill and resume: ``name`` (default the flagship, ROIPool)
+    for 3 epochs of ``length // batch`` steps, step 3 poisoned with a NaN
+    (skipped): (a) uninterrupted twice, bitwise equal; (b) async saves every
+    2 steps; (c) sync saves every 2 steps and SIGTERM after step 5, ending in
+    ``Preempted`` with a verified emergency checkpoint; (d) a fresh trainer
+    resumes (c). (b) and (d) end bitwise in (a)'s state, and (d)'s logged
+    rows are (a)'s. Then ``load_eval_variables`` serves one b1 flush bitwise
+    equal to (a)'s weights', and ``restore()`` falls back past a truncated
+    newest step. ``cfg``/``device`` default to the preset on the card."""
+    import dataclasses
+
+    from replication_faster_rcnn_tpu_torch import get_config
+    from replication_faster_rcnn_tpu_torch.data.synthetic import SyntheticDataset
+    from replication_faster_rcnn_tpu_torch.ops.cuda import iou_kernel, nms_kernel
+    from replication_faster_rcnn_tpu_torch.serving.engine import InferenceEngine
+    from replication_faster_rcnn_tpu_torch.train import fault
+    from replication_faster_rcnn_tpu_torch.train.trainer import Trainer, load_eval_variables
+
+    cfg = cfg or get_config(name)
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, n_epoch=3))
+    dev = torch.device(device or "cuda")
+    bsz, op = cfg.train.batch_size, cfg.model.roi_op
+    steps = cfg.train.n_epoch * (length // bsz)
+    root = fresh_dir(REPO / "build" / "chip_smoke_resume")
+    log(f"[8] kill and resume: {name} {cfg.data.image_size} batch {bsz} "
+        f"{cfg.model.compute_dtype}, {length} synthetic images, {cfg.train.n_epoch} epochs of "
+        f"{length // bsz} steps, step 3 poisoned with a NaN")
+    ds = SyntheticDataset(cfg.data, length=length)
+    counters = (("nms", nms_kernel, "launches"), ("iou_match", iou_kernel, "launches")
+                ) + roi_counters()
+
+    def reset():
+        for _, mod, attr in counters:
+            setattr(mod, attr, 0)
+
+    def read():
+        return {k: getattr(mod, attr) for k, mod, attr in counters}
+
+    def make(tag, log_tag=None, **train):
+        c = cfg.replace(train=dataclasses.replace(cfg.train, **train))
+        trainer = Trainer(c, dataset=ds, device=dev, seed=0, workdir=str(root / tag))
+        trainer.logger = quiet_logger(root / f"{log_tag or tag}.jsonl")
+        return trainer
+
+    per_step = {"nms": 1, "iou_match": 2, **roi_launches(op, 1, 1)}
+    step_ms = {"a": [], "a2": [], "b": []}
+    reset()
+    ref = poisoned_and_killed(make("a"), 3, step_ms=step_ms["a"])
+    ref.train(log_every=1)
+    launches = read()
+    if launches != {k: v * steps for k, v in per_step.items()}:
+        raise AssertionError(f"expected per step {per_step}, got {launches} over {steps} steps")
+    ref_rows = logged_rows(root / "a.jsonl")
+    skipped = [r["step"] for r in ref_rows if r["skipped"]]
+    if ref.state.step != steps or skipped != [3] or ref.state.scheduler.last_epoch != steps - 1:
+        raise AssertionError(f"run (a): step {ref.state.step}, skipped steps {skipped}")
+    again = poisoned_and_killed(make("a2"), 3, step_ms=step_ms["a2"])
+    again.train(log_every=1)
+    diff = state_differences(torch, again, ref)
+    if diff or not same_rows(logged_rows(root / "a2.jsonl"), ref_rows):
+        raise AssertionError(f"two uninterrupted runs differ: {diff[:5]} (rows or state)")
+    state_bytes = sum(v.numel() * v.element_size() for _, v in fault._leaves_with_path(
+        ref._host_state()) if isinstance(v, torch.Tensor))
+    log(f"  (a) uninterrupted, twice: {steps} steps each (step 3 skipped), the two runs "
+        f"bitwise equal in state and logged rows; launches {launches}")
+
+    reset()
+    snapshot_ms, writer_ms = [], []
+    asy = poisoned_and_killed(make("b", checkpoint_every_steps=2, async_checkpoint=True), 3,
+                              step_ms=step_ms["b"])
+    asy._host_state = timed(snapshot_ms, asy._host_state)
+    submit = asy._async_writer.submit
+    asy._async_writer.submit = lambda step, work: submit(step, timed(writer_ms, work))
+    asy.train(log_every=1)
+    del asy._host_state  # the comparison's snapshot is not a save's
+    diff = state_differences(torch, asy, ref)
+    if diff or not same_rows(logged_rows(root / "b.jsonl"), ref_rows):
+        raise AssertionError(f"the async-checkpointed run differs from (a): {diff[:5]}")
+    log(f"  (b) async saves every 2 steps ({len(writer_ms)} saves): bitwise (a)'s state and "
+        f"rows; snapshot on the trainer thread {[round(x, 1) for x in snapshot_ms]} ms, "
+        f"writer {[round(x, 1) for x in writer_ms]} ms")
+
+    sync_ms = []
+    killed = poisoned_and_killed(make("c", checkpoint_every_steps=2), 3, term_after=5)
+    killed.save = timed(sync_ms, killed.save)
+    try:
+        killed.train(log_every=1)
+        raise AssertionError("run (c) was not preempted")
+    except fault.Preempted as e:
+        preempted = e.step
+    manifest = fault.load_manifest(str(root / "c"), 5)
+    t0 = time.perf_counter()
+    problems = fault.verify_state(manifest, killed.checkpoint_manager.restore(5))
+    load_verify_ms = (time.perf_counter() - t0) * 1e3
+    if preempted != 5 or manifest["kind"] != "emergency" or problems:
+        raise AssertionError(f"preempted at {preempted}, manifest {manifest and manifest['kind']},"
+                             f" {problems[:3]}")
+    resumed = make("c", "c", checkpoint_every_steps=2)
+    restore_ms = []
+    resumed.restore = timed(restore_ms, resumed.restore)
+    resumed.train(log_every=1, resume=True)
+    diff = state_differences(torch, resumed, ref)
+    rows = logged_rows(root / "c.jsonl")
+    if diff or [r["step"] for r in rows] != list(range(1, steps + 1)) or not same_rows(
+            rows, ref_rows):
+        raise AssertionError(f"the resumed run differs from (a): {diff[:5]}")
+    launches_bcd = read()
+    runs = steps + 5 + (steps - 5)
+    if launches_bcd != {k: v * runs for k, v in per_step.items()}:
+        raise AssertionError(f"expected per step {per_step} over {runs} steps, got "
+                             f"{launches_bcd}")
+    log(f"  (c) sync saves every 2 steps, SIGTERM after step 5: Preempted at step {preempted}, "
+        f"the emergency manifest verifies; save ms {[round(x, 1) for x in sync_ms]}; "
+        f"(d) a fresh Trainer resumes (restore + verify {restore_ms[0]:.1f} ms) and ends "
+        f"bitwise in (a)'s state with (a)'s logged rows for steps 6-{steps}")
+
+    reset()
+    served = load_eval_variables(cfg, str(root / "c"), device=dev)
+    image = np.random.default_rng(3).integers(0, 256, cfg.data.image_size + (3,), np.uint8)
+    with InferenceEngine(cfg, device=dev, state_dict=served.state_dict()) as engine:
+        got = engine.predict([image])[0]
+    with InferenceEngine(cfg, device=dev, state_dict=ref.model.state_dict()) as engine:
+        want = engine.predict([image])[0]
+    same_results([got], [want], "load_eval_variables vs (a)'s live weights")
+    serve_launches = read()
+    want_serve = {"nms": 4, "iou_match": 0, **roi_launches(op, 2, 0)}  # 2 b1 flushes
+    if serve_launches != want_serve:
+        raise AssertionError(f"expected {want_serve} over two b1 flushes, got {serve_launches}")
+
+    torn = root / "c" / str(steps) / "state.pt"
+    torn.write_bytes(torn.read_bytes()[: torn.stat().st_size // 2])
+    fallback = make("c", "fallback")
+    t0 = time.perf_counter()
+    back = fallback.restore()
+    fallback_ms = (time.perf_counter() - t0) * 1e3
+    events = [r for r in map(json.loads, open(root / "fallback.jsonl"))
+              if r.get("event") == "checkpoint_fallback"]
+    if back != steps - 2 or (root / "c" / str(steps)).exists() or len(events) != 1:
+        raise AssertionError(f"fallback restored step {back}, events {events}")
+    log(f"  load_eval_variables serves one b1 flush bitwise equal to (a)'s weights (launches "
+        f"{serve_launches}); the newest step truncated: restore() falls back to step {back} "
+        f"in {fallback_ms:.1f} ms, logs checkpoint_fallback and deletes the torn step")
+    file_bytes = (root / "c" / str(back) / "state.pt").stat().st_size
+    med = {k: statistics.median(v) for k, v in step_ms.items()}
+    log(f"  state {state_bytes:,} bytes of tensors ({file_bytes:,} bytes on disk); sync save "
+        f"{statistics.median(sync_ms):.1f} ms median; async snapshot "
+        f"{statistics.median(snapshot_ms):.1f} ms on the trainer thread, writer "
+        f"{statistics.median(writer_ms):.1f} ms; load + verify {load_verify_ms:.1f} ms; step "
+        f"(a) {med['a']:.2f} ms, (b) {med['b']:.2f} ms median (host clock, the step's sync "
+        f"included)")
+    shutil.rmtree(root)
+    return {"train_resume": {k: launches[k] + launches_bcd[k] for k in launches},
+            "serve_resume": serve_launches}, {
+        "config": name, "steps": steps, "state_bytes": state_bytes, "file_bytes": file_bytes,
+        "sync_save_ms": sync_ms, "async_snapshot_ms": snapshot_ms, "async_writer_ms": writer_ms,
+        "load_verify_ms": load_verify_ms, "restore_ms": restore_ms[0],
+        "fallback_restore_ms": fallback_ms, "step_ms": step_ms,
+        "step_ms_median": med, "preempted_at": preempted}
 
 
 def main():
@@ -1941,9 +2249,10 @@ def main():
     elaunches, evaluate = phase_evaluate(torch)
     olaunches, overfit = phase_overfit(torch)
     evaluate["overfit"] = overfit
+    rlaunches, resume = phase_resume(torch)
     paths = {"serve": launches, "serve_pool": plaunches, "serve_presets": slaunches,
              "serve_int8": qlaunches, "train": tlaunches, "train_pool": ptlaunches,
-             "evaluate": elaunches, "overfit_train": olaunches}
+             "evaluate": elaunches, "overfit_train": olaunches, **rlaunches}
 
     def by_path(key):
         """A counter's launches on every main path that reads it."""
@@ -2110,7 +2419,7 @@ def main():
     ]
     log(json.dumps({"serve": serve, "serve_pool": serve_pool, "presets": presets,
                     "serve_int8": serve_int8, "train": train, "train_pool": train_pool,
-                    "evaluate": evaluate, "card": card}))
+                    "evaluate": evaluate, "resume": resume, "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

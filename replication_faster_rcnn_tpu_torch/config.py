@@ -3,9 +3,9 @@ training and evaluation paths read.
 
 Field names, defaults and presets mirror ``replication_faster_rcnn_tpu.config``
 so a reader can hold the two side by side; knobs the port does not implement
-yet (FPN, group norm, frozen BN, LAMB/LARS, warmup, K-step fusion,
-checkpointing, fleet, COCO data (``dataset``, the COCO ``root_dir``), caches,
-augmentation) are left out rather than accepted and ignored.
+yet (FPN, group norm, frozen BN, LAMB/LARS, warmup, K-step fusion, fleet,
+the COCO ``root_dir`` (``data/coco.py`` is not ported), caches, augmentation)
+are left out rather than accepted and ignored.
 
 Box convention: boxes are ``[r1, c1, r2, c2]`` (``r`` along image rows,
 ``c`` along columns) and deltas ``[dr, dc, dh, dw]``.
@@ -25,7 +25,25 @@ VOC_CLASSES: Tuple[str, ...] = (
     "sheep", "sofa", "train", "tvmonitor",
 )
 VOC_NUM_CLASSES = len(VOC_CLASSES)  # 20 VOC classes + background
-COCO_NUM_CLASSES = 81  # 80 COCO-2017 categories + background
+
+# COCO-2017 "thing" classes (80 + background)
+COCO_CLASSES: Tuple[str, ...] = (
+    "__background__",
+    "person", "bicycle", "car", "motorcycle", "airplane", "bus", "train",
+    "truck", "boat", "traffic light", "fire hydrant", "stop sign",
+    "parking meter", "bench", "bird", "cat", "dog", "horse", "sheep", "cow",
+    "elephant", "bear", "zebra", "giraffe", "backpack", "umbrella", "handbag",
+    "tie", "suitcase", "frisbee", "skis", "snowboard", "sports ball", "kite",
+    "baseball bat", "baseball glove", "skateboard", "surfboard",
+    "tennis racket", "bottle", "wine glass", "cup", "fork", "knife", "spoon",
+    "bowl", "banana", "apple", "sandwich", "orange", "broccoli", "carrot",
+    "hot dog", "pizza", "donut", "cake", "chair", "couch", "potted plant",
+    "bed", "dining table", "toilet", "tv", "laptop", "mouse", "remote",
+    "keyboard", "cell phone", "microwave", "oven", "toaster", "sink",
+    "refrigerator", "book", "clock", "vase", "scissors", "teddy bear",
+    "hair drier", "toothbrush",
+)
+COCO_NUM_CLASSES = len(COCO_CLASSES)  # 80 COCO-2017 categories + background
 
 # ResNet trunks (models/resnet.py) and the VGG16 trunk (models/vgg.py)
 BACKBONES = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152", "vgg16")
@@ -110,6 +128,7 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
+    dataset: str = "voc"  # voc | coco | synthetic (data/loader.py::make_dataset)
     root_dir: str = "data/voc/VOCdevkit/VOC2012"
     image_size: Tuple[int, int] = (600, 600)
     max_boxes: int = 32  # gt boxes per image, padded with -1 labels
@@ -132,6 +151,10 @@ class TrainConfig:
     n_epoch: int = 50
     batch_size: int = 8
     smooth_l1_sigma: float = 1.0
+    # scheduled saves (train/trainer.py::Trainer.save) every N epochs, and
+    # also every N optimizer steps at dispatch boundaries (0 = off)
+    checkpoint_every_epochs: int = 10
+    checkpoint_every_steps: int = 0
     seed: int = 0
     # rpn_cls, rpn_reg, head_cls, head_reg
     loss_weights: Tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0)
@@ -140,6 +163,13 @@ class TrainConfig:
     # Adam state, BN statistics unchanged), "halt" withholds it and raises,
     # "apply" applies it
     nonfinite_policy: str = "skip"  # apply | skip | halt
+    # consecutive skipped steps before the trainer raises (train/fault.py::SkipMonitor)
+    max_consecutive_skips: int = 10
+    # scheduled saves on a background writer (train/async_checkpoint.py):
+    # the trainer thread pays only the host snapshot
+    async_checkpoint: bool = False
+    # run the evaluator on the val split every N epochs (0 = off)
+    eval_every_epochs: int = 0
 
     def __post_init__(self):
         object.__setattr__(
@@ -163,6 +193,16 @@ class TrainConfig:
             raise ValueError(
                 "nonfinite_policy must be apply|skip|halt, got "
                 f"{self.nonfinite_policy!r}"
+            )
+        if self.checkpoint_every_steps < 0:
+            raise ValueError(
+                "checkpoint_every_steps must be >= 0 (0 = off), got "
+                f"{self.checkpoint_every_steps}"
+            )
+        if self.max_consecutive_skips < 1:
+            raise ValueError(
+                "max_consecutive_skips must be >= 1, got "
+                f"{self.max_consecutive_skips}"
             )
 
 
@@ -324,7 +364,7 @@ CONFIGS = {
     # COCO-2017: 81 classes, ROIAlign, up to 100 boxes, batch 32, COCO mAP
     "coco_resnet50": FasterRCNNConfig(
         model=ModelConfig(backbone="resnet50", num_classes=COCO_NUM_CLASSES, roi_op="align"),
-        data=DataConfig(max_boxes=100),
+        data=DataConfig(dataset="coco", max_boxes=100),
         train=TrainConfig(batch_size=32),
         eval=EvalConfig(metric="coco"),
     ),
@@ -335,7 +375,7 @@ CONFIGS = {
             backbone="vgg16", num_classes=COCO_NUM_CLASSES, roi_op="pool", rpn_mid_channels=512,
         ),
         anchors=AnchorConfig(scales=(4.0, 8.0, 16.0, 32.0)),
-        data=DataConfig(max_boxes=100),
+        data=DataConfig(dataset="coco", max_boxes=100),
         eval=EvalConfig(metric="coco"),
     ),
 }

@@ -1,15 +1,18 @@
-"""Batch assembly and a threaded loader (counterpart of the JAX package's
-``data/loader.py``: ``collate`` and the ``worker_mode="thread"`` loader).
+"""Batch assembly, a threaded loader and the dataset factory (counterpart of
+the JAX package's ``data/loader.py``: ``collate``, the ``worker_mode="thread"``
+loader with its epoch order, and ``make_dataset``).
 
 A producer thread builds batches ahead of the consumer into a bounded
 queue; a pool of worker threads builds the samples of each batch. Samples
 are numpy only: the JPEG decode and the resize are ctypes calls into the
 host library, which release the interpreter lock, so the workers run them in
 parallel. Workers never touch a CUDA tensor: every device call stays on the
-consumer's thread. Batches come out in order.
+consumer's thread. Batches come out in the epoch's order: the dataset's
+order, or with ``shuffle`` a ``RandomState(seed + epoch)`` permutation;
+``set_epoch(epoch, start_batch)`` selects the epoch and starts it at a batch,
+so a resumed epoch skips its trained prefix without building it.
 
-Not ported yet: the shuffled epoch order (the trainer shuffles its own
-batches), worker processes, the RAM cache, augmentation, sample-fault
+Not ported yet: worker processes, the RAM cache, augmentation, sample-fault
 containment and multi-process sharding.
 """
 
@@ -30,39 +33,63 @@ def collate(samples: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
 
 
 class DataLoader:
-    """Iterable over collated batches of a map-style dataset, in index order.
+    """Iterable over collated batches of a map-style dataset.
 
-    ``drop_last``: drop the trailing partial batch. ``prefetch``: batches
-    built ahead (0 builds each batch on the consumer's thread).
-    ``num_workers``: threads building the samples of a batch; negative means
-    min(4, the cores this process may run on)."""
+    ``shuffle``: each epoch's order is ``RandomState(seed + epoch)``'s
+    permutation (else the dataset's order). ``drop_last``: drop the trailing
+    partial batch. ``prefetch``: batches built ahead (0 builds each batch on
+    the consumer's thread). ``num_workers``: threads building the samples of
+    a batch; negative means min(4, the cores this process may run on)."""
 
     def __init__(
         self,
         dataset,
         batch_size: int,
+        shuffle: bool = True,
         drop_last: bool = True,
         prefetch: int = 2,
         num_workers: int = 4,
+        seed: int = 0,
     ) -> None:
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
         self.drop_last = drop_last
         self.prefetch = prefetch
         if num_workers < 0:
             num_workers = min(4, len(os.sched_getaffinity(0)))
         self.num_workers = max(1, num_workers)
+        self.seed = seed
+        self.epoch = 0
+        self.start_batch = 0  # mid-epoch offset (set_epoch)
+
+    def set_epoch(self, epoch: int, start_batch: int = 0) -> None:
+        """Select the epoch, and optionally a mid-epoch offset: iteration
+        starts at batch ``start_batch`` of the epoch's order, so the trained
+        prefix is never built and the rest is the uninterrupted epoch's."""
+        if start_batch < 0:
+            raise ValueError(f"start_batch must be >= 0, got {start_batch}")
+        self.epoch = epoch
+        self.start_batch = int(start_batch)
+
+    def _order(self) -> np.ndarray:
+        n = len(self.dataset)
+        if not self.shuffle:
+            return np.arange(n)
+        return np.random.RandomState(self.seed + self.epoch).permutation(n)
 
     def __len__(self) -> int:
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _batches(self) -> Iterator[np.ndarray]:
-        n = len(self.dataset)
-        for i in range(len(self)):
-            yield np.arange(i * self.batch_size, min((i + 1) * self.batch_size, n))
+        order = self._order()
+        bs = self.batch_size
+        end = len(order) - (len(order) % bs if self.drop_last else 0)
+        for i in range(self.start_batch * bs, end, bs):
+            yield order[i:i + bs]
 
     def _build(self, idxs: np.ndarray,
                pool: Optional[futures.ThreadPoolExecutor]) -> Dict[str, np.ndarray]:
@@ -120,3 +147,20 @@ class DataLoader:
         finally:
             stop.set()
             thread.join(timeout=60)
+
+
+def make_dataset(cfg, split: str = "train", **kwargs):
+    """The dataset ``cfg.dataset`` names (a ``DataConfig``), for ``split``."""
+    kind = cfg.dataset
+    if kind == "voc":
+        from replication_faster_rcnn_tpu_torch.data.voc import VOCDataset
+
+        return VOCDataset(cfg, split, **kwargs)
+    if kind == "coco":
+        raise NotImplementedError(
+            "dataset='coco': the COCO reader (data/coco.py) is not ported yet")
+    if kind == "synthetic":
+        from replication_faster_rcnn_tpu_torch.data.synthetic import SyntheticDataset
+
+        return SyntheticDataset(cfg, split, **kwargs)
+    raise ValueError(f"unknown dataset kind {kind!r}")

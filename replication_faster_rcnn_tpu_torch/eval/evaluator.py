@@ -6,6 +6,7 @@ test-time augmentation when ``eval.tta_hflip`` is set; the serving engine
 builds one per bucket. :class:`Evaluator` runs it over a dataset (the
 threaded loader builds the batches on the host) and scores the detections
 on the host: VOC mAP@``eval.iou_thresh`` or the COCO summary.
+:func:`summary_scalars` flattens a result into the scalars the trainer logs.
 
 Not ported: the data-parallel eval mesh, the strict-mode gate and the
 device and RAM caches of the evaluation set.
@@ -21,7 +22,7 @@ import torch
 from torch import nn
 
 from replication_faster_rcnn_tpu_torch import ops
-from replication_faster_rcnn_tpu_torch.config import FasterRCNNConfig
+from replication_faster_rcnn_tpu_torch.config import COCO_CLASSES, VOC_CLASSES, FasterRCNNConfig
 from replication_faster_rcnn_tpu_torch.data.loader import DataLoader
 from replication_faster_rcnn_tpu_torch.device import DeviceLike, resolve_device
 from replication_faster_rcnn_tpu_torch.eval.coco_eval import coco_summary
@@ -101,6 +102,30 @@ def make_int8_infer_fn(
     return infer
 
 
+def summary_scalars(result: Dict[str, Any], num_classes: int) -> Dict[str, float]:
+    """Flatten an :meth:`Evaluator.evaluate` result into flat floats, the
+    same schema for the VOC and COCO metrics: every scalar aggregate
+    (``mAP``, and for COCO ``AP50``, ``AP75``, ``AP_small``, ...) plus one
+    ``AP/<class name>`` per class that has ground truth. Names come from
+    the VOC or COCO vocabulary when ``num_classes`` matches one, else the
+    class index."""
+    names = {
+        len(VOC_CLASSES): VOC_CLASSES,
+        len(COCO_CLASSES): COCO_CLASSES,
+    }.get(num_classes, tuple(str(i) for i in range(num_classes)))
+    out = {
+        k: float(v)
+        for k, v in result.items()
+        if np.isscalar(v) or getattr(v, "ndim", None) == 0
+    }
+    aps = result.get("ap_per_class")
+    if aps is not None:
+        for c in range(1, num_classes):
+            if np.isfinite(aps[c]):
+                out[f"AP/{names[c]}"] = float(aps[c])
+    return out
+
+
 ModelOrParams = Union[nn.Module, Dict[str, Tensor]]
 
 
@@ -167,7 +192,7 @@ class Evaluator:
         do not depend on the others in its batch, so nothing is padded).
         Difficult objects are ground truth marked ``ignore``."""
         data = self.config.data
-        loader = DataLoader(dataset, batch_size=batch_size, drop_last=False,
+        loader = DataLoader(dataset, batch_size=batch_size, shuffle=False, drop_last=False,
                             prefetch=data.loader_prefetch, num_workers=data.loader_workers)
         detections: List[Dict[str, np.ndarray]] = []
         gts: List[Dict[str, np.ndarray]] = []

@@ -12,6 +12,10 @@ objects:
 
 Module paths are the flax tree's keys joined by dots (flax's ``layer1.0``
 key is the ``layer1`` ModuleList's block 0), so the mapping is by name.
+
+:func:`train_state_from_flax` carries a whole JAX ``TrainState`` (as numpy)
+into the port's: the weights as above, optax's Adam moments through the
+same per-leaf layouts, the update counts and the step.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+from replication_faster_rcnn_tpu_torch.device import DeviceLike
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -122,3 +128,64 @@ def _split(path: str):
         else:
             out.append(p)
     return out
+
+
+def _has(state: Any, name: str) -> bool:
+    """Whether an optax state (a namedtuple) has the field: its fields only,
+    since every tuple has a ``count`` method."""
+    return name in getattr(state, "_fields", ())
+
+
+def train_state_from_flax(state_np: Any, config, device: DeviceLike = None,
+                          steps_per_epoch: int = 1):
+    """The port's ``TrainState`` from a JAX ``TrainState`` whose leaves are
+    numpy arrays (``jax.device_get`` of one, or an orbax restore into such a
+    template):
+
+    * ``params`` and ``batch_stats`` through :func:`from_flax_variables`;
+    * optax's ``ScaleByAdamState`` ``mu`` / ``nu`` into each parameter's
+      ``exp_avg`` / ``exp_avg_sq``, through the parameters' layouts, and its
+      ``count`` into each parameter's ``step``;
+    * the schedule's ``count`` into ``scheduler.last_epoch``, and its lr
+      into the optimizer's ``param_groups``;
+    * ``step`` into ``TrainState.step``.
+
+    optax's counts and torch's ``step`` count applied updates;
+    ``TrainState.step`` counts dispatched batches, skipped ones included,
+    so the two differ after a skip. The JAX rng key has no counterpart: the
+    port's generator is seeded from ``config.train.seed``."""
+    from replication_faster_rcnn_tpu_torch.train.train_step import (
+        create_train_state,
+        host_schedule,
+    )
+
+    state = create_train_state(config, steps_per_epoch, device, seed=config.train.seed)
+    model, optimizer, scheduler = state.model, state.optimizer, state.scheduler
+    model.load_state_dict(from_flax_variables({
+        "params": state_np.params, "batch_stats": state_np.batch_stats}))
+    adam = [s for s in state_np.opt_state if _has(s, "mu") and _has(s, "nu")]
+    sched = [s for s in state_np.opt_state if _has(s, "count") and not _has(s, "mu")]
+    if len(adam) != 1 or len(sched) != 1:
+        raise ValueError("expected optax's chain(add_decayed_weights, scale_by_adam, "
+                         "scale_by_learning_rate(schedule)) state")
+    mu = from_flax_variables({"params": adam[0].mu})
+    nu = from_flax_variables({"params": adam[0].nu})
+    count = float(np.asarray(adam[0].count))
+    sched_count = int(np.asarray(sched[0].count))
+    dev = next(model.parameters()).device
+    optim_sd = optimizer.state_dict()
+    optim_sd["state"] = {
+        i: {"step": torch.tensor(count, dtype=torch.float32),
+            "exp_avg": mu[name].to(dev), "exp_avg_sq": nu[name].to(dev)}
+        for i, (name, _) in enumerate(model.named_parameters())
+    }
+    lr = host_schedule(config, steps_per_epoch)(sched_count)
+    for group in optim_sd["param_groups"]:
+        group["lr"] = lr
+    optimizer.load_state_dict(optim_sd)
+    sched_sd = scheduler.state_dict()
+    sched_sd.update(last_epoch=sched_count, _step_count=sched_count + 1,
+                    _last_lr=[lr] * len(optim_sd["param_groups"]))
+    scheduler.load_state_dict(sched_sd)
+    state.step = int(np.asarray(state_np.step))
+    return state

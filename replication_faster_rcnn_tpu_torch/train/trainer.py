@@ -1,71 +1,359 @@
-"""A reduced trainer (counterpart of the JAX package's ``train/trainer.py``):
-one process, one device, batches collated in the loop from a seeded
-per-epoch shuffle of the dataset, one :func:`make_train_step` call per batch.
+"""Training orchestration (counterpart of the JAX package's ``train/trainer.py``):
+one process, one device, the loader's seeded per-epoch order, one
+:func:`make_train_step` call per batch, and the fault-tolerance loop around
+it: ``train.n_epoch`` epochs with log-boundary metric checks and
+consecutive-skip escalation, scheduled saves every
+``train.checkpoint_every_epochs`` epochs and every
+``train.checkpoint_every_steps`` steps (on a background writer with
+``train.async_checkpoint``), the val-split evaluation every
+``train.eval_every_epochs`` epochs, a verified emergency save and
+:class:`~replication_faster_rcnn_tpu_torch.train.fault.Preempted` on
+SIGTERM/SIGINT, and an exact resume from the newest checkpoint that
+verifies.
 
-Not ported yet: the mesh and data parallelism, checkpointing and restore,
-telemetry, the threaded loader and device prefetch, augmentation, K-step
-fusion and evaluation.
+A checkpoint holds the whole state a step reads: the parameters and
+BatchNorm statistics (``model.state_dict()``), Adam's moments and
+per-parameter step (``optimizer.state_dict()``), the schedule's position
+and lr (``scheduler.state_dict()``), the sampling generator's state and
+the step count. A resumed run therefore repeats the uninterrupted run's
+steps bit for bit.
+
+Not ported yet: the mesh and data parallelism, telemetry (spans, the stall
+watchdog), device prefetch, augmentation, K-step fusion, resolution
+buckets, fault injection and the pretrained-backbone graft.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Optional
+import contextlib
+import os
+import sys
+import time
+import weakref
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from replication_faster_rcnn_tpu_torch.config import FasterRCNNConfig
-from replication_faster_rcnn_tpu_torch.data.loader import collate
+from replication_faster_rcnn_tpu_torch.data.loader import DataLoader, make_dataset
 from replication_faster_rcnn_tpu_torch.device import DeviceLike, resolve_device
-from replication_faster_rcnn_tpu_torch.train.fault import NonFiniteEscalation
+from replication_faster_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN, build_model
+from replication_faster_rcnn_tpu_torch.train import fault
+from replication_faster_rcnn_tpu_torch.train.async_checkpoint import AsyncCheckpointWriter
 from replication_faster_rcnn_tpu_torch.train.train_step import (
+    TrainState,
     create_train_state,
     host_schedule,
     make_train_step,
 )
+from replication_faster_rcnn_tpu_torch.utils.logging import MetricLogger
 
 Tensor = torch.Tensor
 
 
+def _to_host(tree: Any) -> Any:
+    """A copy of ``tree`` whose tensors are host copies (never views: the
+    optimizer updates the live tensors in place)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    return tree
+
+
+def load_eval_variables(
+    config: FasterRCNNConfig,
+    workdir: str,
+    step: Optional[int] = None,
+    device: DeviceLike = None,
+) -> FasterRCNN:
+    """The model for inference: the seeded init, then the newest (or the
+    given) checkpoint in ``workdir`` that verifies, if there is one. Needs
+    no train split and no optimizer; deletes nothing."""
+    dev = resolve_device(device)
+    model = build_model(config, device=dev, seed=config.train.seed)
+    if os.path.isdir(workdir):
+        store = fault.CheckpointStore(workdir, create=False, map_location=dev)
+        if store.all_steps():
+            result = fault.verified_restore(store, store.directory, step=step)
+            if result.state is not None:
+                model.load_state_dict(result.state["model"])
+    return model.eval()
+
+
 class Trainer:
-    """``Trainer(config, dataset, device=None, seed=None)``: the device
-    defaults to ``cuda`` (raising without a GPU); ``seed`` (default
-    ``config.train.seed``) seeds the weights, the sampling generator and
-    the shuffle."""
+    """``Trainer(config, dataset=None, device=None, seed=None,
+    workdir="checkpoints")``: ``dataset`` defaults to
+    ``make_dataset(config.data, "train")``; the device defaults to ``cuda``
+    (raising without a GPU); ``seed`` (default ``config.train.seed``) seeds
+    the weights, the sampling generator and the shuffle; checkpoints go to
+    ``workdir``."""
 
     def __init__(
         self,
         config: FasterRCNNConfig,
-        dataset,
+        dataset=None,
         device: DeviceLike = None,
         seed: Optional[int] = None,
+        workdir: str = "checkpoints",
     ):
         self.config = config
-        self.dataset = dataset
+        self.workdir = workdir
         self.device = resolve_device(device)
         self.seed = config.train.seed if seed is None else int(seed)
+        self.logger = MetricLogger()
+        # consecutive-skip escalation for the guarded update's `skipped`
+        # flags, and the dispatch-boundary shutdown flag train() installs.
+        # The monitor holds the trainer weakly: a reference cycle would keep
+        # a dropped trainer's device memory until the garbage collector ran
+        trainer = weakref.ref(self)
+        self.skip_monitor = fault.SkipMonitor(
+            policy=config.train.nonfinite_policy,
+            max_consecutive=config.train.max_consecutive_skips,
+            on_escalate=lambda kind, **fields: trainer()._fault_incident(kind, **fields),
+        )
+        self._shutdown: Optional[fault.GracefulShutdown] = None
+        self.dataset = dataset if dataset is not None else make_dataset(config.data, "train")
         self.batch_size = config.train.batch_size
-        if len(dataset) < self.batch_size:
+        if len(self.dataset) < self.batch_size:
             raise ValueError(
-                f"the dataset holds {len(dataset)} samples, fewer than one batch of "
+                f"the dataset holds {len(self.dataset)} samples, fewer than one batch of "
                 f"{self.batch_size}"
             )
-        self.steps_per_epoch = len(dataset) // self.batch_size  # the tail is dropped
-        self.state = create_train_state(config, self.steps_per_epoch, self.device, self.seed)
+        self.loader = DataLoader(
+            self.dataset,
+            batch_size=self.batch_size,
+            shuffle=True,
+            seed=self.seed,
+            prefetch=config.data.loader_prefetch,
+            num_workers=config.data.loader_workers,
+        )
+        self.steps_per_epoch = len(self.loader)  # the tail is dropped
+        self.state: TrainState = create_train_state(
+            config, self.steps_per_epoch, self.device, self.seed)
         self.step_fn = make_train_step(config)
         self.host_schedule = host_schedule(config, self.steps_per_epoch)
+        self._ckpt_mgr: Optional[fault.CheckpointStore] = None
+        self._last_step_ckpt = 0
+        self._evaluator = None
+        self._val_dataset = None
+        self._async_writer: Optional[AsyncCheckpointWriter] = None
+        if config.train.async_checkpoint:
+            self._async_writer = AsyncCheckpointWriter()
 
     @property
-    def model(self):
+    def model(self) -> FasterRCNN:
         return self.state.model
 
-    def batches(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
-        """The epoch's host batches: a ``RandomState(seed + epoch)``
-        permutation cut into full batches."""
-        order = np.random.RandomState(self.seed + epoch).permutation(len(self.dataset))
-        for i in range(self.steps_per_epoch):
-            idx = order[i * self.batch_size:(i + 1) * self.batch_size]
-            yield collate([self.dataset[int(j)] for j in idx])
+    # ---------------------------------------------------------- checkpoints
+
+    @property
+    def checkpoint_manager(self) -> fault.CheckpointStore:
+        if self._ckpt_mgr is None:
+            self._ckpt_mgr = fault.CheckpointStore(
+                self.workdir, max_to_keep=3, create=True, map_location=self.device)
+        return self._ckpt_mgr
+
+    def _host_state(self) -> Dict[str, Any]:
+        """The whole state, copied to host memory: plain containers of
+        tensors and Python scalars."""
+        st = self.state
+        return _to_host({
+            "model": st.model.state_dict(),
+            "optimizer": st.optimizer.state_dict(),
+            "scheduler": st.scheduler.state_dict(),
+            "generator": st.generator.get_state(),
+            "generator_device": st.generator.device.type,
+            "step": st.step,
+        })
+
+    def _load_state(self, tree: Dict[str, Any]) -> None:
+        """Put a restored tree into the live state (in place: the optimizer
+        keeps its parameters)."""
+        st = self.state
+        saved_kind, kind = tree["generator_device"], st.generator.device.type
+        if saved_kind != kind:
+            raise ValueError(
+                f"the checkpoint's sampling generator is a {saved_kind} generator and this "
+                f"trainer's is a {kind} one: a generator's state restores only onto the "
+                "device kind that saved it"
+            )
+        st.model.load_state_dict(tree["model"])
+        optim = tree["optimizer"]
+        for s in optim["state"].values():  # Adam keeps its step counts on the CPU
+            s["step"] = s["step"].cpu()
+        st.optimizer.load_state_dict(optim)
+        st.scheduler.load_state_dict(tree["scheduler"])
+        st.generator.set_state(tree["generator"].cpu())
+        st.step = int(tree["step"])
+
+    def _fault_incident(self, kind: str, **fields) -> None:
+        """Record a fault event in the metric stream."""
+        self.logger.event(kind, **fields)
+
+    def _handle_async_error(self, err) -> None:
+        """Containment for a failed background scheduled save, surfaced at
+        a drain point: a stderr warning and an incident; training goes on
+        and the next interval retries. Never raises."""
+        if err is None:
+            return
+        err_step, exc = err
+        print(
+            f"warning: async scheduled checkpoint at step {err_step} failed "
+            f"({type(exc).__name__}: {exc}); training continues",
+            file=sys.stderr,
+        )
+        self._fault_incident(
+            "checkpoint_save_failed",
+            step=err_step,
+            ckpt_kind="scheduled",
+            writer="async",
+            error=f"{type(exc).__name__}: {exc}"[:300],
+        )
+
+    def _drain_async_saves(self) -> None:
+        """Wait out an in-flight background save (handling its error).
+        Called before every synchronous save, before restore and at
+        train()'s exit, so the store is never touched from two threads."""
+        if self._async_writer is not None:
+            self._handle_async_error(self._async_writer.wait())
+
+    def _save_async(self, step: int) -> bool:
+        """Scheduled save through the background writer: the trainer thread
+        pays only the host snapshot; ``torch.save``, the manifest and the
+        prune run on the writer thread. Blocks only while the previous save
+        is in flight."""
+        writer = self._async_writer
+        self._handle_async_error(writer.wait())
+        try:
+            # the writer is drained, so a save at `step` that succeeded is
+            # the latest step; a failed one is not, and is retried here
+            if self.checkpoint_manager.latest_step() == step:
+                return True
+            snapshot = self._host_state()
+        except Exception as e:
+            print(
+                f"warning: scheduled checkpoint at step {step} failed "
+                f"({type(e).__name__}: {e}); training continues",
+                file=sys.stderr,
+            )
+            self._fault_incident(
+                "checkpoint_save_failed",
+                step=step,
+                ckpt_kind="scheduled",
+                writer="async",
+                error=f"{type(e).__name__}: {e}"[:300],
+            )
+            return False
+
+        mgr, workdir, config = self.checkpoint_manager, self.workdir, self.config
+
+        def _write() -> None:
+            mgr.save(step, snapshot)
+            mgr.wait_until_finished()
+            fault.write_manifest(workdir, step, snapshot, config, kind="scheduled",
+                                 writer="async")
+            # the rollout feed announces the version once its manifest is durable
+            fault.publish_manifest_event(workdir, step, kind="scheduled", writer="async")
+            fault.prune_manifests(workdir, mgr.all_steps())
+
+        self._handle_async_error(writer.submit(step, _write))
+        return True
+
+    def save(
+        self,
+        step: Optional[int] = None,
+        kind: str = "scheduled",
+        required: Optional[bool] = None,
+    ) -> bool:
+        """Checkpoint the whole state, with a sidecar manifest (step, config
+        hash, per-leaf CRC32s, save ``kind``) that :meth:`restore` verifies.
+
+        A ``scheduled`` save that fails is contained: an incident and a
+        warning, training goes on and the next interval retries.
+        ``emergency``/``final`` saves (or ``required=True``) raise: they are
+        the last chance to persist anything. Returns True when a checkpoint
+        for ``step`` is on disk (for an async scheduled save: submitted to
+        the background writer).
+
+        With ``train.async_checkpoint`` scheduled saves go through
+        :meth:`_save_async`; the others stay synchronous and first drain
+        the writer."""
+        if required is None:
+            required = kind in ("emergency", "final")
+        step = self.state.step if step is None else step
+        if self._async_writer is not None and kind == "scheduled" and not required:
+            return self._save_async(step)
+        self._drain_async_saves()  # the store must be quiet first
+        try:
+            mgr = self.checkpoint_manager
+            if mgr.latest_step() == step:
+                return True  # already checkpointed
+            host_state = self._host_state()
+            mgr.save(step, host_state)
+            mgr.wait_until_finished()
+            fault.write_manifest(self.workdir, step, host_state, self.config, kind=kind)
+            fault.publish_manifest_event(self.workdir, step, kind=kind, writer="sync")
+            fault.prune_manifests(self.workdir, mgr.all_steps())
+        except Exception as e:
+            if required:
+                raise
+            print(
+                f"warning: {kind} checkpoint at step {step} failed "
+                f"({type(e).__name__}: {e}); training continues",
+                file=sys.stderr,
+            )
+            self._fault_incident(
+                "checkpoint_save_failed",
+                step=step,
+                ckpt_kind=kind,
+                error=f"{type(e).__name__}: {e}"[:300],
+            )
+            return False
+        return True
+
+    def restore(self, step: Optional[int] = None, directory: Optional[str] = None) -> int:
+        """Exact resume: parameters, BatchNorm statistics, Adam state,
+        schedule, generator and step, manifest-verified, falling back to
+        the newest step that verifies when the latest is torn
+        (:func:`fault.verified_restore`). Discarded steps are logged,
+        recorded as an incident and deleted from this trainer's own store.
+        A step directory of another format (an orbax checkpoint) raises
+        :class:`fault.ForeignCheckpointError` and is left alone. Returns
+        the restored step (0 when there is no checkpoint).
+
+        ``directory`` restores from another checkpoint directory without
+        changing where this trainer saves (a warm start; read-only there)."""
+        self._drain_async_saves()  # never read a store mid-write
+        ephemeral = directory is not None
+        if ephemeral:
+            mgr = fault.CheckpointStore(directory, create=False, map_location=self.device)
+        else:
+            mgr = self.checkpoint_manager
+        if not mgr.all_steps():
+            return 0
+        result = fault.verified_restore(mgr, mgr.directory, step=step)
+        if result.discarded:
+            if not ephemeral:
+                for bad_step, _ in result.discarded:
+                    try:
+                        mgr.delete(bad_step)
+                    except OSError:
+                        pass  # a torn step may resist deletion too
+            self._fault_incident(
+                "checkpoint_fallback",
+                restored_step=result.step,
+                discarded={s: why for s, why in result.discarded},
+            )
+        if result.state is None:
+            return 0
+        self._load_state(result.state)
+        return self.state.step
+
+    # ---------------------------------------------------------------- train
 
     def stage_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, Tensor]:
         """Host batch -> the step's device tensors."""
@@ -76,30 +364,115 @@ class Trainer:
 
     def train_one_batch(self, batch: Dict[str, np.ndarray], **step_kw) -> Dict[str, float]:
         """One optimizer step on a host batch; returns the metrics as floats
-        (one synchronisation). Raises :class:`NonFiniteEscalation` when the
-        update was withheld under ``nonfinite_policy='halt'``. ``step_kw``
-        passes through to the step (``draws``, ``record``, ``stage``)."""
+        (one synchronisation) and hands the ``skipped`` flag to the skip
+        monitor, which raises :class:`fault.NonFiniteEscalation` at once
+        under ``nonfinite_policy='halt'``. ``step_kw`` passes through to the
+        step (``draws``, ``record``, ``stage``)."""
         lr = self.host_schedule(self.state.scheduler.last_epoch)
         metrics = self.step_fn(self.state, self.stage_batch(batch), **step_kw)
         out = {k: float(v) for k, v in metrics.items()}
         out["lr"] = lr
-        if out["skipped"] > 0 and self.config.train.nonfinite_policy == "halt":
-            raise NonFiniteEscalation(
-                f"non-finite gradient at step {self.state.step} "
-                f"({int(out['nonfinite_count'])} entries); update withheld"
-            )
+        self.skip_monitor.observe(self.state.step, out)
         return out
 
-    def train(self, steps: int) -> List[Dict[str, float]]:
-        """``steps`` optimizer steps, continuing from the current step;
-        returns each step's metrics."""
-        history: List[Dict[str, float]] = []
-        while len(history) < steps:
-            epoch, offset = divmod(self.state.step, self.steps_per_epoch)
-            for i, batch in enumerate(self.batches(epoch)):
-                if i < offset:
-                    continue
-                history.append(self.train_one_batch(batch))
-                if len(history) == steps:
-                    break
-        return history
+    def _check_preemption(self, step: int) -> None:
+        """Dispatch-boundary shutdown check: on a pending SIGTERM/SIGINT,
+        save a verified emergency checkpoint, record the incident and leave
+        through :class:`fault.Preempted` (exit code ``fault.EXIT_PREEMPTED``)."""
+        sd = self._shutdown
+        if sd is None or not sd.requested:
+            return
+        reason = sd.reason or "signal"
+        self._fault_incident("preempted", step=step, reason=reason)
+        self.save(kind="emergency")
+        raise fault.Preempted(step, reason)
+
+    def _maybe_step_checkpoint(self, step: int) -> None:
+        """Scheduled save every ``train.checkpoint_every_steps`` optimizer
+        steps (0 = epoch-boundary saves only)."""
+        every = self.config.train.checkpoint_every_steps
+        if not every or step - self._last_step_ckpt < every:
+            return
+        self._last_step_ckpt = step
+        self.save()
+
+    def evaluate(self, max_images: Optional[int] = None) -> Dict[str, Any]:
+        """mAP on the val split with the current training weights. The val
+        dataset and the evaluator are built once."""
+        if self._evaluator is None:
+            from replication_faster_rcnn_tpu_torch.eval.evaluator import Evaluator
+
+            self._val_dataset = make_dataset(self.config.data, "val")
+            self._evaluator = Evaluator(self.config, device=self.device)
+        return self._evaluator.evaluate(
+            self.model, self._val_dataset, batch_size=self.config.train.batch_size,
+            max_images=max_images,
+        )
+
+    def _log_step(self, step: int, metrics: Dict[str, float],
+                  log_every: int) -> Optional[Dict[str, float]]:
+        """At a log boundary: check the metrics (fail fast on NaN/Inf unless
+        the guarded update withheld the step), log them and drain the skip
+        monitor. Returns the logged row, or None off the boundary."""
+        if step % log_every != 0:
+            return None
+        row = fault.check_step_metrics(metrics, step)
+        row["lr"] = self.host_schedule(step)
+        self.logger.log(step, row)
+        self.skip_monitor.drain()
+        return row
+
+    def train(self, log_every: int = 10, resume: bool = False) -> Dict[str, float]:
+        """Run ``train.n_epoch`` epochs (the cosine schedule was built from
+        it), from the newest verified checkpoint with ``resume``. Returns
+        the last logged row merged with the last evaluation's scalars."""
+        from replication_faster_rcnn_tpu_torch.eval.evaluator import summary_scalars
+
+        cfg = self.config.train
+        start_step = self.restore() if resume else 0
+        steps_per_epoch = self.steps_per_epoch
+        start_epoch = start_step // steps_per_epoch
+        # a mid-epoch resume (emergency and step-interval checkpoints land
+        # anywhere) starts the epoch's order at its first untrained batch
+        replay = start_step - start_epoch * steps_per_epoch
+        step = start_step
+        self._last_step_ckpt = start_step
+        last: Dict[str, float] = {}
+        eval_result: Dict[str, float] = {}
+        self._shutdown = fault.GracefulShutdown()
+        try:
+            with self._shutdown:
+                for epoch in range(start_epoch, cfg.n_epoch):
+                    self.loader.set_epoch(epoch, start_batch=replay)
+                    replay = 0
+                    t_epoch = time.time()
+                    n_images = 0
+                    # closed on any exit: the loader's producer thread stops with it
+                    with contextlib.closing(iter(self.loader)) as batches:
+                        for batch in batches:
+                            metrics = self.train_one_batch(batch)
+                            n_images += batch["image"].shape[0]
+                            step += 1
+                            row = self._log_step(step, metrics, log_every)
+                            if row is not None:
+                                last = row
+                            self._check_preemption(step)
+                            self._maybe_step_checkpoint(step)
+                    self.skip_monitor.drain()
+                    dt = time.time() - t_epoch
+                    self.logger.log_epoch(epoch, n_images / dt if dt > 0 else 0.0)
+                    if cfg.eval_every_epochs and (epoch + 1) % cfg.eval_every_epochs == 0:
+                        # the flat scalar schema of the voc and coco metrics
+                        eval_result = summary_scalars(
+                            self.evaluate(), self.config.model.num_classes)
+                        self.logger.log(step, eval_result)
+                    if (epoch + 1) % cfg.checkpoint_every_epochs == 0:
+                        self.save()  # scheduled: a failure is contained
+                    self._check_preemption(step)
+        finally:
+            self._shutdown = None
+            # the last scheduled save is on disk before train() returns
+            self._drain_async_saves()
+        last = {k: float(v) for k, v in last.items()}
+        last.update(eval_result)  # merged last: step rows cannot wipe it
+        return last

@@ -478,7 +478,8 @@ def test_training_reaches_the_trunk_through_roi_align_cuda(dev):
         train=TrainConfig(batch_size=2, loss_weights=(0.0, 0.0, 1.0, 1.0)))
     trainer = Trainer(cfg, SyntheticDataset(cfg.data, length=2))
     assert trainer.device.type == "cuda"
-    batch = trainer.stage_batch(next(trainer.batches(0)))
+    host = collate([trainer.dataset[i] for i in range(2)])
+    batch = trainer.stage_batch(host)
     model = trainer.model
     n0, b0 = roi_kernel.launches, roi_kernel.backward_launches
     total, _ = compute_losses(model, cfg, batch, trainer.state.generator)
@@ -488,7 +489,7 @@ def test_training_reaches_the_trunk_through_roi_align_cuda(dev):
     grad = model.trunk.conv1.weight.grad
     assert grad is not None and torch.isfinite(grad).all() and float(grad.abs().sum()) > 0
     assert float(model.rpn.cls.weight.grad.abs().sum()) == 0.0
-    metrics = trainer.train_one_batch(next(trainer.batches(0)))
+    metrics = trainer.train_one_batch(host)
     assert np.isfinite(metrics["loss"]) and metrics["skipped"] == 0.0
 
 

@@ -18,9 +18,13 @@ Tolerances, with their reasons:
   ``scale_boxes``: equal.
 * VOC reader: images within atol 2e-5 (the resize above); boxes, labels,
   masks and difficult flags equal.
-* Loader: batches equal to ``collate`` of the same indices.
+* Loader: batches equal to ``collate`` of the same indices; the shuffled
+  epoch order (3 epochs, several ``set_epoch`` start batches) equal to the
+  JAX ``DataLoader``'s; ``make_dataset``'s datasets equal to the JAX
+  factory's.
 * TTA decode on shared head outputs: boxes to 1e-3 px, scores to 1e-6,
   classes and valid equal (``tests/test_torch_model.py``).
+* ``summary_scalars``: equal to the JAX function's on the same result.
 * Evaluator end to end, from the same bridged weights (the RPN and head
   layers tempered, see ``_case_evaluator``): detections within the decode's
   tolerances above, classes and valid equal; then every score of the
@@ -39,21 +43,23 @@ import torch
 from replication_faster_rcnn_tpu import config as jconfig
 from replication_faster_rcnn_tpu.data import native_ops as j_native
 from replication_faster_rcnn_tpu.data.loader import DataLoader as JDataLoader
+from replication_faster_rcnn_tpu.data.loader import make_dataset as j_make_dataset
 from replication_faster_rcnn_tpu.data.synthetic import SyntheticDataset as JSyntheticDataset
 from replication_faster_rcnn_tpu.data.voc import VOCDataset as JVOCDataset
 from replication_faster_rcnn_tpu.eval import coco_eval as j_coco
 from replication_faster_rcnn_tpu.eval import detect as j_detect
 from replication_faster_rcnn_tpu.eval import voc_eval as j_voc
 from replication_faster_rcnn_tpu.eval.evaluator import Evaluator as JEvaluator
+from replication_faster_rcnn_tpu.eval.evaluator import summary_scalars as j_summary_scalars
 from replication_faster_rcnn_tpu.models.faster_rcnn import init_variables
 from replication_faster_rcnn_tpu_torch import config as tconfig
 from replication_faster_rcnn_tpu_torch import ops
 from replication_faster_rcnn_tpu_torch.data import native_ops
-from replication_faster_rcnn_tpu_torch.data.loader import DataLoader, collate
+from replication_faster_rcnn_tpu_torch.data.loader import DataLoader, collate, make_dataset
 from replication_faster_rcnn_tpu_torch.data.synthetic import SyntheticDataset
 from replication_faster_rcnn_tpu_torch.data.voc import VOCDataset
 from replication_faster_rcnn_tpu_torch.eval import coco_eval, detect, voc_eval
-from replication_faster_rcnn_tpu_torch.eval.evaluator import Evaluator
+from replication_faster_rcnn_tpu_torch.eval.evaluator import Evaluator, summary_scalars
 from replication_faster_rcnn_tpu_torch.models.convert import from_flax_variables
 from replication_faster_rcnn_tpu_torch.models.faster_rcnn import build_model
 from tests.test_torch_model import _randomise
@@ -181,6 +187,22 @@ def _case_voc_reader(root):
                 assert got[k].dtype == want[k].dtype
                 np.testing.assert_array_equal(got[k], want[k], err_msg=f"sample {i} {k}")
     assert tds[1]["difficult"].any()
+    _case_make_dataset(root)
+
+
+def _case_make_dataset(root):
+    for kind, kw in (("voc", {}), ("synthetic", {"length": 3})):
+        tcfg = tconfig.DataConfig(dataset=kind, root_dir=root, image_size=SIZE)
+        jcfg = jconfig.DataConfig(dataset=kind, root_dir=root, image_size=SIZE)
+        for split in ("train", "val"):
+            tds, jds = make_dataset(tcfg, split, **kw), j_make_dataset(jcfg, split, **kw)
+            assert type(tds).__name__ == type(jds).__name__ and len(tds) == len(jds) > 0
+            for k, v in jds[len(jds) - 1].items():
+                np.testing.assert_allclose(tds[len(tds) - 1][k], v, rtol=0, atol=2e-5)
+    with pytest.raises(NotImplementedError, match="data/coco.py"):
+        make_dataset(tconfig.DataConfig(dataset="coco"), "train")
+    with pytest.raises(ValueError, match="unknown dataset"):
+        make_dataset(tconfig.DataConfig(dataset="imagenet"), "train")
 
 
 def _case_loader():
@@ -188,20 +210,41 @@ def _case_loader():
     ds = SyntheticDataset(cfg, length=7)
     jds = JSyntheticDataset(jconfig.DataConfig(image_size=(32, 32), max_boxes=4), length=7)
     for prefetch in (0, 2):
-        loader = DataLoader(ds, batch_size=3, drop_last=False, num_workers=2, prefetch=prefetch)
+        loader = DataLoader(ds, batch_size=3, shuffle=False, drop_last=False, num_workers=2,
+                            prefetch=prefetch)
         batches = list(loader)
         assert [len(b["image"]) for b in batches] == [3, 3, 1] and len(loader) == 3
         for b, idx in zip(batches, ([0, 1, 2], [3, 4, 5], [6])):
             want = collate([ds[i] for i in idx])
             assert all(np.array_equal(b[k], want[k]) for k in want)
         # the tail dropped, against the JAX loader's batches
-        got = list(DataLoader(ds, batch_size=2, num_workers=2, prefetch=prefetch))
+        got = list(DataLoader(ds, batch_size=2, shuffle=False, num_workers=2,
+                              prefetch=prefetch))
         want = list(JDataLoader(jds, batch_size=2, shuffle=False, num_workers=2,
                                 prefetch=prefetch))
         assert len(got) == len(want) == 3
         for b, jb in zip(got, want):
             for k in jb:
                 np.testing.assert_array_equal(b[k], jb[k])
+        # the shuffled epoch order, from a mid-epoch start too
+        loader = DataLoader(ds, batch_size=2, seed=3, num_workers=2, prefetch=prefetch)
+        jloader = JDataLoader(jds, batch_size=2, seed=3, num_workers=2, prefetch=prefetch)
+        orders = set()
+        for epoch in range(3):
+            for start in (0, 1, 2, 3):
+                loader.set_epoch(epoch, start_batch=start)
+                jloader.set_epoch(epoch, start_batch=start)
+                got, want = list(loader), list(jloader)
+                assert len(got) == len(want) == 3 - start
+                for b, jb in zip(got, want):
+                    for k in jb:
+                        np.testing.assert_array_equal(b[k], jb[k])
+                if start == 0:
+                    orders.add(tuple(float(b["image"][i, 0, 0, 0]) for b in got
+                                     for i in range(2)))
+        assert len(orders) == 3  # each epoch its own order
+    with pytest.raises(ValueError):
+        loader.set_epoch(0, start_batch=-1)
     # a failing sample raises on the consumer's thread
     class Broken:
         def __len__(self):
@@ -312,6 +355,9 @@ def _case_evaluator(root):
                 s = jds[j]
                 real = s["labels"] >= 0
                 gts.append({"boxes": s["boxes"][real], "labels": s["labels"][real]})
+            scalars = summary_scalars(got, tcfg.model.num_classes)
+            assert scalars == j_summary_scalars(got, jcfg.model.num_classes)
+            assert "mAP" in scalars and any(k.startswith("AP/") for k in scalars)
             thresholds = [0.5] if metric == "voc" else list(j_coco.IOU_THRESHOLDS)
             near = _near_threshold(dets, gts, thresholds)
             assert set(got) == set(want)

@@ -60,9 +60,10 @@ def test_iou_bitwise():
     want = np.asarray(j_boxes.iou(jnp.asarray(a), jnp.asarray(b)))
     got = t_boxes.iou(t(a), t(b)).numpy()
     np.testing.assert_array_equal(got, want)
+    _case_clip_bitwise()
 
 
-def test_clip_bitwise():
+def _case_clip_bitwise():
     rng = np.random.default_rng(1)
     b = rng.uniform(-50, 250, (500, 4)).astype(np.float32)
     want = np.asarray(j_boxes.clip(jnp.asarray(b), 180.0, 200.0))
@@ -139,9 +140,10 @@ def test_nms_mask_ties_nonfinite_and_sorted():
     got = nms_fixed_tiled(t(sb), t(ss), 0.5, 80, mask=t(np.isfinite(ss)), tile=64,
                           assume_sorted=True)
     _assert_same(got, want)
+    _case_nms_all_invalid_and_max_out_exceeds_n()
 
 
-def test_nms_all_invalid_and_max_out_exceeds_n():
+def _case_nms_all_invalid_and_max_out_exceeds_n():
     rng = np.random.default_rng(6)
     boxes = rand_boxes(10, rng)
     idx, valid = nms_fixed_tiled(t(boxes), torch.full((10,), float("-inf")), 0.5, 5)

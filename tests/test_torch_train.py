@@ -26,16 +26,26 @@ uniforms, computed here in JAX from the step's own keys
 * Train-mode BatchNorm alone against flax: rtol 1e-5 / atol 1e-5 in float32;
   one bfloat16 ulp (rtol 2**-7) in bfloat16.
 * Losses alone: rtol 1e-6 (``logsumexp`` rounds differently).
+* A JAX checkpoint carried into the port (orbax save, JAX
+  ``fault.verified_restore``, ``convert.train_state_from_flax``), then step
+  2 on both sides with the JAX step's draws: the losses within
+  ``__graft_entry__._assert_losses_agree``'s 1e-3 (relative, at least 1
+  absolute); Adam's moments after step 2 within rtol 1e-4 of optax's
+  (atol 1e-4 of the leaf's largest entry, for entries that cancel).
 """
 
 import copy
 import dataclasses
+import io
+import json
+import os
 
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import orbax.checkpoint as ocp
 import pytest
 import torch
 
@@ -44,6 +54,7 @@ from replication_faster_rcnn_tpu.data.loader import collate as j_collate
 from replication_faster_rcnn_tpu.data.synthetic import SyntheticDataset as JSyntheticDataset
 from replication_faster_rcnn_tpu.models.head import select_class_deltas as j_select
 from replication_faster_rcnn_tpu.train import create_train_state
+from replication_faster_rcnn_tpu.train import fault as j_fault
 from replication_faster_rcnn_tpu.train import losses as j_losses
 from replication_faster_rcnn_tpu.train.train_step import host_schedule as j_host_schedule
 from replication_faster_rcnn_tpu.train.train_step import make_optimizer as j_make_optimizer
@@ -52,13 +63,17 @@ from replication_faster_rcnn_tpu.train.train_step import make_train_step as j_ma
 from replication_faster_rcnn_tpu_torch import config as tconfig
 from replication_faster_rcnn_tpu_torch.data.loader import collate
 from replication_faster_rcnn_tpu_torch.data.synthetic import SyntheticDataset
-from replication_faster_rcnn_tpu_torch.models.convert import from_flax_variables
+from replication_faster_rcnn_tpu_torch.models.convert import (
+    from_flax_variables,
+    train_state_from_flax,
+)
 from replication_faster_rcnn_tpu_torch.models.faster_rcnn import build_model
 from replication_faster_rcnn_tpu_torch.models.head import select_class_deltas
 from replication_faster_rcnn_tpu_torch.models.resnet import BatchNorm
 from replication_faster_rcnn_tpu_torch.ops import roi_ops
 from replication_faster_rcnn_tpu_torch.ops.roi_ops import extract_roi_features
 from replication_faster_rcnn_tpu_torch.train import losses
+from replication_faster_rcnn_tpu_torch.train import fault
 from replication_faster_rcnn_tpu_torch.train.fault import NonFiniteEscalation
 from replication_faster_rcnn_tpu_torch.train.trainer import Trainer
 from replication_faster_rcnn_tpu_torch.train.train_step import (
@@ -194,6 +209,8 @@ def _one_step(name):
     return {
         "jmetrics": {k: float(v) for k, v in jmetrics.items()},
         "jnew": from_flax_variables(_np_vars(new_state)),
+        "jnew_state": new_state, "jcfg": jcfg, "jbatch": jbatch,
+        "jstep": jax.jit(j_make_train_step(jmodel, jcfg, tx)),
         "metrics": {k: float(v) for k, v in metrics.items()},
         "state": ts, "record": record, "draws": draws, "batch": tbatch, "tcfg": tcfg,
         "grads": {k: p.grad.clone() for k, p in model.named_parameters()},
@@ -201,7 +218,54 @@ def _one_step(name):
     }
 
 
-def test_train_step_losses_match_jax(one_step):
+def _case_jax_checkpoint_into_port(step, workdir):
+    """After JAX step 1: an orbax save with the JAX manifest, the JAX
+    verified restore, the bridge into the port's state, then step 2 on both
+    sides with the JAX step's draws. The orbax directory is foreign to the
+    port's store: a resume there raises and deletes nothing."""
+    jcfg, tcfg, jstate = step["jcfg"], step["tcfg"], step["jnew_state"]
+    mgr = ocp.CheckpointManager(str(workdir), options=ocp.CheckpointManagerOptions(
+        max_to_keep=3, create=True))
+    mgr.save(1, args=ocp.args.StandardSave(jstate))
+    mgr.wait_until_finished()
+    template = jax.device_get(jstate)
+    j_fault.write_manifest(str(workdir), 1, template, jcfg)
+    result = j_fault.verified_restore(mgr, template, str(workdir))
+    mgr.close()
+    assert result.step == 1 and result.manifest is not None and not result.discarded
+    ts = train_state_from_flax(jax.tree_util.tree_map(np.asarray, result.state), tcfg, "cpu",
+                               steps_per_epoch=1)
+    assert ts.step == 1 and ts.scheduler.last_epoch == 1
+    want_lr = j_host_schedule(jcfg, 1)(1)
+    assert ts.optimizer.param_groups[0]["lr"] == want_lr == ts.scheduler.get_last_lr()[0]
+    jstate2, jmetrics = step["jstep"](result.state, step["jbatch"])
+    draws = jax_step_draws(result.state, 2, 6 * 6 * 9, 48 + 4)
+    metrics = make_train_step(tcfg)(ts, step["batch"], draws=draws)
+    for k in LOSSES:  # __graft_entry__._assert_losses_agree
+        want = float(jmetrics[k])
+        assert abs(float(metrics[k]) - want) <= 1e-3 * max(1.0, abs(want)), k
+    adam = jstate2.opt_state[1]
+    moments = {"exp_avg": from_flax_variables({"params": jax.device_get(adam.mu)}),
+               "exp_avg_sq": from_flax_variables({"params": jax.device_get(adam.nu)})}
+    for name, p in ts.model.named_parameters():
+        st = ts.optimizer.state[p]
+        assert float(st["step"]) == int(adam.count) == 2
+        for k, want in moments.items():
+            np.testing.assert_allclose(st[k].numpy(), want[name].numpy(), rtol=1e-4,
+                                       atol=1e-4 * float(want[name].abs().max()),
+                                       err_msg=f"{name} {k}")
+    assert ts.step == 2 and ts.scheduler.last_epoch == int(jstate2.opt_state[2].count) == 2
+    # the orbax directory is not the port's format: refused, nothing deleted
+    listing = sorted(os.walk(workdir))
+    trainer = Trainer(tcfg, SyntheticDataset(tcfg.data, length=2), device="cpu",
+                      workdir=str(workdir))
+    with pytest.raises(fault.ForeignCheckpointError, match="not this port's format"):
+        trainer.train(resume=True)
+    assert sorted(os.walk(workdir)) == listing
+
+
+def test_train_step_losses_match_jax(one_step, tmp_path):
+    _case_jax_checkpoint_into_port(one_step, tmp_path / "orbax")
     for step in (one_step, one_step["pool"]):
         got, want = step["metrics"], step["jmetrics"]
         for k in LOSSES:
@@ -349,9 +413,10 @@ def test_losses_match_jax():
     none = np.full((2, 30), -1)  # nothing positive, nothing valid: 0, not NaN
     assert float(losses.loc_loss(t(pred), t(target), t(none))) == 0.0
     assert float(losses.ignore_cross_entropy(t(logits), t(none))) == 0.0
+    _case_select_class_deltas()
 
 
-def test_select_class_deltas_matches_jax():
+def _case_select_class_deltas():
     rng = np.random.default_rng(2)
     reg = rng.normal(0, 1, (2, 16, 21 * 4)).astype(np.float32)
     labels = rng.integers(-1, 21, (2, 16))
@@ -392,30 +457,49 @@ def _same(a, b):
 
 
 @pytest.fixture(scope="module")
-def trainer_and_batches():
-    cfg = tcfg_small()
-    trainer = Trainer(cfg, SyntheticDataset(cfg.data, length=4), device="cpu")
-    history = trainer.train(3)
-    return trainer, history
+def trainer_and_batches(tmp_path_factory):
+    """``Trainer.train`` for one epoch of 3 steps, every step logged."""
+    cfg = tcfg_small(n_epoch=1)
+    log = tmp_path_factory.mktemp("train") / "metrics.jsonl"
+    trainer = Trainer(cfg, SyntheticDataset(cfg.data, length=6), device="cpu")
+    trainer.logger.jsonl_path = str(log)
+    trainer.logger._stream = io.StringIO()
+    last = trainer.train(log_every=1)
+    history = [r for r in map(json.loads, open(log)) if "step" in r]
+    return trainer, history, last
 
 
-def test_trainer_three_steps_finite(trainer_and_batches):
-    trainer, history = trainer_and_batches
+def _case_trainer_three_steps_finite(trainer, history, last):
     assert len(history) == 3 and trainer.state.step == 3
     for m in history:
         assert all(np.isfinite(m[k]) for k in LOSSES) and m["skipped"] == 0.0
-        assert m["lr"] == pytest.approx(LR, rel=1e-2)
-    assert trainer.steps_per_epoch == 2 and trainer.model.training
+    # a row's lr is the schedule's at its (1-indexed) step, as the JAX trainer logs it:
+    # the one epoch's lr, then 0 at its end
+    assert [m["lr"] for m in history] == [trainer.host_schedule(s) for s in (1, 2, 3)]
+    assert history[0]["lr"] == pytest.approx(LR, rel=1e-2) and history[-1]["lr"] == 0.0
+    assert last == {k: v for k, v in history[-1].items() if k not in ("step", "t")}
+    assert trainer.steps_per_epoch == 3 and trainer.model.training
 
 
 def test_guarded_update_on_a_nan_gradient(trainer_and_batches):
-    trainer, _ = trainer_and_batches
+    trainer, history, last = trainer_and_batches
+    _case_trainer_three_steps_finite(trainer, history, last)
     for policy in ("skip", "halt", "apply"):
         _nan_step(trainer, policy)
 
 
+def _epoch_batch(trainer, epoch):
+    """The first batch of ``epoch``'s order."""
+    trainer.loader.set_epoch(epoch)
+    batches = iter(trainer.loader)
+    try:
+        return next(batches)
+    finally:
+        batches.close()
+
+
 def _nan_step(trainer, policy):
-    batch = next(trainer.batches(7))
+    batch = _epoch_batch(trainer, 7)
     batch["image"] = batch["image"].copy()
     batch["image"][0, 3, 3, 0] = np.nan  # poisons every gradient downstream
     before = _state_snapshot(trainer)
@@ -426,6 +510,7 @@ def _nan_step(trainer, policy):
     trainer.config = trainer.config.replace(
         train=dataclasses.replace(trainer.config.train, nonfinite_policy=policy))
     trainer.step_fn = make_train_step(trainer.config)
+    trainer.skip_monitor = fault.SkipMonitor(policy)
     try:
         if policy == "halt":
             with pytest.raises(NonFiniteEscalation):
@@ -436,6 +521,7 @@ def _nan_step(trainer, policy):
         trainer.config = trainer.config.replace(
             train=dataclasses.replace(trainer.config.train, nonfinite_policy="skip"))
         trainer.step_fn = make_train_step(trainer.config)
+        trainer.skip_monitor = fault.SkipMonitor("skip")
     assert trainer.state.step == step + 1
     if policy == "apply":
         after = trainer.model.state_dict()
@@ -449,5 +535,5 @@ def _nan_step(trainer, policy):
     if policy == "skip":
         assert m["skipped"] == 1.0 and m["nonfinite_count"] > 0
         assert np.isnan(m["update_norm"]) and np.isfinite(m["param_norm"])
-        clean = trainer.train_one_batch(next(trainer.batches(8)))
+        clean = trainer.train_one_batch(_epoch_batch(trainer, 8))
         assert clean["skipped"] == 0.0 and not _same(before, _state_snapshot(trainer))
