@@ -95,7 +95,8 @@ H100:  ``python3 chip_smoke.py``. It
 8. kills and resumes the flagship ``voc_resnet18`` at 600x600, batch 8, 24
    synthetic images (3 steps an epoch), 3 epochs, one sample of step 3's
    batch poisoned with a NaN (the step is skipped): (a) uninterrupted, twice,
-   bitwise equal in the whole state and the logged rows, launch counters
+   the first with a ``telemetry_dir`` and the second without, bitwise equal
+   in the whole state and the logged rows, launch counters
    reset just before and read just after (per step NMS 1, IoU matching 2,
    ROIPool 1 and its backward 1); (b) async saves every 2 steps; (c) sync
    saves every 2 steps and SIGTERM after step 5, which must end in
@@ -106,9 +107,26 @@ H100:  ``python3 chip_smoke.py``. It
    flush served from ``load_eval_variables`` must equal the same flush from
    (a)'s weights, and with the newest step's file truncated ``restore()``
    must fall back to the step before, log ``checkpoint_fallback`` and delete
-   the torn step. Prints the state's bytes, the save, snapshot, writer and
-   restore ms and the steps' ms;
-9. prints a ``{"kernels": [...]}`` line, the card line, and last
+   the torn step. Runs (a)-(d) record telemetry: their traces must hold
+   every span of ``TRAINER_SPANS`` (the JAX trainer's names), no watchdog
+   may record a stall, and (c)'s must record the preemption and the
+   abnormal exit; (a)'s report (``telemetry/report.py``) is printed. Prints
+   the state's bytes, the save, snapshot, writer and restore ms and the
+   steps' ms;
+9. runs the benchmark as users run it, ``python -m
+   replication_faster_rcnn_tpu_torch.benchmark`` in a subprocess (none of
+   this script's TF32 and cuDNN settings), train (``voc_resnet18`` 600x600
+   batch 16) and eval (batch 8) alternating, ``BENCH_RUNS`` each: every line
+   must carry the JAX metric name and keys, a positive value and, for train,
+   a FLOP count, an MFU in (0, 1] on the H100 datasheet basis and the JAX
+   breakdown keys; prints each metric's median, min and max. The last train
+   run takes ``BENCH_PROFILE_DIR``: its ``torch.profiler`` capture gives the
+   device busy ms and idle share per step, and the idle share of the run's
+   unprofiled timed step, printed. Then one in-process
+   train and one eval measurement at ``BENCH_COUNT_STEPS`` steps, launch counters
+   reset just before and read just after (per step NMS 1, IoU matching 2,
+   ROIPool 1 and its backward 1; per eval batch NMS 2 and ROIPool 1);
+10. prints a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Without CUDA, or without
@@ -1376,6 +1394,21 @@ ROI_KERNELS = {
 IOU_KERNEL = "iou_match_kernel"
 
 
+def busy_and_span(intervals):
+    """(the length of the union of ``(start, end)`` intervals, the span from
+    the first start to the last end); the intervals must not be empty."""
+    spans = sorted(intervals)
+    busy, (lo, hi) = 0.0, spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy += hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    busy += hi - lo
+    return busy, max(e for _, e in spans) - spans[0][0]
+
+
 def device_timeline(torch, run, steps, roi_op="align"):
     """torch.profiler over ``run`` (``steps`` training steps): the device's
     busy time (union of kernel and copy intervals), the span from its first
@@ -1395,16 +1428,7 @@ def device_timeline(torch, run, steps, roi_op="align"):
             and not getattr(e, "is_user_annotation", False)]  # kernels and copies
     if not acts:
         return None
-    spans = sorted((e.time_range.start, e.time_range.end) for e in acts)
-    busy, (lo, hi) = 0.0, spans[0]
-    for start, end in spans[1:]:
-        if start > hi:
-            busy += hi - lo
-            lo, hi = start, end
-        else:
-            hi = max(hi, end)
-    busy += hi - lo
-    span = max(e for _, e in spans) - spans[0][0]
+    busy, span = busy_and_span((e.time_range.start, e.time_range.end) for e in acts)
     by_name = {}
     for e in acts:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
@@ -2042,6 +2066,38 @@ def same_rows(got, want):
     return [key(r) for r in got] == [key(r) for r in want]
 
 
+# the trainer's spans (the JAX trainer's names), all of which runs (a)-(d) of [8] record
+TRAINER_SPANS = ("step/dispatch", "step/sync", "data/fetch", "data/build", "data/device_put",
+                 "fault/skip_drain", "state/host_fetch", "checkpoint/save",
+                 "checkpoint/snapshot", "checkpoint/manifest", "checkpoint/restore")
+
+
+def check_telemetry(root):
+    """Phase [8]'s telemetry directories: (a) uninterrupted, (b) async saves,
+    (c) preempted, (d) resumed. Together their traces hold every span of
+    ``TRAINER_SPANS``; no run records a stall; (c)'s watchdog records the
+    preemption and the abnormal exit. Prints (a)'s report."""
+    from replication_faster_rcnn_tpu_torch.telemetry import report
+
+    names, out = set(), {}
+    for run in "abcd":
+        summary = report.summarize_run(str(root / f"telemetry_{run}"))
+        incidents = summary.get("incidents", {"stalls": 0, "faults": {}})
+        if incidents["stalls"] or summary["artifacts"][:1] != ["trace.json"]:
+            raise AssertionError(f"telemetry of run ({run}): {summary['artifacts']}, {incidents}")
+        names |= {row["name"] for row in summary["phases"]}
+        out[run] = {"phases": summary["phases"], "faults": incidents["faults"]}
+        if run == "a":
+            log("  " + report.format_report(summary).replace("\n", "\n  "))
+    if not names >= set(TRAINER_SPANS):
+        raise AssertionError(f"spans missing from the traces: {set(TRAINER_SPANS) - names}")
+    if set(out["c"]["faults"]) != {"preempted", "abnormal_exit"}:
+        raise AssertionError(f"run (c)'s watchdog recorded {out['c']['faults']}")
+    log(f"  telemetry: the traces of (a)-(d) hold {sorted(names)}; no stall; (c)'s watchdog "
+        f"recorded {out['c']['faults']}")
+    return out
+
+
 def phase_resume(torch, name="voc_resnet18", cfg=None, device=None, length=24):
     """Phase [8], kill and resume: ``name`` (default the flagship, ROIPool)
     for 3 epochs of ``length // batch`` steps, step 3 poisoned with a NaN
@@ -2058,6 +2114,7 @@ def phase_resume(torch, name="voc_resnet18", cfg=None, device=None, length=24):
     from replication_faster_rcnn_tpu_torch.data.synthetic import SyntheticDataset
     from replication_faster_rcnn_tpu_torch.ops.cuda import iou_kernel, nms_kernel
     from replication_faster_rcnn_tpu_torch.serving.engine import InferenceEngine
+    from replication_faster_rcnn_tpu_torch.telemetry import spans
     from replication_faster_rcnn_tpu_torch.train import fault
     from replication_faster_rcnn_tpu_torch.train.trainer import Trainer, load_eval_variables
 
@@ -2081,21 +2138,30 @@ def phase_resume(torch, name="voc_resnet18", cfg=None, device=None, length=24):
     def read():
         return {k: getattr(mod, attr) for k, mod, attr in counters}
 
-    def make(tag, log_tag=None, **train):
+    def make(tag, log_tag=None, telemetry=None, **train):
+        """A trainer on ``root / tag``; ``telemetry`` names a telemetry
+        directory under ``root``, whose ``metrics.jsonl`` then takes the
+        logged rows (else ``<log_tag or tag>.jsonl``)."""
         c = cfg.replace(train=dataclasses.replace(cfg.train, **train))
-        trainer = Trainer(c, dataset=ds, device=dev, seed=0, workdir=str(root / tag))
-        trainer.logger = quiet_logger(root / f"{log_tag or tag}.jsonl")
+        tel = None if telemetry is None else str(root / telemetry)
+        trainer = Trainer(c, dataset=ds, device=dev, seed=0, workdir=str(root / tag),
+                          telemetry_dir=tel)
+        trainer.logger = quiet_logger(root / telemetry / "metrics.jsonl" if telemetry
+                                      else root / f"{log_tag or tag}.jsonl")
         return trainer
 
     per_step = {"nms": 1, "iou_match": 2, **roi_launches(op, 1, 1)}
     step_ms = {"a": [], "a2": [], "b": []}
     reset()
-    ref = poisoned_and_killed(make("a"), 3, step_ms=step_ms["a"])
+    # (a) records telemetry (the span trace, the metrics, the stall
+    # watchdog); (a2) does not, and the two must still be bitwise equal
+    ref = poisoned_and_killed(make("a", telemetry="telemetry_a"), 3, step_ms=step_ms["a"])
     ref.train(log_every=1)
+    spans.set_tracer(None)
     launches = read()
     if launches != {k: v * steps for k, v in per_step.items()}:
         raise AssertionError(f"expected per step {per_step}, got {launches} over {steps} steps")
-    ref_rows = logged_rows(root / "a.jsonl")
+    ref_rows = logged_rows(root / "telemetry_a" / "metrics.jsonl")
     skipped = [r["step"] for r in ref_rows if r["skipped"]]
     if ref.state.step != steps or skipped != [3] or ref.state.scheduler.last_epoch != steps - 1:
         raise AssertionError(f"run (a): step {ref.state.step}, skipped steps {skipped}")
@@ -2107,32 +2173,36 @@ def phase_resume(torch, name="voc_resnet18", cfg=None, device=None, length=24):
     state_bytes = sum(v.numel() * v.element_size() for _, v in fault._leaves_with_path(
         ref._host_state()) if isinstance(v, torch.Tensor))
     log(f"  (a) uninterrupted, twice: {steps} steps each (step 3 skipped), the two runs "
-        f"bitwise equal in state and logged rows; launches {launches}")
+        f"bitwise equal in state and logged rows, the first with telemetry and the second "
+        f"without; launches {launches}")
 
     reset()
     snapshot_ms, writer_ms = [], []
-    asy = poisoned_and_killed(make("b", checkpoint_every_steps=2, async_checkpoint=True), 3,
-                              step_ms=step_ms["b"])
+    asy = poisoned_and_killed(make("b", telemetry="telemetry_b", checkpoint_every_steps=2,
+                                   async_checkpoint=True), 3, step_ms=step_ms["b"])
     asy._host_state = timed(snapshot_ms, asy._host_state)
     submit = asy._async_writer.submit
     asy._async_writer.submit = lambda step, work: submit(step, timed(writer_ms, work))
     asy.train(log_every=1)
+    spans.set_tracer(None)
     del asy._host_state  # the comparison's snapshot is not a save's
     diff = state_differences(torch, asy, ref)
-    if diff or not same_rows(logged_rows(root / "b.jsonl"), ref_rows):
+    if diff or not same_rows(logged_rows(root / "telemetry_b" / "metrics.jsonl"), ref_rows):
         raise AssertionError(f"the async-checkpointed run differs from (a): {diff[:5]}")
     log(f"  (b) async saves every 2 steps ({len(writer_ms)} saves): bitwise (a)'s state and "
         f"rows; snapshot on the trainer thread {[round(x, 1) for x in snapshot_ms]} ms, "
         f"writer {[round(x, 1) for x in writer_ms]} ms")
 
     sync_ms = []
-    killed = poisoned_and_killed(make("c", checkpoint_every_steps=2), 3, term_after=5)
+    killed = poisoned_and_killed(make("c", telemetry="telemetry_c", checkpoint_every_steps=2),
+                                 3, term_after=5)
     killed.save = timed(sync_ms, killed.save)
     try:
         killed.train(log_every=1)
         raise AssertionError("run (c) was not preempted")
     except fault.Preempted as e:
         preempted = e.step
+    spans.set_tracer(None)
     manifest = fault.load_manifest(str(root / "c"), 5)
     t0 = time.perf_counter()
     problems = fault.verify_state(manifest, killed.checkpoint_manager.restore(5))
@@ -2140,12 +2210,14 @@ def phase_resume(torch, name="voc_resnet18", cfg=None, device=None, length=24):
     if preempted != 5 or manifest["kind"] != "emergency" or problems:
         raise AssertionError(f"preempted at {preempted}, manifest {manifest and manifest['kind']},"
                              f" {problems[:3]}")
-    resumed = make("c", "c", checkpoint_every_steps=2)
+    resumed = make("c", telemetry="telemetry_d", checkpoint_every_steps=2)
     restore_ms = []
     resumed.restore = timed(restore_ms, resumed.restore)
     resumed.train(log_every=1, resume=True)
+    spans.set_tracer(None)
     diff = state_differences(torch, resumed, ref)
-    rows = logged_rows(root / "c.jsonl")
+    rows = (logged_rows(root / "telemetry_c" / "metrics.jsonl")
+            + logged_rows(root / "telemetry_d" / "metrics.jsonl"))
     if diff or [r["step"] for r in rows] != list(range(1, steps + 1)) or not same_rows(
             rows, ref_rows):
         raise AssertionError(f"the resumed run differs from (a): {diff[:5]}")
@@ -2158,6 +2230,7 @@ def phase_resume(torch, name="voc_resnet18", cfg=None, device=None, length=24):
         f"the emergency manifest verifies; save ms {[round(x, 1) for x in sync_ms]}; "
         f"(d) a fresh Trainer resumes (restore + verify {restore_ms[0]:.1f} ms) and ends "
         f"bitwise in (a)'s state with (a)'s logged rows for steps 6-{steps}")
+    telemetry = check_telemetry(root)
 
     reset()
     served = load_eval_variables(cfg, str(root / "c"), device=dev)
@@ -2195,12 +2268,164 @@ def phase_resume(torch, name="voc_resnet18", cfg=None, device=None, length=24):
         f"included)")
     shutil.rmtree(root)
     return {"train_resume": {k: launches[k] + launches_bcd[k] for k in launches},
-            "serve_resume": serve_launches}, {
+            "serve_resume": serve_launches}, {"telemetry": telemetry,
         "config": name, "steps": steps, "state_bytes": state_bytes, "file_bytes": file_bytes,
         "sync_save_ms": sync_ms, "async_snapshot_ms": snapshot_ms, "async_writer_ms": writer_ms,
         "load_verify_ms": load_verify_ms, "restore_ms": restore_ms[0],
         "fallback_restore_ms": fallback_ms, "step_ms": step_ms,
         "step_ms_median": med, "preempted_at": preempted}
+
+
+BENCH_RUNS = 3  # benchmark runs per mode, train and eval alternating
+BENCH_COUNT_STEPS = 3  # BENCH_STEPS of the in-process runs that count launches
+# the JAX benchmark's breakdown keys
+BREAKDOWN_KEYS = ("trunk_ms", "rpn_heads_ms", "proposal_nms_ms", "targets_ms", "head_loss_ms",
+                  "targets_head_loss_ms", "backward_ms", "opt_update_ms", "backward_update_ms",
+                  "step_ms", "opt_update_direct_ms", "dispatch_floor_ms",
+                  "opt_update_direct_adj_ms")
+
+
+def check_bench_line(line, mode):
+    """One benchmark line: the JAX metric name and keys, a positive value;
+    for train a FLOP count, an MFU in (0, 1] on the H100 datasheet basis
+    and the JAX breakdown keys; for eval no baseline ratio and batch 8."""
+    if line.get("metric") != f"{mode}_images_per_sec_600x600" or not line.get("value", 0) > 0:
+        raise AssertionError(f"{mode} benchmark line: {line}")
+    if mode == "train":
+        bd = line.get("breakdown", {})
+        if not (line["flops_per_step"] > 0 and line["mfu"] is not None and 0 < line["mfu"] <= 1
+                and line["mfu_basis"] == "h100_datasheet_bf16_dense"
+                and set(bd) == set(BREAKDOWN_KEYS)):
+            raise AssertionError(f"train benchmark line: {line}")
+    elif line["vs_baseline"] is not None or line["batch_size"] != 8:
+        raise AssertionError(f"eval benchmark line: {line}")
+
+
+def trace_device_share(trace_dir, steps):
+    """From the Chrome trace ``utils/profiling.trace`` wrote in ``trace_dir``:
+    the device's busy ms per step (union of kernel, copy and memset
+    intervals), the span ms per step from its first to its last activity and
+    the idle share of that span; None when the trace holds no device
+    activity (a CPU run)."""
+    path = next(Path(trace_dir).glob("*.pt.trace.json"))
+    events = json.loads(path.read_text())["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    if not spans:
+        return None
+    busy, span = busy_and_span(spans)
+    return {"device_busy_ms_per_step": busy / 1e3 / steps,
+            "device_span_ms_per_step": span / 1e3 / steps, "device_idle_share": 1 - busy / span}
+
+
+def phase_bench(torch, device="cuda", runs=BENCH_RUNS):
+    """Phase [9]: ``python -m replication_faster_rcnn_tpu_torch.benchmark`` as
+    users run it (a subprocess: none of this script's TF32 and cuDNN
+    settings), train and eval alternating, ``BENCH_RUNS`` each, every line
+    checked; each metric's median, min and max. The last train run also
+    takes ``BENCH_PROFILE_DIR``: its ``torch.profiler`` capture gives the
+    card's busy ms and idle share per b16 step as users run the step, and
+    the idle share of that run's unprofiled timed step. Then
+    one in-process train and one eval measurement at ``BENCH_COUNT_STEPS``
+    steps with the launch counters reset just before and read just after
+    (per train step NMS 1, IoU matching 2, ROIPool 1 and its backward 1; per
+    eval batch NMS 2 and ROIPool 1). ``device`` and ``runs`` (the subprocess
+    runs per mode) are for rehearsals."""
+    import os
+
+    from replication_faster_rcnn_tpu_torch import benchmark
+    from replication_faster_rcnn_tpu_torch.ops.cuda import iou_kernel, nms_kernel
+    from replication_faster_rcnn_tpu_torch.utils.profiling import has_device_trace
+
+    log(f"[9] bench: python -m replication_faster_rcnn_tpu_torch.benchmark, train (batch 16) "
+        f"and eval (batch 8) at 600x600, {runs} runs each, alternating")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    trace_dir = fresh_dir(REPO / "build" / "chip_smoke_bench_trace")
+    lines = {"train": [], "eval": []}
+    for i in range(runs):
+        for mode in ("train", "eval"):
+            run_env = dict(env, BENCH_MODE=mode)
+            if mode == "train" and i == runs - 1:
+                run_env["BENCH_PROFILE_DIR"] = str(trace_dir)
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "replication_faster_rcnn_tpu_torch.benchmark"],
+                cwd=REPO, env=run_env, capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"{mode} benchmark run exited {proc.returncode}: "
+                                     f"{proc.stdout[-2000:]} {proc.stderr[-4000:]}")
+            line = json.loads(proc.stdout.strip().splitlines()[-1])
+            check_bench_line(line, mode)
+            if "BENCH_PROFILE_DIR" in run_env and (
+                    line.get("trace") != "ok" or not has_device_trace(str(trace_dir))):
+                raise AssertionError(f"bench train's profiler capture: {line.get('trace')}")
+            lines[mode].append(line)
+            log(f"  {mode} run {i + 1} ({time.perf_counter() - t0:.1f} s): {json.dumps(line)}")
+    summary = {}
+    for mode, done in lines.items():
+        if not done:
+            continue
+        values = [r["value"] for r in done]
+        summary[mode] = {"median": statistics.median(values), "min": min(values),
+                         "max": max(values), "values": values}
+        if mode == "train":
+            for key in ("mfu", "flops_per_step"):
+                summary[mode][key] = [r[key] for r in done]
+            summary[mode]["breakdown"] = [r["breakdown"] for r in done]
+        log(f"  {done[0]['metric']}: median {summary[mode]['median']} images/s, min "
+            f"{summary[mode]['min']}, max {summary[mode]['max']} over {len(values)} runs")
+    if lines["train"]:
+        profiled = trace_device_share(trace_dir, benchmark.TRACE_STEPS)
+        if profiled is None:
+            raise AssertionError("bench train's profiler capture holds no device activity")
+        # the profiler adds host time to the steps it captures: the card's
+        # busy ms against the same run's unprofiled timed step as well
+        step_ms = lines["train"][-1]["breakdown"]["step_ms"]
+        profiled["device_idle_share_of_timed_step"] = (
+            1 - profiled["device_busy_ms_per_step"] / step_ms)
+        summary["profiled_train"] = profiled
+        log(f"  the profiled b16 steps of train run {runs} (timed step {step_ms} ms): "
+            f"{profiled}")
+    shutil.rmtree(trace_dir)
+
+    counters = (("nms", nms_kernel, "launches"), ("iou_match", iou_kernel, "launches")
+                ) + roi_counters()
+
+    def reset():
+        for _, mod, attr in counters:
+            setattr(mod, attr, 0)
+
+    def read():
+        return {k: getattr(mod, attr) for k, mod, attr in counters}
+
+    saved = os.environ.get("BENCH_STEPS")
+    os.environ["BENCH_STEPS"] = str(BENCH_COUNT_STEPS)
+    try:
+        reset()
+        benchmark._measure(device=device)
+        train_launches = read()
+        reset()
+        benchmark._measure_eval(device=device)
+        eval_launches = read()
+    finally:
+        if saved is None:
+            del os.environ["BENCH_STEPS"]
+        else:
+            os.environ["BENCH_STEPS"] = saved
+    # warm-up, timed, the FLOP count's and the breakdown's steps
+    steps = benchmark.WARMUP_STEPS + BENCH_COUNT_STEPS + 1 + benchmark.STAGE_STEPS
+    per_step = {"nms": 1, "iou_match": 2, **roi_launches("pool", 1, 1)}
+    if train_launches != {k: v * steps for k, v in per_step.items()}:
+        raise AssertionError(f"bench train: expected per step {per_step} over {steps} steps, "
+                             f"got {train_launches}")
+    batches = benchmark.WARMUP_STEPS + BENCH_COUNT_STEPS
+    per_batch = {"nms": 2, "iou_match": 0, **roi_launches("pool", 1, 0)}
+    if eval_launches != {k: v * batches for k, v in per_batch.items()}:
+        raise AssertionError(f"bench eval: expected per batch {per_batch} over {batches} "
+                             f"batches, got {eval_launches}")
+    log(f"  in-process: train launches {train_launches} over {steps} steps, eval launches "
+        f"{eval_launches} over {batches} batches")
+    return {"bench_train": train_launches, "bench_eval": eval_launches}, summary
 
 
 def main():
@@ -2250,9 +2475,10 @@ def main():
     olaunches, overfit = phase_overfit(torch)
     evaluate["overfit"] = overfit
     rlaunches, resume = phase_resume(torch)
+    blaunches, bench = phase_bench(torch)
     paths = {"serve": launches, "serve_pool": plaunches, "serve_presets": slaunches,
              "serve_int8": qlaunches, "train": tlaunches, "train_pool": ptlaunches,
-             "evaluate": elaunches, "overfit_train": olaunches, **rlaunches}
+             "evaluate": elaunches, "overfit_train": olaunches, **rlaunches, **blaunches}
 
     def by_path(key):
         """A counter's launches on every main path that reads it."""
@@ -2419,7 +2645,7 @@ def main():
     ]
     log(json.dumps({"serve": serve, "serve_pool": serve_pool, "presets": presets,
                     "serve_int8": serve_int8, "train": train, "train_pool": train_pool,
-                    "evaluate": evaluate, "resume": resume, "card": card}))
+                    "evaluate": evaluate, "resume": resume, "bench": bench, "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -332,6 +332,25 @@ class QuantConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TelemetryConfig:
+    """Observability knobs (``telemetry/``). The JAX package's other two,
+    ``trace_propagation`` and ``latency_buckets_ms``, serve the serving
+    tiers' cross-process tracing and latency histograms, which the port
+    has not ported yet."""
+
+    # SpanTracer in-memory event bound (overflow drops events and counts
+    # them, never grows)
+    trace_max_events: int = 200_000
+
+    def __post_init__(self):
+        if self.trace_max_events < 1:
+            raise ValueError(
+                "telemetry.trace_max_events must be >= 1, got "
+                f"{self.trace_max_events}"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
 class FasterRCNNConfig:
     anchors: AnchorConfig = dataclasses.field(default_factory=AnchorConfig)
     proposals: ProposalConfig = dataclasses.field(default_factory=ProposalConfig)
@@ -343,6 +362,7 @@ class FasterRCNNConfig:
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
     serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
     quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
+    telemetry: TelemetryConfig = dataclasses.field(default_factory=TelemetryConfig)
 
     def replace(self, **kwargs) -> "FasterRCNNConfig":
         return dataclasses.replace(self, **kwargs)

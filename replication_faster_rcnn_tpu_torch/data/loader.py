@@ -12,6 +12,11 @@ order, or with ``shuffle`` a ``RandomState(seed + epoch)`` permutation;
 ``set_epoch(epoch, start_batch)`` selects the epoch and starts it at a batch,
 so a resumed epoch skips its trained prefix without building it.
 
+With a span tracer installed (``telemetry/spans.py::set_tracer``, as a
+``Trainer`` with a ``telemetry_dir`` does), each batch's build is a
+``data/build`` span on the producer's thread and each hand-over samples the
+``loader/queue_depth`` counter.
+
 Not ported yet: worker processes, the RAM cache, augmentation, sample-fault
 containment and multi-process sharding.
 """
@@ -25,6 +30,8 @@ from concurrent import futures
 from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
+
+from replication_faster_rcnn_tpu_torch.telemetry import spans as tspans
 
 
 def collate(samples: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
@@ -64,6 +71,7 @@ class DataLoader:
         self.seed = seed
         self.epoch = 0
         self.start_batch = 0  # mid-epoch offset (set_epoch)
+        self._q: Optional["queue.Queue"] = None  # the live prefetch queue
 
     def set_epoch(self, epoch: int, start_batch: int = 0) -> None:
         """Select the epoch, and optionally a mid-epoch offset: iteration
@@ -80,6 +88,12 @@ class DataLoader:
             return np.arange(n)
         return np.random.RandomState(self.seed + self.epoch).permutation(n)
 
+    def queue_depth(self) -> int:
+        """Batches built ahead and waiting (0 when no iteration is live): a
+        gauge for the stall watchdog."""
+        q = self._q
+        return q.qsize() if q is not None else 0
+
     def __len__(self) -> int:
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
@@ -93,9 +107,12 @@ class DataLoader:
 
     def _build(self, idxs: np.ndarray,
                pool: Optional[futures.ThreadPoolExecutor]) -> Dict[str, np.ndarray]:
-        if pool is None or len(idxs) == 1:
-            return collate([self.dataset[int(i)] for i in idxs])
-        return collate(list(pool.map(lambda i: self.dataset[int(i)], idxs)))
+        # on the producer thread under prefetch, so these spans overlap the
+        # step's in the trace: parallel lanes, not a serial pipeline
+        with tspans.current_tracer().span("data/build", cat="data", batch=len(idxs)):
+            if pool is None or len(idxs) == 1:
+                return collate([self.dataset[int(i)] for i in idxs])
+            return collate(list(pool.map(lambda i: self.dataset[int(i)], idxs)))
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         pool = futures.ThreadPoolExecutor(self.num_workers) if self.num_workers > 1 else None
@@ -136,6 +153,8 @@ class DataLoader:
 
         thread = threading.Thread(target=producer, name="data-loader", daemon=True)
         thread.start()
+        self._q = q
+        tracer = tspans.current_tracer()
         try:
             while True:
                 batch = q.get()
@@ -143,9 +162,11 @@ class DataLoader:
                     if err:
                         raise err[0]
                     return
+                tracer.counter("loader/queue_depth", q.qsize())
                 yield batch
         finally:
             stop.set()
+            self._q = None
             thread.join(timeout=60)
 
 

@@ -30,6 +30,7 @@ from replication_faster_rcnn_tpu_torch.eval.detect import batched_decode, batche
 from replication_faster_rcnn_tpu_torch.eval.voc_eval import voc_ap
 from replication_faster_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN, functional_forward
 from replication_faster_rcnn_tpu_torch.quant.apply import build_infer_variables
+from replication_faster_rcnn_tpu_torch.telemetry import spans as tspans
 
 Tensor = torch.Tensor
 Outputs = Tuple[Tensor, Tensor, Tensor, Tensor]  # rois, roi_valid, cls, reg
@@ -196,9 +197,11 @@ class Evaluator:
                             prefetch=data.loader_prefetch, num_workers=data.loader_workers)
         detections: List[Dict[str, np.ndarray]] = []
         gts: List[Dict[str, np.ndarray]] = []
+        tracer = tspans.current_tracer()
         with self._inference(model_or_params) as model:
             for batch in loader:
-                out = self._predict(model, batch["image"])
+                with tracer.span("eval/infer", cat="eval", feed="loader"):
+                    out = self._predict(model, batch["image"])
                 for i in range(len(batch["image"])):
                     valid = out["valid"][i]
                     detections.append({k: out[k][i][valid] for k in ("boxes", "scores", "classes")})

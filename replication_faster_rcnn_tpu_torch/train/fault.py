@@ -51,6 +51,7 @@ from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Seque
 import numpy as np
 import torch
 
+from replication_faster_rcnn_tpu_torch.telemetry import spans as tspans
 from replication_faster_rcnn_tpu_torch.telemetry.health import (
     flat,
     global_norm,
@@ -216,7 +217,10 @@ class SkipMonitor:
         :class:`NonFiniteEscalation` past the budget."""
         pending, self._pending = self._pending, []
         for first, flags in pending:
-            arr = np.atleast_1d(np.asarray(flags, np.float64))
+            # the JAX monitor fetches device flags here; the port's step has
+            # already turned them into floats, so the span is the host read
+            with tspans.current_tracer().span("fault/skip_drain", cat="sync"):
+                arr = np.atleast_1d(np.asarray(flags, np.float64))
             for off, flag in enumerate(arr):
                 if flag > 0:
                     self.consecutive += 1

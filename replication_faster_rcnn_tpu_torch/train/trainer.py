@@ -11,6 +11,20 @@ consecutive-skip escalation, scheduled saves every
 SIGTERM/SIGINT, and an exact resume from the newest checkpoint that
 verifies.
 
+With a ``telemetry_dir`` the trainer also records what the JAX trainer
+records there: a span tracer (``trace.json``, installed process-wide so the
+loader's and evaluator's spans land in it too), the metric rows as JSONL
+(``metrics.jsonl``) and a stall watchdog (``watchdog.jsonl`` with stall and
+fault incidents, ``progress.json`` with the last heartbeat);
+``telemetry/report.py`` summarises the directory. The spans carry the JAX
+trainer's names: ``step/dispatch``, ``data/fetch``, ``data/device_put``,
+``step/sync``, ``checkpoint/{save,snapshot,manifest,restore}``,
+``state/host_fetch`` and ``eval/evaluate``. Here ``step/sync`` comes every
+step, where the JAX trainer syncs only at log boundaries: the port's step
+turns its metrics into floats every step. Telemetry reads the clock and
+writes files; it never touches the state, so a run with it is bitwise the
+run without.
+
 A checkpoint holds the whole state a step reads: the parameters and
 BatchNorm statistics (``model.state_dict()``), Adam's moments and
 per-parameter step (``optimizer.state_dict()``), the schedule's position
@@ -18,9 +32,9 @@ and lr (``scheduler.state_dict()``), the sampling generator's state and
 the step count. A resumed run therefore repeats the uninterrupted run's
 steps bit for bit.
 
-Not ported yet: the mesh and data parallelism, telemetry (spans, the stall
-watchdog), device prefetch, augmentation, K-step fusion, resolution
-buckets, fault injection and the pretrained-backbone graft.
+Not ported yet: the mesh and data parallelism, device prefetch,
+augmentation, K-step fusion, resolution buckets, fault injection and the
+pretrained-backbone graft.
 """
 
 from __future__ import annotations
@@ -39,6 +53,8 @@ from replication_faster_rcnn_tpu_torch.config import FasterRCNNConfig
 from replication_faster_rcnn_tpu_torch.data.loader import DataLoader, make_dataset
 from replication_faster_rcnn_tpu_torch.device import DeviceLike, resolve_device
 from replication_faster_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN, build_model
+from replication_faster_rcnn_tpu_torch.telemetry import spans as tspans
+from replication_faster_rcnn_tpu_torch.telemetry.watchdog import StallWatchdog
 from replication_faster_rcnn_tpu_torch.train import fault
 from replication_faster_rcnn_tpu_torch.train.async_checkpoint import AsyncCheckpointWriter
 from replication_faster_rcnn_tpu_torch.train.train_step import (
@@ -78,7 +94,8 @@ def load_eval_variables(
     if os.path.isdir(workdir):
         store = fault.CheckpointStore(workdir, create=False, map_location=dev)
         if store.all_steps():
-            result = fault.verified_restore(store, store.directory, step=step)
+            with tspans.current_tracer().span("checkpoint/restore", cat="checkpoint"):
+                result = fault.verified_restore(store, store.directory, step=step)
             if result.state is not None:
                 model.load_state_dict(result.state["model"])
     return model.eval()
@@ -86,11 +103,13 @@ def load_eval_variables(
 
 class Trainer:
     """``Trainer(config, dataset=None, device=None, seed=None,
-    workdir="checkpoints")``: ``dataset`` defaults to
-    ``make_dataset(config.data, "train")``; the device defaults to ``cuda``
-    (raising without a GPU); ``seed`` (default ``config.train.seed``) seeds
-    the weights, the sampling generator and the shuffle; checkpoints go to
-    ``workdir``."""
+    workdir="checkpoints", telemetry_dir=None, stall_timeout_s=300.0)``:
+    ``dataset`` defaults to ``make_dataset(config.data, "train")``; the
+    device defaults to ``cuda`` (raising without a GPU); ``seed`` (default
+    ``config.train.seed``) seeds the weights, the sampling generator and the
+    shuffle; checkpoints go to ``workdir``; ``telemetry_dir`` turns on the
+    span trace, the JSONL metrics and the stall watchdog (which counts
+    ``stall_timeout_s`` seconds without a heartbeat as a stall)."""
 
     def __init__(
         self,
@@ -99,17 +118,50 @@ class Trainer:
         device: DeviceLike = None,
         seed: Optional[int] = None,
         workdir: str = "checkpoints",
+        telemetry_dir: Optional[str] = None,
+        stall_timeout_s: float = 300.0,
     ):
         self.config = config
         self.workdir = workdir
         self.device = resolve_device(device)
         self.seed = config.train.seed if seed is None else int(seed)
-        self.logger = MetricLogger()
-        # consecutive-skip escalation for the guarded update's `skipped`
-        # flags, and the dispatch-boundary shutdown flag train() installs.
-        # The monitor holds the trainer weakly: a reference cycle would keep
-        # a dropped trainer's device memory until the garbage collector ran
+        # The skip monitor and the watchdog hold the trainer weakly: a
+        # reference cycle would keep a dropped trainer's device memory until
+        # the garbage collector ran
         trainer = weakref.ref(self)
+
+        # --- telemetry: span tracer + JSONL metrics + stall watchdog. With
+        # no telemetry_dir everything collapses to no-ops (the NULL tracer's
+        # spans, a stream-only logger, no watchdog thread)
+        self.telemetry_dir = telemetry_dir
+        self.watchdog: Optional[StallWatchdog] = None
+        if telemetry_dir:
+            os.makedirs(telemetry_dir, exist_ok=True)
+            self.tracer = tspans.SpanTracer(
+                os.path.join(telemetry_dir, "trace.json"),
+                max_events=config.telemetry.trace_max_events,
+            )
+            # installed process-wide, so the loader's and the evaluator's
+            # span call sites (which take no tracer parameter) attach here
+            tspans.set_tracer(self.tracer)
+            self.logger = MetricLogger(jsonl_path=os.path.join(telemetry_dir, "metrics.jsonl"))
+            self.watchdog = StallWatchdog(
+                timeout_s=stall_timeout_s,
+                snapshot_path=os.path.join(telemetry_dir, "watchdog.jsonl"),
+                progress_path=os.path.join(telemetry_dir, "progress.json"),
+                tracer=self.tracer,
+                on_stall=lambda snap: trainer().logger.event(
+                    "stall",
+                    elapsed_s=snap.get("elapsed_since_progress_s"),
+                    last_step=snap.get("last_step"),
+                    last_phase=snap.get("last_phase"),
+                ),
+            )
+        else:
+            self.tracer = tspans.NULL_TRACER
+            self.logger = MetricLogger()
+        # consecutive-skip escalation for the guarded update's `skipped`
+        # flags, and the dispatch-boundary shutdown flag train() installs
         self.skip_monitor = fault.SkipMonitor(
             policy=config.train.nonfinite_policy,
             max_consecutive=config.train.max_consecutive_skips,
@@ -161,14 +213,15 @@ class Trainer:
         """The whole state, copied to host memory: plain containers of
         tensors and Python scalars."""
         st = self.state
-        return _to_host({
-            "model": st.model.state_dict(),
-            "optimizer": st.optimizer.state_dict(),
-            "scheduler": st.scheduler.state_dict(),
-            "generator": st.generator.get_state(),
-            "generator_device": st.generator.device.type,
-            "step": st.step,
-        })
+        with self.tracer.span("state/host_fetch", cat="sync"):
+            return _to_host({
+                "model": st.model.state_dict(),
+                "optimizer": st.optimizer.state_dict(),
+                "scheduler": st.scheduler.state_dict(),
+                "generator": st.generator.get_state(),
+                "generator_device": st.generator.device.type,
+                "step": st.step,
+            })
 
     def _load_state(self, tree: Dict[str, Any]) -> None:
         """Put a restored tree into the live state (in place: the optimizer
@@ -191,8 +244,11 @@ class Trainer:
         st.step = int(tree["step"])
 
     def _fault_incident(self, kind: str, **fields) -> None:
-        """Record a fault event in the metric stream."""
+        """Record a fault event in the metric stream and, with telemetry, in
+        the watchdog's incident log."""
         self.logger.event(kind, **fields)
+        if self.watchdog is not None:
+            self.watchdog.incident(kind, **fields)
 
     def _handle_async_error(self, err) -> None:
         """Containment for a failed background scheduled save, surfaced at
@@ -233,7 +289,8 @@ class Trainer:
             # the latest step; a failed one is not, and is retried here
             if self.checkpoint_manager.latest_step() == step:
                 return True
-            snapshot = self._host_state()
+            with self.tracer.span("checkpoint/snapshot", cat="checkpoint", step=step):
+                snapshot = self._host_state()
         except Exception as e:
             print(
                 f"warning: scheduled checkpoint at step {step} failed "
@@ -250,12 +307,14 @@ class Trainer:
             return False
 
         mgr, workdir, config = self.checkpoint_manager, self.workdir, self.config
+        tracer = self.tracer
 
         def _write() -> None:
             mgr.save(step, snapshot)
             mgr.wait_until_finished()
-            fault.write_manifest(workdir, step, snapshot, config, kind="scheduled",
-                                 writer="async")
+            with tracer.span("checkpoint/manifest", cat="checkpoint"):
+                fault.write_manifest(workdir, step, snapshot, config, kind="scheduled",
+                                     writer="async")
             # the rollout feed announces the version once its manifest is durable
             fault.publish_manifest_event(workdir, step, kind="scheduled", writer="async")
             fault.prune_manifests(workdir, mgr.all_steps())
@@ -295,7 +354,8 @@ class Trainer:
             host_state = self._host_state()
             mgr.save(step, host_state)
             mgr.wait_until_finished()
-            fault.write_manifest(self.workdir, step, host_state, self.config, kind=kind)
+            with self.tracer.span("checkpoint/manifest", cat="checkpoint"):
+                fault.write_manifest(self.workdir, step, host_state, self.config, kind=kind)
             fault.publish_manifest_event(self.workdir, step, kind=kind, writer="sync")
             fault.prune_manifests(self.workdir, mgr.all_steps())
         except Exception as e:
@@ -335,7 +395,8 @@ class Trainer:
             mgr = self.checkpoint_manager
         if not mgr.all_steps():
             return 0
-        result = fault.verified_restore(mgr, mgr.directory, step=step)
+        with self.tracer.span("checkpoint/restore", cat="checkpoint"):
+            result = fault.verified_restore(mgr, mgr.directory, step=step)
         if result.discarded:
             if not ephemeral:
                 for bad_step, _ in result.discarded:
@@ -357,10 +418,11 @@ class Trainer:
 
     def stage_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, Tensor]:
         """Host batch -> the step's device tensors."""
-        return {
-            k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(self.device)
-            for k in ("image", "boxes", "labels", "mask")
-        }
+        with self.tracer.span("data/device_put", cat="data", feed="loader"):
+            return {
+                k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(self.device)
+                for k in ("image", "boxes", "labels", "mask")
+            }
 
     def train_one_batch(self, batch: Dict[str, np.ndarray], **step_kw) -> Dict[str, float]:
         """One optimizer step on a host batch; returns the metrics as floats
@@ -369,11 +431,42 @@ class Trainer:
         under ``nonfinite_policy='halt'``. ``step_kw`` passes through to the
         step (``draws``, ``record``, ``stage``)."""
         lr = self.host_schedule(self.state.scheduler.last_epoch)
-        metrics = self.step_fn(self.state, self.stage_batch(batch), **step_kw)
-        out = {k: float(v) for k, v in metrics.items()}
+        staged = self.stage_batch(batch)
+        with self.tracer.span("step/dispatch", cat="step"):
+            metrics = self.step_fn(self.state, staged, **step_kw)
+        # the JAX trainer syncs at log boundaries only; this one every step
+        with self.tracer.span("step/sync", cat="sync"):
+            out = {k: float(v) for k, v in metrics.items()}
         out["lr"] = lr
         self.skip_monitor.observe(self.state.step, out)
         return out
+
+    def flush_telemetry(self) -> None:
+        """Write the trace file and stop the watchdog. For callers driving
+        :meth:`train_one_batch` directly without :meth:`telemetry_session`."""
+        if self.watchdog is not None:
+            self.watchdog.stop()
+        self.tracer.flush()
+
+    @contextlib.contextmanager
+    def telemetry_session(self):
+        """The watchdog running inside; on ANY exit the tracer flushed and
+        the watchdog stopped, and a crash, an interrupt or a preemption
+        first recorded as an ``abnormal_exit`` incident, so a post-mortem
+        does not start from a silently truncated trace."""
+        if self.watchdog is not None:
+            self.watchdog.providers.setdefault("loader_queue_depth", self.loader.queue_depth)
+            self.watchdog.start()
+        try:
+            yield self
+        except BaseException as e:
+            if self.watchdog is not None:
+                self.watchdog.incident("abnormal_exit", error=f"{type(e).__name__}: {e}"[:500])
+            raise
+        finally:
+            if self.watchdog is not None:
+                self.watchdog.stop()
+            self.tracer.flush()
 
     def _check_preemption(self, step: int) -> None:
         """Dispatch-boundary shutdown check: on a pending SIGTERM/SIGINT,
@@ -394,7 +487,10 @@ class Trainer:
         if not every or step - self._last_step_ckpt < every:
             return
         self._last_step_ckpt = step
-        self.save()
+        if self.watchdog is not None:
+            self.watchdog.beat(phase="checkpoint")
+        with self.tracer.span("checkpoint/save", cat="checkpoint", boundary="step"):
+            self.save()
 
     def evaluate(self, max_images: Optional[int] = None) -> Dict[str, Any]:
         """mAP on the val split with the current training weights. The val
@@ -404,10 +500,11 @@ class Trainer:
 
             self._val_dataset = make_dataset(self.config.data, "val")
             self._evaluator = Evaluator(self.config, device=self.device)
-        return self._evaluator.evaluate(
-            self.model, self._val_dataset, batch_size=self.config.train.batch_size,
-            max_images=max_images,
-        )
+        with self.tracer.span("eval/evaluate", cat="eval"):
+            return self._evaluator.evaluate(
+                self.model, self._val_dataset, batch_size=self.config.train.batch_size,
+                max_images=max_images,
+            )
 
     def _log_step(self, step: int, metrics: Dict[str, float],
                   log_every: int) -> Optional[Dict[str, float]]:
@@ -439,40 +536,59 @@ class Trainer:
         self._last_step_ckpt = start_step
         last: Dict[str, float] = {}
         eval_result: Dict[str, float] = {}
+        tracer = self.tracer
         self._shutdown = fault.GracefulShutdown()
-        try:
-            with self._shutdown:
-                for epoch in range(start_epoch, cfg.n_epoch):
-                    self.loader.set_epoch(epoch, start_batch=replay)
-                    replay = 0
-                    t_epoch = time.time()
-                    n_images = 0
-                    # closed on any exit: the loader's producer thread stops with it
-                    with contextlib.closing(iter(self.loader)) as batches:
-                        for batch in batches:
-                            metrics = self.train_one_batch(batch)
-                            n_images += batch["image"].shape[0]
-                            step += 1
-                            row = self._log_step(step, metrics, log_every)
-                            if row is not None:
-                                last = row
-                            self._check_preemption(step)
-                            self._maybe_step_checkpoint(step)
-                    self.skip_monitor.drain()
-                    dt = time.time() - t_epoch
-                    self.logger.log_epoch(epoch, n_images / dt if dt > 0 else 0.0)
-                    if cfg.eval_every_epochs and (epoch + 1) % cfg.eval_every_epochs == 0:
-                        # the flat scalar schema of the voc and coco metrics
-                        eval_result = summary_scalars(
-                            self.evaluate(), self.config.model.num_classes)
-                        self.logger.log(step, eval_result)
-                    if (epoch + 1) % cfg.checkpoint_every_epochs == 0:
-                        self.save()  # scheduled: a failure is contained
-                    self._check_preemption(step)
-        finally:
-            self._shutdown = None
-            # the last scheduled save is on disk before train() returns
-            self._drain_async_saves()
+        # Exits run inside out: the signal handlers are restored first, then
+        # the background writer drains (a hung write still has the watchdog
+        # over it, and its spans reach the trace), then the watchdog stops
+        # and the trace is written
+        with self.telemetry_session():
+            try:
+                with self._shutdown:
+                    for epoch in range(start_epoch, cfg.n_epoch):
+                        self.loader.set_epoch(epoch, start_batch=replay)
+                        replay = 0
+                        t_epoch = time.time()
+                        n_images = 0
+                        # closed on any exit: the loader's producer thread stops with it
+                        with contextlib.closing(iter(self.loader)) as batches:
+                            while True:
+                                # host-side batch production: the feed half
+                                # of feed-vs-compute
+                                with tracer.span("data/fetch", cat="data"):
+                                    batch = next(batches, None)
+                                if batch is None:
+                                    break
+                                metrics = self.train_one_batch(batch)
+                                n_images += batch["image"].shape[0]
+                                step += 1
+                                if self.watchdog is not None:
+                                    self.watchdog.beat(step=step, phase="train")
+                                row = self._log_step(step, metrics, log_every)
+                                if row is not None:
+                                    last = row
+                                self._check_preemption(step)
+                                self._maybe_step_checkpoint(step)
+                        self.skip_monitor.drain()
+                        dt = time.time() - t_epoch
+                        self.logger.log_epoch(epoch, n_images / dt if dt > 0 else 0.0)
+                        if cfg.eval_every_epochs and (epoch + 1) % cfg.eval_every_epochs == 0:
+                            if self.watchdog is not None:
+                                self.watchdog.beat(phase="eval")
+                            # the flat scalar schema of the voc and coco metrics
+                            eval_result = summary_scalars(
+                                self.evaluate(), self.config.model.num_classes)
+                            self.logger.log(step, eval_result)
+                        if (epoch + 1) % cfg.checkpoint_every_epochs == 0:
+                            if self.watchdog is not None:
+                                self.watchdog.beat(phase="checkpoint")
+                            with tracer.span("checkpoint/save", cat="checkpoint"):
+                                self.save()  # scheduled: a failure is contained
+                        self._check_preemption(step)
+            finally:
+                self._shutdown = None
+                # the last scheduled save is on disk before train() returns
+                self._drain_async_saves()
         last = {k: float(v) for k, v in last.items()}
         last.update(eval_result)  # merged last: step rows cannot wipe it
         return last

@@ -1,0 +1,74 @@
+"""Repeat the port's benchmark as users run it and print the spread of its
+lines, per mode and timed window.
+
+    python tools/bench_repeat.py [--runs 5] [--steps 10 100] [--modes train eval]
+
+Each run is ``python -m replication_faster_rcnn_tpu_torch.benchmark`` in a
+fresh process with ``BENCH_MODE`` and ``BENCH_STEPS`` set and every other
+``BENCH_*`` variable cleared. A round runs every (window, mode) pair once,
+alternating, so the card's and the host's drift spread over all of them.
+Prints the card line, every benchmark line, then one JSON object per
+(window, mode): median, min, max and the largest deviation from the median
+in percent. Needs a CUDA card; exits non-zero if a run fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def run_once(mode: str, steps: int) -> dict:
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(BENCH_MODE=mode, BENCH_STEPS=str(steps))
+    proc = subprocess.run(
+        [sys.executable, "-m", "replication_faster_rcnn_tpu_torch.benchmark"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise SystemExit(f"{mode} run at BENCH_STEPS={steps} exited {proc.returncode}: "
+                         f"{proc.stdout[-2000:]} {proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def spread(values):
+    med = statistics.median(values)
+    return {"median": med, "min": min(values), "max": max(values),
+            "max_dev_pct": round(100 * max(abs(v - med) for v in values) / med, 2),
+            "values": values}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--steps", type=int, nargs="+", default=[10, 100])
+    ap.add_argument("--modes", nargs="+", default=["train", "eval"])
+    args = ap.parse_args()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    values = {(s, m): [] for s in args.steps for m in args.modes}
+    for i in range(args.runs):
+        for steps in args.steps:
+            for mode in args.modes:
+                t0 = time.perf_counter()
+                line = run_once(mode, steps)
+                values[(steps, mode)].append(line["value"])
+                print(f"round {i + 1} BENCH_STEPS={steps} {mode} "
+                      f"({time.perf_counter() - t0:.1f} s): {json.dumps(line)}", flush=True)
+    for (steps, mode), vals in values.items():
+        print(json.dumps({"mode": mode, "bench_steps": steps, **spread(vals)}), flush=True)
+    print(card, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
