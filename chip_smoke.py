@@ -35,7 +35,13 @@ H100:  ``python3 chip_smoke.py``. It
    maps with NaN and +-inf, and its backward (8 x 128) bitwise across two
    launches and within ``ROI_POOL_BWD`` of the plain VJP on float32 copies,
    both also on clustered rois that overlap like the train step's proposals
-   (with the backward's scratch bytes per call, measured);
+   (with the backward's scratch bytes per call, measured). Then capture
+   safety: one launch of each wrapper (NMS, ROIAlign forward and backward,
+   ROIPool forward and backward, IoU matching, the int8 GEMM, the
+   dequantize and the grouped dequantize) captured in a CUDA graph on a
+   side stream after one warm-up call there, and replayed twice with its
+   outputs overwritten before each replay: bitwise equal to the eager
+   launch, and the IoU kernel's column state zero after each replay;
 4. serves ``voc12_resnet18_align`` (ResNet18, 21 classes, ROIAlign 7x7 s=2)
    and then the flagship ``voc_resnet18`` (ROIPool 7x7) at 600x600, seeded
    random weights resident in bfloat16, through ``InferenceEngine``: one
@@ -58,15 +64,29 @@ H100:  ``python3 chip_smoke.py``. It
    weights and the engine's device memory below the bfloat16 engine's;
 6. trains ``voc12_resnet18_align``, then ``voc_resnet18``, at 600x600, batch
    8 (bfloat16 compute, float32 parameters, 12000 -> 600 proposals, 256
-   anchor and 128 roi samples per image) with the ``Trainer`` on
-   ``SyntheticDataset``: 2 warm-up steps, then ``TRAIN_REPS`` timed steps
-   with the launch counters reset just before and read just after (per
-   step: NMS 1, IoU matching 2, the preset's ROI forward 1 and backward 1,
-   the other ROI op 0); every loss must be finite; the profiler's timeline
-   of 3 more steps gives the NMS kernels' (mask and walk), the ROI
-   kernels' (forward and backward) and the IoU-matching kernel's device ms
-   per step, and the device's idle share; the peak device memory of the
-   warm-up and timed steps. One more forward and backward from the same
+   anchor and 128 roi samples per image) with two ``Trainer``s on
+   ``SyntheticDataset`` from one seed: one captures its step as a CUDA
+   graph (as users run it), the other runs it eagerly. The same 6 staged
+   steps, step 3 NaN-poisoned (withheld), through both, steps 2-6 under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host read): the two
+   end bitwise equal in parameters, BatchNorm statistics, ``mu``, ``nu``,
+   ``count``, the generator's state and every step's metrics. Then
+   ``TRAIN_REPS`` timed steps of each with the launch counters reset just
+   before and read just after (per step: NMS 1, IoU matching 2, the
+   preset's ROI forward 1 and backward 1, the other ROI op 0; a replay
+   counts the launches its capture recorded, :class:`GraphReplays`), every
+   loss finite, the reserved memory not growing; the profiler's timeline
+   of 3 more steps of each, counted the same way, gives the device's busy
+   ms and idle share and the NMS kernels' (mask and walk), the ROI
+   kernels' and the IoU-matching kernel's device ms per step, and must
+   show every kernel in both timelines, 2 IoU-matching activities a step
+   and the same activities of each kernel captured as eager. Each path's
+   device memory is measured alone (:func:`footprint`): the eager step, the
+   captured step and ``steps_per_dispatch=4`` with its 1-step tail graph
+   in the same pool. Then ``steps_per_dispatch=4``: two chunks (the second
+   a replay, a withheld step in each), the tail captured and replayed, and
+   a third chunk, bitwise equal to 14 single captured steps, and the
+   chunk's ms a step. One more forward and backward from the same
    state and the same draws runs under
    ``ops.reference_scope()``: targets, labels, the four losses and the new
    BatchNorm statistics must be bitwise equal to the kernel pass, and each
@@ -101,9 +121,11 @@ H100:  ``python3 chip_smoke.py``. It
    ROIPool 1 and its backward 1); (b) async saves every 2 steps; (c) sync
    saves every 2 steps and SIGTERM after step 5, which must end in
    ``Preempted`` at step 5 with an emergency manifest that verifies; (d) a
-   fresh ``Trainer(...).train(resume=True)`` on (c)'s directory. (b) and (d)
-   must end bitwise in (a)'s state (parameters, BatchNorm statistics, Adam
-   state, schedule, generator, step) with (a)'s logged rows. Then one b1
+   fresh ``Trainer(...).train(resume=True)`` on (c)'s directory. Every
+   run's steps are CUDA graph replays but its first. (b) and (d) must end
+   bitwise in (a)'s state (parameters, BatchNorm statistics, the
+   optimizer's moments and count, generator, step) with (a)'s logged rows.
+   Then one b1
    flush served from ``load_eval_variables`` must equal the same flush from
    (a)'s weights, and with the newest step's file truncated ``restore()``
    must fall back to the step before, log ``checkpoint_fallback`` and delete
@@ -116,13 +138,16 @@ H100:  ``python3 chip_smoke.py``. It
 9. runs the benchmark as users run it, ``python -m
    replication_faster_rcnn_tpu_torch.benchmark`` in a subprocess (none of
    this script's TF32 and cuDNN settings), train (``voc_resnet18`` 600x600
-   batch 16) and eval (batch 8) alternating, ``BENCH_RUNS`` each: every line
+   batch 16, the captured step), the eager train step (``BENCH_CAPTURE=0``)
+   and eval (batch 8) alternating, ``BENCH_RUNS`` each: every line
    must carry the JAX metric name and keys, a positive value and, for train,
    a FLOP count, an MFU in (0, 1] on the H100 datasheet basis and the JAX
-   breakdown keys; prints each metric's median, min and max. The last train
-   run takes ``BENCH_PROFILE_DIR``: its ``torch.profiler`` capture gives the
-   device busy ms and idle share per step, and the idle share of the run's
-   unprofiled timed step, printed. Then one in-process
+   breakdown keys; prints each metric's median, min and max. The last
+   captured and the last eager train run take ``BENCH_PROFILE_DIR``: each
+   ``torch.profiler`` capture gives the device busy ms and idle share per
+   step, and the idle share of the run's unprofiled timed step, printed.
+   Then the b16 step's device memory, captured and eager, each measured
+   alone in this process. Then one in-process
    train and one eval measurement at ``BENCH_COUNT_STEPS`` steps, launch counters
    reset just before and read just after (per step NMS 1, IoU matching 2,
    ROIPool 1 and its backward 1; per eval batch NMS 2 and ROIPool 1);
@@ -870,6 +895,94 @@ def phase_kernels(torch):
     return res
 
 
+def check_graph_replays(torch, dev, b=8):
+    """Phase [3], capture safety: one launch of each kernel's wrapper at the
+    training (or serving) shape captured in a CUDA graph on a side stream
+    (after one warm-up call on that stream, as ``train_step.CapturedSteps``
+    does) and replayed twice, its outputs overwritten with 0xA5 bytes before
+    each replay: every replay must be bitwise equal to the eager launch.
+    The IoU-matching kernel's column state for the capturing stream must be
+    zero again after each replay."""
+    from replication_faster_rcnn_tpu_torch.config import AnchorConfig
+    from replication_faster_rcnn_tpu_torch.ops.anchors import make_anchors
+    from replication_faster_rcnn_tpu_torch.ops.cuda import iou_kernel, nms_kernel, quant_kernel
+    from replication_faster_rcnn_tpu_torch.ops.cuda import roi_kernel
+
+    rng = np.random.default_rng(9)
+    bf16 = torch.bfloat16
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    boxes = t(rand_boxes(rng, (b, 12000), 560, 250))
+    scores = t(-np.sort(-rng.uniform(0, 1, (b, 12000)), axis=1).astype(np.float32))
+    feat = t(rng.normal(0, 1, (b,) + FEAT).astype(np.float32)).to(bf16)
+    rois = t((rand_boxes(rng, (b, 128), 600, 300) * (FEAT[0] / 600)).astype(np.float32))
+    grad = t(rng.normal(0, 1, (b, 128, 7, 7, FEAT[2])).astype(np.float32)).to(bf16)
+    anchors = t(make_anchors(AnchorConfig(), FEAT[:2]))[None]
+    gt = t(rand_boxes(rng, (b, 32), 450, 300))
+    gmask = torch.arange(32, device=dev)[None, :] < t(np.array([1, 3, 32, 5, 8, 2, 0, 17]))[:, None]
+    x_q = t(rng.integers(-128, 128, (2400, 512), dtype=np.int8))
+    w_q = t(rng.integers(-128, 128, (512, 21), dtype=np.int8))  # [K, N]
+    conv = t(rng.integers(-128, 128, (512, 512, 3, 3), dtype=np.int8))
+    scale = t(rng.uniform(1e-4, 0.05, 512).astype(np.float32))
+    table = quant_kernel.DequantizeTable([(w, s, 0) for w, s in (
+        (conv, scale), (conv[:256], scale[:256]))], bf16)
+    cases = [
+        ("nms_mask_walk 8x12000->600", lambda: nms_kernel.nms_fixed_cuda(
+            boxes, scores, 0.7, 600, mask=torch.isfinite(scores), assume_sorted=True)),
+        ("roi_align_fwd bf16 8x128", lambda: roi_kernel.roi_align_cuda(
+            feat, rois, 7, 2, 1.0, bf16)),
+        ("roi_align_bwd bf16 8x128", lambda: roi_kernel.roi_align_backward_cuda(
+            grad, rois, feat.shape, bf16, 7, 2)),
+        ("roi_pool_fwd bf16 8x128", lambda: roi_kernel.roi_pool_cuda(feat, rois)),
+        ("roi_pool_bwd bf16 8x128", lambda: roi_kernel.roi_pool_backward_cuda(
+            grad, feat, rois, 7)),
+        ("iou_match 8x12996x32 + column argmax", lambda: iou_kernel.match_boxes_cuda(
+            anchors, gt, gmask, want_col=True)),
+        ("int8_matmul [2400, 512] x [512, 21]", lambda: quant_kernel.int8_matmul_cuda(x_q, w_q)),
+        ("dequantize [512, 512, 3, 3] -> bf16", lambda: quant_kernel.dequantize_cuda(
+            conv, scale, 0, bf16)),
+        ("dequantize_many (2 leaves) -> bf16", lambda: table()),
+    ]
+
+    def outputs(out):
+        return [o for o in (out if isinstance(out, (tuple, list)) else (out,)) if o is not None]
+
+    checked = []
+    with torch.no_grad():
+        for name, fn in cases:
+            want = [o.clone() for o in outputs(fn())]
+            stream = torch.cuda.Stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                fn()  # warm-up on the capturing stream: its state, attributes, tables
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=stream):
+                got = outputs(fn())
+            for rep in range(2):
+                for o in got:
+                    o.view(torch.uint8).fill_(0xA5)
+                graph.replay()
+                torch.cuda.synchronize(dev)
+                if len(got) != len(want) or not all(bitwise(torch, g, w)
+                                                    for g, w in zip(got, want)):
+                    raise AssertionError(f"{name}: replay {rep + 1} of the captured launch "
+                                         "differs from the eager launch")
+                if name.startswith("iou_match"):
+                    state = iou_kernel._states[(gt.device.index, stream.cuda_stream)]
+                    if bool(state.any()):
+                        raise AssertionError(f"{name}: replay {rep + 1} left the column "
+                                             "state non-zero")
+            checked.append(name)
+            del graph, got
+    log(f"  CUDA graph capture: one launch of each of {len(checked)} wrappers captured on a "
+        f"side stream and replayed twice, bitwise equal to the eager launch ({checked}); the "
+        "IoU column state zero after each replay")
+    return checked
+
+
 def check_roi_pool_kernels(torch, dev, b):
     """Phase [3] for ROIPool (own generator: the draws of the other cases
     stay as they were): the forward at serving 8 x 300 and 1 x 300 and
@@ -966,6 +1079,9 @@ def resize_ms_per_image(fn, images, cfg):
     for img in images:
         fn(img, cfg.data.image_size, cfg.data.pixel_mean, cfg.data.pixel_std)
     return (time.perf_counter() - t0) * 1e3 / len(images)
+
+
+ROI_NAMES = ("roi_align", "roi_align_bwd", "roi_pool", "roi_pool_bwd")
 
 
 def roi_counters():
@@ -1416,8 +1532,9 @@ def device_timeline(torch, run, steps, roi_op="align"):
     most device time, the NMS kernels' device ms per step (mask and walk
     apart and summed), the ROIAlign kernels' (forward and backward) and the
     IoU-matching kernel's (both sites, with its count of activities per
-    step); the ROI kernels are those of ``roi_op``. None when the profiler
-    saw no device activity."""
+    step) and every hand-written kernel's activities per step; the ROI
+    kernels are those of ``roi_op``. None when the profiler saw no device
+    activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1444,6 +1561,9 @@ def device_timeline(torch, run, steps, roi_op="align"):
                                    for k, names in ROI_KERNELS[roi_op].items()},
         "iou_match_device_ms_per_step": per_step(IOU_KERNEL),
         "iou_match_activities_per_step": sum(IOU_KERNEL in e.name for e in acts) / steps,
+        "kernel_activities_per_step": {
+            k: sum(k in e.name for e in acts) / steps
+            for k in NMS_KERNELS + sum(ROI_KERNELS[roi_op].values(), ()) + (IOU_KERNEL,)},
         "device_busy_ms_per_step": busy / 1e3 / steps,
         "device_span_ms_per_step": span / 1e3 / steps,
         "device_idle_share": 1.0 - busy / span,
@@ -1452,115 +1572,359 @@ def device_timeline(torch, run, steps, roi_op="align"):
     }
 
 
+# every kernel wrapper's launch counter, (wrapper module, attribute) by this
+# script's names
+COUNTERS = {
+    "nms": ("nms_kernel", "launches"), "iou_match": ("iou_kernel", "launches"),
+    "roi_align": ("roi_kernel", "launches"), "roi_align_bwd": ("roi_kernel", "backward_launches"),
+    "roi_pool": ("roi_kernel", "pool_launches"),
+    "roi_pool_bwd": ("roi_kernel", "pool_backward_launches"),
+    "int8_matmul": ("quant_kernel", "matmul_launches"),
+    "dequantize": ("quant_kernel", "dequantize_launches"),
+}
+
+
+def counter_module(mod):
+    import importlib
+
+    return importlib.import_module(f"replication_faster_rcnn_tpu_torch.ops.cuda.{mod}")
+
+
+def read_counters():
+    """Every wrapper's launch counter, by this script's names."""
+    return {k: getattr(counter_module(m), a) for k, (m, a) in COUNTERS.items()}
+
+
+def write_counters(values):
+    for k, v in values.items():
+        m, a = COUNTERS[k]
+        setattr(counter_module(m), a, v)
+
+
+class GraphReplays:
+    """The kernel launches of the train step's CUDA graph replays.
+
+    A wrapper counts a launch when Python calls it. A capture's calls only
+    record launches, which run at each replay, and a replay calls no Python.
+    Once installed (:meth:`install`), each capture of ``train_step.CapturedSteps``
+    takes its counter increments back and keeps them as that graph's
+    launches per replay, and each replay adds them to :attr:`counts`. [6]
+    holds these counts against the kernels the profiler saw the card run."""
+
+    def __init__(self):
+        self.counts = {}
+
+    def install(self):
+        from replication_faster_rcnn_tpu_torch.train.train_step import CapturedSteps
+
+        capture, call, replays = CapturedSteps._capture, CapturedSteps.__call__, self
+
+        def counted_capture(graph, state, batches):
+            before = read_counters()
+            try:
+                capture(graph, state, batches)
+            finally:
+                after = read_counters()
+                write_counters(before)
+            graph.per_replay = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+        def counted_call(graph, state, batches):
+            replay = graph.graph is not None
+            out = call(graph, state, batches)
+            if replay:
+                for k, n in graph.per_replay.items():
+                    replays.counts[k] = replays.counts.get(k, 0) + n
+            return out
+
+        CapturedSteps._capture, CapturedSteps.__call__ = counted_capture, counted_call
+
+    def reset(self, names):
+        """Set the wrappers' counters ``names`` and the replays' counts to 0."""
+        write_counters({k: 0 for k in names})
+        self.counts = {}
+
+    def read(self, names):
+        """Launches since :meth:`reset`: the wrappers' eager calls plus the
+        replays' launches, for ``names``."""
+        eager = read_counters()
+        return {k: eager[k] + self.counts.get(k, 0) for k in names}
+
+
+REPLAYS = GraphReplays()
+
+
+def bitwise(torch, a, b):
+    """Two tensors with the same dtype, shape and bits (NaN included)."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def metrics_differences(torch, got, want):
+    """The steps and keys at which two lists of per-step metric dicts differ
+    bitwise."""
+    if len(got) != len(want):
+        return [("steps", len(got), len(want))]
+    return [(i, k) for i, (g, w) in enumerate(zip(got, want)) for k in w
+            if not bitwise(torch, g[k], w[k])]
+
+
+def timed_steps(torch, run, n):
+    """CUDA-event ms of ``n`` calls of ``run(i)``."""
+    out = []
+    for i in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run(i)
+        end.record()
+        out.append((start, end))
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in out]
+
+
+def footprint(torch, dev, build, calls):
+    """The device memory of one training path, measured alone: from an
+    emptied cache, ``build()`` makes its state, then each ``(name, fn)`` of
+    ``calls`` runs ``fn(state)``. GiB: the reserved memory's growth since
+    before the build after each call, its peak over all (the allocator's
+    peak reserved, graph pools included) and the peak allocated (tensors
+    in use; a replay allocates nothing, its pool is reserved), both above
+    the starting point, and what the path keeps after
+    ``torch.cuda.empty_cache()``: its parameters, optimizer state and graph
+    pools."""
+    import gc
+
+    gib = 2**-30
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reserved0, allocated0 = torch.cuda.memory_reserved(dev), torch.cuda.memory_allocated(dev)
+    state = build()
+    out = {"reserved_growth_gib_after": {}}
+    for name, fn in calls:
+        fn(state)
+        torch.cuda.synchronize(dev)
+        out["reserved_growth_gib_after"][name] = (torch.cuda.memory_reserved(dev) - reserved0) * gib
+    out["peak_reserved_gib"] = (torch.cuda.max_memory_reserved(dev) - reserved0) * gib
+    out["peak_allocated_gib"] = (torch.cuda.max_memory_allocated(dev) - allocated0) * gib
+    torch.cuda.empty_cache()
+    out["kept_gib"] = (torch.cuda.memory_reserved(dev) - reserved0) * gib
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_train(torch, name="voc12_resnet18_align", cfg=None, device=None):
     """Phase [6] for one preset. ``cfg``/``device`` default to the preset's
     full configuration on the card (a CPU rehearsal passes a small
     configuration and ``"cpu"``)."""
     import dataclasses
+    import gc
 
     from replication_faster_rcnn_tpu_torch import get_config, ops
     from replication_faster_rcnn_tpu_torch.data.synthetic import SyntheticDataset
     from replication_faster_rcnn_tpu_torch.models.resnet import BatchNorm
-    from replication_faster_rcnn_tpu_torch.ops.cuda import iou_kernel, nms_kernel
-    from replication_faster_rcnn_tpu_torch.train.train_step import compute_losses
+    from replication_faster_rcnn_tpu_torch.train.train_step import compute_losses, make_train_step
     from replication_faster_rcnn_tpu_torch.train.trainer import Trainer
 
     cfg = cfg or get_config(name)
+    dev = torch.device(device or "cuda")
     bsz = cfg.train.batch_size
     op = cfg.model.roi_op
     op_name = {"align": "ROIAlign", "pool": "ROIPool"}[op]
-    torch.cuda.reset_peak_memory_stats()
     log(f"[6] main path: train {name} {cfg.data.image_size} batch {bsz} (ROI op {op}), "
         f"compute {cfg.model.compute_dtype}, {cfg.proposals.pre_nms_train} -> "
-        f"{cfg.proposals.post_nms_train} proposals, Adam lr {cfg.train.lr}")
+        f"{cfg.proposals.post_nms_train} proposals, optimizer {cfg.train.optimizer} lr "
+        f"{cfg.train.lr}; every step a CUDA graph replay, against the same steps eager")
     dataset = SyntheticDataset(cfg.data, length=2 * bsz)
-    trainer = Trainer(cfg, dataset, device=device, seed=0)
-    trainer.loader.set_epoch(0)
-    host = list(trainer.loader)  # epoch 0's batches in the trainer's order
-    batches = [trainer.stage_batch(b) for b in host]
-    model, state = trainer.model, trainer.state
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"  trainer on {trainer.device}, {n_params / 1e6:.2f} M parameters (float32), "
-        f"{trainer.steps_per_epoch} steps per epoch")
-    torch.cuda.synchronize()
+
+    def make(**train):
+        c = cfg.replace(train=dataclasses.replace(cfg.train, **train))
+        return Trainer(c, dataset, device=dev, seed=0)
+
+    cap, eag = make(), make()
+    eag.step_fn = make_train_step(cfg, capture=False)
+    cap.loader.set_epoch(0)
+    host = list(cap.loader)  # epoch 0's batches in the trainer's order
+    poisoned = dict(host[0], image=host[0]["image"].copy())
+    poisoned["image"][0, 3, 3, 0] = np.nan  # the guarded update withholds this step
+    batches = [cap.stage_batch(b) for b in host]
+    bad = cap.stage_batch(poisoned)
+    n_params = sum(p.numel() for p in cap.model.parameters())
+    log(f"  trainers on {cap.device}, {n_params / 1e6:.2f} M parameters (float32), "
+        f"{cap.steps_per_epoch} steps per epoch")
+
+    # the same 6 steps, step 3 poisoned, captured and eager; the first step
+    # of each compiles (cuDNN handles, constants; the captured trainer's
+    # first call runs its step eagerly and captures it), the other five run
+    # under torch.cuda.set_sync_debug_mode("error"): no host read
+    order = [batches[0], batches[1], bad, batches[1], batches[0], batches[1]]
+    hist = {"captured": [], "eager": []}
     t0 = time.perf_counter()
-    for i in range(2):  # warm-up: cuDNN handles and algorithm choice
-        m = trainer.train_one_batch(host[0])
-    log(f"  warm-up: 2 steps in {time.perf_counter() - t0:.2f} s, losses "
-        f"{ {k: round(m[k], 4) for k in ('rpn_cls_loss', 'rpn_reg_loss', 'head_cls_loss', 'head_reg_loss')} }")
+    for i, batch in enumerate(order):
+        for tag, trainer in (("captured", cap), ("eager", eag)):
+            if i > 0:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                hist[tag].append(trainer.train_one_batch(staged=batch))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize(dev)
+    first_s = time.perf_counter() - t0
+    diff = state_differences(torch, cap, eag)
+    mdiff = metrics_differences(torch, hist["captured"], hist["eager"])
+    skipped = [float(m["skipped"]) for m in hist["captured"]]
+    if diff or mdiff or skipped != [0, 0, 1, 0, 0, 0]:
+        raise AssertionError(f"captured vs eager steps: state differs in {diff[:5]}, metrics in "
+                             f"{mdiff[:5]}; skipped {skipped}")
+    graphs = list(cap.state.graphs.values())
+    log(f"  6 steps (step 3 NaN-poisoned, withheld) captured and eager, {first_s:.1f} s with the "
+        f"capture: bitwise equal in parameters, BatchNorm statistics, mu, nu, count, the "
+        f"generator's state, the step and every metric; steps 2-6 ran under "
+        f"set_sync_debug_mode('error') without a host read; {len(graphs)} graph, launches "
+        f"per replay {graphs[0].per_replay}")
 
-    counters = (("nms", nms_kernel, "launches"), ("iou_match", iou_kernel, "launches")
-                ) + roi_counters()
-
-    def read():
-        return {k: getattr(mod, attr) for k, mod, attr in counters}
-
-    for _, mod, attr in counters:
-        setattr(mod, attr, 0)
-    step_ms, history = [], []
-    for i in range(TRAIN_REPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        metrics = trainer.step_fn(state, batches[i % len(batches)])
-        end.record()
-        history.append({k: float(v) for k, v in metrics.items()})
-        step_ms.append(start.elapsed_time(end))
-    launches = read()
-    peak = torch.cuda.max_memory_allocated()  # the warm-up and timed steps only
-    log(f"  launches in {TRAIN_REPS} timed steps: {launches}")
+    names = ("nms", "iou_match") + ROI_NAMES
     want = {"nms": 1, "iou_match": 2, **roi_launches(op, 1, 1)}
-    if launches != {k: v * TRAIN_REPS for k, v in want.items()}:
-        raise AssertionError(f"expected per step {want}, got {launches} over {TRAIN_REPS} steps")
-    for row in history:
-        bad = [k for k in ("loss", "rpn_cls_loss", "rpn_reg_loss", "head_cls_loss",
-                           "head_reg_loss", "grad_norm") if not np.isfinite(row[k])]
-        if bad or row["skipped"] != 0.0:
-            raise AssertionError(f"non-finite training metrics {bad} (skipped {row['skipped']})")
-    log("  losses per step: " + ", ".join(f"{r['loss']:.4f}" for r in history))
+    out = {}
+    for tag, trainer in (("captured", cap), ("eager", eag)):
+        torch.cuda.synchronize(dev)
+        reserved = torch.cuda.memory_reserved(dev)
+        REPLAYS.reset(names)
+        history = []
+        ms = timed_steps(torch, lambda i: history.append(
+            trainer.step_fn(trainer.state, batches[i % 2])), TRAIN_REPS)
+        launches = REPLAYS.read(names)
+        grown = torch.cuda.memory_reserved(dev) - reserved
+        log(f"  {tag}: launches in {TRAIN_REPS} timed steps {launches}; reserved memory grew "
+            f"{grown} bytes over them")
+        if launches != {k: v * TRAIN_REPS for k, v in want.items()}:
+            raise AssertionError(f"{tag}: expected per step {want}, got {launches} over "
+                                 f"{TRAIN_REPS} steps")
+        if grown > 2**21:  # more than one small-allocation segment
+            raise AssertionError(f"{tag} steps grew the reserved device memory by {grown} "
+                                 "bytes")
+        rows = [{k: float(v) for k, v in m.items()} for m in history]
+        for row in rows:
+            bad_keys = [k for k in ("loss", "rpn_cls_loss", "rpn_reg_loss", "head_cls_loss",
+                                    "head_reg_loss", "grad_norm") if not np.isfinite(row[k])]
+            if bad_keys or row["skipped"] != 0.0:
+                raise AssertionError(f"{tag}: non-finite training metrics {bad_keys} "
+                                     f"(skipped {row['skipped']})")
 
-    # per-stage ms of one more step, CUDA events around each stage
+        def three_steps(trainer=trainer):
+            for i in range(3):
+                trainer.step_fn(trainer.state, batches[i % 2])
+
+        # the profiled steps' counted launches against the kernels the card ran
+        REPLAYS.reset(names)
+        timeline = device_timeline(torch, three_steps, 3, op)
+        profiled = REPLAYS.read(names)
+        if profiled != {k: v * 3 for k, v in want.items()}:
+            raise AssertionError(f"{tag}: expected per step {want}, got {profiled} over the 3 "
+                                 "profiled steps")
+        out[tag] = {"launches": launches, "step_ms_all": ms, "step_ms": statistics.median(ms),
+                    "losses_first_last": [rows[0]["loss"], rows[-1]["loss"]],
+                    "reserved_growth_bytes": grown, "device_timeline": timeline}
+        if timeline is None:
+            log(f"  {tag} device timeline: the profiler saw no device activity (not measured)")
+        else:
+            log(f"  {tag} device timeline (torch.profiler, 3 steps): busy "
+                f"{timeline['device_busy_ms_per_step']:.2f} ms of a "
+                f"{timeline['device_span_ms_per_step']:.2f} ms span per step, idle share "
+                f"{timeline['device_idle_share']:.3f}, "
+                f"{timeline['device_activities_per_step']:.0f} device activities per step; "
+                f"NMS {timeline['nms_device_ms_per_step']:.4f} ms, {op_name} "
+                f"{ {k: round(v, 4) for k, v in timeline['roi_device_ms_per_step'].items()} }, "
+                f"IoU matching {timeline['iou_match_device_ms_per_step']:.4f} ms in "
+                f"{timeline['iou_match_activities_per_step']:g} activities")
+        log(f"  {tag}: {out[tag]['step_ms']:.2f} ms a step (median of {TRAIN_REPS}, CUDA "
+            f"events, batch staged on the card), {bsz / out[tag]['step_ms'] * 1e3:.1f} images/s")
+    timelines = {tag: out[tag]["device_timeline"] for tag in out}
+    if None not in timelines.values():
+        log(f"  most device time per step (captured): "
+            f"{ {k: round(v, 3) for k, v in timelines['captured']['top_device_ms_per_step'].items()} }")
+        for tag, timeline in timelines.items():
+            roi_ms = timeline["roi_device_ms_per_step"]
+            if not (timeline["nms_device_ms_per_step"] > 0 and roi_ms["forward"] > 0
+                    and roi_ms["backward"] > 0 and timeline["iou_match_device_ms_per_step"] > 0):
+                raise AssertionError(f"{tag}: the profiler saw device activity but not every "
+                                     f"kernel: {timeline}")
+            if timeline["iou_match_activities_per_step"] != 2:  # one kernel per call
+                raise AssertionError(f"{tag}: {timeline['iou_match_activities_per_step']:g} "
+                                     "IoU-matching kernel activities per step, not 2")
+        # a replay runs every hand-written kernel the eager step runs, as often
+        kernel_acts = {tag: t["kernel_activities_per_step"] for tag, t in timelines.items()}
+        if kernel_acts["captured"] != kernel_acts["eager"]:
+            raise AssertionError(f"hand-written kernel activities per step differ: {kernel_acts}")
+        log(f"  the profiler saw every kernel in both timelines, the same activities per step "
+            f"{kernel_acts['captured']}")
+    elif timelines["captured"] is not None or timelines["eager"] is not None:
+        raise AssertionError(f"the profiler saw device activity in one timeline only: "
+                             f"{ {k: v is not None for k, v in timelines.items()} }")
+
+    # each path's device memory alone: a fresh trainer, its first calls (the
+    # captured paths' warm-up and capture), then replays
+    def steps(n):
+        return lambda tr: [tr.train_one_batch(staged=batches[i % 2]) for i in range(n)]
+
+    def eager_trainer():
+        tr = make()
+        tr.step_fn = make_train_step(cfg, capture=False)
+        return tr
+
+    memory = {
+        "eager": footprint(torch, dev, eager_trainer, [("step 1", steps(1)),
+                                                       ("steps 2-3", steps(2))]),
+        "captured": footprint(torch, dev, make, [("capture", steps(1)),
+                                                 ("2 replays", steps(2))]),
+        "k4": footprint(torch, dev, lambda: make(steps_per_dispatch=4), [
+            ("capture K=4", lambda tr: tr.train_chunk(staged=batches[:2] * 2)),
+            ("capture the 1-step tail", steps(1)),
+            ("replays", lambda tr: (tr.train_chunk(staged=batches[:2] * 2), steps(1)(tr)))]),
+    }
+    for tag, m in memory.items():
+        log(f"  {tag} path's device memory, alone (GiB): {m}")
+
+    # per-stage ms of one more eager step, CUDA events around each stage
     timer = StageTimer(torch)
-    trainer.step_fn(state, batches[0], stage=timer)
+    eag.step_fn(eag.state, batches[0], stage=timer)
     stages = timer.ms()
-    log(f"  stage ms (one step, CUDA events): { {k: round(v, 3) for k, v in stages.items()} }")
+    log(f"  stage ms (one eager step, CUDA events): "
+        f"{ {k: round(v, 3) for k, v in stages.items()} }")
 
-    # the device timeline of 3 more steps (torch.profiler)
-    def three_steps():
-        for i in range(3):
-            trainer.step_fn(state, batches[i % len(batches)])
-
-    timeline = device_timeline(torch, three_steps, 3, op)
-    if timeline is None:
-        log("  device timeline: the profiler saw no device activity (not measured)")
-    else:
-        log(f"  device timeline (torch.profiler, 3 steps): busy "
-            f"{timeline['device_busy_ms_per_step']:.2f} ms of a "
-            f"{timeline['device_span_ms_per_step']:.2f} ms span per step, idle share "
-            f"{timeline['device_idle_share']:.3f}, "
-            f"{timeline['device_activities_per_step']:.0f} device activities per step")
-        log(f"  most device time per step: "
-            f"{ {k: round(v, 3) for k, v in timeline['top_device_ms_per_step'].items()} }")
-        by_kernel = timeline["nms_device_ms_per_step_by_kernel"]
-        log(f"  NMS device time per step: {timeline['nms_device_ms_per_step']:.4f} ms "
-            f"({ {k: round(v, 4) for k, v in by_kernel.items()} })")
-        if not timeline["nms_device_ms_per_step"] > 0:
-            raise AssertionError("the profiler saw device activity but no NMS kernel")
-        roi_ms = timeline["roi_device_ms_per_step"]
-        log(f"  {op_name} device time per step: forward {roi_ms['forward']:.4f} ms, backward "
-            f"{roi_ms['backward']:.4f} ms")
-        if not (roi_ms["forward"] > 0 and roi_ms["backward"] > 0):
-            raise AssertionError(f"the profiler saw device activity but no {op_name} kernel")
-        iou_ms = timeline["iou_match_device_ms_per_step"]
-        iou_n = timeline["iou_match_activities_per_step"]
-        log(f"  IoU matching device time per step (anchor and proposal sites): {iou_ms:.4f} ms "
-            f"in {iou_n:g} kernel activities")
-        if not iou_ms > 0:
-            raise AssertionError("the profiler saw device activity but no IoU-matching kernel")
-        if iou_n != 2:  # one kernel per call, no second finalize kernel
-            raise AssertionError(f"{iou_n:g} IoU-matching kernel activities per step, not 2")
+    # steps_per_dispatch=4 against single steps: two chunks (the first runs
+    # eagerly and captures, the second replays; a poisoned batch in each),
+    # the 1-step tail graph in the same pool (capture, replay), and one more
+    # chunk replay after it
+    k4, one = make(steps_per_dispatch=4), make()
+    chunk_order = [batches[0], batches[1], bad, batches[0], batches[1], batches[0], bad,
+                   batches[1]]
+    chunked = [k4.train_chunk(staged=chunk_order[:4]), k4.train_chunk(staged=chunk_order[4:]),
+               k4.train_one_batch(staged=batches[1]), k4.train_one_batch(staged=batches[0]),
+               k4.train_chunk(staged=chunk_order[:4])]
+    singles = [one.train_one_batch(staged=b)
+               for b in chunk_order + [batches[1], batches[0]] + chunk_order[:4]]
+    rows_k = [{k: v[j] for k, v in m.items()} if m["loss"].dim() else m
+              for m in chunked for j in range(m["loss"].numel())]
+    diff = state_differences(torch, k4, one)
+    mdiff = metrics_differences(torch, rows_k, singles)
+    if diff or mdiff:
+        raise AssertionError(f"steps_per_dispatch=4 vs single steps: state differs in {diff[:5]},"
+                             f" metrics in {mdiff[:5]}")
+    chunk_ms = timed_steps(torch, lambda i: k4.train_chunk(
+        staged=[batches[(i + j) % 2] for j in range(4)]), 3)
+    per_step_k4 = statistics.median(chunk_ms) / 4
+    log(f"  steps_per_dispatch=4: two chunks (8 steps, a withheld step in each, the second "
+        f"chunk a replay), two 1-step tails (capture and replay in the chunk graph's pool) and "
+        f"a third chunk bitwise equal to 14 single captured steps in state and metrics; "
+        f"{per_step_k4:.2f} ms a step (median of 3 replays of 4 steps)")
+    del k4, one
 
     # the same state and draws: kernel pass vs plain pass (forward + backward)
+    model, state = eag.model, eag.state
     batch = batches[1]
     params = list(model.parameters())
 
@@ -1581,9 +1945,9 @@ def phase_train(torch, name="voc12_resnet18_align", cfg=None, device=None):
         return metrics, record, grads, stats
 
     km, krec, kgrads, kstats = pass_(False, None)
-    before = read()
+    before = read_counters()
     pm, prec, pgrads, pstats = pass_(True, krec["draws"])
-    if before != read():
+    if before != read_counters():
         raise AssertionError("a kernel launched inside reference_scope")
     for k, v in krec["targets"].items():
         if not torch.equal(v, prec["targets"][k]):
@@ -1616,25 +1980,31 @@ def phase_train(torch, name="voc12_resnet18_align", cfg=None, device=None):
     log(f"  the head's losses alone give the trunk a gradient ({op_name} forward + backward "
         "kernels)")
 
-    med = statistics.median(step_ms)
+    cap_ms, eag_ms = out["captured"]["step_ms"], out["eager"]["step_ms"]
     train = {
         "config": name,
-        "step_ms": med,
-        "images_per_s": bsz / med * 1e3,
-        "step_ms_all": step_ms,
+        "step_ms": cap_ms,
+        "images_per_s": bsz / cap_ms * 1e3,
+        "eager_step_ms": eag_ms,
+        "eager_images_per_s": bsz / eag_ms * 1e3,
+        "k4_step_ms": per_step_k4,
+        "captured": out["captured"],
+        "eager": out["eager"],
+        "memory_gib": memory,
         "stage_ms": stages,
-        "device_timeline": timeline,
-        "losses_first_last": [history[0]["loss"], history[-1]["loss"]],
         "grad_max_rel_l2_err_vs_plain": grad_err,
-        "peak_memory_gib": peak / 2**30,
-        "peak_memory_note": "torch.cuda.max_memory_allocated over the warm-up and timed steps",
     }
-    idle = (timeline or {}).get("device_idle_share")
-    log(f"  {name}: train step {med:.2f} ms (median of {TRAIN_REPS}, CUDA events, batch staged on the "
-        f"card), {train['images_per_s']:.1f} images/s, device idle share "
-        f"{'not measured' if idle is None else f'{idle:.3f}'}, peak device memory "
-        f"{train['peak_memory_gib']:.2f} GiB")
-    return launches, train
+    idle = {tag: (out[tag]["device_timeline"] or {}).get("device_idle_share")
+            for tag in ("captured", "eager")}
+    log(f"  {name}: train step {cap_ms:.2f} ms captured against {eag_ms:.2f} ms eager "
+        f"({train['images_per_s']:.1f} against {train['eager_images_per_s']:.1f} images/s), "
+        f"device idle share { {k: 'not measured' if v is None else round(v, 3) for k, v in idle.items()} }")
+    launches = out["captured"]["launches"]
+    eager_launches = out["eager"]["launches"]
+    del cap, eag
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, eager_launches, train
 
 
 VOC_SIZES = ((375, 500), (500, 333), (333, 500), (500, 375), (480, 640), (366, 500),
@@ -1928,7 +2298,6 @@ def phase_overfit(torch, cfg=None, device=None, length=48):
     from replication_faster_rcnn_tpu_torch.data.loader import make_dataset
     from replication_faster_rcnn_tpu_torch.data.synthetic import SyntheticDataset
     from replication_faster_rcnn_tpu_torch.eval.evaluator import Evaluator
-    from replication_faster_rcnn_tpu_torch.ops.cuda import iou_kernel, nms_kernel, roi_kernel
     from replication_faster_rcnn_tpu_torch.train.trainer import Trainer
 
     cfg = cfg or overfit_config()
@@ -1945,14 +2314,12 @@ def phase_overfit(torch, cfg=None, device=None, length=48):
     trainer.logger = quiet_logger(root / "curve.jsonl")
     save_ms = []
     trainer.save = timed(save_ms, trainer.save)
-    for mod in (nms_kernel, iou_kernel, roi_kernel):
-        mod.launches = 0
-    roi_kernel.backward_launches = 0
+    names = ("nms", "iou_match", "roi_align", "roi_align_bwd")
+    REPLAYS.reset(names)
     t0 = time.perf_counter()
     last = trainer.train(log_every=5)
     train_s = time.perf_counter() - t0
-    launches = {"nms": nms_kernel.launches, "iou_match": iou_kernel.launches,
-                "roi_align": roi_kernel.launches, "roi_align_bwd": roi_kernel.backward_launches}
+    launches = REPLAYS.read(names)
     evals = tc.n_epoch // tc.eval_every_epochs
     eval_batches = evals * -(-len(make_dataset(cfg.data, "val")) // tc.batch_size)
     # per train step NMS 1, IoU matching 2, ROIAlign 1 + 1; per eval batch NMS 2, ROIAlign 1
@@ -2023,7 +2390,8 @@ def phase_overfit(torch, cfg=None, device=None, length=48):
 def poisoned_and_killed(trainer, poison_step, term_after=None, step_ms=None):
     """Drive ``trainer``'s steps: one sample of step ``poison_step``'s batch
     gets a NaN (the guarded update skips that step), SIGTERM is raised after
-    step ``term_after``, and each step's host ms (the step synchronises)
+    step ``term_after``, and each step's host ms (the staging copy, which
+    waits for the card, and the dispatch)
     goes to ``step_ms``."""
     import signal
 
@@ -2112,7 +2480,6 @@ def phase_resume(torch, name="voc_resnet18", cfg=None, device=None, length=24):
 
     from replication_faster_rcnn_tpu_torch import get_config
     from replication_faster_rcnn_tpu_torch.data.synthetic import SyntheticDataset
-    from replication_faster_rcnn_tpu_torch.ops.cuda import iou_kernel, nms_kernel
     from replication_faster_rcnn_tpu_torch.serving.engine import InferenceEngine
     from replication_faster_rcnn_tpu_torch.telemetry import spans
     from replication_faster_rcnn_tpu_torch.train import fault
@@ -2128,15 +2495,13 @@ def phase_resume(torch, name="voc_resnet18", cfg=None, device=None, length=24):
         f"{cfg.model.compute_dtype}, {length} synthetic images, {cfg.train.n_epoch} epochs of "
         f"{length // bsz} steps, step 3 poisoned with a NaN")
     ds = SyntheticDataset(cfg.data, length=length)
-    counters = (("nms", nms_kernel, "launches"), ("iou_match", iou_kernel, "launches")
-                ) + roi_counters()
+    names = ("nms", "iou_match") + ROI_NAMES
 
     def reset():
-        for _, mod, attr in counters:
-            setattr(mod, attr, 0)
+        REPLAYS.reset(names)
 
     def read():
-        return {k: getattr(mod, attr) for k, mod, attr in counters}
+        return REPLAYS.read(names)
 
     def make(tag, log_tag=None, telemetry=None, **train):
         """A trainer on ``root / tag``; ``telemetry`` names a telemetry
@@ -2163,7 +2528,7 @@ def phase_resume(torch, name="voc_resnet18", cfg=None, device=None, length=24):
         raise AssertionError(f"expected per step {per_step}, got {launches} over {steps} steps")
     ref_rows = logged_rows(root / "telemetry_a" / "metrics.jsonl")
     skipped = [r["step"] for r in ref_rows if r["skipped"]]
-    if ref.state.step != steps or skipped != [3] or ref.state.scheduler.last_epoch != steps - 1:
+    if ref.state.step != steps or skipped != [3] or int(ref.state.optimizer.count) != steps - 1:
         raise AssertionError(f"run (a): step {ref.state.step}, skipped steps {skipped}")
     again = poisoned_and_killed(make("a2"), 3, step_ms=step_ms["a2"])
     again.train(log_every=1)
@@ -2264,8 +2629,8 @@ def phase_resume(torch, name="voc_resnet18", cfg=None, device=None, length=24):
         f"{statistics.median(sync_ms):.1f} ms median; async snapshot "
         f"{statistics.median(snapshot_ms):.1f} ms on the trainer thread, writer "
         f"{statistics.median(writer_ms):.1f} ms; load + verify {load_verify_ms:.1f} ms; step "
-        f"(a) {med['a']:.2f} ms, (b) {med['b']:.2f} ms median (host clock, the step's sync "
-        f"included)")
+        f"(a) {med['a']:.2f} ms, (b) {med['b']:.2f} ms median (host clock around "
+        f"train_one_batch: the staging copy, which waits for the card, and the dispatch)")
     shutil.rmtree(root)
     return {"train_resume": {k: launches[k] + launches_bcd[k] for k in launches},
             "serve_resume": serve_launches}, {"telemetry": telemetry,
@@ -2322,10 +2687,12 @@ def phase_bench(torch, device="cuda", runs=BENCH_RUNS):
     """Phase [9]: ``python -m replication_faster_rcnn_tpu_torch.benchmark`` as
     users run it (a subprocess: none of this script's TF32 and cuDNN
     settings), train and eval alternating, ``BENCH_RUNS`` each, every line
-    checked; each metric's median, min and max. The last train run also
-    takes ``BENCH_PROFILE_DIR``: its ``torch.profiler`` capture gives the
-    card's busy ms and idle share per b16 step as users run the step, and
-    the idle share of that run's unprofiled timed step. Then
+    checked; each metric's median, min and max. The last captured and the
+    last eager train run also take ``BENCH_PROFILE_DIR``: each
+    ``torch.profiler`` capture gives the card's busy ms and idle share per
+    b16 step, and the idle share of that run's unprofiled timed step. Then
+    each b16 step's device memory, captured and eager, measured alone
+    (:func:`footprint`), and
     one in-process train and one eval measurement at ``BENCH_COUNT_STEPS``
     steps with the launch counters reset just before and read just after
     (per train step NMS 1, IoU matching 2, ROIPool 1 and its backward 1; per
@@ -2334,19 +2701,22 @@ def phase_bench(torch, device="cuda", runs=BENCH_RUNS):
     import os
 
     from replication_faster_rcnn_tpu_torch import benchmark
-    from replication_faster_rcnn_tpu_torch.ops.cuda import iou_kernel, nms_kernel
     from replication_faster_rcnn_tpu_torch.utils.profiling import has_device_trace
 
     log(f"[9] bench: python -m replication_faster_rcnn_tpu_torch.benchmark, train (batch 16) "
         f"and eval (batch 8) at 600x600, {runs} runs each, alternating")
     env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
-    trace_dir = fresh_dir(REPO / "build" / "chip_smoke_bench_trace")
-    lines = {"train": [], "eval": []}
+    trace_dirs = {run: fresh_dir(REPO / "build" / f"chip_smoke_bench_trace_{run}")
+                  for run in ("train", "train_eager")}
+    lines = {"train": [], "train_eager": [], "eval": []}
     for i in range(runs):
-        for mode in ("train", "eval"):
+        for run in ("train", "train_eager", "eval"):
+            mode = "eval" if run == "eval" else "train"
             run_env = dict(env, BENCH_MODE=mode)
-            if mode == "train" and i == runs - 1:
-                run_env["BENCH_PROFILE_DIR"] = str(trace_dir)
+            if run == "train_eager":
+                run_env["BENCH_CAPTURE"] = "0"  # the eager step, for comparison
+            if run in trace_dirs and i == runs - 1:
+                run_env["BENCH_PROFILE_DIR"] = str(trace_dirs[run])
             t0 = time.perf_counter()
             proc = subprocess.run(
                 [sys.executable, "-m", "replication_faster_rcnn_tpu_torch.benchmark"],
@@ -2357,10 +2727,10 @@ def phase_bench(torch, device="cuda", runs=BENCH_RUNS):
             line = json.loads(proc.stdout.strip().splitlines()[-1])
             check_bench_line(line, mode)
             if "BENCH_PROFILE_DIR" in run_env and (
-                    line.get("trace") != "ok" or not has_device_trace(str(trace_dir))):
-                raise AssertionError(f"bench train's profiler capture: {line.get('trace')}")
-            lines[mode].append(line)
-            log(f"  {mode} run {i + 1} ({time.perf_counter() - t0:.1f} s): {json.dumps(line)}")
+                    line.get("trace") != "ok" or not has_device_trace(str(trace_dirs[run]))):
+                raise AssertionError(f"bench {run}'s profiler capture: {line.get('trace')}")
+            lines[run].append(line)
+            log(f"  {run} run {i + 1} ({time.perf_counter() - t0:.1f} s): {json.dumps(line)}")
     summary = {}
     for mode, done in lines.items():
         if not done:
@@ -2368,45 +2738,63 @@ def phase_bench(torch, device="cuda", runs=BENCH_RUNS):
         values = [r["value"] for r in done]
         summary[mode] = {"median": statistics.median(values), "min": min(values),
                          "max": max(values), "values": values}
-        if mode == "train":
+        if mode != "eval":
             for key in ("mfu", "flops_per_step"):
                 summary[mode][key] = [r[key] for r in done]
             summary[mode]["breakdown"] = [r["breakdown"] for r in done]
-        log(f"  {done[0]['metric']}: median {summary[mode]['median']} images/s, min "
+        what = {"train": "captured step", "train_eager": "eager step (BENCH_CAPTURE=0)",
+                "eval": "eval"}[mode]
+        log(f"  {done[0]['metric']} ({what}): median {summary[mode]['median']} images/s, min "
             f"{summary[mode]['min']}, max {summary[mode]['max']} over {len(values)} runs")
-    if lines["train"]:
-        profiled = trace_device_share(trace_dir, benchmark.TRACE_STEPS)
-        if profiled is None:
-            raise AssertionError("bench train's profiler capture holds no device activity")
-        # the profiler adds host time to the steps it captures: the card's
-        # busy ms against the same run's unprofiled timed step as well
-        step_ms = lines["train"][-1]["breakdown"]["step_ms"]
-        profiled["device_idle_share_of_timed_step"] = (
-            1 - profiled["device_busy_ms_per_step"] / step_ms)
-        summary["profiled_train"] = profiled
-        log(f"  the profiled b16 steps of train run {runs} (timed step {step_ms} ms): "
-            f"{profiled}")
-    shutil.rmtree(trace_dir)
+    for run, trace_dir in trace_dirs.items():
+        if lines[run]:
+            profiled = trace_device_share(trace_dir, benchmark.TRACE_STEPS)
+            if profiled is None:
+                raise AssertionError(f"bench {run}'s profiler capture holds no device activity")
+            # the profiler adds host time to the steps it captures: the card's
+            # busy ms against the same run's unprofiled timed step as well
+            step_ms = lines[run][-1]["breakdown"]["step_ms"]
+            profiled["device_idle_share_of_timed_step"] = (
+                1 - profiled["device_busy_ms_per_step"] / step_ms)
+            summary[f"profiled_{run}"] = profiled
+            log(f"  the profiled b16 steps of {run} run {runs} (timed step {step_ms} ms): "
+                f"{profiled}")
+        shutil.rmtree(trace_dir)
 
-    counters = (("nms", nms_kernel, "launches"), ("iou_match", iou_kernel, "launches")
-                ) + roi_counters()
+    # the b16 step's device memory, each path alone in this process
+    from replication_faster_rcnn_tpu_torch.config import TrainConfig
+    from replication_faster_rcnn_tpu_torch.train.train_step import (
+        create_train_state, make_train_step)
 
-    def reset():
-        for _, mod, attr in counters:
-            setattr(mod, attr, 0)
+    cfg = benchmark._flagship_cfg().replace(train=TrainConfig(batch_size=16))  # as _measure
+    host = benchmark._synthetic_batch(cfg, cfg.train.batch_size)
+    dev = torch.device(device)
+    batch = {k: torch.from_numpy(host[k]).to(dev) for k in ("image", "boxes", "labels", "mask")}
+    memory = {}
+    for tag, capture in (("captured", True), ("eager", False)):
+        def build(capture=capture):
+            return (create_train_state(cfg, steps_per_epoch=100, device=dev, seed=0),
+                    make_train_step(cfg, capture=capture))
 
-    def read():
-        return {k: getattr(mod, attr) for k, mod, attr in counters}
+        def run_steps(obj, n):
+            for _ in range(n):
+                obj[1](obj[0], batch)
 
+        memory[tag] = footprint(torch, dev, build, [("step 1", lambda obj: run_steps(obj, 1)),
+                                                    ("steps 2-3", lambda obj: run_steps(obj, 2))])
+        log(f"  b16 {tag} step's device memory, alone: {memory[tag]}")
+    summary["memory_b16"] = memory
+
+    names = ("nms", "iou_match") + ROI_NAMES
     saved = os.environ.get("BENCH_STEPS")
     os.environ["BENCH_STEPS"] = str(BENCH_COUNT_STEPS)
     try:
-        reset()
+        REPLAYS.reset(names)
         benchmark._measure(device=device)
-        train_launches = read()
-        reset()
+        train_launches = REPLAYS.read(names)
+        REPLAYS.reset(names)
         benchmark._measure_eval(device=device)
-        eval_launches = read()
+        eval_launches = REPLAYS.read(names)
     finally:
         if saved is None:
             del os.environ["BENCH_STEPS"]
@@ -2464,20 +2852,23 @@ def main():
                 if "registers" in line or "spill" in line:
                     log(f"    {src}: {line.strip()}")
 
+    REPLAYS.install()
     res = phase_kernels(torch)
+    graph_replays = check_graph_replays(torch, torch.device("cuda"))
     launches, serve = phase_serve(torch)
     plaunches, serve_pool = phase_serve(torch, "voc_resnet18")
     slaunches, presets = phase_presets(torch)
     qlaunches, serve_int8 = phase_int8_serve(torch, serve)
-    tlaunches, train = phase_train(torch)
-    ptlaunches, train_pool = phase_train(torch, "voc_resnet18")
+    tlaunches, tlaunches_eager, train = phase_train(torch)
+    ptlaunches, ptlaunches_eager, train_pool = phase_train(torch, "voc_resnet18")
     elaunches, evaluate = phase_evaluate(torch)
     olaunches, overfit = phase_overfit(torch)
     evaluate["overfit"] = overfit
     rlaunches, resume = phase_resume(torch)
     blaunches, bench = phase_bench(torch)
     paths = {"serve": launches, "serve_pool": plaunches, "serve_presets": slaunches,
-             "serve_int8": qlaunches, "train": tlaunches, "train_pool": ptlaunches,
+             "serve_int8": qlaunches, "train": tlaunches, "train_eager": tlaunches_eager,
+             "train_pool": ptlaunches, "train_pool_eager": ptlaunches_eager,
              "evaluate": elaunches, "overfit_train": olaunches, **rlaunches, **blaunches}
 
     def by_path(key):
@@ -2486,10 +2877,19 @@ def main():
 
     nms, det, roi = res["nms_proposal"], res["nms_detection"], res["roi_bf16"]
     nms_tr, nms_cl, bwd = res["nms_train"], res["nms_train_clustered"], res["roi_bwd_bf16"]
-    in_step = (train["device_timeline"] or {}).get("roi_device_ms_per_step", {})
-    pool_step = (train_pool["device_timeline"] or {}).get("roi_device_ms_per_step", {})
+    # the kernels' device ms per step in the profiled captured steps (as users
+    # run them), the eager steps' beside them
+    def in_step(run, key, part=None):
+        timeline = run["device_timeline"] or {}
+        value = timeline.get(key)
+        return value if part is None or value is None else value[part]
+
+    def step_ms(run, key, part=None):
+        return {"train_step_device_ms": in_step(train_runs[run]["captured"], key, part),
+                "train_step_device_ms_eager": in_step(train_runs[run]["eager"], key, part)}
+
+    train_runs = {"align": train, "pool": train_pool}
     iou_a, iou_p = res["iou_anchor"], res["iou_proposal"]
-    iou_step = (train["device_timeline"] or {}).get("iou_match_device_ms_per_step")
     gemm, deq = res["gemm_b8_cls"], res["dequant_f32"]
     timing = ("ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [
@@ -2514,8 +2914,7 @@ def main():
                                    "tta_detection": res["nms_detection_tta"]["prep_ms"],
                                    "training": nms_tr["prep_ms"],
                                    "training_clustered": nms_cl["prep_ms"]},
-            "train_step_device_ms": None if train["device_timeline"] is None
-            else train["device_timeline"]["nms_device_ms_per_step"],
+            **step_ms("align", "nms_device_ms_per_step"),
         },
         {
             "name": "roi_align_fwd", "route": "cuda", "source": ROI_SRC, "replaces": ROI_TPU,
@@ -2536,7 +2935,7 @@ def main():
                             for k in timing + ("one_block_per_roi_ms",)},
             "train_f32": {k: res["roi_train_f32"][k] for k in timing},
             "train_bf16_out": {k: res["roi_train_bf16_out"][k] for k in timing},
-            "train_step_device_ms": in_step.get("forward"),
+            **step_ms("align", "roi_device_ms_per_step", "forward"),
         },
         {
             "name": "roi_align_bwd", "route": "cuda", "source": ROI_SRC, "replaces": ROI_BWD_TPU,
@@ -2554,7 +2953,7 @@ def main():
             "f32": {k: res["roi_bwd_f32"][k] for k in timing},
             "bf16_grad": {k: res["roi_bwd_bf16_grad"][k] for k in timing},
             "identical_rois": {k: res["roi_bwd_identical"][k] for k in timing},
-            "train_step_device_ms": in_step.get("backward"),
+            **step_ms("align", "roi_device_ms_per_step", "backward"),
         },
         {
             "name": "roi_pool_fwd", "route": "cuda", "source": POOL_SRC, "replaces": POOL_JAX,
@@ -2573,7 +2972,7 @@ def main():
             "train_bf16": {k: res["pool_train_bf16"][k] for k in timing},
             "ties_bf16": {k: res["pool_ties_bf16"][k] for k in timing},
             "clustered_bf16": {k: res["pool_clustered_bf16"][k] for k in timing},
-            "train_step_device_ms": pool_step.get("forward"),
+            **step_ms("pool", "roi_device_ms_per_step", "forward"),
         },
         {
             "name": "roi_pool_bwd", "route": "cuda", "source": POOL_SRC, "replaces": POOL_JAX,
@@ -2595,7 +2994,7 @@ def main():
             "identical_rois": {k: res["pool_bwd_identical"][k] for k in timing},
             "clustered_bf16": {k: res["pool_bwd_clustered"][k] for k in timing},
             "scratch_bytes_per_call": res["pool_bwd_bf16"]["scratch_bytes"],
-            "train_step_device_ms": pool_step.get("backward"),
+            **step_ms("pool", "roi_device_ms_per_step", "backward"),
         },
         {
             "name": "iou_match", "route": "cuda", "source": IOU_SRC, "replaces": IOU_TPU,
@@ -2611,7 +3010,7 @@ def main():
             "proposal_site": {k: iou_p[k] for k in timing},
             "anchor_site_g64": {k: res["iou_anchor_g64"][k] for k in timing},
             "ties": {k: res["iou_ties"][k] for k in timing},
-            "train_step_device_ms": iou_step,
+            **step_ms("align", "iou_match_device_ms_per_step"),
         },
         {
             "name": "int8_matmul", "route": "cuda", "source": QUANT_SRC, "replaces": GEMM_TPU,
@@ -2643,7 +3042,8 @@ def main():
                     "flush); per_leaf_kernels_ms is the same flush as 23 dequantize_cuda calls",
         },
     ]
-    log(json.dumps({"serve": serve, "serve_pool": serve_pool, "presets": presets,
+    log(json.dumps({"graph_replays": graph_replays, "serve": serve, "serve_pool": serve_pool,
+                    "presets": presets,
                     "serve_int8": serve_int8, "train": train, "train_pool": train_pool,
                     "evaluate": evaluate, "resume": resume, "bench": bench, "card": card}))
     log(json.dumps({"kernels": kernels}))

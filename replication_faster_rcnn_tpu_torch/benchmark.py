@@ -17,8 +17,11 @@ BENCH_BREAKDOWN=0 — a per-stage "breakdown".
 Metric: VOC-shaped (600x600, synthetic tensors — dataset-independent)
 training images/sec of ``voc_resnet18`` at batch ``BENCH_BATCH`` (default
 16): ``WARMUP_STEPS`` steps, then ``BENCH_STEPS`` (default 10) timed steps
-with one synchronisation after the loop. The step keeps its own per-step
-host read (the guarded update's non-finite count). ``vs_baseline`` is the
+with one synchronisation after the loop. On the card the step is the one
+users run, captured as a CUDA graph (``train/train_step.py::
+CapturedSteps``; the first warm-up step runs eagerly and captures, the
+others replay), as the JAX bench times its jitted step; ``BENCH_CAPTURE=0``
+times the eager step instead (same line, same keys). ``vs_baseline`` is the
 ratio against the measured single-host PyTorch-CPU reference throughput in
 ``benchmarks/baseline_measured.json`` (read only).
 
@@ -39,8 +42,10 @@ datasheet peak (``telemetry/mfu.py``); ``mfu_basis`` labels the regime.
 Stage breakdown: the JAX keys, from the train step's ``stage(name)`` hooks
 timed with CUDA events over ``STAGE_STEPS`` steps (the mean); the events
 time the device timeline between the hooks, idle gaps included, so the
-stages of a host-bound step show its host time. ``opt_update_direct_ms`` is
-Adam alone on zero gradients, ``dispatch_floor_ms`` one launch and one sync.
+stages of a host-bound step show its host time (the breakdown's steps run
+eagerly: a graph has no hooks). ``opt_update_direct_ms`` is the optimizer's
+update alone (``ChainOptimizer.update`` on flat zero gradients, eager),
+``dispatch_floor_ms`` one launch and one sync.
 """
 
 from __future__ import annotations
@@ -153,16 +158,19 @@ def _capture_trace(profile_dir, run: Callable[[], Any], device: torch.device,
                    n_steps=TRACE_STEPS) -> str:
     """Short ``torch.profiler`` capture of ``n_steps`` more calls of the
     already-warm ``run`` (after ``TRACE_WARMUP_STEPS`` uncaptured ones under
-    the profiler), after the measurement. Returns "ok" or, when the capture
-    raised, the reason (the metric is kept)."""
+    the profiler), after the measurement. Each call is waited for before the
+    profiler's next step: a captured step returns long before the card has
+    run it, and without the wait an earlier step's kernels would land in a
+    later step's window. Returns "ok" or, when the capture raised, the
+    reason (the metric is kept)."""
     from replication_faster_rcnn_tpu_torch.utils.profiling import trace
 
     try:
         with trace(profile_dir, warmup_steps=TRACE_WARMUP_STEPS) as step:
             for _ in range(TRACE_WARMUP_STEPS + n_steps):
                 run()
+                _sync(device)
                 step()
-            _sync(device)
         return "ok"
     except Exception as e:
         return f"failed: {e!r}"
@@ -197,7 +205,7 @@ def _measure(config=None, profile_dir=None, device: DeviceLike = None) -> Dict[s
     global _METRIC
     _METRIC = "train_images_per_sec_{}x{}".format(*cfg.data.image_size)
     state = create_train_state(cfg, steps_per_epoch=100, device=dev, seed=0)
-    step = make_train_step(cfg)
+    step = make_train_step(cfg, capture=os.environ.get("BENCH_CAPTURE", "1") != "0")
     batch = _synthetic_batch(cfg, batch_size)
     device_batch = {k: torch.from_numpy(batch[k]).to(dev)
                     for k in ("image", "boxes", "labels", "mask")}
@@ -219,7 +227,8 @@ def _measure(config=None, profile_dir=None, device: DeviceLike = None) -> Dict[s
     if profile_dir is not None:
         trace_status = _capture_trace(profile_dir, lambda: step(state, device_batch), dev)
 
-    flops_per_step = _step_flops(step, state, device_batch)
+    # counted on an eager step: a graph replay runs no torch operator
+    flops_per_step = _step_flops(make_train_step(cfg, capture=False), state, device_batch)
     peak, mfu_basis = peak_flops_per_sec(1, dev)
     mfu = compute_mfu(flops_per_step, images_per_sec / batch_size, peak)
     if mfu is None:
@@ -436,13 +445,13 @@ def _stage_breakdown(cfg, step, state, device_batch, step_ms: float,
         _sync(device)
         return (time.perf_counter() - t0) / n * 1e3
 
-    # the optimizer update alone: Adam (the step's settings) on copies of
-    # the parameters with zero gradients
+    # the optimizer's update alone (the step's settings) on copies of the
+    # parameters, from flat zero gradients
     params = [p.detach().clone() for p in state.model.parameters()]
-    for p in params:
-        p.grad = torch.zeros_like(p)
     optimizer, _ = make_optimizer(cfg, params, steps_per_epoch=100)
-    t_upd = timed(optimizer.step)
+    flat_params = torch.cat([p.reshape(-1) for p in params])
+    zeros = torch.zeros_like(flat_params)
+    t_upd = timed(lambda: optimizer.update(zeros, flat_params, None))
     # one launch and one synchronisation: the floor under any timed call
     scalar = torch.zeros((), device=device)
     t_floor = timed(lambda: scalar.add_(1.0))

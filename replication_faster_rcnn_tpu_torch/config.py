@@ -3,9 +3,10 @@ training and evaluation paths read.
 
 Field names, defaults and presets mirror ``replication_faster_rcnn_tpu.config``
 so a reader can hold the two side by side; knobs the port does not implement
-yet (FPN, group norm, frozen BN, LAMB/LARS, warmup, K-step fusion, fleet,
-the COCO ``root_dir`` (``data/coco.py`` is not ported), caches, augmentation)
-are left out rather than accepted and ignored.
+yet (FPN, group norm, frozen BN, the mesh's optimizer fields ``backend``,
+``shard_opt_state`` and ``grad_allreduce_dtype``, fleet, the COCO
+``root_dir`` (``data/coco.py`` is not ported), caches, augmentation) are
+left out rather than accepted and ignored.
 
 Box convention: boxes are ``[r1, c1, r2, c2]`` (``r`` along image rows,
 ``c`` along columns) and deltas ``[dr, dc, dh, dw]``.
@@ -143,11 +144,16 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Optimization: Adam with L2 weight decay added to the gradient and a
-    per-epoch cosine schedule (``train/train_step.py::make_optimizer``)."""
+    """Optimization: optax's chain as the JAX package builds it (L2 weight
+    decay added to the gradient, Adam, an optional trust ratio, a per-epoch
+    cosine schedule with an optional linear warmup;
+    ``train/train_step.py::make_optimizer``)."""
 
     lr: float = 1e-4
     weight_decay: float = 5e-6
+    # "adam", or "lamb": Adam followed by the per-layer trust ratio
+    # |param| / |update| (arXiv:1904.00962)
+    optimizer: str = "adam"  # adam | lamb
     n_epoch: int = 50
     batch_size: int = 8
     smooth_l1_sigma: float = 1.0
@@ -170,6 +176,20 @@ class TrainConfig:
     async_checkpoint: bool = False
     # run the evaluator on the val split every N epochs (0 = off)
     eval_every_epochs: int = 0
+    # large-batch recipe (arXiv:1711.04325): "linear" scales the schedule's
+    # peak lr by batch_size / base_batch_size; "none" uses lr as it is
+    lr_scaling: str = "none"  # none | linear
+    base_batch_size: int = 8
+    # linear lr warmup over the first warmup_epochs (a fraction is fine) up
+    # to the peak, then the cosine schedule; 0 = off
+    warmup_epochs: float = 0.0
+    # the trust ratio |param| / |update| per leaf after Adam (LARS-style)
+    lars: bool = False
+    # dtype of Adam's first moment; the second moment stays float32
+    adam_mu_dtype: str = "float32"  # float32 | bfloat16
+    # steps trained by one dispatch (Trainer.train_chunk): on the card one
+    # replay of a CUDA graph of K steps; metrics come back stacked [K]
+    steps_per_dispatch: int = 1
 
     def __post_init__(self):
         object.__setattr__(
@@ -203,6 +223,36 @@ class TrainConfig:
             raise ValueError(
                 "max_consecutive_skips must be >= 1, got "
                 f"{self.max_consecutive_skips}"
+            )
+        if self.optimizer not in ("adam", "lamb"):
+            raise ValueError(
+                f"optimizer must be 'adam' or 'lamb', got {self.optimizer!r}"
+            )
+        if self.optimizer == "lamb" and self.lars:
+            raise ValueError(
+                "optimizer='lamb' already applies the per-layer trust "
+                "ratio after Adam; combining it with lars=True would "
+                "rescale twice — drop one"
+            )
+        if self.adam_mu_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"adam_mu_dtype must be float32|bfloat16, got {self.adam_mu_dtype!r}"
+            )
+        if self.steps_per_dispatch < 1:
+            raise ValueError(
+                f"steps_per_dispatch must be >= 1, got {self.steps_per_dispatch}"
+            )
+        if self.lr_scaling not in ("none", "linear"):
+            raise ValueError(
+                f"lr_scaling must be 'none' or 'linear', got {self.lr_scaling!r}"
+            )
+        if self.base_batch_size < 1:
+            raise ValueError(
+                f"base_batch_size must be >= 1, got {self.base_batch_size}"
+            )
+        if self.warmup_epochs < 0:
+            raise ValueError(
+                f"warmup_epochs must be >= 0, got {self.warmup_epochs}"
             )
 
 

@@ -130,6 +130,12 @@ def _split(path: str):
     return out
 
 
+def _as_float32(tree: Any) -> Any:
+    if isinstance(tree, Mapping):
+        return {k: _as_float32(v) for k, v in tree.items()}
+    return np.asarray(tree, np.float32)
+
+
 def _has(state: Any, name: str) -> bool:
     """Whether an optax state (a namedtuple) has the field: its fields only,
     since every tuple has a ``count`` method."""
@@ -140,52 +146,53 @@ def train_state_from_flax(state_np: Any, config, device: DeviceLike = None,
                           steps_per_epoch: int = 1):
     """The port's ``TrainState`` from a JAX ``TrainState`` whose leaves are
     numpy arrays (``jax.device_get`` of one, or an orbax restore into such a
-    template):
+    template), for every optimizer the JAX ``make_optimizer`` builds:
 
     * ``params`` and ``batch_stats`` through :func:`from_flax_variables`;
-    * optax's ``ScaleByAdamState`` ``mu`` / ``nu`` into each parameter's
-      ``exp_avg`` / ``exp_avg_sq``, through the parameters' layouts, and its
-      ``count`` into each parameter's ``step``;
-    * the schedule's ``count`` into ``scheduler.last_epoch``, and its lr
-      into the optimizer's ``param_groups``;
+    * optax's chain state, one entry per transform: ``add_decayed_weights``'
+      and the trust ratio's (``lars`` or ``lamb``) ``EmptyState``,
+      ``ScaleByAdamState`` ``mu`` (bfloat16 under ``adam_mu_dtype``) / ``nu``
+      / ``count`` into the optimizer's flat ``mu`` / ``nu`` (through the
+      parameters' layouts, in parameter order) and ``count``, and the
+      schedule's ``ScaleByScheduleState`` ``count``, which must equal
+      Adam's (the guarded update gates both);
     * ``step`` into ``TrainState.step``.
 
-    optax's counts and torch's ``step`` count applied updates;
-    ``TrainState.step`` counts dispatched batches, skipped ones included,
-    so the two differ after a skip. The JAX rng key has no counterpart: the
-    port's generator is seeded from ``config.train.seed``."""
-    from replication_faster_rcnn_tpu_torch.train.train_step import (
-        create_train_state,
-        host_schedule,
-    )
+    optax's counts count applied updates; ``TrainState.step`` counts
+    dispatched batches, skipped ones included, so the two differ after a
+    skip. The JAX rng key has no counterpart: the port's generator is
+    seeded from ``config.train.seed``."""
+    from replication_faster_rcnn_tpu_torch.train.train_step import create_train_state
 
+    tc = config.train
     state = create_train_state(config, steps_per_epoch, device, seed=config.train.seed)
-    model, optimizer, scheduler = state.model, state.optimizer, state.scheduler
+    model, optimizer = state.model, state.optimizer
     model.load_state_dict(from_flax_variables({
         "params": state_np.params, "batch_stats": state_np.batch_stats}))
-    adam = [s for s in state_np.opt_state if _has(s, "mu") and _has(s, "nu")]
-    sched = [s for s in state_np.opt_state if _has(s, "count") and not _has(s, "mu")]
-    if len(adam) != 1 or len(sched) != 1:
-        raise ValueError("expected optax's chain(add_decayed_weights, scale_by_adam, "
-                         "scale_by_learning_rate(schedule)) state")
-    mu = from_flax_variables({"params": adam[0].mu})
-    nu = from_flax_variables({"params": adam[0].nu})
-    count = float(np.asarray(adam[0].count))
-    sched_count = int(np.asarray(sched[0].count))
-    dev = next(model.parameters()).device
-    optim_sd = optimizer.state_dict()
-    optim_sd["state"] = {
-        i: {"step": torch.tensor(count, dtype=torch.float32),
-            "exp_avg": mu[name].to(dev), "exp_avg_sq": nu[name].to(dev)}
-        for i, (name, _) in enumerate(model.named_parameters())
-    }
-    lr = host_schedule(config, steps_per_epoch)(sched_count)
-    for group in optim_sd["param_groups"]:
-        group["lr"] = lr
-    optimizer.load_state_dict(optim_sd)
-    sched_sd = scheduler.state_dict()
-    sched_sd.update(last_epoch=sched_count, _step_count=sched_count + 1,
-                    _last_lr=[lr] * len(optim_sd["param_groups"]))
-    scheduler.load_state_dict(sched_sd)
+    chain = list(state_np.opt_state)
+    trust = int(tc.lars or tc.optimizer == "lamb")
+    adam = [s for s in chain if _has(s, "mu") and _has(s, "nu")]
+    sched = [s for s in chain if _has(s, "count") and not _has(s, "mu")]
+    empty = [s for s in chain if not getattr(s, "_fields", ())]
+    if len(chain) != 3 + trust or len(adam) != 1 or len(sched) != 1 or len(empty) != 1 + trust:
+        raise ValueError(
+            "expected optax's chain(add_decayed_weights, scale_by_adam, "
+            f"{'scale_by_trust_ratio, ' if trust else ''}scale_by_learning_rate(schedule)) "
+            f"state for this config, got {len(chain)} entries")
+    count, sched_count = int(np.asarray(adam[0].count)), int(np.asarray(sched[0].count))
+    if count != sched_count:
+        raise ValueError(f"Adam's count {count} and the schedule's {sched_count} differ; "
+                         "the port keeps one count for both")
+    names = [name for name, _ in model.named_parameters()]
+    for field, live, want in (("mu", optimizer.mu, tc.adam_mu_dtype),
+                              ("nu", optimizer.nu, "float32")):
+        tree = getattr(adam[0], field)
+        dtypes = {str(np.asarray(v).dtype) for v in _flatten(tree).values()}
+        if dtypes != {want}:
+            raise ValueError(f"optax's {field} is {sorted(dtypes)}, the config wants {want}")
+        # float32 first (torch takes no numpy bfloat16; the widening is exact)
+        leaves = from_flax_variables({"params": _as_float32(tree)})
+        live.copy_(torch.cat([leaves[n].reshape(-1) for n in names]))
+    optimizer.count.fill_(count)
     state.step = int(np.asarray(state_np.step))
     return state

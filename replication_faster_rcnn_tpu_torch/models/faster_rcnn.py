@@ -29,6 +29,7 @@ from replication_faster_rcnn_tpu_torch.models.resnet import (
 )
 from replication_faster_rcnn_tpu_torch.models.rpn import RPNHead, batched_proposals
 from replication_faster_rcnn_tpu_torch.models.vgg import VGG16_TRUNK_CHANNELS, VGG16Trunk
+from replication_faster_rcnn_tpu_torch import ops
 from replication_faster_rcnn_tpu_torch.ops import anchors as anchor_ops
 
 Tensor = torch.Tensor
@@ -70,10 +71,8 @@ class FasterRCNN(nn.Module):
     def preprocess(self, images: Tensor) -> Tensor:
         """uint8 NHWC -> normalized float32; float input passes through."""
         if images.dtype == torch.uint8:
-            mean = torch.tensor(self.config.data.pixel_mean, dtype=torch.float32,
-                                device=images.device)
-            std = torch.tensor(self.config.data.pixel_std, dtype=torch.float32,
-                               device=images.device)
+            mean = ops.constant(self.config.data.pixel_mean, torch.float32, images.device)
+            std = ops.constant(self.config.data.pixel_std, torch.float32, images.device)
             images = (images.float() / 255.0 - mean) / std
         return images
 

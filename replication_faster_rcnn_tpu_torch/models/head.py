@@ -18,6 +18,7 @@ from torch import nn
 
 from replication_faster_rcnn_tpu_torch.models.resnet import ResNetTail, tail_channels
 from replication_faster_rcnn_tpu_torch.models.vgg import VGG16_TAIL_CHANNELS, VGG16Tail
+from replication_faster_rcnn_tpu_torch import ops
 from replication_faster_rcnn_tpu_torch.ops import quant_ops, roi_ops
 
 Tensor = torch.Tensor
@@ -67,10 +68,8 @@ class DetectionHead(nn.Module):
         n, r = rois.shape[0], rois.shape[1]
         fh, fw = feat.shape[1], feat.shape[2]
         # image -> feature coordinates; the ratios are Python floats
-        scale = torch.tensor(
-            [fh / img_h, fw / img_w, fh / img_h, fw / img_w],
-            dtype=rois.dtype, device=rois.device,
-        )
+        scale = ops.constant([fh / img_h, fw / img_w, fh / img_h, fw / img_w],
+                             rois.dtype, rois.device)
         crops = roi_ops.extract_roi_features(
             feat, rois * scale, op=self.roi_op, out_size=self.roi_size,
             sampling_ratio=self.sampling_ratio, out_dtype=feat.dtype,

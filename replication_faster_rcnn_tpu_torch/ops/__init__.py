@@ -18,8 +18,14 @@ serving path enters it unless the caller asks (``reference=True``).
 from __future__ import annotations
 
 import threading
+from typing import Dict, Sequence, Tuple
+
+import torch
 
 _scope = threading.local()
+
+# (values, dtype, device) -> the tensor: built once, never freed
+_constants: Dict[Tuple, torch.Tensor] = {}
 
 
 class reference_scope:
@@ -45,3 +51,15 @@ class reference_scope:
 def reference_requested() -> bool:
     """True inside a :class:`reference_scope` on this thread."""
     return getattr(_scope, "depth", 0) > 0
+
+
+def constant(values: Sequence[float], dtype: torch.dtype, device) -> torch.Tensor:
+    """A cached tensor of ``values`` on ``device``. Built by the first call
+    (a host-to-device copy, which waits for the card), then reused, so a
+    step that reads it makes no copy and no synchronisation, and a CUDA
+    graph captured after that first call may read it."""
+    key = (tuple(float(v) for v in values), dtype, torch.device(device))
+    out = _constants.get(key)
+    if out is None:
+        out = _constants[key] = torch.tensor(key[0], dtype=dtype, device=key[2])
+    return out

@@ -9,7 +9,7 @@ which the kernel matches bit for bit.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -25,6 +25,9 @@ _fn = None
 # per (device, stream): the column argmax's keys and ticket counters, zero
 # between launches
 _states: Dict[Tuple[int, int], Tensor] = {}
+# states outgrown by a larger call: kept, since a CUDA graph captured with
+# one still launches the kernel on it
+_outgrown: List[Tensor] = []
 
 
 def _kernel():
@@ -49,11 +52,23 @@ def _column_state(dev: torch.device, stream: int, batch: int, g: int) -> Tensor:
     """The column argmax's state for launches on ``stream``: ``batch * g``
     64-bit keys, then ``batch`` 32-bit ticket counters. Zeroed once here;
     every launch leaves it 0 again (the last block of each image swaps its
-    keys for 0 and resets its counter), so a call makes no memset."""
+    keys for 0 and resets its counter), so a call makes no memset.
+
+    Under CUDA graph capture the state must already exist: a capture runs
+    its warm-up calls eagerly on the capturing stream first, so the state is
+    allocated (and zeroed) outside the graph, and each replay leaves it 0
+    as an eager launch does."""
     key = (dev.index, stream)
     need = batch * g + (batch + 1) // 2
     state = _states.get(key)
     if state is None or state.numel() < need:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "the IoU-matching kernel's column state for this stream is missing or too "
+                "small under CUDA graph capture: run the call once on the capturing stream "
+                "before capturing it")
+        if state is not None:
+            _outgrown.append(state)
         state = torch.zeros(max(need, 1024), dtype=torch.int64, device=dev)
         _states[key] = state
     return state

@@ -37,7 +37,7 @@ Tensor = torch.Tensor
 def _true_div(x: Tensor, d: float) -> Tensor:
     """``x / d`` as an IEEE division on every device (on CUDA, PyTorch
     turns division by a Python scalar into a multiply by its reciprocal)."""
-    return x / torch.tensor(float(d), dtype=x.dtype, device=x.device)
+    return x / torch.full((), float(d), dtype=x.dtype, device=x.device)
 
 
 def _reciprocal(n: int) -> Tensor:

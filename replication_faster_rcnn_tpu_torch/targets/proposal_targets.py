@@ -22,6 +22,7 @@ from typing import Tuple
 
 import torch
 
+from replication_faster_rcnn_tpu_torch import ops
 from replication_faster_rcnn_tpu_torch.config import ROITargetConfig
 from replication_faster_rcnn_tpu_torch.ops import boxes as box_ops
 from replication_faster_rcnn_tpu_torch.ops.iou_match import match_boxes_auto
@@ -81,8 +82,8 @@ def batched_proposal_targets(
     assign = torch.gather(assignment, 1, idx)
     matched_gt = torch.gather(gt_boxes, 1, assign[..., None].expand(-1, -1, 4))
     reg = box_ops.encode(sample_rois, matched_gt)
-    mean = torch.tensor(cfg.reg_mean, dtype=torch.float32, device=reg.device)
-    std = torch.tensor(cfg.reg_std, dtype=torch.float32, device=reg.device)
+    mean = ops.constant(cfg.reg_mean, torch.float32, reg.device)
+    std = ops.constant(cfg.reg_std, torch.float32, reg.device)
     reg = torch.where(slot_pos[..., None], (reg - mean) / std, 0.0)
 
     gt_cls = torch.gather(gt_labels.long(), 1, assign)

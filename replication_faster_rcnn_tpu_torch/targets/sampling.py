@@ -31,7 +31,8 @@ def _subset_by_score(
     or [B] ints."""
     s = torch.where(member, score, score.new_full((), float("-inf")))
     n_member = member.sum(dim=-1)
-    kk = torch.minimum(torch.as_tensor(k, device=member.device), n_member)
+    # a Python k stays a scalar operand: no host-to-device copy
+    kk = torch.minimum(k, n_member) if isinstance(k, Tensor) else torch.clamp(n_member, max=k)
     if k_max is not None:
         if not isinstance(k, Tensor) and int(k) > k_max:
             raise ValueError(f"k={int(k)} exceeds the static bound k_max={k_max}")

@@ -5,7 +5,9 @@ of the JAX package's ``telemetry/health.py``).
 * ``update_norm`` / ``update_ratio`` — the optimizer's step and its size
   relative to the parameters;
 * ``nonfinite_count`` — NaN/Inf entries across the gradients, which gates
-  the update (``train/fault.py::guarded_update``).
+  the update.
+
+``train/fault.py::guarded_update`` assembles them from these functions.
 
 Values are 0-dim tensors on the parameters' device; nothing here
 synchronises with the host. Each scalar flattens its tensors into one
@@ -15,15 +17,19 @@ count.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable
+from typing import Iterable
 
 import torch
 
 Tensor = torch.Tensor
 
 def flat(tensors: Iterable[Tensor]) -> Tensor:
-    """All entries of the floating-point ``tensors`` as one float32 vector."""
-    return torch.cat([t.reshape(-1).float() for t in tensors if t.is_floating_point()])
+    """All entries of the floating-point ``tensors`` as one float32 vector
+    (a lone float32 vector is returned as it is, not copied)."""
+    tensors = [t for t in tensors if t.is_floating_point()]
+    if len(tensors) == 1 and tensors[0].dim() == 1 and tensors[0].dtype == torch.float32:
+        return tensors[0]
+    return torch.cat([t.reshape(-1).float() for t in tensors])
 
 
 def global_norm(tensors: Iterable[Tensor]) -> Tensor:
@@ -36,18 +42,3 @@ def global_norm(tensors: Iterable[Tensor]) -> Tensor:
 def nonfinite_count(tensors: Iterable[Tensor]) -> Tensor:
     """Total NaN/Inf entries across ``tensors`` (an int64 0-dim tensor)."""
     return torch.sum(~torch.isfinite(flat(tensors)))
-
-
-def health_metrics(grads, params, updates) -> Dict[str, Tensor]:
-    """The health scalars from lists of gradient, parameter and update
-    tensors (the update being what the optimizer added to each parameter)."""
-    grads, params, updates = list(grads), list(params), list(updates)
-    param_norm = global_norm(params)
-    update_norm = global_norm(updates)
-    return {
-        "grad_norm": global_norm(grads),
-        "param_norm": param_norm,
-        "update_norm": update_norm,
-        "update_ratio": update_norm / (param_norm + 1e-12),
-        "nonfinite_count": nonfinite_count(grads),
-    }

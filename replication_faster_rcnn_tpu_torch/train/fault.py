@@ -25,9 +25,9 @@ fallback walk does not treat as torn, so nothing of it is deleted.
 Policies of the guarded update (``train.nonfinite_policy``):
 
 * ``skip`` — a gradient with any NaN/Inf withholds the whole update: the
-  parameters, the Adam state, the schedule's position and the BatchNorm
-  running statistics stay bit-identical, and the metrics carry
-  ``skipped = 1``;
+  parameters, the optimizer's moments and count (the schedule's position)
+  and the BatchNorm running statistics stay bit-identical, and the metrics
+  carry ``skipped = 1`` (a device scalar: the gate never reads the host);
 * ``halt`` — gates the same way; the skip monitor then raises
   :class:`NonFiniteEscalation`;
 * ``apply`` — applies every update.
@@ -55,7 +55,6 @@ from replication_faster_rcnn_tpu_torch.telemetry import spans as tspans
 from replication_faster_rcnn_tpu_torch.telemetry.health import (
     flat,
     global_norm,
-    health_metrics,
     nonfinite_count,
 )
 
@@ -98,46 +97,57 @@ class ForeignCheckpointError(ValueError):
 
 
 def guarded_update(
-    optimizer: torch.optim.Optimizer,
-    scheduler,
+    optimizer,
     params: Sequence[torch.nn.Parameter],
     new_stats: PendingStats,
     policy: str = "skip",
 ) -> Dict[str, Tensor]:
-    """Step ``optimizer`` and ``scheduler`` and commit ``new_stats`` unless
-    the gradients of ``params`` hold a NaN/Inf and the policy withholds the
-    update. Returns the health scalars plus ``skipped``.
+    """One step of ``optimizer`` (``train_step.ChainOptimizer``) from the
+    gradients of ``params``, and the new BatchNorm statistics, gated on the
+    gradients' finiteness. Returns the health scalars plus ``skipped``.
 
-    Under ``skip``/``halt`` the gate reads the non-finite count on the
-    host (one synchronisation per step). A withheld step reports
-    ``update_norm`` and ``update_ratio`` as NaN: Adam's update of a
-    non-finite gradient is NaN, which is what the JAX package reports."""
+    Under ``skip``/``halt`` the gate is a device predicate, ``ok =
+    nonfinite_count == 0``, feeding selects: the parameters, the optimizer's
+    moments and count and the BatchNorm running statistics each take the new
+    value where ``ok`` and keep the old one bitwise otherwise, and
+    ``skipped = 1 - ok``. Nothing is read on the host, so the step can be
+    captured in a CUDA graph. A withheld step reports ``update_norm`` and
+    ``update_ratio`` as NaN (the JAX package's Adam update of a non-finite
+    gradient). Under ``apply`` every update is committed."""
     if policy not in NONFINITE_POLICIES:
         raise ValueError(f"nonfinite_policy must be one of {NONFINITE_POLICIES}, got {policy!r}")
     with torch.no_grad():
         # one flat float32 copy each: a few launches for any parameter count
         grads = flat([p.grad if p.grad is not None else torch.zeros_like(p) for p in params])
-        params = [p.detach() for p in params]  # views: they see the optimizer's update
-        old = flat(params)
-        ok = policy == "apply" or int(nonfinite_count([grads])) == 0
-        if ok:
-            optimizer.step()
-            scheduler.step()
-            for module, (mean, var) in new_stats:
-                module.running_mean.copy_(mean)
-                module.running_var.copy_(var)
-            health = health_metrics([grads], [old], [flat(params) - old])
-            health["skipped"] = torch.zeros((), device=old.device)
+        old = flat([p.detach() for p in params])
+        bad = nonfinite_count([grads])
+        ok = None if policy == "apply" else bad == 0
+        param_norm = global_norm([old])  # before the update writes the parameters
+        delta = optimizer.update(grads, old, ok)
+        if new_stats:
+            live = [buf for m, _ in new_stats for buf in (m.running_mean, m.running_var)]
+            new = [t for _, pair in new_stats for t in pair]
+            if ok is not None:
+                kept = torch.where(ok, flat(new), flat(live))
+                new = [v.view(b.shape) for v, b in zip(kept.split([b.numel() for b in live]),
+                                                       live)]
+            torch._foreach_copy_(live, new)
+        update_norm = global_norm([delta])
+        update_ratio = update_norm / (param_norm + 1e-12)
+        if ok is None:
+            skipped = torch.zeros((), device=old.device)
         else:
-            nan = torch.tensor(float("nan"), device=old.device)
-            health = {
-                "grad_norm": global_norm([grads]),
-                "param_norm": global_norm([old]),
-                "update_norm": nan,
-                "update_ratio": nan,
-                "nonfinite_count": nonfinite_count([grads]),
-                "skipped": torch.ones((), device=old.device),
-            }
+            update_norm = torch.where(ok, update_norm, float("nan"))
+            update_ratio = torch.where(ok, update_ratio, float("nan"))
+            skipped = 1.0 - ok.float()
+        health = {
+            "grad_norm": global_norm([grads]),
+            "param_norm": param_norm,
+            "update_norm": update_norm,
+            "update_ratio": update_ratio,
+            "nonfinite_count": bad,
+            "skipped": skipped,
+        }
     for module, _ in new_stats:
         module.pending_stats = None
     return health
@@ -171,9 +181,12 @@ def check_step_metrics(metrics: Dict[str, Any], step: int) -> Dict[str, float]:
 class SkipMonitor:
     """Consecutive-skip escalation from the per-step ``skipped`` flags.
 
-    The trainer feeds every step's flag to :meth:`observe`; flags are
-    checked in :meth:`drain`, which the trainer calls at log boundaries and
-    epoch ends. Under ``policy='halt'`` observe drains at once.
+    The trainer feeds every dispatch's flag to :meth:`observe` (a device
+    scalar, or a stacked ``[K]`` tensor from a chunk) without a host read;
+    :meth:`drain` fetches the pending flags, and the trainer calls it where
+    it already syncs (log boundaries, epoch ends). Under ``policy='halt'``
+    observe drains at once: promptness over pipelining is that policy's
+    point.
 
     Escalation (``consecutive >= max_consecutive``, or any skip under
     ``halt``) calls ``on_escalate(kind, **fields)`` (the trainer records
@@ -217,9 +230,9 @@ class SkipMonitor:
         :class:`NonFiniteEscalation` past the budget."""
         pending, self._pending = self._pending, []
         for first, flags in pending:
-            # the JAX monitor fetches device flags here; the port's step has
-            # already turned them into floats, so the span is the host read
             with tspans.current_tracer().span("fault/skip_drain", cat="sync"):
+                if isinstance(flags, torch.Tensor):
+                    flags = flags.detach().cpu()
                 arr = np.atleast_1d(np.asarray(flags, np.float64))
             for off, flag in enumerate(arr):
                 if flag > 0:

@@ -14,11 +14,23 @@ unless the caller injects them. The parity tests inject the JAX step's own
 draws; ``chip_smoke.py`` replays one step's draws under
 ``ops.reference_scope()``.
 
-The optimizer is ``torch.optim.Adam`` with ``weight_decay`` (L2 added to
-the gradient, as optax's ``add_decayed_weights`` before ``scale_by_adam``)
-and a ``LambdaLR`` per-epoch cosine schedule, stepped only on applied
-updates (the optax schedule's count lives in its state, which a withheld
-step keeps).
+The optimizer is optax's chain as the JAX package builds it
+(:func:`make_optimizer`), computed with plain tensor operations on flat
+float32 vectors: ``add_decayed_weights`` -> ``scale_by_adam`` -> the trust
+ratio (``train.lars`` or ``train.optimizer="lamb"``) ->
+``scale_by_learning_rate(schedule(count))``. Its state is optax's: Adam's
+``mu`` (in ``train.adam_mu_dtype``) and ``nu`` (float32) and one int32
+``count`` of applied updates on the parameters' device, from which the
+learning rate is computed on the device too. The guarded update
+(``train/fault.py::guarded_update``) commits or keeps each of them with a
+select on a device predicate, so a step never waits for the host.
+
+On a CUDA device :func:`make_train_step` captures the step as a CUDA graph
+(:class:`CapturedSteps`), the counterpart of ``jax.jit`` (and, for K steps
+per dispatch, of ``build_multi_step``): the first call of a new batch shape
+runs real steps eagerly on a side stream, captures the same steps, and every
+later call replays the graph. On the CPU, or when ``draws``, ``record`` or
+``stage`` is passed, the step runs eagerly.
 """
 
 from __future__ import annotations
@@ -30,7 +42,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from replication_faster_rcnn_tpu_torch.config import FasterRCNNConfig, TrainConfig
+from replication_faster_rcnn_tpu_torch.config import FasterRCNNConfig
 from replication_faster_rcnn_tpu_torch.device import DeviceLike, resolve_device
 from replication_faster_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN, build_model
 from replication_faster_rcnn_tpu_torch.models.head import select_class_deltas
@@ -57,42 +69,188 @@ def _no_stage(name: str) -> contextlib.AbstractContextManager:
     return contextlib.nullcontext()
 
 
+# optax.scale_by_adam's defaults
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+_INT32_MAX = 2**31 - 1
+
+
 @dataclasses.dataclass
 class TrainState:
     """What a step carries: the model (parameters + BatchNorm statistics),
-    the optimizer and schedule, the sampling generator and the step count."""
+    the optimizer (its state holds the schedule's count), the sampling
+    generator and the step count (dispatched batches, skipped ones
+    included). ``graphs`` holds the CUDA graphs captured from this state's
+    tensors, by batch signature and steps per dispatch."""
 
     model: FasterRCNN
-    optimizer: torch.optim.Optimizer
-    scheduler: torch.optim.lr_scheduler.LambdaLR
+    optimizer: "ChainOptimizer"
     generator: torch.Generator
     step: int = 0
+    graphs: Dict[tuple, "CapturedSteps"] = dataclasses.field(default_factory=dict, repr=False)
 
 
-def _cosine_factor(tc: TrainConfig, steps_per_epoch: int) -> Callable[[int], float]:
-    def factor(step: int) -> float:
-        epoch = min(int(step) // max(steps_per_epoch, 1), tc.n_epoch)
-        return 0.5 * (1.0 + math.cos(math.pi * epoch / tc.n_epoch))
+def _schedule_knobs(config: FasterRCNNConfig, steps_per_epoch: int) -> Tuple[float, int]:
+    """(peak lr, warmup steps), shared by the device and host schedules:
+    under ``lr_scaling="linear"`` the peak scales by ``batch_size /
+    base_batch_size`` (arXiv:1711.04325), and ``warmup_epochs`` ramps the lr
+    linearly to that peak before the cosine takes over."""
+    tc = config.train
+    scale = tc.batch_size / tc.base_batch_size if tc.lr_scaling == "linear" else 1.0
+    warmup_steps = int(round(tc.warmup_epochs * max(steps_per_epoch, 1)))
+    return tc.lr * scale, warmup_steps
 
-    return factor
+
+def _leaf_norms(x: Tensor, sizes) -> Tensor:
+    """The L2 norm of each leaf of a flat vector ([L] float32)."""
+    return torch.stack([torch.sum(torch.square(v)) for v in x.split(sizes)]).sqrt()
+
+
+class ChainOptimizer:
+    """optax's ``chain(add_decayed_weights(wd), scale_by_adam(mu_dtype),
+    [scale_by_trust_ratio], scale_by_learning_rate(schedule))`` over a list
+    of float32 parameters, on their device.
+
+    State (optax's): ``mu`` [P] in ``adam_mu_dtype`` and ``nu`` [P] float32,
+    the parameters' moments laid end to end in parameter order, and
+    ``count`` (int32, 0-dim) — the updates applied, which both Adam's bias
+    correction and the schedule read. :meth:`update` computes one step from
+    flat gradients and parameters and commits it, or keeps every tensor as
+    it was where a device predicate says so, without a host read.
+    ``state_dict`` / ``load_state_dict`` give and take that state (copied in
+    place, so a captured CUDA graph stays valid)."""
+
+    def __init__(self, params, config: FasterRCNNConfig, steps_per_epoch: int):
+        tc = config.train
+        self.params = [p for p in params]
+        if not self.params:
+            raise ValueError("the optimizer got no parameters")
+        dev = self.params[0].device
+        self.sizes = [p.numel() for p in self.params]
+        n = sum(self.sizes)
+        self.weight_decay = tc.weight_decay
+        # lars and lamb apply the same trust ratio after Adam; the config
+        # refuses both at once
+        self.trust_ratio = tc.lars or tc.optimizer == "lamb"
+        self.mu_dtype = getattr(torch, tc.adam_mu_dtype)
+        self.mu = torch.zeros(n, dtype=self.mu_dtype, device=dev)
+        # JAX multiplies a bfloat16 mu by b1 rounded to bfloat16 (a Python
+        # scalar takes the array's dtype); exact for float32
+        self._b1_mu = float(torch.tensor(ADAM_B1, dtype=self.mu_dtype))
+        self.nu = torch.zeros(n, dtype=torch.float32, device=dev)
+        self.count = torch.zeros((), dtype=torch.int32, device=dev)
+        self.peak, self.warmup_steps = _schedule_knobs(config, steps_per_epoch)
+        self.steps_per_epoch = max(int(steps_per_epoch), 1)
+        self.n_epoch = tc.n_epoch
+        # the leaf sizes on the device, for the trust ratio's expansion
+        self._sizes = torch.tensor(self.sizes, dtype=torch.int64, device=dev)
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    def leaves(self, flat: Tensor):
+        """Views of a flat [P] vector shaped like the parameters."""
+        return [v.view(p.shape) for v, p in zip(flat.split(self.sizes), self.params)]
+
+    def lr(self, count: Optional[Tensor] = None) -> Tensor:
+        """The schedule at ``count`` (default: the state's), a float32 0-dim
+        tensor on the device: ``peak * 0.5 * (1 + cos(pi * epoch /
+        n_epoch))``, epoch = min(count // steps_per_epoch, n_epoch), and
+        ``peak * (count + 1) / warmup_steps`` during the warmup."""
+        count = self.count if count is None else count
+        epoch = torch.clamp(torch.div(count, self.steps_per_epoch, rounding_mode="floor"),
+                            max=self.n_epoch)
+        lr = (self.peak * 0.5) * (1.0 + torch.cos(math.pi * epoch.float() / self.n_epoch))
+        if self.warmup_steps > 0:
+            warm = self.peak * (count.float() + 1.0) / self.warmup_steps
+            lr = torch.where(count < self.warmup_steps, warm, lr)
+        return lr
+
+    def update(self, grads: Tensor, params: Tensor, ok: Optional[Tensor]) -> Tensor:
+        """One step from flat float32 ``grads`` and ``params`` [P]. Commits
+        the new parameters, moments and count where ``ok`` (a 0-dim bool
+        tensor; None commits unconditionally) and keeps the old values
+        bitwise otherwise. Returns the chain's update [P] (what it adds to
+        the parameters)."""
+        b1, b2 = ADAM_B1, ADAM_B2
+        u = grads + self.weight_decay * params
+        # optax's formulas; a bfloat16 mu enters as b1 * mu rounded to bfloat16
+        mu = (1 - b1) * u + self._b1_mu * self.mu
+        nu = (1 - b2) * (u * u) + b2 * self.nu
+        count = self.count + (self.count < _INT32_MAX).to(torch.int32)
+        t = count.float()
+        mu_hat = mu / (1 - torch.pow(b1, t))
+        nu_hat = nu / (1 - torch.pow(b2, t))
+        u = mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)
+        if self.trust_ratio:
+            pn, un = _leaf_norms(params, self.sizes), _leaf_norms(u, self.sizes)
+            ratio = torch.where((pn == 0) | (un == 0), 1.0, pn / un)
+            u = u * ratio.repeat_interleave(self._sizes, output_size=u.numel())
+        delta = -self.lr() * u
+        new_params = params + delta
+        mu = mu.to(self.mu_dtype)
+        if ok is None:
+            self.mu.copy_(mu)
+            self.nu.copy_(nu)
+            self.count.copy_(count)
+        else:
+            # a select, not masking: the untaken side's NaN never propagates
+            torch.where(ok, mu, self.mu, out=self.mu)
+            torch.where(ok, nu, self.nu, out=self.nu)
+            torch.where(ok, count, self.count, out=self.count)
+            new_params = torch.where(ok, new_params, params)
+        live = [p.detach() for p in self.params]
+        torch._foreach_copy_(live, self.leaves(new_params))
+        return delta
+
+    def state_dict(self) -> Dict[str, Tensor]:
+        return {"mu": self.mu, "nu": self.nu, "count": self.count}
+
+    def load_state_dict(self, state: Dict[str, Tensor]) -> None:
+        """Copy ``state`` in place. A checkpoint of another layout (the
+        ``torch.optim.Adam`` + ``LambdaLR`` state of earlier versions:
+        ``state`` / ``param_groups``) is refused."""
+        if set(state) != {"mu", "nu", "count"}:
+            raise ValueError(
+                f"optimizer state with keys {sorted(state)} is not this optimizer's layout "
+                "(mu, nu, count: optax's chain): checkpoints of the earlier torch.optim.Adam "
+                "+ LambdaLR layout (exp_avg, exp_avg_sq, step, scheduler) do not restore; "
+                "start from the weights instead")
+        for name in ("mu", "nu", "count"):
+            live, new = getattr(self, name), state[name]
+            if new.shape != live.shape or new.dtype != live.dtype:
+                raise ValueError(
+                    f"optimizer state {name!r}: {new.dtype} {tuple(new.shape)} does not fit "
+                    f"{live.dtype} {tuple(live.shape)} (another model, or adam_mu_dtype changed)")
+            live.copy_(new)
 
 
 def make_optimizer(
     config: FasterRCNNConfig, params, steps_per_epoch: int
-) -> Tuple[torch.optim.Adam, torch.optim.lr_scheduler.LambdaLR]:
-    """Adam(lr, weight_decay) with a per-epoch cosine schedule: the lr at
-    applied step k is ``lr * 0.5 * (1 + cos(pi * epoch / n_epoch))``,
-    epoch = min(k // steps_per_epoch, n_epoch)."""
-    tc = config.train
-    optimizer = torch.optim.Adam(params, lr=tc.lr, weight_decay=tc.weight_decay)
-    scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, _cosine_factor(tc, steps_per_epoch))
-    return optimizer, scheduler
+) -> Tuple[ChainOptimizer, Callable[[Tensor], Tensor]]:
+    """(the optimizer, its schedule count -> lr on the device), as the JAX
+    ``make_optimizer`` returns (tx, schedule): Adam with L2 weight decay
+    added to the gradient (torch Adam's ``weight_decay``, not AdamW), a
+    per-epoch cosine, the optional warmup, lr scaling and trust ratio."""
+    optimizer = ChainOptimizer(params, config, steps_per_epoch)
+    return optimizer, optimizer.lr
 
 
 def host_schedule(config: FasterRCNNConfig, steps_per_epoch: int) -> Callable[[int], float]:
-    """The schedule's lr at a step, in plain Python (for log rows)."""
-    factor = _cosine_factor(config.train, steps_per_epoch)
-    return lambda step: float(config.train.lr * factor(step))
+    """The schedule's lr at a step, in plain Python (for log rows): the same
+    formula as :meth:`ChainOptimizer.lr` (cosine, linear warmup, lr
+    scaling), in double precision."""
+    tc = config.train
+    peak, warmup_steps = _schedule_knobs(config, steps_per_epoch)
+
+    def schedule(step: int) -> float:
+        epoch = min(int(step) // max(steps_per_epoch, 1), tc.n_epoch)
+        lr = peak * 0.5 * (1.0 + math.cos(math.pi * epoch / tc.n_epoch))
+        if warmup_steps > 0 and int(step) < warmup_steps:
+            lr = peak * (int(step) + 1.0) / warmup_steps
+        return float(lr)
+
+    return schedule
 
 
 def create_train_state(
@@ -101,13 +259,13 @@ def create_train_state(
     device: DeviceLike = None,
     seed: int = 0,
 ) -> TrainState:
-    """A seeded model in training mode with its optimizer, schedule and a
-    device generator seeded from ``seed``."""
+    """A seeded model in training mode with its optimizer and a device
+    generator seeded from ``seed``."""
     dev = resolve_device(device)
     model = build_model(config, device=dev, seed=seed).train()
-    optimizer, scheduler = make_optimizer(config, model.parameters(), steps_per_epoch)
+    optimizer, _ = make_optimizer(config, model.parameters(), steps_per_epoch)
     generator = torch.Generator(device=dev).manual_seed(seed)
-    return TrainState(model, optimizer, scheduler, generator)
+    return TrainState(model, optimizer, generator)
 
 
 def pending_batch_stats(model: torch.nn.Module) -> fault.PendingStats:
@@ -198,9 +356,134 @@ def compute_losses(
     return total, (metrics, pending_batch_stats(model))
 
 
-def make_train_step(config: FasterRCNNConfig):
+# the step's metrics, in the order of the stacked vector a step returns
+METRIC_NAMES = (
+    "loss", "rpn_cls_loss", "rpn_reg_loss", "head_cls_loss", "head_reg_loss",
+    "n_pos_rpn", "n_pos_head", "grad_norm", "param_norm", "update_norm", "update_ratio",
+    "nonfinite_count", "skipped",
+)
+BATCH_KEYS = ("image", "boxes", "labels", "mask")
+
+
+def unstack_metrics(stacked: Tensor) -> Dict[str, Tensor]:
+    """A step's stacked metrics ([M], or [K, M] for K steps) as a dict of
+    float32 views ([] or [K]) by :data:`METRIC_NAMES`."""
+    return {k: stacked[..., i] for i, k in enumerate(METRIC_NAMES)}
+
+
+class CapturedSteps:
+    """K training steps of one batch signature as one CUDA graph.
+
+    The first call runs its K steps eagerly on the graph's own side stream
+    (real steps: they train and draw from the generator), then captures the
+    same K steps on that stream — a capture only records, so it trains
+    nothing and draws nothing — and every later call copies its batches
+    into the graph's static inputs and replays it. The state's generator is
+    registered with the graph, so each replay draws fresh uniforms from its
+    current Philox offset and advances it as the eager steps would; the
+    parameters, optimizer state and BatchNorm statistics are the state's
+    own tensors, updated in place. ``share`` is another graph of the same
+    state, whose side stream and memory pool this one captures on and into:
+    the graphs of one state replay one at a time on the caller's stream, so
+    they hold one pool rather than one each (the allocator reuses a pool's
+    blocks only on the stream that freed them).
+
+    The kernel wrappers count a launch when Python calls them: the capture's
+    calls count once, and a replay, which calls no Python, counts nothing.
+
+    A capture that fails raises; nothing falls back to eager steps. One
+    that fails so: a loss the caller still holds from an eager backward on
+    another stream keeps the parameters' gradient accumulators, made on
+    that stream, alive, and the capture's backward may not wait on it."""
+
+    def __init__(self, run: Callable, k: int, device: torch.device,
+                 share: Optional["CapturedSteps"] = None):
+        self.run, self.k, self.device = run, k, device
+        self.stream = torch.cuda.Stream(device) if share is None else share.stream
+        self.pool = None if share is None else share.graph.pool()
+        self.graph = None
+        self.static_in = None
+        self.static_out = None
+
+    def __call__(self, state: TrainState, batches) -> Tensor:
+        if self.graph is None:
+            out = self._warm_up(state, batches)
+            self._capture(state, batches)
+            return out
+        for static, batch in zip(self.static_in, batches):
+            for key in BATCH_KEYS:
+                static[key].copy_(batch[key])
+        state.model.train()  # what the step's Python does; the graph trains either way
+        self.graph.replay()
+        # a copy: the next replay overwrites the static output
+        return self.static_out.clone()
+
+    def _warm_up(self, state, batches) -> Tensor:
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            out = torch.stack([self.run(state, b) for b in batches])
+        current.wait_stream(self.stream)
+        return out
+
+    def _capture(self, state, batches) -> None:
+        self.static_in = [{key: b[key].clone() for key in BATCH_KEYS} for b in batches]
+        graph = torch.cuda.CUDAGraph()
+        if not hasattr(graph, "register_generator_state"):
+            raise RuntimeError(
+                f"torch {torch.__version__} cannot register a generator with a CUDA graph "
+                "(CUDAGraph.register_generator_state): the captured step would repeat one "
+                "Philox offset on every replay")
+        graph.register_generator_state(state.generator)
+        state.optimizer.zero_grad()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                self.static_out = torch.stack([self.run(state, b) for b in self.static_in])
+        except Exception as e:
+            raise RuntimeError(f"capturing {self.k} train step(s) as a CUDA graph failed: "
+                               f"{type(e).__name__}: {e}") from e
+        self.graph = graph
+
+
+def make_train_step(config: FasterRCNNConfig, capture: bool = True):
     """(state, batch, draws=None, record=None, stage=...) -> metrics: one
-    optimizer step, gated by ``train.nonfinite_policy``."""
+    optimizer step, gated by ``train.nonfinite_policy``. The metrics are
+    0-dim float32 device tensors (views of one stacked vector,
+    :data:`METRIC_NAMES`); nothing is read on the host.
+
+    With ``capture`` a CUDA batch runs through a CUDA graph
+    (:class:`CapturedSteps`) kept in ``state.graphs``; a CPU batch, and
+    ``draws``, ``record`` and ``stage``, always run eagerly. The returned
+    function's ``chunk(state, batches)`` trains ``len(batches)`` steps in
+    one dispatch (one replay of a K-step graph on the card) and returns
+    [K] metrics."""
+    policy = config.train.nonfinite_policy
+
+    def run(state, batch, draws=None, record=None, stage=_no_stage) -> Tensor:
+        model = state.model.train()
+        state.optimizer.zero_grad()
+        total, (metrics, new_stats) = compute_losses(
+            model, config, batch, state.generator, draws, record, stage
+        )
+        with stage("backward"):
+            total.backward()
+        with stage("optimizer"):
+            health = fault.guarded_update(
+                state.optimizer, list(model.parameters()), new_stats, policy)
+        metrics.update(health)
+        return torch.stack([metrics[k].float() for k in METRIC_NAMES])
+
+    def dispatch(state, batches) -> Tensor:
+        image = batches[0]["image"]
+        if not (capture and image.is_cuda):
+            return torch.stack([run(state, b) for b in batches])
+        sig = tuple((k, b[k].dtype, tuple(b[k].shape)) for b in batches for k in BATCH_KEYS)
+        key = (config, len(batches), sig)
+        graph = state.graphs.get(key)
+        if graph is None:
+            share = next((g for g in state.graphs.values() if g.graph is not None), None)
+            graph = state.graphs[key] = CapturedSteps(run, len(batches), image.device, share)
+        return graph(state, batches)
 
     def train_step(
         state: TrainState,
@@ -209,20 +492,17 @@ def make_train_step(config: FasterRCNNConfig):
         record: Optional[dict] = None,
         stage: StageFn = _no_stage,
     ) -> Dict[str, Tensor]:
-        model = state.model.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        total, (metrics, new_stats) = compute_losses(
-            model, config, batch, state.generator, draws, record, stage
-        )
-        with stage("backward"):
-            total.backward()
-        with stage("optimizer"):
-            health = fault.guarded_update(
-                state.optimizer, state.scheduler, list(model.parameters()), new_stats,
-                config.train.nonfinite_policy,
-            )
+        if draws is None and record is None and stage is _no_stage:
+            out = dispatch(state, [batch])[0]
+        else:
+            out = run(state, batch, draws, record, stage)
         state.step += 1
-        metrics.update(health)
-        return metrics
+        return unstack_metrics(out)
 
+    def chunk(state: TrainState, batches) -> Dict[str, Tensor]:
+        out = dispatch(state, list(batches))
+        state.step += len(batches)
+        return unstack_metrics(out)
+
+    train_step.chunk = chunk
     return train_step

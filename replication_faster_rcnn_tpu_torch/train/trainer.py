@@ -19,21 +19,29 @@ fault incidents, ``progress.json`` with the last heartbeat);
 ``telemetry/report.py`` summarises the directory. The spans carry the JAX
 trainer's names: ``step/dispatch``, ``data/fetch``, ``data/device_put``,
 ``step/sync``, ``checkpoint/{save,snapshot,manifest,restore}``,
-``state/host_fetch`` and ``eval/evaluate``. Here ``step/sync`` comes every
-step, where the JAX trainer syncs only at log boundaries: the port's step
-turns its metrics into floats every step. Telemetry reads the clock and
-writes files; it never touches the state, so a run with it is bitwise the
-run without.
+``state/host_fetch`` and ``eval/evaluate``. As in the JAX trainer, a step
+returns device metrics and the host reads them only at a log boundary
+(``step/sync``), at an epoch's end (``step/sync`` with ``boundary="epoch"``)
+and where the skip monitor drains (``fault/skip_drain``). Telemetry reads
+the clock and writes files; it never touches the state, so a run with it is
+bitwise the run without.
+
+On the card every step is a replay of a CUDA graph
+(``train_step.CapturedSteps``), and with ``train.steps_per_dispatch`` = K
+one replay trains K steps (:meth:`Trainer.train_chunk`); an epoch's tail of
+fewer than K batches goes through the one-step graph.
 
 A checkpoint holds the whole state a step reads: the parameters and
-BatchNorm statistics (``model.state_dict()``), Adam's moments and
-per-parameter step (``optimizer.state_dict()``), the schedule's position
-and lr (``scheduler.state_dict()``), the sampling generator's state and
-the step count. A resumed run therefore repeats the uninterrupted run's
-steps bit for bit.
+BatchNorm statistics (``model.state_dict()``), the optimizer's moments and
+count (``optimizer.state_dict()``: ``mu``, ``nu``, ``count``; the count
+is the schedule's position), the sampling generator's state and the step
+count. A resumed run therefore repeats the uninterrupted run's steps bit
+for bit. A checkpoint of the earlier ``torch.optim.Adam`` + ``LambdaLR``
+layout is refused with a message that says so.
 
-Not ported yet: the mesh and data parallelism, device prefetch,
-augmentation, K-step fusion, resolution buckets, fault injection and the
+Not ported yet: the mesh and data parallelism, device prefetch (the batch
+is staged from pageable memory, which waits for the card),
+augmentation, resolution buckets, fault injection and the
 pretrained-backbone graft.
 """
 
@@ -187,6 +195,7 @@ class Trainer:
         self.state: TrainState = create_train_state(
             config, self.steps_per_epoch, self.device, self.seed)
         self.step_fn = make_train_step(config)
+        self.steps_per_dispatch = config.train.steps_per_dispatch
         self.host_schedule = host_schedule(config, self.steps_per_epoch)
         self._ckpt_mgr: Optional[fault.CheckpointStore] = None
         self._last_step_ckpt = 0
@@ -217,7 +226,6 @@ class Trainer:
             return _to_host({
                 "model": st.model.state_dict(),
                 "optimizer": st.optimizer.state_dict(),
-                "scheduler": st.scheduler.state_dict(),
                 "generator": st.generator.get_state(),
                 "generator_device": st.generator.device.type,
                 "step": st.step,
@@ -234,12 +242,8 @@ class Trainer:
                 f"trainer's is a {kind} one: a generator's state restores only onto the "
                 "device kind that saved it"
             )
+        st.optimizer.load_state_dict(tree["optimizer"])  # refuses another layout first
         st.model.load_state_dict(tree["model"])
-        optim = tree["optimizer"]
-        for s in optim["state"].values():  # Adam keeps its step counts on the CPU
-            s["step"] = s["step"].cpu()
-        st.optimizer.load_state_dict(optim)
-        st.scheduler.load_state_dict(tree["scheduler"])
         st.generator.set_state(tree["generator"].cpu())
         st.step = int(tree["step"])
 
@@ -424,22 +428,46 @@ class Trainer:
                 for k in ("image", "boxes", "labels", "mask")
             }
 
-    def train_one_batch(self, batch: Dict[str, np.ndarray], **step_kw) -> Dict[str, float]:
-        """One optimizer step on a host batch; returns the metrics as floats
-        (one synchronisation) and hands the ``skipped`` flag to the skip
-        monitor, which raises :class:`fault.NonFiniteEscalation` at once
-        under ``nonfinite_policy='halt'``. ``step_kw`` passes through to the
-        step (``draws``, ``record``, ``stage``)."""
-        lr = self.host_schedule(self.state.scheduler.last_epoch)
-        staged = self.stage_batch(batch)
+    def train_one_batch(
+        self,
+        batch: Optional[Dict[str, np.ndarray]] = None,
+        staged: Optional[Dict[str, Tensor]] = None,
+        **step_kw,
+    ) -> Dict[str, Tensor]:
+        """One optimizer step on a host ``batch`` (staged here) or an
+        already staged device batch. Returns the metrics as device tensors
+        (no host read) and hands the ``skipped`` flag to the skip monitor,
+        which raises :class:`fault.NonFiniteEscalation` at once under
+        ``nonfinite_policy='halt'``. ``step_kw`` passes through to the step
+        (``draws``, ``record``, ``stage``)."""
+        if staged is None:
+            staged = self.stage_batch(batch)
         with self.tracer.span("step/dispatch", cat="step"):
             metrics = self.step_fn(self.state, staged, **step_kw)
-        # the JAX trainer syncs at log boundaries only; this one every step
+        self.skip_monitor.observe(self.state.step, metrics)
+        return metrics
+
+    def train_chunk(self, batches=None, staged=None) -> Dict[str, Tensor]:
+        """``steps_per_dispatch`` steps in one dispatch (one CUDA graph
+        replay on the card) on exactly that many host ``batches`` (or staged
+        device batches). Returns stacked [K] device metrics."""
+        k = self.steps_per_dispatch
+        if staged is None:
+            if len(batches) != k:
+                raise ValueError(
+                    f"train_chunk got {len(batches)} batches; a dispatch trains "
+                    f"steps_per_dispatch={k}")
+            staged = [self.stage_batch(b) for b in batches]
+        with self.tracer.span("step/dispatch", cat="step", steps=k):
+            metrics = self.step_fn.chunk(self.state, staged)
+        self.skip_monitor.observe(self.state.step - k + 1, metrics)  # stacked [K] flags
+        return metrics
+
+    def _host_metrics(self, metrics: Dict[str, Tensor]) -> Dict[str, np.ndarray]:
+        """The metrics on the host: one copy of the stacked vector they view."""
         with self.tracer.span("step/sync", cat="sync"):
-            out = {k: float(v) for k, v in metrics.items()}
-        out["lr"] = lr
-        self.skip_monitor.observe(self.state.step, out)
-        return out
+            stacked = torch.stack(list(metrics.values()), dim=-1).cpu().numpy()
+        return {k: stacked[..., i] for i, k in enumerate(metrics)}
 
     def flush_telemetry(self) -> None:
         """Write the trace file and stop the watchdog. For callers driving
@@ -506,18 +534,41 @@ class Trainer:
                 max_images=max_images,
             )
 
-    def _log_step(self, step: int, metrics: Dict[str, float],
+    def _log_step(self, step: int, metrics: Dict[str, Tensor],
                   log_every: int) -> Optional[Dict[str, float]]:
-        """At a log boundary: check the metrics (fail fast on NaN/Inf unless
-        the guarded update withheld the step), log them and drain the skip
-        monitor. Returns the logged row, or None off the boundary."""
+        """At a log boundary: read the metrics on the host (``step/sync``),
+        check them (fail fast on NaN/Inf unless the guarded update withheld
+        the step), log them and drain the skip monitor. Returns the logged
+        row, or None off the boundary."""
         if step % log_every != 0:
             return None
-        row = fault.check_step_metrics(metrics, step)
+        row = fault.check_step_metrics(self._host_metrics(metrics), step)
         row["lr"] = self.host_schedule(step)
         self.logger.log(step, row)
         self.skip_monitor.drain()
         return row
+
+    def _log_chunk(self, first: int, step: int, metrics: Dict[str, Tensor],
+                   log_every: int) -> Optional[Dict[str, float]]:
+        """Chunk-aware cadence: read the stacked [K] metrics only when a log
+        boundary falls inside [``first``, ``step``], and log that boundary's
+        own row. Returns the logged row, or None."""
+        boundary = (step // log_every) * log_every
+        if boundary < first:
+            return None
+        host = self._host_metrics(metrics)
+        row = {k: v[boundary - first] for k, v in host.items()}
+        row = fault.check_step_metrics(row, boundary)
+        row["lr"] = self.host_schedule(boundary)
+        self.logger.log(boundary, row)
+        self.skip_monitor.drain()
+        return row
+
+    def _sync_epoch(self) -> None:
+        """The epoch boundary's wait for the card, for an honest epoch rate."""
+        with self.tracer.span("step/sync", cat="sync", boundary="epoch"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
 
     def train(self, log_every: int = 10, resume: bool = False) -> Dict[str, float]:
         """Run ``train.n_epoch`` epochs (the cosine schedule was built from
@@ -537,6 +588,29 @@ class Trainer:
         last: Dict[str, float] = {}
         eval_result: Dict[str, float] = {}
         tracer = self.tracer
+        k = self.steps_per_dispatch
+
+        def dispatch(group) -> int:
+            """Train one dispatch (K batches through the K-step graph, or
+            one), log at a boundary inside it, beat, check for preemption
+            and step-interval saves. Returns the images trained."""
+            nonlocal step, last
+            if len(group) > 1:
+                metrics = self.train_chunk(group)
+                first, step = step + 1, step + len(group)
+                row = self._log_chunk(first, step, metrics, log_every)
+            else:
+                metrics = self.train_one_batch(group[0])
+                step += 1
+                row = self._log_step(step, metrics, log_every)
+            if self.watchdog is not None:
+                self.watchdog.beat(step=step, phase="train")
+            if row is not None:
+                last = row
+            self._check_preemption(step)
+            self._maybe_step_checkpoint(step)
+            return sum(b["image"].shape[0] for b in group)
+
         self._shutdown = fault.GracefulShutdown()
         # Exits run inside out: the signal handlers are restored first, then
         # the background writer drains (a hung write still has the watchdog
@@ -550,6 +624,7 @@ class Trainer:
                         replay = 0
                         t_epoch = time.time()
                         n_images = 0
+                        chunk = []  # pending batches of a partial dispatch
                         # closed on any exit: the loader's producer thread stops with it
                         with contextlib.closing(iter(self.loader)) as batches:
                             while True:
@@ -559,16 +634,14 @@ class Trainer:
                                     batch = next(batches, None)
                                 if batch is None:
                                     break
-                                metrics = self.train_one_batch(batch)
-                                n_images += batch["image"].shape[0]
-                                step += 1
-                                if self.watchdog is not None:
-                                    self.watchdog.beat(step=step, phase="train")
-                                row = self._log_step(step, metrics, log_every)
-                                if row is not None:
-                                    last = row
-                                self._check_preemption(step)
-                                self._maybe_step_checkpoint(step)
+                                chunk.append(batch)
+                                if len(chunk) == k:
+                                    n_images += dispatch(chunk)
+                                    chunk = []
+                        # the epoch's tail of fewer than K batches: one step each
+                        for batch in chunk:
+                            n_images += dispatch([batch])
+                        self._sync_epoch()
                         self.skip_monitor.drain()
                         dt = time.time() - t_epoch
                         self.logger.log_epoch(epoch, n_images / dt if dt > 0 else 0.0)

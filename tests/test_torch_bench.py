@@ -11,8 +11,12 @@ Two test ids, each a loop of cases (each id costs the fast tier's budget):
 - telemetry: one scripted span sequence through both ``SpanTracer``s, a
   stall and an incident through both ``StallWatchdog``s, ``summarize_run``
   on one run directory, and a port ``Trainer(telemetry_dir=...)`` run
-  (96x96, 3 steps, one save) against the JAX trainer's files and span
-  names, bitwise equal in state to the same run without telemetry.
+  (96x96, 6 steps, ``log_every=3``, one save) against the JAX trainer's
+  files and span names, bitwise equal in state to the same run without
+  telemetry; the host reads the card where the JAX trainer does: the
+  sequence of ``step/dispatch``, ``step/sync`` and ``fault/skip_drain``
+  spans (``step/sync`` at the log boundaries and the epoch's end) is the
+  JAX trace's.
 """
 
 import dataclasses
@@ -227,6 +231,16 @@ def _span_names(run_dir):
     return {ev["name"] for ev in events if ev["ph"] == "X"}
 
 
+def _sync_sequence(run_dir):
+    """The run's dispatch spans and host reads, in order (the epoch's sync
+    marked)."""
+    events = report.load_trace_events(os.path.join(run_dir, "trace.json"))
+    spans_ = sorted((ev["ts"], ev["name"], (ev.get("args") or {}).get("boundary"))
+                    for ev in events if ev["ph"] == "X"
+                    and ev["name"] in ("step/dispatch", "step/sync", "fault/skip_drain"))
+    return [name + (f":{b}" if b else "") for _, name, b in spans_]
+
+
 def test_telemetry_matches_jax(tmp_path, capsys):
     try:
         # one span sequence through both tracers, overflow included
@@ -265,19 +279,19 @@ def test_telemetry_matches_jax(tmp_path, capsys):
         # the port's trainer with telemetry (96x96, 3 steps, one save at the
         # end of the epoch) against the same run without it and the JAX run
         cfg = _small(tconfig)
-        ds = SyntheticDataset(cfg.data, length=6)
+        ds = SyntheticDataset(cfg.data, length=12)
         tel = tmp_path / "tel"
         with_tel = Trainer(cfg, ds, device="cpu", workdir=str(tmp_path / "a"),
                            telemetry_dir=str(tel))
         assert spans.current_tracer() is with_tel.tracer
-        with_tel.train(log_every=1)
+        with_tel.train(log_every=3)
         spans.set_tracer(None)
         plain = Trainer(cfg, ds, device="cpu", workdir=str(tmp_path / "b"))
         assert plain.tracer is spans.NULL_TRACER and plain.watchdog is None
-        plain.train(log_every=1)
+        plain.train(log_every=3)
         a = dict(fault._leaves_with_path(with_tel._host_state()))
         b = dict(fault._leaves_with_path(plain._host_state()))
-        assert a.keys() == b.keys() and with_tel.state.step == 3
+        assert a.keys() == b.keys() and with_tel.state.step == 6
         for k in a:
             assert (torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
                     else a[k] == b[k]), k
@@ -285,8 +299,8 @@ def test_telemetry_matches_jax(tmp_path, capsys):
 
         jcfg = _small(jconfig)
         j_tel = tmp_path / "j_tel"
-        JTrainer(jcfg, workdir=str(tmp_path / "j"), dataset=JSyntheticDataset(jcfg.data, length=6),
-                 telemetry_dir=str(j_tel)).train(log_every=1)
+        JTrainer(jcfg, workdir=str(tmp_path / "j"), dataset=JSyntheticDataset(jcfg.data, length=12),
+                 telemetry_dir=str(j_tel)).train(log_every=3)
         j_spans.set_tracer(None)
         assert sorted(os.listdir(tel)) == sorted(os.listdir(j_tel)) == [
             "metrics.jsonl", "progress.json", "trace.json"]
@@ -296,13 +310,19 @@ def test_telemetry_matches_jax(tmp_path, capsys):
         assert j_names <= t_names and t_names - j_names == {"state/host_fetch"}, (t_names, j_names)
         assert {"step/dispatch", "step/sync", "data/fetch", "data/device_put", "data/build",
                 "checkpoint/save", "checkpoint/manifest"} <= t_names
+        # host reads where the JAX trainer has them: after steps 3 and 6 and
+        # at the epoch's end, never between log boundaries
+        host_reads = [_sync_sequence(d) for d in (tel, j_tel)]
+        assert host_reads[0] == host_reads[1] == (
+            (["step/dispatch"] * 3 + ["step/sync"] + ["fault/skip_drain"] * 3) * 2
+            + ["step/sync:epoch"]), host_reads
         rows = report.load_jsonl(str(tel / "metrics.jsonl"))
-        assert [r["step"] for r in rows if "loss" in r] == [1, 2, 3]
-        assert json.load(open(tel / "progress.json"))["step"] == 3
+        assert [r["step"] for r in rows if "loss" in r] == [3, 6]
+        assert json.load(open(tel / "progress.json"))["step"] == 6
         # a caller outside train(): restore, then flush_telemetry writes the trace
         restored = Trainer(cfg, ds, device="cpu", workdir=str(tmp_path / "a"),
                            telemetry_dir=str(tmp_path / "tel_restore"))
-        assert restored.restore() == 3
+        assert restored.restore() == 6
         restored.flush_telemetry()
         assert _span_names(tmp_path / "tel_restore") == {"checkpoint/restore"}
         spans.set_tracer(None)

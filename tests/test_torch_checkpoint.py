@@ -15,9 +15,13 @@ tier's budget 2 s):
   with async saves every 2 steps, then a fresh trainer resumes. The final
   state (parameters, BatchNorm statistics, Adam state, schedule, generator,
   step) and the resumed steps' logged rows are bitwise the uninterrupted
-  run's. Then the newest verified weights through ``load_eval_variables``,
-  the fallback past a torn latest step, a torn explicit step, save
-  containment and the generator's device kind.
+  run's. The same run at ``steps_per_dispatch=2`` (chunks of two steps,
+  an epoch's third step through the one-step path, step 2 poisoned inside a
+  chunk) ends bitwise in the same state, and the trainer's ``_log_chunk``
+  logs the rows the JAX ``_log_chunk`` chooses. Then the newest verified
+  weights through ``load_eval_variables``, the fallback past a torn latest
+  step, a torn explicit step, save containment, the generator's device
+  kind and the refusal of the earlier ``torch.optim.Adam`` layout.
 
 The JAX checkpoint carried into the port is a case of
 ``tests/test_torch_train.py::test_train_step_losses_match_jax``.
@@ -29,14 +33,17 @@ import json
 import os
 import signal
 import threading
+import types
 import weakref
 
 import numpy as np
 import pytest
 import torch
 
+from replication_faster_rcnn_tpu.telemetry import spans as j_spans
 from replication_faster_rcnn_tpu.train import async_checkpoint as j_async
 from replication_faster_rcnn_tpu.train import fault as j_fault
+from replication_faster_rcnn_tpu.train.trainer import Trainer as JTrainer
 from replication_faster_rcnn_tpu.utils.logging import MetricLogger as JMetricLogger
 from replication_faster_rcnn_tpu_torch.data.synthetic import SyntheticDataset
 from replication_faster_rcnn_tpu_torch.train import fault
@@ -290,7 +297,19 @@ def _drive(trainer, poison_step=3, term_after=None):
             signal.raise_signal(signal.SIGTERM)
         return out
 
+    chunk_fn = trainer.train_chunk
+
+    def train_chunk(batches, **kw):
+        first = trainer.state.step + 1
+        batches = list(batches)
+        if first <= poison_step < first + len(batches):
+            i = poison_step - first
+            batches[i] = dict(batches[i], image=batches[i]["image"].copy())
+            batches[i]["image"][0, 3, 3, 0] = np.nan
+        return chunk_fn(batches, **kw)
+
     trainer.train_one_batch = train_one_batch
+    trainer.train_chunk = train_chunk
     return trainer
 
 
@@ -310,6 +329,33 @@ def _assert_same_state(got, want, what):
         assert same, f"{what}: {k}"
 
 
+def _case_log_chunk_rows(trainer):
+    """The trainer's ``_log_chunk`` logs the row the JAX ``_log_chunk``
+    chooses for each (first step, last step, log_every), with its lr."""
+    rng = np.random.default_rng(0)
+    for first, k, log_every in ((1, 4, 3), (4, 4, 3), (5, 2, 4), (9, 3, 2), (7, 2, 10)):
+        step = first + k - 1
+        metrics = {"loss": rng.uniform(size=k).astype(np.float32),
+                   "skipped": np.zeros(k, np.float32)}
+        rows = []
+        for mod in ("port", "jax"):
+            logged = []
+            logger = types.SimpleNamespace(log=lambda s, r: logged.append((s, dict(r))))
+            if mod == "port":
+                trainer.logger = logger
+                row = trainer._log_chunk(first, step, {k_: torch.from_numpy(v) for k_, v in
+                                                       metrics.items()}, log_every)
+            else:
+                fake = types.SimpleNamespace(
+                    tracer=j_spans.NULL_TRACER, logger=logger,
+                    host_schedule=trainer.host_schedule,
+                    skip_monitor=types.SimpleNamespace(drain=lambda: None))
+                row = JTrainer._log_chunk(fake, first, step, metrics, log_every)
+            rows.append((logged, None if row is None else {k_: float(v) for k_, v in
+                                                           row.items()}))
+        assert rows[0] == rows[1], (first, k, log_every)
+
+
 def _events(path, kind):
     return [r for r in map(json.loads, open(path)) if r.get("event") == kind]
 
@@ -326,8 +372,18 @@ def test_kill_and_resume_bitwise(tmp_path):
     ref.train(log_every=1)
     ref_rows = _rows(tmp_path / "a.jsonl")
     assert ref.state.step == 9 and [r["skipped"] for r in ref_rows] == [0, 0, 1] + [0] * 6
-    assert all(s["step"] == 8 for s in ref.state.optimizer.state.values())
-    assert ref.state.scheduler.last_epoch == 8 and not os.path.exists(tmp_path / "a")
+    assert int(ref.state.optimizer.count) == 8 and not os.path.exists(tmp_path / "a")
+
+    # two steps a dispatch: the same state, bitwise, the poisoned step inside a chunk
+    chunked = _drive(make(tmp_path / "k2", tmp_path / "k2.jsonl", steps_per_dispatch=2),
+                     poison_step=2)
+    chunked.train(log_every=1)
+    once = _drive(make(tmp_path / "k1", tmp_path / "k1.jsonl"), poison_step=2)
+    once.train(log_every=1)
+    _assert_same_state(chunked, once, "steps_per_dispatch=2")
+    assert [r["step"] for r in _rows(tmp_path / "k2.jsonl")] == [2, 3, 5, 6, 8, 9]
+    assert [r["skipped"] for r in _rows(tmp_path / "k2.jsonl")] == [1, 0, 0, 0, 0, 0]
+    _case_log_chunk_rows(chunked)
 
     for mode in ("sync", "async"):
         wd, log = tmp_path / mode, tmp_path / f"{mode}.jsonl"
@@ -393,6 +449,11 @@ def test_kill_and_resume_bitwise(tmp_path):
     tree["generator_device"] = "cuda"
     with pytest.raises(ValueError, match="cuda generator .* cpu one"):
         fresh._load_state(tree)
+    # the earlier torch.optim.Adam + LambdaLR layout is refused, saying so
+    legacy = dict(tree, generator_device="cpu", scheduler={"last_epoch": 8},
+                  optimizer={"state": {}, "param_groups": [{"lr": 1e-4}]})
+    with pytest.raises(ValueError, match="torch.optim.Adam"):
+        fresh._load_state(legacy)
     # the trainer's skip monitor records its escalation in the metric stream
     fresh.skip_monitor.on_escalate("nonfinite_escalation", consecutive=10)
     assert _events(log, "nonfinite_escalation")[-1]["consecutive"] == 10

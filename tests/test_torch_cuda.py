@@ -489,8 +489,12 @@ def test_training_reaches_the_trunk_through_roi_align_cuda(dev):
     grad = model.trunk.conv1.weight.grad
     assert grad is not None and torch.isfinite(grad).all() and float(grad.abs().sum()) > 0
     assert float(model.rpn.cls.weight.grad.abs().sum()) == 0.0
-    metrics = trainer.train_one_batch(host)
-    assert np.isfinite(metrics["loss"]) and metrics["skipped"] == 0.0
+    # the eager graph above holds the parameters' gradient accumulators, made
+    # on the default stream: drop it before the trainer captures its step on
+    # a side stream (a capture may not make the default stream wait)
+    del total
+    metrics = trainer.train_one_batch(host)  # device scalars: read on the host here
+    assert np.isfinite(float(metrics["loss"])) and float(metrics["skipped"]) == 0.0
 
 
 # -------------------------------------------------------------- int8 kernels

@@ -31,10 +31,20 @@ uniforms, computed here in JAX from the step's own keys
   2 on both sides with the JAX step's draws: the losses within
   ``__graft_entry__._assert_losses_agree``'s 1e-3 (relative, at least 1
   absolute); Adam's moments after step 2 within rtol 1e-4 of optax's
-  (atol 1e-4 of the leaf's largest entry, for entries that cancel).
+  (atol 1e-4 of the leaf's largest entry, for entries that cancel). The
+  optax state of every optimizer option (``adam``, ``adam_mu_dtype=
+  bfloat16``, ``lars``, ``lamb``) carries over bitwise.
+* The optimizer chain against the JAX ``make_optimizer`` (un-jitted optax,
+  seeded numpy parameters and gradients, 6 steps, 2 steps an epoch) for
+  ``adam``, ``adam_mu_dtype=bfloat16``, ``lars``, ``lamb``,
+  ``warmup_epochs`` and ``lr_scaling=linear``: the count and the lr (the
+  float32 schedule on the device) equal; ``nu`` and the parameters within
+  rtol 1e-6 (float32: ``decay**count`` and the trust ratio's norms round in
+  another order); ``mu`` within rtol 1e-6, or one bfloat16 ulp (2**-7
+  relative) when it is stored in bfloat16. The host schedule within rtol
+  1e-15 of JAX's host twin, as before.
 """
 
-import copy
 import dataclasses
 import io
 import json
@@ -200,8 +210,8 @@ def _one_step(name):
         split = _jax_grad_meeting_at_features(jmodel, jcfg, state, jbatch)
 
     model = build_model(tcfg, device="cpu", state_dict=from_flax_variables(_np_vars(state)))
-    optimizer, scheduler = make_optimizer(tcfg, model.parameters(), 1)
-    ts = TrainState(model, optimizer, scheduler, torch.Generator().manual_seed(0))
+    optimizer, _ = make_optimizer(tcfg, model.parameters(), 1)
+    ts = TrainState(model, optimizer, torch.Generator().manual_seed(0))
     draws = jax_step_draws(state, 2, 6 * 6 * 9, 48 + 4)
     tbatch = {k: t(batch[k]) for k in ("image", "boxes", "labels", "mask")}
     record = {}
@@ -235,9 +245,10 @@ def _case_jax_checkpoint_into_port(step, workdir):
     assert result.step == 1 and result.manifest is not None and not result.discarded
     ts = train_state_from_flax(jax.tree_util.tree_map(np.asarray, result.state), tcfg, "cpu",
                                steps_per_epoch=1)
-    assert ts.step == 1 and ts.scheduler.last_epoch == 1
-    want_lr = j_host_schedule(jcfg, 1)(1)
-    assert ts.optimizer.param_groups[0]["lr"] == want_lr == ts.scheduler.get_last_lr()[0]
+    assert ts.step == 1 and int(ts.optimizer.count) == 1
+    # the host twin equals JAX's; the lr on the device equals JAX's float32 schedule
+    assert host_schedule(tcfg, 1)(1) == j_host_schedule(jcfg, 1)(1)
+    assert float(ts.optimizer.lr()) == float(j_make_optimizer(jcfg, 1)[1](jnp.int32(1)))
     jstate2, jmetrics = step["jstep"](result.state, step["jbatch"])
     draws = jax_step_draws(result.state, 2, 6 * 6 * 9, 48 + 4)
     metrics = make_train_step(tcfg)(ts, step["batch"], draws=draws)
@@ -245,16 +256,15 @@ def _case_jax_checkpoint_into_port(step, workdir):
         want = float(jmetrics[k])
         assert abs(float(metrics[k]) - want) <= 1e-3 * max(1.0, abs(want)), k
     adam = jstate2.opt_state[1]
-    moments = {"exp_avg": from_flax_variables({"params": jax.device_get(adam.mu)}),
-               "exp_avg_sq": from_flax_variables({"params": jax.device_get(adam.nu)})}
-    for name, p in ts.model.named_parameters():
-        st = ts.optimizer.state[p]
-        assert float(st["step"]) == int(adam.count) == 2
-        for k, want in moments.items():
-            np.testing.assert_allclose(st[k].numpy(), want[name].numpy(), rtol=1e-4,
+    opt = ts.optimizer
+    for k in ("mu", "nu"):
+        want = from_flax_variables({"params": jax.device_get(getattr(adam, k))})
+        for (name, _), got in zip(ts.model.named_parameters(), opt.leaves(getattr(opt, k))):
+            np.testing.assert_allclose(got.numpy(), want[name].numpy(), rtol=1e-4,
                                        atol=1e-4 * float(want[name].abs().max()),
                                        err_msg=f"{name} {k}")
-    assert ts.step == 2 and ts.scheduler.last_epoch == int(jstate2.opt_state[2].count) == 2
+    assert int(opt.count) == int(adam.count) == int(jstate2.opt_state[2].count) == 2
+    assert ts.step == 2
     # the orbax directory is not the port's format: refused, nothing deleted
     listing = sorted(os.walk(workdir))
     trainer = Trainer(tcfg, SyntheticDataset(tcfg.data, length=2), device="cpu",
@@ -264,8 +274,42 @@ def _case_jax_checkpoint_into_port(step, workdir):
     assert sorted(os.walk(workdir)) == listing
 
 
+def _case_carried_optax_state(step):
+    """``train_state_from_flax`` carries the optax state of every optimizer
+    option (after two un-jitted updates) bitwise; a chain of another option
+    is refused."""
+    jstate = step["jnew_state"]
+    rng = np.random.default_rng(5)
+    grads = [jax.tree_util.tree_map(
+        lambda p: jnp.asarray(rng.normal(0, 1e-2, p.shape).astype(np.float32)), jstate.params)
+        for _ in range(2)]
+    for option in ({}, {"adam_mu_dtype": "bfloat16"}, {"lars": True}, {"optimizer": "lamb"}):
+        jcfg = step["jcfg"].replace(train=dataclasses.replace(step["jcfg"].train, **option))
+        tx, _ = j_make_optimizer(jcfg, steps_per_epoch=1)
+        opt_state, params = tx.init(jstate.params), jstate.params
+        for g in grads:
+            updates, opt_state = tx.update(g, opt_state, params)
+            params = optax.apply_updates(params, updates)
+        carried = jax.tree_util.tree_map(
+            np.asarray, jstate.replace(params=params, opt_state=opt_state, step=jnp.int32(3)))
+        ts = train_state_from_flax(carried, tcfg_small(**option), "cpu")
+        opt, adam = ts.optimizer, carried.opt_state[1]
+        assert ts.step == 3 and int(opt.count) == 2 and opt.mu.dtype == getattr(
+            torch, jcfg.train.adam_mu_dtype)
+        for k in ("mu", "nu"):
+            want = from_flax_variables(
+                {"params": jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32),
+                                                  getattr(adam, k))})
+            for (name, _), got in zip(ts.model.named_parameters(), opt.leaves(getattr(opt, k))):
+                assert torch.equal(got.float(), want[name]), (option, k, name)
+        if option:  # this chain's state into the plain Adam config
+            with pytest.raises(ValueError):
+                train_state_from_flax(carried, tcfg_small(), "cpu")
+
+
 def test_train_step_losses_match_jax(one_step, tmp_path):
     _case_jax_checkpoint_into_port(one_step, tmp_path / "orbax")
+    _case_carried_optax_state(one_step)
     for step in (one_step, one_step["pool"]):
         got, want = step["metrics"], step["jmetrics"]
         for k in LOSSES:
@@ -303,7 +347,7 @@ def test_train_step_params_within_adam_bound(one_step):
                 assert float((g - w).abs().max()) <= 2.5 * LR, k
                 moved += int((g != w).sum())
         assert moved > 0
-        assert step["state"].step == 1 and step["state"].scheduler.last_epoch == 1
+        assert step["state"].step == 1 and int(step["state"].optimizer.count) == 1
 
 
 def test_trunk_gets_a_gradient_through_roi_align(one_step):
@@ -424,19 +468,81 @@ def _case_select_class_deltas():
     np.testing.assert_array_equal(select_class_deltas(t(reg), t(labels)).numpy(), want)
 
 
+# the optimizer options of the JAX TrainConfig, one chain each
+OPTIONS = (
+    {},
+    {"adam_mu_dtype": "bfloat16"},
+    {"lars": True},
+    {"optimizer": "lamb"},
+    {"warmup_epochs": 1.5},
+    {"lr_scaling": "linear", "batch_size": 16, "base_batch_size": 8},
+)
+
+
+def _option_cfgs(**train):
+    train = {"lr": 1e-3, "n_epoch": 4, **train}
+    return (jconfig.get_config("voc12_resnet18_align").replace(train=jconfig.TrainConfig(**train)),
+            tconfig.get_config("voc12_resnet18_align").replace(train=tconfig.TrainConfig(**train)))
+
+
 def test_schedule_matches_jax():
-    jcfg = jconfig.get_config("voc12_resnet18_align").replace(
-        train=jconfig.TrainConfig(lr=1e-3, n_epoch=4))
-    cfg = tconfig.get_config("voc12_resnet18_align").replace(
-        train=tconfig.TrainConfig(lr=1e-3, n_epoch=4))
-    want = j_host_schedule(jcfg, 3)
-    got = host_schedule(cfg, 3)
-    optimizer, scheduler = make_optimizer(cfg, [torch.nn.Parameter(torch.zeros(2))], 3)
-    for step in range(16):
-        np.testing.assert_allclose(got(step), want(step), rtol=1e-15)
-        np.testing.assert_allclose(optimizer.param_groups[0]["lr"], want(step), rtol=1e-12)
-        optimizer.step()
-        scheduler.step()
+    for option in OPTIONS + ({"warmup_epochs": 1.5, "lr_scaling": "linear", "batch_size": 4},):
+        jcfg, cfg = _option_cfgs(**option)
+        want = j_host_schedule(jcfg, 3)
+        got = host_schedule(cfg, 3)
+        _, j_sched = j_make_optimizer(jcfg, steps_per_epoch=3)
+        optimizer, sched = make_optimizer(cfg, [torch.nn.Parameter(torch.ones(2))], 3)
+        zeros = torch.zeros(2)
+        for step in range(16):
+            np.testing.assert_allclose(got(step), want(step), rtol=1e-15)
+            # the device schedule, at the count the chain holds: JAX's float32 bits
+            assert int(optimizer.count) == step
+            assert float(sched(optimizer.count)) == float(j_sched(jnp.int32(step)))
+            assert float(optimizer.lr()) == float(j_sched(jnp.int32(step)))
+            optimizer.update(zeros, torch.ones(2), None)
+    for option in OPTIONS:
+        _case_chain_matches_optax(option)
+
+
+def _case_chain_matches_optax(option, steps=6):
+    """The chain against the JAX ``make_optimizer`` on the same parameters
+    and gradients, un-jitted (see the tolerances above)."""
+    jcfg, cfg = _option_cfgs(**option)
+    rng = np.random.default_rng(3)
+    shapes = {"a": (4, 3, 3, 2), "b": (7,), "c": (5, 6), "z": (3,)}  # z: zero, as a fresh bias
+    params = {k: (np.zeros(v, np.float32) if k == "z" else
+                  rng.normal(0, 0.5, v).astype(np.float32)) for k, v in shapes.items()}
+    tx, j_sched = j_make_optimizer(jcfg, steps_per_epoch=2)
+    j_params = {k: jnp.asarray(v) for k, v in params.items()}
+    j_state = tx.init(j_params)
+    live = [torch.nn.Parameter(t(params[k].copy())) for k in sorted(shapes)]
+    opt, _ = make_optimizer(cfg, live, 2)
+    assert opt.mu.dtype == getattr(torch, cfg.train.adam_mu_dtype)
+    for step in range(steps):
+        grads = {k: rng.normal(0, 10.0 ** (step % 3 - 1), v).astype(np.float32)
+                 for k, v in shapes.items()}
+        updates, j_state = tx.update({k: jnp.asarray(v) for k, v in grads.items()}, j_state,
+                                     j_params)
+        j_params = optax.apply_updates(j_params, updates)
+        flat_g = torch.cat([t(grads[k]).reshape(-1) for k in sorted(shapes)])
+        flat_p = torch.cat([p.detach().reshape(-1) for p in live])
+        lr = float(opt.lr())
+        opt.update(flat_g, flat_p, None)
+        adam = j_state[1]
+        assert int(opt.count) == int(adam.count) == int(j_state[-1].count) == step + 1
+        assert lr == float(j_sched(jnp.int32(step)))
+        for k in sorted(shapes):
+            i = sorted(shapes).index(k)
+            mu_tol = 2**-7 if cfg.train.adam_mu_dtype == "bfloat16" else 1e-6
+            np.testing.assert_allclose(opt.leaves(opt.mu)[i].float().numpy(),
+                                       np.asarray(adam.mu[k], np.float32), rtol=mu_tol,
+                                       atol=1e-30, err_msg=f"{option} mu {k} step {step}")
+            np.testing.assert_allclose(opt.leaves(opt.nu)[i].numpy(), np.asarray(adam.nu[k]),
+                                       rtol=1e-6, err_msg=f"{option} nu {k} step {step}")
+            np.testing.assert_allclose(live[i].detach().numpy(), np.asarray(j_params[k]),
+                                       rtol=1e-6, atol=1e-7,
+                                       err_msg=f"{option} params {k} step {step}")
+    assert float(live[-1].detach().abs().sum()) > 0  # the zero leaf moved (trust ratio 1)
 
 
 # ------------------------------------------------------- guarded update, trainer
@@ -444,16 +550,14 @@ def test_schedule_matches_jax():
 
 def _state_snapshot(trainer):
     model = {k: v.clone() for k, v in trainer.model.state_dict().items()}
-    opt = trainer.state.optimizer.state_dict()
-    opt_t = [v.clone() for s in opt["state"].values() for v in s.values() if torch.is_tensor(v)]
-    return model, opt_t, trainer.state.scheduler.last_epoch
+    opt = {k: v.clone() for k, v in trainer.state.optimizer.state_dict().items()}
+    return model, opt
 
 
 def _same(a, b):
-    ma, oa, la = a
-    mb, ob, lb = b
-    return (la == lb and all(torch.equal(ma[k], mb[k]) for k in ma)
-            and all(torch.equal(x, y) for x, y in zip(oa, ob)))
+    (ma, oa), (mb, ob) = a, b
+    return (all(torch.equal(ma[k], mb[k]) for k in ma)
+            and all(torch.equal(oa[k], ob[k]) for k in oa))
 
 
 @pytest.fixture(scope="module")
@@ -503,9 +607,7 @@ def _nan_step(trainer, policy):
     batch["image"] = batch["image"].copy()
     batch["image"][0, 3, 3, 0] = np.nan  # poisons every gradient downstream
     before = _state_snapshot(trainer)
-    saved = ({k: v.clone() for k, v in trainer.model.state_dict().items()},
-             copy.deepcopy(trainer.state.optimizer.state_dict()),
-             trainer.state.scheduler.state_dict())
+    saved = _state_snapshot(trainer)
     step = trainer.state.step
     trainer.config = trainer.config.replace(
         train=dataclasses.replace(trainer.config.train, nonfinite_policy=policy))
@@ -526,14 +628,14 @@ def _nan_step(trainer, policy):
     if policy == "apply":
         after = trainer.model.state_dict()
         assert not torch.isfinite(after["trunk.conv1.weight"]).all()
-        assert m["skipped"] == 0.0
+        assert float(m["skipped"]) == 0.0
         trainer.model.load_state_dict(saved[0])  # leave the shared trainer clean
         trainer.state.optimizer.load_state_dict(saved[1])
-        trainer.state.scheduler.load_state_dict(saved[2])
         return
     assert _same(before, _state_snapshot(trainer))  # bit-identical, BN buffers too
     if policy == "skip":
+        m = {k: float(v) for k, v in m.items()}  # device scalars: read here
         assert m["skipped"] == 1.0 and m["nonfinite_count"] > 0
         assert np.isnan(m["update_norm"]) and np.isfinite(m["param_norm"])
         clean = trainer.train_one_batch(_epoch_batch(trainer, 8))
-        assert clean["skipped"] == 0.0 and not _same(before, _state_snapshot(trainer))
+        assert float(clean["skipped"]) == 0.0 and not _same(before, _state_snapshot(trainer))
