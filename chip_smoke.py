@@ -41,7 +41,17 @@ H100:  ``python3 chip_smoke.py``. It
    dequantize and the grouped dequantize) captured in a CUDA graph on a
    side stream after one warm-up call there, and replayed twice with its
    outputs overwritten before each replay: bitwise equal to the eager
-   launch, and the IoU kernel's column state zero after each replay;
+   launch, and the IoU kernel's column state zero after each replay. Then
+   the data path's four kernels (``csrc/image_kernel.cu``) at 600x600, b8
+   and b16, uint8 and float32 (:func:`check_image_kernels`): the geometry,
+   fill and image kernels of ``augment_batch`` on four row mixes (flip
+   beside identity rows, translation +-0.1, scale 0.75-1.25, all three)
+   against their plain versions (geometry, boxes and fills bitwise, the
+   geometry also against the numpy oracle; images bitwise in uint8, within
+   1e-6 relative in float32), the cache gather from a 1,024-image cache,
+   the bucket resample 600->480 and 600->720 bitwise against the plain band
+   passes with ``F.interpolate(antialias=True)`` timed beside it, and each
+   captured and replayed twice, bitwise;
 4. serves ``voc12_resnet18_align`` (ResNet18, 21 classes, ROIAlign 7x7 s=2)
    and then the flagship ``voc_resnet18`` (ROIPool 7x7) at 600x600, seeded
    random weights resident in bfloat16, through ``InferenceEngine``: one
@@ -151,7 +161,18 @@ H100:  ``python3 chip_smoke.py``. It
    train and one eval measurement at ``BENCH_COUNT_STEPS`` steps, launch counters
    reset just before and read just after (per step NMS 1, IoU matching 2,
    ROIPool 1 and its backward 1; per eval batch NMS 2 and ROIPool 1);
-10. prints a ``{"kernels": [...]}`` line, the card line, and last
+10. drives the training data path (:func:`phase_data_path`):
+   ``voc_resnet18`` 600x600 b8 through ``Trainer.train`` on 256 synthetic
+   images, four feeds, each with 2 timed epochs and a profiled third: (a)
+   float32 without prefetch, (b) uint8 with ``prefetch_device=2``, (c) (b)
+   with ``augment_device`` (flip, scale, translation), (d) ``cache_device``
+   with flip and scale; images/s, the data spans, the idle share and the
+   launch counters per arm; (b) bitwise prefetch off, (d) bitwise the
+   loader-fed ``augment_scale_device`` run, K=2 with prefetch bitwise K=1, a
+   SIGTERM resumed with prefetch bitwise; the resolution buckets (480, 600,
+   720) at K=1 and K=2 in ``bucket_index``'s order, captured bitwise eager,
+   launches counted per replay; the cache's bytes against their formula;
+11. prints a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Without CUDA, or without
@@ -983,6 +1004,279 @@ def check_graph_replays(torch, dev, b=8):
     return checked
 
 
+IMAGE_SRC = "replication_faster_rcnn_tpu_torch/csrc/image_kernel.cu"
+# the XLA code each data-path kernel replaces (no Pallas kernel: ops/image.py)
+IMAGE_JAX = {
+    "augment_geometry": "replication_faster_rcnn_tpu/ops/image.py:275",
+    "image_fill": "replication_faster_rcnn_tpu/ops/image.py:58",
+    "augment_image": "replication_faster_rcnn_tpu/ops/image.py:31",
+    "resize_aa": "replication_faster_rcnn_tpu/ops/image.py:337",
+}
+IMAGE_NOTE = ("not a Pallas kernel: the JAX package runs the on-card augmentation, the device "
+              "cache's gather (data/device_cache.py:286) and the bucket resample as XLA ops")
+AUG_SEED = 13
+AUG_MODES = (("flip", dict(hflip=True)), ("translate", dict(translate=0.1)),
+             ("scale", dict(scale_range=(0.75, 1.25))),
+             ("flip+translate+scale", dict(hflip=True, scale_range=(0.75, 1.25), translate=0.1)))
+
+
+def bytes_bound(*tensors):
+    """(bound ms, "bytes"): the tensors' bytes over the card's memory rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors if t is not None)
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def replays_bitwise(torch, dev, name, fn):
+    """One launch of ``fn`` captured on a side stream after a warm-up call
+    there, replayed twice with its outputs overwritten: bitwise the eager
+    launch."""
+    def outputs(out):
+        return [o for o in (out if isinstance(out, (tuple, list)) else (out,)) if o is not None]
+
+    want = [o.clone() for o in outputs(fn())]
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        got = outputs(fn())
+    for rep in range(2):
+        for o in got:
+            o.view(torch.uint8).fill_(0xA5)
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        if len(got) != len(want) or not all(bitwise(torch, g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{name}: replay {rep + 1} of the captured launch differs "
+                                 "from the eager launch")
+
+
+def oracle_geometry(aug, h, w, kw):
+    """The geometry rows of augment_batch from the numpy oracle
+    (data/augment.py::device_decisions), float32 as JAX computes them."""
+    from replication_faster_rcnn_tpu_torch.data.augment import device_decisions
+
+    f32 = np.float32
+    rows = []
+    for idx, epoch in aug:
+        flip, u_s, u_oy, u_ox, u_ty, u_tx = device_decisions(AUG_SEED, int(epoch), int(idx))
+        dy = dx = 0
+        if kw.get("translate"):
+            t = kw["translate"]
+            dy = int(np.rint((f32(2.0) * u_ty - f32(1.0)) * f32(t * h)))
+            dx = int(np.rint((f32(2.0) * u_tx - f32(1.0)) * f32(t * w)))
+        ch, cw, shy, shx = h, w, 0, 0
+        if kw.get("scale_range"):
+            lo, hi = kw["scale_range"]
+            scale = f32(lo) + f32(hi - lo) * u_s
+            ch = int(max(f32(1.0), np.rint(f32(h) * scale)))
+            cw = int(max(f32(1.0), np.rint(f32(w) * scale)))
+            shy = int(np.rint(f32(ch - h) * np.clip(u_oy, f32(0), f32(1))))
+            shx = int(np.rint(f32(cw - w) * np.clip(u_ox, f32(0), f32(1))))
+        jit = int((ch, cw, shy, shx) != (h, w, 0, 0))
+        rows.append([int(flip and kw.get("hflip", False)), dy, dx, ch, cw, shy, shx, jit])
+    return np.asarray(rows, np.int32)
+
+
+def image_errors(torch, got, want):
+    """(max abs error, the check): uint8 bitwise; float32 within 1e-6 of the
+    batch's largest magnitude (the fills: float64 sums in another order, at
+    most 1 float32 ulp apart)."""
+    err = float((got.float() - want.float()).abs().max())
+    if got.dtype == torch.uint8:
+        return err, bitwise(torch, got, want)
+    return err, got.dtype == want.dtype and err <= 1e-6 * max(1.0, float(want.abs().max()))
+
+
+def check_image_kernels(torch, dev):
+    """Phase [3] for the data path's four kernels at 600x600, b8 and b16,
+    uint8 and float32. ``augment_batch`` (geometry + fills + image pass) on
+    four row mixes (flip only: identity rows beside flipped ones; translate
+    +-0.1; scale 0.75-1.25: zoom in and out; all three) against its plain
+    version on the card: boxes, labels, masks and geometry rows bitwise (and
+    the geometry against the numpy oracle ``device_decisions``), the fills
+    bitwise in uint8 and within 1 float32 ulp, the images bitwise in uint8
+    and within 1e-6 relative in float32. The device cache's gather (a
+    1,024-image cache, flip + jitter, the resample in the same pass) against
+    the plain ``materialize_batch`` + ``batched_scale_jitter``. The bucket
+    resample 600->480 and 600->720 bitwise against the plain band passes,
+    with ``F.interpolate(antialias=True)`` timed beside it. Every kernel
+    captured and replayed twice, bitwise its eager launch."""
+    from replication_faster_rcnn_tpu_torch import ops
+    from replication_faster_rcnn_tpu_torch.data.device_cache import materialize_batch
+    from replication_faster_rcnn_tpu_torch.ops import image as I
+    from replication_faster_rcnn_tpu_torch.ops.cuda import image_kernel as K
+
+    rng = np.random.default_rng(21)
+    h = w = 600
+    g = 32
+    res, captured = {}, []
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def make(b, dtype):
+        if dtype == "uint8":
+            images = t(rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8))
+        else:
+            images = t(rng.normal(0, 1, (b, h, w, 3)).astype(np.float32))
+        return (images,) + make_boxes(b)
+
+    def make_boxes(b):
+        boxes = rand_boxes(rng, (b, g), 520, 260)
+        boxes = np.minimum(boxes, 600).astype(np.float32)
+        labels = rng.integers(1, 21, (b, g)).astype(np.int32)
+        labels[:, 6:] = -1
+        boxes[:, 6:] = -1.0
+        mask = labels >= 0
+        aug = np.stack([rng.integers(0, 5011, b), rng.integers(0, 50, b)], -1).astype(np.int32)
+        return t(boxes), t(labels), t(mask), aug
+
+    for b in (8, 16):
+        for dtype in ("uint8", "float32"):
+            images, boxes, labels, mask, aug_np = make(b, dtype)
+            aug = t(aug_np)
+            for mode, kw in AUG_MODES:
+                key = f"b{b}_{dtype}_{mode}"
+                gb, gl, gm, geom, _ = K.augment_geometry_cuda(
+                    boxes, labels, mask, b, h, w, aug=aug, seed=AUG_SEED, **kw)
+                with ops.reference_scope():
+                    pb, pl, pm, pgeom = I.augment_geometry_plain(
+                        boxes, labels, mask, aug, h, w, seed=AUG_SEED, **kw)
+                want_geom = oracle_geometry(aug_np, h, w, kw)
+                if not (bitwise(torch, gb, pb) and bitwise(torch, gl, pl) and bitwise(torch, gm, pm)
+                        and bitwise(torch, geom, pgeom)
+                        and np.array_equal(geom.cpu().numpy(), want_geom)):
+                    raise AssertionError(f"augment_geometry {key}: kernel != plain or oracle")
+                fills = K.image_fill_cuda(images, geom)
+                with ops.reference_scope():
+                    pfills = I.image_fills_plain(images, geom)
+                if dtype == "uint8":
+                    fills_ok = bitwise(torch, fills, pfills)
+                else:
+                    ulp = torch.from_numpy(np.spacing(pfills.abs().cpu().numpy())).to(dev)
+                    fills_ok = bool(((fills - pfills).abs() <= ulp).all())
+                if not fills_ok:
+                    raise AssertionError(f"image_fill {key}: kernel != plain")
+                fill_err = float((fills - pfills).abs().max())
+                out = K.augment_image_cuda(images, geom, fills)
+                with ops.reference_scope():
+                    pout = I.augment_images_plain(images, geom)
+                err, ok = image_errors(torch, out, pout)
+                if not ok:
+                    raise AssertionError(f"augment_image {key}: max error {err}")
+                jit = geom[:, 7].sum().item()
+                row = {"jittered_rows": int(jit), "flipped_rows": int(geom[:, 0].sum()),
+                       "translated_rows": int((geom[:, 1:3] != 0).any(1).sum()),
+                       "max_abs_err": err, "fill_max_abs_err": fill_err}
+                if mode == "flip+translate+scale":
+                    row["geometry"] = dict(zip(("ms", "plain_ms"), (
+                        time_ms(torch, lambda: K.augment_geometry_cuda(
+                            boxes, labels, mask, b, h, w, aug=aug, seed=AUG_SEED, **kw), 50),
+                        time_ms(torch, lambda: I.augment_geometry_plain(
+                            boxes, labels, mask, aug, h, w, seed=AUG_SEED, **kw), 3, 1, 3))))
+                    row["geometry"].update(zip(("bound_ms", "bound_by"), bytes_bound(
+                        boxes, labels, mask, aug, gb, gl, gm, geom)))
+                    row["fill"] = dict(zip(("ms", "plain_ms"), (
+                        time_ms(torch, lambda: K.image_fill_cuda(images, geom), 20),
+                        time_ms(torch, lambda: I.image_fills_plain(images, geom), 2, 1, 3))))
+                    row["fill"].update(zip(("bound_ms", "bound_by"), bytes_bound(images, fills)))
+                    row["image"] = dict(zip(("ms", "plain_ms"), (
+                        time_ms(torch, lambda: K.augment_image_cuda(images, geom, fills), 20),
+                        time_ms(torch, lambda: I.augment_images_plain(images, geom), 1, 1, 3))))
+                    row["image"].update(zip(("bound_ms", "bound_by"), bytes_bound(images, out)))
+                    if b == 8:
+                        for name, fn in (
+                                (f"augment_geometry {key}", lambda: K.augment_geometry_cuda(
+                                    boxes, labels, mask, b, h, w, aug=aug, seed=AUG_SEED, **kw)),
+                                (f"image_fill {key}", lambda: K.image_fill_cuda(images, geom)),
+                                (f"augment_image {key}", lambda: K.augment_image_cuda(
+                                    images, geom, fills))):
+                            replays_bitwise(torch, dev, name, fn)
+                            captured.append(name)
+                res[key] = row
+            # the device cache: gather + flip + jitter (resampled in the same pass)
+            if b == 8:
+                m = 1024
+                cache_images = (t(rng.integers(0, 256, (m, h, w, 3), dtype=np.uint8))
+                                if dtype == "uint8" else
+                                torch.randn(m, h, w, 3, device=dev,
+                                            generator=torch.Generator(dev).manual_seed(3)))
+                cb, cl, cm, _ = make_boxes(m)
+                cache = {"image": cache_images, "boxes": cb, "labels": cl, "mask": cm}
+                idx = t(rng.choice(m, b, replace=False).astype(np.int32))
+                scale = rng.uniform(0.75, 1.25, b)
+                ch = np.rint(h * scale).astype(np.int32)
+                jitter = np.stack([ch, ch, np.rint((ch - h) * rng.uniform(0, 1, b)),
+                                   np.rint((ch - w) * rng.uniform(0, 1, b))], -1).astype(np.int32)
+                jitter[0] = [h, w, 0, 0]  # an identity row
+                sel = {"idx": idx, "flip": t(rng.uniform(size=b) < 0.5), "jitter": t(jitter)}
+                got = materialize_batch(cache, sel, resample=True)
+                with ops.reference_scope():
+                    want = materialize_batch(cache, sel, resample=True)
+                err, ok = image_errors(torch, got["image"], want["image"])
+                if not ok or not all(bitwise(torch, got[k], want[k])
+                                     for k in ("boxes", "labels", "mask")):
+                    raise AssertionError(f"cache gather b8 {dtype}: max error {err}")
+                key = f"cache_b8_{dtype}"
+                res[key] = {"max_abs_err": err, "cache_images": m,
+                            "ms": time_ms(torch, lambda: materialize_batch(cache, sel, True), 20)}
+                with ops.reference_scope():
+                    res[key]["plain_ms"] = time_ms(
+                        torch, lambda: materialize_batch(cache, sel, True), 1, 1, 3)
+                res[key]["bound_ms"], res[key]["bound_by"] = bytes_bound(
+                    got["image"], got["image"], got["boxes"], got["labels"], got["mask"])
+                replays_bitwise(torch, dev, f"cache gather {key}",
+                                lambda: materialize_batch(cache, sel, True)["image"])
+                captured.append(f"cache gather {key}")
+                del cache, cache_images
+            # the bucket resample
+            for out_hw in ((480, 480), (720, 720)):
+                key = f"resize_b{b}_{dtype}_{out_hw[0]}"
+                got, gboxes = I.resize_batch_with_boxes(images, boxes, out_hw)
+                with ops.reference_scope():
+                    want, wboxes = I.resize_batch_with_boxes(images, boxes, out_hw)
+                if not (bitwise(torch, got, want) and bitwise(torch, gboxes, wboxes)):
+                    raise AssertionError(f"resize {key}: kernel != plain band passes")
+                x = images.permute(0, 3, 1, 2).float()
+                lib = torch.nn.functional.interpolate(
+                    x, size=out_hw, mode="bilinear", antialias=True, align_corners=False)
+                lib_img = lib.permute(0, 2, 3, 1)
+                if dtype == "uint8":
+                    lib_img = torch.clamp(torch.round(lib_img), 0, 255).to(torch.uint8)
+                lib_err = float((lib_img.float() - got.float()).abs().max())
+                lib_ok = (lib_err <= 1.0 if dtype == "uint8"
+                          else lib_err <= 1e-5 * float(got.abs().max()))
+                row = {"max_abs_err": 0.0, "library_max_abs_err": lib_err,
+                       "library_within_tolerance": lib_ok,
+                       "ms": time_ms(torch, lambda: K.resize_aa_cuda(images, boxes, out_hw), 20),
+                       "library_ms": time_ms(torch, lambda: torch.nn.functional.interpolate(
+                           x, size=out_hw, mode="bilinear", antialias=True,
+                           align_corners=False), 20)}
+                with ops.reference_scope():
+                    row["plain_ms"] = time_ms(
+                        torch, lambda: I.resize_batch_with_boxes(images, boxes, out_hw), 1, 1, 3)
+                row["bound_ms"], row["bound_by"] = bytes_bound(images, boxes, got, gboxes)
+                res[key] = row
+                if b == 8:
+                    replays_bitwise(torch, dev, f"resize {key}",
+                                    lambda: K.resize_aa_cuda(images, boxes, out_hw))
+                    captured.append(f"resize {key}")
+            del images
+    log("  data-path kernels (600x600, b8 / b16, uint8 / float32): augment_batch geometry, "
+        "fills and image pass against the plain versions on four row mixes (geometry and "
+        "boxes bitwise, and against device_decisions), the cache gather (1,024 images) and "
+        "the resample 600->480 / 600->720, all within tolerance; "
+        + json.dumps({k: {kk: (round(vv, 4) if isinstance(vv, float) else vv)
+                          for kk, vv in v.items() if not isinstance(vv, dict)}
+                      for k, v in res.items()}))
+    log(f"  their CUDA graph capture: {len(captured)} launches replayed twice, bitwise: "
+        f"{captured}")
+    res["captured"] = captured
+    return res
+
+
 def check_roi_pool_kernels(torch, dev, b):
     """Phase [3] for ROIPool (own generator: the draws of the other cases
     stay as they were): the forward at serving 8 x 300 and 1 x 300 and
@@ -1581,7 +1875,12 @@ COUNTERS = {
     "roi_pool_bwd": ("roi_kernel", "pool_backward_launches"),
     "int8_matmul": ("quant_kernel", "matmul_launches"),
     "dequantize": ("quant_kernel", "dequantize_launches"),
+    "augment_geometry": ("image_kernel", "geometry_launches"),
+    "image_fill": ("image_kernel", "fill_launches"),
+    "augment_image": ("image_kernel", "image_launches"),
+    "resize_aa": ("image_kernel", "resize_launches"),
 }
+IMAGE_NAMES = ("augment_geometry", "image_fill", "augment_image", "resize_aa")
 
 
 def counter_module(mod):
@@ -2641,6 +2940,321 @@ def phase_resume(torch, name="voc_resnet18", cfg=None, device=None, length=24):
         "step_ms_median": med, "preempted_at": preempted}
 
 
+DATA_LENGTH = 256  # images of [10]'s arms (32 b8 steps an epoch)
+DATA_SHORT = 48  # images of [10]'s bitwise and bucket runs (6 steps an epoch)
+DATA_SPANS = ("data/fetch", "data/build", "data/device_put", "step/dispatch", "data/cache_upload")
+BUCKETS = ((480, 480), (600, 600), (720, 720))
+BUCKET_SEED = 4  # at 6 steps an epoch (K=1 and 2): 480 captured, then 720, then 480 replayed
+
+
+def span_stats(trace_dir, before_epoch):
+    """{span: {n, mean_ms, median_ms}} for ``DATA_SPANS`` in a run's trace,
+    over the epochs before ``before_epoch`` (the profiled epoch is left
+    out)."""
+    from replication_faster_rcnn_tpu_torch.telemetry import report
+
+    events = [e for e in report.load_trace_events(str(Path(trace_dir) / "trace.json"))
+              if e.get("ph") == "X"]
+    ends = sorted(e["ts"] + e["dur"] for e in events if e["name"] == "step/sync"
+                  and (e.get("args") or {}).get("boundary") == "epoch")
+    cutoff = ends[before_epoch - 1] if len(ends) >= before_epoch else float("inf")
+    out = {}
+    for name in DATA_SPANS:
+        durs = [e["dur"] / 1e3 for e in events if e["name"] == name and e["ts"] < cutoff]
+        if durs:
+            out[name] = {"n": len(durs), "mean_ms": statistics.mean(durs),
+                         "median_ms": statistics.median(durs)}
+    return out
+
+
+def profile_epoch(torch, trainer, epoch):
+    """Start a CUDA-activity ``torch.profiler`` when ``trainer``'s feed
+    enters ``epoch``; :func:`epoch_idle` reads it after ``train()``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    box = {}
+    set_epoch = trainer.feed.set_epoch
+
+    def hooked(e, start_batch=0):
+        if e == epoch and torch.cuda.is_available():
+            torch.cuda.synchronize()
+            box["prof"] = profile(activities=[ProfilerActivity.CUDA])
+            box["prof"].__enter__()
+        set_epoch(e, start_batch)
+
+    trainer.feed.set_epoch = hooked
+    return box
+
+
+def epoch_idle(torch, box, steps):
+    """The profiled epoch's device busy ms a step, span ms a step and idle
+    share (None without a profile or device activity)."""
+    from torch.autograd import DeviceType
+
+    prof = box.get("prof")
+    if prof is None:
+        return None
+    torch.cuda.synchronize()
+    prof.__exit__(None, None, None)
+    acts = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    if not acts:
+        return None
+    busy, span = busy_and_span((e.time_range.start, e.time_range.end) for e in acts)
+    return {"device_busy_ms_per_step": busy / 1e3 / steps,
+            "device_span_ms_per_step": span / 1e3 / steps, "device_idle_share": 1 - busy / span}
+
+
+def sync_checked(torch, trainer, after=2):
+    """Every dispatch of ``trainer`` after the first ``after`` (the captures'
+    warm-ups build their constants) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host wait for the card
+    there raises."""
+    calls = [0]
+    for name in ("train_one_batch", "train_chunk"):
+        fn = getattr(trainer, name)
+
+        def wrapped(*args, _fn=fn, **kw):
+            calls[0] += 1
+            if calls[0] <= after or not torch.cuda.is_available():
+                return _fn(*args, **kw)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return _fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        setattr(trainer, name, wrapped)
+    return trainer
+
+
+def phase_data_path(torch, cfg=None, device=None, length=DATA_LENGTH, short=DATA_SHORT):
+    """Phase [10], the training data path: ``voc_resnet18`` (``cfg``) at
+    600x600 b8 through ``Trainer.train`` on synthetic data, four feeds
+    ("arms", ``length`` images, 2 timed epochs and a profiled third): (a)
+    the synchronous float32 feed without prefetch; (b) uint8 (``device_normalize``)
+    with ``prefetch_device=2``; (c) (b) with ``augment_device`` (flip, scale
+    0.75-1.25, translation 0.1); (d) ``cache_device`` with flip and scale
+    (uint8, prefetch 2). Per arm: the second epoch's images/s, the spans of
+    the first two epochs, the profiled epoch's idle share, and the launch
+    counters (reset just before, read just after). (b) is bitwise its run
+    with prefetch off and (d) bitwise the loader-fed ``augment_scale_device``
+    run; the prefetching arms' dispatches run under sync-debug "error". On
+    ``short`` images: K=2 with prefetch bitwise K=1, and a SIGTERM after step
+    4 resumed with prefetch bitwise the uninterrupted run. The buckets
+    ((480, 480), (600, 600), (720, 720)), K=1 and K=2: the dispatches' bucket
+    sequence is ``bucket_index``'s, the captured run bitwise the eager run,
+    and per step NMS 1, IoU 2, ROIPool 1 + 1 and the resample 1 off the
+    600 bucket. The cache's bytes on the card against its formula."""
+    import dataclasses
+    import signal
+
+    from replication_faster_rcnn_tpu_torch import get_config
+    from replication_faster_rcnn_tpu_torch.data.augment import bucket_index
+    from replication_faster_rcnn_tpu_torch.data.synthetic import SyntheticDataset
+    from replication_faster_rcnn_tpu_torch.telemetry import spans
+    from replication_faster_rcnn_tpu_torch.train import fault
+    from replication_faster_rcnn_tpu_torch.train.train_step import make_train_step
+    from replication_faster_rcnn_tpu_torch.train.trainer import Trainer
+
+    cfg = cfg or get_config("voc_resnet18")
+    dev = torch.device(device or "cuda")
+    bsz = cfg.train.batch_size
+    root = fresh_dir(REPO / "build" / "chip_smoke_data")
+    names = ("nms", "iou_match") + ROI_NAMES + IMAGE_NAMES
+    per_step = {"nms": 1, "iou_match": 2, **roi_launches(cfg.model.roi_op, 1, 1)}
+    log(f"[10] the data path: {cfg.data.image_size} batch {bsz}, {length} synthetic images, "
+        "arms (a) float32 no prefetch, (b) uint8 + prefetch 2, (c) (b) + augment_device, "
+        "(d) cache_device uint8 flip + scale")
+
+    def config(epochs, **data):
+        base = dict(dataset="synthetic", augment_hflip=False)
+        base.update(data)
+        return cfg.replace(data=dataclasses.replace(cfg.data, **base),
+                           train=dataclasses.replace(cfg.train, n_epoch=epochs,
+                                                     checkpoint_every_epochs=1000))
+
+    datasets = {}
+
+    def dataset(c, n):
+        key = (c.data.device_normalize, n)
+        if key not in datasets:
+            datasets[key] = SyntheticDataset(c.data, length=n)
+        return datasets[key]
+
+    def make(tag, c, n, telemetry=False, seed=0, **train):
+        c = c.replace(train=dataclasses.replace(c.train, **train))
+        tel = str(root / f"tel_{tag}") if telemetry else None
+        tr = Trainer(c, dataset=dataset(c, n), device=dev, seed=seed,
+                     workdir=str(root / tag), telemetry_dir=tel)
+        tr.logger = quiet_logger(root / f"{tag}.jsonl")
+        return tr
+
+    def run(tr, log_every=1000):
+        try:
+            tr.train(log_every=log_every)
+        finally:
+            spans.set_tracer(None)
+        return tr
+
+    uint8 = dict(device_normalize=True)
+    arms = {
+        "a": config(3),
+        "b": config(3, prefetch_device=2, **uint8),
+        "c": config(3, prefetch_device=2, augment_device=True, augment_hflip=True,
+                    augment_scale=(0.75, 1.25), augment_translate=0.1, **uint8),
+        "d": config(3, prefetch_device=2, cache_device=True, augment_hflip=True,
+                    augment_scale=(0.75, 1.25), **uint8),
+    }
+    image_per_step = {"a": {}, "b": {},
+                      "c": {"augment_geometry": 1, "image_fill": 1, "augment_image": 1},
+                      "d": {"augment_geometry": 1, "image_fill": 1, "augment_image": 1}}
+    out, trainers = {}, {}
+    steps = 3 * (length // bsz)
+    for arm, c in arms.items():
+        tr = make(arm, c, length, telemetry=True)
+        if c.data.prefetch_device:
+            sync_checked(torch, tr)
+        box = profile_epoch(torch, tr, 2)
+        REPLAYS.reset(names)
+        t0 = time.perf_counter()
+        run(tr)
+        wall = time.perf_counter() - t0
+        launches = REPLAYS.read(names)
+        want = {k: per_step.get(k, 0) * steps + image_per_step[arm].get(k, 0) * steps
+                for k in names}
+        if launches != want:
+            raise AssertionError(f"arm ({arm}): launches {launches}, expected {want}")
+        idle = epoch_idle(torch, box, length // bsz)
+        rates = [r["images_per_sec"] for r in map(json.loads, open(root / f"{arm}.jsonl"))
+                 if "images_per_sec" in r]
+        out[arm] = {"images_per_sec_by_epoch": rates, "images_per_sec": rates[1],
+                    "wall_s": wall, "spans": span_stats(root / f"tel_{arm}", 2),
+                    "profiled_epoch": idle, "launches": launches}
+        if arm == "d":
+            cache = tr.device_cache
+            n_img = len(cache)
+            g = c.data.max_boxes
+            h, w = c.data.image_size
+            formula = n_img * (h * w * 3 + g * 4 * 4 + g * 4 + g + g)
+            on_card = sum(v.numel() * v.element_size() for v in cache.arrays.values())
+            if not on_card == cache.nbytes == formula:
+                raise AssertionError(f"cache bytes {on_card} / {cache.nbytes}, formula {formula}")
+            out[arm]["cache"] = {"images": n_img, "bytes_on_card": on_card, "formula": formula,
+                                 "bytes_per_image": formula // n_img,
+                                 "voc2007_trainval_gb": 5011 * formula / n_img / 1e9}
+        trainers[arm] = tr
+        log(f"  ({arm}) {out[arm]['images_per_sec']:.1f} images/s (epochs "
+            f"{[round(r, 1) for r in rates]}), spans "
+            f"{ {k: round(v['mean_ms'], 2) for k, v in out[arm]['spans'].items()} } ms mean, "
+            f"profiled epoch {idle and {k: round(v, 4) for k, v in idle.items()} }, launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+    # (b) against prefetch off, (d) against the loader-fed device jitter
+    ref_b = run(make("b_off", config(3, **uint8), length))
+    diff = state_differences(torch, trainers["b"], ref_b)
+    if diff:
+        raise AssertionError(f"(b) with prefetch differs from prefetch off: {diff[:5]}")
+    ref_d = run(make("d_fed", config(3, prefetch_device=2, augment_hflip=True,
+                                     augment_scale=(0.75, 1.25), augment_scale_device=True,
+                                     **uint8), length))
+    diff = state_differences(torch, trainers["d"], ref_d)
+    if diff:
+        raise AssertionError(f"(d) cache-fed differs from the loader-fed run: {diff[:5]}")
+    del trainers, ref_b, ref_d
+    log(f"  (b) bitwise its run with prefetch off; (d) bitwise the loader-fed "
+        "augment_scale_device run; the prefetching arms' dispatches after the first two ran "
+        "under sync-debug 'error'")
+
+    # K=2 with prefetch against K=1, and kill + resume with prefetch
+    short_cfg = config(2, prefetch_device=2, augment_hflip=True, **uint8)
+    k1 = make("k1", short_cfg, short - bsz)
+    k2 = make("k2", short_cfg, short - bsz, steps_per_dispatch=2)
+    for tr in (k1, k2):
+        run(sync_checked(torch, tr))
+    diff = state_differences(torch, k2, k1)
+    if diff:
+        raise AssertionError(f"K=2 with prefetch differs from K=1: {diff[:5]}")
+    killed = make("killed", short_cfg, short - bsz, checkpoint_every_steps=2)
+    step_fn = killed.train_one_batch
+
+    def term_after(*args, **kw):
+        res = step_fn(*args, **kw)
+        if killed.state.step == 4:
+            signal.raise_signal(signal.SIGTERM)
+        return res
+
+    killed.train_one_batch = term_after
+    try:
+        run(killed)
+        raise AssertionError("the prefetching run was not preempted")
+    except fault.Preempted as e:
+        if e.step != 4:
+            raise AssertionError(f"preempted at step {e.step}, not 4")
+    resumed = make("killed", short_cfg, short - bsz, checkpoint_every_steps=2)
+    resumed.train(log_every=1000, resume=True)
+    spans.set_tracer(None)
+    diff = state_differences(torch, resumed, k1)
+    if diff:
+        raise AssertionError(f"the resumed prefetching run differs: {diff[:5]}")
+    log(f"  K=2 chunks with prefetch (an epoch of {short // bsz - 1} steps: two chunks and a "
+        "1-step tail) bitwise K=1; SIGTERM after step 4 with prefetch, resumed: bitwise")
+    del k1, k2, killed, resumed
+
+    # the resolution buckets, captured against eager, K=1 and K=2
+    buckets = {}
+    per_epoch = short // bsz
+    for k in (1, 2):
+        bcfg = config(2, train_resolutions=BUCKETS, augment_hflip=True, **uint8)
+        cap = make(f"buckets{k}", bcfg, short, seed=BUCKET_SEED, steps_per_dispatch=k)
+        eag = make(f"buckets{k}_eager", bcfg, short, seed=BUCKET_SEED, steps_per_dispatch=k)
+        eag.step_fn = make_train_step(eag.config, capture=False)
+        seen = []
+        step_fn = cap.step_fn
+
+        def record(state, batch, resolution=None, _fn=step_fn, **kw):
+            seen.append(resolution)
+            return _fn(state, batch, resolution=resolution, **kw)
+
+        def record_chunk(state, batches, resolution=None, _fn=step_fn):
+            seen.extend([resolution] * len(batches))
+            return _fn.chunk(state, batches, resolution=resolution)
+
+        record.chunk = record_chunk
+        cap.step_fn = record
+        REPLAYS.reset(names)
+        run(cap)
+        launches = REPLAYS.read(names)
+        want_seq = [BUCKETS[bucket_index(BUCKET_SEED, e, b, len(BUCKETS), k)]
+                    for e in range(2) for b in range(per_epoch)]
+        if seen != want_seq:
+            raise AssertionError(f"K={k}: buckets {seen}, bucket_index gives {want_seq}")
+        lo, hi = min(BUCKETS), max(BUCKETS)
+        if not (seen.index(lo) < seen.index(hi) and lo in seen[seen.index(hi):]):
+            raise AssertionError(f"K={k}: {seen} does not replay {lo} after capturing {hi}")
+        n = len(seen)
+        off = sum(r != tuple(cfg.data.image_size) for r in seen)
+        want = {key: v for key, v in {**{key: v * n for key, v in per_step.items()},
+                                      "resize_aa": off}.items() if v}
+        got = {key: v for key, v in launches.items() if v}
+        if got != want:
+            raise AssertionError(f"K={k} buckets: launches {got}, expected {want}")
+        run(eag)
+        diff = state_differences(torch, cap, eag)
+        if diff:
+            raise AssertionError(f"K={k} buckets: captured differs from eager: {diff[:5]}")
+        buckets[f"k{k}"] = {"sequence": [r[0] for r in seen], "launches": got,
+                            "graphs": len(cap.state.graphs)}
+        del cap, eag
+    log(f"  buckets {BUCKETS}: sequences = bucket_index, the smallest captured before the "
+        f"largest and replayed after it, captured bitwise eager, per step NMS 1, IoU 2, "
+        f"ROIPool 1 + 1, the resample 1 off the base canvas: {buckets}")
+    shutil.rmtree(root, ignore_errors=True)
+    launches = {f"data_{arm}": out[arm]["launches"] for arm in out}
+    launches.update({f"data_buckets_{k}": v["launches"] for k, v in buckets.items()})
+    out["buckets"] = buckets
+    return launches, out
+
+
 BENCH_RUNS = 3  # benchmark runs per mode, train and eval alternating
 BENCH_COUNT_STEPS = 3  # BENCH_STEPS of the in-process runs that count launches
 # the JAX benchmark's breakdown keys
@@ -2816,6 +3430,60 @@ def phase_bench(torch, device="cuda", runs=BENCH_RUNS):
     return {"bench_train": train_launches, "bench_eval": eval_launches}, summary
 
 
+def image_kernel_rows(image, by_path):
+    """The ``kernels`` line's rows of the data path's four kernels: [3]'s
+    times at 600x600 b8 uint8 (all four row mixes' main one: flip,
+    translation and scale), the other shapes beside them, and [10]'s
+    launches."""
+    timing = ("ms", "plain_ms", "bound_ms", "bound_by")
+    main = "b8_uint8_flip+translate+scale"
+    rows = []
+    for name, part, parity in (
+            ("augment_geometry", "geometry",
+             "bitwise vs ops/image.py::augment_geometry_plain (boxes, labels, masks, geometry "
+             "rows) and vs the numpy oracle data/augment.py::device_decisions"),
+            ("image_fill", "fill",
+             "vs ops/image.py::image_fills_plain: uint8 bitwise (exact int64 sums), float32 "
+             "within 1 ulp (float64 sums in another order)"),
+            ("augment_image", "image",
+             "vs ops/image.py::augment_images_plain and the plain cache gather: uint8 bitwise, "
+             "float32 within 1e-6 of the largest magnitude (the fills' last bit)")):
+        err_key = "fill_max_abs_err" if part == "fill" else "max_abs_err"
+        sites = {k: {f: v[part][f] for f in timing} for k, v in image.items()
+                 if isinstance(v, dict) and isinstance(v.get(part), dict) and k != main}
+        if part == "image":
+            sites.update({k: {f: image[k][f] for f in timing} for k in image
+                          if k.startswith("cache_")})
+        rows.append({
+            "name": name, "route": "cuda", "source": IMAGE_SRC, "replaces": IMAGE_JAX[name],
+            "replaces_note": IMAGE_NOTE,
+            "launches": sum(by_path(name).values()), "launches_by_path": by_path(name),
+            "parity": parity,
+            "max_abs_err": max(v.get(err_key, 0.0) for k, v in image.items()
+                               if isinstance(v, dict) and not k.startswith("resize")),
+            **{f: image[main][part][f] for f in timing}, "library_ms": None,
+            "library_note": "torch core has no op for these steps",
+            "shape": "600x600 uint8 b8, flip + translate 0.1 + scale 0.75-1.25 (aug draws)",
+            "sites": sites,
+        })
+    rk = "resize_b8_uint8_480"
+    rows.append({
+        "name": "resize_aa", "route": "cuda", "source": IMAGE_SRC, "replaces": IMAGE_JAX["resize_aa"],
+        "replaces_note": IMAGE_NOTE + "; jax.image.resize(method='bilinear', antialias=True)",
+        "launches": sum(by_path("resize_aa").values()), "launches_by_path": by_path("resize_aa"),
+        "parity": "bitwise vs the plain band passes (ops/image.py::resize_batch_with_boxes, taps "
+                  "in order); the library call's agreement in library_within_tolerance",
+        "max_abs_err": 0.0, **{f: image[rk][f] for f in timing + ("library_ms",)},
+        "library_note": "torch.nn.functional.interpolate(mode='bilinear', antialias=True, "
+                        "align_corners=False) on NCHW float32",
+        "shape": "600x600 uint8 b8 -> 480x480 (2 band passes, boxes scaled)",
+        "sites": {k: {f: v[f] for f in timing + ("library_ms", "library_within_tolerance",
+                                                 "library_max_abs_err")}
+                  for k, v in image.items() if k.startswith("resize")},
+    })
+    return rows
+
+
 def main():
     try:
         import torch
@@ -2855,6 +3523,7 @@ def main():
     REPLAYS.install()
     res = phase_kernels(torch)
     graph_replays = check_graph_replays(torch, torch.device("cuda"))
+    image = check_image_kernels(torch, torch.device("cuda"))
     launches, serve = phase_serve(torch)
     plaunches, serve_pool = phase_serve(torch, "voc_resnet18")
     slaunches, presets = phase_presets(torch)
@@ -2866,10 +3535,12 @@ def main():
     evaluate["overfit"] = overfit
     rlaunches, resume = phase_resume(torch)
     blaunches, bench = phase_bench(torch)
+    dlaunches, data_path = phase_data_path(torch)
     paths = {"serve": launches, "serve_pool": plaunches, "serve_presets": slaunches,
              "serve_int8": qlaunches, "train": tlaunches, "train_eager": tlaunches_eager,
              "train_pool": ptlaunches, "train_pool_eager": ptlaunches_eager,
-             "evaluate": elaunches, "overfit_train": olaunches, **rlaunches, **blaunches}
+             "evaluate": elaunches, "overfit_train": olaunches, **rlaunches, **blaunches,
+             **dlaunches}
 
     def by_path(key):
         """A counter's launches on every main path that reads it."""
@@ -3042,10 +3713,12 @@ def main():
                     "flush); per_leaf_kernels_ms is the same flush as 23 dequantize_cuda calls",
         },
     ]
+    kernels += image_kernel_rows(image, by_path)
     log(json.dumps({"graph_replays": graph_replays, "serve": serve, "serve_pool": serve_pool,
                     "presets": presets,
                     "serve_int8": serve_int8, "train": train, "train_pool": train_pool,
-                    "evaluate": evaluate, "resume": resume, "bench": bench, "card": card}))
+                    "evaluate": evaluate, "resume": resume, "bench": bench,
+                    "data_path": data_path, "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

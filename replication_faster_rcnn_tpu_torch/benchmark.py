@@ -149,6 +149,46 @@ def _synthetic_batch(cfg, batch_size: int) -> Dict[str, np.ndarray]:
     return collate([ds[i] for i in range(batch_size)])
 
 
+def _timed_step(cfg, batch_size: int, dev: torch.device, capture: bool):
+    """(step, device batch) of the train measurement, as the JAX bench's
+    ``_measure`` builds them: the fed step on one synthetic batch; with
+    ``data.augment_scale`` the batch's jitter geometry (device mode: the
+    on-card resample is part of the timed step) or its host-jittered images;
+    with ``data.augment_device`` the ``aug`` rows (the on-card augmentation
+    is part of the step); with ``data.cache_device`` the cached step over a
+    resident synthetic cache, timed on one selection."""
+    from replication_faster_rcnn_tpu_torch.data.augment import AugmentedView, AugmentTagView
+    from replication_faster_rcnn_tpu_torch.data.loader import collate
+    from replication_faster_rcnn_tpu_torch.data.synthetic import SyntheticDataset
+    from replication_faster_rcnn_tpu_torch.train.train_step import (
+        make_cached_train_step,
+        make_train_step,
+        step_keys,
+    )
+
+    data = cfg.data
+    if data.cache_device:
+        from replication_faster_rcnn_tpu_torch.data.device_cache import CachedSampler, DeviceCache
+
+        base = SyntheticDataset(data, length=max(2 * batch_size, 64))
+        cache = DeviceCache(base, device=dev)
+        sampler = CachedSampler(len(base), cache.image_hw, batch_size=batch_size, seed=0,
+                                hflip=data.augment_hflip, scale_range=data.augment_scale)
+        sel = sampler.selection(np.arange(batch_size) % len(base))
+        return (make_cached_train_step(cfg, cache.arrays, capture=capture),
+                {k: torch.from_numpy(v).to(dev) for k, v in sel.items()})
+    ds = SyntheticDataset(data, length=batch_size)
+    if data.augment_device and (data.augment_hflip or data.augment_scale
+                                or data.augment_translate):
+        ds = AugmentTagView(ds, epoch=0)
+    elif data.augment_scale:
+        ds = AugmentedView(ds, seed=0, epoch=0, hflip=False, scale_range=data.augment_scale,
+                           scale_on_device=data.augment_scale_device)
+    batch = collate([ds[i] for i in range(batch_size)])
+    return (make_train_step(cfg, capture=capture),
+            {k: torch.from_numpy(batch[k]).to(dev) for k in step_keys(batch)})
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -188,10 +228,7 @@ def _vs_baseline(images_per_sec: float) -> Optional[float]:
 def _measure(config=None, profile_dir=None, device: DeviceLike = None) -> Dict[str, Any]:
     from replication_faster_rcnn_tpu_torch.config import TrainConfig
     from replication_faster_rcnn_tpu_torch.telemetry.mfu import compute_mfu, peak_flops_per_sec
-    from replication_faster_rcnn_tpu_torch.train.train_step import (
-        create_train_state,
-        make_train_step,
-    )
+    from replication_faster_rcnn_tpu_torch.train.train_step import create_train_state
 
     dev = resolve_device(device)
     if config is None:
@@ -205,10 +242,8 @@ def _measure(config=None, profile_dir=None, device: DeviceLike = None) -> Dict[s
     global _METRIC
     _METRIC = "train_images_per_sec_{}x{}".format(*cfg.data.image_size)
     state = create_train_state(cfg, steps_per_epoch=100, device=dev, seed=0)
-    step = make_train_step(cfg, capture=os.environ.get("BENCH_CAPTURE", "1") != "0")
-    batch = _synthetic_batch(cfg, batch_size)
-    device_batch = {k: torch.from_numpy(batch[k]).to(dev)
-                    for k in ("image", "boxes", "labels", "mask")}
+    capture = os.environ.get("BENCH_CAPTURE", "1") != "0"
+    step, device_batch = _timed_step(cfg, batch_size, dev, capture)
 
     for _ in range(WARMUP_STEPS):
         metrics = step(state, device_batch)
@@ -228,7 +263,8 @@ def _measure(config=None, profile_dir=None, device: DeviceLike = None) -> Dict[s
         trace_status = _capture_trace(profile_dir, lambda: step(state, device_batch), dev)
 
     # counted on an eager step: a graph replay runs no torch operator
-    flops_per_step = _step_flops(make_train_step(cfg, capture=False), state, device_batch)
+    flops_per_step = _step_flops(_timed_step(cfg, batch_size, dev, False)[0], state,
+                                 device_batch)
     peak, mfu_basis = peak_flops_per_sec(1, dev)
     mfu = compute_mfu(flops_per_step, images_per_sec / batch_size, peak)
     if mfu is None:

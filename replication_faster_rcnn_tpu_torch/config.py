@@ -4,9 +4,12 @@ training and evaluation paths read.
 Field names, defaults and presets mirror ``replication_faster_rcnn_tpu.config``
 so a reader can hold the two side by side; knobs the port does not implement
 yet (FPN, group norm, frozen BN, the mesh's optimizer fields ``backend``,
-``shard_opt_state`` and ``grad_allreduce_dtype``, fleet, the COCO
-``root_dir`` (``data/coco.py`` is not ported), caches, augmentation) are
-left out rather than accepted and ignored.
+``shard_opt_state`` and ``grad_allreduce_dtype``, fleet, the loader's
+``loader_mode="process"`` workers) are left out rather than accepted and
+ignored. The data path is the JAX package's: the uint8 feed
+(``device_normalize``), the RAM cache, the host and on-device augmentations,
+the device-resident dataset cache, device prefetch and the multi-scale
+training buckets, with the same validation.
 
 Box convention: boxes are ``[r1, c1, r2, c2]`` (``r`` along image rows,
 ``c`` along columns) and deltas ``[dr, dc, dh, dw]``.
@@ -15,7 +18,7 @@ Box convention: boxes are ``[r1, c1, r2, c2]`` (``r`` along image rows,
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 VOC_CLASSES: Tuple[str, ...] = (
     "__background__",
@@ -140,6 +143,117 @@ class DataConfig:
     # threaded loader (data/loader.py): -1 = min(4, the cores this process may use)
     loader_workers: int = -1
     loader_prefetch: int = 2  # batches built ahead of the consumer
+    # memoize decoded samples in host RAM (data/cache.py): the first epoch
+    # pays the decode, later ones a copy
+    loader_cache_ram: bool = False
+    # ship uint8 images and normalize on the card (the model's preprocess):
+    # a quarter of the host-to-device bytes. Off: the float32 samples
+    device_normalize: bool = False
+    # 50% horizontal flip, deterministic per (seed, epoch, index); the VOC
+    # and COCO presets turn it on, as the JAX presets do
+    augment_hflip: bool = False
+    # scale jitter (lo, hi) on a fixed canvas, boxes tracked, collapsed rows
+    # masked (data/augment.py::scale_jitter_sample). None = off
+    augment_scale: Optional[Tuple[float, float]] = None
+    # the jitter's image resample on the card (ops/image.py): the host moves
+    # the boxes and ships the integer geometry. Requires augment_scale
+    augment_scale_device: bool = False
+    # every augmentation on the card (ops/image.py::augment_batch): the
+    # loader ships raw samples with an int32 [idx, epoch] row and the step
+    # draws flip, translate and scale from (seed, epoch, idx). Needs one of
+    # augment_hflip / augment_scale / augment_translate; excludes
+    # augment_scale_device and cache_device
+    augment_device: bool = False
+    # translation jitter amplitude (a fraction of the canvas), device mode only
+    augment_translate: float = 0.0
+    # the whole dataset resident on the card (data/device_cache.py): each
+    # step ships indices and augmentation decisions only
+    cache_device: bool = False
+    # batches (or K-step chunks) staged on the card ahead of the step by a
+    # producer thread (data/prefetch_device.py); 0 = staged synchronously
+    prefetch_device: int = 0
+    # multi-scale training: (h, w) buckets; each global batch trains at one,
+    # chosen by data/augment.py::bucket_index and resampled on the card
+    # (ops/image.py::resize_batch_with_boxes). () = off
+    train_resolutions: Tuple[Tuple[int, int], ...] = ()
+
+    def __post_init__(self):
+        if self.prefetch_device < 0:
+            raise ValueError(
+                f"prefetch_device must be >= 0, got {self.prefetch_device}"
+            )
+        if self.augment_scale is not None:
+            lo, hi = self.augment_scale
+            # fail at config build, not at the first training epoch
+            if not 0.1 <= lo <= hi <= 4.0:
+                raise ValueError(
+                    "augment_scale must satisfy 0.1 <= lo <= hi <= 4.0, "
+                    f"got {self.augment_scale!r}"
+                )
+            # coerce list inputs (dict/JSON config paths) to a tuple so the
+            # frozen dataclass stays hashable like its other tuple fields
+            object.__setattr__(self, "augment_scale", (float(lo), float(hi)))
+        if self.augment_scale_device and self.augment_scale is None:
+            raise ValueError(
+                "augment_scale_device requires augment_scale to be set"
+            )
+        if not 0.0 <= self.augment_translate < 1.0:
+            raise ValueError(
+                "augment_translate must be in [0, 1), got "
+                f"{self.augment_translate!r}"
+            )
+        if self.augment_translate and not self.augment_device:
+            raise ValueError(
+                "augment_translate is a device-mode op: set "
+                "data.augment_device=True (the host pipeline has no "
+                "translation path)"
+            )
+        if self.augment_device:
+            if not (
+                self.augment_hflip
+                or self.augment_scale is not None
+                or self.augment_translate
+            ):
+                raise ValueError(
+                    "augment_device is set but no augmentation op is "
+                    "enabled (augment_hflip / augment_scale / "
+                    "augment_translate)"
+                )
+            if self.augment_scale_device:
+                raise ValueError(
+                    "augment_device supersedes augment_scale_device — "
+                    "set only one"
+                )
+            if self.cache_device:
+                raise ValueError(
+                    "augment_device is incompatible with cache_device: "
+                    "the device cache already flips/jitters inside its "
+                    "gather (data/device_cache.py)"
+                )
+        if self.train_resolutions:
+            res = tuple(
+                (int(r[0]), int(r[1])) for r in self.train_resolutions
+            )
+            for h, w in res:
+                if h < 1 or w < 1:
+                    raise ValueError(
+                        "data.train_resolutions entries must be positive "
+                        f"(h, w) pairs, got {(h, w)}"
+                    )
+            if len(set(res)) != len(res):
+                raise ValueError(
+                    f"data.train_resolutions has duplicates: {res!r}"
+                )
+            # canonical smallest-area-first order: the bucket index is part
+            # of the deterministic assignment
+            object.__setattr__(
+                self,
+                "train_resolutions",
+                tuple(sorted(res, key=lambda r: (r[0] * r[1], r))),
+            )
+        else:
+            # coerce None/[] (JSON round-trips) to the canonical empty tuple
+            object.__setattr__(self, "train_resolutions", ())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -418,23 +532,34 @@ class FasterRCNNConfig:
         return dataclasses.replace(self, **kwargs)
 
 
+def _voc_data(**kw) -> DataConfig:
+    """The VOC presets' data pipeline: the 50% horizontal flip on, as the
+    JAX package's ``_voc_data``."""
+    kw.setdefault("augment_hflip", True)
+    return DataConfig(**kw)
+
+
 CONFIGS = {
-    # ResNet18 + RPN + ROIPool at 600x600 (the flagship preset)
+    # ResNet18 + RPN + ROIPool at 600x600 on VOC2007 (the flagship preset)
     "voc_resnet18": FasterRCNNConfig(
         model=ModelConfig(backbone="resnet18", roi_op="pool"),
+        data=_voc_data(root_dir="data/voc/VOCdevkit/VOC2007"),
     ),
-    # ResNet50 (Bottleneck) backbone, ROIPool head
+    # ResNet50 (Bottleneck) backbone, ROIPool head, VOC2007
     "voc_resnet50": FasterRCNNConfig(
         model=ModelConfig(backbone="resnet50", roi_op="pool"),
+        data=_voc_data(root_dir="data/voc/VOCdevkit/VOC2007"),
     ),
-    # the same network with the ROIAlign head (7x7, 2x2 samples per bin)
+    # the same network with the ROIAlign head (7x7, 2x2 samples per bin), VOC2012
     "voc12_resnet18_align": FasterRCNNConfig(
         model=ModelConfig(backbone="resnet18", roi_op="align"),
+        data=_voc_data(root_dir="data/voc/VOCdevkit/VOC2012"),
     ),
     # COCO-2017: 81 classes, ROIAlign, up to 100 boxes, batch 32, COCO mAP
     "coco_resnet50": FasterRCNNConfig(
         model=ModelConfig(backbone="resnet50", num_classes=COCO_NUM_CLASSES, roi_op="align"),
-        data=DataConfig(dataset="coco", max_boxes=100),
+        data=DataConfig(dataset="coco", root_dir="data/coco", max_boxes=100,
+                        augment_hflip=True),
         train=TrainConfig(batch_size=32),
         eval=EvalConfig(metric="coco"),
     ),
@@ -445,7 +570,8 @@ CONFIGS = {
             backbone="vgg16", num_classes=COCO_NUM_CLASSES, roi_op="pool", rpn_mid_channels=512,
         ),
         anchors=AnchorConfig(scales=(4.0, 8.0, 16.0, 32.0)),
-        data=DataConfig(dataset="coco", max_boxes=100),
+        data=DataConfig(dataset="coco", root_dir="data/coco", max_boxes=100,
+                        augment_hflip=True),
         eval=EvalConfig(metric="coco"),
     ),
 }

@@ -17,8 +17,17 @@ With a span tracer installed (``telemetry/spans.py::set_tracer``, as a
 ``data/build`` span on the producer's thread and each hand-over samples the
 ``loader/queue_depth`` counter.
 
-Not ported yet: worker processes, the RAM cache, augmentation, sample-fault
-containment and multi-process sharding.
+Each epoch's samples come through :meth:`DataLoader._epoch_dataset`: the
+dataset itself, the host augmentations keyed on (seed, epoch, index)
+(``data/augment.py::AugmentedView``: flip, scale jitter, or with
+``augment_scale_device`` the jitter's geometry for the card), or with
+``augment_device`` the raw samples tagged with ``[idx, epoch]`` for the
+step's own draws. ``cache_ram`` memoizes decoded samples
+(``data/cache.py``). With ``train_resolutions`` each batch is assigned a
+resolution bucket by :meth:`DataLoader.bucket_of`.
+
+Not ported yet: worker processes, sample-fault containment and
+multi-process sharding.
 """
 
 from __future__ import annotations
@@ -46,7 +55,11 @@ class DataLoader:
     permutation (else the dataset's order). ``drop_last``: drop the trailing
     partial batch. ``prefetch``: batches built ahead (0 builds each batch on
     the consumer's thread). ``num_workers``: threads building the samples of
-    a batch; negative means min(4, the cores this process may run on)."""
+    a batch; negative means min(4, the cores this process may run on).
+    ``augment_*``: the epoch's augmentation view (:meth:`_epoch_dataset`);
+    ``cache_ram``: decoded samples kept in host RAM (``data/cache.py``);
+    ``train_resolutions`` / ``bucket_chunk``: the buckets of
+    :meth:`bucket_of`."""
 
     def __init__(
         self,
@@ -57,9 +70,26 @@ class DataLoader:
         prefetch: int = 2,
         num_workers: int = 4,
         seed: int = 0,
+        augment_hflip: bool = False,
+        augment_scale=None,
+        augment_scale_device: bool = False,
+        augment_device: bool = False,
+        augment_translate: float = 0.0,
+        cache_ram: bool = False,
+        train_resolutions=(),
+        bucket_chunk: int = 1,
     ) -> None:
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        self.augment_hflip = augment_hflip
+        self.augment_scale = augment_scale
+        self.augment_scale_device = augment_scale_device
+        self.augment_device = augment_device
+        self.augment_translate = float(augment_translate)
+        if cache_ram:
+            from replication_faster_rcnn_tpu_torch.data.cache import CachedView
+
+            dataset = CachedView(dataset)
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -72,6 +102,14 @@ class DataLoader:
         self.epoch = 0
         self.start_batch = 0  # mid-epoch offset (set_epoch)
         self._q: Optional["queue.Queue"] = None  # the live prefetch queue
+        # multi-scale buckets: the feed only assigns each global batch a
+        # bucket (bucket_of); the resample runs on the card in that bucket's
+        # step. bucket_chunk = train.steps_per_dispatch, so the K batches of
+        # one dispatch share a bucket
+        self.train_resolutions = tuple(
+            (int(r[0]), int(r[1])) for r in (train_resolutions or ())
+        )
+        self.bucket_chunk = max(1, int(bucket_chunk))
 
     def set_epoch(self, epoch: int, start_batch: int = 0) -> None:
         """Select the epoch, and optionally a mid-epoch offset: iteration
@@ -81,6 +119,44 @@ class DataLoader:
             raise ValueError(f"start_batch must be >= 0, got {start_batch}")
         self.epoch = epoch
         self.start_batch = int(start_batch)
+
+    def bucket_of(self, batch_pos: int) -> int:
+        """Resolution-bucket index of the batch at ``batch_pos`` of the
+        current epoch: a pure function of (seed, epoch, batch_pos //
+        bucket_chunk), so a ``set_epoch(epoch, start_batch=)`` resume replays
+        the same sequence. 0 when bucketing is off."""
+        if len(self.train_resolutions) <= 1:
+            return 0
+        from replication_faster_rcnn_tpu_torch.data.augment import bucket_index
+
+        return bucket_index(self.seed, self.epoch, int(batch_pos),
+                            len(self.train_resolutions), chunk=self.bucket_chunk)
+
+    def _epoch_dataset(self):
+        """The dataset view for the current epoch: identity, or the
+        deterministic augmentations keyed on (seed, epoch, idx), made per
+        iteration so set_epoch() re-rolls the draws and a resume replays
+        them."""
+        if self.augment_device and (
+            self.augment_hflip or self.augment_scale or self.augment_translate
+        ):
+            # on the card: raw pixels plus the int32 (idx, epoch) row the
+            # step's draws key on
+            from replication_faster_rcnn_tpu_torch.data.augment import AugmentTagView
+
+            return AugmentTagView(self.dataset, self.epoch)
+        if not (self.augment_hflip or self.augment_scale):
+            return self.dataset
+        from replication_faster_rcnn_tpu_torch.data.augment import AugmentedView
+
+        return AugmentedView(
+            self.dataset,
+            self.seed,
+            self.epoch,
+            hflip=self.augment_hflip,
+            scale_range=self.augment_scale,
+            scale_on_device=self.augment_scale_device,
+        )
 
     def _order(self) -> np.ndarray:
         n = len(self.dataset)
@@ -105,28 +181,29 @@ class DataLoader:
         for i in range(self.start_batch * bs, end, bs):
             yield order[i:i + bs]
 
-    def _build(self, idxs: np.ndarray,
-               pool: Optional[futures.ThreadPoolExecutor]) -> Dict[str, np.ndarray]:
+    def _build(self, idxs: np.ndarray, pool: Optional[futures.ThreadPoolExecutor],
+               ds) -> Dict[str, np.ndarray]:
         # on the producer thread under prefetch, so these spans overlap the
         # step's in the trace: parallel lanes, not a serial pipeline
         with tspans.current_tracer().span("data/build", cat="data", batch=len(idxs)):
             if pool is None or len(idxs) == 1:
-                return collate([self.dataset[int(i)] for i in idxs])
-            return collate(list(pool.map(lambda i: self.dataset[int(i)], idxs)))
+                return collate([ds[int(i)] for i in idxs])
+            return collate(list(pool.map(lambda i: ds[int(i)], idxs)))
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         pool = futures.ThreadPoolExecutor(self.num_workers) if self.num_workers > 1 else None
+        ds = self._epoch_dataset()
         try:
             if self.prefetch <= 0:
                 for idxs in self._batches():
-                    yield self._build(idxs, pool)
+                    yield self._build(idxs, pool, ds)
                 return
-            yield from self._prefetched(pool)
+            yield from self._prefetched(pool, ds)
         finally:
             if pool is not None:
                 pool.shutdown(wait=True, cancel_futures=True)
 
-    def _prefetched(self, pool) -> Iterator[Dict[str, np.ndarray]]:
+    def _prefetched(self, pool, ds) -> Iterator[Dict[str, np.ndarray]]:
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
         err: list = []
@@ -144,7 +221,7 @@ class DataLoader:
         def producer() -> None:
             try:
                 for idxs in self._batches():
-                    if stop.is_set() or not put(self._build(idxs, pool)):
+                    if stop.is_set() or not put(self._build(idxs, pool, ds)):
                         return
             except BaseException as e:  # handed to the consumer, which raises it
                 err.append(e)
@@ -178,8 +255,10 @@ def make_dataset(cfg, split: str = "train", **kwargs):
 
         return VOCDataset(cfg, split, **kwargs)
     if kind == "coco":
-        raise NotImplementedError(
-            "dataset='coco': the COCO reader (data/coco.py) is not ported yet")
+        from replication_faster_rcnn_tpu_torch.data.coco import COCODataset
+
+        split_map = {"train": "train2017", "val": "val2017"}
+        return COCODataset(cfg, split_map.get(split, split), **kwargs)
     if kind == "synthetic":
         from replication_faster_rcnn_tpu_torch.data.synthetic import SyntheticDataset
 

@@ -224,3 +224,34 @@ def decode_jpeg_resize_normalize(
     if rc != 0:
         return None
     return dst, int(dims[0]), int(dims[1])
+
+
+# --- uint8 (device-normalize) variants: with mean 0 and std 1/255 the
+# resize's (x / 255 - mean) / std is the identity on pixel values, so the same
+# C++ code gives the resized image in 0..255; rint and clip make it uint8.
+# The sample then ships to the card at a quarter of the bytes and the model's
+# preprocess normalizes it there.
+
+_U8_MEAN = (0.0, 0.0, 0.0)
+_U8_STD = (1.0 / 255.0, 1.0 / 255.0, 1.0 / 255.0)
+
+
+def _to_u8(arr: np.ndarray) -> np.ndarray:
+    return np.clip(np.rint(arr), 0.0, 255.0).astype(np.uint8)
+
+
+def resize_u8(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """uint8 HWC RGB -> bilinear-resized uint8 [out_h, out_w, 3]."""
+    return _to_u8(resize_normalize(img, out_hw, _U8_MEAN, _U8_STD))
+
+
+def decode_jpeg_resize_u8(
+    data: bytes, out_hw: Tuple[int, int]
+) -> Optional[Tuple[np.ndarray, int, int]]:
+    """JPEG bytes -> (resized uint8 [out_h, out_w, 3], orig_h, orig_w); None
+    when the bytes do not decode as a JPEG."""
+    res = decode_jpeg_resize_normalize(data, out_hw, _U8_MEAN, _U8_STD)
+    if res is None:
+        return None
+    out, orig_h, orig_w = res
+    return _to_u8(out), orig_h, orig_w

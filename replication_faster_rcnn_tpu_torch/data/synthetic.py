@@ -3,7 +3,8 @@ boxes (a copy of the JAX package's ``data/synthetic.py``, numpy only).
 
 Images hold bright class-coloured rectangles at the box locations, so a
 detector can fit the data and not only the shapes. Samples are normalised
-float32 images (the port has no uint8 device-normalise option yet).
+float32 images, or with ``data.device_normalize`` the raw pixels as uint8
+(the model's preprocess normalizes them on the card).
 """
 
 from __future__ import annotations
@@ -65,9 +66,14 @@ class SyntheticDataset:
                 -0.05, 0.05, (bh, bw, 3)
             ).astype(np.float32)
 
-        mean = np.asarray(self.cfg.pixel_mean, np.float32)
-        std = np.asarray(self.cfg.pixel_std, np.float32)
-        image = (image - mean) / std
+        if self.cfg.device_normalize:
+            # raw pixels in [0, 1] -> uint8; the u8 and f32 paths see the
+            # same image up to 1/255 quantization
+            image = np.clip(np.rint(image * 255.0), 0, 255).astype(np.uint8)
+        else:
+            mean = np.asarray(self.cfg.pixel_mean, np.float32)
+            std = np.asarray(self.cfg.pixel_std, np.float32)
+            image = (image - mean) / std
         return {
             "image": image,
             "boxes": boxes,

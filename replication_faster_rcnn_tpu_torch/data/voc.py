@@ -26,26 +26,35 @@ from replication_faster_rcnn_tpu_torch.config import VOC_CLASSES, DataConfig
 from replication_faster_rcnn_tpu_torch.data import native_ops
 
 
-def _load_image(path: str, image_size, pixel_mean, pixel_std):
-    """JPEG file -> (normalized float32 [H, W, 3], orig_h, orig_w)."""
+def _load_image(path: str, image_size, pixel_mean, pixel_std,
+                device_normalize: bool = False):
+    """JPEG file -> (normalized float32 [H, W, 3], orig_h, orig_w), or with
+    ``device_normalize`` the resized uint8 image (normalized on the card)."""
     with open(path, "rb") as f:
         data = f.read()
     if native_ops.has_jpeg():
-        decoded = native_ops.decode_jpeg_resize_normalize(data, image_size, pixel_mean, pixel_std)
+        decoded = (
+            native_ops.decode_jpeg_resize_u8(data, image_size)
+            if device_normalize
+            else native_ops.decode_jpeg_resize_normalize(data, image_size, pixel_mean, pixel_std)
+        )
         if decoded is not None:
             return decoded
     from PIL import Image  # a non-JPEG file, or a library built without libjpeg
 
     with Image.open(io.BytesIO(data)) as im:
         arr = np.asarray(im.convert("RGB"), np.uint8)
+    if device_normalize:
+        return native_ops.resize_u8(arr, image_size), arr.shape[0], arr.shape[1]
     out = native_ops.resize_normalize(arr, image_size, pixel_mean, pixel_std)
     return out, arr.shape[0], arr.shape[1]
 
 
 class VOCDataset:
     """Map-style dataset of fixed-shape numpy samples: ``'image'`` [H, W, 3]
-    float32 normalized, ``'boxes'`` [M, 4] float32, ``'labels'`` [M] int32
-    (-1 pad), ``'mask'`` [M] bool, ``'difficult'`` [M] bool."""
+    float32 normalized (uint8 with ``device_normalize``), ``'boxes'`` [M, 4]
+    float32, ``'labels'`` [M] int32 (-1 pad), ``'mask'`` [M] bool,
+    ``'difficult'`` [M] bool."""
 
     classes = VOC_CLASSES
 
@@ -94,6 +103,7 @@ class VOCDataset:
         image, orig_h, orig_w = _load_image(
             os.path.join(self.root, "JPEGImages", img_id + ".jpg"),
             self.cfg.image_size, self.cfg.pixel_mean, self.cfg.pixel_std,
+            self.cfg.device_normalize,
         )
         labels, boxes, difficult = self._parse_annotation(
             os.path.join(self.root, "Annotations", img_id + ".xml"))

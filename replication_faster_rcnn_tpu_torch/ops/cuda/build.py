@@ -25,6 +25,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES: Tuple[str, ...] = (
     "nms_kernel", "roi_align_kernel", "roi_pool_kernel", "iou_match_kernel", "quant_kernel",
+    "image_kernel",
 )
 
 # sm_90a: Hopper. -fmad=false: no product is contracted into an add, so the

@@ -1,0 +1,311 @@
+"""Wrappers of the data path's CUDA kernels (``csrc/image_kernel.cu``).
+
+They replace no Pallas kernel: the JAX package runs the on-card augmentation,
+the device cache's gather and the bucket resample as XLA ops
+(``ops/image.py``, ``data/device_cache.py::materialize_batch``). The plain
+versions are in the port's ``ops/image.py``, which dispatches a CUDA tensor
+here; each wrapper takes only CUDA tensors and raises on anything else.
+
+* :func:`augment_geometry_cuda`: the draws, the flip / translation / jitter
+  decisions and the box, label and mask transforms, one thread per image;
+  returns an int32 [N, 8] geometry row per image (flip, dy, dx, ch, cw, shy,
+  shx, resample) for the image kernels.
+* :func:`image_fill_cuda`: the two channel fills per image (two launches, one
+  call): [N, 2, 3] float32.
+* :func:`augment_image_cuda`: gather (from the batch, or the cache by
+  ``idx``), flip, translation and jitter in one pass per output pixel.
+* :func:`resize_aa_cuda`: the antialiased bilinear bucket resample as band
+  passes over rows, then columns, with the boxes scaled in the last pass.
+
+Each counts its calls in its own counter (``geometry_launches``,
+``fill_launches``, ``image_launches``, ``resize_launches``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from replication_faster_rcnn_tpu_torch.ops.cuda import build
+
+Tensor = torch.Tensor
+
+# calls since the last reset (the caller resets them to 0)
+geometry_launches = 0
+fill_launches = 0
+image_launches = 0
+resize_launches = 0
+
+GAMMA = 0x9E3779B97F4A7C15
+MASK64 = 0xFFFFFFFFFFFFFFFF
+FILL_BANDS = 16  # csrc/image_kernel.cu::FILL_BANDS
+GEOM_COLS = 8
+
+_fns = None
+# (in_size, out_size, device) -> (start int32 [out], weight float32 [out, taps])
+_bands: Dict[Tuple[int, int, torch.device], Tuple[Tensor, Tensor]] = {}
+
+
+def _kernels():
+    global _fns
+    if _fns is None:
+        lib = build.library("image_kernel")
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.augment_geometry_launch.argtypes = [
+            p, p, p, p, p, ctypes.c_ulonglong, i, i, f, f, i, f, f, p, p, p, p, i,
+            i, i, i, i, p, p, p, p, p, p,
+        ]
+        lib.image_fill_launch.argtypes = [p, p, p, i, i, i, i, p, p, p]
+        lib.augment_image_launch.argtypes = [p, p, p, p, i, i, i, i, p, p]
+        lib.resize_aa_launch.argtypes = [
+            p, i, p, i, p, p, i, ctypes.c_longlong, i, i, ctypes.c_longlong, p, p,
+            ctypes.c_longlong, f, f, p,
+        ]
+        for fn in (lib.augment_geometry_launch, lib.image_fill_launch,
+                   lib.augment_image_launch, lib.resize_aa_launch):
+            fn.restype = ctypes.c_int
+        lib.image_error_string.argtypes = [ctypes.c_int]
+        lib.image_error_string.restype = ctypes.c_char_p
+        _fns = lib
+    return _fns
+
+
+def _ptr(t: Optional[Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _on(dev: torch.device, name: str, t: Optional[Tensor], dtype=None, shape=None) -> Optional[Tensor]:
+    """``t`` checked (CUDA, on ``dev``, dtype, shape) and made contiguous."""
+    if t is None:
+        return None
+    if not t.is_cuda or t.device != dev:
+        raise ValueError(f"{name} must be a CUDA tensor on {dev}, got {t.device}")
+    if dtype is not None and t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
+    t = t.contiguous()
+    if t.data_ptr() % 16:
+        t = t.clone()
+    return t
+
+
+def _image_kind(images: Tensor) -> int:
+    if images.dtype == torch.uint8:
+        return 1
+    if images.dtype == torch.float32:
+        return 0
+    raise ValueError(f"images must be uint8 or float32, got {images.dtype}")
+
+
+def augment_geometry_cuda(
+    boxes: Optional[Tensor],
+    labels: Optional[Tensor],
+    mask: Optional[Tensor],
+    n: int,
+    h: int,
+    w: int,
+    *,
+    idx: Optional[Tensor] = None,
+    aug: Optional[Tensor] = None,
+    seed: int = 0,
+    hflip: bool = False,
+    scale_range=None,
+    translate: float = 0.0,
+    flip: Optional[Tensor] = None,
+    shifts: Optional[Tensor] = None,
+    jitter: Optional[Tensor] = None,
+    apply: Optional[Tensor] = None,
+    resample: str = "rows",
+    draws: bool = False,
+    device: Optional[torch.device] = None,
+):
+    """One launch: -> (boxes, labels, mask, geom int32 [n, 8], draws float32
+    [n, 6] or None). ``boxes``/``labels``/``mask`` are [n, G, ...] or, with
+    ``idx`` [n], the cache's [M, G, ...] rows gathered by it; ``boxes`` None
+    transforms no box (the outputs are then None). The decisions come from
+    ``aug`` [n, 2] = (idx, epoch) draws (``hflip``, ``scale_range``,
+    ``translate``), or from the host's ``flip`` [n] bool, ``shifts`` [n, 2]
+    and ``jitter`` [n, 4] (``apply`` [n] bool picks the rows whose boxes
+    jitter; default: the non-identity geometries). ``resample`` picks the
+    rows the image kernel resamples: ``"rows"`` those whose boxes jitter,
+    ``"all"`` every row with a jitter geometry (JAX's
+    ``batched_scale_jitter``), ``"none"`` no row."""
+    ref = next(t for t in (boxes, aug, flip, shifts, jitter, idx) if t is not None) \
+        if device is None else None
+    dev = device if device is not None else ref.device
+    if dev.type != "cuda":
+        raise ValueError(f"augment_geometry_cuda takes CUDA tensors, got {dev}")
+    g = 0
+    if boxes is not None:
+        rows = boxes.shape[0]
+        g = boxes.shape[1]
+        boxes = _on(dev, "boxes", boxes, torch.float32, (rows, g, 4))
+        labels = _on(dev, "labels", labels, torch.int32, (rows, g))
+        mask = _on(dev, "mask", mask, torch.bool, (rows, g))
+        if idx is None and rows != n:
+            raise ValueError(f"boxes hold {rows} rows for {n} images")
+    idx = _on(dev, "idx", idx, torch.int32, (n,))
+    aug = _on(dev, "aug", aug, torch.int32, (n, 2))
+    flip = _on(dev, "flip", flip, torch.bool, (n,))
+    shifts = _on(dev, "shifts", shifts, torch.int32, (n, 2))
+    jitter = _on(dev, "jitter", jitter, torch.int32, (n, 4))
+    apply = _on(dev, "apply", apply, torch.bool, (n,))
+    modes = {"rows": 0, "all": 1, "none": 2}
+    if resample not in modes:
+        raise ValueError(f"resample must be one of {sorted(modes)}, got {resample!r}")
+    if aug is not None and any(t is not None for t in (flip, shifts, jitter, apply)):
+        raise ValueError("aug draws its decisions: pass no flip, shifts, jitter or apply")
+    out_boxes = out_labels = out_mask = None
+    if g:
+        out_boxes = torch.empty(n, g, 4, dtype=torch.float32, device=dev)
+        out_labels = torch.empty(n, g, dtype=torch.int32, device=dev)
+        out_mask = torch.empty(n, g, dtype=torch.bool, device=dev) if mask is not None else None
+    geom = torch.empty(n, GEOM_COLS, dtype=torch.int32, device=dev)
+    out_draws = torch.empty(n, 6, dtype=torch.float32, device=dev) if draws else None
+    lo, hi = (0.0, 0.0) if scale_range is None else (float(scale_range[0]), float(scale_range[1]))
+    lib = _kernels()
+    with torch.cuda.device(dev):
+        rc = lib.augment_geometry_launch(
+            _ptr(boxes), _ptr(labels), _ptr(mask), _ptr(idx), _ptr(aug),
+            (int(seed) * GAMMA) & MASK64, int(bool(hflip)), int(scale_range is not None),
+            float(np.float32(lo)), float(np.float32(hi - lo)), int(bool(translate)),
+            float(np.float32(translate * h)), float(np.float32(translate * w)),
+            _ptr(flip), _ptr(shifts), _ptr(jitter), _ptr(apply), modes[resample],
+            n, g, h, w, _ptr(out_boxes), _ptr(out_labels), _ptr(out_mask), geom.data_ptr(),
+            _ptr(out_draws), _stream(dev),
+        )
+    build.check(rc, lib.image_error_string, "augment_geometry_kernel")
+    global geometry_launches
+    geometry_launches += 1
+    return out_boxes, out_labels, out_mask, geom, out_draws
+
+
+def _source(images: Tensor, geom: Tensor, idx: Optional[Tensor]):
+    dev = images.device
+    if not images.is_cuda:
+        raise ValueError(f"images must be a CUDA tensor, got {images.device}")
+    _image_kind(images)
+    if images.dim() != 4 or images.shape[-1] != 3:
+        raise ValueError(f"images must be [N, H, W, 3], got {tuple(images.shape)}")
+    n = geom.shape[0]
+    geom = _on(dev, "geom", geom, torch.int32, (n, GEOM_COLS))
+    idx = _on(dev, "idx", idx, torch.int32, (n,))
+    if idx is None and images.shape[0] != n:
+        raise ValueError(f"images hold {images.shape[0]} rows for {n} geometry rows")
+    return images.contiguous(), geom, idx, n
+
+
+def image_fill_cuda(images: Tensor, geom: Tensor, idx: Optional[Tensor] = None) -> Tensor:
+    """Two launches (per-band partial sums, then the fills), one call: the
+    [N, 2, 3] float32 fills (translation, jitter) of each row's source
+    (``images[idx[n]]`` with ``idx``)."""
+    images, geom, idx, n = _source(images, geom, idx)
+    dev = images.device
+    h, w = images.shape[1], images.shape[2]
+    partial = torch.empty(n, FILL_BANDS, 6, dtype=torch.float64, device=dev)
+    fills = torch.empty(n, 2, 3, dtype=torch.float32, device=dev)
+    lib = _kernels()
+    with torch.cuda.device(dev):
+        rc = lib.image_fill_launch(images.data_ptr(), _ptr(idx), geom.data_ptr(), n, h, w,
+                                   _image_kind(images), partial.data_ptr(), fills.data_ptr(),
+                                   _stream(dev))
+    build.check(rc, lib.image_error_string, "image_fill_kernel")
+    global fill_launches
+    fill_launches += 1
+    return fills
+
+
+def augment_image_cuda(images: Tensor, geom: Tensor, fills: Optional[Tensor],
+                       idx: Optional[Tensor] = None) -> Tensor:
+    """One launch: [N, H, W, 3] in the images' dtype. ``fills`` may be None
+    when no row translates or resamples."""
+    images, geom, idx, n = _source(images, geom, idx)
+    dev = images.device
+    h, w = images.shape[1], images.shape[2]
+    fills = _on(dev, "fills", fills, torch.float32, (n, 2, 3))
+    out = torch.empty((n, h, w, 3), dtype=images.dtype, device=dev)
+    lib = _kernels()
+    with torch.cuda.device(dev):
+        rc = lib.augment_image_launch(images.data_ptr(), _ptr(idx), geom.data_ptr(), _ptr(fills),
+                                      n, h, w, _image_kind(images), out.data_ptr(), _stream(dev))
+    build.check(rc, lib.image_error_string, "augment_image_kernel")
+    global image_launches
+    image_launches += 1
+    return out
+
+
+def band_tables(in_size: int, out_size: int, device) -> Tuple[Tensor, Tensor]:
+    """The resize's band along one axis on ``device``, built once per
+    (in, out, device) from ``ops/image.py::resize_band`` and kept, so a CUDA
+    graph captured after the first call reads it. Under capture it must
+    already exist."""
+    from replication_faster_rcnn_tpu_torch.ops.image import resize_band
+
+    key = (int(in_size), int(out_size), torch.device(device))
+    got = _bands.get(key)
+    if got is None:
+        if key[2].type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"the resize band {in_size} -> {out_size} is not on the card under CUDA graph "
+                "capture: run the resize once before capturing it")
+        start, weight = resize_band(in_size, out_size)
+        got = _bands[key] = (torch.from_numpy(start).to(key[2]),
+                             torch.from_numpy(weight).to(key[2]))
+    return got
+
+
+def resize_aa_cuda(images: Tensor, boxes: Optional[Tensor], out_hw) -> Tuple[Tensor, Optional[Tensor]]:
+    """``ops/image.py::resize_batch_with_boxes`` on the card: one band pass
+    per resized axis (rows, then columns; a float32 intermediate between
+    them), the boxes scaled in the last. One call, counted once. The
+    identity size returns the inputs and launches nothing."""
+    if not images.is_cuda:
+        raise ValueError(f"images must be a CUDA tensor, got {images.device}")
+    kind = _image_kind(images)
+    n, ih, iw, c = images.shape
+    h, w = int(out_hw[0]), int(out_hw[1])
+    if (ih, iw) == (h, w):
+        return images, boxes
+    dev = images.device
+    images = images.contiguous()
+    if boxes is not None:
+        boxes = _on(dev, "boxes", boxes, torch.float32)
+    sy, sx = float(np.float32(h / ih)), float(np.float32(w / iw))
+    passes = []
+    if ih != h:
+        passes.append(("rows", ih, h))
+    if iw != w:
+        passes.append(("cols", iw, w))
+    out_boxes = torch.empty_like(boxes) if boxes is not None else None
+    lib = _kernels()
+    x, x_kind, rows = images, kind, ih
+    for k, (axis, n_in, n_out) in enumerate(passes):
+        last = k == len(passes) - 1
+        start, weight = band_tables(n_in, n_out, dev)
+        if axis == "rows":
+            outer, inner, shape = n, iw * c, (n, n_out, iw, c)
+            rows = n_out
+        else:
+            outer, inner, shape = n * rows, c, (n, rows, n_out, c)
+        out_kind = kind if last else 0
+        y = torch.empty(shape, dtype=torch.uint8 if out_kind else torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.resize_aa_launch(
+                x.data_ptr(), x_kind, y.data_ptr(), out_kind, start.data_ptr(),
+                weight.data_ptr(), weight.shape[1], outer, n_in, n_out, inner,
+                _ptr(boxes) if last else None, _ptr(out_boxes) if last else None,
+                boxes.numel() if (last and boxes is not None) else 0, sy, sx, _stream(dev),
+            )
+        build.check(rc, lib.image_error_string, "resize_aa_kernel")
+        x, x_kind = y, out_kind
+    global resize_launches
+    resize_launches += 1
+    return x, out_boxes

@@ -31,6 +31,15 @@ per dispatch, of ``build_multi_step``): the first call of a new batch shape
 runs real steps eagerly on a side stream, captures the same steps, and every
 later call replays the graph. On the CPU, or when ``draws``, ``record`` or
 ``stage`` is passed, the step runs eagerly.
+
+The step's prologue is the JAX step's (:func:`compute_losses`): a batch with
+``jitter`` (``data.augment_scale_device``) is resampled on the card, one with
+``aug`` (``data.augment_device``) augmented there from its (seed, epoch, idx)
+draws, and a ``resolution`` (a ``data.train_resolutions`` bucket) resamples
+the batch to that bucket's shape; each bucket is its own graph.
+:func:`make_cached_train_step` takes the device cache's selections (``idx``,
+``flip``, ``jitter``) and materializes the batch from the resident cache
+inside the same step (``data/device_cache.py::materialize_batch``).
 """
 
 from __future__ import annotations
@@ -277,6 +286,33 @@ def pending_batch_stats(model: torch.nn.Module) -> fault.PendingStats:
     ]
 
 
+def augment_prologue(
+    config: FasterRCNNConfig,
+    batch: Dict[str, Tensor],
+    train_resolution: Optional[Tuple[int, int]] = None,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The JAX step's input prologue: (images, boxes, labels, mask) after
+    the ``jitter`` resample (the boxes came transformed from the host), the
+    ``aug`` augmentation (flip, translation, scale jitter from the draws of
+    (``train.seed``, epoch, idx)) and the ``train_resolution`` bucket
+    resample, in that order; kernels on the card (``ops/image.py``)."""
+    from replication_faster_rcnn_tpu_torch.ops import image as image_ops
+
+    images = batch["image"]
+    if "jitter" in batch:
+        images = image_ops.batched_scale_jitter(images, batch["jitter"])
+    gt_boxes, gt_labels, gt_mask = batch["boxes"], batch["labels"], batch["mask"]
+    if "aug" in batch:
+        data = config.data
+        images, gt_boxes, gt_labels, gt_mask = image_ops.augment_batch(
+            images, gt_boxes, gt_labels, gt_mask, batch["aug"], seed=config.train.seed,
+            hflip=data.augment_hflip, scale_range=data.augment_scale,
+            translate=data.augment_translate)
+    if train_resolution is not None:
+        images, gt_boxes = image_ops.resize_batch_with_boxes(images, gt_boxes, train_resolution)
+    return images, gt_boxes, gt_labels, gt_mask
+
+
 def compute_losses(
     model: FasterRCNN,
     config: FasterRCNNConfig,
@@ -285,17 +321,20 @@ def compute_losses(
     draws: Optional[Dict[str, Tensor]] = None,
     record: Optional[dict] = None,
     stage: StageFn = _no_stage,
+    train_resolution: Optional[Tuple[int, int]] = None,
 ) -> Tuple[Tensor, Tuple[Dict[str, Tensor], fault.PendingStats]]:
     """Forward + 4 losses on a device batch (``image`` [N, H, W, 3],
-    ``boxes`` [N, G, 4], ``labels`` [N, G], ``mask`` [N, G]). Returns
-    (total, (metrics, new BatchNorm statistics)).
+    ``boxes`` [N, G, 4], ``labels`` [N, G], ``mask`` [N, G], and ``jitter`` or
+    ``aug`` from the augmenting feeds). Returns (total, (metrics, new
+    BatchNorm statistics)).
 
     ``draws`` injects the uniforms by name (:data:`DRAW_NAMES`); missing
     ones come from ``generator``. ``record``, when given, receives the
     draws used and the targets (``rpn_reg``, ``rpn_labels``,
-    ``sample_rois``, ``roi_reg``, ``roi_labels``)."""
-    images = batch["image"]
-    gt_boxes, gt_labels, gt_mask = batch["boxes"], batch["labels"], batch["mask"]
+    ``sample_rois``, ``roi_reg``, ``roi_labels``). ``train_resolution``
+    resamples the batch to one multi-scale bucket (:func:`augment_prologue`)."""
+    with stage("augment"):
+        images, gt_boxes, gt_labels, gt_mask = augment_prologue(config, batch, train_resolution)
     img_h, img_w = float(images.shape[1]), float(images.shape[2])
     sigma = config.train.smooth_l1_sigma
     used = dict(draws or {})
@@ -362,7 +401,17 @@ METRIC_NAMES = (
     "n_pos_rpn", "n_pos_head", "grad_norm", "param_norm", "update_norm", "update_ratio",
     "nonfinite_count", "skipped",
 )
-BATCH_KEYS = ("image", "boxes", "labels", "mask")
+# the batch keys a step reads, by feed: the loader's (with ``jitter`` from
+# augment_scale_device and ``aug`` from augment_device) and the device
+# cache's selections
+BATCH_KEYS = ("image", "boxes", "labels", "mask", "jitter", "aug")
+SELECTION_KEYS = ("idx", "flip", "jitter")
+
+
+def step_keys(batch: Dict[str, Tensor]) -> Tuple[str, ...]:
+    """The keys of ``batch`` the step reads (its feed's), in a fixed order."""
+    keys = SELECTION_KEYS if "idx" in batch else BATCH_KEYS
+    return tuple(k for k in keys if k in batch)
 
 
 def unstack_metrics(stacked: Tensor) -> Dict[str, Tensor]:
@@ -411,8 +460,8 @@ class CapturedSteps:
             self._capture(state, batches)
             return out
         for static, batch in zip(self.static_in, batches):
-            for key in BATCH_KEYS:
-                static[key].copy_(batch[key])
+            for key, t in static.items():
+                t.copy_(batch[key])
         state.model.train()  # what the step's Python does; the graph trains either way
         self.graph.replay()
         # a copy: the next replay overwrites the static output
@@ -427,7 +476,7 @@ class CapturedSteps:
         return out
 
     def _capture(self, state, batches) -> None:
-        self.static_in = [{key: b[key].clone() for key in BATCH_KEYS} for b in batches]
+        self.static_in = [{key: b[key].clone() for key in step_keys(b)} for b in batches]
         graph = torch.cuda.CUDAGraph()
         if not hasattr(graph, "register_generator_state"):
             raise RuntimeError(
@@ -437,7 +486,10 @@ class CapturedSteps:
         graph.register_generator_state(state.generator)
         state.optimizer.zero_grad()
         try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+            # thread_local: a prefetch producer thread may wait on its own
+            # copy's event meanwhile; only this thread's calls are checked
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                  capture_error_mode="thread_local"):
                 self.static_out = torch.stack([self.run(state, b) for b in self.static_in])
         except Exception as e:
             raise RuntimeError(f"capturing {self.k} train step(s) as a CUDA graph failed: "
@@ -445,25 +497,37 @@ class CapturedSteps:
         self.graph = graph
 
 
-def make_train_step(config: FasterRCNNConfig, capture: bool = True):
-    """(state, batch, draws=None, record=None, stage=...) -> metrics: one
-    optimizer step, gated by ``train.nonfinite_policy``. The metrics are
-    0-dim float32 device tensors (views of one stacked vector,
-    :data:`METRIC_NAMES`); nothing is read on the host.
+def make_train_step(config: FasterRCNNConfig, capture: bool = True,
+                    cache: Optional[Dict[str, Tensor]] = None):
+    """(state, batch, draws=None, record=None, stage=..., resolution=None) ->
+    metrics: one optimizer step, gated by ``train.nonfinite_policy``. The
+    metrics are 0-dim float32 device tensors (views of one stacked vector,
+    :data:`METRIC_NAMES`); nothing is read on the host. ``resolution`` is a
+    ``data.train_resolutions`` bucket ((h, w) or None).
 
     With ``capture`` a CUDA batch runs through a CUDA graph
-    (:class:`CapturedSteps`) kept in ``state.graphs``; a CPU batch, and
-    ``draws``, ``record`` and ``stage``, always run eagerly. The returned
-    function's ``chunk(state, batches)`` trains ``len(batches)`` steps in
-    one dispatch (one replay of a K-step graph on the card) and returns
-    [K] metrics."""
+    (:class:`CapturedSteps`) kept in ``state.graphs``, one per (K, batch
+    signature, bucket); a CPU batch, and ``draws``, ``record`` and ``stage``,
+    always run eagerly. The returned function's ``chunk(state, batches,
+    resolution=None)`` trains ``len(batches)`` steps in one dispatch (one
+    replay of a K-step graph on the card) and returns [K] metrics.
+
+    ``cache`` (a ``DeviceCache``'s tensors) makes the step the cached one:
+    its batches are selections (``idx``, ``flip``, ``jitter``), and the
+    batch is materialized from the cache inside the step (read in place;
+    the cache is never copied into a graph)."""
     policy = config.train.nonfinite_policy
 
-    def run(state, batch, draws=None, record=None, stage=_no_stage) -> Tensor:
+    def run(state, batch, draws=None, record=None, stage=_no_stage, resolution=None) -> Tensor:
+        if cache is not None:
+            from replication_faster_rcnn_tpu_torch.data.device_cache import materialize_batch
+
+            with stage("materialize"):
+                batch = materialize_batch(cache, batch, resample=True)
         model = state.model.train()
         state.optimizer.zero_grad()
         total, (metrics, new_stats) = compute_losses(
-            model, config, batch, state.generator, draws, record, stage
+            model, config, batch, state.generator, draws, record, stage, resolution
         )
         with stage("backward"):
             total.backward()
@@ -473,16 +537,19 @@ def make_train_step(config: FasterRCNNConfig, capture: bool = True):
         metrics.update(health)
         return torch.stack([metrics[k].float() for k in METRIC_NAMES])
 
-    def dispatch(state, batches) -> Tensor:
-        image = batches[0]["image"]
-        if not (capture and image.is_cuda):
-            return torch.stack([run(state, b) for b in batches])
-        sig = tuple((k, b[k].dtype, tuple(b[k].shape)) for b in batches for k in BATCH_KEYS)
-        key = (config, len(batches), sig)
+    def dispatch(state, batches, resolution) -> Tensor:
+        first = batches[0][step_keys(batches[0])[0]]
+        on_card = first.is_cuda if cache is None else cache["image"].is_cuda
+        if not (capture and on_card):
+            return torch.stack([run(state, b, resolution=resolution) for b in batches])
+        sig = tuple((k, b[k].dtype, tuple(b[k].shape)) for b in batches for k in step_keys(b))
+        key = (config, len(batches), sig, resolution, cache is not None)
         graph = state.graphs.get(key)
         if graph is None:
             share = next((g for g in state.graphs.values() if g.graph is not None), None)
-            graph = state.graphs[key] = CapturedSteps(run, len(batches), image.device, share)
+            dev = cache["image"].device if cache is not None else first.device
+            graph = state.graphs[key] = CapturedSteps(
+                lambda st, b: run(st, b, resolution=resolution), len(batches), dev, share)
         return graph(state, batches)
 
     def train_step(
@@ -491,18 +558,28 @@ def make_train_step(config: FasterRCNNConfig, capture: bool = True):
         draws: Optional[Dict[str, Tensor]] = None,
         record: Optional[dict] = None,
         stage: StageFn = _no_stage,
+        resolution: Optional[Tuple[int, int]] = None,
     ) -> Dict[str, Tensor]:
         if draws is None and record is None and stage is _no_stage:
-            out = dispatch(state, [batch])[0]
+            out = dispatch(state, [batch], resolution)[0]
         else:
-            out = run(state, batch, draws, record, stage)
+            out = run(state, batch, draws, record, stage, resolution)
         state.step += 1
         return unstack_metrics(out)
 
-    def chunk(state: TrainState, batches) -> Dict[str, Tensor]:
-        out = dispatch(state, list(batches))
+    def chunk(state: TrainState, batches, resolution=None) -> Dict[str, Tensor]:
+        out = dispatch(state, list(batches), resolution)
         state.step += len(batches)
         return unstack_metrics(out)
 
     train_step.chunk = chunk
     return train_step
+
+
+def make_cached_train_step(config: FasterRCNNConfig, cache: Dict[str, Tensor],
+                           capture: bool = True):
+    """The device-cache step: (state, sel, ...) -> metrics, the batch
+    gathered, flipped and jittered from ``cache`` (a ``DeviceCache``'s
+    tensors) inside the step; its ``chunk`` is JAX's
+    ``make_cached_multi_step``. The selection is all the host ships."""
+    return make_train_step(config, capture=capture, cache=cache)

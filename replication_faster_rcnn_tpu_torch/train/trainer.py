@@ -31,6 +31,20 @@ On the card every step is a replay of a CUDA graph
 one replay trains K steps (:meth:`Trainer.train_chunk`); an epoch's tail of
 fewer than K batches goes through the one-step graph.
 
+The feed is the JAX trainer's. With ``data.cache_device`` the dataset is
+uploaded to the card once (``data/device_cache.py::DeviceCache``) and a
+``CachedSampler`` yields per-step selections (indices, flip bits, jitter
+geometry), which the cached step materializes on the card; otherwise the
+loader yields host batches, augmented on the host or tagged for the step's
+on-card augmentation (``data.augment_*``). A batch is staged from a ring of
+pinned host buffers with a non-blocking copy on the step's stream (no wait
+for the card); with ``data.prefetch_device`` = D a producer thread
+(``data/prefetch_device.py::DevicePrefetcher``) stages up to D batches (or
+K-batch chunks) ahead on a copy stream of its own, and the step's stream
+waits on each copy's event. With ``data.train_resolutions`` each dispatch
+trains at the bucket its feed assigns (``bucket_of``), through that bucket's
+graph.
+
 A checkpoint holds the whole state a step reads: the parameters and
 BatchNorm statistics (``model.state_dict()``), the optimizer's moments and
 count (``optimizer.state_dict()``: ``mu``, ``nu``, ``count``; the count
@@ -39,10 +53,8 @@ count. A resumed run therefore repeats the uninterrupted run's steps bit
 for bit. A checkpoint of the earlier ``torch.optim.Adam`` + ``LambdaLR``
 layout is refused with a message that says so.
 
-Not ported yet: the mesh and data parallelism, device prefetch (the batch
-is staged from pageable memory, which waits for the card),
-augmentation, resolution buckets, fault injection and the
-pretrained-backbone graft.
+Not ported yet: the mesh and data parallelism, the loader's process
+workers, fault injection and the pretrained-backbone graft.
 """
 
 from __future__ import annotations
@@ -59,6 +71,12 @@ import torch
 
 from replication_faster_rcnn_tpu_torch.config import FasterRCNNConfig
 from replication_faster_rcnn_tpu_torch.data.loader import DataLoader, make_dataset
+from replication_faster_rcnn_tpu_torch.data.prefetch_device import (
+    STAGED,
+    DevicePrefetcher,
+    PinnedStager,
+    consume,
+)
 from replication_faster_rcnn_tpu_torch.device import DeviceLike, resolve_device
 from replication_faster_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN, build_model
 from replication_faster_rcnn_tpu_torch.telemetry import spans as tspans
@@ -69,7 +87,9 @@ from replication_faster_rcnn_tpu_torch.train.train_step import (
     TrainState,
     create_train_state,
     host_schedule,
+    make_cached_train_step,
     make_train_step,
+    step_keys,
 )
 from replication_faster_rcnn_tpu_torch.utils.logging import MetricLogger
 
@@ -183,18 +203,55 @@ class Trainer:
                 f"the dataset holds {len(self.dataset)} samples, fewer than one batch of "
                 f"{self.batch_size}"
             )
-        self.loader = DataLoader(
-            self.dataset,
-            batch_size=self.batch_size,
-            shuffle=True,
-            seed=self.seed,
-            prefetch=config.data.loader_prefetch,
-            num_workers=config.data.loader_workers,
-        )
-        self.steps_per_epoch = len(self.loader)  # the tail is dropped
+        data = config.data
+        bucket_chunk = max(1, config.train.steps_per_dispatch)
+        self.device_cache = None
+        self.sampler = None
+        self.loader = None
+        if data.cache_device:
+            # the dataset lives on the card; the host ships selections only
+            from replication_faster_rcnn_tpu_torch.data.device_cache import (
+                CachedSampler,
+                DeviceCache,
+            )
+
+            self.device_cache = DeviceCache(self.dataset, device=self.device)
+            self.sampler = CachedSampler(
+                len(self.dataset), self.device_cache.image_hw, batch_size=self.batch_size,
+                seed=self.seed, hflip=data.augment_hflip, scale_range=data.augment_scale,
+                train_resolutions=data.train_resolutions, bucket_chunk=bucket_chunk,
+            )
+            self.feed = self.sampler
+        else:
+            self.loader = DataLoader(
+                self.dataset,
+                batch_size=self.batch_size,
+                shuffle=True,
+                seed=self.seed,
+                prefetch=data.loader_prefetch,
+                num_workers=data.loader_workers,
+                augment_hflip=data.augment_hflip,
+                augment_scale=data.augment_scale,
+                augment_scale_device=data.augment_scale_device,
+                augment_device=data.augment_device,
+                augment_translate=data.augment_translate,
+                cache_ram=data.loader_cache_ram,
+                train_resolutions=data.train_resolutions,
+                bucket_chunk=bucket_chunk,
+            )
+            self.feed = self.loader
+        self.steps_per_epoch = len(self.feed)  # the tail is dropped
         self.state: TrainState = create_train_state(
             config, self.steps_per_epoch, self.device, self.seed)
-        self.step_fn = make_train_step(config)
+        if self.device_cache is not None:
+            self.step_fn = make_cached_train_step(config, self.device_cache.arrays)
+        else:
+            self.step_fn = make_train_step(config)
+        self._bucket_resolutions = tuple(data.train_resolutions)
+        # pinned staging: one stager for the trainer's thread, one for the
+        # prefetch producer's
+        self._stager = PinnedStager(self.device)
+        self._prefetch_stager = PinnedStager(self.device)
         self.steps_per_dispatch = config.train.steps_per_dispatch
         self.host_schedule = host_schedule(config, self.steps_per_epoch)
         self._ckpt_mgr: Optional[fault.CheckpointStore] = None
@@ -420,37 +477,63 @@ class Trainer:
 
     # ---------------------------------------------------------------- train
 
+    def _feed_name(self) -> str:
+        return "device_cache" if self.device_cache is not None else "loader"
+
     def stage_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, Tensor]:
-        """Host batch -> the step's device tensors."""
-        with self.tracer.span("data/device_put", cat="data", feed="loader"):
-            return {
-                k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(self.device)
-                for k in ("image", "boxes", "labels", "mask")
-            }
+        """Host batch (or cache selection) -> the step's device tensors: the
+        keys the step reads, copied from a pinned buffer without waiting for
+        the card (``data/device_put``)."""
+        with self.tracer.span("data/device_put", cat="data", feed=self._feed_name()):
+            staged, _ = self._stager.stage({k: batch[k] for k in step_keys(batch)})
+            return staged
+
+    def _stage_ahead(self, batches):
+        """The prefetch producer's staging of one dispatch's batches (K
+        stacked on a new leading axis when K > 1): the copy lands before
+        this returns; the consumer calls ``prefetch_device.consume``."""
+        keys = step_keys(batches[0])
+        if len(batches) == 1:
+            host, extra = {k: batches[0][k] for k in keys}, {}
+        else:
+            host, extra = {k: np.stack([b[k] for b in batches]) for k in keys}, {"steps": len(batches)}
+        with self.tracer.span("data/device_put", cat="data", feed=self._feed_name(), **extra):
+            return self._prefetch_stager.stage(host, wait=True)
+
+    def _resolution(self, bucket: Optional[int]):
+        if bucket is None or not self._bucket_resolutions:
+            return None
+        return self._bucket_resolutions[bucket]
 
     def train_one_batch(
         self,
         batch: Optional[Dict[str, np.ndarray]] = None,
         staged: Optional[Dict[str, Tensor]] = None,
+        bucket: Optional[int] = None,
         **step_kw,
     ) -> Dict[str, Tensor]:
         """One optimizer step on a host ``batch`` (staged here) or an
-        already staged device batch. Returns the metrics as device tensors
-        (no host read) and hands the ``skipped`` flag to the skip monitor,
-        which raises :class:`fault.NonFiniteEscalation` at once under
+        already staged device batch; ``bucket`` picks a
+        ``data.train_resolutions`` bucket (None: the base canvas). Returns
+        the metrics as device tensors (no host read) and hands the
+        ``skipped`` flag to the skip monitor, which raises
+        :class:`fault.NonFiniteEscalation` at once under
         ``nonfinite_policy='halt'``. ``step_kw`` passes through to the step
         (``draws``, ``record``, ``stage``)."""
         if staged is None:
             staged = self.stage_batch(batch)
         with self.tracer.span("step/dispatch", cat="step"):
-            metrics = self.step_fn(self.state, staged, **step_kw)
+            metrics = self.step_fn(self.state, staged, resolution=self._resolution(bucket),
+                                   **step_kw)
         self.skip_monitor.observe(self.state.step, metrics)
         return metrics
 
-    def train_chunk(self, batches=None, staged=None) -> Dict[str, Tensor]:
+    def train_chunk(self, batches=None, staged=None, bucket: Optional[int] = None
+                    ) -> Dict[str, Tensor]:
         """``steps_per_dispatch`` steps in one dispatch (one CUDA graph
         replay on the card) on exactly that many host ``batches`` (or staged
-        device batches). Returns stacked [K] device metrics."""
+        device batches: a list, or one dict stacked on a leading [K] axis).
+        Returns stacked [K] device metrics."""
         k = self.steps_per_dispatch
         if staged is None:
             if len(batches) != k:
@@ -458,8 +541,10 @@ class Trainer:
                     f"train_chunk got {len(batches)} batches; a dispatch trains "
                     f"steps_per_dispatch={k}")
             staged = [self.stage_batch(b) for b in batches]
+        elif isinstance(staged, dict):
+            staged = [{key: v[i] for key, v in staged.items()} for i in range(k)]
         with self.tracer.span("step/dispatch", cat="step", steps=k):
-            metrics = self.step_fn.chunk(self.state, staged)
+            metrics = self.step_fn.chunk(self.state, staged, resolution=self._resolution(bucket))
         self.skip_monitor.observe(self.state.step - k + 1, metrics)  # stacked [K] flags
         return metrics
 
@@ -483,7 +568,7 @@ class Trainer:
         first recorded as an ``abnormal_exit`` incident, so a post-mortem
         does not start from a silently truncated trace."""
         if self.watchdog is not None:
-            self.watchdog.providers.setdefault("loader_queue_depth", self.loader.queue_depth)
+            self.watchdog.providers.setdefault("loader_queue_depth", self.feed.queue_depth)
             self.watchdog.start()
         try:
             yield self
@@ -589,27 +674,63 @@ class Trainer:
         eval_result: Dict[str, float] = {}
         tracer = self.tracer
         k = self.steps_per_dispatch
+        feed = self.feed
+        prefetch = self.config.data.prefetch_device
+        epoch = start_epoch
 
-        def dispatch(group) -> int:
-            """Train one dispatch (K batches through the K-step graph, or
-            one), log at a boundary inside it, beat, check for preemption
-            and step-interval saves. Returns the images trained."""
-            nonlocal step, last
-            if len(group) > 1:
-                metrics = self.train_chunk(group)
-                first, step = step + 1, step + len(group)
-                row = self._log_chunk(first, step, metrics, log_every)
-            else:
-                metrics = self.train_one_batch(group[0])
-                step += 1
-                row = self._log_step(step, metrics, log_every)
+        def cur_bucket() -> Optional[int]:
+            # the bucket of the next batch to train: a pure function of
+            # (seed, epoch, position in the epoch), so a resume replays it;
+            # the K batches of one dispatch share it (bucket_chunk = K)
+            if not self._bucket_resolutions:
+                return None
+            return feed.bucket_of(step - epoch * steps_per_epoch)
+
+        def images_of(batch) -> int:
+            return batch["idx" if "idx" in batch else "image"].shape[0]
+
+        def finish(row) -> None:
+            """After a dispatch: beat, keep the logged row, check for
+            preemption and step-interval saves."""
+            nonlocal last
             if self.watchdog is not None:
                 self.watchdog.beat(step=step, phase="train")
             if row is not None:
                 last = row
             self._check_preemption(step)
             self._maybe_step_checkpoint(step)
-            return sum(b["image"].shape[0] for b in group)
+
+        def dispatch(group) -> int:
+            """Train one dispatch of host batches (K through the K-step
+            graph, or one) and log at a boundary inside it. Returns the
+            images trained."""
+            nonlocal step
+            if len(group) > 1:
+                metrics = self.train_chunk(group, bucket=cur_bucket())
+                first, step = step + 1, step + len(group)
+                row = self._log_chunk(first, step, metrics, log_every)
+            else:
+                metrics = self.train_one_batch(group[0], bucket=cur_bucket())
+                step += 1
+                row = self._log_step(step, metrics, log_every)
+            finish(row)
+            return sum(images_of(b) for b in group)
+
+        def dispatch_staged(item) -> int:
+            """Train one staged prefetch item (one batch, or a stacked
+            K-batch chunk)."""
+            nonlocal step
+            staged = consume(item[1])
+            if item[2] > 1:
+                metrics = self.train_chunk(staged=staged, bucket=cur_bucket())
+                first, step = step + 1, step + item[2]
+                row = self._log_chunk(first, step, metrics, log_every)
+            else:
+                metrics = self.train_one_batch(staged=staged, bucket=cur_bucket())
+                step += 1
+                row = self._log_step(step, metrics, log_every)
+            finish(row)
+            return item[3]
 
         self._shutdown = fault.GracefulShutdown()
         # Exits run inside out: the signal handlers are restored first, then
@@ -620,27 +741,48 @@ class Trainer:
             try:
                 with self._shutdown:
                     for epoch in range(start_epoch, cfg.n_epoch):
-                        self.loader.set_epoch(epoch, start_batch=replay)
+                        feed.set_epoch(epoch, start_batch=replay)
                         replay = 0
                         t_epoch = time.time()
                         n_images = 0
-                        chunk = []  # pending batches of a partial dispatch
-                        # closed on any exit: the loader's producer thread stops with it
-                        with contextlib.closing(iter(self.loader)) as batches:
-                            while True:
-                                # host-side batch production: the feed half
-                                # of feed-vs-compute
-                                with tracer.span("data/fetch", cat="data"):
-                                    batch = next(batches, None)
-                                if batch is None:
-                                    break
-                                chunk.append(batch)
-                                if len(chunk) == k:
-                                    n_images += dispatch(chunk)
-                                    chunk = []
-                        # the epoch's tail of fewer than K batches: one step each
-                        for batch in chunk:
-                            n_images += dispatch([batch])
+                        if prefetch > 0:
+                            # a producer thread stages the next batches (or
+                            # K-batch chunks) while this one trains; the
+                            # epoch's tail of fewer than K comes back as host
+                            # batches for the one-step graph
+                            stager = DevicePrefetcher(iter(feed), self._stage_ahead,
+                                                      depth=prefetch, chunk=k)
+                            if self.watchdog is not None:
+                                self.watchdog.providers["staged_queue_depth"] = (
+                                    stager.queue_depth)
+                            try:
+                                for item in stager:
+                                    if item[0] == STAGED:
+                                        n_images += dispatch_staged(item)
+                                    else:
+                                        n_images += dispatch([item[1]])
+                            finally:
+                                # drops staged-but-untrained items; a resume
+                                # regenerates them from the feed
+                                stager.close()
+                        else:
+                            chunk = []  # pending batches of a partial dispatch
+                            # closed on any exit: the loader's producer thread stops with it
+                            with contextlib.closing(iter(feed)) as batches:
+                                while True:
+                                    # host-side batch production: the feed half
+                                    # of feed-vs-compute
+                                    with tracer.span("data/fetch", cat="data"):
+                                        batch = next(batches, None)
+                                    if batch is None:
+                                        break
+                                    chunk.append(batch)
+                                    if len(chunk) == k:
+                                        n_images += dispatch(chunk)
+                                        chunk = []
+                            # the epoch's tail of fewer than K batches: one step each
+                            for batch in chunk:
+                                n_images += dispatch([batch])
                         self._sync_epoch()
                         self.skip_monitor.drain()
                         dt = time.time() - t_epoch

@@ -199,8 +199,11 @@ def _case_make_dataset(root):
             assert type(tds).__name__ == type(jds).__name__ and len(tds) == len(jds) > 0
             for k, v in jds[len(jds) - 1].items():
                 np.testing.assert_allclose(tds[len(tds) - 1][k], v, rtol=0, atol=2e-5)
-    with pytest.raises(NotImplementedError, match="data/coco.py"):
-        make_dataset(tconfig.DataConfig(dataset="coco"), "train")
+    # the COCO reader, as JAX's, looks for the split's annotations under
+    # root_dir (here a VOC tree: none)
+    for mk, mod in ((make_dataset, tconfig), (j_make_dataset, jconfig)):
+        with pytest.raises(FileNotFoundError, match="instances_train2017.json"):
+            mk(mod.DataConfig(dataset="coco", root_dir=root), "train")
     with pytest.raises(ValueError, match="unknown dataset"):
         make_dataset(tconfig.DataConfig(dataset="imagenet"), "train")
 

@@ -268,6 +268,11 @@ def test_presets_match_jax():
     heads = {}
     for name in ("voc_resnet18", "voc_resnet50", "coco_resnet50", "coco_vgg16",
                  "voc12_resnet18_align"):
+        # the preset's data pipeline is JAX's, field for field (the flip, the
+        # root_dir), over the fields the port has
+        jdata, tdata = jconfig.get_config(name).data, tconfig.get_config(name).data
+        for field in dataclasses.fields(tdata):
+            assert getattr(tdata, field.name) == getattr(jdata, field.name), (name, field.name)
         jcfg, tcfg, jmodel, raw, variables, tmodel = _preset_pair(name, rng)
         _assert_round_trip(raw, name)
         if name == "voc12_resnet18_align":  # its stages: test_stages_match
