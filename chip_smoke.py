@@ -57,9 +57,10 @@ H100:  ``python3 chip_smoke.py``. It
    random weights resident in bfloat16, through ``InferenceEngine``: one
    request, then 8 mixed-size images as one b8 flush, with the kernels'
    launch counters reset just before and read just after each flush (per
-   flush: NMS 2, the preset's ROI forward 1, the other ROI op 0); the same
-   requests then go through the plain versions (``reference=True``) and
-   every output must be equal. Then one b1 forward each of ``voc_resnet50``,
+   flush: NMS 2, the preset's ROI forward 1, the other ROI op 0; each flush
+   is a CUDA graph replay, counted as :class:`GraphReplays` counts the
+   train step's); the same requests then go through the plain versions
+   (``reference=True``) and every output must be equal. Then one b1 forward each of ``voc_resnet50``,
    ``coco_resnet50`` and ``coco_vgg16`` at 600x600, launch counts asserted,
    bitwise equal to the plain replay, with the flush time and the resident
    bytes;
@@ -172,7 +173,37 @@ H100:  ``python3 chip_smoke.py``. It
    SIGTERM resumed with prefetch bitwise; the resolution buckets (480, 600,
    720) at K=1 and K=2 in ``bucket_index``'s order, captured bitwise eager,
    launches counted per replay; the cache's bytes against their formula;
-11. prints a ``{"kernels": [...]}`` line, the card line, and last
+11. drives the serving stack (:func:`phase_serving_stack`): ``voc_resnet18``
+   in bfloat16 and ``voc12_resnet18_align`` in int8 ([5]'s sidecar), buckets
+   300x300 and 600x600 x b1, b8, every graph captured up front with its
+   seconds printed; each (bucket, batch) graph's replay bitwise equal to the
+   same function run eagerly and to the plain replay, its launches counted
+   per replay; warm flushes with no capture, no growth of the reserved
+   memory and no host sync in the flush call from staging to the output
+   wait (sync debug mode "error"); the graphs' pool bytes; b1 and b8 flush ms, b1 latency
+   and b8 images/s, graph against an eager engine, and the replay's device
+   ms against the eager function's. Then on the bf16 flagship with its
+   graphs captured at start-up: ``loadgen.run_closed_loop`` at concurrency 8
+   and 32 over mixed-size uint8 images and ``run_open_loop`` at half the
+   better rate (images/s, p50, p99); ``make_server`` over real HTTP
+   (/predict on JPEG files equal to ``submit_path``, a missing file's 400,
+   /healthz, /stats, /metrics, /swap's 501); a hot-swap under closed-loop
+   load to a second checkpoint written by the port's ``Trainer``
+   (``load_eval_variables``): every answer bitwise one version's eager
+   flush, answers before the swap from the old version and requests after
+   it from the new, no flush whose answers mix versions or differ from its
+   key's version, then a second swap retires the first version. The
+   launches of that run are its flushes' replays: each flush replays
+   exactly the per-replay launches, their sum is the total, and the only
+   eager launches in the run are the swap's warm-ups (the eager references
+   run before and after it). Outside it: on a second engine with queue
+   depth 1 and ``request_timeout_s=1`` whose first flush a ``batcher.flush``
+   failpoint holds 3 s, a full queue's 503 with ``Retry-After`` and the held
+   requests' 504s; and ``python -m replication_faster_rcnn_tpu_torch
+   serve`` as a subprocess: its start-up JSON, one /predict, SIGTERM,
+   /healthz draining, exit 0;
+12. prints a ``{"kernels": [...]}`` line (the serving kernels' launches per
+   graph replay beside their counts), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Without CUDA, or without
@@ -1378,15 +1409,6 @@ def resize_ms_per_image(fn, images, cfg):
 ROI_NAMES = ("roi_align", "roi_align_bwd", "roi_pool", "roi_pool_bwd")
 
 
-def roi_counters():
-    """The ROI kernels' launch counters: (name, module, attribute)."""
-    from replication_faster_rcnn_tpu_torch.ops.cuda import roi_kernel
-
-    return (("roi_align", roi_kernel, "launches"), ("roi_align_bwd", roi_kernel, "backward_launches"),
-            ("roi_pool", roi_kernel, "pool_launches"),
-            ("roi_pool_bwd", roi_kernel, "pool_backward_launches"))
-
-
 def roi_launches(op, forward=1, backward=0):
     """Expected ROI kernel launches: ``forward`` (and ``backward``) of the
     config's op (``align`` or ``pool``), none of the other."""
@@ -1429,7 +1451,6 @@ def phase_serve(torch, name="voc12_resnet18_align"):
 
     from replication_faster_rcnn_tpu_torch import get_config, ops
     from replication_faster_rcnn_tpu_torch.data.native_ops import resize_normalize
-    from replication_faster_rcnn_tpu_torch.ops.cuda import nms_kernel
     from replication_faster_rcnn_tpu_torch.serving.engine import InferenceEngine
 
     cfg = get_config(name)
@@ -1441,20 +1462,21 @@ def phase_serve(torch, name="voc12_resnet18_align"):
     rng = np.random.default_rng(1)
     one = rng.integers(0, 256, size + (3,), dtype=np.uint8)
     eight = mixed_images(rng)
-    counters = (("nms", nms_kernel, "launches"),) + roi_counters()
+    names = ("nms",) + ROI_NAMES
 
+    # each flush is a graph replay: REPLAYS counts the launches its capture
+    # recorded
     def reset():
-        for _, mod, attr in counters:
-            setattr(mod, attr, 0)
+        REPLAYS.reset(names)
 
     def read():
-        return {k: getattr(mod, attr) for k, mod, attr in counters}
+        return REPLAYS.read(names)
 
     with InferenceEngine(cfg, seed=0) as engine:
         log(f"  engine on {engine.device}, params {engine.params_bytes / 2**20:.1f} MiB "
             f"in {engine.params_dtype}, buckets {engine.buckets} x {engine.batch_sizes}")
-        engine.predict(eight)  # warm-up: cuDNN handles and algorithm choice
-        engine.submit(one).result(timeout=300)
+        engine.predict(eight)  # captures the b8 graph (after its eager warm-up run)
+        engine.submit(one).result(timeout=300)  # and the b1 graph
 
         want = {"nms": 2, **roi_launches(cfg.model.roi_op)}
         log0 = len(engine.flush_log)
@@ -1468,7 +1490,7 @@ def phase_serve(torch, name="voc12_resnet18_align"):
         flushes = engine.flush_log[log0:]
         log(f"  launches in the main-path run: b1 flush {per_b1}, b8 flush {per_b8}; "
             f"flushes {flushes}")
-        if flushes != [((size, False), 1), ((size, False), 8)]:
+        if flushes != [(("0", size, False), 1), (("0", size, False), 8)]:
             raise AssertionError(f"expected one b1 and one b8 flush, got {flushes}")
         if per_b1 != want or per_b8 != want:
             raise AssertionError(f"expected per flush {want}, got {per_b1} and {per_b8}")
@@ -1547,11 +1569,10 @@ def phase_presets(torch, device=None, size=None):
 
     from replication_faster_rcnn_tpu_torch import get_config, ops
     from replication_faster_rcnn_tpu_torch.data.native_ops import resize_normalize
-    from replication_faster_rcnn_tpu_torch.ops.cuda import nms_kernel
     from replication_faster_rcnn_tpu_torch.serving.engine import InferenceEngine
 
-    counters = (("nms", nms_kernel, "launches"),) + roi_counters()
-    launches = {k: 0 for k, _, _ in counters}
+    names = ("nms",) + ROI_NAMES
+    launches = {k: 0 for k in names}
     out = {}
     for name in NEW_PRESETS:
         cfg = get_config(name)
@@ -1562,11 +1583,10 @@ def phase_presets(torch, device=None, size=None):
             cfg.serving, resolutions=(res,), batch_sizes=(1,), params_dtype="bfloat16"))
         one = np.random.default_rng(1).integers(0, 256, res + (3,), dtype=np.uint8)
         with InferenceEngine(cfg, device=device, seed=0) as engine:
-            engine.submit(one).result(timeout=300)  # warm-up
-            for _, mod, attr in counters:
-                setattr(mod, attr, 0)
-            got = engine.submit(one).result(timeout=300)
-            run = {k: getattr(mod, attr) for k, mod, attr in counters}
+            engine.submit(one).result(timeout=300)  # captures the b1 graph
+            REPLAYS.reset(names)
+            got = engine.submit(one).result(timeout=300)  # a replay
+            run = REPLAYS.read(names)
             flush_ms = engine.flush_seconds[-1] * 1e3
             want = {"nms": 2, **roi_launches(cfg.model.roi_op)}
             if run != want:
@@ -1619,7 +1639,6 @@ def phase_int8_serve(torch, bf16, cfg=None, device=None):
     from replication_faster_rcnn_tpu_torch import get_config, quant
     from replication_faster_rcnn_tpu_torch.data.native_ops import resize_normalize
     from replication_faster_rcnn_tpu_torch.models.faster_rcnn import build_model
-    from replication_faster_rcnn_tpu_torch.ops.cuda import nms_kernel, quant_kernel, roi_kernel
     from replication_faster_rcnn_tpu_torch.quant.calibrate import activation_ranges
     from replication_faster_rcnn_tpu_torch.serving.engine import InferenceEngine
 
@@ -1688,19 +1707,17 @@ def phase_int8_serve(torch, bf16, cfg=None, device=None):
             raise AssertionError(f"int8 params {engine.params_bytes} >= 0.4 x {f32_bytes}")
         if not int8_alloc < bf16_alloc:
             raise AssertionError(f"int8 engine holds {int8_alloc} bytes, bf16 {bf16_alloc}")
-        engine.predict(eight)  # warm-up: cuDNN handles and algorithm choice
-        engine.submit(one).result(timeout=300)
+        engine.predict(eight)  # captures the b8 graph (after its eager warm-up run)
+        engine.submit(one).result(timeout=300)  # and the b1 graph
+        names = ("int8_matmul", "dequantize", "nms", "roi_align")
 
-        counters = (("int8_matmul", quant_kernel, "matmul_launches"),
-                    ("dequantize", quant_kernel, "dequantize_launches"),
-                    ("nms", nms_kernel, "launches"), ("roi_align", roi_kernel, "launches"))
-
+        # each flush is a graph replay: REPLAYS counts the launches its
+        # capture recorded
         def reset():
-            for _, mod, attr in counters:
-                setattr(mod, attr, 0)
+            REPLAYS.reset(names)
 
         def read():
-            return {name: getattr(mod, attr) for name, mod, attr in counters}
+            return REPLAYS.read(names)
 
         want = {"int8_matmul": gemm, "dequantize": deq, "nms": 2, "roi_align": 1}
         log0 = len(engine.flush_log)
@@ -1714,7 +1731,7 @@ def phase_int8_serve(torch, bf16, cfg=None, device=None):
         flushes = engine.flush_log[log0:]
         log(f"  launches in the main-path run: b1 flush {per_b1}, b8 flush {per_b8}; "
             f"flushes {flushes}")
-        if flushes != [((size, False), 1), ((size, False), 8)]:
+        if flushes != [(("0", size, False), 1), (("0", size, False), 8)]:
             raise AssertionError(f"expected one b1 and one b8 flush, got {flushes}")
         if per_b1 != want or per_b8 != want:
             raise AssertionError(f"expected per flush {want}, got {per_b1} and {per_b8}")
@@ -1912,10 +1929,16 @@ class GraphReplays:
 
     def __init__(self):
         self.counts = {}
+        # while set, every serving flush call (staging, input copy, replay,
+        # output copy, event wait) runs under sync debug mode "error": an
+        # implicit host sync raises
+        self.sync_check = False
 
     def install(self):
+        from replication_faster_rcnn_tpu_torch.serving.engine import ServingGraph
         from replication_faster_rcnn_tpu_torch.train.train_step import CapturedSteps
 
+        self._install_serving(ServingGraph)
         capture, call, replays = CapturedSteps._capture, CapturedSteps.__call__, self
 
         def counted_capture(graph, state, batches):
@@ -1936,6 +1959,40 @@ class GraphReplays:
             return out
 
         CapturedSteps._capture, CapturedSteps.__call__ = counted_capture, counted_call
+
+    def _install_serving(self, graph_cls):
+        """The same for the serving engine's flush graphs: a capture's
+        counts are taken back and kept as the graph's launches per replay
+        (its eager warm-up run before the capture counts as it ran), and
+        with :attr:`sync_check` each call runs under sync debug mode
+        "error"."""
+        import torch
+
+        capture, call, replays = graph_cls._capture, graph_cls.__call__, self
+
+        def counted_capture(graph):
+            before = read_counters()
+            try:
+                capture(graph)
+            finally:
+                after = read_counters()
+                write_counters(before)
+            graph.per_replay = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+        def counted_call(graph, images):
+            checked = replays.sync_check
+            if checked:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = call(graph, images)
+            finally:
+                if checked:
+                    torch.cuda.set_sync_debug_mode(0)
+            for k, n in graph.per_replay.items():
+                replays.counts[k] = replays.counts.get(k, 0) + n
+            return out
+
+        graph_cls._capture, graph_cls.__call__ = counted_capture, counted_call
 
     def reset(self, names):
         """Set the wrappers' counters ``names`` and the replays' counts to 0."""
@@ -2905,7 +2962,9 @@ def phase_resume(torch, name="voc_resnet18", cfg=None, device=None, length=24):
         want = engine.predict([image])[0]
     same_results([got], [want], "load_eval_variables vs (a)'s live weights")
     serve_launches = read()
-    want_serve = {"nms": 4, "iou_match": 0, **roi_launches(op, 2, 0)}  # 2 b1 flushes
+    # two engines, each one b1 flush: its graph's eager warm-up run, then its
+    # first replay
+    want_serve = {"nms": 8, "iou_match": 0, **roi_launches(op, 4, 0)}
     if serve_launches != want_serve:
         raise AssertionError(f"expected {want_serve} over two b1 flushes, got {serve_launches}")
 
@@ -3430,6 +3489,689 @@ def phase_bench(torch, device="cuda", runs=BENCH_RUNS):
     return {"bench_train": train_launches, "bench_eval": eval_launches}, summary
 
 
+STACK_BUCKETS = ((300, 300), (600, 600))
+STACK_BATCHES = (1, 8)
+STACK_DIR = REPO / "build" / "chip_smoke_serve"
+LOADGEN_REQUESTS = 1024  # per closed-loop run (2-3 s on the H100); the open loop sends half
+LOADGEN_CONCURRENCY = (8, 32)
+SWAP_CLIENTS = 4
+SERVE_TIMEOUT_S = 180  # the serve subprocess's start-up and drain
+
+
+def stack_config(name, params_dtype, size=None, **serving):
+    """``name`` with [11]'s buckets and batch sizes (``size`` shrinks the
+    image size and the buckets for a CPU rehearsal)."""
+    import dataclasses
+
+    from replication_faster_rcnn_tpu_torch import get_config
+
+    cfg = get_config(name)
+    buckets = STACK_BUCKETS
+    if size is not None:
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, image_size=(size, size)))
+        buckets = ((size // 2, size // 2), (size, size))
+    return cfg.replace(serving=dataclasses.replace(
+        cfg.serving, resolutions=buckets, batch_sizes=STACK_BATCHES, params_dtype=params_dtype,
+        **serving))
+
+
+def stack_images(rng, cfg):
+    """Eight uint8 images of mixed sizes per bucket (each routes to that
+    bucket), smallest bucket first."""
+    out = {}
+    previous = (0, 0)
+    for h, w in cfg.serving.bucket_resolutions(cfg.data.image_size):
+        shapes = [(h, w)] + [(int(rng.integers(previous[0] + 1, h + 1)),
+                              int(rng.integers(previous[1] + 1, w + 1))) for _ in range(7)]
+        out[(h, w)] = [rng.integers(0, 256, s + (3,), dtype=np.uint8) for s in shapes]
+        previous = (h, w)
+    return out
+
+
+def padded(cfg, images, bucket, n):
+    """The float32 [n, h, w, 3] batch a flush of ``images`` pads to."""
+    from replication_faster_rcnn_tpu_torch.data.native_ops import resize_normalize
+
+    batch = np.zeros((n,) + tuple(bucket) + (3,), np.float32)
+    for i, img in enumerate(images):
+        batch[i] = resize_normalize(img, bucket, cfg.data.pixel_mean, cfg.data.pixel_std)
+    return batch
+
+
+def flush_outputs(torch, infer, batch, dev, reference=False):
+    return {k: v.cpu().numpy() for k, v in infer(torch.from_numpy(batch).to(dev), reference).items()}
+
+
+def same_arrays(got, want, what):
+    for k in want:
+        if not np.array_equal(got[k], want[k]):
+            raise AssertionError(f"{what}: {k!r} differs")
+
+
+def check_stack_graphs(torch, engine, images, want_per_replay):
+    """Every (bucket, batch) graph of the current version: one replay on the
+    bucket's images, launches counted per replay, bitwise equal to the same
+    function run eagerly (the kernels) and to the plain replay
+    (``reference=True``). Returns per graph the launches of one replay."""
+    version = engine.model_version
+    infer = engine._resident[version].infer
+    names = tuple(want_per_replay)
+    per = {}
+    for (bucket, n), graph in sorted(engine.graphs().items()):
+        batch = padded(engine.config, images[bucket][:n], bucket, n)
+        REPLAYS.reset(names)
+        got = graph(list(batch[:n]))
+        counts = REPLAYS.read(names)
+        if counts != want_per_replay:
+            raise AssertionError(f"{bucket} b{n}: expected per replay {want_per_replay}, got "
+                                 f"{counts}")
+        same_arrays(got, flush_outputs(torch, infer[bucket], batch, engine.device),
+                    f"{bucket} b{n} graph vs eager flush")
+        same_arrays(got, flush_outputs(torch, infer[bucket], batch, engine.device, True),
+                    f"{bucket} b{n} graph vs plain replay")
+        per[f"{bucket[0]}x{bucket[1]}_b{n}"] = counts
+    return per
+
+
+def graph_memory(torch, engine):
+    """Reserved bytes that capturing the current version's graphs adds (the
+    shared pool and the static buffers), each side measured after
+    ``empty_cache()``."""
+    import gc
+
+    version = engine.model_version
+    resident = engine._resident[version]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    engine._capture_all(version, resident)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved() - before
+
+
+def timed_flushes(engine, one, eight, reps):
+    """Median b1 latency (submit -> result), b1 and b8 flush ms (the
+    engine's wall per flush) and b8 images/s (``predict`` of eight images:
+    caller-side resize + one flush)."""
+    lat, b8 = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        engine.submit(one).result(timeout=300)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        engine.predict(eight)
+        b8.append(time.perf_counter() - t0)
+    flush = list(engine.flush_seconds)[-2 * reps:]
+    return {"b1_latency_ms": statistics.median(lat),
+            "b1_flush_ms": statistics.median(flush[:reps]) * 1e3,
+            "b8_flush_ms": statistics.median(flush[reps:]) * 1e3,
+            "b8_images_per_s": 8 / statistics.median(b8)}
+
+
+def stack_engines(torch, name, params_dtype, dev, state, artifact_path, size, images, want,
+                  reps):
+    """[11]'s checks on one preset and dtype: warm-up capture, per-graph
+    parity and launches, warm flushes without captures, memory growth or
+    host syncs, then graph against eager timings."""
+    from replication_faster_rcnn_tpu_torch.serving.engine import InferenceEngine
+
+    cfg = stack_config(name, params_dtype, size)
+    kw = dict(device=dev, state_dict=state, artifact_path=artifact_path)
+    engine = InferenceEngine(cfg, **kw)
+    graph_bytes = graph_memory(torch, engine) if engine.capture else 0
+    out = {"config": name, "params_dtype": params_dtype,
+           "capture_seconds": dict(engine.compile_seconds),
+           "graph_pool_bytes": graph_bytes, "params_bytes": engine.params_bytes}
+    big = max(images)
+    one, eight = images[big][0], images[big]
+    with engine:
+        if engine.capture:
+            out["launches_per_replay"] = check_stack_graphs(torch, engine, images, want)
+            captures, graphs = dict(engine.compile_seconds), len(engine.graphs())
+            for _ in range(2):  # warm every graph's pinned buffers and the caller's paths
+                for imgs in images.values():
+                    engine.predict(imgs)
+                    engine.submit(imgs[0]).result(timeout=300)
+            torch.cuda.synchronize()
+            reserved = torch.cuda.memory_reserved()
+            torch.cuda.set_sync_debug_mode("error")  # the check sees a host read
+            try:
+                torch.ones(1, device=dev).item()
+                raise AssertionError("sync debug mode 'error' let a host read through")
+            except RuntimeError:
+                pass
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            REPLAYS.sync_check = True
+            try:
+                for _ in range(3):
+                    for imgs in images.values():
+                        engine.predict(imgs)
+                        engine.submit(imgs[0]).result(timeout=300)
+            finally:
+                REPLAYS.sync_check = False
+            torch.cuda.synchronize()
+            if engine.compile_seconds != captures or len(engine.graphs()) != graphs:
+                raise AssertionError("a warm flush captured a graph")
+            grown = torch.cuda.memory_reserved() - reserved
+            if grown:
+                raise AssertionError(f"warm flushes grew the reserved memory by {grown} bytes")
+            out["warm_flushes"] = {"captures": 0, "reserved_growth_bytes": grown,
+                                   "host_syncs": 0, "flushes": 6 * len(images)}
+            timings = {}
+            for (bucket, n), graph in sorted(engine.graphs().items()):
+                if bucket != big:
+                    continue
+                infer = engine._resident[engine.model_version].infer[bucket]
+                timings[f"b{n}"] = {
+                    "graph_replay_ms": time_ms(torch, graph.graph.replay, 5),
+                    "eager_ms": time_ms(torch, lambda: infer(graph.static_in), 5),
+                }
+            out["device_ms"] = timings
+        out["graph"] = timed_flushes(engine, one, eight, reps)
+    if engine.capture:
+        with InferenceEngine(cfg, capture=False, **kw) as eager:
+            eager.predict(eight)
+            eager.submit(one).result(timeout=300)
+            out["eager"] = timed_flushes(eager, one, eight, reps)
+    log(f"  {name} {params_dtype}: captures {out['capture_seconds']} s; graph pool "
+        f"{graph_bytes / 2**20:.1f} MiB; per replay {out.get('launches_per_replay')}; "
+        f"graph {json.dumps(out['graph'])}; eager {json.dumps(out.get('eager'))}; "
+        f"device ms {json.dumps(out.get('device_ms'))}")
+    return out
+
+
+def http_call(url, body=None, timeout=60):
+    """(status, headers, parsed JSON or text) of one request."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if body is None else "POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            status, headers, raw = resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as e:
+        status, headers, raw = e.code, dict(e.headers), e.read()
+    text = raw.decode()
+    try:
+        return status, headers, json.loads(text)
+    except ValueError:
+        return status, headers, text
+
+
+def write_jpegs(images, root):
+    from PIL import Image
+
+    paths = []
+    for i, img in enumerate(images):
+        path = root / f"req{i}.jpg"
+        Image.fromarray(img).save(path, quality=95)
+        paths.append(str(path))
+    return paths
+
+
+class FlushRecorder:
+    """Each flush of one engine: its flush key's version, the answers it
+    returned (the objects the callers receive), its wall seconds and the
+    replay launches it added. The engine has one flush worker, so while only this engine
+    serves, the replays between a flush's start and its end are its own."""
+
+    def __init__(self, engine):
+        self.flushes = []
+        inner = engine._process_bucket_inner
+
+        def recorded(version, resident, bucket, reference, items):
+            before = dict(REPLAYS.counts)
+            t0 = time.perf_counter()
+            answers = inner(version, resident, bucket, reference, items)
+            wall_s = time.perf_counter() - t0
+            after = dict(REPLAYS.counts)
+            self.flushes.append({
+                "version": version, "bucket": bucket, "reference": reference,
+                "answers": answers, "wall_s": wall_s,
+                "launches": {k: after[k] - before.get(k, 0) for k in after
+                             if after[k] != before.get(k, 0)}})
+            return answers
+
+        engine._process_bucket_inner = recorded
+
+
+def run_flushes(flushes):
+    """The flushes of one load-generator run: how many, their mean batch,
+    and their median and p90 wall ms (the worker's staging, replay, copy
+    back and unpacking)."""
+    wall = sorted(f["wall_s"] * 1e3 for f in flushes)
+    return {"flushes": len(flushes),
+            "mean_batch": sum(len(f["answers"]) for f in flushes) / len(flushes),
+            "wall_ms_p50": statistics.median(wall),
+            "wall_ms_p90": wall[int(0.9 * (len(wall) - 1))]}
+
+
+def http_images(engine, root):
+    """Three JPEG files routed to the big bucket (one at its size, two
+    smaller)."""
+    big = engine.buckets[-1]
+    rng = np.random.default_rng(21)
+    shapes = [big, (big[0] * 3 // 4, big[1]), (big[0] // 2, big[1] * 2 // 3)]
+    return write_jpegs([rng.integers(0, 256, s + (3,), dtype=np.uint8) for s in shapes], root)
+
+
+def phase_http(engine, paths, root):
+    """Real HTTP round trips against ``make_server`` on the warm engine:
+    /predict (200, equal to ``submit_path``), a missing file's 400,
+    /healthz, /stats, /metrics and /swap (501)."""
+    import threading
+
+    from replication_faster_rcnn_tpu_torch.serving.server import make_server
+
+    out = {}
+    server = make_server(engine, port=0, score_thresh=0.0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        status, _, body = http_call(f"{base}/predict", {"paths": paths, "score_thresh": 0.0})
+        if status != 200 or sorted(body["detections"]) != sorted(paths):
+            raise AssertionError(f"/predict: {status} {str(body)[:300]}")
+        for p in paths:
+            direct = engine.submit_path(p).result(timeout=300)
+            want = int(direct["valid"].sum())
+            if len(body["detections"][p]) != want:
+                raise AssertionError(f"/predict {p}: {len(body['detections'][p])} detections, "
+                                     f"submit_path {want}")
+        out["predict"] = {"status": status, "detections": [len(body["detections"][p])
+                                                           for p in paths]}
+        status_bad, _, _ = http_call(f"{base}/predict", {"paths": [str(root / "missing.jpg")]})
+        if status_bad != 400:
+            raise AssertionError(f"/predict of a missing file: {status_bad}")
+        status, _, health = http_call(f"{base}/healthz")
+        if status != 200 or not health["ok"] or health["degraded"]:
+            raise AssertionError(f"/healthz: {status} {health}")
+        status, _, stats = http_call(f"{base}/stats")
+        if status != 200 or stats.get("schema") != "frcnn-stats/v1" or "slo" not in stats:
+            raise AssertionError(f"/stats: {status} {str(stats)[:300]}")
+        status, _, metrics = http_call(f"{base}/metrics")
+        for metric in ("serve_requests_total", "serve_flush_seconds_bucket",
+                       "serve_queue_wait_seconds_count", "serve_model_version"):
+            if metric not in metrics:
+                raise AssertionError(f"/metrics lacks {metric}")
+        status_swap, _, _ = http_call(f"{base}/swap", {"version": "1"})
+        if status_swap != 501:
+            raise AssertionError(f"/swap without a handler: {status_swap}")
+        out.update(healthz=health["params_dtype"], stats_requests=stats["stats"]["requests"],
+                   metrics_lines=len(metrics.splitlines()), bad_path=status_bad,
+                   swap=status_swap)
+    finally:
+        server.shutdown()
+        server.server_close()
+    log(f"  HTTP: {json.dumps(out)}")
+    return out
+
+
+def phase_overload(cfg, state, path, dev):
+    """Overload over HTTP on an engine with ``queue_depth=1`` and
+    ``request_timeout_s=1`` whose first flush a ``batcher.flush`` failpoint
+    holds for 3 s: a full queue's 503 with ``Retry-After`` and the 504s of
+    the requests it held."""
+    import dataclasses
+    import threading
+
+    from replication_faster_rcnn_tpu_torch.faultlib import failpoints
+    from replication_faster_rcnn_tpu_torch.serving.engine import InferenceEngine
+    from replication_faster_rcnn_tpu_torch.serving.server import make_server
+
+    big = cfg.serving.bucket_resolutions(cfg.data.image_size)[-1]
+    tight_cfg = cfg.replace(serving=dataclasses.replace(
+        cfg.serving, resolutions=(big,), batch_sizes=(1,), queue_depth=1,
+        request_timeout_s=1.0))
+    tight = InferenceEngine(tight_cfg, device=dev, state_dict=state, warmup=True)
+    server = make_server(tight, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    held = {}
+    try:
+        failpoints.configure("batcher.flush:delay:1.0:0:3000:1")
+
+        def post(key):
+            held[key] = http_call(f"{base}/predict", {"path": path})
+
+        first = threading.Thread(target=post, args=("first",))
+        first.start()
+        deadline = time.time() + 30
+        while failpoints.site_hits().get("batcher.flush", 0) < 1:  # the worker is held
+            if time.time() > deadline:
+                raise AssertionError("the held flush never started")
+            time.sleep(0.01)
+        second = threading.Thread(target=post, args=("second",))
+        second.start()
+        while tight.queue_depth() < 1:  # the one queue slot is taken
+            if time.time() > deadline:
+                raise AssertionError("the second request never queued")
+            time.sleep(0.01)
+        status, headers, body = http_call(f"{base}/predict", {"path": path})
+        if status != 503 or "Retry-After" not in headers:
+            raise AssertionError(f"a full queue: {status} {headers} {body}")
+        first.join(60)
+        second.join(60)
+        codes = (held["first"][0], held["second"][0])
+        if codes != (504, 504):
+            raise AssertionError(f"requests held past request_timeout_s: {codes}")
+        out = {"full_queue": status, "retry_after": headers["Retry-After"],
+               "held_past_deadline": list(codes), "stats": tight.stats}
+    finally:
+        failpoints.disarm()
+        server.shutdown()
+        server.server_close()
+        tight.close()
+    log(f"  HTTP overload: {json.dumps(out)}")
+    return out
+
+
+def swap_references(torch, engine, version, images):
+    """Per big-bucket image, ``version``'s eager flush of it at b1 and as
+    row i of the b8 flush of all eight (the answers a flush can give)."""
+    bucket = engine.buckets[-1]
+    imgs = images[bucket]
+    infer = engine._resident[version].infer[bucket]
+    b8 = flush_outputs(torch, infer, padded(engine.config, imgs, bucket, 8), engine.device)
+    refs = []
+    for i, img in enumerate(imgs):
+        b1 = flush_outputs(torch, infer, padded(engine.config, [img], bucket, 1), engine.device)
+        refs.append([{k: v[0] for k, v in b1.items()}, {k: v[i] for k, v in b8.items()}])
+    return refs
+
+
+def swap_under_load(torch, engine, state1, images):
+    """``SWAP_CLIENTS`` threads submit the big bucket's images while the
+    engine swaps to ``state1`` (version "1"). Returns the answers with
+    their submit and completion times, the swap's times, and the launches
+    of the new version's warm-ups (eager runs, one per captured graph)."""
+    import threading
+
+    imgs = images[engine.buckets[-1]]
+    records, stop = [], threading.Event()
+    lock = threading.Lock()
+
+    def client(k):
+        i = k
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            res = engine.submit(imgs[i % len(imgs)]).result(timeout=300)
+            with lock:
+                records.append((t0, time.perf_counter(), i % len(imgs), res))
+            i += SWAP_CLIENTS
+
+    def load_for(seconds, done):
+        """Let the load run ``seconds`` and on until ``done()``."""
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds or not done():
+            if time.perf_counter() - t0 > SERVE_TIMEOUT_S:
+                raise AssertionError("the swap's load answered nothing in time")
+            time.sleep(0.05)
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(SWAP_CLIENTS)]
+    for t in threads:
+        t.start()
+    load_for(1.0, lambda: bool(records))
+    reserved = torch.cuda.memory_reserved() if engine.capture else 0
+    eager0 = read_counters()
+    t_swap0 = time.perf_counter()
+    prior = engine.swap_params(state1, "1")
+    t_swap1 = time.perf_counter()
+    eager1 = read_counters()
+    reserved = (torch.cuda.memory_reserved() if engine.capture else 0) - reserved
+    load_for(1.0, lambda: any(r[0] > t_swap1 for r in list(records)))
+    stop.set()
+    for t in threads:
+        t.join(300)
+    if prior != "0":
+        raise AssertionError(f"swap returned prior {prior!r}")
+    return {"records": records, "t_swap": (t_swap0, t_swap1), "reserved": reserved,
+            "warmup_launches": {k: eager1[k] - eager0[k] for k in eager1
+                                if eager1[k] != eager0[k]}}
+
+
+def check_swap(engine, swap, refs, imgs, flushes, state1):
+    """The hot-swap's answers against each version's eager flushes: each
+    answer equals exactly one version's, answers completed before the swap
+    began are version "0" and requests submitted after it returned are
+    version "1"; a flush is version-mixed when its answers come from more
+    than one version or from another version than its flush key's. Then a
+    second swap retires version "0" and its graphs."""
+    bucket = engine.buckets[-1]
+    t_swap0, t_swap1 = swap["t_swap"]
+    version_of = {}
+    seen = {"0": 0, "1": 0}
+    for t0, t1, i, res in swap["records"]:
+        h, w = imgs[i].shape[:2]
+        back = np.asarray([h / bucket[0], w / bucket[1]] * 2, np.float32)
+        match = [v for v in ("0", "1") if any(
+            np.array_equal(res["boxes"], r["boxes"] * back)
+            and all(np.array_equal(res[k], r[k]) for k in ("scores", "classes", "valid"))
+            for r in refs[v][i])]
+        if len(match) != 1:
+            raise AssertionError(f"an answer matches {match} of the versions' eager flushes")
+        seen[match[0]] += 1
+        version_of[id(res)] = match[0]
+        if t1 < t_swap0 and match[0] != "0":
+            raise AssertionError("an answer completed before the swap came from version 1")
+        if t0 > t_swap1 and match[0] != "1":
+            raise AssertionError("a request admitted after the swap was answered by version 0")
+    if not seen["0"] or not seen["1"]:
+        raise AssertionError(f"the load saw one version only: {seen}")
+    if len(version_of) != sum(len(f["answers"]) for f in flushes):
+        raise AssertionError("the swap's flushes returned answers no client received")
+    mixed = [f for f in flushes
+             if {version_of[id(a)] for a in f["answers"]} != {f["version"]}]
+    if mixed:
+        raise AssertionError(f"{len(mixed)} version-mixed flushes: "
+                             f"{[(f['version'], len(f['answers'])) for f in mixed[:5]]}")
+    by_version = {v: sum(1 for f in flushes if f["version"] == v) for v in ("0", "1")}
+    engine.swap_params(state1, "2")
+    if set(engine.resident_versions()) != {"1", "2"}:
+        raise AssertionError(f"version 0 was not retired: {engine.resident_versions()}")
+    out = {"answers": len(swap["records"]), "answers_by_version": seen,
+           "flushes_by_version": by_version, "version_mixed_flushes": len(mixed),
+           "swap_s": t_swap1 - t_swap0, "reserved_growth_on_swap_bytes": swap["reserved"],
+           "swap_warmup_launches": swap["warmup_launches"],
+           "resident_after_second_swap": engine.resident_versions()}
+    log(f"  hot-swap under load: {json.dumps(out)}")
+    return out
+
+
+def main_path_launches(engine, names, want, flushes, warmups):
+    """The launches of the main-path run's traffic: the replays of its
+    flushes. On the card every flush replayed a graph with ``want``
+    launches, the replays' total is the sum over the flushes, and the
+    wrappers' eager calls in the run are the hot-swap's warm-ups only (one
+    eager run of each new graph's function)."""
+    replayed = {k: REPLAYS.counts.get(k, 0) for k in names}
+    if not engine.capture:
+        return replayed
+    eager = read_counters()
+    warm = len(engine.graphs("1"))
+    for k in names:
+        if eager[k] != warmups.get(k, 0) or warmups.get(k, 0) != warm * want[k]:
+            raise AssertionError(f"{k}: {eager[k]} eager launches in the run, the swap's "
+                                 f"{warm} warm-ups account for {warmups.get(k, 0)} of "
+                                 f"{warm * want[k]} expected")
+    for f in flushes:
+        if f["reference"] or {k: f["launches"].get(k, 0) for k in names} != want:
+            raise AssertionError(f"a flush of {f['bucket']} launched {f['launches']} by "
+                                 f"replay, not {want}")
+    if replayed != {k: len(flushes) * want[k] for k in names}:
+        raise AssertionError(f"{len(flushes)} flushes of {want} each, replays counted "
+                             f"{replayed}")
+    return replayed
+
+
+def phase_serve_cli(root, workdir, path, size=None, device=None):
+    """``python -m replication_faster_rcnn_tpu_torch serve`` as a user runs it:
+    its start-up JSON, one /predict, then SIGTERM: /healthz shows draining
+    within the grace window and the process exits 0."""
+    import signal
+    import threading
+
+    cmd = [sys.executable, "-m", "replication_faster_rcnn_tpu_torch", "serve",
+           "--config", "voc_resnet18", "--workdir", str(workdir), "--port", "0",
+           "--bucket-batch-sizes", "1", "--replica-id", "r0"]
+    if size is not None:
+        cmd += ["--image-size", str(size), "--resolutions", f"{size}x{size}"]
+    else:
+        cmd += ["--resolutions", "600x600"]
+    if device is not None:
+        cmd += ["--device", device]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    lines, err = [], []
+    threading.Thread(target=lambda: err.extend(proc.stderr), daemon=True).start()
+    try:
+        url = None
+        deadline = time.time() + SERVE_TIMEOUT_S
+        while url is None:
+            line = proc.stdout.readline()
+            if not line:
+                raise AssertionError(f"serve exited before listening: {''.join(err)[-2000:]}")
+            lines.append(line)
+            if line.startswith("serving on "):
+                url = line.split()[2].rstrip("/")
+            if time.time() > deadline:
+                raise AssertionError("serve did not start in time")
+        first = next(i for i, line in enumerate(lines) if line.startswith("{"))
+        last = next(i for i, line in enumerate(lines) if line.startswith("}"))
+        startup = json.loads("".join(lines[first:last + 1]))
+        ready_s = time.perf_counter() - t0
+        status, _, body = http_call(f"{url}/predict", {"path": path})
+        if status != 200:
+            raise AssertionError(f"serve /predict: {status} {body}")
+        proc.send_signal(signal.SIGTERM)
+        health = {}
+        for _ in range(40):  # the handler runs between the main thread's polls
+            status, _, health = http_call(f"{url}/healthz")
+            if health.get("draining"):
+                break
+            time.sleep(0.02)
+        rc = proc.wait(timeout=SERVE_TIMEOUT_S)
+        if rc != 0 or not health.get("draining"):
+            raise AssertionError(f"serve drain: rc {rc}, /healthz {health}, "
+                                 f"{''.join(err)[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out = {"ready_s": ready_s, "compile_seconds": startup["compile_seconds"],
+           "model_version": startup["model_version"], "device": startup["device"],
+           "predict_detections": len(body["detections"][path]), "draining_seen": True,
+           "exit_code": rc}
+    log(f"  serve subprocess: {json.dumps(out)}")
+    return out
+
+
+def phase_serving_stack(torch, int8_artifact=None, device=None, size=None, reps=REPS,
+                        requests=LOADGEN_REQUESTS):
+    """Phase [11]: the serving stack on the card. ``int8_artifact``: [5]'s
+    sidecar (calibrated here when missing). ``device``/``size``/``reps``/
+    ``requests``: a CPU rehearsal passes ``"cpu"``, a small image size and
+    fewer repetitions (graphs exist on the card only). Returns (launches of
+    its main-path run, numbers)."""
+    from replication_faster_rcnn_tpu_torch import quant
+    from replication_faster_rcnn_tpu_torch.data.synthetic import SyntheticDataset
+    from replication_faster_rcnn_tpu_torch.models.faster_rcnn import build_model
+    from replication_faster_rcnn_tpu_torch.serving import loadgen
+    from replication_faster_rcnn_tpu_torch.serving.engine import InferenceEngine
+    from replication_faster_rcnn_tpu_torch.train.trainer import Trainer, load_eval_variables
+
+    dev = torch.device(device or "cuda")
+    root = fresh_dir(STACK_DIR)
+    t_phase = time.perf_counter()
+    log("[11] serving stack: voc_resnet18 bfloat16 and voc12_resnet18_align int8, buckets "
+        f"{STACK_BUCKETS if size is None else size} x {STACK_BATCHES}")
+    rng = np.random.default_rng(11)
+    out = {}
+    bf16_cfg = stack_config("voc_resnet18", "bfloat16", size)
+    images = stack_images(rng, bf16_cfg)
+    state0 = build_model(bf16_cfg, device=dev, seed=0).state_dict()
+    bf16_want = {"nms": 2, **roi_launches("pool")}
+    out["bf16"] = stack_engines(torch, "voc_resnet18", "bfloat16", dev, state0, None, size,
+                                images, bf16_want, reps)
+
+    align_cfg = stack_config("voc12_resnet18_align", "int8", size)
+    align_state = build_model(align_cfg, device=dev, seed=0).state_dict()
+    artifact = int8_artifact
+    if artifact is None or not Path(artifact).exists():
+        artifact = str(root / "quant_artifact.json")
+        model = build_model(align_cfg, device=dev, seed=0)
+        qc = align_cfg.quant
+        batches = quant.synthetic_calibration_batches(align_cfg, qc.calib_batches,
+                                                      qc.calib_batch_size)
+        quant.save_artifact(artifact, quant.calibrate(model, align_state, batches, align_cfg))
+        del model
+    gemm, deq = expected_int8_launches(quant.load_artifact(artifact))
+    int8_want = {"nms": 2, "roi_align": 1, "int8_matmul": gemm, "dequantize": deq}
+    out["int8"] = stack_engines(torch, "voc12_resnet18_align", "int8", dev, align_state,
+                                artifact, size, stack_images(rng, align_cfg), int8_want, reps)
+    del align_state
+
+    names = tuple(bf16_want)
+    ckpt = root / "ckpt"
+    trainer = Trainer(bf16_cfg, SyntheticDataset(bf16_cfg.data, length=8), device=dev, seed=1,
+                      workdir=str(ckpt))
+    trainer.save(kind="final")
+    del trainer
+    state1 = load_eval_variables(bf16_cfg, str(ckpt), device=dev).state_dict()
+    engine = InferenceEngine(bf16_cfg, device=dev, state_dict=state0, warmup=True)
+    recorder = FlushRecorder(engine)
+    paths = http_images(engine, root)
+    big = engine.buckets[-1]
+    with engine:
+        refs = {"0": swap_references(torch, engine, "0", images)}
+        # the main-path run: the load generator, HTTP and the hot-swap's
+        # traffic on the bf16 flagship with its graphs captured at start-up
+        first = len(recorder.flushes)
+        REPLAYS.reset(names)
+        flat = [img for imgs in images.values() for img in imgs]
+        closed, flush_stats = {}, {}
+        for k in LOADGEN_CONCURRENCY:
+            at = len(recorder.flushes)
+            closed[k] = loadgen.run_closed_loop(engine, flat, requests, concurrency=k)
+            if closed[k]["errors"] or closed[k]["timeouts"]:
+                raise AssertionError(f"closed loop at {k}: {closed[k]}")
+            flush_stats[f"concurrency_{k}"] = run_flushes(recorder.flushes[at:])
+        rate = max(r["images_per_sec"] for r in closed.values()) / 2
+        at = len(recorder.flushes)
+        opened = loadgen.run_open_loop(engine, flat, rate, n_requests=requests // 2)
+        if opened["errors"] or opened["timeouts"]:
+            raise AssertionError(f"open loop: {opened}")
+        flush_stats["open"] = run_flushes(recorder.flushes[at:])
+        out["loadgen"] = {"closed": {f"concurrency_{k}": v for k, v in closed.items()},
+                          "open": opened, "flushes": flush_stats}
+        log(f"  loadgen: {json.dumps(out['loadgen'])}")
+        out["http"] = phase_http(engine, paths, root)
+        at_swap = len(recorder.flushes)
+        swap = swap_under_load(torch, engine, state1, images)
+        launches = main_path_launches(engine, names, bf16_want, recorder.flushes[first:],
+                                      swap["warmup_launches"])
+        out["flushes"] = len(recorder.flushes) - first
+        refs["1"] = swap_references(torch, engine, "1", images)
+        out["swap"] = check_swap(engine, swap, refs, images[big], recorder.flushes[at_swap:],
+                                 state1)
+    if engine.capture and not (launches["nms"] and launches["roi_pool"]):
+        raise AssertionError(f"the main-path run launched no NMS or ROIPool: {launches}")
+    out["http"]["overload"] = phase_overload(bf16_cfg, state0, paths[0], dev)
+    out["serve_cli"] = phase_serve_cli(root, ckpt, paths[0], size, device)
+    shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  [11] took {out['phase_s']:.1f} s; launches in the main-path run {launches}")
+    return launches, out
+
+
 def image_kernel_rows(image, by_path):
     """The ``kernels`` line's rows of the data path's four kernels: [3]'s
     times at 600x600 b8 uint8 (all four row mixes' main one: flip,
@@ -3536,11 +4278,13 @@ def main():
     rlaunches, resume = phase_resume(torch)
     blaunches, bench = phase_bench(torch)
     dlaunches, data_path = phase_data_path(torch)
+    klaunches, stack = phase_serving_stack(torch, int8_artifact=REPO / "build" /
+                                           "quant_artifact.json")
     paths = {"serve": launches, "serve_pool": plaunches, "serve_presets": slaunches,
              "serve_int8": qlaunches, "train": tlaunches, "train_eager": tlaunches_eager,
              "train_pool": ptlaunches, "train_pool_eager": ptlaunches_eager,
              "evaluate": elaunches, "overfit_train": olaunches, **rlaunches, **blaunches,
-             **dlaunches}
+             **dlaunches, "serve_stack": klaunches}
 
     def by_path(key):
         """A counter's launches on every main path that reads it."""
@@ -3714,11 +4458,24 @@ def main():
         },
     ]
     kernels += image_kernel_rows(image, by_path)
+    per_replay = {"serve_bf16 voc_resnet18": stack["bf16"]["launches_per_replay"],
+                  "serve_int8 voc12_resnet18_align": stack["int8"]["launches_per_replay"]}
+    counter_of = {"nms_mask_walk": "nms", "roi_align_fwd": "roi_align", "roi_pool_fwd": "roi_pool",
+                  "int8_matmul": "int8_matmul", "dequantize": "dequantize"}
+    for row in kernels:
+        key = counter_of.get(row["name"])
+        counts = {path: {graph: n[key] for graph, n in graphs.items() if n.get(key)}
+                  for path, graphs in per_replay.items()}
+        counts = {path: c for path, c in counts.items() if c}
+        if counts:
+            row["launches_per_serving_replay"] = counts
+            row["launches_note"] = ("serving flushes are CUDA graph replays: launches count "
+                                    "each replay's recorded launches")
     log(json.dumps({"graph_replays": graph_replays, "serve": serve, "serve_pool": serve_pool,
                     "presets": presets,
                     "serve_int8": serve_int8, "train": train, "train_pool": train_pool,
                     "evaluate": evaluate, "resume": resume, "bench": bench,
-                    "data_path": data_path, "card": card}))
+                    "data_path": data_path, "serving_stack": stack, "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

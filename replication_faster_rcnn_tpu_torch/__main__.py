@@ -1,0 +1,9 @@
+"""``python -m replication_faster_rcnn_tpu_torch serve ...`` — the port's
+command line (``cli.py``)."""
+
+import sys
+
+from replication_faster_rcnn_tpu_torch.cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

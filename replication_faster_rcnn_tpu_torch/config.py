@@ -4,9 +4,11 @@ training and evaluation paths read.
 Field names, defaults and presets mirror ``replication_faster_rcnn_tpu.config``
 so a reader can hold the two side by side; knobs the port does not implement
 yet (FPN, group norm, frozen BN, the mesh's optimizer fields ``backend``,
-``shard_opt_state`` and ``grad_allreduce_dtype``, fleet, the loader's
+``shard_opt_state`` and ``grad_allreduce_dtype``, the loader's
 ``loader_mode="process"`` workers) are left out rather than accepted and
-ignored. The data path is the JAX package's: the uint8 feed
+ignored. ``FleetConfig`` holds the fields the port reads: the engine's
+``slo_*`` and ``serve``'s ``drain_grace_s``; the fleet router's fields come
+with the router. The data path is the JAX package's: the uint8 feed
 (``device_normalize``), the RAM cache, the host and on-device augmentations,
 the device-resident dataset cache, device prefetch and the multi-scale
 training buckets, with the same validation.
@@ -390,7 +392,10 @@ class EvalConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ServingConfig:
-    """Bucketed micro-batched serving (serving/engine.py)."""
+    """Bucketed micro-batched serving (serving/engine.py): one CUDA graph per
+    (model version, bucket, batch size), params resident in ``params_dtype``,
+    requests coalesced into bucket-sized micro-batches (flush on size or
+    ``max_delay_ms``)."""
 
     # () = derived: the configured image size plus its half
     resolutions: Tuple[Tuple[int, int], ...] = ()
@@ -401,6 +406,18 @@ class ServingConfig:
     # quant/artifact.py, path from quant.artifact)
     params_dtype: str = "bfloat16"
     oversize: str = "downscale"  # downscale | reject
+    # per-request deadline, end to end: the HTTP handler's wait times out to
+    # 504 after this many seconds and an entry still queued past it is
+    # dropped at flush time, never dispatched (0 = no deadline)
+    request_timeout_s: float = 0.0
+    # SLO-driven micro-batch deadlines (serving/slo.py): each bucket's
+    # max_delay_ms moves by one multiplicative step of adaptive_delay_step
+    # per window of queue waits, inside [delay_floor_ms, delay_ceiling_ms]
+    adaptive_delay: bool = False
+    adaptive_slo_ms: float = 100.0  # target queue-wait p99 per request
+    delay_floor_ms: float = 1.0
+    delay_ceiling_ms: float = 100.0
+    adaptive_delay_step: float = 1.25
 
     def __post_init__(self):
         object.__setattr__(
@@ -438,6 +455,27 @@ class ServingConfig:
                 "serving.oversize must be 'downscale' or 'reject', got "
                 f"{self.oversize!r}"
             )
+        if self.request_timeout_s < 0:
+            raise ValueError(
+                "serving.request_timeout_s must be >= 0 (0 = no deadline), "
+                f"got {self.request_timeout_s}"
+            )
+        if self.adaptive_slo_ms <= 0:
+            raise ValueError(
+                "serving.adaptive_slo_ms must be > 0, got "
+                f"{self.adaptive_slo_ms}"
+            )
+        if not 0 < self.delay_floor_ms <= self.delay_ceiling_ms:
+            raise ValueError(
+                "serving delay bounds need 0 < delay_floor_ms <= "
+                f"delay_ceiling_ms, got floor={self.delay_floor_ms} "
+                f"ceiling={self.delay_ceiling_ms}"
+            )
+        if self.adaptive_delay_step <= 1.0:
+            raise ValueError(
+                "serving.adaptive_delay_step is multiplicative and must be "
+                f"> 1.0, got {self.adaptive_delay_step}"
+            )
 
     def bucket_resolutions(
         self, image_size: Tuple[int, int]
@@ -449,6 +487,47 @@ class ServingConfig:
             h, w = image_size
             res = {(max(1, h // 2), max(1, w // 2)), (h, w)}
         return tuple(sorted(res, key=lambda r: (r[0] * r[1], r)))
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetConfig:
+    """The fields of the JAX package's ``FleetConfig`` that the port reads,
+    with its validation: ``slo_*`` (the engine's burn-rate tracker) and
+    ``drain_grace_s`` (``serve --replica-id``'s SIGTERM drain). The router,
+    registry, breaker, hedging and canary fields come with the fleet
+    router."""
+
+    # how long a SIGTERMed ``serve --replica-id`` advertises draining in
+    # /healthz before it stops accepting connections
+    drain_grace_s: float = 1.0
+    # SLO error-budget burn rate (telemetry/slo_burn.py): the alarm (burn
+    # > 1 on both windows) is a path into the engine's ``degraded``
+    slo_availability_target: float = 0.999  # error budget = 1 - target
+    slo_latency_target_ms: float = 0.0  # 0 = availability-only budget
+    slo_short_window_s: float = 300.0
+    slo_long_window_s: float = 3600.0
+
+    def __post_init__(self):
+        if self.drain_grace_s < 0:
+            raise ValueError(
+                f"fleet.drain_grace_s must be >= 0, got {self.drain_grace_s}"
+            )
+        if not 0.0 < self.slo_availability_target < 1.0:
+            raise ValueError(
+                "fleet.slo_availability_target must be in (0, 1), got "
+                f"{self.slo_availability_target}"
+            )
+        if self.slo_latency_target_ms < 0:
+            raise ValueError(
+                "fleet.slo_latency_target_ms must be >= 0, got "
+                f"{self.slo_latency_target_ms}"
+            )
+        if not 0 < self.slo_short_window_s < self.slo_long_window_s:
+            raise ValueError(
+                "fleet SLO windows need 0 < slo_short_window_s < "
+                f"slo_long_window_s, got short={self.slo_short_window_s} "
+                f"long={self.slo_long_window_s}"
+            )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -497,14 +576,19 @@ class QuantConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TelemetryConfig:
-    """Observability knobs (``telemetry/``). The JAX package's other two,
-    ``trace_propagation`` and ``latency_buckets_ms``, serve the serving
-    tiers' cross-process tracing and latency histograms, which the port
-    has not ported yet."""
+    """Observability knobs (``telemetry/``): whether trace context crosses
+    HTTP hops, how large a trace buffer may grow, and the latency histogram
+    grid the serving engine registers with."""
 
+    # adopt/emit the W3C traceparent header across HTTP hops; off = spans
+    # still record locally but requests don't correlate
+    trace_propagation: bool = True
     # SpanTracer in-memory event bound (overflow drops events and counts
     # them, never grows)
     trace_max_events: int = 200_000
+    # latency histogram upper bounds in ms; () = the built-in log-spaced
+    # 1 ms .. 60 s grid (telemetry/metrics.py)
+    latency_buckets_ms: Tuple[float, ...] = ()
 
     def __post_init__(self):
         if self.trace_max_events < 1:
@@ -512,6 +596,18 @@ class TelemetryConfig:
                 "telemetry.trace_max_events must be >= 1, got "
                 f"{self.trace_max_events}"
             )
+        b = list(self.latency_buckets_ms)
+        if b and (sorted(b) != b or b[0] <= 0):
+            raise ValueError(
+                "telemetry.latency_buckets_ms must be ascending and "
+                f"positive, got {self.latency_buckets_ms}"
+            )
+
+    def buckets_s(self) -> Optional[Tuple[float, ...]]:
+        """The configured grid in seconds, or ``None`` for the default."""
+        if not self.latency_buckets_ms:
+            return None
+        return tuple(ms / 1000.0 for ms in self.latency_buckets_ms)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -525,6 +621,7 @@ class FasterRCNNConfig:
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
     serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
+    fleet: FleetConfig = dataclasses.field(default_factory=FleetConfig)
     quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
     telemetry: TelemetryConfig = dataclasses.field(default_factory=TelemetryConfig)
 

@@ -21,6 +21,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from replication_faster_rcnn_tpu_torch import ops
 from replication_faster_rcnn_tpu_torch.config import EvalConfig, ROITargetConfig
 from replication_faster_rcnn_tpu_torch.ops import boxes as box_ops
 from replication_faster_rcnn_tpu_torch.ops import nms as nms_ops
@@ -40,8 +41,10 @@ def _class_boxes_scores(
     n, r, c = cls_logits.shape
     dev = cls_logits.device
     probs = torch.softmax(cls_logits, dim=-1)
-    mean = torch.tensor(roi_cfg.reg_mean, dtype=torch.float32, device=dev)
-    std = torch.tensor(roi_cfg.reg_std, dtype=torch.float32, device=dev)
+    # cached device constants: no host copy per call, so a CUDA graph may
+    # capture the decode
+    mean = ops.constant(roi_cfg.reg_mean, torch.float32, dev)
+    std = ops.constant(roi_cfg.reg_std, torch.float32, dev)
     deltas = reg_out.reshape(n, r, c, 4) * std + mean
     boxes = box_ops.decode(rois[:, :, None, :], deltas)
     return probs, box_ops.clip(boxes, img_h, img_w)

@@ -1,1 +1,29 @@
-"""serving layer of the PyTorch port (see the JAX package's serving/ for the counterpart)."""
+"""Bucketed, micro-batched inference serving of the PyTorch port (the JAX
+package's ``serving/`` without the fleet router and the rollout controller).
+
+`engine.InferenceEngine` holds each model version's weights on the card and
+replays one CUDA graph per (version, bucket, batch size) flush;
+`batcher.MicroBatcher` coalesces concurrent requests into those flushes;
+`server.make_server` is the HTTP front end and `loadgen` drives the engine
+in closed and open loops.
+"""
+
+from replication_faster_rcnn_tpu_torch.serving.batcher import (
+    DeadlineExceeded,
+    MicroBatcher,
+)
+from replication_faster_rcnn_tpu_torch.serving.engine import (
+    InferenceEngine,
+    OversizedImageError,
+    get_engine,
+    select_bucket,
+)
+
+__all__ = [
+    "DeadlineExceeded",
+    "InferenceEngine",
+    "MicroBatcher",
+    "OversizedImageError",
+    "get_engine",
+    "select_bucket",
+]

@@ -4,12 +4,19 @@
 - :mod:`.watchdog` — heartbeat daemon that records a stall's snapshot;
 - :mod:`.health` — train-health scalars from the step's own tensors;
 - :mod:`.mfu` — model FLOPs utilisation against a datasheet peak;
-- :mod:`.report` — a run directory's phase-time and health report.
-
-Not ported: ``metrics.py``, ``slo_burn.py`` and ``tracecontext.py``, which
-go with the serving stack.
+- :mod:`.report` — a run directory's phase-time and health report;
+- :mod:`.tracecontext` — W3C-traceparent request tracing across HTTP hops;
+- :mod:`.metrics` — the serving tier's ``MetricsRegistry`` (``/stats``,
+  ``/metrics``);
+- :mod:`.slo_burn` — multi-window error-budget burn rates (``degraded``).
 """
 
+from replication_faster_rcnn_tpu_torch.telemetry.metrics import (  # noqa: F401
+    MetricsRegistry,
+)
+from replication_faster_rcnn_tpu_torch.telemetry.slo_burn import (  # noqa: F401
+    BurnRateTracker,
+)
 from replication_faster_rcnn_tpu_torch.telemetry.spans import (  # noqa: F401
     NULL_TRACER,
     SpanTracer,
@@ -17,3 +24,10 @@ from replication_faster_rcnn_tpu_torch.telemetry.spans import (  # noqa: F401
     set_tracer,
 )
 from replication_faster_rcnn_tpu_torch.telemetry.watchdog import StallWatchdog  # noqa: F401
+from replication_faster_rcnn_tpu_torch.telemetry.tracecontext import (  # noqa: F401
+    TraceContext,
+    bind,
+    current_trace,
+    new_trace_context,
+    parse_traceparent,
+)

@@ -60,7 +60,11 @@ def _entry_points():
     from replication_faster_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN, build_model
     from replication_faster_rcnn_tpu_torch.data.synthetic import SyntheticDataset
     from replication_faster_rcnn_tpu_torch.eval.evaluator import Evaluator
-    from replication_faster_rcnn_tpu_torch.serving.engine import InferenceEngine
+    from replication_faster_rcnn_tpu_torch.serving.engine import (
+        InferenceEngine,
+        get_engine,
+        get_evaluator,
+    )
     from replication_faster_rcnn_tpu_torch.train.trainer import Trainer
 
     cfg = config.get_config("voc12_resnet18_align")
@@ -71,17 +75,28 @@ def _entry_points():
         "InferenceEngine": lambda **kw: InferenceEngine(cfg, **kw),
         "Trainer": lambda **kw: Trainer(cfg, SyntheticDataset(cfg.data, length=8), **kw),
         "Evaluator": lambda **kw: Evaluator(cfg, **kw),
+        "get_engine": lambda **kw: get_engine(cfg, **kw),
+        "get_evaluator": lambda **kw: get_evaluator(cfg, **kw),
     }
 
 
-def test_entry_points_default_to_cuda(monkeypatch):
+def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     """With no device argument every entry point targets cuda: without a GPU
     it raises; with device="cpu" it runs on the CPU. One test id walks all
-    of them (each test id costs the fast tier's budget)."""
+    of them (each test id costs the fast tier's budget). The ``serve``
+    subcommand (``--device auto``, its default, or ``cuda``) raises before
+    it listens."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from replication_faster_rcnn_tpu_torch.cli import main
+
+    for device in ((), ("--device", "cuda")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["serve", "--config", "voc12_resnet18_align", "--workdir",
+                  str(tmp_path), "--port", "0", *device])
     entry_points = _entry_points()
     assert list(entry_points) == ["resolve_device", "FasterRCNN", "build_model",
-                                  "InferenceEngine", "Trainer", "Evaluator"]
+                                  "InferenceEngine", "Trainer", "Evaluator", "get_engine",
+                                  "get_evaluator"]
     for name, make in entry_points.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

@@ -139,9 +139,10 @@ def test_propose_exact_when_decode_is_exact(models):
     np.testing.assert_array_equal(tvalid.numpy(), np.asarray(jvalid))
     np.testing.assert_array_equal(trois.numpy(), np.asarray(jrois))
     assert np.asarray(jvalid).sum() > 5
+    _case_propose_on_model_outputs(models)
 
 
-def test_propose_on_model_outputs(models):
+def _case_propose_on_model_outputs(models):
     jcfg, tcfg, jmodel, jvars, tmodel, images = models
     jl, jd, jrois, jvalid, *_ , ja = jmodel.apply(jvars, jnp.asarray(images))
     trois, tvalid = batched_proposals(
@@ -273,6 +274,13 @@ def test_presets_match_jax():
         jdata, tdata = jconfig.get_config(name).data, tconfig.get_config(name).data
         for field in dataclasses.fields(tdata):
             assert getattr(tdata, field.name) == getattr(jdata, field.name), (name, field.name)
+        # and its serving, fleet and telemetry settings, over the port's fields
+        for section in ("serving", "fleet", "telemetry"):
+            tsec = getattr(tconfig.get_config(name), section)
+            jsec = getattr(jconfig.get_config(name), section)
+            for field in dataclasses.fields(tsec):
+                assert getattr(tsec, field.name) == getattr(jsec, field.name), (
+                    name, section, field.name)
         jcfg, tcfg, jmodel, raw, variables, tmodel = _preset_pair(name, rng)
         _assert_round_trip(raw, name)
         if name == "voc12_resnet18_align":  # its stages: test_stages_match

@@ -17,7 +17,6 @@ against these plain versions there.
 """
 
 import numpy as np
-import pytest
 import torch
 import jax
 import jax.numpy as jnp
@@ -61,6 +60,7 @@ def test_iou_bitwise():
     got = t_boxes.iou(t(a), t(b)).numpy()
     np.testing.assert_array_equal(got, want)
     _case_clip_bitwise()
+    _case_decode_encode_close()
 
 
 def _case_clip_bitwise():
@@ -70,7 +70,7 @@ def _case_clip_bitwise():
     np.testing.assert_array_equal(t_boxes.clip(t(b), 180.0, 200.0).numpy(), want)
 
 
-def test_decode_encode_close():
+def _case_decode_encode_close():
     rng = np.random.default_rng(2)
     anchors = rand_boxes(2000, rng, 150.0)
     deltas = rng.normal(0, 0.3, (2000, 4)).astype(np.float32)
@@ -87,13 +87,15 @@ def test_decode_encode_close():
     )
 
 
-@pytest.mark.parametrize("feat_size", [(38, 38), (4, 5), (7, 3)])
-def test_anchors_bitwise(feat_size):
+def test_anchors_bitwise():
+    # the feature sizes are cases of one id (each test id costs the fast
+    # tier's budget)
     cfg = AnchorConfig()
     jcfg = JAnchorConfig()
-    np.testing.assert_array_equal(
-        t_anchors.make_anchors(cfg, feat_size), j_anchors.make_anchors(jcfg, feat_size)
-    )
+    for feat_size in [(38, 38), (4, 5), (7, 3)]:
+        np.testing.assert_array_equal(
+            t_anchors.make_anchors(cfg, feat_size), j_anchors.make_anchors(jcfg, feat_size)
+        )
 
 
 # --------------------------------------------------------------------- NMS
@@ -113,17 +115,17 @@ def _assert_same(got, want):
     np.testing.assert_array_equal(got[0].numpy(), want[0])
 
 
-@pytest.mark.parametrize("n", [1, 9, 65, 700])
-def test_nms_tiled_matches_jax(n):
-    # the tiles are cases of one id per n (each test id costs the fast
+def test_nms_tiled_matches_jax():
+    # the sizes and tiles are cases of one id (each test id costs the fast
     # tier's budget)
-    rng = np.random.default_rng(100 + n)
-    boxes = rand_boxes(n, rng, size=60.0)
-    scores = rng.uniform(0, 1, n).astype(np.float32)
-    for tile in (17, 64, 512):
-        for thresh in (0.3, 0.7):
-            want = _jax_nms(boxes, scores, thresh, 50, tile=tile)
-            _assert_same(nms_fixed_tiled(t(boxes), t(scores), thresh, 50, tile=tile), want)
+    for n in [1, 9, 65, 700]:
+        rng = np.random.default_rng(100 + n)
+        boxes = rand_boxes(n, rng, size=60.0)
+        scores = rng.uniform(0, 1, n).astype(np.float32)
+        for tile in (17, 64, 512):
+            for thresh in (0.3, 0.7):
+                want = _jax_nms(boxes, scores, thresh, 50, tile=tile)
+                _assert_same(nms_fixed_tiled(t(boxes), t(scores), thresh, 50, tile=tile), want)
 
 
 def test_nms_mask_ties_nonfinite_and_sorted():
@@ -156,14 +158,14 @@ def _case_nms_all_invalid_and_max_out_exceeds_n():
                  _jax_nms(boxes, scores, 0.5, 20))
 
 
-@pytest.mark.parametrize(
-    "n,max_out,thresh,sorted_",
-    [(3000, 300, 0.7, True), (6300, 100, 0.3, False)],
-    ids=["proposal_3000_300", "detection_6300_100"],
-)
-def test_nms_main_path_budgets_batched(n, max_out, thresh, sorted_):
-    """The two serving call sites, three images at once against the JAX
-    version image by image."""
+def test_nms_main_path_budgets_batched():
+    """The two serving call sites (proposal 3000 -> 300, detection 6300 ->
+    100), three images at once against the JAX version image by image."""
+    for n, max_out, thresh, sorted_ in [(3000, 300, 0.7, True), (6300, 100, 0.3, False)]:
+        _case_nms_budget(n, max_out, thresh, sorted_)
+
+
+def _case_nms_budget(n, max_out, thresh, sorted_):
     rng = np.random.default_rng(n)
     boxes = np.stack([rand_boxes(n, rng, size=600.0) for _ in range(3)])
     scores = rng.uniform(0, 1, (3, n)).astype(np.float32)
@@ -268,8 +270,14 @@ def _rois_with_edge_cases(rng, h, w, n):
     return np.concatenate([rois, edge])
 
 
-@pytest.mark.parametrize("method", ["einsum", "gather"])
-def test_roi_align_matches_jax_einsum(method):
+def test_roi_align_matches_jax_einsum():
+    # the two formulations are cases of one id (each test id costs the fast
+    # tier's budget)
+    for method in ["einsum", "gather"]:
+        _case_roi_align_method(method)
+
+
+def _case_roi_align_method(method):
     rng = np.random.default_rng(11)
     n, h, w, c = 2, 11, 9, 6
     feat = rng.normal(0, 1, (n, h, w, c)).astype(np.float32)

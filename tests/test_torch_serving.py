@@ -60,9 +60,10 @@ def test_select_bucket_matches_jax():
     for hw, want in [((20, 30), (32, 32)), ((32, 32), (32, 32)), ((33, 10), (64, 64)),
                      ((64, 64), (64, 64)), ((90, 40), (64, 64))]:
         assert select_bucket(BUCKETS, *hw) == want == j_select_bucket(BUCKETS, *hw), hw
+    _case_select_bucket_reject()
 
 
-def test_select_bucket_reject():
+def _case_select_bucket_reject():
     with pytest.raises(OversizedImageError):
         select_bucket(BUCKETS, 65, 10, oversize="reject")
 
@@ -86,7 +87,7 @@ def test_engine_coalesces_pads_and_denormalises(engine):
     imgs = _images(rng, shapes)
     log0, stats0 = len(engine.flush_log), engine.stats
     results = engine.predict(imgs)
-    assert engine.flush_log[log0:] == [(((64, 64), False), 3)]
+    assert engine.flush_log[log0:] == [(("0", (64, 64), False), 3)]
     stats = engine.stats
     assert stats["flushes"] - stats0["flushes"] == 1
     assert stats["padded_slots"] - stats0["padded_slots"] == 1
@@ -113,14 +114,16 @@ def test_engine_routes_buckets_and_reference_key(engine):
     f_small = engine.submit(small)
     f_big = engine.submit(big, reference=True)
     r_small, r_big = f_small.result(timeout=60), f_big.result(timeout=60)
-    assert sorted(engine.flush_log[log0:]) == [(((32, 32), False), 1), (((64, 64), True), 1)]
+    assert sorted(engine.flush_log[log0:]) == [(("0", (32, 32), False), 1),
+                                               (("0", (64, 64), True), 1)]
     plain = engine.predict([big])[0]  # CPU tensors run the plain versions anyway
     for k in plain:
         np.testing.assert_array_equal(plain[k], r_big[k])
     assert r_small["scores"].shape == (engine.config.eval.max_detections,)
+    _case_engine_float_input_and_validation(engine)
 
 
-def test_engine_float_input_and_validation(engine):
+def _case_engine_float_input_and_validation(engine):
     rng = np.random.default_rng(3)
     with pytest.raises(ValueError, match="matches no serving bucket"):
         engine.submit(np.zeros((40, 40, 3), np.float32))
@@ -161,6 +164,13 @@ class _Clock:
 
 
 def test_batcher_size_and_deadline_flushes():
+    # the batcher's cases are one id (each test id costs the fast tier's budget)
+    _case_batcher_size_and_deadline()
+    _case_batcher_deadline_drop_and_error_relay()
+    _case_batcher_threaded_close_drains()
+
+
+def _case_batcher_size_and_deadline():
     clock = _Clock()
     seen = []
     b = MicroBatcher(lambda k, items: seen.append((k, list(items))) or [i * 10 for i in items],
@@ -177,7 +187,7 @@ def test_batcher_size_and_deadline_flushes():
     b.close()
 
 
-def test_batcher_deadline_drop_and_error_relay():
+def _case_batcher_deadline_drop_and_error_relay():
     clock = _Clock()
 
     def process(key, items):
@@ -202,7 +212,7 @@ def test_batcher_deadline_drop_and_error_relay():
         b.submit("x", 1)
 
 
-def test_batcher_threaded_close_drains():
+def _case_batcher_threaded_close_drains():
     b = MicroBatcher(lambda k, items: items, max_batch=100, max_delay_s=60.0)
     futs = [b.submit("k", i) for i in range(5)]
     b.close()

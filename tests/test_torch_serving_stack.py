@@ -1,0 +1,486 @@
+"""Parity of the PyTorch port's serving stack with the JAX package's, on the
+CPU at 32x32: the engine (detections, ``submit_path``, hot-swap), the HTTP
+server, the pure host modules (metrics, SLO burn rate, trace context,
+overload, the deadline controller, failpoints, the batcher's hooks) and the
+load generator. One JAX engine and one port engine, module-scoped, serve the
+same bridged weights (``voc12_resnet18_align``, float32 compute, bucket
+32x32, batch sizes 1 and 2).
+
+Tolerances, with their reasons:
+
+* Detections: boxes to 1e-3 px, scores to 1e-6, classes and valid equal —
+  the decode's tolerance (``tests/test_torch_eval.py``, module docstring):
+  XLA:CPU and oneDNN sum the convolutions in other orders.
+* HTTP: status codes, JSON keys and metric names equal.
+* Pure modules: equal outputs (plain Python float math on scripted inputs
+  and an injected clock).
+* Load generator: equal summary keys and counts (times differ run to run).
+"""
+
+import dataclasses
+import queue
+import signal
+import subprocess
+import sys
+import threading
+import time
+import urllib.error
+import urllib.request
+import json
+from concurrent.futures import Future
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from replication_faster_rcnn_tpu import config as jconfig
+from replication_faster_rcnn_tpu.faultlib import failpoints as j_failpoints
+from replication_faster_rcnn_tpu.serving import loadgen as j_loadgen
+from replication_faster_rcnn_tpu.serving import overload as j_overload
+from replication_faster_rcnn_tpu.serving.batcher import MicroBatcher as JMicroBatcher
+from replication_faster_rcnn_tpu.serving.engine import InferenceEngine as JInferenceEngine
+from replication_faster_rcnn_tpu.serving.server import make_server as j_make_server
+from replication_faster_rcnn_tpu.serving.slo import DeadlineController as JDeadlineController
+from replication_faster_rcnn_tpu.telemetry import metrics as j_metrics
+from replication_faster_rcnn_tpu.telemetry import slo_burn as j_slo_burn
+from replication_faster_rcnn_tpu.telemetry import tracecontext as j_tracecontext
+from replication_faster_rcnn_tpu_torch import config as tconfig
+from replication_faster_rcnn_tpu_torch.faultlib import failpoints
+from replication_faster_rcnn_tpu_torch.models.convert import from_flax_variables, to_flax_variables
+from replication_faster_rcnn_tpu_torch.models.faster_rcnn import build_model
+from replication_faster_rcnn_tpu_torch.serving import loadgen, overload
+from replication_faster_rcnn_tpu_torch.serving.batcher import MicroBatcher
+from replication_faster_rcnn_tpu_torch.serving.engine import InferenceEngine
+from replication_faster_rcnn_tpu_torch.serving.server import make_server
+from replication_faster_rcnn_tpu_torch.serving.slo import DeadlineController
+from replication_faster_rcnn_tpu_torch.telemetry import metrics, slo_burn, tracecontext
+from tests.test_torch_model import _randomise
+
+SIZE = (32, 32)
+# the decode's detection tolerance (tests/test_torch_eval.py)
+BOX_ATOL, SCORE_ATOL = 1e-3, 1e-6
+
+
+def _cfg(mod):
+    cfg = mod.get_config("voc12_resnet18_align")
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, compute_dtype="float32"),
+        data=dataclasses.replace(cfg.data, image_size=SIZE),
+        serving=dataclasses.replace(
+            cfg.serving, resolutions=(SIZE,), batch_sizes=(1, 2), params_dtype="float32",
+            max_delay_ms=100.0, queue_depth=2, request_timeout_s=60.0),
+    )
+
+
+def _variables(raw, seed):
+    """``raw`` (JAX variables of ``voc12_resnet18_align`` at 32x32) with
+    statistics and biases drawn from ``seed`` and the RPN/head tempered (as
+    ``test_torch_eval.py``), so the decode keeps several detections an
+    image."""
+    variables = _randomise(raw, np.random.default_rng(seed))
+    for layer in (variables["params"]["head"]["cls"], variables["params"]["head"]["reg"],
+                  *variables["params"]["rpn"].values()):
+        layer["kernel"] = (layer["kernel"] * 0.1).astype(np.float32)
+    return variables
+
+
+@pytest.fixture(scope="module")
+def engines():
+    # the port's seeded init in the flax layout (a JAX init would compile for
+    # ~15 s on the CPU); the bridge round trip is bitwise (test_torch_serving.py)
+    raw = to_flax_variables(build_model(_cfg(tconfig), device="cpu", seed=0).state_dict())
+    variables = [_variables(raw, 0), _variables(raw, 1)]
+    jeng = JInferenceEngine(_cfg(jconfig), None,
+                            jax.tree_util.tree_map(jnp.asarray, variables[0]))
+    teng = InferenceEngine(_cfg(tconfig), device="cpu",
+                           state_dict=from_flax_variables(variables[0]))
+    # warm both batch sizes (the JAX engine compiles its two programs here),
+    # so later flushes finish well inside request_timeout_s
+    warm = _images(np.random.default_rng(9), [(32, 32)] * 2)
+    for eng in (jeng, teng):
+        eng.submit(warm[0]).result(timeout=300)
+        [f.result(timeout=300) for f in [eng.submit(img) for img in warm]]
+    yield jeng, teng, variables
+    jeng.close()
+    teng.close()
+
+
+def _images(rng, shapes):
+    return [rng.integers(0, 256, s + (3,), dtype=np.uint8) for s in shapes]
+
+
+def _assert_detections(got, want, what):
+    np.testing.assert_array_equal(got["valid"], want["valid"], err_msg=what)
+    np.testing.assert_array_equal(got["classes"], want["classes"], err_msg=what)
+    np.testing.assert_allclose(got["boxes"], want["boxes"], rtol=0, atol=BOX_ATOL, err_msg=what)
+    np.testing.assert_allclose(got["scores"], want["scores"], rtol=0, atol=SCORE_ATOL,
+                               err_msg=what)
+
+
+def _write_pngs(tmp_path, images):
+    from PIL import Image
+
+    paths = []
+    for i, img in enumerate(images):
+        path = tmp_path / f"img{i}.png"
+        Image.fromarray(img).save(path)
+        paths.append(str(path))
+    return paths
+
+
+def test_engine_and_hot_swap_match_jax(engines, tmp_path):
+    """Detections on uint8 images and on ``submit_path`` files; then a swap
+    to a second seeded version: the request admitted before it is answered
+    by the old weights, the one after by the new, on both sides; both report
+    the same versions; a state of the wrong structure raises before
+    anything changes."""
+    jeng, teng, variables = engines
+    rng = np.random.default_rng(0)
+    images = _images(rng, [(32, 32), (20, 30), (32, 17), (45, 40)])
+    got = teng.predict(images)
+    want = [jeng.submit(img).result(timeout=120) for img in images]
+    for i, (g, w) in enumerate(zip(got, want)):
+        _assert_detections(g, w, f"image {i}")
+    assert sum(int(g["valid"].sum()) for g in got) >= 4
+    paths = _write_pngs(tmp_path, images[:2])
+    for i, (g, w) in enumerate(zip(teng.predict_paths(paths), jeng.predict_paths(paths))):
+        _assert_detections(g, w, f"path {i}")
+
+    # hot-swap: one request waits in the batcher (max_delay 100 ms) while the
+    # engine swaps; the next is admitted under the new version
+    for eng, new in ((jeng, jax.tree_util.tree_map(jnp.asarray, variables[1])),
+                     (teng, from_flax_variables(variables[1]))):
+        before = eng.submit(images[0])
+        assert eng.swap_params(new, "1") == "0"
+        after = eng.submit(images[0])
+        eng.results = (before.result(timeout=120), after.result(timeout=120))
+    for (g, w), what in zip(zip(teng.results, jeng.results), ("admitted before", "after")):
+        _assert_detections(g, w, f"request {what} the swap")
+    _assert_detections(teng.results[0], got[0], "the old version's answer")
+    assert not np.allclose(teng.results[1]["scores"], got[0]["scores"])
+    assert teng.model_version == jeng.model_version == "1"
+    assert teng.resident_versions() == jeng.resident_versions() == {"0": False, "1": True}
+    assert [k[0] for k, _ in teng.flush_log[-2:]] == ["0", "1"]
+
+    # a state missing a leaf: both raise, nothing changes
+    bad = from_flax_variables(variables[0])
+    bad.pop(next(iter(bad)))
+    jbad = jax.tree_util.tree_map(jnp.asarray, variables[0])
+    jbad["params"] = {k: v for k, v in jbad["params"].items() if k != "head"}
+    with pytest.raises(ValueError, match="wrong model/config"):
+        teng.swap_params(bad, "2")
+    with pytest.raises(ValueError, match="wrong model/config"):
+        jeng.swap_params(jbad, "2")
+    wrong = from_flax_variables(variables[0])
+    key = next(k for k in wrong if wrong[k].dim() == 4)
+    wrong[key] = wrong[key][:1]
+    with pytest.raises(ValueError, match="wrong model/config"):
+        teng.swap_params(wrong, "2")
+    assert teng.resident_versions() == jeng.resident_versions() == {"0": False, "1": True}
+    assert teng.model_version == jeng.model_version == "1"
+
+
+def _http(url, body=None):
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            status, headers, raw = resp.status, dict(resp.headers), resp.read().decode()
+    except urllib.error.HTTPError as e:
+        status, headers, raw = e.code, dict(e.headers), e.read().decode()
+    try:
+        return status, headers, json.loads(raw)
+    except ValueError:
+        return status, headers, raw
+
+
+def _shape(value):
+    """The JSON's key structure (lists by their first element)."""
+    if isinstance(value, dict):
+        return {k: _shape(v) for k, v in value.items()}
+    if isinstance(value, list):
+        return [_shape(value[0])] if value else []
+    return type(value).__name__
+
+
+def _metric_names(text):
+    return sorted({line.split("{")[0].split(" ")[0] for line in text.splitlines()
+                   if line and not line.startswith("#")})
+
+
+def _run_contract(make, engine, fp, paths, tmp_path):
+    """Every request of the HTTP contract against one server; returns
+    (status, key structure) per request."""
+    server = make(engine, port=0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    out, config = {}, engine.config
+    try:
+        status, _, body = _http(f"{base}/predict", {"paths": paths, "score_thresh": 0.0})
+        out["predict"] = (status, sorted(body), _shape(body["detections"][paths[0]]))
+        status, _, body = _http(f"{base}/predict", {"path": str(tmp_path / "missing.png")})
+        out["bad_path"] = (status, sorted(body))
+        status, _, body = _http(f"{base}/predict", {})
+        out["no_path"] = (status, sorted(body))
+        status, _, body = _http(f"{base}/healthz")
+        out["healthz"] = (status, sorted(body))
+        status, _, body = _http(f"{base}/stats")
+        out["stats"] = (status, sorted(body), body["schema"], sorted(body["stats"]),
+                        sorted(body["slo"]), sorted(body["metrics"]))
+        status, headers, body = _http(f"{base}/metrics")
+        out["metrics"] = (status, headers["Content-Type"], _metric_names(body))
+        status, _, body = _http(f"{base}/swap", {"version": "2"})
+        out["swap_unset"] = (status, sorted(body))
+        server.swap_handler = lambda version: engine.model_version
+        status, _, body = _http(f"{base}/swap", {"version": "2"})
+        out["swap"] = (status, sorted(body))
+        status, _, body = _http(f"{base}/nope")
+        out["unknown"] = (status, sorted(body))
+
+        # a flush held 2.5 s by a failpoint: the queue (depth 2) fills and
+        # sheds (503 + Retry-After); the held requests outlive a 1 s
+        # request_timeout_s (504). The engine and the handler read the
+        # deadline from engine.config at each request.
+        config = engine.config
+        engine.config = config.replace(serving=dataclasses.replace(
+            config.serving, request_timeout_s=1.0))
+        fp.configure("batcher.flush:delay:1.0:0:2500:1")
+        held = {}
+
+        def post(k):
+            held[k] = _http(f"{base}/predict", {"path": paths[0]})
+
+        threads = [threading.Thread(target=post, args=(0,))]
+        threads[0].start()
+        deadline = time.time() + 30
+        while fp.site_hits().get("batcher.flush", 0) < 1:
+            assert time.time() < deadline
+            time.sleep(0.005)
+        for k in (1, 2):
+            threads.append(threading.Thread(target=post, args=(k,)))
+            threads[-1].start()
+        while engine.queue_depth() < 2:
+            assert time.time() < deadline
+            time.sleep(0.005)
+        status, headers, body = _http(f"{base}/predict", {"path": paths[0]})
+        out["full_queue"] = (status, "Retry-After" in headers, sorted(body))
+        for t in threads:
+            t.join(60)
+        out["held"] = sorted((held[k][0], sorted(held[k][2])) for k in held)
+    finally:
+        fp.disarm()
+        engine.config = config
+        server.shutdown()
+        server.server_close()
+    return out
+
+
+def test_http_and_serve_match_jax(engines, tmp_path):
+    """Both HTTP servers on port 0 answer the same requests with the same
+    status codes, JSON keys and metric names; then ``python -m
+    replication_faster_rcnn_tpu_torch serve`` on the CPU: start-up JSON, one
+    /predict, and a SIGTERM drain that exits 0."""
+    jeng, teng, _ = engines
+    paths = _write_pngs(tmp_path, _images(np.random.default_rng(1), [(32, 32), (24, 30)]))
+    want = _run_contract(j_make_server, jeng, j_failpoints, paths, tmp_path)
+    got = _run_contract(make_server, teng, failpoints, paths, tmp_path)
+    assert got == want
+    assert got["predict"][0] == 200 and got["full_queue"][:2] == (503, True)
+    assert [s for s, _ in got["held"]] == [504, 504, 504]
+    assert (got["bad_path"][0], got["swap_unset"][0], got["swap"][0]) == (400, 501, 200)
+
+    cmd = [sys.executable, "-m", "replication_faster_rcnn_tpu_torch", "serve", "--device", "cpu",
+           "--config", "voc12_resnet18_align", "--image-size", "32", "--resolutions", "32x32",
+           "--bucket-batch-sizes", "1", "--workdir", str(tmp_path / "none"), "--port", "0",
+           "--replica-id", "r0"]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    watchdog = threading.Timer(240, proc.kill)  # a hung server fails the test, never the run
+    watchdog.start()
+    try:
+        lines = []
+        while not (lines and lines[-1].startswith("serving on ")):
+            line = proc.stdout.readline()
+            assert line, proc.stderr.read()
+            lines.append(line)
+        startup = json.loads("".join(lines[:-1]))
+        assert startup["buckets"] == [[32, 32]] and startup["device"] == "cpu"
+        assert startup["model_version"] == "0" and startup["params_dtype"] == "bfloat16"
+        url = lines[-1].split()[2].rstrip("/")
+        status, _, body = _http(f"{url}/predict", {"path": paths[0]})
+        assert status == 200 and paths[0] in body["detections"]
+        proc.send_signal(signal.SIGTERM)
+        for _ in range(200):
+            status, _, health = _http(f"{url}/healthz")
+            if health["draining"]:
+                break
+            time.sleep(0.01)
+        assert health["draining"] and health["replica_id"] == "r0"
+        assert proc.wait(timeout=60) == 0
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+class _Clock:
+    def __init__(self):
+        self.t = 100.0
+
+    def __call__(self):
+        return self.t
+
+
+def _script_batcher(cls):
+    """The batcher's hooks and accessors under one scripted sequence."""
+    clock = _Clock()
+    seen = []
+    delays = {"a": 1.0, "b": 3.0}
+    b = cls(lambda k, items: [i * 2 for i in items] if k != "bad" else 1 / 0,
+            max_batch=lambda k: 3 if k == "a" else 2, max_delay_s=lambda k: delays.get(k, 2.0),
+            depth=8, clock=clock, start=False,
+            on_expired=lambda n: seen.append(("expired", n)),
+            on_flush_result=lambda ok: seen.append(("result", ok)),
+            on_flush_stats=lambda k, w: seen.append(("stats", k, [round(x, 9) for x in w])))
+    futs = [b.submit("a", 1), b.submit("b", 2, deadline_s=0.5), b.submit("a", 3)]
+    clock.t += 0.25
+    futs += [b.submit("bad", 4), b.submit("a", 5), b.submit("bad", 6)]
+    depths = [dict(b.key_depths()), b.queue_depth(), b.delay_s("a"), b.delay_s("b")]
+    for _ in range(6):
+        b._service_once(block=False)
+    clock.t += 4.0
+    b._service_once(block=False)
+    b.close()
+    outcome = []
+    for f in futs:
+        e = f.exception()
+        outcome.append(type(e).__name__ if e is not None else f.result())
+    return seen, depths, b.flush_log, b.expired_total, outcome
+
+
+def _script_pure(mods):
+    """metrics, slo_burn, tracecontext, overload, slo and failpoints under
+    one scripted sequence; returns every output."""
+    m, burn, tc, ov, slo, fp = mods
+    out = {}
+    reg = m.MetricsRegistry()
+    reg.counter("serve_requests_total", help="r").inc(3)
+    reg.counter("serve_shed_total", help="s", bucket="32x32").inc()
+    reg.gauge("serve_queue_depth", help="q").set(4)
+    hist = reg.histogram("serve_flush_seconds", help="f", buckets=(0.01, 0.1, 1.0))
+    for v in (0.005, 0.02, 0.05, 0.5, 2.0):
+        hist.observe(v)
+    reg.register_collector(lambda: reg.gauge("serve_uptime_seconds", help="u").set(7.5))
+    out["metrics"] = (reg.snapshot(), reg.render_prometheus(), reg.counters_flat(),
+                      [hist.percentile(q) for q in (50, 95, 99)],
+                      m.stats_payload("replica", reg, stats={"a": 1}),
+                      m.PROMETHEUS_CONTENT_TYPE, m.DEFAULT_LATENCY_BUCKETS_S)
+    clock = _Clock()
+    tracker = burn.BurnRateTracker(availability_target=0.99, latency_target_s=0.1,
+                                   short_window_s=60.0, long_window_s=600.0, clock=clock)
+    snaps = []
+    for i in range(300):
+        clock.t += 1.5
+        tracker.record(i % 7 != 0, latency_s=0.05 * (i % 5))
+        if i % 50 == 0:
+            snaps.append((tracker.snapshot(), tracker.burn_rates(), tracker.alarm()))
+    out["slo_burn"] = snaps
+    parent = tc.parse_traceparent("00-" + "ab" * 16 + "-" + "cd" * 8 + "-01")
+    child = parent.child()
+    out["tracecontext"] = (
+        parent.to_traceparent(), parent.span_args(),
+        [tc.parse_traceparent(h) is None for h in
+         (None, "", "00-xyz", "00-" + "0" * 32 + "-" + "cd" * 8 + "-01",
+          "ff-" + "ab" * 16 + "-" + "cd" * 8 + "-01")],
+        child.trace_id == parent.trace_id, child.parent_span_id == parent.span_id,
+        len(child.span_id), tc.TRACEPARENT_HEADER)
+    with tc.bind(parent):
+        inner = tc.current_trace().to_traceparent()
+    out["tracecontext"] += (inner, tc.current_trace())
+    out["overload"] = ([ov.retry_after_s(ms) for ms in (0, 10, 999, 1000, 2500.5)],
+                       list(ov.backoff_delays(seed=3)), list(ov.backoff_delays(0.01, 0.05, 5, 9)))
+    ctl = slo(slo_ms=50.0, floor_ms=1.0, ceiling_ms=40.0, step=1.5,
+                                 initial_ms=10.0, max_batch=lambda k: 4, window=4)
+    history = []
+    for i in range(40):
+        key = ("b", i % 2)
+        waits = [0.001 * ((i * 7) % 60) for _ in range(1 + i % 3)]
+        ctl.on_flush(key, waits)
+        history.append((ctl.delay_s(key), ctl.adaptations))
+    out["slo"] = (history, ctl.delays_ms())
+    events = []
+    rules = fp.configure("batcher.flush:ioerror:0.5:7,http.handler:drop:1.0:1:0:2:3",
+                         sink=events.append)
+    fired = []
+    for i in range(12):
+        for site in ("batcher.flush", "http.handler"):
+            try:
+                fault = fp.fire(site, i=i)
+                fired.append(None if fault is None else (fault.kind, fault.seq))
+            except fp.ChaosError as e:
+                fired.append(("raised", str(e)))
+    out["failpoints"] = ([dataclasses.asdict(r) for r in rules], fired, fp.event_log(),
+                         fp.site_hits(), events, fp.KINDS)
+    fp.disarm()
+    return out
+
+
+class _StubEngine:
+    """submit() answers at once; sheds the first ``shed`` admission tries."""
+
+    def __init__(self, shed=0):
+        self.shed, self.calls = shed, 0
+        self.lock = threading.Lock()
+
+    def submit(self, image, timeout=None):
+        with self.lock:
+            self.calls += 1
+            if timeout == 0 and self.calls <= self.shed:
+                raise queue.Full
+        fut = Future()
+        if int(image[0, 0, 0]) == 255:
+            fut.set_exception(ValueError("bad image"))
+        else:
+            fut.set_result({"n": 1})
+        return fut
+
+
+def _script_loadgen(lg):
+    images = [np.zeros((4, 4, 3), np.uint8), np.full((4, 4, 3), 255, np.uint8)]
+    runs = [lg.run_closed_loop(_StubEngine(), images, 10),
+            lg.run_closed_loop(_StubEngine(shed=3), images, 6, admission=True, seed=2),
+            lg.run_open_loop(_StubEngine(), images, 500.0, n_requests=8),
+            lg.run_open_loop(_StubEngine(), images, 400.0, duration_s=0.02)]
+    timed = ("wall_s", "images_per_sec", "p50_ms", "p99_ms", "mean_ms")
+    return [{k: v for k, v in r.items() if k not in timed} for r in runs], \
+        [sorted(r) for r in runs], lg.percentile_ms([0.001, 0.002, 0.010], 50)
+
+
+def test_host_modules_and_loadgen_match_jax():
+    """The pure host modules and the batcher's hooks on scripted events and
+    an injected clock, and the load generator over a stub engine: equal
+    outputs on both sides. The port's closed loop with ``concurrency`` (K
+    clients) answers every request with the same counts."""
+    assert _script_batcher(MicroBatcher) == _script_batcher(JMicroBatcher)
+    got = _script_pure((metrics, slo_burn, tracecontext, overload, DeadlineController,
+                        failpoints))
+    want = _script_pure((j_metrics, j_slo_burn, j_tracecontext, j_overload,
+                         JDeadlineController, j_failpoints))
+    assert got == want
+    # the port registers the sites it fires, each one of JAX's, and rejects
+    # the others until the code that fires them is ported
+    assert set(failpoints.SITES) == {"batcher.flush", "http.handler"}
+    assert set(failpoints.SITES) <= set(j_failpoints.SITES)
+    with pytest.raises(ValueError, match="unknown failpoint site"):
+        failpoints.configure("checkpoint.write:ioerror:1.0:0")
+    assert not failpoints.armed()
+    assert _script_loadgen(loadgen) == _script_loadgen(j_loadgen)
+    images = [np.zeros((4, 4, 3), np.uint8)]
+    k4 = loadgen.run_closed_loop(_StubEngine(), images, 12, concurrency=4)
+    plain = loadgen.run_closed_loop(_StubEngine(), images, 12)
+    assert k4.pop("concurrency") == 4
+    assert {k: v for k, v in k4.items() if k in ("n_requests", "errors", "shed", "timeouts")} \
+        == {k: v for k, v in plain.items() if k in ("n_requests", "errors", "shed", "timeouts")}
+    with pytest.raises(ValueError):
+        loadgen.run_closed_loop(_StubEngine(), images, 2, concurrency=0)

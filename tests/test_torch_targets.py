@@ -177,9 +177,10 @@ def test_random_subset_mask_bitwise():
             j_sampling.topk_subset_mask(jnp.asarray(member[i]), jnp.asarray(score[i]), kk, 32)))
     with pytest.raises(ValueError, match="exceeds"):
         random_subset_mask(t(u), t(member), 33, k_max=32)
+    _case_pack_by_priority_bitwise()
 
 
-def test_pack_by_priority_bitwise():
+def _case_pack_by_priority_bitwise():
     rng = np.random.default_rng(6)
     priority = rng.integers(0, 3, (3, 64))
     keys = jax.random.split(jax.random.PRNGKey(2), 3)
@@ -301,6 +302,7 @@ def _jax_vjp(feat, rois, g, scale, dtype=jnp.float32):
 def test_roi_align_backward_matches_jax_vjp():
     for scale in (1.0, 0.5):
         _roi_align_backward_case(scale)
+    _case_roi_align_backward_bf16()
 
 
 def _roi_align_backward_case(scale):
@@ -321,7 +323,7 @@ def _roi_align_backward_case(scale):
     np.testing.assert_allclose(f2.grad.numpy(), want, atol=1e-5, rtol=1e-5)
 
 
-def test_roi_align_backward_bf16():
+def _case_roi_align_backward_bf16():
     rng = np.random.default_rng(22)
     feat, rois, g = _roi_inputs(rng, c=8)
     want = _jax_vjp(feat, rois, g, 1.0, jnp.bfloat16)
