@@ -51,7 +51,17 @@ H100:  ``python3 chip_smoke.py``. It
    1e-6 relative in float32), the cache gather from a 1,024-image cache,
    the bucket resample 600->480 and 600->720 bitwise against the plain band
    passes with ``F.interpolate(antialias=True)`` timed beside it, and each
-   captured and replayed twice, bitwise;
+   captured and replayed twice, bitwise. Then the FPN's multi-level
+   ROIAlign (:func:`check_multilevel_kernels`) at the 600x600 pyramid (P2
+   150x150 .. P5 19x19, 256 channels): the forward bitwise its plain
+   version (``models/fpn.py::multilevel_roi_align_plain``, the JAX ``flat``
+   op by op) at serving 8 x 300 and 1 x 300 (bf16 -> bf16, f32 -> f32),
+   training 8 x 128, rois at the level-boundary areas and clustered rois;
+   the backward twice bitwise and within ``ROI_BWD_TOL`` of the plain VJP
+   on float32 copies; both captured and replayed in the capture check; and
+   IoU matching over the FPN's 90,090 anchors (8 x 32 gt, column argmax)
+   and the proposal NMS over boxes about them (8 x 12000 -> 600 and 8 x
+   3000 -> 300);
 4. serves ``voc12_resnet18_align`` (ResNet18, 21 classes, ROIAlign 7x7 s=2)
    and then the flagship ``voc_resnet18`` (ROIPool 7x7) at 600x600, seeded
    random weights resident in bfloat16, through ``InferenceEngine``: one
@@ -202,7 +212,19 @@ H100:  ``python3 chip_smoke.py``. It
    requests' 504s; and ``python -m replication_faster_rcnn_tpu_torch
    serve`` as a subprocess: its start-up JSON, one /predict, SIGTERM,
    /healthz draining, exit 0;
-12. prints a ``{"kernels": [...]}`` line (the serving kernels' launches per
+12. drives ``voc_resnet50_fpn`` (ResNet50 + FPN, full width, seeded random
+   weights): serves it in bfloat16 through ``InferenceEngine`` graphs at
+   buckets 300 and 600 x b1, b8 with [11]'s checks (each graph bitwise its
+   eager flush and the plain replay; per replay NMS 2 and multi-level
+   ROIAlign 1; b1 flush ms, b1 latency, b8 images/s, graph against eager);
+   trains it at 600x600 b8 with a captured and an eager ``Trainer``, 4
+   steps bitwise equal, then 5 timed steps each (per step NMS 1, IoU
+   matching 2, multi-level ROIAlign forward 1 and backward 1; step ms and
+   peak allocated memory); evaluates the trained weights on 16 VOC-sized
+   images (per batch NMS 2, multi-level ROIAlign 1); and runs
+   ``benchmark.main`` on it in this process, train and eval at b8
+   (images/s, MFU);
+13. prints a ``{"kernels": [...]}`` line (the serving kernels' launches per
    graph replay beside their counts), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -944,7 +966,43 @@ def phase_kernels(torch):
                                              shape, torch.bfloat16)
     res.update(check_roi_pool_kernels(torch, dev, b))
     res.update(check_int8_kernels(torch, rng, dev))
+    res["multilevel"], res["multilevel_levels"] = check_multilevel_kernels(torch, dev, b)
+    # the FPN's sites: IoU matching over the 90,090 anchors of P2-P6 at
+    # 600x600 (3 ratios, one scale per level) with the column argmax, and the
+    # proposal NMS over boxes drawn about those anchors (own generator: the
+    # draws above stay as they were)
+    frng = np.random.default_rng(12)
+    fpn_anchors = torch.from_numpy(fpn_anchor_grid()).to(dev)
+    res["iou_anchor_fpn"] = check_iou(torch, f"FPN anchors 8x{fpn_anchors.shape[0]}x32 + column "
+                                      "argmax", fpn_anchors[None], gt, gmask, True)
+    pick = torch.from_numpy(frng.integers(0, fpn_anchors.shape[0], (b, 12000))).to(dev)
+    fboxes = fpn_anchors[pick] + torch.from_numpy(
+        frng.normal(0, 4, (b, 12000, 4)).astype(np.float32)).to(dev)
+    fboxes = torch.clamp(fboxes, 0.0, 600.0)
+    fscores = torch.from_numpy(-np.sort(-frng.uniform(0, 1, (b, 12000)), axis=1)
+                               .astype(np.float32)).to(dev)
+    res["nms_train_fpn"] = check_nms(torch, "FPN proposals 8x12000->600 thr 0.7", fboxes, fscores,
+                                     0.7, 600, mask=torch.isfinite(fscores), assume_sorted=True)
+    res["nms_fpn"] = check_nms(torch, "FPN proposals 8x3000->300 thr 0.7", fboxes[:, :3000],
+                               fscores[:, :3000].contiguous(), 0.7, 300,
+                               mask=torch.isfinite(fscores[:, :3000]), assume_sorted=True)
     return res
+
+
+def fpn_anchor_grid(size=600):
+    """The FPN preset's anchors at ``size`` x ``size``: each level's base
+    anchors (stride, 3 ratios, scale 8) over its grid, fine -> coarse."""
+    from replication_faster_rcnn_tpu_torch import get_config
+    from replication_faster_rcnn_tpu_torch.models.fpn import FPN_STRIDES
+    from replication_faster_rcnn_tpu_torch.ops import anchors as anchor_ops
+
+    acfg = get_config(FPN_NAME).anchors
+    grids, h = [], size
+    for stride in FPN_STRIDES:
+        h = -(-size // stride) if stride < 64 else -(-h // 2)
+        base = anchor_ops.anchor_base(stride, acfg.ratios, acfg.scales)
+        grids.append(anchor_ops.grid_anchors(base, stride, h, h))
+    return np.concatenate(grids)
 
 
 def check_graph_replays(torch, dev, b=8):
@@ -980,6 +1038,12 @@ def check_graph_replays(torch, dev, b=8):
     scale = t(rng.uniform(1e-4, 0.05, 512).astype(np.float32))
     table = quant_kernel.DequantizeTable([(w, s, 0) for w, s in (
         (conv, scale), (conv[:256], scale[:256]))], bf16)
+    from replication_faster_rcnn_tpu_torch.models.fpn import roi_levels
+
+    pyramid = ml_pyramid(torch, rng, dev, b, bf16)
+    ml_rois = t(rand_boxes(rng, (b, 128), 600, 500))
+    ml_levels = roi_levels(ml_rois)
+    ml_shapes = [tuple(f.shape) for f in pyramid]
     cases = [
         ("nms_mask_walk 8x12000->600", lambda: nms_kernel.nms_fixed_cuda(
             boxes, scores, 0.7, 600, mask=torch.isfinite(scores), assume_sorted=True)),
@@ -996,6 +1060,10 @@ def check_graph_replays(torch, dev, b=8):
         ("dequantize [512, 512, 3, 3] -> bf16", lambda: quant_kernel.dequantize_cuda(
             conv, scale, 0, bf16)),
         ("dequantize_many (2 leaves) -> bf16", lambda: table()),
+        ("multilevel_roi_align_fwd bf16 8x128", lambda: roi_kernel.multilevel_roi_align_cuda(
+            pyramid, ml_rois, FPN_IMG, FPN_IMG, 7, 2, bf16)),
+        ("multilevel_roi_align_bwd bf16 8x128", lambda: roi_kernel.multilevel_roi_align_backward_cuda(
+            grad, ml_rois, ml_levels, ml_shapes, bf16, FPN_IMG, FPN_IMG, 7, 2)),
     ]
 
     def outputs(out):
@@ -1368,6 +1436,281 @@ def check_roi_pool_kernels(torch, dev, b):
                                                  g.to(bf16), feat.to(bf16), crois),
     })
     return res
+
+
+# ------------------------------------------------------- FPN multi-level ROIAlign
+
+ML_SRC = ROI_SRC
+ML_JAX = "replication_faster_rcnn_tpu/models/fpn.py:117"
+ML_NOTE = ("not a Pallas kernel: the JAX package runs multilevel_roi_align (method='flat') as "
+           "XLA gathers, and its VJP as their scatter")
+NO_ML_LIBRARY = ("torch core has no multi-level ROIAlign (torchvision's MultiScaleRoIAlign is "
+                 "not installed, and is a library kernel)")
+FPN_LEVELS = ((150, 150), (75, 75), (38, 38), (19, 19))  # P2..P5 of a 600x600 image
+FPN_C = 256
+FPN_IMG = 600.0
+ML_SIZES = (112.0, 224.0, 448.0)  # sqrt(area) at the level boundaries
+
+
+def boundary_rois(torch, dev, b, r):
+    """Rois whose sqrt(area) is exactly 112, 224 or 448 or one float32 ulp
+    either side (squares, at several places), then zero-area, outside and
+    huge ones, repeated to ``r`` per image."""
+    rows = []
+    for side in ML_SIZES:
+        for step in (-1, 0, 1):
+            s = np.float32(side)
+            if step:
+                s = np.nextafter(s, np.float32(np.inf if step > 0 else -np.inf), dtype=np.float32)
+            for r1 in (0.0, 37.5, 600.0 - float(s)):
+                rows.append([r1, 10.0, r1 + float(s), 10.0 + float(s)])
+    rows += [[5.0, 5.0, 5.0, 5.0], [-80.0, -80.0, -20.0, -30.0], [590.0, 590.0, 700.0, 800.0],
+             [0.0, 0.0, 600.0, 600.0], [-300.0, -300.0, 900.0, 900.0]]
+    base = np.asarray(rows, np.float32)
+    reps = np.resize(base, (r, 4))
+    return torch.from_numpy(np.broadcast_to(reps, (b, r, 4)).copy()).to(dev)
+
+
+def ml_pyramid(torch, rng, dev, b, dtype):
+    return [torch.from_numpy(rng.normal(0, 1, (b, h, w, FPN_C)).astype(np.float32)).to(dev)
+            .to(dtype) for h, w in FPN_LEVELS]
+
+
+def ml_touched_bytes(torch, feats, rois, s):
+    """Bytes of the level pixels the in-range samples of ``rois`` read (each
+    once), from the plain version's own taps."""
+    from replication_faster_rcnn_tpu_torch.models.fpn import roi_levels
+
+    total = 0
+    lv = roi_levels(rois)
+    for li, f in enumerate(feats):
+        n, h, w, c = f.shape
+        sel = lv == li
+        if not bool(sel.any()):
+            continue
+        sr, sc = h / FPN_IMG, w / FPN_IMG
+        pts = (torch.arange(7 * s, device=rois.device, dtype=torch.float32) + 0.5) / s
+        r1, c1, r2, c2 = rois.unbind(-1)
+        bh = torch.clamp(r2 * sr - r1 * sr, min=1.0) / 7
+        bw = torch.clamp(c2 * sc - c1 * sc, min=1.0) / 7
+        rr = r1[..., None] * sr + pts * bh[..., None]
+        cc = c1[..., None] * sc + pts * bw[..., None]
+        marks = torch.zeros(n, h, w, dtype=torch.bool, device=rois.device)
+        in_r = (rr >= -1) & (rr <= h)
+        in_c = (cc >= -1) & (cc <= w)
+        y = torch.clamp(rr, 0, h - 1)
+        x = torch.clamp(cc, 0, w - 1)
+        y0, x0 = y.floor().long(), x.floor().long()
+        y1, x1 = torch.clamp(y0 + 1, max=h - 1), torch.clamp(x0 + 1, max=w - 1)
+        img = torch.arange(n, device=rois.device)[:, None, None, None].expand(
+            n, rois.shape[1], 7 * s, 7 * s)
+        inside = (in_r[..., :, None] & in_c[..., None, :]) & sel[..., None, None]
+        for yi in (y0, y1):
+            for xi in (x0, x1):
+                yy = yi[..., :, None].expand_as(img)
+                xx = xi[..., None, :].expand_as(img)
+                marks[img[inside], yy[inside], xx[inside]] = True
+        total += int(marks.sum()) * c * f.element_size()
+    return total
+
+
+def ml_bound(torch, feats, rois, out, s):
+    """(bound_ms, bound_by) of one forward: the level pixels the in-range
+    samples read, the rois and levels read once and the crops written once;
+    9 float32 operations per output element and sample (4 products, 3 tap
+    sums, the range flag's product, the accumulation) and the final scale."""
+    nbytes = ml_touched_bytes(torch, feats, rois, s) + rois.numel() * 4 + rois.shape[0] * rois.shape[1] * 4 \
+        + out.numel() * out.element_size()
+    flops = out.numel() * (9 * s * s + 1)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ml_bwd_bound(torch, grad_out, rois, shapes, feat_dtype, s):
+    """(bound_ms, bound_by) of one backward: grad_out, rois and levels read
+    once, the four levels' gradients written once (every pixel); one
+    division per grad_out element and, per in-range sample, 4 taps x (2
+    multiplies + 1 add) per channel."""
+    from replication_faster_rcnn_tpu_torch.models.fpn import roi_levels
+
+    elem = torch.empty((), dtype=feat_dtype).element_size()
+    nbytes = (grad_out.numel() * grad_out.element_size() + rois.numel() * 4
+              + rois.shape[0] * rois.shape[1] * 4 + sum(int(np.prod(sh)) for sh in shapes) * elem)
+    lv = roi_levels(rois)
+    inside = 0
+    c = shapes[0][-1]
+    for li, (n, h, w, _) in enumerate(shapes):
+        sr, sc = h / FPN_IMG, w / FPN_IMG
+        pts = (torch.arange(7 * s, device=rois.device, dtype=torch.float32) + 0.5) / s
+        r1, c1, r2, c2 = rois.unbind(-1)
+        rr = r1[..., None] * sr + pts * (torch.clamp(r2 * sr - r1 * sr, min=1.0) / 7)[..., None]
+        cc = c1[..., None] * sc + pts * (torch.clamp(c2 * sc - c1 * sc, min=1.0) / 7)[..., None]
+        in_r = ((rr >= -1) & (rr <= h)).sum(-1)
+        in_c = ((cc >= -1) & (cc <= w)).sum(-1)
+        inside += int((in_r * in_c * (lv == li)).sum())
+    flops = grad_out.numel() + inside * c * 12
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_multilevel(torch, name, feats, rois, out_dtype):
+    """Forward kernel against the plain version cast to ``out_dtype``
+    (bitwise), then the times: the kernel with the levels given, the levels'
+    own operations (``roi_levels``) apart, and the plain version."""
+    from replication_faster_rcnn_tpu_torch.models.fpn import (
+        multilevel_roi_align_plain,
+        roi_levels,
+    )
+    from replication_faster_rcnn_tpu_torch.ops.cuda.roi_kernel import (
+        _multilevel_forward_cuda,
+        multilevel_roi_align_cuda,
+    )
+
+    out = multilevel_roi_align_cuda(feats, rois, FPN_IMG, FPN_IMG, 7, 2, out_dtype)
+    want = multilevel_roi_align_plain(feats, rois, FPN_IMG, FPN_IMG, 7, 2).to(out_dtype)
+    torch.cuda.synchronize()
+    err = float((out.float() - want.float()).abs().max())
+    if not bitwise(torch, out, want):
+        raise AssertionError(f"multilevel ROIAlign {name}: kernel differs from the plain "
+                             f"version (max {err})")
+    levels = roi_levels(rois)
+    counts = torch.bincount(levels.reshape(-1).long(), minlength=4).tolist()
+    ms = time_ms(torch, lambda: _multilevel_forward_cuda(feats, rois, levels, FPN_IMG, FPN_IMG,
+                                                         7, 2, out_dtype), 20)
+    levels_ms = time_ms(torch, lambda: roi_levels(rois), 20)
+    plain_ms = time_ms(torch, lambda: multilevel_roi_align_plain(
+        feats, rois, FPN_IMG, FPN_IMG, 7, 2).to(out_dtype), 3, 1)
+    bound_ms, bound_by = ml_bound(torch, feats, rois, out, 2)
+    log(f"  multilevel_roi_align {name}: bitwise equal to the plain version, rois per level "
+        f"{counts}, kernel {ms:.4f} ms (+ roi_levels {levels_ms:.4f} ms), plain {plain_ms:.4f} "
+        f"ms, bound {bound_ms:.5f} ms ({bound_by})")
+    return {"ms": ms, "levels_ms": levels_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err, "rois_per_level": counts}
+
+
+def check_multilevel_bwd(torch, name, grad_out, feats, rois):
+    """Backward kernel: two launches bitwise equal, and against the plain
+    VJP (autograd of the plain forward on float32 copies of the levels and
+    the gradient) within ``ROI_BWD_TOL`` of the feature dtype; then the
+    times."""
+    from replication_faster_rcnn_tpu_torch.models.fpn import (
+        multilevel_roi_align_plain,
+        roi_levels,
+    )
+    from replication_faster_rcnn_tpu_torch.ops.cuda.roi_kernel import (
+        multilevel_roi_align_backward_cuda,
+    )
+
+    dtype = feats[0].dtype
+    shapes = [tuple(f.shape) for f in feats]
+    levels = roi_levels(rois)
+
+    def kernel():
+        return multilevel_roi_align_backward_cuda(grad_out, rois, levels, shapes, dtype,
+                                                  FPN_IMG, FPN_IMG, 7, 2)
+
+    def plain():
+        with torch.enable_grad():
+            f32 = [f.detach().float().requires_grad_(True) for f in feats]
+            out = multilevel_roi_align_plain(f32, rois, FPN_IMG, FPN_IMG, 7, 2)
+            return torch.autograd.grad(out, f32, grad_out.float())
+
+    got, again, want = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    tol = ROI_BWD_TOL[str(dtype).split(".")[-1]]
+    err = 0.0
+    for li, (g, a, w) in enumerate(zip(got, again, want)):
+        if g.dtype != dtype or g.shape != w.shape:
+            raise AssertionError(f"multilevel backward {name}: P{li + 2} got {g.dtype} "
+                                 f"{tuple(g.shape)}")
+        if not bitwise(torch, g, a):
+            raise AssertionError(f"multilevel backward {name}: two launches differ at P{li + 2}")
+        err = max(err, float((g.float() - w).abs().max()))
+        if not torch.allclose(g.float(), w.to(dtype).float(), **tol):
+            raise AssertionError(f"multilevel backward {name}: P{li + 2} max err {err} beyond "
+                                 f"{tol}")
+    ms = time_ms(torch, kernel, 10)
+    plain_ms = time_ms(torch, plain, 2, 1)
+    bound_ms, bound_by = ml_bwd_bound(torch, grad_out, rois, shapes, dtype, 2)
+    log(f"  multilevel_roi_align_bwd {name}: max |kernel - plain VJP on float32| {err:.3e} "
+        f"({tol}), two launches bitwise equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.5f} ms ({bound_by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err, "deterministic": True}
+
+
+def level_sweep(torch, dev):
+    """Squares whose side is every float32 within 4,096 ulps of the boundary
+    sides, at two places (0 and 37.5: the second rounds the side once
+    more), and 2^20 random rois of the 600x600 image."""
+    sides = np.concatenate([
+        (np.float32(v).view(np.int32) + np.arange(-4096, 4097, dtype=np.int32)).view(np.float32)
+        for v in ML_SIZES])
+    rows = [np.stack([r1 + 0 * sides, r1 + 0 * sides, r1 + sides, r1 + sides], -1)
+            for r1 in (np.float32(0.0), np.float32(37.5))]
+    rng = np.random.default_rng(13)
+    rows.append(rand_boxes(rng, (1, 2**20), 600, 600)[0])
+    return torch.from_numpy(np.concatenate(rows).astype(np.float32)).to(dev)
+
+
+def check_levels(torch, dev, edge):
+    """``roi_levels`` on the card equal to ``roi_levels`` on the CPU (held to
+    the operation-by-operation JAX one by tests/test_torch_fpn.py) at the
+    boundary-area rois and :func:`level_sweep`: the card's float32 log2
+    puts no roi near a boundary area on another level."""
+    from replication_faster_rcnn_tpu_torch.models.fpn import roi_levels
+
+    out = {}
+    for name, rois in (("boundary", edge), ("sweep", level_sweep(torch, dev))):
+        card, host = roi_levels(rois).cpu(), roi_levels(rois.cpu())
+        bad = int((card != host).sum())
+        if bad:
+            raise AssertionError(f"roi_levels {name}: {bad} of {card.numel()} rois get another "
+                                 "level on the card than on the CPU")
+        out[name] = {"rois": card.numel(), "differ": bad}
+    log(f"  roi_levels on the card equal to the CPU's: {out}")
+    return out
+
+
+def check_multilevel_kernels(torch, dev, b=8):
+    """Phase [3], the FPN's multi-level ROIAlign at the 600x600 pyramid
+    (P2 150x150 .. P5 19x19, 256 channels): the forward bitwise its plain
+    version at serving 8 x 300 and 1 x 300 (bf16 -> bf16 and f32 -> f32),
+    training 8 x 128 (bf16 -> bf16), boundary-area and clustered rois; the
+    backward at 8 x 128 from bf16 and f32 gradients (and on the boundary
+    and clustered rois) deterministic and within ``ROI_BWD_TOL`` of the
+    plain VJP; each timed with its bound."""
+    rng = np.random.default_rng(11)
+    bf16 = torch.bfloat16
+    res = {}
+    p32 = ml_pyramid(torch, rng, dev, b, torch.float32)
+    p16 = [f.to(bf16) for f in p32]
+    rois = torch.from_numpy(rand_boxes(rng, (b, 300), 600, 500)).to(dev)
+    rois[:, :32] = boundary_rois(torch, dev, b, 32)
+    res["serve_b8_bf16"] = check_multilevel(torch, "serve bf16 -> bf16 8x300", p16, rois, bf16)
+    res["serve_b8_f32"] = check_multilevel(torch, "serve f32 -> f32 8x300", p32, rois,
+                                           torch.float32)
+    one = rois[:1].contiguous()
+    res["serve_b1_bf16"] = check_multilevel(torch, "serve bf16 -> bf16 1x300",
+                                            [f[:1] for f in p16], one, bf16)
+    res["serve_b1_f32"] = check_multilevel(torch, "serve f32 -> f32 1x300",
+                                           [f[:1] for f in p32], one, torch.float32)
+    trois = torch.from_numpy(rand_boxes(rng, (b, 128), 600, 500)).to(dev)
+    res["train_b8_bf16"] = check_multilevel(torch, "train bf16 -> bf16 8x128", p16, trois, bf16)
+    edge = boundary_rois(torch, dev, b, 128)
+    levels = check_levels(torch, dev, edge)
+    res["boundary_bf16"] = check_multilevel(torch, "boundary areas bf16 8x128", p16, edge, bf16)
+    crois = torch.from_numpy(clustered_boxes(rng, b, 128)).to(dev)
+    res["clustered_bf16"] = check_multilevel(torch, "clustered bf16 8x128", p16, crois, bf16)
+    g = torch.from_numpy(rng.normal(0, 1, (b, 128, 7, 7, FPN_C)).astype(np.float32)).to(dev)
+    g16 = g.to(bf16)
+    res["bwd_bf16"] = check_multilevel_bwd(torch, "bf16 grad 8x128", g16, p16, trois)
+    res["bwd_f32"] = check_multilevel_bwd(torch, "f32 8x128", g, p32, trois)
+    res["bwd_boundary"] = check_multilevel_bwd(torch, "bf16 boundary areas 8x128", g16, p16, edge)
+    res["bwd_clustered"] = check_multilevel_bwd(torch, "bf16 clustered 8x128", g16, p16, crois)
+    return res, levels
 
 
 def time_stages(torch, model, cfg, images):
@@ -1817,6 +2160,8 @@ ROI_KERNELS = {
     "align": {"forward": ("roi_align_kernel",), "backward": ("roi_align_bwd_kernel",)},
     "pool": {"forward": ("roi_pool_kernel",),
              "backward": ("roi_pool_bwd_bins_kernel", "roi_pool_bwd_kernel")},
+    "multilevel": {"forward": ("multilevel_roi_align_kernel",),
+                   "backward": ("multilevel_roi_align_bwd_kernel",)},
 }
 IOU_KERNEL = "iou_match_kernel"
 
@@ -1890,6 +2235,8 @@ COUNTERS = {
     "roi_align": ("roi_kernel", "launches"), "roi_align_bwd": ("roi_kernel", "backward_launches"),
     "roi_pool": ("roi_kernel", "pool_launches"),
     "roi_pool_bwd": ("roi_kernel", "pool_backward_launches"),
+    "roi_multilevel": ("roi_kernel", "multilevel_launches"),
+    "roi_multilevel_bwd": ("roi_kernel", "multilevel_backward_launches"),
     "int8_matmul": ("quant_kernel", "matmul_launches"),
     "dequantize": ("quant_kernel", "dequantize_launches"),
     "augment_geometry": ("image_kernel", "geometry_launches"),
@@ -2072,6 +2419,94 @@ def footprint(torch, dev, build, calls):
     return out
 
 
+def timed_train_path(torch, dev, tag, trainer, batches, names, want, roi_op, op_name):
+    """``TRAIN_REPS`` timed steps of one training path (``trainer.step_fn``
+    on the staged ``batches``): the launches of ``names`` equal ``want`` a
+    step, no growth of the reserved device memory, finite metrics and no
+    withheld step; then 3 steps under :func:`device_timeline` with their
+    launches counted too. The ROI kernels of the timeline are ``roi_op``'s."""
+    torch.cuda.synchronize(dev)
+    reserved = torch.cuda.memory_reserved(dev)
+    REPLAYS.reset(names)
+    history = []
+    ms = timed_steps(torch, lambda i: history.append(
+        trainer.step_fn(trainer.state, batches[i % 2])), TRAIN_REPS)
+    launches = REPLAYS.read(names)
+    grown = torch.cuda.memory_reserved(dev) - reserved
+    log(f"  {tag}: launches in {TRAIN_REPS} timed steps {launches}; reserved memory grew "
+        f"{grown} bytes over them")
+    if launches != {k: v * TRAIN_REPS for k, v in want.items()}:
+        raise AssertionError(f"{tag}: expected per step {want}, got {launches} over "
+                             f"{TRAIN_REPS} steps")
+    if grown > 2**21:  # more than one small-allocation segment
+        raise AssertionError(f"{tag} steps grew the reserved device memory by {grown} bytes")
+    rows = [{k: float(v) for k, v in m.items()} for m in history]
+    for row in rows:
+        bad_keys = [k for k in ("loss", "rpn_cls_loss", "rpn_reg_loss", "head_cls_loss",
+                                "head_reg_loss", "grad_norm") if not np.isfinite(row[k])]
+        if bad_keys or row["skipped"] != 0.0:
+            raise AssertionError(f"{tag}: non-finite training metrics {bad_keys} "
+                                 f"(skipped {row['skipped']})")
+
+    def three_steps():
+        for i in range(3):
+            trainer.step_fn(trainer.state, batches[i % 2])
+
+    # the profiled steps' counted launches against the kernels the card ran
+    REPLAYS.reset(names)
+    timeline = device_timeline(torch, three_steps, 3, roi_op)
+    profiled = REPLAYS.read(names)
+    if profiled != {k: v * 3 for k, v in want.items()}:
+        raise AssertionError(f"{tag}: expected per step {want}, got {profiled} over the 3 "
+                             "profiled steps")
+    if timeline is None:
+        log(f"  {tag} device timeline: the profiler saw no device activity (not measured)")
+    else:
+        log(f"  {tag} device timeline (torch.profiler, 3 steps): busy "
+            f"{timeline['device_busy_ms_per_step']:.2f} ms of a "
+            f"{timeline['device_span_ms_per_step']:.2f} ms span per step, idle share "
+            f"{timeline['device_idle_share']:.3f}, "
+            f"{timeline['device_activities_per_step']:.0f} device activities per step; "
+            f"NMS {timeline['nms_device_ms_per_step']:.4f} ms, {op_name} "
+            f"{ {k: round(v, 4) for k, v in timeline['roi_device_ms_per_step'].items()} }, "
+            f"IoU matching {timeline['iou_match_device_ms_per_step']:.4f} ms in "
+            f"{timeline['iou_match_activities_per_step']:g} activities")
+    return {"launches": launches, "step_ms_all": ms, "step_ms": statistics.median(ms),
+            "losses_first_last": [rows[0]["loss"], rows[-1]["loss"]],
+            "reserved_growth_bytes": grown, "device_timeline": timeline}
+
+
+def check_train_timelines(out, what):
+    """The captured and eager timelines of :func:`timed_train_path` (both or
+    neither measured): every kernel seen with device time, 2 IoU-matching
+    activities a step, and each hand-written kernel as often a step in the
+    replay as in the eager step."""
+    timelines = {tag: out[tag]["device_timeline"] for tag in ("captured", "eager")}
+    if None not in timelines.values():
+        log(f"  {what}most device time per step (captured): "
+            f"{ {k: round(v, 3) for k, v in timelines['captured']['top_device_ms_per_step'].items()} }")
+        for tag, timeline in timelines.items():
+            roi_ms = timeline["roi_device_ms_per_step"]
+            if not (timeline["nms_device_ms_per_step"] > 0 and roi_ms["forward"] > 0
+                    and roi_ms["backward"] > 0 and timeline["iou_match_device_ms_per_step"] > 0):
+                raise AssertionError(f"{what}{tag}: the profiler saw device activity but not "
+                                     f"every kernel: {timeline}")
+            if timeline["iou_match_activities_per_step"] != 2:  # one kernel per call
+                raise AssertionError(f"{what}{tag}: "
+                                     f"{timeline['iou_match_activities_per_step']:g} "
+                                     "IoU-matching kernel activities per step, not 2")
+        # a replay runs every hand-written kernel the eager step runs, as often
+        kernel_acts = {tag: t["kernel_activities_per_step"] for tag, t in timelines.items()}
+        if kernel_acts["captured"] != kernel_acts["eager"]:
+            raise AssertionError(f"{what}hand-written kernel activities per step differ: "
+                                 f"{kernel_acts}")
+        log(f"  {what}the profiler saw every kernel in both timelines, the same activities per "
+            f"step {kernel_acts['captured']}")
+    elif timelines["captured"] is not None or timelines["eager"] is not None:
+        raise AssertionError(f"{what}the profiler saw device activity in one timeline only: "
+                             f"{ {k: v is not None for k, v in timelines.items()} }")
+
+
 def phase_train(torch, name="voc12_resnet18_align", cfg=None, device=None):
     """Phase [6] for one preset. ``cfg``/``device`` default to the preset's
     full configuration on the card (a CPU rehearsal passes a small
@@ -2144,82 +2579,12 @@ def phase_train(torch, name="voc12_resnet18_align", cfg=None, device=None):
 
     names = ("nms", "iou_match") + ROI_NAMES
     want = {"nms": 1, "iou_match": 2, **roi_launches(op, 1, 1)}
-    out = {}
-    for tag, trainer in (("captured", cap), ("eager", eag)):
-        torch.cuda.synchronize(dev)
-        reserved = torch.cuda.memory_reserved(dev)
-        REPLAYS.reset(names)
-        history = []
-        ms = timed_steps(torch, lambda i: history.append(
-            trainer.step_fn(trainer.state, batches[i % 2])), TRAIN_REPS)
-        launches = REPLAYS.read(names)
-        grown = torch.cuda.memory_reserved(dev) - reserved
-        log(f"  {tag}: launches in {TRAIN_REPS} timed steps {launches}; reserved memory grew "
-            f"{grown} bytes over them")
-        if launches != {k: v * TRAIN_REPS for k, v in want.items()}:
-            raise AssertionError(f"{tag}: expected per step {want}, got {launches} over "
-                                 f"{TRAIN_REPS} steps")
-        if grown > 2**21:  # more than one small-allocation segment
-            raise AssertionError(f"{tag} steps grew the reserved device memory by {grown} "
-                                 "bytes")
-        rows = [{k: float(v) for k, v in m.items()} for m in history]
-        for row in rows:
-            bad_keys = [k for k in ("loss", "rpn_cls_loss", "rpn_reg_loss", "head_cls_loss",
-                                    "head_reg_loss", "grad_norm") if not np.isfinite(row[k])]
-            if bad_keys or row["skipped"] != 0.0:
-                raise AssertionError(f"{tag}: non-finite training metrics {bad_keys} "
-                                     f"(skipped {row['skipped']})")
-
-        def three_steps(trainer=trainer):
-            for i in range(3):
-                trainer.step_fn(trainer.state, batches[i % 2])
-
-        # the profiled steps' counted launches against the kernels the card ran
-        REPLAYS.reset(names)
-        timeline = device_timeline(torch, three_steps, 3, op)
-        profiled = REPLAYS.read(names)
-        if profiled != {k: v * 3 for k, v in want.items()}:
-            raise AssertionError(f"{tag}: expected per step {want}, got {profiled} over the 3 "
-                                 "profiled steps")
-        out[tag] = {"launches": launches, "step_ms_all": ms, "step_ms": statistics.median(ms),
-                    "losses_first_last": [rows[0]["loss"], rows[-1]["loss"]],
-                    "reserved_growth_bytes": grown, "device_timeline": timeline}
-        if timeline is None:
-            log(f"  {tag} device timeline: the profiler saw no device activity (not measured)")
-        else:
-            log(f"  {tag} device timeline (torch.profiler, 3 steps): busy "
-                f"{timeline['device_busy_ms_per_step']:.2f} ms of a "
-                f"{timeline['device_span_ms_per_step']:.2f} ms span per step, idle share "
-                f"{timeline['device_idle_share']:.3f}, "
-                f"{timeline['device_activities_per_step']:.0f} device activities per step; "
-                f"NMS {timeline['nms_device_ms_per_step']:.4f} ms, {op_name} "
-                f"{ {k: round(v, 4) for k, v in timeline['roi_device_ms_per_step'].items()} }, "
-                f"IoU matching {timeline['iou_match_device_ms_per_step']:.4f} ms in "
-                f"{timeline['iou_match_activities_per_step']:g} activities")
+    out = {tag: timed_train_path(torch, dev, tag, trainer, batches, names, want, op, op_name)
+           for tag, trainer in (("captured", cap), ("eager", eag))}
+    for tag in out:
         log(f"  {tag}: {out[tag]['step_ms']:.2f} ms a step (median of {TRAIN_REPS}, CUDA "
             f"events, batch staged on the card), {bsz / out[tag]['step_ms'] * 1e3:.1f} images/s")
-    timelines = {tag: out[tag]["device_timeline"] for tag in out}
-    if None not in timelines.values():
-        log(f"  most device time per step (captured): "
-            f"{ {k: round(v, 3) for k, v in timelines['captured']['top_device_ms_per_step'].items()} }")
-        for tag, timeline in timelines.items():
-            roi_ms = timeline["roi_device_ms_per_step"]
-            if not (timeline["nms_device_ms_per_step"] > 0 and roi_ms["forward"] > 0
-                    and roi_ms["backward"] > 0 and timeline["iou_match_device_ms_per_step"] > 0):
-                raise AssertionError(f"{tag}: the profiler saw device activity but not every "
-                                     f"kernel: {timeline}")
-            if timeline["iou_match_activities_per_step"] != 2:  # one kernel per call
-                raise AssertionError(f"{tag}: {timeline['iou_match_activities_per_step']:g} "
-                                     "IoU-matching kernel activities per step, not 2")
-        # a replay runs every hand-written kernel the eager step runs, as often
-        kernel_acts = {tag: t["kernel_activities_per_step"] for tag, t in timelines.items()}
-        if kernel_acts["captured"] != kernel_acts["eager"]:
-            raise AssertionError(f"hand-written kernel activities per step differ: {kernel_acts}")
-        log(f"  the profiler saw every kernel in both timelines, the same activities per step "
-            f"{kernel_acts['captured']}")
-    elif timelines["captured"] is not None or timelines["eager"] is not None:
-        raise AssertionError(f"the profiler saw device activity in one timeline only: "
-                             f"{ {k: v is not None for k, v in timelines.items()} }")
+    check_train_timelines(out, "")
 
     # each path's device memory alone: a fresh trainer, its first calls (the
     # captured paths' warm-up and capture), then replays
@@ -4172,6 +4537,166 @@ def phase_serving_stack(torch, int8_artifact=None, device=None, size=None, reps=
     return launches, out
 
 
+# ------------------------------------------------------------- [12] FPN
+
+FPN_NAME = "voc_resnet50_fpn"
+FPN_TRAIN_STEPS = 4  # captured and eager steps held bitwise
+FPN_SERVE_WANT = {"nms": 2, "roi_multilevel": 1, "roi_multilevel_bwd": 0, "roi_align": 0,
+                  "roi_align_bwd": 0, "roi_pool": 0, "roi_pool_bwd": 0}
+FPN_TRAIN_WANT = {"nms": 1, "iou_match": 2, "roi_multilevel": 1, "roi_multilevel_bwd": 1,
+                  "roi_align": 0, "roi_align_bwd": 0, "roi_pool": 0, "roi_pool_bwd": 0}
+
+
+def fpn_config(size=None, batch=8):
+    """``voc_resnet50_fpn`` at batch ``batch`` (``size`` shrinks the image
+    for a CPU rehearsal)."""
+    import dataclasses
+
+    from replication_faster_rcnn_tpu_torch import get_config
+
+    cfg = get_config(FPN_NAME)
+    if size is not None:
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, image_size=(size, size)))
+    return cfg.replace(train=dataclasses.replace(cfg.train, batch_size=batch))
+
+
+def phase_fpn_serve(torch, device=None, size=None, reps=REPS):
+    """Phase [12], serving: ``voc_resnet50_fpn`` in bfloat16 through
+    ``InferenceEngine`` graphs at buckets 300 and 600 x b1, b8 ([11]'s
+    checks, :func:`stack_engines`): every graph bitwise its eager flush and
+    the plain replay, NMS 2 and multi-level ROIAlign 1 per replay, warm
+    flushes without capture, growth or host sync; b1 flush ms, b1 latency
+    and b8 images/s, graph against eager."""
+    dev = torch.device(device or "cuda")
+    cfg = stack_config(FPN_NAME, "bfloat16", size)
+    images = stack_images(np.random.default_rng(12), cfg)
+    log(f"[12] main path: serve {FPN_NAME} (ResNet50 + FPN P2-P6, multi-level ROIAlign, two-fc "
+        f"head) bfloat16 at buckets {cfg.serving.bucket_resolutions(cfg.data.image_size)} x "
+        f"{cfg.serving.batch_sizes}")
+    serve = stack_engines(torch, FPN_NAME, "bfloat16", dev, None, None, size, images,
+                          FPN_SERVE_WANT, reps)
+    launches = {k: 0 for k in FPN_SERVE_WANT}
+    for counts in serve.get("launches_per_replay", {}).values():
+        for k, v in counts.items():
+            launches[k] += v
+    return launches, serve
+
+
+def phase_fpn_train(torch, cfg=None, device=None):
+    """Phase [12], training: two ``Trainer``s of ``voc_resnet50_fpn`` at b8
+    from one seed, one capturing its step as a CUDA graph, one eager: the
+    same ``FPN_TRAIN_STEPS`` steps bitwise equal in state and metrics; then
+    each path's timed and profiled steps (:func:`timed_train_path`, [6]'s
+    checks: launches per step NMS 1, IoU matching 2, multi-level ROIAlign
+    forward 1 and backward 1, the single-map ROI ops 0; no growth of the
+    reserved memory; the device timeline and its idle share) and its peak
+    allocated memory."""
+    import dataclasses
+    import gc
+
+    from replication_faster_rcnn_tpu_torch.data.synthetic import SyntheticDataset
+    from replication_faster_rcnn_tpu_torch.train.train_step import make_train_step
+    from replication_faster_rcnn_tpu_torch.train.trainer import Trainer
+
+    cfg = cfg or fpn_config()
+    dev = torch.device(device or "cuda")
+    bsz = cfg.train.batch_size
+    log(f"[12] main path: train {FPN_NAME} {cfg.data.image_size} batch {bsz}, compute "
+        f"{cfg.model.compute_dtype}, {cfg.proposals.pre_nms_train} -> "
+        f"{cfg.proposals.post_nms_train} proposals; captured against eager")
+    dataset = SyntheticDataset(cfg.data, length=2 * bsz)
+    names = tuple(FPN_TRAIN_WANT)
+    out = {"config": FPN_NAME, "batch": bsz}
+    hist, trainers = {}, {}
+    for tag in ("captured", "eager"):
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        trainer = Trainer(cfg, dataset, device=dev, seed=0)
+        if tag == "eager":
+            trainer.step_fn = make_train_step(cfg, capture=False)
+        trainer.loader.set_epoch(0)
+        batches = [trainer.stage_batch(b) for b in trainer.loader]
+        hist[tag] = [trainer.train_one_batch(staged=batches[i % 2])
+                     for i in range(FPN_TRAIN_STEPS)]
+        out[tag] = timed_train_path(torch, dev, f"FPN {tag}", trainer, batches, names,
+                                    FPN_TRAIN_WANT, "multilevel", "multi-level ROIAlign")
+        out[tag]["peak_allocated_gib"] = peak = (
+            torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        log(f"  {tag}: {out[tag]['step_ms']:.2f} ms a step (median of {TRAIN_REPS}, CUDA "
+            f"events), {bsz / out[tag]['step_ms'] * 1e3:.1f} images/s; peak allocated "
+            f"{peak:.2f} GiB")
+        trainers[tag] = trainer
+    check_train_timelines(out, "FPN ")
+    diff = state_differences(torch, trainers["captured"], trainers["eager"])
+    mdiff = metrics_differences(torch, hist["captured"], hist["eager"])
+    if diff or mdiff:
+        raise AssertionError(f"FPN captured vs eager: state differs in {diff[:5]}, metrics in "
+                             f"{mdiff[:5]}")
+    for row in hist["captured"]:
+        if not all(np.isfinite(float(row[k])) for k in ("loss", "rpn_cls_loss", "rpn_reg_loss",
+                                                         "head_cls_loss", "head_reg_loss")):
+            raise AssertionError(f"FPN: non-finite losses {row}")
+    log(f"  {FPN_TRAIN_STEPS} steps captured and eager bitwise equal in the whole state and "
+        f"every metric; {out['captured']['step_ms']:.2f} ms captured against "
+        f"{out['eager']['step_ms']:.2f} ms eager")
+    # the evaluator on the trained weights: 16 VOC-sized images, b8 (per
+    # batch NMS 2 and multi-level ROIAlign 1), a finite mAP
+    from replication_faster_rcnn_tpu_torch.eval.evaluator import Evaluator
+
+    names = ("nms", "roi_multilevel", "roi_multilevel_bwd")
+    REPLAYS.reset(names)
+    result = Evaluator(cfg, device=dev).evaluate(trainers["captured"].model,
+                                                 VOCLikeDataset(cfg.data, n=16), batch_size=8)
+    eval_launches = REPLAYS.read(names)
+    if eval_launches != {"nms": 4, "roi_multilevel": 2, "roi_multilevel_bwd": 0}:
+        raise AssertionError(f"FPN evaluate: expected NMS 2 and multi-level ROIAlign 1 per "
+                             f"batch over 2 batches, got {eval_launches}")
+    if not 0.0 <= float(result["mAP"]) <= 1.0:
+        raise AssertionError(f"FPN evaluate: mAP {result['mAP']}")
+    out["evaluate"] = {"mAP": float(result["mAP"]), "images": 16, "launches": eval_launches}
+    log(f"  Evaluator on the trained weights: 16 images, b8, mAP@0.5 {float(result['mAP']):.4f} "
+        f"(random start), launches {eval_launches}")
+    launches = out["captured"]["launches"]
+    eager_launches = out["eager"]["launches"]
+    del trainers
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, eager_launches, out
+
+
+def phase_fpn_bench(torch):
+    """Phase [12], the benchmark in this process (this script's TF32 and
+    cuDNN settings): ``benchmark.main`` of ``voc_resnet50_fpn`` at b8, once
+    train (the captured step) and once eval, images/s and MFU."""
+    import gc
+    import os
+
+    from replication_faster_rcnn_tpu_torch import benchmark
+
+    cfg = fpn_config()
+    lines = {}
+    for mode in ("train", "eval"):
+        before = os.environ.get("BENCH_MODE")
+        os.environ["BENCH_MODE"] = mode
+        try:
+            lines[mode] = benchmark.main(cfg)
+        finally:
+            if before is None:
+                os.environ.pop("BENCH_MODE")
+            else:
+                os.environ["BENCH_MODE"] = before
+        check_bench_line(lines[mode], mode)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[12] benchmark.main({FPN_NAME}, b8): train {lines['train']['value']} images/s, MFU "
+        f"{lines['train']['mfu']}, {lines['train']['flops_per_step'] / 8e9:.2f} GFLOP an image; "
+        f"eval {lines['eval']['value']} images/s")
+    return lines
+
+
 def image_kernel_rows(image, by_path):
     """The ``kernels`` line's rows of the data path's four kernels: [3]'s
     times at 600x600 b8 uint8 (all four row mixes' main one: flip,
@@ -4280,11 +4805,15 @@ def main():
     dlaunches, data_path = phase_data_path(torch)
     klaunches, stack = phase_serving_stack(torch, int8_artifact=REPO / "build" /
                                            "quant_artifact.json")
+    flaunches, fpn_serve = phase_fpn_serve(torch)
+    ftlaunches, ftlaunches_eager, fpn_train = phase_fpn_train(torch)
+    fpn_bench = phase_fpn_bench(torch)
     paths = {"serve": launches, "serve_pool": plaunches, "serve_presets": slaunches,
              "serve_int8": qlaunches, "train": tlaunches, "train_eager": tlaunches_eager,
              "train_pool": ptlaunches, "train_pool_eager": ptlaunches_eager,
              "evaluate": elaunches, "overfit_train": olaunches, **rlaunches, **blaunches,
-             **dlaunches, "serve_stack": klaunches}
+             **dlaunches, "serve_stack": klaunches, "serve_fpn": flaunches,
+             "train_fpn": ftlaunches, "train_fpn_eager": ftlaunches_eager}
 
     def by_path(key):
         """A counter's launches on every main path that reads it."""
@@ -4303,8 +4832,10 @@ def main():
         return {"train_step_device_ms": in_step(train_runs[run]["captured"], key, part),
                 "train_step_device_ms_eager": in_step(train_runs[run]["eager"], key, part)}
 
-    train_runs = {"align": train, "pool": train_pool}
+    train_runs = {"align": train, "pool": train_pool, "multilevel": fpn_train}
     iou_a, iou_p = res["iou_anchor"], res["iou_proposal"]
+    ml = res["multilevel"]
+    ml_f, ml_b = ml["serve_b8_bf16"], ml["bwd_bf16"]
     gemm, deq = res["gemm_b8_cls"], res["dequant_f32"]
     timing = ("ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [
@@ -4325,6 +4856,8 @@ def main():
             "tta_detection_site": {k: res["nms_detection_tta"][k] for k in timing},
             "training_site": {k: nms_tr[k] for k in timing},
             "training_site_clustered": {k: nms_cl[k] for k in timing},
+            "fpn_training_site": {k: res["nms_train_fpn"][k] for k in timing},
+            "fpn_serving_site": {k: res["nms_fpn"][k] for k in timing},
             "outside_kernels_ms": {"proposal": nms["prep_ms"], "detection": det["prep_ms"],
                                    "tta_detection": res["nms_detection_tta"]["prep_ms"],
                                    "training": nms_tr["prep_ms"],
@@ -4369,6 +4902,44 @@ def main():
             "bf16_grad": {k: res["roi_bwd_bf16_grad"][k] for k in timing},
             "identical_rois": {k: res["roi_bwd_identical"][k] for k in timing},
             **step_ms("align", "roi_device_ms_per_step", "backward"),
+        },
+        {
+            "name": "multilevel_roi_align_fwd", "route": "cuda", "source": ML_SRC,
+            "replaces": ML_JAX, "replaces_note": ML_NOTE,
+            "kernels": ["multilevel_roi_align_kernel"],
+            "launches": sum(by_path("roi_multilevel").values()),
+            "launches_by_path": by_path("roi_multilevel"),
+            "parity": "bitwise vs models/fpn.py::multilevel_roi_align_plain (the JAX "
+                      "method='flat' operation by operation) cast to the output dtype, at "
+                      "serving 8 x 300 and 1 x 300 (bf16 and f32), training 8 x 128, "
+                      "boundary-area and clustered rois",
+            "max_abs_err": max(r["max_abs_err"] for k, r in ml.items()
+                               if not k.startswith("bwd")),
+            **{k: ml_f[k] for k in timing}, "library_ms": None, "library_note": NO_ML_LIBRARY,
+            "shape": "bf16 P2-P5 8 x [150, 75, 38, 19]^2 x 256, 300 rois -> bf16",
+            "levels_ms": ml_f["levels_ms"],
+            "levels_note": "roi_levels (plain tensor operations) runs before the kernel in "
+                           "each call; ms excludes it",
+            "levels_card_vs_cpu": res["multilevel_levels"],
+            "sites": {k: {f: v[f] for f in timing + ("levels_ms", "rois_per_level")}
+                      for k, v in ml.items() if not k.startswith("bwd") and k != "serve_b8_bf16"},
+            **step_ms("multilevel", "roi_device_ms_per_step", "forward"),
+        },
+        {
+            "name": "multilevel_roi_align_bwd", "route": "cuda", "source": ML_SRC,
+            "replaces": ML_JAX, "replaces_note": ML_NOTE + " (the VJP: its scatter)",
+            "kernels": ["multilevel_roi_align_bwd_kernel"],
+            "launches": sum(by_path("roi_multilevel_bwd").values()),
+            "launches_by_path": by_path("roi_multilevel_bwd"),
+            "parity": f"vs the plain VJP (autograd of multilevel_roi_align_plain on float32 "
+                      f"copies): {ROI_BWD_TOL}; two launches bitwise equal (deterministic, no "
+                      "atomics)",
+            "max_abs_err": max(r["max_abs_err"] for k, r in ml.items() if k.startswith("bwd")),
+            **{k: ml_b[k] for k in timing}, "library_ms": None, "library_note": NO_ML_LIBRARY,
+            "shape": "bf16 grad [8, 128, 7, 7, 256] -> bf16 grads of P2-P5 at 600x600",
+            "sites": {k: {f: v[f] for f in timing} for k, v in ml.items()
+                      if k.startswith("bwd") and k != "bwd_bf16"},
+            **step_ms("multilevel", "roi_device_ms_per_step", "backward"),
         },
         {
             "name": "roi_pool_fwd", "route": "cuda", "source": POOL_SRC, "replaces": POOL_JAX,
@@ -4423,6 +4994,7 @@ def main():
             "bound_by": iou_a["bound_by"], "library_ms": None, "library_note": NO_LIBRARY,
             "shape": "anchor site: 12996 anchors vs 8 x 32 gt, with the column argmax",
             "proposal_site": {k: iou_p[k] for k in timing},
+            "fpn_anchor_site": {k: res["iou_anchor_fpn"][k] for k in timing},
             "anchor_site_g64": {k: res["iou_anchor_g64"][k] for k in timing},
             "ties": {k: res["iou_ties"][k] for k in timing},
             **step_ms("align", "iou_match_device_ms_per_step"),
@@ -4459,8 +5031,10 @@ def main():
     ]
     kernels += image_kernel_rows(image, by_path)
     per_replay = {"serve_bf16 voc_resnet18": stack["bf16"]["launches_per_replay"],
-                  "serve_int8 voc12_resnet18_align": stack["int8"]["launches_per_replay"]}
+                  "serve_int8 voc12_resnet18_align": stack["int8"]["launches_per_replay"],
+                  "serve_bf16 voc_resnet50_fpn": fpn_serve["launches_per_replay"]}
     counter_of = {"nms_mask_walk": "nms", "roi_align_fwd": "roi_align", "roi_pool_fwd": "roi_pool",
+                  "multilevel_roi_align_fwd": "roi_multilevel",
                   "int8_matmul": "int8_matmul", "dequantize": "dequantize"}
     for row in kernels:
         key = counter_of.get(row["name"])
@@ -4475,7 +5049,9 @@ def main():
                     "presets": presets,
                     "serve_int8": serve_int8, "train": train, "train_pool": train_pool,
                     "evaluate": evaluate, "resume": resume, "bench": bench,
-                    "data_path": data_path, "serving_stack": stack, "card": card}))
+                    "data_path": data_path, "serving_stack": stack,
+                    "fpn": {"serve": fpn_serve, "train": fpn_train, "bench": fpn_bench},
+                    "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -43,7 +43,9 @@ Stage breakdown: the JAX keys, from the train step's ``stage(name)`` hooks
 timed with CUDA events over ``STAGE_STEPS`` steps (the mean); the events
 time the device timeline between the hooks, idle gaps included, so the
 stages of a host-bound step show its host time (the breakdown's steps run
-eagerly: a graph has no hooks). ``opt_update_direct_ms`` is the optimizer's
+eagerly: a graph has no hooks). With FPN (``voc_resnet50_fpn``) the trunk
+hook wraps ``extract_features`` and so times every level, the neck's
+included, as the JAX prefix sums every level. ``opt_update_direct_ms`` is the optimizer's
 update alone (``ChainOptimizer.update`` on flat zero gradients, eager),
 ``dispatch_floor_ms`` one launch and one sync.
 """

@@ -3,7 +3,7 @@ training and evaluation paths read.
 
 Field names, defaults and presets mirror ``replication_faster_rcnn_tpu.config``
 so a reader can hold the two side by side; knobs the port does not implement
-yet (FPN, group norm, frozen BN, the mesh's optimizer fields ``backend``,
+yet (group norm, frozen BN, the mesh's optimizer fields ``backend``,
 ``shard_opt_state`` and ``grad_allreduce_dtype``, the loader's
 ``loader_mode="process"`` workers) are left out rather than accepted and
 ignored. ``FleetConfig`` holds the fields the port reads: the engine's
@@ -119,6 +119,8 @@ class ModelConfig:
     roi_size: int = 7
     roi_op: str = "align"  # "align" | "pool"
     roi_sampling_ratio: int = 2
+    fpn: bool = False  # FPN neck over C2-C5, shared multi-level RPN, two-fc head
+    fpn_channels: int = 256  # P-level width (FPN paper)
     compute_dtype: str = "bfloat16"  # float32 | bfloat16
 
     def __post_init__(self):
@@ -646,6 +648,13 @@ CONFIGS = {
     "voc_resnet50": FasterRCNNConfig(
         model=ModelConfig(backbone="resnet50", roi_op="pool"),
         data=_voc_data(root_dir="data/voc/VOCdevkit/VOC2007"),
+    ),
+    # FPN over ResNet50: P2-P6 at 256 channels, one anchor scale per level
+    # (strides 4-64), multi-level ROIAlign 7x7 into a two-fc (1024) head
+    "voc_resnet50_fpn": FasterRCNNConfig(
+        model=ModelConfig(backbone="resnet50", roi_op="align", fpn=True),
+        anchors=AnchorConfig(scales=(8.0,)),
+        data=_voc_data(),
     ),
     # the same network with the ROIAlign head (7x7, 2x2 samples per bin), VOC2012
     "voc12_resnet18_align": FasterRCNNConfig(

@@ -1,4 +1,6 @@
-// ROIAlign forward and backward (aligned=False, bin mean) over NHWC features.
+// ROIAlign forward and backward (aligned=False, bin mean) over NHWC features,
+// and the FPN's multi-level ROIAlign forward and backward over P2..P5 (see
+// the note above multilevel_roi_align_kernel).
 //
 // Forward replaces: replication_faster_rcnn_tpu/ops/pallas/roi_kernel.py::_roi_kernel
 // (wrapper roi_align_pallas). Plain version:
@@ -529,6 +531,338 @@ roi_align_bwd_kernel(const G* __restrict__ grad_out,  // [N, R, out, out, C]
   }
 }
 
+// ---------------------------------------------------------------------------
+// Multi-level ROIAlign (FPN): the rois of an image are each assigned one of
+// the four pyramid levels P2..P5 and aligned on that level alone.
+//
+// Replaces no Pallas kernel: the JAX package runs it as XLA gathers
+// (replication_faster_rcnn_tpu/models/fpn.py::multilevel_roi_align, the
+// default method="flat", and its autodiff VJP), on the FPN preset's hot
+// path in both directions. Plain version:
+// replication_faster_rcnn_tpu_torch/models/fpn.py::multilevel_roi_align_plain,
+// which the forward matches bit for bit, and its autograd VJP.
+//
+// The level of each roi comes in as an int32 array computed by the plain
+// models/fpn.py::roi_levels on the card (floor(4 + log2(sqrt(area)/224)),
+// clipped): a level that differed at a boundary area would be a large
+// error, so the kernel and the plain version read the same levels instead
+// of rounding log2 each their own way.
+//
+// Geometry (method="flat"): the roi is scaled into its level by
+// (h_l / img_h, w_l / img_w) (correctly rounded divisions), the bin is the
+// 1-pixel-minimum extent divided by out (a division, not the reciprocal
+// multiply of the single-level kernel), samples sit at r1 + ((k + 0.5)/s) *
+// bin, and the border rule is sample_axis's. Each sample's 4-tap sum is
+// multiplied by its range flag (1 or 0, as the plain version multiplies by
+// the float mask) and the s*s samples are summed in row-major order from
+// 0, then divided by s*s.
+//
+// Forward, what bounds it on the H100: bytes. At serving b8 x 300 rois the
+// output is 8 x 300 x 7x7x256 (60 MB in bf16); the levels are read where the
+// rois fall (P2 alone is 92 MB in bf16 at b8 and does not stay in L2).
+// Design: the single-level forward's (a block per roi and bin split, the
+// roi's sample axes in shared memory, a warp per bin, 8 channels a lane):
+// the block reads its roi's level and takes that level's base pointer and
+// extents.
+//
+// Backward, bytes again: grad_out read once, the four levels' gradients
+// written once. Design: the single-level backward's owner-computes tiles
+// (deterministic, no atomics, every pixel written once), laid over all four
+// levels in one launch: the blocks of level l come after those of levels
+// < l, and a block keeps only the rois assigned to its level. P6 gets no
+// gradient here (only the RPN reads it).
+
+constexpr int LEVELS = 4;
+
+template <typename T>
+struct Pyramid {
+  T* base[LEVELS];
+  int h[LEVELS], w[LEVELS];
+  int tiles_y[LEVELS], tiles_x[LEVELS];
+  int first_block[LEVELS + 1];  // backward: the level's first block index
+};
+
+// The roi in its level's units: start corners and bin sizes.
+struct LevelRoi {
+  float r1, c1, bin_h, bin_w;
+};
+
+// extent (1-pixel minimum; a NaN extent stays NaN) divided by the bin count
+__device__ __forceinline__ float bin_div(float lo, float hi, int out) {
+  const float extent = __fsub_rn(hi, lo);
+  return __fdiv_rn(extent != extent ? extent : fmaxf(extent, 1.f), static_cast<float>(out));
+}
+
+__device__ __forceinline__ LevelRoi level_roi(const float* roi, int h, int w, float img_h,
+                                              float img_w, int out) {
+  const float sr = __fdiv_rn(static_cast<float>(h), img_h);
+  const float sc = __fdiv_rn(static_cast<float>(w), img_w);
+  const float r1 = __fmul_rn(roi[0], sr), c1 = __fmul_rn(roi[1], sc);
+  const float r2 = __fmul_rn(roi[2], sr), c2 = __fmul_rn(roi[3], sc);
+  return LevelRoi{r1, c1, bin_div(r1, r2, out), bin_div(c1, c2, out)};
+}
+
+__device__ __forceinline__ int roi_level(const int* levels, int64_t i) {
+  return min(max(levels[i], 0), LEVELS - 1);
+}
+
+// VEC: C is a multiple of 8 and every base is 16-byte aligned.
+template <typename T, typename O, bool VEC>
+__global__ void __launch_bounds__(FWD_THREADS)
+multilevel_roi_align_kernel(Pyramid<const T> pyr,           // P2..P5 [N, Hl, Wl, C]
+                            const float* __restrict__ rois,  // [N, R, 4] image coords
+                            const int* __restrict__ levels,  // [N, R] 0..3
+                            float img_h, float img_w, int c, int r, int out, int s,
+                            O* __restrict__ dst) {           // [N, R, out, out, C]
+  extern __shared__ Axis axes[];                            // [P] row samples, then [P] columns
+  const int64_t nr = blockIdx.x;                            // n * R + roi
+  const int n = static_cast<int>(nr / r);
+  const int p_total = out * s;
+  const int lv = roi_level(levels, nr);
+  const int h = pyr.h[lv], w = pyr.w[lv];
+  const LevelRoi lr = level_roi(rois + nr * 4, h, w, img_h, img_w, out);
+  for (int k = threadIdx.x; k < 2 * p_total; k += blockDim.x) {
+    axes[k] = k < p_total ? sample_axis(lr.r1, lr.bin_h, k, s, h)
+                          : sample_axis(lr.c1, lr.bin_w, k - p_total, s, w);
+  }
+  __syncthreads();
+
+  const T* img = pyr.base[lv] + static_cast<int64_t>(n) * h * w * c;
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const int bins = out * out;
+  const int ns = s * s;
+  const float n_samples = static_cast<float>(ns);
+  const bool pow2 = (ns & (ns - 1)) == 0;  // then acc * (1/ns) == acc / ns
+  const float inv_ns = __fdiv_rn(1.f, n_samples);
+  for (int b = blockIdx.y * warps + (threadIdx.x >> 5); b < bins; b += gridDim.y * warps) {
+    const int py = b / out, px = b % out;
+    O* o = dst + (nr * bins + b) * c;
+    if (VEC) {
+      for (int ch = lane * 8; ch < c; ch += 32 * 8) {
+        float acc[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+        for (int iy = 0; iy < s; ++iy) {
+          const Axis ay = axes[py * s + iy];
+          const T* row0 = img + static_cast<int64_t>(ay.i0) * w * c + ch;
+          const T* row1 = img + static_cast<int64_t>(ay.i1) * w * c + ch;
+          for (int ix = 0; ix < s; ++ix) {
+            const Axis ax = axes[p_total + px * s + ix];
+            const float flag = (ay.in_range && ax.in_range) ? 1.f : 0.f;
+            const float w00 = __fmul_rn(ay.w0, ax.w0), w01 = __fmul_rn(ay.w0, ax.w1);
+            const float w10 = __fmul_rn(ay.w1, ax.w0), w11 = __fmul_rn(ay.w1, ax.w1);
+            float f00[8], f01[8], f10[8], f11[8];
+            load8(row0 + ax.i0 * c, f00);
+            load8(row0 + ax.i1 * c, f01);
+            load8(row1 + ax.i0 * c, f10);
+            load8(row1 + ax.i1 * c, f11);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const float v = tap_sum(f00[j], f01[j], f10[j], f11[j], w00, w01, w10, w11);
+              acc[j] = __fadd_rn(acc[j], __fmul_rn(v, flag));
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[j] = pow2 ? __fmul_rn(acc[j], inv_ns) : __fdiv_rn(acc[j], n_samples);
+        }
+        store8(o + ch, acc);
+      }
+    } else {
+      for (int ch = lane; ch < c; ch += 32) {
+        float acc = 0.f;
+        for (int iy = 0; iy < s; ++iy) {
+          const Axis ay = axes[py * s + iy];
+          const T* row0 = img + static_cast<int64_t>(ay.i0) * w * c + ch;
+          const T* row1 = img + static_cast<int64_t>(ay.i1) * w * c + ch;
+          for (int ix = 0; ix < s; ++ix) {
+            const Axis ax = axes[p_total + px * s + ix];
+            const float flag = (ay.in_range && ax.in_range) ? 1.f : 0.f;
+            const float v = tap_sum(to_f32(row0[ax.i0 * c]), to_f32(row0[ax.i1 * c]),
+                                    to_f32(row1[ax.i0 * c]), to_f32(row1[ax.i1 * c]),
+                                    __fmul_rn(ay.w0, ax.w0), __fmul_rn(ay.w0, ax.w1),
+                                    __fmul_rn(ay.w1, ax.w0), __fmul_rn(ay.w1, ax.w1));
+            acc = __fadd_rn(acc, __fmul_rn(v, flag));
+          }
+        }
+        store1(o + ch, pow2 ? __fmul_rn(acc, inv_ns) : __fdiv_rn(acc, n_samples));
+      }
+    }
+  }
+}
+
+// The backward of multilevel_roi_align_kernel: roi_align_bwd_kernel's design
+// and sums (see there), its tiles laid over the four levels. A roi is kept
+// by a block when its level is the block's and its taps' bounding box
+// touches the block's tile.
+template <typename G, typename F, bool VEC>
+__global__ void __launch_bounds__(BWD_THREADS, BWD_MIN_BLOCKS)
+multilevel_roi_align_bwd_kernel(const G* __restrict__ grad_out,  // [N, R, out, out, C]
+                                const float* __restrict__ rois,  // [N, R, 4] image coords
+                                const int* __restrict__ levels,  // [N, R] 0..3
+                                Pyramid<F> pyr,                  // grad P2..P5 [N, Hl, Wl, C]
+                                float img_h, float img_w, int c, int r, int out, int s,
+                                int chunk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Term* terms = reinterpret_cast<Term*>(smem);               // [BWD_WARPS][BWD_TERMS]
+  int* kept = reinterpret_cast<int*>(terms + BWD_WARPS * BWD_TERMS);  // [BWD_THREADS]
+  int* warp_kept = kept + BWD_THREADS;                       // [BWD_WARPS] per-warp counts
+  int* n_rows = warp_kept + BWD_WARPS;                       // [chunk][BWD_ROWS]
+  int* n_cols = n_rows + chunk * BWD_ROWS;                   // [chunk][BWD_COLS]
+  int* starts = n_cols + chunk * BWD_COLS;                   // [BWD_WARPS][chunk + 1]
+  Bin* rows = reinterpret_cast<Bin*>(starts + BWD_WARPS * (chunk + 1));  // [chunk][BWD_ROWS][out]
+  Bin* cols = rows + chunk * BWD_ROWS * out;                 // [chunk][BWD_COLS][out]
+
+  int lv = 0;
+  while (lv < LEVELS - 1 && static_cast<int>(blockIdx.x) >= pyr.first_block[lv + 1]) ++lv;
+  const int h = pyr.h[lv], w = pyr.w[lv];
+  const int tiles_y = pyr.tiles_y[lv], tiles_x = pyr.tiles_x[lv];
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int ty = warp / BWD_COLS, tx = warp % BWD_COLS;  // this warp's pixel in the tile
+  int idx = static_cast<int>(blockIdx.x) - pyr.first_block[lv];
+  const int x_lo = (idx % tiles_x) * BWD_COLS;
+  idx /= tiles_x;
+  const int y_lo = (idx % tiles_y) * BWD_ROWS;
+  const int n = idx / tiles_y;
+  const int x_hi = min(x_lo + BWD_COLS, w), y_hi = min(y_lo + BWD_ROWS, h);
+  const int ch = blockIdx.y * 256 + 8 * lane;
+  const int nch = max(0, min(8, c - ch));
+
+  const int p_total = out * s;
+  const float n_samples = static_cast<float>(s * s);
+  const int bins = out * out;
+  const float* img_rois = rois + static_cast<int64_t>(n) * r * 4;
+  const int* img_levels = levels + static_cast<int64_t>(n) * r;
+  const G* g_img = grad_out + static_cast<int64_t>(n) * r * bins * c + ch;
+  Term* my_terms = terms + warp * BWD_TERMS;
+  int* my_starts = starts + warp * (chunk + 1);
+  float acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+  int n_terms = 0;  // terms buffered in my_terms, summed when it is full and at the end
+
+  for (int base = 0; base < r; base += BWD_THREADS) {
+    bool keep = false;
+    if (base + t < r && roi_level(img_levels, base + t) == lv) {
+      const LevelRoi lr = level_roi(img_rois + static_cast<int64_t>(base + t) * 4, h, w,
+                                    img_h, img_w, out);
+      keep = sample_axis(lr.r1, lr.bin_h, 0, s, h).i0 < y_hi &&
+             sample_axis(lr.r1, lr.bin_h, p_total - 1, s, h).i1 >= y_lo &&
+             sample_axis(lr.c1, lr.bin_w, 0, s, w).i0 < x_hi &&
+             sample_axis(lr.c1, lr.bin_w, p_total - 1, s, w).i1 >= x_lo;
+    }
+    const unsigned kb = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) warp_kept[warp] = __popc(kb);
+    __syncthreads();
+    int offset = 0, n_kept = 0;
+    for (int i = 0; i < BWD_WARPS; ++i) {
+      offset += i < warp ? warp_kept[i] : 0;
+      n_kept += warp_kept[i];
+    }
+    if (keep) kept[offset + __popc(kb & ((1u << lane) - 1u))] = base + t;
+
+    for (int c0 = 0; c0 < n_kept; c0 += chunk) {
+      const int m = min(chunk, n_kept - c0);
+      __syncthreads();  // kept is written; the previous chunk's bins are no longer read
+      for (int j = warp; j < m; j += BWD_WARPS) {  // a warp per roi, a lane per bin row/column
+        const int roi_id = kept[c0 + j];
+        const LevelRoi lr = level_roi(img_rois + static_cast<int64_t>(roi_id) * 4, h, w,
+                                      img_h, img_w, out);
+        const int roi_off = roi_id * bins * c;
+        int kr[BWD_ROWS], kc[BWD_COLS];
+#pragma unroll
+        for (int i = 0; i < BWD_ROWS; ++i) kr[i] = 0;
+#pragma unroll
+        for (int i = 0; i < BWD_COLS; ++i) kc[i] = 0;
+        for (int b0 = 0; b0 < out; b0 += 32) {
+          const int bi = b0 + lane;
+          float wy[BWD_ROWS], wx[BWD_COLS];
+          bool hy[BWD_ROWS], hx[BWD_COLS];
+#pragma unroll
+          for (int i = 0; i < BWD_ROWS; ++i) {
+            wy[i] = 0.f;
+            hy[i] = false;
+          }
+#pragma unroll
+          for (int i = 0; i < BWD_COLS; ++i) {
+            wx[i] = 0.f;
+            hx[i] = false;
+          }
+          if (bi < out) {
+            for (int k = 0; k < s; ++k) {  // the bin's samples in order, tap 0 before tap 1
+              const Axis ar = sample_axis(lr.r1, lr.bin_h, bi * s + k, s, h);
+              const Axis ac = sample_axis(lr.c1, lr.bin_w, bi * s + k, s, w);
+#pragma unroll
+              for (int i = 0; i < BWD_ROWS; ++i) add_taps(ar, y_lo + i, wy[i], hy[i]);
+#pragma unroll
+              for (int i = 0; i < BWD_COLS; ++i) add_taps(ac, x_lo + i, wx[i], hx[i]);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < BWD_ROWS; ++i) {
+            kr[i] = append_bin(rows + (j * BWD_ROWS + i) * out, kr[i], lane, hy[i],
+                               Bin{wy[i], roi_off + bi * out * c});
+          }
+#pragma unroll
+          for (int i = 0; i < BWD_COLS; ++i) {
+            kc[i] = append_bin(cols + (j * BWD_COLS + i) * out, kc[i], lane, hx[i],
+                               Bin{wx[i], bi * c});
+          }
+        }
+        if (lane == 0) {
+#pragma unroll
+          for (int i = 0; i < BWD_ROWS; ++i) n_rows[j * BWD_ROWS + i] = kr[i];
+#pragma unroll
+          for (int i = 0; i < BWD_COLS; ++i) n_cols[j * BWD_COLS + i] = kc[i];
+        }
+      }
+      __syncthreads();
+
+      // this warp's pixel: the terms of the chunk's rois start at my_starts[j]
+      if (lane == 0) {
+        int sum = 0;
+        for (int j = 0; j < m; ++j) {
+          my_starts[j] = sum;
+          sum += n_rows[j * BWD_ROWS + ty] * n_cols[j * BWD_COLS + tx];
+        }
+        my_starts[m] = sum;
+      }
+      __syncwarp();
+      const int total = my_starts[m];
+      for (int e0 = 0; e0 < total;) {
+        if (n_terms == BWD_TERMS) {
+          sum_terms<VEC>(my_terms, n_terms, g_img, nch, acc);
+          n_terms = 0;
+        }
+        const int take = min(BWD_TERMS - n_terms, total - e0);
+        for (int e = e0 + lane; e < e0 + take; e += 32) {  // expand: a lane per term
+          int j = 0;
+          while (e >= my_starts[j + 1]) ++j;
+          const int local = e - my_starts[j];
+          const int nc = n_cols[j * BWD_COLS + tx];
+          const int k = local / nc, q = local - k * nc;
+          const Bin br = rows[(j * BWD_ROWS + ty) * out + k];
+          const Bin bc = cols[(j * BWD_COLS + tx) * out + q];
+          my_terms[n_terms + e - e0] = Term{br.off + bc.off,
+                                            __fdiv_rn(__fmul_rn(br.w, bc.w), n_samples)};
+        }
+        __syncwarp();
+        n_terms += take;
+        e0 += take;
+      }
+    }
+    __syncthreads();  // kept and the bins are rewritten by the next block of rois
+  }
+  sum_terms<VEC>(my_terms, n_terms, g_img, nch, acc);
+  const int y = y_lo + ty, x = x_lo + tx;
+  if (y < y_hi && x < x_hi && nch > 0) {
+    store8m(pyr.base[lv] + ((static_cast<int64_t>(n) * h + y) * w + x) * c + ch, nch, VEC, acc);
+  }
+}
+
 int sm_count() {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess) {
@@ -594,6 +928,84 @@ int launch_bwd(const void* grad_out, const void* rois, int batch, int h, int w, 
   return static_cast<int>(cudaGetLastError());
 }
 
+// The four levels' bases and extents from the host arrays; false if an
+// extent is not positive.
+template <typename T>
+bool make_pyramid(Pyramid<T>& pyr, void* const* bases, const int* hs, const int* ws) {
+  for (int l = 0; l < LEVELS; ++l) {
+    if (hs[l] <= 0 || ws[l] <= 0) return false;
+    pyr.base[l] = static_cast<T*>(bases[l]);
+    pyr.h[l] = hs[l];
+    pyr.w[l] = ws[l];
+  }
+  return true;
+}
+
+template <typename T, typename O>
+int launch_multilevel_fwd(void* const* feats, const int* hs, const int* ws, const void* rois,
+                          const void* levels, int batch, int c, int r, float img_h, float img_w,
+                          int out, int s, void* dst, cudaStream_t stream) {
+  const int64_t n_rois = static_cast<int64_t>(batch) * r;
+  if (n_rois == 0 || c == 0) return 0;
+  const int p_total = out * s;
+  if (p_total > MAX_SAMPLES) return static_cast<int>(cudaErrorInvalidValue);
+  Pyramid<const T> pyr{};
+  if (!make_pyramid(pyr, feats, hs, ws)) return static_cast<int>(cudaErrorInvalidValue);
+  const int warps = FWD_THREADS / 32;
+  const int max_splits = ceil_div(static_cast<int64_t>(out) * out, warps);
+  // enough blocks for two full waves of 256-thread blocks
+  const int want = ceil_div(2LL * sm_count() * (2048 / FWD_THREADS), n_rois);
+  const int splits = max(1, min(want, max_splits));
+  bool vec = c % 8 == 0 && aligned(dst, 16);
+  for (int l = 0; l < LEVELS; ++l) vec = vec && aligned(feats[l], 16);
+  const dim3 grid(static_cast<unsigned int>(n_rois), static_cast<unsigned int>(splits));
+  auto kernel = vec ? multilevel_roi_align_kernel<T, O, true>
+                    : multilevel_roi_align_kernel<T, O, false>;
+  kernel<<<grid, FWD_THREADS, 2 * p_total * sizeof(Axis), stream>>>(
+      pyr, static_cast<const float*>(rois), static_cast<const int*>(levels), img_h, img_w, c, r,
+      out, s, static_cast<O*>(dst));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename G, typename F>
+int launch_multilevel_bwd(const void* grad_out, const void* rois, const void* levels, int batch,
+                          const int* hs, const int* ws, int c, int r, float img_h, float img_w,
+                          int out, int s, void* const* grads, cudaStream_t stream) {
+  if (batch == 0 || c == 0) return 0;
+  const int p_total = out * s;
+  if (p_total > MAX_SAMPLES) return static_cast<int>(cudaErrorInvalidValue);
+  // term offsets are 32-bit: one image's grad_out must index with an int
+  if (static_cast<int64_t>(r) * out * out * c > INT32_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Pyramid<F> pyr{};
+  if (!make_pyramid(pyr, grads, hs, ws)) return static_cast<int>(cudaErrorInvalidValue);
+  int64_t blocks = 0;
+  for (int l = 0; l < LEVELS; ++l) {
+    pyr.tiles_y[l] = ceil_div(hs[l], BWD_ROWS);
+    pyr.tiles_x[l] = ceil_div(ws[l], BWD_COLS);
+    pyr.first_block[l] = static_cast<int>(blocks);
+    blocks += static_cast<int64_t>(batch) * pyr.tiles_y[l] * pyr.tiles_x[l];
+  }
+  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  pyr.first_block[LEVELS] = static_cast<int>(blocks);
+  const int chunk = max(1, min(BWD_WARPS, BWD_BIN_BUDGET / out));
+  const int ctiles = ceil_div(c, 256);
+  const size_t smem = BWD_WARPS * BWD_TERMS * sizeof(Term) +
+                      (BWD_THREADS + BWD_WARPS + chunk * (BWD_ROWS + BWD_COLS) +
+                       BWD_WARPS * (chunk + 1)) * sizeof(int) +
+                      static_cast<size_t>(chunk) * (BWD_ROWS + BWD_COLS) * out * sizeof(Bin);
+  bool vec = c % 8 == 0 && aligned(grad_out, 16);
+  for (int l = 0; l < LEVELS; ++l) vec = vec && aligned(grads[l], 16);
+  const dim3 grid(static_cast<unsigned int>(blocks), static_cast<unsigned int>(ctiles));
+  auto kernel = vec ? multilevel_roi_align_bwd_kernel<G, F, true>
+                    : multilevel_roi_align_bwd_kernel<G, F, false>;
+  kernel<<<grid, BWD_THREADS, smem, stream>>>(
+      static_cast<const G*>(grad_out), static_cast<const float*>(rois),
+      static_cast<const int*>(levels), pyr, img_h, img_w, c, r, out, s, chunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -634,6 +1046,51 @@ int roi_align_bwd(const void* grad_out, int grad_bf16, const void* rois, int bat
                                                       grad_feat, st)
                    : launch_bwd<float, float>(grad_out, rois, batch, h, w, c, r, out, s,
                                               grad_feat, st);
+}
+
+// Multi-level forward: feats[4] (P2..P5, each [batch, hs[l], ws[l], c], bf16
+// when feat_bf16, else f32), rois [batch, r, 4] f32 image coordinates,
+// levels [batch, r] int32 (0..3) -> dst [batch, r, out, out, c] (bf16 when
+// out_bf16, else f32). feats, hs and ws are host arrays of 4.
+int multilevel_roi_align_fwd(void* const* feats, const int* hs, const int* ws, int feat_bf16,
+                             const void* rois, const void* levels, int batch, int c, int r,
+                             float img_h, float img_w, int out, int s, void* dst, int out_bf16,
+                             void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (feat_bf16) {
+    return out_bf16 ? launch_multilevel_fwd<__nv_bfloat16, __nv_bfloat16>(
+                          feats, hs, ws, rois, levels, batch, c, r, img_h, img_w, out, s, dst, st)
+                    : launch_multilevel_fwd<__nv_bfloat16, float>(
+                          feats, hs, ws, rois, levels, batch, c, r, img_h, img_w, out, s, dst, st);
+  }
+  return out_bf16 ? launch_multilevel_fwd<float, __nv_bfloat16>(
+                        feats, hs, ws, rois, levels, batch, c, r, img_h, img_w, out, s, dst, st)
+                  : launch_multilevel_fwd<float, float>(feats, hs, ws, rois, levels, batch, c, r,
+                                                        img_h, img_w, out, s, dst, st);
+}
+
+// Multi-level backward: grad_out [batch, r, out, out, c] (bf16 when
+// grad_bf16, else f32), the forward's rois and levels -> grads[4] (P2..P5,
+// each [batch, hs[l], ws[l], c], bf16 when feat_bf16, else f32), every
+// element written once.
+int multilevel_roi_align_bwd(const void* grad_out, int grad_bf16, const void* rois,
+                             const void* levels, int batch, const int* hs, const int* ws, int c,
+                             int r, float img_h, float img_w, int out, int s, void* const* grads,
+                             int feat_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (grad_bf16) {
+    return feat_bf16 ? launch_multilevel_bwd<__nv_bfloat16, __nv_bfloat16>(
+                           grad_out, rois, levels, batch, hs, ws, c, r, img_h, img_w, out, s,
+                           grads, st)
+                     : launch_multilevel_bwd<__nv_bfloat16, float>(
+                           grad_out, rois, levels, batch, hs, ws, c, r, img_h, img_w, out, s,
+                           grads, st);
+  }
+  return feat_bf16 ? launch_multilevel_bwd<float, __nv_bfloat16>(
+                         grad_out, rois, levels, batch, hs, ws, c, r, img_h, img_w, out, s, grads,
+                         st)
+                   : launch_multilevel_bwd<float, float>(grad_out, rois, levels, batch, hs, ws, c,
+                                                         r, img_h, img_w, out, s, grads, st);
 }
 
 const char* roi_align_error_string(int err) {

@@ -4,7 +4,9 @@
 The stages are methods — ``extract_features`` / ``rpn_forward`` / ``propose``
 / ``head_forward`` — and ``forward`` composes them into the inference pass
 with the JAX model's seven outputs. Images and features are NHWC at every
-method boundary.
+method boundary. With ``model.fpn`` the trunk is :class:`ResNetFeatures`, the
+``neck`` an :class:`FPNNeck`, the features the list ``[P2..P6]``, the RPN one
+head shared by every level and the head :class:`FPNDetectionHead`.
 ``nn.Module.training`` switches every BatchNorm between its running and its
 batch statistics (the JAX methods' ``train`` argument); the training step
 (``train/train_step.py``) calls the stages one by one with
@@ -14,17 +16,21 @@ batch statistics (the JAX methods' ``train`` argument); the training step
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
 from replication_faster_rcnn_tpu_torch.config import FasterRCNNConfig
 from replication_faster_rcnn_tpu_torch.device import DeviceLike, resolve_device
-from replication_faster_rcnn_tpu_torch.models.head import DetectionHead
+from replication_faster_rcnn_tpu_torch.models.fpn import FPN_STRIDES, FPNNeck
+from replication_faster_rcnn_tpu_torch.models.head import DetectionHead, FPNDetectionHead
 from replication_faster_rcnn_tpu_torch.models.resnet import (
     BatchNorm,
+    ResNetFeatures,
     ResNetTrunk,
+    stage_channels,
     trunk_channels,
 )
 from replication_faster_rcnn_tpu_torch.models.rpn import RPNHead, batched_proposals
@@ -33,6 +39,8 @@ from replication_faster_rcnn_tpu_torch import ops
 from replication_faster_rcnn_tpu_torch.ops import anchors as anchor_ops
 
 Tensor = torch.Tensor
+# a single-scale feature map, or the FPN levels [P2..P6]
+Features = Union[Tensor, List[Tensor]]
 
 # flax's lecun_normal: a normal truncated at 2 std, rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
@@ -48,20 +56,26 @@ class FasterRCNN(nn.Module):
         cfg = config
         self.config = cfg
         self.compute_dtype = getattr(torch, cfg.model.compute_dtype)
-        if cfg.model.backbone == "vgg16":
-            self.trunk = VGG16Trunk(device=dev)
-            feat_channels = VGG16_TRUNK_CHANNELS
+        m = cfg.model
+        if m.fpn:
+            self.trunk = ResNetFeatures(m.backbone, device=dev)
+            self.neck = FPNNeck(stage_channels(m.backbone), m.fpn_channels, device=dev)
+            self.rpn = RPNHead(m.fpn_channels, cfg.anchors.num_base_anchors, m.fpn_channels,
+                               device=dev)
+            self.head = FPNDetectionHead(m.fpn_channels, m.num_classes, m.roi_size,
+                                         m.roi_sampling_ratio, device=dev)
         else:
-            self.trunk = ResNetTrunk(cfg.model.backbone, device=dev)
-            feat_channels = trunk_channels(cfg.model.backbone)
-        self.rpn = RPNHead(
-            feat_channels, cfg.anchors.num_base_anchors, cfg.model.rpn_mid_channels, device=dev,
-        )
-        self.head = DetectionHead(
-            cfg.model.backbone, cfg.model.num_classes, cfg.model.roi_size,
-            cfg.model.roi_op, cfg.model.roi_sampling_ratio, device=dev,
-        )
-        self._anchors: Dict[Tuple[int, int, torch.device], Tensor] = {}
+            if m.backbone == "vgg16":
+                self.trunk = VGG16Trunk(device=dev)
+                feat_channels = VGG16_TRUNK_CHANNELS
+            else:
+                self.trunk = ResNetTrunk(m.backbone, device=dev)
+                feat_channels = trunk_channels(m.backbone)
+            self.rpn = RPNHead(feat_channels, cfg.anchors.num_base_anchors, m.rpn_mid_channels,
+                               device=dev)
+            self.head = DetectionHead(m.backbone, m.num_classes, m.roi_size, m.roi_op,
+                                      m.roi_sampling_ratio, device=dev)
+        self._anchors: Dict[Tuple, Tensor] = {}
         self.eval()
 
     @property
@@ -76,27 +90,46 @@ class FasterRCNN(nn.Module):
             images = (images.float() / 255.0 - mean) / std
         return images
 
-    def extract_features(self, images: Tensor) -> Tensor:
-        """images NHWC [N, H, W, 3] -> features NHWC [N, H/16, W/16, C]."""
+    def extract_features(self, images: Tensor) -> Features:
+        """images NHWC [N, H, W, 3] -> features NHWC [N, H/16, W/16, C], or
+        with FPN the list [P2..P6] NHWC (strides 4..64)."""
         x = self.preprocess(images).to(self.compute_dtype)
         feat = self.trunk(x.permute(0, 3, 1, 2))  # channels-last NCHW view
+        if self.config.model.fpn:
+            return [p.permute(0, 2, 3, 1).contiguous() for p in self.neck(feat)]
         return feat.permute(0, 2, 3, 1).contiguous()
 
-    def anchors(self, feat_h: int, feat_w: int) -> Tensor:
-        """[feat_h * feat_w * K, 4] float32 anchors on the model's device."""
-        key = (feat_h, feat_w, self.device)
+    def anchors(self, shapes: Tuple[Tuple[int, int], ...]) -> Tensor:
+        """[A, 4] float32 anchors on the model's device for the feature maps
+        of ``shapes`` (one map, or with FPN the levels fine -> coarse, one
+        stride each, concatenated), built once per (shapes, device): a
+        captured graph reads no new host copy."""
+        key = (shapes, self.device)
         a = self._anchors.get(key)
         if a is None:
-            a = torch.from_numpy(
-                anchor_ops.make_anchors(self.config.anchors, (feat_h, feat_w))
-            ).to(self.device)
-            self._anchors[key] = a
+            acfg = self.config.anchors
+            if self.config.model.fpn:
+                a = np.concatenate([
+                    anchor_ops.grid_anchors(
+                        anchor_ops.anchor_base(stride, acfg.ratios, acfg.scales), stride, h, w)
+                    for (h, w), stride in zip(shapes, FPN_STRIDES)])
+            else:
+                a = anchor_ops.make_anchors(acfg, shapes[0])
+            a = self._anchors[key] = torch.from_numpy(a).to(self.device)
         return a
 
-    def rpn_forward(self, feat: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
-        """features -> (logits [N, A, 2], deltas [N, A, 4], anchors [A, 4])."""
+    def rpn_forward(self, feat: Features) -> Tuple[Tensor, Tensor, Tensor]:
+        """features -> (logits [N, A, 2], deltas [N, A, 4], anchors [A, 4]).
+        With FPN the one RPN head runs on every level and the levels'
+        outputs and anchors concatenate fine -> coarse."""
+        if self.config.model.fpn:
+            outs = [self.rpn(level) for level in feat]
+            shapes = tuple((level.shape[1], level.shape[2]) for level in feat)
+            return (torch.cat([lg for lg, _ in outs], dim=1),
+                    torch.cat([dl for _, dl in outs], dim=1),
+                    self.anchors(shapes))
         logits, deltas = self.rpn(feat)
-        return logits, deltas, self.anchors(feat.shape[1], feat.shape[2])
+        return logits, deltas, self.anchors(((feat.shape[1], feat.shape[2]),))
 
     def propose(self, logits: Tensor, deltas: Tensor, anchors: Tensor,
                 img_h: float, img_w: float, train: bool = False
@@ -106,7 +139,7 @@ class FasterRCNN(nn.Module):
             anchors, logits, deltas, img_h, img_w, self.config.proposals, train
         )
 
-    def head_forward(self, feat: Tensor, rois: Tensor, img_h: float, img_w: float,
+    def head_forward(self, feat: Features, rois: Tensor, img_h: float, img_w: float,
                      quant: Optional[dict] = None,
                      generator: Optional[torch.Generator] = None) -> Tuple[Tensor, Tensor]:
         """(cls [N, R, num_classes], reg [N, R, num_classes * 4]); ``quant``:
@@ -138,8 +171,9 @@ def functional_forward(model: FasterRCNN, params: Dict[str, Tensor], images: Ten
 
 def init_parameters(model: FasterRCNN, seed: int = 0) -> FasterRCNN:
     """Random init from a seeded ``torch.Generator`` with the flax model's
-    schemes: trunk/tail convs lecun-normal (truncated, fan-in), RPN convs
-    N(0, 0.01), head cls N(0, 0.01) and reg N(0, 0.001), zero biases,
+    schemes: trunk/tail and FPN neck convs and the FPN head's fc6/fc7
+    lecun-normal (truncated, fan-in), RPN convs N(0, 0.01), head cls
+    N(0, 0.01) and reg N(0, 0.001), zero biases,
     BatchNorm identity (weight 1, bias 0, mean 0, var 1)."""
     gen = torch.Generator(device=model.device).manual_seed(seed)
 

@@ -1,7 +1,8 @@
 """Second-stage detection head: ROI features + backbone tail (ResNet layer4,
 or VGG16's fc6/fc7) + cls/reg Linear (counterpart of the JAX package's
-``models/head.py::DetectionHead``), and :func:`select_class_deltas` for the
-head's regression loss.
+``models/head.py::DetectionHead``), the FPN head (multi-level ROIAlign + two
+fc layers, :class:`FPNDetectionHead`), and :func:`select_class_deltas` for
+the head's regression loss.
 
 In training mode the ResNet tail's BatchNorm uses the batch statistics of
 the N * R crops, and the ROI kernels (ROIAlign or ROIPool) pass the
@@ -16,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from replication_faster_rcnn_tpu_torch.models.fpn import multilevel_roi_align
 from replication_faster_rcnn_tpu_torch.models.resnet import ResNetTail, tail_channels
 from replication_faster_rcnn_tpu_torch.models.vgg import VGG16_TAIL_CHANNELS, VGG16Tail
 from replication_faster_rcnn_tpu_torch import ops
@@ -79,6 +81,47 @@ class DetectionHead(nn.Module):
         quant = quant or {}
         cls = _head_dense(self.cls, embed, quant.get("cls"))
         reg = _head_dense(self.reg, embed, quant.get("reg"))
+        return cls.reshape(n, r, -1), reg.reshape(n, r, -1)
+
+
+class FPNDetectionHead(nn.Module):
+    """The FPN head (the JAX package's ``FPNDetectionHead``): multi-level
+    ROIAlign over P2..P5, then the paper's two-fc box head, ``fc6`` and
+    ``fc7`` (``mlp_dim``, ReLU) in the features' dtype, then cls/reg in
+    float32 through :func:`_head_dense`.
+
+    forward(feats [P2..P6 NHWC], rois [N, R, 4] image coords, img_h, img_w,
+    quant=None, generator=None) -> (cls [N, R, num_classes], reg
+    [N, R, num_classes * 4]). The crops are flattened in (row, column,
+    channel) order, the order of flax's ``fc6`` kernel rows. ``quant`` and
+    ``generator`` keep the single-scale head's call: int8 FPN is not ported
+    and the head draws nothing."""
+
+    def __init__(self, in_channels: int = 256, num_classes: int = 21, roi_size: int = 7,
+                 sampling_ratio: int = 2, mlp_dim: int = 1024, device=None):
+        super().__init__()
+        self.roi_size = roi_size
+        self.sampling_ratio = sampling_ratio
+        self.fc6 = nn.Linear(roi_size * roi_size * in_channels, mlp_dim, device=device)
+        self.fc7 = nn.Linear(mlp_dim, mlp_dim, device=device)
+        self.cls = nn.Linear(mlp_dim, num_classes, device=device)
+        self.reg = nn.Linear(mlp_dim, num_classes * 4, device=device)
+
+    def forward(self, feats, rois: Tensor, img_h: float, img_w: float,
+                quant: Optional[Dict[str, Any]] = None,
+                generator: Optional[torch.Generator] = None) -> Tuple[Tensor, Tensor]:
+        if quant:
+            raise ValueError("int8 serving of the FPN head is not ported yet")
+        n, r = rois.shape[0], rois.shape[1]
+        dtype = feats[0].dtype
+        crops = multilevel_roi_align(feats, rois, img_h, img_w, self.roi_size,
+                                     self.sampling_ratio, out_dtype=dtype)  # [N, R, s, s, C]
+        x = crops.reshape(n * r, -1)
+        for fc in (self.fc6, self.fc7):
+            x = F.relu(F.linear(x, fc.weight.to(dtype), fc.bias.to(dtype)))
+        x = x.float()  # cls/reg logits in float32
+        cls = _head_dense(self.cls, x, None)
+        reg = _head_dense(self.reg, x, None)
         return cls.reshape(n, r, -1), reg.reshape(n, r, -1)
 
 

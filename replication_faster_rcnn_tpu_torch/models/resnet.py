@@ -2,7 +2,8 @@
 
 The Faster R-CNN split: a stride-16 **trunk** (conv1..layer3) gives the
 shared feature map; the **tail** (layer4 + global average pool) embeds the
-pooled ROI crops in the detection head.
+pooled ROI crops in the detection head. With FPN, :class:`ResNetFeatures`
+is the whole network (conv1..layer4) and returns every stage's output.
 
 Modules take NCHW tensors; the model hands them channels-last views of its
 NHWC inputs, so cuDNN runs NHWC underneath without copies. Convolutions
@@ -17,7 +18,7 @@ so ``models/convert.py`` is a pure name and layout mapping.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -191,6 +192,31 @@ class ResNetTrunk(nn.Module):
             for block in layer:
                 x = block(x)
         return x
+
+
+class ResNetFeatures(ResNetTrunk):
+    """conv1..layer4 returning ``[C2, C3, C4, C5]`` (strides 4/8/16/32) for
+    the FPN neck (the JAX package's ``models/fpn.py::ResNetFeatures``).
+    ``layer4`` lives here, not in the head, as in the flax tree."""
+
+    def __init__(self, arch: str = "resnet50", device=None):
+        super().__init__(arch, device)
+        self.layer4 = _stage(arch, trunk_channels(arch), 3, 2, device)
+
+    def forward(self, x: Tensor) -> List[Tensor]:
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
+        feats = []
+        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+            for block in layer:
+                x = block(x)
+            feats.append(x)
+        return feats
+
+
+def stage_channels(arch: str) -> Tuple[int, ...]:
+    """Channels of C2..C5."""
+    return tuple(w * _block(arch).expansion for w in _WIDTHS)
 
 
 class ResNetTail(nn.Module):

@@ -1,5 +1,6 @@
-"""Wrappers of the CUDA ROI kernels: ROIAlign (``csrc/roi_align_kernel.cu``)
-and ROIPool (``csrc/roi_pool_kernel.cu``).
+"""Wrappers of the CUDA ROI kernels: ROIAlign and the FPN's multi-level
+ROIAlign (``csrc/roi_align_kernel.cu``) and ROIPool
+(``csrc/roi_pool_kernel.cu``).
 
 The forward is the counterpart of the JAX package's
 ``ops/pallas/roi_kernel.py::roi_align_pallas`` with the batch written out. A
@@ -25,6 +26,12 @@ splits a tied maximum's gradient as the plain VJP does, sums in float32 in
 a fixed order and writes the feature's dtype. A shape the backward refuses
 (a map too wide for its shared-memory row, or of more than 255 rows for its
 uint8 tie counts) raises ValueError with the kernel's message.
+
+:func:`multilevel_roi_align_cuda` is the FPN's ROIAlign over P2..P5: the
+forward kernel is bitwise ``models/fpn.py::multilevel_roi_align_plain`` (the
+JAX ``method="flat"``), the backward kernel (``_MultilevelRoIAlign``)
+writes the four levels' gradients deterministically. Both read the levels
+that ``models/fpn.py::roi_levels`` computes on the card.
 """
 
 from __future__ import annotations
@@ -49,6 +56,8 @@ launches = 0
 backward_launches = 0
 pool_launches = 0
 pool_backward_launches = 0
+multilevel_launches = 0
+multilevel_backward_launches = 0
 
 # the most samples (out_size * sampling_ratio, ROIPool: out_size) along one
 # axis the kernels take
@@ -70,7 +79,13 @@ def _kernels():
         lib.roi_align_bwd.restype = ctypes.c_int
         lib.roi_align_error_string.argtypes = [ctypes.c_int]
         lib.roi_align_error_string.restype = ctypes.c_char_p
-        _fns = (lib.roi_align_fwd, lib.roi_align_bwd, lib.roi_align_error_string)
+        f = ctypes.c_float
+        lib.multilevel_roi_align_fwd.argtypes = [p, p, p, i, p, p, i, i, i, f, f, i, i, p, i, p]
+        lib.multilevel_roi_align_bwd.argtypes = [p, i, p, p, i, p, p, i, i, f, f, i, i, p, i, p]
+        lib.multilevel_roi_align_fwd.restype = ctypes.c_int
+        lib.multilevel_roi_align_bwd.restype = ctypes.c_int
+        _fns = (lib.roi_align_fwd, lib.roi_align_bwd, lib.roi_align_error_string,
+                lib.multilevel_roi_align_fwd, lib.multilevel_roi_align_bwd)
     return _fns
 
 
@@ -115,7 +130,7 @@ def _forward_cuda(feat: Tensor, rois: Tensor, out_size: int, s: int,
                   out_dtype: torch.dtype, splits: int = 0) -> Tensor:
     """The forward kernel on rois already in feature coordinates. ``splits``
     > 0 fixes the number of blocks per roi (0: the kernel picks)."""
-    fwd, _, err = _kernels()
+    fwd, _, err, _, _ = _kernels()
     feat_flag = _dtype_flag(feat.dtype, "features")
     out_flag = _dtype_flag(out_dtype, "outputs")
     n, h, w, c = feat.shape
@@ -153,7 +168,7 @@ def roi_align_backward_cuda(
         raise ValueError("grad_out and rois must be on the same CUDA device")
     if out_size * s > MAX_SAMPLES:
         raise ValueError(f"the kernels take out_size * sampling_ratio <= {MAX_SAMPLES}")
-    _, bwd, err = _kernels()
+    _, bwd, err, _, _ = _kernels()
     grad_flag = _dtype_flag(grad_out.dtype, "gradients")
     feat_flag = _dtype_flag(feat_dtype, "features")
     grad_out = grad_out.contiguous()
@@ -321,3 +336,141 @@ def roi_pool_cuda(
         )
     rois = (rois.float() * spatial_scale).contiguous()
     return _RoIPool.apply(feat, rois, out_size)
+
+
+def _levels_arrays(shapes):
+    """Host int arrays of the four levels' heights and widths."""
+    four = ctypes.c_int * 4
+    return four(*(int(sh[1]) for sh in shapes)), four(*(int(sh[2]) for sh in shapes))
+
+
+def _pointers(tensors):
+    return (ctypes.c_void_p * 4)(*(t.data_ptr() for t in tensors))
+
+
+def _multilevel_forward_cuda(feats, rois: Tensor, levels: Tensor, img_h: float, img_w: float,
+                             out_size: int, s: int, out_dtype: torch.dtype) -> Tensor:
+    """The multi-level forward kernel: P2..P5 (contiguous, one dtype), rois
+    [N, R, 4] float32 image coordinates, levels [N, R] int32."""
+    _, _, err, fwd, _ = _kernels()
+    feat_flag = _dtype_flag(feats[0].dtype, "features")
+    out_flag = _dtype_flag(out_dtype, "outputs")
+    n, c = feats[0].shape[0], feats[0].shape[-1]
+    r = rois.shape[1]
+    out = torch.empty(n, r, out_size, out_size, c, dtype=out_dtype, device=rois.device)
+    if out.numel() == 0:
+        return out
+    hs, ws = _levels_arrays([f.shape for f in feats])
+    with torch.cuda.device(rois.device):
+        stream = torch.cuda.current_stream(rois.device).cuda_stream
+        rc = fwd(_pointers(feats), hs, ws, feat_flag, rois.data_ptr(), levels.data_ptr(), n, c, r,
+                 img_h, img_w, out_size, s, out.data_ptr(), out_flag, stream)
+    build.check(rc, err, "multilevel_roi_align_kernel")
+    global multilevel_launches
+    multilevel_launches += 1
+    return out
+
+
+def multilevel_roi_align_backward_cuda(grad_out: Tensor, rois: Tensor, levels: Tensor, shapes,
+                                       feat_dtype: torch.dtype, img_h: float, img_w: float,
+                                       out_size: int, s: int):
+    """The multi-level backward kernel: grad_out [N, R, out, out, C]
+    (float32 or bfloat16), the forward's rois (image coordinates) and
+    levels -> the gradients of P2..P5 (``shapes``) in ``feat_dtype``, the
+    same bits in every run."""
+    n, c = shapes[0][0], shapes[0][-1]
+    r = rois.shape[1]
+    if tuple(grad_out.shape) != (n, r, out_size, out_size, c):
+        raise ValueError(
+            f"grad_out must be {(n, r, out_size, out_size, c)}, got {tuple(grad_out.shape)}")
+    if not (grad_out.is_cuda and rois.device == grad_out.device == levels.device):
+        raise ValueError("grad_out, rois and levels must be on the same CUDA device")
+    _, _, err, _, bwd = _kernels()
+    grad_flag = _dtype_flag(grad_out.dtype, "gradients")
+    feat_flag = _dtype_flag(feat_dtype, "features")
+    grad_out = grad_out.contiguous()
+    grads = [torch.empty(sh, dtype=feat_dtype, device=grad_out.device) for sh in shapes]
+    if grad_out.numel() == 0:
+        return [g.zero_() for g in grads]
+    hs, ws = _levels_arrays(shapes)
+    with torch.cuda.device(grad_out.device):
+        stream = torch.cuda.current_stream(grad_out.device).cuda_stream
+        rc = bwd(grad_out.data_ptr(), grad_flag, rois.data_ptr(), levels.data_ptr(), n, hs, ws,
+                 c, r, img_h, img_w, out_size, s, _pointers(grads), feat_flag, stream)
+    build.check(rc, err, "multilevel_roi_align_bwd_kernel")
+    global multilevel_backward_launches
+    multilevel_backward_launches += 1
+    return grads
+
+
+class _MultilevelRoIAlign(torch.autograd.Function):
+    """Multi-level ROIAlign with the kernels in both directions (CUDA
+    tensors only); the gradient goes to the four levels."""
+
+    @staticmethod
+    def forward(ctx, rois: Tensor, levels: Tensor, img_h: float, img_w: float, out_size: int,
+                s: int, out_dtype: torch.dtype, *feats: Tensor) -> Tensor:
+        ctx.save_for_backward(rois, levels)
+        ctx.meta = ([tuple(f.shape) for f in feats], feats[0].dtype, img_h, img_w, out_size, s)
+        return _multilevel_forward_cuda(feats, rois, levels, img_h, img_w, out_size, s,
+                                        out_dtype)
+
+    @staticmethod
+    def backward(ctx, grad_out: Tensor):
+        rois, levels = ctx.saved_tensors
+        shapes, dtype, img_h, img_w, out_size, s = ctx.meta
+        grads = [None] * 4
+        if any(ctx.needs_input_grad[7:]):
+            grads = multilevel_roi_align_backward_cuda(grad_out, rois, levels, shapes, dtype,
+                                                       img_h, img_w, out_size, s)
+        return (None,) * 7 + tuple(grads)
+
+
+def multilevel_roi_align_cuda(
+    feats,
+    rois: Tensor,
+    img_h: float,
+    img_w: float,
+    out_size: int = 7,
+    sampling_ratio: int = 2,
+    out_dtype: torch.dtype = torch.float32,
+) -> Tensor:
+    """FPN ROIAlign: ``feats`` P2..P5 NHWC (a fifth level, P6, is ignored;
+    f32 or bf16, one dtype), rois [N, R, 4] image coordinates -> [N, R, out,
+    out, C] in ``out_dtype``, differentiable with respect to the four
+    levels. Each roi's level is ``models/fpn.py::roi_levels``, computed here
+    with the plain tensor operations and passed to both kernels. A CPU
+    tensor runs ``models/fpn.py::multilevel_roi_align_plain`` (and its
+    autograd)."""
+    from replication_faster_rcnn_tpu_torch.models.fpn import (
+        multilevel_roi_align_plain,
+        roi_levels,
+    )
+
+    feats = list(feats[:4])
+    if len(feats) != 4:
+        raise ValueError(f"expected the levels P2..P5, got {len(feats)}")
+    n = rois.shape[0]
+    for f in feats:
+        if f.dim() != 4 or f.shape[0] != n or f.shape[-1] != feats[0].shape[-1]:
+            raise ValueError(f"levels must be [{n}, H, W, C] with one C, got "
+                             f"{[tuple(x.shape) for x in feats]}")
+        if f.device != rois.device or f.dtype != feats[0].dtype:
+            raise ValueError("the levels and rois must be on one device, the levels of one dtype")
+    if rois.dim() != 3 or rois.shape[-1] != 4:
+        raise ValueError(f"rois must be [{n}, R, 4], got {tuple(rois.shape)}")
+    if not rois.is_cuda:
+        return multilevel_roi_align_plain(feats, rois, img_h, img_w, out_size,
+                                          sampling_ratio).to(out_dtype)
+    if out_size * sampling_ratio > MAX_SAMPLES:
+        raise ValueError(f"the kernels take out_size * sampling_ratio <= {MAX_SAMPLES}")
+    if rois.requires_grad and torch.is_grad_enabled():
+        raise ValueError(
+            "multilevel_roi_align_cuda gives no gradient to the rois; detach them (the "
+            "training path's proposals and gt boxes carry none)"
+        )
+    rois = rois.float().contiguous()
+    levels = roi_levels(rois).contiguous()
+    feats = [f.contiguous() for f in feats]
+    return _MultilevelRoIAlign.apply(rois, levels, float(img_h), float(img_w), out_size,
+                                     sampling_ratio, out_dtype, *feats)

@@ -45,6 +45,7 @@ from replication_faster_rcnn_tpu_torch.quant.calibrate import (
     path_key,
     quantizable,
     quantize_weight,
+    refuse_fpn,
     state_key,
 )
 
@@ -73,7 +74,9 @@ def quantize_variables(
     "quant": {"head": {"cls"|"reg": {"w_scale", "x_scale"}}}}`` on the CPU
     (``quant`` only when the head is planned int8). ``compute_dtype``
     (default bfloat16) is the dtype of everything the plan does not keep
-    int8. The int8 leaves are bitwise the JAX package's, transposed."""
+    int8. The int8 leaves are bitwise the JAX package's, transposed. An FPN
+    model's state raises ValueError (int8 FPN is not ported yet)."""
+    refuse_fpn(variables)
     compute_dtype = compute_dtype or torch.bfloat16
     x_scale = np.float32(embed_scale(artifact["activation_ranges"]))
     int8: Dict[str, Tensor] = {}

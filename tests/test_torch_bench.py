@@ -4,7 +4,10 @@ Two test ids, each a loop of cases (each id costs the fast tier's budget):
 
 - the benchmark: the train line of ``benchmark.main`` (with a profiler
   capture) and the eval line of ``_measure_eval`` at the CLI tests' tiny
-  config hold the JAX lines' keys, metric names and breakdown keys; ``compute_mfu`` and the peak table; the
+  config hold the JAX lines' keys, metric names and breakdown keys, and so
+  do the lines of ``voc_resnet50_fpn``'s wiring (ResNet18) there, whose FPN
+  neck's FLOP count is within [0.97, 1.0] of JAX's (XLA also counts the
+  top-down adds); ``compute_mfu`` and the peak table; the
   watchdog's error line; the FLOP count of one flagship step (600x600, b1)
   within [0.95, 1.0] of JAX's HloCostAnalysis count, and the ResNet tail's
   forward and forward+backward within 1% of it;
@@ -34,6 +37,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from replication_faster_rcnn_tpu import benchmark as j_bench
 from replication_faster_rcnn_tpu import config as jconfig
 from replication_faster_rcnn_tpu.data import SyntheticDataset as JSyntheticDataset
+from replication_faster_rcnn_tpu.models.fpn import FPNNeck as JFPNNeck
 from replication_faster_rcnn_tpu.models.resnet import ResNetTail as JResNetTail
 from replication_faster_rcnn_tpu.telemetry import mfu as j_mfu
 from replication_faster_rcnn_tpu.telemetry import report as j_report
@@ -43,6 +47,7 @@ from replication_faster_rcnn_tpu.train.trainer import Trainer as JTrainer
 from replication_faster_rcnn_tpu_torch import benchmark
 from replication_faster_rcnn_tpu_torch import config as tconfig
 from replication_faster_rcnn_tpu_torch.data.synthetic import SyntheticDataset
+from replication_faster_rcnn_tpu_torch.models.fpn import FPNNeck
 from replication_faster_rcnn_tpu_torch.models.resnet import ResNetTail
 from replication_faster_rcnn_tpu_torch.telemetry import mfu, report, spans, watchdog
 from replication_faster_rcnn_tpu_torch.train import fault
@@ -99,6 +104,32 @@ def test_benchmark_matches_jax(monkeypatch, capsys, tmp_path):
         bd["backward_ms"] + bd["opt_update_ms"], abs=0.05)
     assert t_eval["value"] > 0 and t_eval["vs_baseline"] is None
     assert (t_eval["batch_size"], t_eval["note"]) == (2, j_eval["note"])
+
+    # voc_resnet50_fpn's wiring (ResNet18 for speed) at the tiny config: the
+    # JAX lines' keys and breakdown keys; the trunk stage times the list of
+    # levels; the FLOP count holds the neck's convolutions as XLA counts them
+    fpn = _tiny(tconfig).replace(model=dataclasses.replace(
+        tconfig.get_config("voc_resnet50_fpn").model, backbone="resnet18"),
+        anchors=tconfig.get_config("voc_resnet50_fpn").anchors)
+    benchmark.main(fpn, device="cpu")
+    t_fpn = _last_line(capsys)
+    benchmark._measure_eval(fpn, device="cpu")
+    t_fpn_eval = _last_line(capsys)
+    assert list(t_fpn) == list(j_train) and list(t_fpn_eval) == list(j_eval)
+    assert set(t_fpn["breakdown"]) == set(j_train["breakdown"])
+    assert t_fpn["metric"] == j_train["metric"] and t_fpn_eval["metric"] == j_eval["metric"]
+    assert t_fpn["breakdown"]["trunk_ms"] > 0 and t_fpn["mfu"] > 0 and t_fpn_eval["value"] > 0
+    feats = [jnp.zeros((2, 16 // 2**i, 16 // 2**i, c), jnp.float32)
+             for i, c in enumerate((64, 128, 256, 512))]
+    jneck = JFPNNeck(256, jnp.float32)
+    nv = jneck.init(jax.random.PRNGKey(0), feats)
+    j_neck = j_bench.lowered_cost(lambda p, f: sum(x.sum() for x in jneck.apply(p, f)), nv,
+                                  feats)["flops"]
+    neck = FPNNeck((64, 128, 256, 512), 256, device="cpu")
+    t_neck = benchmark.count_flops(lambda: neck([torch.zeros(x.shape).permute(0, 3, 1, 2)
+                                                 for x in feats]))
+    assert 0.97 <= t_neck / j_neck <= 1.0, (t_neck, j_neck)
+    assert t_fpn["flops_per_step"] > 3 * t_neck
 
     # MFU arithmetic and the peak bases
     for case in ((2.1e12, 4.0, 989.4e12), (1e9, 2.5, 1e11), (0.0, 1.0, 1e11),

@@ -72,6 +72,7 @@ def _entry_points():
         "resolve_device": lambda **kw: resolve_device(**kw),
         "FasterRCNN": lambda **kw: FasterRCNN(cfg, **kw),
         "build_model": lambda **kw: build_model(cfg, **kw),
+        "build_model FPN": lambda **kw: build_model(config.get_config("voc_resnet50_fpn"), **kw),
         "InferenceEngine": lambda **kw: InferenceEngine(cfg, **kw),
         "Trainer": lambda **kw: Trainer(cfg, SyntheticDataset(cfg.data, length=8), **kw),
         "Evaluator": lambda **kw: Evaluator(cfg, **kw),
@@ -95,7 +96,7 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
                   str(tmp_path), "--port", "0", *device])
     entry_points = _entry_points()
     assert list(entry_points) == ["resolve_device", "FasterRCNN", "build_model",
-                                  "InferenceEngine", "Trainer", "Evaluator", "get_engine",
+                                  "build_model FPN", "InferenceEngine", "Trainer", "Evaluator", "get_engine",
                                   "get_evaluator"]
     for name, make in entry_points.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):

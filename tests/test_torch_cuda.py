@@ -27,7 +27,14 @@ def _boxes(rng, shape, size=100.0):
     return torch.from_numpy(np.concatenate([p1, p1 + wh], -1).astype(np.float32))
 
 
-def test_nms_kernel_matches_plain(dev):
+def test_nms_and_iou_match_kernels_match_plain(dev):
+    """One test id for the NMS and the IoU-matching kernels (each id costs
+    the fast tier's budget)."""
+    _nms_cases(dev)
+    _iou_cases(dev)
+
+
+def _nms_cases(dev):
     # N at and around the 64-candidate mask word, several row chunks, and a
     # walk whose prefetch buffers exceed 48 KB of shared memory (N >= 3000)
     for case in [(1, 1, 1, 0.5), (3, 255, 50, 0.5), (2, 257, 300, 0.3), (4, 700, 5, 0.7),
@@ -108,7 +115,18 @@ def _nms_empty_and_all_masked(dev):
         nms_kernel.nms_fixed_cuda(boxes, torch.zeros(2, 39, device=dev), 0.5, 10)
 
 
-def test_roi_align_kernel_matches_gather(dev):
+def test_roi_align_kernels_match_plain(dev):
+    """One test id for the ROIAlign kernels (each id costs the fast tier's
+    budget): the forward against its gather twin, the backward against the
+    plain scatter, a training step reaching the trunk through both, and the
+    FPN's multi-level forward and backward against their plain versions."""
+    _roi_forward_cases(dev)
+    _roi_backward_cases(dev)
+    _training_reaches_the_trunk_through_roi_align_cuda(dev)
+    _multilevel_cases(dev)
+
+
+def _roi_forward_cases(dev):
     # C not a multiple of 8 (the scalar path), multiples (16-byte vectors,
     # one channel tile or a second, nearly empty one),
     # bins split over several blocks (few rois) or not, float32 and
@@ -294,7 +312,7 @@ def _pool_edge_cases(dev):
 # ------------------------------------------------------------- IoU matching
 
 
-def test_iou_match_kernel_bitwise(dev):
+def _iou_cases(dev):
     for case in [(2, 257, 5, False, "random"),       # M not a multiple of the 256-row block
                  (3, 1000, 1, True, "random"),       # G = 1
                  (2, 300, 4, False, "all_padded"),   # every gt column padded
@@ -384,7 +402,7 @@ def _iou_case(dev, b, m, g, shared, case):
 # ------------------------------------------------------------ ROIAlign backward
 
 
-def test_roi_align_backward_kernel_matches_plain(dev):
+def _roi_backward_cases(dev):
     # C not a multiple of 8 or of the 256-channel tile, float32 and
     # bfloat16 gradients and features, s*s a power of two or not, N = 1
     for dtype in (torch.float32, torch.bfloat16):
@@ -459,7 +477,7 @@ def _roi_bwd_edge_cases(dev):
         _roi_bwd_check(dev, g.to(grad_dtype), same, (2, 38, 38, 256), torch.bfloat16, 7, 2)
 
 
-def test_training_reaches_the_trunk_through_roi_align_cuda(dev):
+def _training_reaches_the_trunk_through_roi_align_cuda(dev):
     """The head's losses alone give the trunk a gradient on the card, through
     the ROIAlign forward and backward kernels."""
     from replication_faster_rcnn_tpu_torch import get_config
@@ -495,6 +513,75 @@ def test_training_reaches_the_trunk_through_roi_align_cuda(dev):
     del total
     metrics = trainer.train_one_batch(host)  # device scalars: read on the host here
     assert np.isfinite(float(metrics["loss"])) and float(metrics["skipped"]) == 0.0
+
+
+def _multilevel_cases(dev):
+    """The FPN's multi-level ROIAlign kernels against the plain version on
+    small pyramids of odd level sizes: C not a multiple of 8 (the scalar
+    paths), multiples over one channel tile or two, float32 and bfloat16
+    features and outputs, rois on every level and outside the image, a
+    batch of one, no rois. The forward bitwise; the backward twice bitwise,
+    through autograd bitwise the direct call, and within tolerance of the
+    plain VJP on float32 copies (``chip_smoke.ROI_BWD_TOL``'s). First, the
+    levels both kernels read: ``roi_levels`` on the card equal to the CPU's
+    (held to the operation-by-operation JAX by test_torch_fpn.py) for
+    squares of every float32 side within 4,096 ulps of 56, 112, 224, 448."""
+    from replication_faster_rcnn_tpu_torch.models.fpn import (
+        multilevel_roi_align_plain,
+        roi_levels,
+    )
+    from replication_faster_rcnn_tpu_torch.ops.cuda import roi_kernel
+
+    sides = torch.from_numpy(np.concatenate([
+        (np.float32(v).view(np.int32) + np.arange(-4096, 4097, dtype=np.int32)).view(np.float32)
+        for v in (56.0, 112.0, 224.0, 448.0)]))
+    squares = torch.stack([torch.zeros_like(sides)] * 2 + [sides] * 2, dim=-1)
+    assert torch.equal(roi_levels(squares.to(dev)).cpu(), roi_levels(squares))
+
+    rng = np.random.default_rng(3)
+    tol = {torch.float32: dict(atol=1e-4, rtol=1e-5), torch.bfloat16: dict(atol=1e-4, rtol=2**-7)}
+    for dtype in (torch.float32, torch.bfloat16):
+        for c, n, r, shapes in [(3, 2, 37, ((20, 17), (10, 9), (5, 5), (3, 3))),
+                                (16, 1, 60, ((38, 38), (19, 19), (10, 10), (5, 5))),
+                                (264, 2, 25, ((13, 11), (7, 6), (4, 3), (2, 2))),
+                                (8, 2, 0, ((8, 8), (4, 4), (2, 2), (1, 1)))]:
+            feats = [torch.from_numpy(rng.normal(0, 1, (n, h, w, c)).astype(np.float32))
+                     .to(dev).to(dtype) for h, w in shapes]
+            p1 = rng.uniform(-50, 600, (n, r, 2))
+            rois = torch.from_numpy(np.concatenate([p1, p1 + rng.uniform(0, 600, (n, r, 2))], -1)
+                                    .astype(np.float32)).to(dev)
+            if r:
+                assert set(roi_levels(rois).reshape(-1).tolist()) == {0, 1, 2, 3}
+            for out_dtype in (torch.float32, torch.bfloat16):
+                got = roi_kernel.multilevel_roi_align_cuda(feats, rois, 600.0, 600.0, 7, 2,
+                                                           out_dtype)
+                want = multilevel_roi_align_plain(feats, rois, 600.0, 600.0).to(out_dtype)
+                assert got.dtype == out_dtype and torch.equal(got, want), (dtype, c, out_dtype)
+            g = torch.from_numpy(rng.normal(0, 1, (n, r, 7, 7, c)).astype(np.float32)).to(dev)
+            levels = roi_levels(rois)
+            shapes4 = [tuple(f.shape) for f in feats]
+            a = roi_kernel.multilevel_roi_align_backward_cuda(g, rois, levels, shapes4, dtype,
+                                                              600.0, 600.0, 7, 2)
+            b = roi_kernel.multilevel_roi_align_backward_cuda(g, rois, levels, shapes4, dtype,
+                                                              600.0, 600.0, 7, 2)
+            leaves = [f.detach().clone().requires_grad_(True) for f in feats]
+            out = roi_kernel.multilevel_roi_align_cuda(leaves, rois, 600.0, 600.0, 7, 2, dtype)
+            via = torch.autograd.grad(out, leaves, g.to(dtype)) if r else a
+            with torch.enable_grad():
+                f32 = [f.detach().float().requires_grad_(True) for f in feats]
+                plain = multilevel_roi_align_plain(f32, rois, 600.0, 600.0)
+                want = torch.autograd.grad(plain, f32, g, allow_unused=True)
+            for ga, gb, gv, gw in zip(a, b, via, want):
+                assert ga.dtype == dtype and torch.equal(ga, gb)
+                if dtype == torch.float32:  # autograd hands the kernel float32 gradients
+                    assert torch.equal(ga, gv)
+                gw = torch.zeros_like(gw) if gw is None else gw
+                assert torch.allclose(ga.float(), gw.to(dtype).float(), **tol[dtype]), (
+                    dtype, c, float((ga.float() - gw).abs().max()))
+    rois = torch.zeros(1, 4, 4, device=dev, requires_grad=True)
+    with pytest.raises(ValueError, match="no gradient to the rois"):
+        roi_kernel.multilevel_roi_align_cuda([torch.zeros(1, 4, 4, 8, device=dev)] * 4, rois,
+                                             64.0, 64.0)
 
 
 # -------------------------------------------------------------- int8 kernels

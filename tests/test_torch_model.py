@@ -260,12 +260,21 @@ def test_presets_match_jax():
     ``coco_resnet50`` (ROIAlign, 81 classes) and ``coco_vgg16`` (VGG16
     trunk, 512-wide RPN, 12 anchors, fc6/fc7 tail, ROIPool, 81 classes)
     stage by stage in eval mode (``_close``; detections as in
-    ``test_make_infer_fn_matches_jax``); the weight bridge round-trips every
+    ``test_make_infer_fn_matches_jax``); ``voc_resnet50_fpn``'s sections
+    equal JAX's over the port's fields; the weight bridge round-trips every
     preset's JAX tree bitwise; and the VGG16 tail's dropout is the identity
     in eval mode and drops about half from a seeded generator in train
     mode."""
     rng = np.random.default_rng(7)
     images = rng.integers(0, 256, (2,) + SIZE + (3,), dtype=np.uint8)
+    # voc_resnet50_fpn: every section equals JAX's over the port's fields
+    # (its model is held against JAX's in tests/test_torch_fpn.py)
+    for section in ("model", "anchors", "data", "serving", "fleet", "telemetry"):
+        tsec = getattr(tconfig.get_config("voc_resnet50_fpn"), section)
+        jsec = getattr(jconfig.get_config("voc_resnet50_fpn"), section)
+        for field in dataclasses.fields(tsec):
+            assert getattr(tsec, field.name) == getattr(jsec, field.name), (section, field.name)
+    assert tconfig.get_config("voc_resnet50_fpn").model.fpn
     heads = {}
     for name in ("voc_resnet18", "voc_resnet50", "coco_resnet50", "coco_vgg16",
                  "voc12_resnet18_align"):
