@@ -56,9 +56,13 @@ H100:  ``python3 chip_smoke.py``. It
    150x150 .. P5 19x19, 256 channels): the forward bitwise its plain
    version (``models/fpn.py::multilevel_roi_align_plain``, the JAX ``flat``
    op by op) at serving 8 x 300 and 1 x 300 (bf16 -> bf16, f32 -> f32),
-   training 8 x 128, rois at the level-boundary areas and clustered rois;
-   the backward twice bitwise and within ``ROI_BWD_TOL`` of the plain VJP
-   on float32 copies; both captured and replayed in the capture check; and
+   training 8 x 128, rois at the level-boundary areas, clustered rois,
+   elongated rois (about 600 x 20 and 20 x 600 image pixels), 128 rois
+   about one spot (more than 32 in a backward tile, every one on P2) and
+   1 x 1000 rois; the backward at 8 x 128, 8 x 300 and 1 x 1000 twice
+   bitwise and within ``ROI_BWD_TOL`` of the plain VJP on float32 copies,
+   a level no roi lands on exactly zero; both captured and replayed in the
+   capture check; and
    IoU matching over the FPN's 90,090 anchors (8 x 32 gt, column argmax)
    and the proposal NMS over boxes about them (8 x 12000 -> 600 and 8 x
    3000 -> 300);
@@ -1620,6 +1624,7 @@ def check_multilevel_bwd(torch, name, grad_out, feats, rois):
     got, again, want = kernel(), kernel(), plain()
     torch.cuda.synchronize()
     tol = ROI_BWD_TOL[str(dtype).split(".")[-1]]
+    counts = torch.bincount(levels.reshape(-1).long(), minlength=4).tolist()
     err = 0.0
     for li, (g, a, w) in enumerate(zip(got, again, want)):
         if g.dtype != dtype or g.shape != w.shape:
@@ -1627,6 +1632,9 @@ def check_multilevel_bwd(torch, name, grad_out, feats, rois):
                                  f"{tuple(g.shape)}")
         if not bitwise(torch, g, a):
             raise AssertionError(f"multilevel backward {name}: two launches differ at P{li + 2}")
+        if counts[li] == 0 and bool(g.any()):
+            raise AssertionError(f"multilevel backward {name}: P{li + 2} has no roi but a "
+                                 "nonzero gradient")
         err = max(err, float((g.float() - w).abs().max()))
         if not torch.allclose(g.float(), w.to(dtype).float(), **tol):
             raise AssertionError(f"multilevel backward {name}: P{li + 2} max err {err} beyond "
@@ -1635,10 +1643,10 @@ def check_multilevel_bwd(torch, name, grad_out, feats, rois):
     plain_ms = time_ms(torch, plain, 2, 1)
     bound_ms, bound_by = ml_bwd_bound(torch, grad_out, rois, shapes, dtype, 2)
     log(f"  multilevel_roi_align_bwd {name}: max |kernel - plain VJP on float32| {err:.3e} "
-        f"({tol}), two launches bitwise equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.5f} ms ({bound_by})")
+        f"({tol}), two launches bitwise equal, rois per level {counts}, kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "max_abs_err": err, "deterministic": True}
+            "max_abs_err": err, "deterministic": True, "rois_per_level": counts}
 
 
 def level_sweep(torch, dev):
@@ -1674,42 +1682,93 @@ def check_levels(torch, dev, edge):
     return out
 
 
-def check_multilevel_kernels(torch, dev, b=8):
-    """Phase [3], the FPN's multi-level ROIAlign at the 600x600 pyramid
-    (P2 150x150 .. P5 19x19, 256 channels): the forward bitwise its plain
-    version at serving 8 x 300 and 1 x 300 (bf16 -> bf16 and f32 -> f32),
-    training 8 x 128 (bf16 -> bf16), boundary-area and clustered rois; the
-    backward at 8 x 128 from bf16 and f32 gradients (and on the boundary
-    and clustered rois) deterministic and within ``ROI_BWD_TOL`` of the
-    plain VJP; each timed with its bound."""
+def elongated_rois(torch, rng, dev, b, r):
+    """Random rois of which a quarter are long and thin: about 600 x 20 image
+    pixels (150 x 5 on P2) wide or tall, in equal numbers, some reaching
+    past the image."""
+    boxes = rand_boxes(rng, (b, r), 600, 500)
+    k = r // 4
+    long_side = rng.uniform(560, 640, (b, k))
+    short_side = rng.uniform(12, 24, (b, k))
+    y, x = rng.uniform(-20, 600, (b, k)), rng.uniform(-40, 40, (b, k))
+    wide = np.arange(k) < k // 2
+    h = np.where(wide, short_side, long_side)
+    w = np.where(wide, long_side, short_side)
+    y, x = np.where(wide, y, x), np.where(wide, x, y)
+    boxes[:, :k] = np.stack([y, x, y + h, x + w], -1)
+    return torch.from_numpy(boxes.astype(np.float32)).to(dev)
+
+
+def dense_rois(torch, rng, dev, b, r):
+    """``r`` rois of sides 60-100 image pixels (all on P2) about one spot of
+    each image: every one reaches the same few backward tiles, and P3-P5
+    get no roi."""
+    centre = rng.uniform(150, 450, (b, 1, 2))
+    half = rng.uniform(30, 50, (b, r, 2))
+    c = centre + rng.normal(0, 4, (b, r, 2))
+    return torch.from_numpy(np.concatenate([c - half, c + half], -1).astype(np.float32)).to(dev)
+
+
+def multilevel_cases(torch, dev, b=8):
+    """[3]'s multi-level inputs at the 600x600 pyramid, drawn from one seed:
+    the forward's ``{key: (label, levels, rois, out_dtype)}``, the
+    backward's ``{key: (label, grad_out, levels, rois)}`` and the
+    boundary-area rois."""
     rng = np.random.default_rng(11)
     bf16 = torch.bfloat16
-    res = {}
     p32 = ml_pyramid(torch, rng, dev, b, torch.float32)
     p16 = [f.to(bf16) for f in p32]
     rois = torch.from_numpy(rand_boxes(rng, (b, 300), 600, 500)).to(dev)
     rois[:, :32] = boundary_rois(torch, dev, b, 32)
-    res["serve_b8_bf16"] = check_multilevel(torch, "serve bf16 -> bf16 8x300", p16, rois, bf16)
-    res["serve_b8_f32"] = check_multilevel(torch, "serve f32 -> f32 8x300", p32, rois,
-                                           torch.float32)
     one = rois[:1].contiguous()
-    res["serve_b1_bf16"] = check_multilevel(torch, "serve bf16 -> bf16 1x300",
-                                            [f[:1] for f in p16], one, bf16)
-    res["serve_b1_f32"] = check_multilevel(torch, "serve f32 -> f32 1x300",
-                                           [f[:1] for f in p32], one, torch.float32)
     trois = torch.from_numpy(rand_boxes(rng, (b, 128), 600, 500)).to(dev)
-    res["train_b8_bf16"] = check_multilevel(torch, "train bf16 -> bf16 8x128", p16, trois, bf16)
     edge = boundary_rois(torch, dev, b, 128)
-    levels = check_levels(torch, dev, edge)
-    res["boundary_bf16"] = check_multilevel(torch, "boundary areas bf16 8x128", p16, edge, bf16)
     crois = torch.from_numpy(clustered_boxes(rng, b, 128)).to(dev)
-    res["clustered_bf16"] = check_multilevel(torch, "clustered bf16 8x128", p16, crois, bf16)
     g = torch.from_numpy(rng.normal(0, 1, (b, 128, 7, 7, FPN_C)).astype(np.float32)).to(dev)
     g16 = g.to(bf16)
-    res["bwd_bf16"] = check_multilevel_bwd(torch, "bf16 grad 8x128", g16, p16, trois)
-    res["bwd_f32"] = check_multilevel_bwd(torch, "f32 8x128", g, p32, trois)
-    res["bwd_boundary"] = check_multilevel_bwd(torch, "bf16 boundary areas 8x128", g16, p16, edge)
-    res["bwd_clustered"] = check_multilevel_bwd(torch, "bf16 clustered 8x128", g16, p16, crois)
+    lrois = elongated_rois(torch, rng, dev, b, 300)
+    drois = dense_rois(torch, rng, dev, b, 128)
+    krois = torch.from_numpy(rand_boxes(rng, (1, 1000), 600, 500)).to(dev)
+    g300 = torch.from_numpy(rng.normal(0, 1, (b, 300, 7, 7, FPN_C)).astype(np.float32)).to(dev)
+    g1000 = torch.from_numpy(rng.normal(0, 1, (1, 1000, 7, 7, FPN_C)).astype(np.float32)).to(dev)
+    p1_16, p1_32 = [f[:1] for f in p16], [f[:1] for f in p32]
+    fwd = {
+        "serve_b8_bf16": ("serve bf16 -> bf16 8x300", p16, rois, bf16),
+        "serve_b8_f32": ("serve f32 -> f32 8x300", p32, rois, torch.float32),
+        "serve_b1_bf16": ("serve bf16 -> bf16 1x300", p1_16, one, bf16),
+        "serve_b1_f32": ("serve f32 -> f32 1x300", p1_32, one, torch.float32),
+        "train_b8_bf16": ("train bf16 -> bf16 8x128", p16, trois, bf16),
+        "boundary_bf16": ("boundary areas bf16 8x128", p16, edge, bf16),
+        "clustered_bf16": ("clustered bf16 8x128", p16, crois, bf16),
+        "elongated_bf16": ("elongated bf16 8x300", p16, lrois, bf16),
+        "dense_bf16": ("one spot, all P2, bf16 8x128", p16, drois, bf16),
+        "b1_1000_bf16": ("bf16 1x1000", p1_16, krois, bf16),
+    }
+    bwd = {
+        "bwd_bf16": ("bf16 grad 8x128", g16, p16, trois),
+        "bwd_f32": ("f32 8x128", g, p32, trois),
+        "bwd_boundary": ("bf16 boundary areas 8x128", g16, p16, edge),
+        "bwd_clustered": ("bf16 clustered 8x128", g16, p16, crois),
+        "bwd_serve_300": ("bf16 8x300", g300.to(bf16), p16, rois),
+        "bwd_elongated": ("bf16 elongated 8x300", g300.to(bf16), p16, lrois),
+        "bwd_dense": ("bf16 one spot, P3-P5 without rois, 8x128", g16, p16, drois),
+        "bwd_b1_1000": ("bf16 1x1000", g1000.to(bf16), p1_16, krois),
+    }
+    return fwd, bwd, edge
+
+
+def check_multilevel_kernels(torch, dev, b=8):
+    """Phase [3], the FPN's multi-level ROIAlign at the 600x600 pyramid
+    (P2 150x150 .. P5 19x19, 256 channels; no side a multiple of the
+    backward's 8-pixel tiles) on :func:`multilevel_cases`: the forward
+    bitwise its plain version at every case; the backward deterministic,
+    within ``ROI_BWD_TOL`` of the plain VJP and exactly zero on a level no
+    roi lands on; each timed with its bound. Between them, the levels on
+    the card against the CPU's (:func:`check_levels`)."""
+    fwd, bwd, edge = multilevel_cases(torch, dev, b)
+    res = {key: check_multilevel(torch, *case) for key, case in fwd.items()}
+    levels = check_levels(torch, dev, edge)
+    res.update({key: check_multilevel_bwd(torch, *case) for key, case in bwd.items()})
     return res, levels
 
 
@@ -2161,7 +2220,8 @@ ROI_KERNELS = {
     "pool": {"forward": ("roi_pool_kernel",),
              "backward": ("roi_pool_bwd_bins_kernel", "roi_pool_bwd_kernel")},
     "multilevel": {"forward": ("multilevel_roi_align_kernel",),
-                   "backward": ("multilevel_roi_align_bwd_kernel",)},
+                   "backward": ("multilevel_roi_geometry_kernel",
+                                "multilevel_roi_align_bwd_kernel")},
 }
 IOU_KERNEL = "iou_match_kernel"
 
@@ -2202,10 +2262,13 @@ def device_timeline(torch, run, steps, roi_op="align"):
     if not acts:
         return None
     busy, span = busy_and_span((e.time_range.start, e.time_range.end) for e in acts)
-    by_name = {}
+    by_name, by_short = {}, {}
     for e in acts:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+        us = e.time_range.end - e.time_range.start
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+        by_short[e.name[:90]] = by_short.get(e.name[:90], 0.0) + us
+    # names cut to 90 characters, each cut name's activities summed
+    top = sorted(by_short.items(), key=lambda kv: -kv[1])[:10]
     def per_step(kernel):
         return sum(us for name, us in by_name.items() if kernel in name) / 1e3 / steps
 
@@ -2224,7 +2287,7 @@ def device_timeline(torch, run, steps, roi_op="align"):
         "device_span_ms_per_step": span / 1e3 / steps,
         "device_idle_share": 1.0 - busy / span,
         "device_activities_per_step": len(acts) / steps,
-        "top_device_ms_per_step": {name[:90]: us / 1e3 / steps for name, us in top},
+        "top_device_ms_per_step": {name: us / 1e3 / steps for name, us in top},
     }
 
 
@@ -2478,9 +2541,10 @@ def timed_train_path(torch, dev, tag, trainer, batches, names, want, roi_op, op_
 
 def check_train_timelines(out, what):
     """The captured and eager timelines of :func:`timed_train_path` (both or
-    neither measured): every kernel seen with device time, 2 IoU-matching
-    activities a step, and each hand-written kernel as often a step in the
-    replay as in the eager step."""
+    neither measured): every kernel seen with device time, the top kernels'
+    times within the busy time, 2 IoU-matching activities a step, and each
+    hand-written kernel as often a step in the replay as in the eager
+    step."""
     timelines = {tag: out[tag]["device_timeline"] for tag in ("captured", "eager")}
     if None not in timelines.values():
         log(f"  {what}most device time per step (captured): "
@@ -2491,6 +2555,11 @@ def check_train_timelines(out, what):
                     and roi_ms["backward"] > 0 and timeline["iou_match_device_ms_per_step"] > 0):
                 raise AssertionError(f"{what}{tag}: the profiler saw device activity but not "
                                      f"every kernel: {timeline}")
+            top_sum = sum(timeline["top_device_ms_per_step"].values())
+            if top_sum > timeline["device_busy_ms_per_step"] * (1 + 1e-9):
+                raise AssertionError(f"{what}{tag}: the top kernels' device ms per step add up "
+                                     f"to {top_sum}, more than the busy "
+                                     f"{timeline['device_busy_ms_per_step']}")
             if timeline["iou_match_activities_per_step"] != 2:  # one kernel per call
                 raise AssertionError(f"{what}{tag}: "
                                      f"{timeline['iou_match_activities_per_step']:g} "
@@ -4906,7 +4975,7 @@ def main():
         {
             "name": "multilevel_roi_align_fwd", "route": "cuda", "source": ML_SRC,
             "replaces": ML_JAX, "replaces_note": ML_NOTE,
-            "kernels": ["multilevel_roi_align_kernel"],
+            "kernels": list(ROI_KERNELS["multilevel"]["forward"]),
             "launches": sum(by_path("roi_multilevel").values()),
             "launches_by_path": by_path("roi_multilevel"),
             "parity": "bitwise vs models/fpn.py::multilevel_roi_align_plain (the JAX "
@@ -4928,7 +4997,9 @@ def main():
         {
             "name": "multilevel_roi_align_bwd", "route": "cuda", "source": ML_SRC,
             "replaces": ML_JAX, "replaces_note": ML_NOTE + " (the VJP: its scatter)",
-            "kernels": ["multilevel_roi_align_bwd_kernel"],
+            "kernels": list(ROI_KERNELS["multilevel"]["backward"]),
+            "note": "one call = a memset of the tile masks, the per-roi geometry kernel and "
+                    "the tile kernel; ms and launches cover all three",
             "launches": sum(by_path("roi_multilevel_bwd").values()),
             "launches_by_path": by_path("roi_multilevel_bwd"),
             "parity": f"vs the plain VJP (autograd of multilevel_roi_align_plain on float32 "

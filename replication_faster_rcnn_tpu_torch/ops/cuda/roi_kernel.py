@@ -81,11 +81,15 @@ def _kernels():
         lib.roi_align_error_string.restype = ctypes.c_char_p
         f = ctypes.c_float
         lib.multilevel_roi_align_fwd.argtypes = [p, p, p, i, p, p, i, i, i, f, f, i, i, p, i, p]
-        lib.multilevel_roi_align_bwd.argtypes = [p, i, p, p, i, p, p, i, i, f, f, i, i, p, i, p]
+        lib.multilevel_roi_align_bwd.argtypes = [p, i, p, p, i, p, p, i, i, f, f, i, i, p, i, p,
+                                                 p]
         lib.multilevel_roi_align_fwd.restype = ctypes.c_int
         lib.multilevel_roi_align_bwd.restype = ctypes.c_int
+        lib.multilevel_roi_align_bwd_scratch.argtypes = [i, p, p, i]
+        lib.multilevel_roi_align_bwd_scratch.restype = ctypes.c_longlong
         _fns = (lib.roi_align_fwd, lib.roi_align_bwd, lib.roi_align_error_string,
-                lib.multilevel_roi_align_fwd, lib.multilevel_roi_align_bwd)
+                lib.multilevel_roi_align_fwd, lib.multilevel_roi_align_bwd,
+                lib.multilevel_roi_align_bwd_scratch)
     return _fns
 
 
@@ -130,7 +134,7 @@ def _forward_cuda(feat: Tensor, rois: Tensor, out_size: int, s: int,
                   out_dtype: torch.dtype, splits: int = 0) -> Tensor:
     """The forward kernel on rois already in feature coordinates. ``splits``
     > 0 fixes the number of blocks per roi (0: the kernel picks)."""
-    fwd, _, err, _, _ = _kernels()
+    fwd, _, err, _, _, _ = _kernels()
     feat_flag = _dtype_flag(feat.dtype, "features")
     out_flag = _dtype_flag(out_dtype, "outputs")
     n, h, w, c = feat.shape
@@ -168,7 +172,7 @@ def roi_align_backward_cuda(
         raise ValueError("grad_out and rois must be on the same CUDA device")
     if out_size * s > MAX_SAMPLES:
         raise ValueError(f"the kernels take out_size * sampling_ratio <= {MAX_SAMPLES}")
-    _, bwd, err, _, _ = _kernels()
+    _, bwd, err, _, _, _ = _kernels()
     grad_flag = _dtype_flag(grad_out.dtype, "gradients")
     feat_flag = _dtype_flag(feat_dtype, "features")
     grad_out = grad_out.contiguous()
@@ -352,7 +356,7 @@ def _multilevel_forward_cuda(feats, rois: Tensor, levels: Tensor, img_h: float, 
                              out_size: int, s: int, out_dtype: torch.dtype) -> Tensor:
     """The multi-level forward kernel: P2..P5 (contiguous, one dtype), rois
     [N, R, 4] float32 image coordinates, levels [N, R] int32."""
-    _, _, err, fwd, _ = _kernels()
+    _, _, err, fwd, _, _ = _kernels()
     feat_flag = _dtype_flag(feats[0].dtype, "features")
     out_flag = _dtype_flag(out_dtype, "outputs")
     n, c = feats[0].shape[0], feats[0].shape[-1]
@@ -385,7 +389,7 @@ def multilevel_roi_align_backward_cuda(grad_out: Tensor, rois: Tensor, levels: T
             f"grad_out must be {(n, r, out_size, out_size, c)}, got {tuple(grad_out.shape)}")
     if not (grad_out.is_cuda and rois.device == grad_out.device == levels.device):
         raise ValueError("grad_out, rois and levels must be on the same CUDA device")
-    _, _, err, _, bwd = _kernels()
+    _, _, err, _, bwd, scratch_bytes = _kernels()
     grad_flag = _dtype_flag(grad_out.dtype, "gradients")
     feat_flag = _dtype_flag(feat_dtype, "features")
     grad_out = grad_out.contiguous()
@@ -393,10 +397,16 @@ def multilevel_roi_align_backward_cuda(grad_out: Tensor, rois: Tensor, levels: T
     if grad_out.numel() == 0:
         return [g.zero_() for g in grads]
     hs, ws = _levels_arrays(shapes)
+    nbytes = scratch_bytes(n, hs, ws, r)
+    if nbytes < 0:
+        raise ValueError(f"the multi-level backward takes level sides up to 65535, got {shapes}")
+    # the rois' geometry on their levels and the tiles' roi masks
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=grad_out.device)
     with torch.cuda.device(grad_out.device):
         stream = torch.cuda.current_stream(grad_out.device).cuda_stream
         rc = bwd(grad_out.data_ptr(), grad_flag, rois.data_ptr(), levels.data_ptr(), n, hs, ws,
-                 c, r, img_h, img_w, out_size, s, _pointers(grads), feat_flag, stream)
+                 c, r, img_h, img_w, out_size, s, _pointers(grads), feat_flag,
+                 scratch.data_ptr(), stream)
     build.check(rc, err, "multilevel_roi_align_bwd_kernel")
     global multilevel_backward_launches
     multilevel_backward_launches += 1

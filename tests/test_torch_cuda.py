@@ -520,16 +520,19 @@ def _multilevel_cases(dev):
     small pyramids of odd level sizes: C not a multiple of 8 (the scalar
     paths), multiples over one channel tile or two, float32 and bfloat16
     features and outputs, rois on every level and outside the image, a
-    batch of one, no rois. The forward bitwise; the backward twice bitwise,
-    through autograd bitwise the direct call, and within tolerance of the
-    plain VJP on float32 copies (``chip_smoke.ROI_BWD_TOL``'s). First, the
-    levels both kernels read: ``roi_levels`` on the card equal to the CPU's
-    (held to the operation-by-operation JAX by test_torch_fpn.py) for
-    squares of every float32 side within 4,096 ulps of 56, 112, 224, 448."""
-    from replication_faster_rcnn_tpu_torch.models.fpn import (
-        multilevel_roi_align_plain,
-        roi_levels,
-    )
+    batch of one, no rois; then at the 600x600 pyramid (no side a multiple
+    of the backward's 8-pixel tiles): elongated rois (about 600 x 20 and 20
+    x 600 image pixels), 128 rois about one spot (more than 32 in a tile,
+    none on P3-P5), R = 300 and R = 1000 at b1 (not multiples of 32), and
+    s = 3 with out 5 (the generic sample loops). The forward bitwise; the
+    backward twice bitwise, through autograd bitwise the direct call,
+    within tolerance of the plain VJP on float32 copies
+    (``chip_smoke.ROI_BWD_TOL``'s) and exactly zero on a level no roi
+    lands on. First, the levels both kernels read: ``roi_levels`` on the
+    card equal to the CPU's (held to the operation-by-operation JAX by
+    test_torch_fpn.py) for squares of every float32 side within 4,096 ulps
+    of 56, 112, 224, 448."""
+    from replication_faster_rcnn_tpu_torch.models.fpn import roi_levels
     from replication_faster_rcnn_tpu_torch.ops.cuda import roi_kernel
 
     sides = torch.from_numpy(np.concatenate([
@@ -539,49 +542,96 @@ def _multilevel_cases(dev):
     assert torch.equal(roi_levels(squares.to(dev)).cpu(), roi_levels(squares))
 
     rng = np.random.default_rng(3)
-    tol = {torch.float32: dict(atol=1e-4, rtol=1e-5), torch.bfloat16: dict(atol=1e-4, rtol=2**-7)}
+
+    def pyramid(n, c, shapes, dtype):
+        return [torch.from_numpy(rng.normal(0, 1, (n, h, w, c)).astype(np.float32))
+                .to(dev).to(dtype) for h, w in shapes]
+
     for dtype in (torch.float32, torch.bfloat16):
         for c, n, r, shapes in [(3, 2, 37, ((20, 17), (10, 9), (5, 5), (3, 3))),
                                 (16, 1, 60, ((38, 38), (19, 19), (10, 10), (5, 5))),
                                 (264, 2, 25, ((13, 11), (7, 6), (4, 3), (2, 2))),
                                 (8, 2, 0, ((8, 8), (4, 4), (2, 2), (1, 1)))]:
-            feats = [torch.from_numpy(rng.normal(0, 1, (n, h, w, c)).astype(np.float32))
-                     .to(dev).to(dtype) for h, w in shapes]
+            feats = pyramid(n, c, shapes, dtype)
             p1 = rng.uniform(-50, 600, (n, r, 2))
             rois = torch.from_numpy(np.concatenate([p1, p1 + rng.uniform(0, 600, (n, r, 2))], -1)
                                     .astype(np.float32)).to(dev)
             if r:
                 assert set(roi_levels(rois).reshape(-1).tolist()) == {0, 1, 2, 3}
-            for out_dtype in (torch.float32, torch.bfloat16):
-                got = roi_kernel.multilevel_roi_align_cuda(feats, rois, 600.0, 600.0, 7, 2,
-                                                           out_dtype)
-                want = multilevel_roi_align_plain(feats, rois, 600.0, 600.0).to(out_dtype)
-                assert got.dtype == out_dtype and torch.equal(got, want), (dtype, c, out_dtype)
-            g = torch.from_numpy(rng.normal(0, 1, (n, r, 7, 7, c)).astype(np.float32)).to(dev)
-            levels = roi_levels(rois)
-            shapes4 = [tuple(f.shape) for f in feats]
-            a = roi_kernel.multilevel_roi_align_backward_cuda(g, rois, levels, shapes4, dtype,
-                                                              600.0, 600.0, 7, 2)
-            b = roi_kernel.multilevel_roi_align_backward_cuda(g, rois, levels, shapes4, dtype,
-                                                              600.0, 600.0, 7, 2)
-            leaves = [f.detach().clone().requires_grad_(True) for f in feats]
-            out = roi_kernel.multilevel_roi_align_cuda(leaves, rois, 600.0, 600.0, 7, 2, dtype)
-            via = torch.autograd.grad(out, leaves, g.to(dtype)) if r else a
-            with torch.enable_grad():
-                f32 = [f.detach().float().requires_grad_(True) for f in feats]
-                plain = multilevel_roi_align_plain(f32, rois, 600.0, 600.0)
-                want = torch.autograd.grad(plain, f32, g, allow_unused=True)
-            for ga, gb, gv, gw in zip(a, b, via, want):
-                assert ga.dtype == dtype and torch.equal(ga, gb)
-                if dtype == torch.float32:  # autograd hands the kernel float32 gradients
-                    assert torch.equal(ga, gv)
-                gw = torch.zeros_like(gw) if gw is None else gw
-                assert torch.allclose(ga.float(), gw.to(dtype).float(), **tol[dtype]), (
-                    dtype, c, float((ga.float() - gw).abs().max()))
+            _multilevel_case(dev, feats, rois, (torch.float32, torch.bfloat16))
+    fpn = ((150, 150), (75, 75), (38, 38), (19, 19))
+    p16 = pyramid(2, 256, fpn, torch.bfloat16)
+    k = 40  # long and thin rois among random ones, half wide, half tall
+    y, x = rng.uniform(-20, 600, (2, k)), rng.uniform(-40, 40, (2, k))
+    long_side, short_side = rng.uniform(560, 640, (2, k)), rng.uniform(12, 24, (2, k))
+    wide = np.arange(k) < k // 2
+    y, x = np.where(wide, y, x), np.where(wide, x, y)
+    h, w = np.where(wide, short_side, long_side), np.where(wide, long_side, short_side)
+    p1 = rng.uniform(0, 600, (2, 300, 2))
+    rois = np.concatenate([p1, p1 + rng.uniform(8, 500, (2, 300, 2))], -1)
+    rois[:, :k] = np.stack([y, x, y + h, x + w], -1)
+    _multilevel_case(dev, p16, torch.from_numpy(rois.astype(np.float32)).to(dev),
+                     (torch.bfloat16,))
+    centre = rng.uniform(150, 450, (2, 1, 2)) + rng.normal(0, 4, (2, 128, 2))
+    half = rng.uniform(30, 50, (2, 128, 2))
+    dense = torch.from_numpy(np.concatenate([centre - half, centre + half], -1)
+                             .astype(np.float32)).to(dev)
+    assert set(roi_levels(dense).reshape(-1).tolist()) == {0}
+    _multilevel_case(dev, p16, dense, (torch.bfloat16,))
+    p1 = rng.uniform(0, 600, (1, 1000, 2))
+    many = np.concatenate([p1, p1 + rng.uniform(8, 500, (1, 1000, 2))], -1).astype(np.float32)
+    _multilevel_case(dev, [f[:1] for f in p16], torch.from_numpy(many).to(dev), (torch.bfloat16,))
+    _multilevel_case(dev, pyramid(2, 16, ((20, 17), (10, 9), (5, 5), (3, 3)), torch.float32),
+                     torch.from_numpy(rois[:, k:k + 60].astype(np.float32)).to(dev),
+                     (torch.float32,), out_size=5, s=3)
     rois = torch.zeros(1, 4, 4, device=dev, requires_grad=True)
     with pytest.raises(ValueError, match="no gradient to the rois"):
         roi_kernel.multilevel_roi_align_cuda([torch.zeros(1, 4, 4, 8, device=dev)] * 4, rois,
                                              64.0, 64.0)
+
+
+def _multilevel_case(dev, feats, rois, out_dtypes, out_size=7, s=2):
+    """One pyramid and its rois through both multi-level kernels (see
+    ``_multilevel_cases``)."""
+    from replication_faster_rcnn_tpu_torch.models.fpn import (
+        multilevel_roi_align_plain,
+        roi_levels,
+    )
+    from replication_faster_rcnn_tpu_torch.ops.cuda import roi_kernel
+
+    tol = {torch.float32: dict(atol=1e-4, rtol=1e-5), torch.bfloat16: dict(atol=1e-4, rtol=2**-7)}
+    dtype = feats[0].dtype
+    n, r, c = rois.shape[0], rois.shape[1], feats[0].shape[-1]
+    for out_dtype in out_dtypes:
+        got = roi_kernel.multilevel_roi_align_cuda(feats, rois, 600.0, 600.0, out_size, s,
+                                                   out_dtype)
+        want = multilevel_roi_align_plain(feats, rois, 600.0, 600.0, out_size, s).to(out_dtype)
+        assert got.dtype == out_dtype and torch.equal(got, want), (dtype, c, out_dtype)
+    g = torch.from_numpy(np.random.default_rng(r).normal(0, 1, (n, r, out_size, out_size, c))
+                         .astype(np.float32)).to(dev)
+    levels = roi_levels(rois)
+    shapes4 = [tuple(f.shape) for f in feats]
+    a = roi_kernel.multilevel_roi_align_backward_cuda(g, rois, levels, shapes4, dtype,
+                                                      600.0, 600.0, out_size, s)
+    b = roi_kernel.multilevel_roi_align_backward_cuda(g, rois, levels, shapes4, dtype,
+                                                      600.0, 600.0, out_size, s)
+    leaves = [f.detach().clone().requires_grad_(True) for f in feats]
+    out = roi_kernel.multilevel_roi_align_cuda(leaves, rois, 600.0, 600.0, out_size, s, dtype)
+    via = torch.autograd.grad(out, leaves, g.to(dtype)) if r else a
+    with torch.enable_grad():
+        f32 = [f.detach().float().requires_grad_(True) for f in feats]
+        plain = multilevel_roi_align_plain(f32, rois, 600.0, 600.0, out_size, s)
+        want = torch.autograd.grad(plain, f32, g, allow_unused=True)
+    counts = torch.bincount(levels.reshape(-1).long(), minlength=4).tolist()
+    for li, (ga, gb, gv, gw) in enumerate(zip(a, b, via, want)):
+        assert ga.dtype == dtype and torch.equal(ga, gb)
+        if dtype == torch.float32:  # autograd hands the kernel float32 gradients
+            assert torch.equal(ga, gv)
+        if counts[li] == 0:
+            assert not ga.any(), (li, counts)
+        gw = torch.zeros_like(gw) if gw is None else gw
+        assert torch.allclose(ga.float(), gw.to(dtype).float(), **tol[dtype]), (
+            dtype, c, float((ga.float() - gw).abs().max()))
 
 
 # -------------------------------------------------------------- int8 kernels
