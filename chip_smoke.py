@@ -48,10 +48,14 @@ H100:  ``python3 chip_smoke.py``. It
    beside identity rows, translation +-0.1, scale 0.75-1.25, all three)
    against their plain versions (geometry, boxes and fills bitwise, the
    geometry also against the numpy oracle; images bitwise in uint8, within
-   1e-6 relative in float32), the cache gather from a 1,024-image cache,
-   the bucket resample 600->480 and 600->720 bitwise against the plain band
-   passes with ``F.interpolate(antialias=True)`` timed beside it, and each
-   captured and replayed twice, bitwise. Then the FPN's multi-level
+   1e-6 relative in float32), the cache gather from a 1,024-image cache
+   (the image kernel timed alone and the whole ``materialize_batch``), two
+   pure copies bitwise the one PyTorch call that computes each (every row
+   flipped: ``torch.flip``; the identity gather: ``torch.index_select``,
+   timed beside the kernel), the bucket resample 600->480, 600->720 and
+   600->240 bitwise against the plain band passes with
+   ``F.interpolate(antialias=True)`` timed beside it, and each captured and
+   replayed twice, bitwise. Then the FPN's multi-level
    ROIAlign (:func:`check_multilevel_kernels`) at the 600x600 pyramid (P2
    150x150 .. P5 19x19, 256 channels): the forward bitwise its plain
    version (``models/fpn.py::multilevel_roi_align_plain``, the JAX ``flat``
@@ -1192,6 +1196,32 @@ def image_errors(torch, got, want):
     return err, got.dtype == want.dtype and err <= 1e-6 * max(1.0, float(want.abs().max()))
 
 
+def pure_copy_case(torch, dev, K, I, name, args, source, library, captured):
+    """An image-pass case that moves bytes alone (every row flipped; the
+    identity gather), ``args`` = (images, geom, idx): bitwise its plain
+    version and the one PyTorch call ``library`` that computes it, timed
+    beside both, captured and replayed twice."""
+    from replication_faster_rcnn_tpu_torch import ops
+
+    images, geom, idx = args
+    out = K.augment_image_cuda(images, geom, None, idx)
+    batch = images[idx.long()] if idx is not None else images
+    with ops.reference_scope():
+        plain = I.augment_images_plain(batch, geom)
+    if not (bitwise(torch, out, plain) and bitwise(torch, out, library())):
+        raise AssertionError(f"{name}: kernel != plain version or the library call")
+    row = {"max_abs_err": 0.0,
+           "ms": time_ms(torch, lambda: K.augment_image_cuda(images, geom, None, idx), 20),
+           "library_ms": time_ms(torch, library, 20)}
+    with ops.reference_scope():
+        row["plain_ms"] = time_ms(torch, lambda: I.augment_images_plain(
+            images[idx.long()] if idx is not None else images, geom), 1, 1, 3)
+    row["bound_ms"], row["bound_by"] = bytes_bound(source, out)
+    replays_bitwise(torch, dev, name, lambda: K.augment_image_cuda(images, geom, None, idx))
+    captured.append(name)
+    return row
+
+
 def check_image_kernels(torch, dev):
     """Phase [3] for the data path's four kernels at 600x600, b8 and b16,
     uint8 and float32. ``augment_batch`` (geometry + fills + image pass) on
@@ -1202,10 +1232,14 @@ def check_image_kernels(torch, dev):
     bitwise in uint8 and within 1 float32 ulp, the images bitwise in uint8
     and within 1e-6 relative in float32. The device cache's gather (a
     1,024-image cache, flip + jitter, the resample in the same pass) against
-    the plain ``materialize_batch`` + ``batched_scale_jitter``. The bucket
-    resample 600->480 and 600->720 bitwise against the plain band passes,
-    with ``F.interpolate(antialias=True)`` timed beside it. Every kernel
-    captured and replayed twice, bitwise its eager launch."""
+    the plain ``materialize_batch`` + ``batched_scale_jitter``, the image
+    kernel timed alone (``ms``) and the whole path (``materialize_ms``:
+    geometry, fills, image pass). Every row flipped and the identity gather
+    bitwise the plain version and ``torch.flip`` / ``torch.index_select``
+    (``library_ms``). The bucket resample 600->480, 600->720 and 600->240
+    bitwise against the plain band passes, with
+    ``F.interpolate(antialias=True)`` timed beside it. Every kernel captured
+    and replayed twice, bitwise its eager launch."""
     from replication_faster_rcnn_tpu_torch import ops
     from replication_faster_rcnn_tpu_torch.data.device_cache import materialize_batch
     from replication_faster_rcnn_tpu_torch.ops import image as I
@@ -1323,19 +1357,50 @@ def check_image_kernels(torch, dev):
                                      for k in ("boxes", "labels", "mask")):
                     raise AssertionError(f"cache gather b8 {dtype}: max error {err}")
                 key = f"cache_b8_{dtype}"
+                # the image kernel alone on the cache path's geometry and fills
+                # (ops/image.py::augment_cached); materialize_* is the whole
+                # path: geometry, the two fill launches and the image pass
+                _, _, _, cgeom, _ = K.augment_geometry_cuda(
+                    cb, cl, cm, b, h, w, idx=idx, flip=sel["flip"], jitter=sel["jitter"],
+                    resample="all", device=images.device)
+                cfills = K.image_fill_cuda(cache_images, cgeom, idx)
+                alone = K.augment_image_cuda(cache_images, cgeom, cfills, idx)
+                if not bitwise(torch, alone, got["image"]):
+                    raise AssertionError(f"cache gather b8 {dtype}: the image kernel alone "
+                                         "differs from materialize_batch's")
+                gathered = cache_images[idx.long()]
                 res[key] = {"max_abs_err": err, "cache_images": m,
-                            "ms": time_ms(torch, lambda: materialize_batch(cache, sel, True), 20)}
+                            "ms": time_ms(torch, lambda: K.augment_image_cuda(
+                                cache_images, cgeom, cfills, idx), 20),
+                            "materialize_ms": time_ms(
+                                torch, lambda: materialize_batch(cache, sel, True), 20)}
                 with ops.reference_scope():
-                    res[key]["plain_ms"] = time_ms(
+                    res[key]["plain_ms"] = time_ms(torch, lambda: I.augment_images_plain(
+                        cache_images[idx.long()], cgeom), 1, 1, 3)
+                    res[key]["materialize_plain_ms"] = time_ms(
                         torch, lambda: materialize_batch(cache, sel, True), 1, 1, 3)
-                res[key]["bound_ms"], res[key]["bound_by"] = bytes_bound(
-                    got["image"], got["image"], got["boxes"], got["labels"], got["mask"])
+                res[key]["bound_ms"], res[key]["bound_by"] = bytes_bound(gathered, alone)
+                res[key]["materialize_bound_ms"] = bytes_bound(
+                    got["image"], got["image"], got["boxes"], got["labels"], got["mask"])[0]
                 replays_bitwise(torch, dev, f"cache gather {key}",
                                 lambda: materialize_batch(cache, sel, True)["image"])
                 captured.append(f"cache gather {key}")
-                del cache, cache_images
-            # the bucket resample
-            for out_hw in ((480, 480), (720, 720)):
+                # the identity gather: one PyTorch call computes it
+                _, _, _, igeom, _ = K.augment_geometry_cuda(None, None, None, b, h, w, idx=idx,
+                                                            device=images.device)
+                res[f"gather_b8_{dtype}"] = pure_copy_case(
+                    torch, dev, K, I, f"identity gather b8 {dtype}", (cache_images, igeom, idx),
+                    gathered, lambda: torch.index_select(cache_images, 0, idx.long()), captured)
+                del cache, cache_images, gathered
+                # every row flipped, no translation or jitter
+                every = torch.ones(b, dtype=torch.bool, device=images.device)
+                _, _, _, fgeom, _ = K.augment_geometry_cuda(None, None, None, b, h, w, flip=every,
+                                                            device=images.device)
+                res[f"allflip_b8_{dtype}"] = pure_copy_case(
+                    torch, dev, K, I, f"all-flip b8 {dtype}", (images, fgeom, None), images,
+                    lambda: torch.flip(images, [2]), captured)
+            # the bucket resample (and a strong downsample)
+            for out_hw in ((480, 480), (720, 720), (240, 240)):
                 key = f"resize_b{b}_{dtype}_{out_hw[0]}"
                 got, gboxes = I.resize_batch_with_boxes(images, boxes, out_hw)
                 with ops.reference_scope():
@@ -1369,8 +1434,10 @@ def check_image_kernels(torch, dev):
             del images
     log("  data-path kernels (600x600, b8 / b16, uint8 / float32): augment_batch geometry, "
         "fills and image pass against the plain versions on four row mixes (geometry and "
-        "boxes bitwise, and against device_decisions), the cache gather (1,024 images) and "
-        "the resample 600->480 / 600->720, all within tolerance; "
+        "boxes bitwise, and against device_decisions), the cache gather (1,024 images; the "
+        "image kernel alone and the whole materialize_batch), every row flipped and the "
+        "identity gather (bitwise torch.flip / torch.index_select) and the resample 600->480 / "
+        "600->720 / 600->240, all within tolerance; "
         + json.dumps({k: {kk: (round(vv, 4) if isinstance(vv, float) else vv)
                           for kk, vv in v.items() if not isinstance(vv, dict)}
                       for k, v in res.items()}))
@@ -4788,8 +4855,9 @@ def image_kernel_rows(image, by_path):
         sites = {k: {f: v[part][f] for f in timing} for k, v in image.items()
                  if isinstance(v, dict) and isinstance(v.get(part), dict) and k != main}
         if part == "image":
-            sites.update({k: {f: image[k][f] for f in timing} for k in image
-                          if k.startswith("cache_")})
+            sites.update({k: {f: image[k][f] for f in timing + ("library_ms", "materialize_ms")
+                              if f in image[k]}
+                          for k in image if k.startswith(("cache_", "allflip_", "gather_"))})
         rows.append({
             "name": name, "route": "cuda", "source": IMAGE_SRC, "replaces": IMAGE_JAX[name],
             "replaces_note": IMAGE_NOTE,
@@ -4812,7 +4880,7 @@ def image_kernel_rows(image, by_path):
         "max_abs_err": 0.0, **{f: image[rk][f] for f in timing + ("library_ms",)},
         "library_note": "torch.nn.functional.interpolate(mode='bilinear', antialias=True, "
                         "align_corners=False) on NCHW float32",
-        "shape": "600x600 uint8 b8 -> 480x480 (2 band passes, boxes scaled)",
+        "shape": "600x600 uint8 b8 -> 480x480 (one launch: both band passes, boxes scaled)",
         "sites": {k: {f: v[f] for f in timing + ("library_ms", "library_within_tolerance",
                                                  "library_max_abs_err")}
                   for k, v in image.items() if k.startswith("resize")},

@@ -25,25 +25,69 @@
 //     fill, without the translated image. Sums in double in a fixed order:
 //     partial sums per row band, then the bands in order. uint8 sums are
 //     exact in double.
-//   * augment_image_kernel: one thread per output pixel (3 channels). Reads
-//     the source row (the batch's, or the cache's row idx[n]), and applies
-//     flip -> translate (integer gather, fill) -> jitter (half-pixel bilinear
-//     over the translated image with edge-clamped taps, fill outside
-//     [0, ch) x [0, cw)). uint8 rounds half to even and clips after each op.
+//   * augment_image_kernel: flip -> translate (integer gather, fill) ->
+//     jitter (half-pixel bilinear over the translated image with
+//     edge-clamped taps, fill outside [0, ch) x [0, cw)) of the batch's
+//     rows, or of the cache's rows idx[n]. uint8 rounds half to even and
+//     clips after each op.
 //   * resize_aa_kernel: jax.image.resize(method="bilinear", antialias=True)
 //     as separable band passes (rows, then columns) with the band weights
-//     the wrapper computed on the host, applied in tap order; a float32
-//     intermediate; the last pass also scales the boxes.
+//     the wrapper computed on the host, applied in tap order; float32
+//     between the passes; one block per image also scales the boxes.
 //
 // What bounds them on the H100: bytes. A 600x600 uint8 batch of 8 is 8.6 MB
-// in and out (2.6 us at 3.35 TB/s), float32 four times that; the geometry
-// kernel's work is a few hundred boxes. These first kernels are simple: the
-// fill's bands give each image 16 blocks; the image and resize kernels read
-// their taps through the cache. Float arithmetic is strict IEEE (-fmad=false)
-// so the results repeat the plain versions' operations exactly.
-
+// in and out (2.6 us each way at 3.35 TB/s), float32 four times that; the
+// geometry kernel's work is a few hundred boxes.
+//
+// The first design of the image pass and the resize ran one thread per
+// output pixel (image) or element (resize, one launch per pass). That put
+// three 64-bit divisions and modulos in every thread (emulated on this card
+// at dozens of instructions each: at b8 600->480 the resize's 12 M threads
+// spent about its whole time there), reloaded each image's geometry row and
+// fills and recomputed its two quotients per pixel, re-read the band weights
+// from global memory per element, moved uint8 one byte a thread, made 12
+// scattered byte loads per jittered pixel, and sent the resize's float32
+// intermediate through device memory between its two launches (41.5 MB at
+// b8 600->720).
+//
+// The design here:
+//   * resize_aa_kernel: one launch per call, grid (output column tiles,
+//     output row tiles, image). A block stages its rows' and columns' band
+//     starts and weights in shared memory, runs the rows pass over the
+//     input-column span its tile's column taps need (a host table, the span
+//     rounded out to 8-element boundaries: the horizontal halo recomputes
+//     about 1-2% of the rows pass at 128-column tiles) with 8- or 16-byte
+//     loads, all of an element's taps in flight at once, into float32
+//     channel planes in shared memory, then the columns pass out of them,
+//     one output pixel a thread (neighbouring threads read neighbouring
+//     words), into staged output rows written back as 16-byte vectors. A
+//     call that resizes one axis runs that pass alone (the columns pass over
+//     the converted input rows, or the rows pass straight to the output).
+//   * augment_image_kernel: grid (column tiles, row pairs, image). A block
+//     loads its image's geometry row, fills and the two quotients once into
+//     shared memory. A row that is not resampled is one source row, shifted
+//     and possibly reversed, plus runs of fill: the source run is staged
+//     with 16-byte loads at its own vector phase, the pixels are reversed in
+//     the read from shared memory. A resampled row's two vertical taps
+//     depend on the row alone and its horizontal taps on the column alone:
+//     the block stages the two translated-and-flipped source rows of each
+//     output row once, and a per-tile table of each column's two staged
+//     offsets (or fill) and weight. One output pixel a thread, into staged
+//     output rows written back as 16-byte vectors.
+//   * No 64-bit division anywhere: indices come from blockIdx and
+//     multiplications. Vector accesses need a vector boundary in the tensor (the wrapper
+//     hands 16-byte aligned bases); the groups that straddle a row's ends,
+//     or rows not on a boundary, move element by element.
+//
+// Float arithmetic is strict IEEE (-fmad=false) and repeats the plain
+// versions' operations in their order, so the results are bitwise theirs
+// and the first design's.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <map>
+#include <mutex>
 
 namespace {
 
@@ -52,6 +96,7 @@ constexpr unsigned long long MIX_EPOCH = 0xBF58476D1CE4E5B9ull;
 constexpr unsigned long long MIX_IDX = 0x94D049BB133111EBull;
 constexpr int FILL_BANDS = 16;
 constexpr int FILL_THREADS = 256;
+constexpr int GEOM_COLS = 8;  // flip, dy, dx, ch, cw, shy, shx, resample
 
 __device__ __forceinline__ unsigned long long splitmix(unsigned long long z) {
   z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9ull;
@@ -305,105 +350,480 @@ __device__ __forceinline__ unsigned char store_value<unsigned char>(float v) {
   return static_cast<unsigned char>(fminf(fmaxf(rintf(v), 0.0f), 255.0f));
 }
 
-// The translated, flipped image's value at (y, x), channel c, as float.
+// Groups of N = BYTES / sizeof(T) elements that move as one vector (8 or 16
+// bytes) when they start at a multiple of N elements of a tensor whose base
+// is 16-byte aligned; partial or unaligned groups move element by element.
+// Lanes [lo, hi) are valid.
+template <int BYTES>
+struct VecOf;
+
+template <>
+struct VecOf<8> {
+  using type = uint2;
+};
+
+template <>
+struct VecOf<16> {
+  using type = uint4;
+};
+
+template <typename T, int BYTES>
+struct Group {
+  static constexpr int N = BYTES / static_cast<int>(sizeof(T));
+  using V = typename VecOf<BYTES>::type;
+  union {
+    V v;
+    T e[N];
+  };
+};
+
+template <typename T, int BYTES>
+__device__ __forceinline__ void load_group(const T* p, long start, int lo, int hi,
+                                           Group<T, BYTES>& out) {
+  constexpr int N = Group<T, BYTES>::N;
+  if (lo == 0 && hi == N && start % N == 0) {
+    out.v = *reinterpret_cast<const typename Group<T, BYTES>::V*>(p + start);
+  } else {
+#pragma unroll
+    for (int l = 0; l < N; ++l) out.e[l] = (l >= lo && l < hi) ? p[start + l] : T(0);
+  }
+}
+
+template <typename T, int BYTES>
+__device__ __forceinline__ void store_group(T* p, long start, int lo, int hi,
+                                            const Group<T, BYTES>& in) {
+  constexpr int N = Group<T, BYTES>::N;
+  if (lo == 0 && hi == N && start % N == 0) {
+    *reinterpret_cast<typename Group<T, BYTES>::V*>(p + start) = in.v;
+  } else {
+#pragma unroll
+    for (int l = 0; l < N; ++l)
+      if (l >= lo && l < hi) p[start + l] = in.e[l];
+  }
+}
+
+// The valid lanes of the group at element g over elements [a, b).
+template <int N>
+__device__ __forceinline__ int lane_lo(long g, long a) {
+  return static_cast<int>(max(0L, min(static_cast<long>(N), a - g)));
+}
+
+template <int N>
+__device__ __forceinline__ int lane_hi(long g, long b) {
+  return static_cast<int>(max(0L, min(static_cast<long>(N), b - g)));
+}
+
+// The half-pixel source coordinate of content index i: (i + 0.5) * q - 0.5.
+__device__ __forceinline__ float source_coord(int i, float q) {
+  return __fsub_rn(__fmul_rn(__fadd_rn(static_cast<float>(i), 0.5f), q), 0.5f);
+}
+
+constexpr int IMAGE_BYTES = 16;  // the image pass's vector: 16 uint8 or 4 float32
+
+// Group gi of the copy of elements [g0, g0 + len) of src into dst, dst[0]
+// holding element g0 & ~(N - 1): the source's vector phase is kept, so
+// whole groups move as vectors.
 template <typename T>
-__device__ __forceinline__ float translated(const T* im, int y, int x, int c, int h, int w,
-                                            int flip, int dy, int dx, const float* fill1) {
-  const int iy = y + dy, ix = x + dx;
-  if (iy < 0 || iy >= h || ix < 0 || ix >= w) return fill1[c];
-  const int sx = flip ? w - 1 - ix : ix;
-  return static_cast<float>(im[(static_cast<long>(iy) * w + sx) * 3 + c]);
+__device__ __forceinline__ void stage_group(const T* __restrict__ src, long g0, int len, T* dst,
+                                            int gi) {
+  using G = Group<T, IMAGE_BYTES>;
+  constexpr int N = G::N;
+  const long g = (g0 & ~static_cast<long>(N - 1)) + static_cast<long>(gi) * N;
+  G v;
+  load_group<T, IMAGE_BYTES>(src, g, lane_lo<N>(g, g0), lane_hi<N>(g, g0 + len), v);
+  store_group<T, IMAGE_BYTES>(dst, static_cast<long>(gi) * N, 0, N, v);
+}
+
+// grid (column tiles, row blocks, n), blockDim.x threads: output rows
+// [y0, y0 + rows) of image n, pixels [x0, x0 + tile), one output pixel a
+// thread at a time. Dynamic shared memory: the horizontal tap table of the
+// tile (resampled images: per pixel the two taps' staged offsets, -1 for a
+// fill tap, and the weight), the staged source rows (T, `stage_stride`
+// elements each: one per output row, or two for a resampled image) and the
+// staged output rows (T, `out_stride` elements each, at the output's
+// 16-byte phase).
+template <typename T>
+__global__ void augment_image_kernel(const T* __restrict__ images, const int* __restrict__ idx,
+                                     const int* __restrict__ geom,
+                                     const float* __restrict__ fills, int h, int w, int tile,
+                                     int rows, int stage_stride, int out_stride,
+                                     T* __restrict__ out) {
+  using G = Group<T, IMAGE_BYTES>;
+  constexpr int N = G::N;
+  extern __shared__ float4 image_smem[];
+  __shared__ int gs[GEOM_COLS];
+  __shared__ float fs[6], qs[2];
+  __shared__ int src_s;
+  const int b = blockIdx.z, t = threadIdx.x, nt = blockDim.x;
+  if (t < GEOM_COLS) {
+    gs[t] = geom[GEOM_COLS * b + t];
+  } else if (t < GEOM_COLS + 6) {
+    fs[t - GEOM_COLS] = fills != nullptr ? fills[6 * b + t - GEOM_COLS] : 0.0f;
+  } else if (t == GEOM_COLS + 6) {
+    src_s = idx != nullptr ? idx[b] : b;
+  } else if (t == GEOM_COLS + 7) {
+    qs[0] = __fdiv_rn(static_cast<float>(h), static_cast<float>(geom[GEOM_COLS * b + 3]));
+    qs[1] = __fdiv_rn(static_cast<float>(w), static_cast<float>(geom[GEOM_COLS * b + 4]));
+  }
+  __syncthreads();
+  int* tap0 = reinterpret_cast<int*>(image_smem);
+  int* tap1 = tap0 + tile;
+  float* wxs = reinterpret_cast<float*>(tap1 + tile);
+  T* stage = reinterpret_cast<T*>(wxs + tile);
+  T* ostage = stage + 2 * rows * stage_stride;
+  const long row_elems = 3L * w;
+  const long img = static_cast<long>(src_s) * h * row_elems;  // the source image's first element
+  const int x0 = blockIdx.x * tile, x1 = min(w, x0 + tile);
+  const int y0 = blockIdx.y * rows, n_rows = min(rows, h - y0);
+  const int flip = gs[0], dy = gs[1], dx = gs[2];
+
+  if (!gs[7]) {
+    // each output row is one source row, shifted and possibly reversed,
+    // plus runs of fill: the source run of every row staged, then written
+    const int xa = max(x0, -dx), xb = max(xa, min(x1, w - dx));
+    const int sa = flip ? w - xb - dx : xa + dx;  // the first source pixel read
+    const int len = 3 * (xb - xa), seg_groups = (len + 2 * N - 2) / N;
+#pragma unroll 4
+    for (int i = t; i < n_rows * seg_groups; i += nt) {
+      const int r = i / seg_groups, iy = y0 + r + dy;
+      if (iy >= 0 && iy < h && len > 0)
+        stage_group(images, img + iy * row_elems + 3L * sa, len, stage + r * stage_stride,
+                    i - r * seg_groups);
+    }
+    __syncthreads();
+    for (int r = 0; r < n_rows; ++r) {
+      const int iy = y0 + r + dy;
+      const bool row_in = iy >= 0 && iy < h;
+      const long r_out = (static_cast<long>(b) * h + y0 + r) * row_elems;
+      const T* src = stage + r * stage_stride +
+                     static_cast<int>((img + iy * row_elems + 3L * sa) & (N - 1)) - 3 * sa;
+      T* dst = ostage + r * out_stride + static_cast<int>((r_out + 3L * x0) & (N - 1)) - 3 * x0;
+      for (int x = x0 + t; x < x1; x += nt) {
+        if (row_in && x >= xa && x < xb) {
+          const T* px = src + 3 * (flip ? w - 1 - (x + dx) : x + dx);
+          dst[3 * x] = px[0];
+          dst[3 * x + 1] = px[1];
+          dst[3 * x + 2] = px[2];
+        } else {
+          for (int c = 0; c < 3; ++c) dst[3 * x + c] = store_value<T>(fs[c]);
+        }
+      }
+    }
+  } else {
+    // resampled: output row y reads rows y0c and y1c of the translated,
+    // flipped image; its columns' taps are the same for every row
+    const int shx = gs[6], cw = gs[4], ch = gs[3];
+    const int xa = max(x0, -shx), xb = max(xa, min(x1, cw - shx));
+    int ta = 0, tb = 0;  // translated columns staged: [ta, tb)
+    if (xa < xb) {
+      const int lo =
+          min(max(static_cast<int>(floorf(source_coord(xa + shx, qs[1]))), 0), w - 1);
+      const int hi =
+          min(max(static_cast<int>(floorf(source_coord(xb - 1 + shx, qs[1]))) + 1, 0), w - 1);
+      ta = max(lo + dx, 0);
+      tb = max(ta, min(hi + 1 + dx, w));
+    }
+    const int sa = flip ? w - tb : ta;  // the first source pixel staged
+    for (int x = x0 + t; x < x1; x += nt) {
+      int i0 = -2, i1 = -2;
+      float wx = 0.0f;
+      if (x >= xa && x < xb) {
+        const float xs = source_coord(x + shx, qs[1]);
+        const int xf = static_cast<int>(floorf(xs));
+        wx = __fsub_rn(xs, static_cast<float>(xf));
+        const int c0 = min(max(xf, 0), w - 1) + dx, c1 = min(max(xf + 1, 0), w - 1) + dx;
+        i0 = (c0 < 0 || c0 >= w) ? -1 : 3 * ((flip ? w - 1 - c0 : c0) - sa);
+        i1 = (c1 < 0 || c1 >= w) ? -1 : 3 * ((flip ? w - 1 - c1 : c1) - sa);
+      }
+      tap0[x - x0] = i0;
+      tap1[x - x0] = i1;
+      wxs[x - x0] = wx;
+    }
+    const int len = 3 * (tb - ta), seg_groups = (len + 2 * N - 2) / N;
+#pragma unroll 4
+    for (int i = t; i < 2 * n_rows * seg_groups; i += nt) {
+      const int k = i / seg_groups, iy = y0 + k / 2 + gs[5];
+      const int yf = static_cast<int>(floorf(source_coord(iy, qs[0])));
+      const int ty = min(max(yf + (k & 1), 0), h - 1) + dy;
+      if (iy >= 0 && iy < ch && ty >= 0 && ty < h && len > 0)
+        stage_group(images, img + ty * row_elems + 3L * sa, len, stage + k * stage_stride,
+                    i - k * seg_groups);
+    }
+    __syncthreads();
+    for (int r = 0; r < n_rows; ++r) {
+      const int iy = y0 + r + gs[5];
+      const bool row_in = iy >= 0 && iy < ch;
+      const float ys = source_coord(iy, qs[0]);
+      const int yf = static_cast<int>(floorf(ys));
+      const float wy = __fsub_rn(ys, static_cast<float>(yf)), owy = __fsub_rn(1.0f, wy);
+      const int ty0 = min(max(yf, 0), h - 1) + dy, ty1 = min(max(yf + 1, 0), h - 1) + dy;
+      const bool in0 = ty0 >= 0 && ty0 < h, in1 = ty1 >= 0 && ty1 < h;
+      const long s0 = img + 3L * sa;
+      const T* top = stage + (2 * r) * stage_stride +
+                     static_cast<int>((s0 + ty0 * row_elems) & (N - 1));
+      const T* bot = stage + (2 * r + 1) * stage_stride +
+                     static_cast<int>((s0 + ty1 * row_elems) & (N - 1));
+      const long r_out = (static_cast<long>(b) * h + y0 + r) * row_elems;
+      T* dst = ostage + r * out_stride + static_cast<int>((r_out + 3L * x0) & (N - 1)) - 3 * x0;
+      for (int x = x0 + t; x < x1; x += nt) {
+        if (row_in && x >= xa && x < xb) {
+          const int i0 = tap0[x - x0], i1 = tap1[x - x0];
+          const float wx = wxs[x - x0], owx = __fsub_rn(1.0f, wx);
+          for (int c = 0; c < 3; ++c) {
+            const float f1 = fs[c];
+            const float va = in0 && i0 >= 0 ? static_cast<float>(top[i0 + c]) : f1;
+            const float vb = in0 && i1 >= 0 ? static_cast<float>(top[i1 + c]) : f1;
+            const float vc = in1 && i0 >= 0 ? static_cast<float>(bot[i0 + c]) : f1;
+            const float vd = in1 && i1 >= 0 ? static_cast<float>(bot[i1 + c]) : f1;
+            const float up = __fadd_rn(__fmul_rn(va, owx), __fmul_rn(vb, wx));
+            const float down = __fadd_rn(__fmul_rn(vc, owx), __fmul_rn(vd, wx));
+            dst[3 * x + c] = store_value<T>(__fadd_rn(__fmul_rn(up, owy), __fmul_rn(down, wy)));
+          }
+        } else {
+          for (int c = 0; c < 3; ++c) dst[3 * x + c] = store_value<T>(fs[3 + c]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // the staged output rows to the output in 16-byte vectors
+  const int out_groups = (3 * (x1 - x0) + 2 * N - 2) / N;  // per output row, at most
+  for (int i = t; i < n_rows * out_groups; i += nt) {
+    const int r = i / out_groups;
+    const long r_out = (static_cast<long>(b) * h + y0 + r) * row_elems;
+    const long a = r_out + 3L * x0, e = r_out + 3L * x1;
+    const long base = a & ~static_cast<long>(N - 1);
+    const long g = base + static_cast<long>(i - r * out_groups) * N;
+    if (g >= e) continue;
+    const int lo = lane_lo<N>(g, a), hi = lane_hi<N>(g, e);
+    G v;
+    load_group<T, IMAGE_BYTES>(ostage + r * out_stride, g - base, lo, hi, v);
+    store_group<T, IMAGE_BYTES>(out, g, lo, hi, v);
+  }
+}
+
+// The resize's arguments. Row band: start [h], weight [h, row_taps] (null
+// when the rows keep their size); column band likewise over w, with
+// col_span [column tiles, 2]: the first and end element (of an input row) of
+// each column tile's staged span, and plane: the pixels of a staged row's
+// channel plane.
+struct Resize {
+  int ih, iw, h, w;
+  const int* row_start;
+  const float* row_weight;
+  int row_taps;
+  const int* col_start;
+  const float* col_weight;
+  int col_taps;
+  const int* col_span;
+  int plane;
+  int tile_y, tile_x;
+  const float* boxes;  // [n_box] or null
+  float* boxes_out;
+  long n_box, box_chunk;
+  float sy, sx;
+};
+
+// The resize's vectors: input groups of 8 bytes (8 uint8, the rows of the
+// buckets' widths are 8-byte aligned) or 16 (4 float32); output groups of
+// 16 bytes. Taps load RESIZE_TAPS at a time, all in flight together.
+template <typename T>
+struct ResizeVec {
+  static constexpr int IN_BYTES = sizeof(T) == 1 ? 8 : 16;
+  static constexpr int NI = IN_BYTES / static_cast<int>(sizeof(T));
+  static constexpr int NO = 16 / static_cast<int>(sizeof(T));
+};
+constexpr int RESIZE_TAPS = 4;
+
+constexpr int RGB = 3;  // the resize's channels
+
+// Elements of a staged output row: its columns' elements at the output's
+// vector phase.
+template <typename T>
+__host__ __device__ inline int resize_out_stride(int tile_x) {
+  constexpr int NO = ResizeVec<T>::NO;
+  return (tile_x * RGB + 2 * NO - 2) / NO * NO;
 }
 
 template <typename T>
-__global__ void augment_image_kernel(const T* images, const int* idx, const int* geom,
-                                     const float* fills, int n, int h, int w, T* out) {
-  const long pix = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x;
-  const long per_image = static_cast<long>(h) * w;
-  if (pix >= per_image * n) return;
-  const int b = static_cast<int>(pix / per_image);
-  const int y = static_cast<int>((pix % per_image) / w), x = static_cast<int>(pix % w);
-  const long src = idx != nullptr ? idx[b] : b;
-  const T* im = images + src * per_image * 3;
-  const int* g = geom + 8 * b;
-  const int flip = g[0], dy = g[1], dx = g[2];
-  const float zero[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  const float* f = fills != nullptr ? fills + 6 * b : zero;
-  T* o = out + pix * 3;
-  if (!g[7]) {
-    for (int c = 0; c < 3; ++c) {
-      const int iy = y + dy, ix = x + dx;
-      if (iy < 0 || iy >= h || ix < 0 || ix >= w) {
-        o[c] = store_value<T>(f[c]);
-      } else {
-        o[c] = im[(static_cast<long>(iy) * w + (flip ? w - 1 - ix : ix)) * 3 + c];
+__host__ __device__ inline long resize_smem_bytes(const Resize& p, bool rows, bool cols) {
+  return (cols ? 4L * p.tile_y * RGB * p.plane +
+                     static_cast<long>(sizeof(T)) * p.tile_y * resize_out_stride<T>(p.tile_x) +
+                     4L * p.tile_x * (p.col_taps + 1)
+               : 0L) +
+         (rows ? 4L * p.tile_y * (p.row_taps + 1) : 0L);
+}
+
+// acc[l] += w_k * x_k[l] over the row taps k of the group at element `at`
+// of output row r's first tap row, in tap order, RESIZE_TAPS loads at once.
+template <typename T, int BYTES>
+__device__ __forceinline__ void row_taps(const T* __restrict__ in, long at, long in_row, int lo,
+                                         int hi, int start, const float* wt, int taps,
+                                         float* acc) {
+  constexpr int N = Group<T, BYTES>::N;
+  for (int k0 = 0; k0 < taps; k0 += RESIZE_TAPS) {
+    Group<T, BYTES> v[RESIZE_TAPS];
+#pragma unroll
+    for (int k = 0; k < RESIZE_TAPS; ++k)
+      if (k0 + k < taps) load_group<T, BYTES>(in, at + (start + k0 + k) * in_row, lo, hi, v[k]);
+#pragma unroll
+    for (int k = 0; k < RESIZE_TAPS; ++k)
+      if (k0 + k < taps) {
+#pragma unroll
+        for (int l = 0; l < N; ++l)
+          acc[l] = __fadd_rn(acc[l], __fmul_rn(wt[k0 + k], static_cast<float>(v[k].e[l])));
+      }
+  }
+}
+
+// grid (column tiles, row tiles, n), block (x: along a row, y: rows).
+// Output rows [oy0, oy0 + tile_y) x columns [ox0, ox0 + tile_x) of image n;
+// ROWS and COLS say which axes are resized. Dynamic shared memory: the
+// staged float32 rows [tile_y, 3, plane] (channel planes, so the columns
+// pass's neighbouring threads read neighbouring words) and the staged
+// output rows (T) when COLS, then the columns' band, then the rows' band.
+template <typename T, bool ROWS, bool COLS>
+__global__ void resize_aa_kernel(const T* __restrict__ in, T* __restrict__ out, Resize p) {
+  constexpr int IB = ResizeVec<T>::IN_BYTES, NI = ResizeVec<T>::NI, NO = ResizeVec<T>::NO;
+  extern __shared__ float4 resize_smem[];
+  const int n = blockIdx.z;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x, nthreads = blockDim.x * blockDim.y;
+  if (p.boxes_out != nullptr && blockIdx.x == 0 && blockIdx.y == 0) {
+    const long b1 = min(p.n_box, (n + 1) * p.box_chunk);
+    for (long t = n * p.box_chunk + tid; t < b1; t += nthreads)
+      p.boxes_out[t] = __fmul_rn(p.boxes[t], (t & 1) ? p.sx : p.sy);
+  }
+  const int oy0 = blockIdx.y * p.tile_y, rows = min(p.tile_y, p.h - oy0);
+  const int ox0 = blockIdx.x * p.tile_x, cols = min(p.tile_x, p.w - ox0);
+  const int ostride = COLS ? resize_out_stride<T>(p.tile_x) : 0;
+  float* tmp = reinterpret_cast<float*>(resize_smem);  // [tile_y, 3, plane] when COLS
+  T* otile = reinterpret_cast<T*>(tmp + (COLS ? p.tile_y * RGB * p.plane : 0));
+  float* cwt = reinterpret_cast<float*>(otile + p.tile_y * ostride);
+  float* rwt = cwt + (COLS ? p.tile_x * p.col_taps : 0);
+  int* cst = reinterpret_cast<int*>(rwt + (ROWS ? p.tile_y * p.row_taps : 0));
+  int* rst = cst + (COLS ? p.tile_x : 0);
+  if (ROWS) {
+    for (int i = tid; i < rows * p.row_taps; i += nthreads)
+      rwt[i] = p.row_weight[oy0 * p.row_taps + i];
+    for (int i = tid; i < rows; i += nthreads) rst[i] = p.row_start[oy0 + i];
+  }
+  if (COLS) {
+    for (int i = tid; i < cols * p.col_taps; i += nthreads) {
+      const int j = i / p.col_taps;  // the weights tap-major: [col_taps, tile_x]
+      cwt[(i - j * p.col_taps) * p.tile_x + j] = p.col_weight[ox0 * p.col_taps + i];
+    }
+    for (int i = tid; i < cols; i += nthreads) cst[i] = p.col_start[ox0 + i];
+  }
+  __syncthreads();
+  const long in_row = static_cast<long>(p.iw) * RGB, out_row = static_cast<long>(p.w) * RGB;
+  const long img = static_cast<long>(n) * p.ih * in_row;
+
+  if (!COLS) {
+    // the rows band straight to the output (the rows keep their width)
+    for (int r = threadIdx.y; r < rows; r += blockDim.y) {
+      const long r_out = (static_cast<long>(n) * p.h + oy0 + r) * out_row;
+      const long a = r_out + static_cast<long>(ox0) * RGB, b = a + static_cast<long>(cols) * RGB;
+      for (long g = (a & ~static_cast<long>(NI - 1)) + NI * threadIdx.x; g < b;
+           g += NI * blockDim.x) {
+        const int lo = lane_lo<NI>(g, a), hi = lane_hi<NI>(g, b);
+        float acc[NI];
+#pragma unroll
+        for (int l = 0; l < NI; ++l) acc[l] = 0.0f;
+        row_taps<T, IB>(in, img + (g - r_out), in_row, lo, hi, rst[r], rwt + r * p.row_taps,
+                        p.row_taps, acc);
+        Group<T, IB> o;
+#pragma unroll
+        for (int l = 0; l < NI; ++l) o.e[l] = store_value<T>(acc[l]);
+        store_group<T, IB>(out, g, lo, hi, o);
       }
     }
     return;
   }
-  const int ch = g[3], cw = g[4];
-  const int iy = y + g[5], ix = x + g[6];
-  const bool valid = iy >= 0 && iy < ch && ix >= 0 && ix < cw;
-  const float ys = __fsub_rn(
-      __fmul_rn(__fadd_rn(static_cast<float>(iy), 0.5f),
-                __fdiv_rn(static_cast<float>(h), static_cast<float>(ch))),
-      0.5f);
-  const float xs = __fsub_rn(
-      __fmul_rn(__fadd_rn(static_cast<float>(ix), 0.5f),
-                __fdiv_rn(static_cast<float>(w), static_cast<float>(cw))),
-      0.5f);
-  const int y0 = static_cast<int>(floorf(ys)), x0 = static_cast<int>(floorf(xs));
-  const float wy = __fsub_rn(ys, static_cast<float>(y0));
-  const float wx = __fsub_rn(xs, static_cast<float>(x0));
-  const int y0c = min(max(y0, 0), h - 1), y1c = min(max(y0 + 1, 0), h - 1);
-  const int x0c = min(max(x0, 0), w - 1), x1c = min(max(x0 + 1, 0), w - 1);
-  const float owy = __fsub_rn(1.0f, wy), owx = __fsub_rn(1.0f, wx);
-  for (int c = 0; c < 3; ++c) {
-    float v;
-    if (valid) {
-      const float a = translated(im, y0c, x0c, c, h, w, flip, dy, dx, f);
-      const float bb = translated(im, y0c, x1c, c, h, w, flip, dy, dx, f);
-      const float cc = translated(im, y1c, x0c, c, h, w, flip, dy, dx, f);
-      const float d = translated(im, y1c, x1c, c, h, w, flip, dy, dx, f);
-      const float top = __fadd_rn(__fmul_rn(a, owx), __fmul_rn(bb, wx));
-      const float bot = __fadd_rn(__fmul_rn(cc, owx), __fmul_rn(d, wx));
-      v = __fadd_rn(__fmul_rn(top, owy), __fmul_rn(bot, wy));
-    } else {
-      v = f[3 + c];
+
+  // the rows pass (or the converted input rows) over this tile's span
+  const int e0 = p.col_span[2 * blockIdx.x], e1 = p.col_span[2 * blockIdx.x + 1];
+  const int px0 = e0 / RGB;
+  for (int r = threadIdx.y; r < rows; r += blockDim.y) {
+    for (int e = e0 + NI * threadIdx.x; e < e1; e += NI * blockDim.x) {
+      const int hi = min(NI, e1 - e);
+      float acc[NI];
+      if (ROWS) {
+#pragma unroll
+        for (int l = 0; l < NI; ++l) acc[l] = 0.0f;
+        row_taps<T, IB>(in, img + e, in_row, 0, hi, rst[r], rwt + r * p.row_taps, p.row_taps,
+                        acc);
+      } else {
+        Group<T, IB> v;
+        load_group<T, IB>(in, img + (oy0 + r) * in_row + e, 0, hi, v);
+#pragma unroll
+        for (int l = 0; l < NI; ++l) acc[l] = static_cast<float>(v.e[l]);
+      }
+      int x = e / RGB, c = e - x * RGB;
+#pragma unroll
+      for (int l = 0; l < NI; ++l) {
+        if (l < hi) tmp[(r * RGB + c) * p.plane + x - px0] = acc[l];
+        if (++c == RGB) {
+          c = 0;
+          ++x;
+        }
+      }
     }
-    o[c] = store_value<T>(v);
+  }
+  __syncthreads();
+  // the columns pass out of shared memory, one output pixel a thread, into
+  // the staged output rows at the output's vector phase
+  for (int r = threadIdx.y; r < rows; r += blockDim.y) {
+    const long a = (static_cast<long>(n) * p.h + oy0 + r) * out_row + static_cast<long>(ox0) * RGB;
+    T* orow = otile + r * ostride + static_cast<int>(a & (NO - 1));
+    for (int j = threadIdx.x; j < cols; j += blockDim.x) {
+      const float* x = tmp + r * RGB * p.plane + cst[j] - px0;
+      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;  // each channel's sum in tap order
+      for (int k = 0; k < p.col_taps; ++k) {
+        const float wk = cwt[k * p.tile_x + j];
+        a0 = __fadd_rn(a0, __fmul_rn(wk, x[k]));
+        a1 = __fadd_rn(a1, __fmul_rn(wk, x[p.plane + k]));
+        a2 = __fadd_rn(a2, __fmul_rn(wk, x[2 * p.plane + k]));
+      }
+      orow[3 * j] = store_value<T>(a0);
+      orow[3 * j + 1] = store_value<T>(a1);
+      orow[3 * j + 2] = store_value<T>(a2);
+    }
+  }
+  __syncthreads();
+  // the staged output rows to the output in 16-byte vectors
+  for (int r = threadIdx.y; r < rows; r += blockDim.y) {
+    const long a = (static_cast<long>(n) * p.h + oy0 + r) * out_row + static_cast<long>(ox0) * RGB;
+    const long b = a + static_cast<long>(cols) * RGB, base = a & ~static_cast<long>(NO - 1);
+    const T* orow = otile + r * ostride;
+    for (long g = base + NO * threadIdx.x; g < b; g += NO * blockDim.x) {
+      const int lo = lane_lo<NO>(g, a), hi = lane_hi<NO>(g, b);
+      Group<T, 16> v;
+      load_group<T, 16>(orow, g - base, lo, hi, v);
+      store_group<T, 16>(out, g, lo, hi, v);
+    }
   }
 }
 
-// One separable band pass of the antialiased resize: in [outer, len_in, inner]
-// -> out [outer, len_out, inner], out[o] = sum_k weight[o, k] * in[start[o] + k]
-// accumulated from 0 in tap order. The last pass also scales n_box box
-// coordinates by (sy, sx, sy, sx).
-template <typename Tin, typename Tout>
-__global__ void resize_aa_kernel(const Tin* in, Tout* out, const int* start, const float* weight,
-                                 int taps, long outer, int len_in, int len_out, long inner,
-                                 const float* boxes, float* boxes_out, long n_box, float sy,
-                                 float sx) {
-  const long t = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x;
-  if (boxes_out != nullptr && t < n_box) {
-    boxes_out[t] = __fmul_rn(boxes[t], (t & 1) ? sx : sy);
-  }
-  const long total = outer * len_out * inner;
-  if (t >= total) return;
-  const long i = t % inner;
-  const int o = static_cast<int>((t / inner) % len_out);
-  const long r = t / (inner * len_out);
-  const Tin* base = in + r * len_in * inner + i;
-  const int s = start[o];
-  const float* wt = weight + static_cast<long>(o) * taps;
-  float acc = 0.0f;
-  for (int k = 0; k < taps; ++k) {
-    acc = __fadd_rn(acc, __fmul_rn(wt[k], static_cast<float>(base[(s + k) * inner])));
-  }
-  out[t] = store_value<Tout>(acc);
-}
+constexpr int SMEM_DEFAULT = 48 * 1024;
+constexpr int SMEM_MAX = 232448;  // a block's shared memory on the H100 (opt-in above 48 KB)
 
-constexpr int THREADS = 256;
+// Opts a kernel in to `bytes` of dynamic shared memory above the default
+// 48 KB, once per kernel and size (not per launch, so a captured launch
+// makes no attribute call).
+template <typename K>
+cudaError_t allow_smem(K* kernel, long bytes) {
+  if (bytes > SMEM_MAX) return cudaErrorInvalidValue;
+  if (bytes <= SMEM_DEFAULT) return cudaSuccess;
+  static std::mutex lock;
+  static std::map<const void*, long> allowed;
+  std::lock_guard<std::mutex> hold(lock);
+  long& have = allowed[reinterpret_cast<const void*>(kernel)];
+  if (bytes <= have) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(bytes));
+  if (e == cudaSuccess) have = bytes;
+  return e;
+}
 
 template <typename T>
 int fill_launch(const void* images, const void* idx, const void* geom, int n, int h, int w,
@@ -419,29 +839,53 @@ int fill_launch(const void* images, const void* idx, const void* geom, int n, in
   return static_cast<int>(cudaGetLastError());
 }
 
+// Column tiles of at most max_tile pixels, as even as 4-pixel steps allow;
+// `rows` output rows a block; threads: enough for per_thread pixels of a
+// row each (32 to 1024).
 template <typename T>
 int image_launch(const void* images, const void* idx, const void* geom, const void* fills, int n,
-                 int h, int w, void* out, cudaStream_t s) {
-  const long total = static_cast<long>(n) * h * w;
-  augment_image_kernel<T><<<static_cast<unsigned>((total + THREADS - 1) / THREADS), THREADS, 0,
-                            s>>>(static_cast<const T*>(images), static_cast<const int*>(idx),
-                                 static_cast<const int*>(geom), static_cast<const float*>(fills),
-                                 n, h, w, static_cast<T*>(out));
+                 int h, int w, int max_tile, int rows, int per_thread, void* out,
+                 cudaStream_t s) {
+  constexpr int N = Group<T, IMAGE_BYTES>::N;
+  const int tiles0 = (w + max_tile - 1) / max_tile;
+  const int tile = ((w + tiles0 - 1) / tiles0 + 3) / 4 * 4;
+  const int tiles = (w + tile - 1) / tile;
+  const int threads =
+      std::min(1024, std::max(32, ((tile + per_thread - 1) / per_thread + 31) / 32 * 32));
+  // a staged source row: a whole row (a resampled row's taps may span it)
+  // at any vector phase; a staged output row: the tile's at any phase
+  const int stage_stride = (3 * w + 2 * N - 2) / N * N;
+  const int out_stride = (3 * tile + 2 * N - 2) / N * N;
+  const long smem = 12L * tile + (2L * stage_stride + out_stride) * rows *
+                                     static_cast<long>(sizeof(T));
+  const cudaError_t e = allow_smem(augment_image_kernel<T>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  augment_image_kernel<T><<<dim3(tiles, (h + rows - 1) / rows, n), threads, smem, s>>>(
+      static_cast<const T*>(images), static_cast<const int*>(idx), static_cast<const int*>(geom),
+      static_cast<const float*>(fills), h, w, tile, rows, stage_stride, out_stride,
+      static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename Tin, typename Tout>
-int resize_launch(const void* in, void* out, const void* start, const void* weight, int taps,
-                  long outer, int len_in, int len_out, long inner, const void* boxes,
-                  void* boxes_out, long n_box, float sy, float sx, cudaStream_t s) {
-  long total = outer * len_out * inner;
-  if (n_box > total) total = n_box;
-  resize_aa_kernel<Tin, Tout><<<static_cast<unsigned>((total + THREADS - 1) / THREADS), THREADS,
-                                0, s>>>(
-      static_cast<const Tin*>(in), static_cast<Tout*>(out), static_cast<const int*>(start),
-      static_cast<const float*>(weight), taps, outer, len_in, len_out, inner,
-      static_cast<const float*>(boxes), static_cast<float*>(boxes_out), n_box, sy, sx);
+template <typename T, bool ROWS, bool COLS>
+int resize_launch(const void* in, void* out, const Resize& p, int n, int threads_x, int threads_y,
+                  cudaStream_t s) {
+  const long smem = resize_smem_bytes<T>(p, ROWS, COLS);
+  const cudaError_t e = allow_smem(resize_aa_kernel<T, ROWS, COLS>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((p.w + p.tile_x - 1) / p.tile_x, (p.h + p.tile_y - 1) / p.tile_y, n);
+  resize_aa_kernel<T, ROWS, COLS><<<grid, dim3(threads_x, threads_y), smem, s>>>(
+      static_cast<const T*>(in), static_cast<T*>(out), p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int resize_modes(const void* in, void* out, const Resize& p, int n, int tx, int ty,
+                 cudaStream_t s) {
+  if (p.row_start != nullptr && p.col_start != nullptr)
+    return resize_launch<T, true, true>(in, out, p, n, tx, ty, s);
+  if (p.row_start != nullptr) return resize_launch<T, true, false>(in, out, p, n, tx, ty, s);
+  return resize_launch<T, false, true>(in, out, p, n, tx, ty, s);
 }
 
 }  // namespace
@@ -504,35 +948,59 @@ int image_fill_launch(const void* images, const void* idx, const void* geom, int
                : fill_launch<float>(images, idx, geom, n, h, w, partial, fills, s);
 }
 
-// fills may be null when no row reads a fill (flip only).
+// fills may be null when no row reads a fill (flip only). max_tile: the
+// most output pixels a block; rows: output rows a block; per_thread:
+// pixels of a row a thread.
 int augment_image_launch(const void* images, const void* idx, const void* geom, const void* fills,
-                         int n, int h, int w, int is_u8, void* out, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
+                         int n, int h, int w, int is_u8, int max_tile, int rows, int per_thread,
+                         void* out, void* stream) {
+  if (n <= 0 || h <= 0 || w <= 0) return static_cast<int>(cudaGetLastError());
+  if (max_tile < 4 || rows < 1 || per_thread < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_u8 ? image_launch<unsigned char>(images, idx, geom, fills, n, h, w, out, s)
-               : image_launch<float>(images, idx, geom, fills, n, h, w, out, s);
+  return is_u8 ? image_launch<unsigned char>(images, idx, geom, fills, n, h, w, max_tile, rows,
+                                             per_thread, out, s)
+               : image_launch<float>(images, idx, geom, fills, n, h, w, max_tile, rows,
+                                     per_thread, out, s);
 }
 
-// One band pass. in_kind / out_kind: 0 float32, 1 uint8. boxes_out null: no
-// box scaling in this pass.
-int resize_aa_launch(const void* in, int in_kind, void* out, int out_kind, const void* start,
-                     const void* weight, int taps, long long outer, int len_in, int len_out,
-                     long long inner, const void* boxes, void* boxes_out, long long n_box,
-                     float sy, float sx, void* stream) {
+// One launch: images [n, ih, iw, 3] -> out [n, h, w, 3] in the same dtype
+// (is_u8: uint8, else float32). A band's pointers are null for an axis that
+// keeps its size (not both). boxes_out null: no box scaling; else block
+// (0, 0, i) scales elements [i * box_chunk, (i + 1) * box_chunk) of boxes.
+int resize_aa_launch(const void* in, int is_u8, void* out, int n, int ih, int iw, int h, int w,
+                     const void* row_start, const void* row_weight, int row_taps,
+                     const void* col_start, const void* col_weight, int col_taps,
+                     const void* col_span, int plane, int tile_y, int tile_x, int threads_x,
+                     int threads_y, const void* boxes, void* boxes_out, long long n_box,
+                     long long box_chunk, float sy, float sx, void* stream) {
+  if (n <= 0 || h <= 0 || w <= 0) return static_cast<int>(cudaGetLastError());
+  if ((row_start == nullptr && col_start == nullptr) || tile_x < 1 || tile_y < 1 ||
+      (col_start != nullptr && (col_span == nullptr || plane < 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Resize p;
+  p.ih = ih;
+  p.iw = iw;
+  p.h = h;
+  p.w = w;
+  p.row_start = static_cast<const int*>(row_start);
+  p.row_weight = static_cast<const float*>(row_weight);
+  p.row_taps = row_taps;
+  p.col_start = static_cast<const int*>(col_start);
+  p.col_weight = static_cast<const float*>(col_weight);
+  p.col_taps = col_taps;
+  p.col_span = static_cast<const int*>(col_span);
+  p.plane = plane;
+  p.tile_y = tile_y;
+  p.tile_x = tile_x;
+  p.boxes = static_cast<const float*>(boxes);
+  p.boxes_out = static_cast<float*>(boxes_out);
+  p.n_box = boxes_out != nullptr ? n_box : 0;
+  p.box_chunk = box_chunk;
+  p.sy = sy;
+  p.sx = sx;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (outer * len_out * inner <= 0 && n_box <= 0) return static_cast<int>(cudaGetLastError());
-  if (in_kind == 0 && out_kind == 0)
-    return resize_launch<float, float>(in, out, start, weight, taps, outer, len_in, len_out, inner,
-                                       boxes, boxes_out, n_box, sy, sx, s);
-  if (in_kind == 1 && out_kind == 0)
-    return resize_launch<unsigned char, float>(in, out, start, weight, taps, outer, len_in,
-                                               len_out, inner, boxes, boxes_out, n_box, sy, sx, s);
-  if (in_kind == 0 && out_kind == 1)
-    return resize_launch<float, unsigned char>(in, out, start, weight, taps, outer, len_in,
-                                               len_out, inner, boxes, boxes_out, n_box, sy, sx, s);
-  return resize_launch<unsigned char, unsigned char>(in, out, start, weight, taps, outer, len_in,
-                                                     len_out, inner, boxes, boxes_out, n_box, sy,
-                                                     sx, s);
+  return is_u8 ? resize_modes<unsigned char>(in, out, p, n, threads_x, threads_y, s)
+               : resize_modes<float>(in, out, p, n, threads_x, threads_y, s);
 }
 
 }  // extern "C"

@@ -13,9 +13,12 @@ here; each wrapper takes only CUDA tensors and raises on anything else.
 * :func:`image_fill_cuda`: the two channel fills per image (two launches, one
   call): [N, 2, 3] float32.
 * :func:`augment_image_cuda`: gather (from the batch, or the cache by
-  ``idx``), flip, translation and jitter in one pass per output pixel.
-* :func:`resize_aa_cuda`: the antialiased bilinear bucket resample as band
-  passes over rows, then columns, with the boxes scaled in the last pass.
+  ``idx``), flip, translation and jitter in one launch, a block per output
+  row tile.
+* :func:`resize_aa_cuda`: the antialiased bilinear bucket resample in one
+  launch: per output tile, the rows band pass into shared memory over the
+  input span the tile's column taps need (:func:`resize_tile_spans`, kept on
+  the card by :func:`tile_spans`), then the columns pass; the boxes scaled.
 
 Each counts its calls in its own counter (``geometry_launches``,
 ``fill_launches``, ``image_launches``, ``resize_launches``).
@@ -43,33 +46,53 @@ GAMMA = 0x9E3779B97F4A7C15
 MASK64 = 0xFFFFFFFFFFFFFFFF
 FILL_BANDS = 16  # csrc/image_kernel.cu::FILL_BANDS
 GEOM_COLS = 8
+# the resize's block: output rows x output columns, and by dtype its
+# threads (x: along a row, y: rows); its staged spans start and end on
+# RESIZE_ALIGN elements (its widest input vector). The image pass's block:
+# the widest column tile (pixels), and by dtype the output rows and a row's
+# pixels per thread. The fastest at 600x600 b8 on the H100
+# (tools/image_variants.py).
+RESIZE_TILE = (8, 128)
+RESIZE_THREADS = {torch.uint8: (32, 4), torch.float32: (32, 8)}
+RESIZE_ALIGN = 8
+IMAGE_TILE = 1024
+IMAGE_ROWS = {torch.uint8: 2, torch.float32: 2}
+IMAGE_PIXELS_PER_THREAD = {torch.uint8: 8, torch.float32: 2}
+SMEM_BUDGET = 232448  # bytes of shared memory a block can use on the H100
 
 _fns = None
 # (in_size, out_size, device) -> (start int32 [out], weight float32 [out, taps])
 _bands: Dict[Tuple[int, int, torch.device], Tuple[Tensor, Tensor]] = {}
+# (in_size, out_size, tile, device) -> (spans int32 [tiles, 2], plane)
+_spans: Dict[Tuple[int, int, int, torch.device], Tuple[Tensor, int]] = {}
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``'s C functions typed (the library of ``csrc/image_kernel.cu``,
+    or a build of another version of it with the same interface)."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.augment_geometry_launch.argtypes = [
+        p, p, p, p, p, ctypes.c_ulonglong, i, i, f, f, i, f, f, p, p, p, p, i,
+        i, i, i, i, p, p, p, p, p, p,
+    ]
+    lib.image_fill_launch.argtypes = [p, p, p, i, i, i, i, p, p, p]
+    lib.augment_image_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, p]
+    lib.resize_aa_launch.argtypes = [
+        p, i, p, i, i, i, i, i, p, p, i, p, p, i, p, i, i, i, i, i, p, p,
+        ctypes.c_longlong, ctypes.c_longlong, f, f, p,
+    ]
+    for fn in (lib.augment_geometry_launch, lib.image_fill_launch,
+               lib.augment_image_launch, lib.resize_aa_launch):
+        fn.restype = ctypes.c_int
+    lib.image_error_string.argtypes = [ctypes.c_int]
+    lib.image_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _kernels():
     global _fns
     if _fns is None:
-        lib = build.library("image_kernel")
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.augment_geometry_launch.argtypes = [
-            p, p, p, p, p, ctypes.c_ulonglong, i, i, f, f, i, f, f, p, p, p, p, i,
-            i, i, i, i, p, p, p, p, p, p,
-        ]
-        lib.image_fill_launch.argtypes = [p, p, p, i, i, i, i, p, p, p]
-        lib.augment_image_launch.argtypes = [p, p, p, p, i, i, i, i, p, p]
-        lib.resize_aa_launch.argtypes = [
-            p, i, p, i, p, p, i, ctypes.c_longlong, i, i, ctypes.c_longlong, p, p,
-            ctypes.c_longlong, f, f, p,
-        ]
-        for fn in (lib.augment_geometry_launch, lib.image_fill_launch,
-                   lib.augment_image_launch, lib.resize_aa_launch):
-            fn.restype = ctypes.c_int
-        lib.image_error_string.argtypes = [ctypes.c_int]
-        lib.image_error_string.restype = ctypes.c_char_p
-        _fns = lib
+        _fns = bind(build.library("image_kernel"))
     return _fns
 
 
@@ -200,7 +223,7 @@ def _source(images: Tensor, geom: Tensor, idx: Optional[Tensor]):
     idx = _on(dev, "idx", idx, torch.int32, (n,))
     if idx is None and images.shape[0] != n:
         raise ValueError(f"images hold {images.shape[0]} rows for {n} geometry rows")
-    return images.contiguous(), geom, idx, n
+    return _on(dev, "images", images), geom, idx, n
 
 
 def image_fill_cuda(images: Tensor, geom: Tensor, idx: Optional[Tensor] = None) -> Tensor:
@@ -226,16 +249,22 @@ def image_fill_cuda(images: Tensor, geom: Tensor, idx: Optional[Tensor] = None) 
 def augment_image_cuda(images: Tensor, geom: Tensor, fills: Optional[Tensor],
                        idx: Optional[Tensor] = None) -> Tensor:
     """One launch: [N, H, W, 3] in the images' dtype. ``fills`` may be None
-    when no row translates or resamples."""
+    when no row translates or resamples. A block per ``IMAGE_ROWS`` output
+    rows (by dtype) and column tile (at most ``IMAGE_TILE`` pixels)."""
     images, geom, idx, n = _source(images, geom, idx)
     dev = images.device
     h, w = images.shape[1], images.shape[2]
+    if image_smem_bytes(w, images.dtype) > SMEM_BUDGET:
+        raise ValueError(f"rows of {w} pixels exceed the image pass's shared memory")
     fills = _on(dev, "fills", fills, torch.float32, (n, 2, 3))
     out = torch.empty((n, h, w, 3), dtype=images.dtype, device=dev)
     lib = _kernels()
     with torch.cuda.device(dev):
         rc = lib.augment_image_launch(images.data_ptr(), _ptr(idx), geom.data_ptr(), _ptr(fills),
-                                      n, h, w, _image_kind(images), out.data_ptr(), _stream(dev))
+                                      n, h, w, _image_kind(images), IMAGE_TILE,
+                                      IMAGE_ROWS[images.dtype],
+                                      IMAGE_PIXELS_PER_THREAD[images.dtype], out.data_ptr(),
+                                      _stream(dev))
     build.check(rc, lib.image_error_string, "augment_image_kernel")
     global image_launches
     image_launches += 1
@@ -262,11 +291,82 @@ def band_tables(in_size: int, out_size: int, device) -> Tuple[Tensor, Tensor]:
     return got
 
 
+def image_smem_bytes(w: int, dtype: torch.dtype) -> int:
+    """Shared memory of one image-pass block (``csrc/image_kernel.cu::
+    image_launch``): the tile's tap table, two staged source rows per
+    output row, each a whole row at any 16-byte phase, and the staged
+    output row."""
+    tiles = -(-w // IMAGE_TILE)
+    per_tile = -(-w // tiles)
+    tile = -(-per_tile // 4) * 4
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    per = 16 // itemsize
+    source = (3 * w + 2 * per - 2) // per * per
+    staged_out = (3 * tile + 2 * per - 2) // per * per
+    return 12 * tile + IMAGE_ROWS[dtype] * (2 * source + staged_out) * itemsize
+
+
+def resize_tile_spans(start: np.ndarray, taps: int, in_size: int,
+                      tile: int) -> Tuple[np.ndarray, int]:
+    """The input span each tile of ``tile`` output columns stages: int32
+    [tiles, 2] (first, end) as elements of an RGB input row, the first
+    rounded down and the end up to a multiple of ``RESIZE_ALIGN`` (a vector
+    load's boundary; the end not past the row), covering every tile
+    output's taps ``start[o] .. start[o] + taps - 1``; and the pixels of a
+    staged channel plane (the widest span's, from the pixel of its first
+    element)."""
+    start = np.asarray(start, np.int64)
+    a = RESIZE_ALIGN
+    tiles = -(-len(start) // tile)
+    spans = np.empty((tiles, 2), np.int32)
+    for t in range(tiles):
+        s = start[t * tile:(t + 1) * tile]
+        end = -(-(int(s.max()) + taps) * 3 // a) * a
+        spans[t] = (int(s.min()) * 3 // a * a, min(end, in_size * 3))
+    plane = int((-(-spans[:, 1] // 3) - spans[:, 0] // 3).max())
+    return spans, plane
+
+
+def resize_smem_bytes(tile, plane: int, row_taps: int, col_taps: int, itemsize: int = 1) -> int:
+    """Shared memory of one resize block (``csrc/image_kernel.cu::
+    resize_smem_bytes``): when the columns are resized (``col_taps`` > 0)
+    the staged float32 rows (3 channel planes of ``plane`` pixels), the
+    staged output rows (at any 16-byte phase) and the columns' band; when
+    the rows are (``row_taps`` > 0) the rows' band."""
+    ty, tx = tile
+    per = 16 // itemsize
+    out_stride = (tx * 3 + 2 * per - 2) // per * per
+    cols = 4 * ty * 3 * plane + itemsize * ty * out_stride + 4 * tx * (col_taps + 1)
+    return (cols if col_taps else 0) + (4 * ty * (row_taps + 1) if row_taps else 0)
+
+
+def tile_spans(in_size: int, out_size: int, tile: int, device) -> Tuple[Tensor, int]:
+    """:func:`resize_tile_spans` of the columns' band on ``device``, built
+    once per (in, out, tile, device) and kept, as :func:`band_tables`;
+    under CUDA graph capture it must already exist."""
+    key = (int(in_size), int(out_size), int(tile), torch.device(device))
+    got = _spans.get(key)
+    if got is None:
+        if key[-1].type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"the resize's tile spans {in_size} -> {out_size} are not on the card under CUDA "
+                "graph capture: run the resize once before capturing it")
+        from replication_faster_rcnn_tpu_torch.ops.image import resize_band
+
+        start, weight = resize_band(in_size, out_size)
+        spans, plane = resize_tile_spans(start, weight.shape[1], in_size, tile)
+        got = _spans[key] = (torch.from_numpy(spans).to(key[-1]), plane)
+    return got
+
+
 def resize_aa_cuda(images: Tensor, boxes: Optional[Tensor], out_hw) -> Tuple[Tensor, Optional[Tensor]]:
-    """``ops/image.py::resize_batch_with_boxes`` on the card: one band pass
-    per resized axis (rows, then columns; a float32 intermediate between
-    them), the boxes scaled in the last. One call, counted once. The
-    identity size returns the inputs and launches nothing."""
+    """``ops/image.py::resize_batch_with_boxes`` on the card in one launch:
+    per tile of output rows and columns, the rows band pass over the tile's
+    input span into shared memory (float32, as the plain version's
+    intermediate), then the columns pass from there; an axis that keeps its
+    size skips its pass. One block per image scales the boxes. One call,
+    counted once. The identity size returns the inputs and launches
+    nothing."""
     if not images.is_cuda:
         raise ValueError(f"images must be a CUDA tensor, got {images.device}")
     kind = _image_kind(images)
@@ -274,38 +374,35 @@ def resize_aa_cuda(images: Tensor, boxes: Optional[Tensor], out_hw) -> Tuple[Ten
     h, w = int(out_hw[0]), int(out_hw[1])
     if (ih, iw) == (h, w):
         return images, boxes
+    if c != 3:
+        raise ValueError(f"resize_aa_cuda takes RGB [N, H, W, 3], got {tuple(images.shape)}")
     dev = images.device
-    images = images.contiguous()
+    images = _on(dev, "images", images)
     if boxes is not None:
         boxes = _on(dev, "boxes", boxes, torch.float32)
     sy, sx = float(np.float32(h / ih)), float(np.float32(w / iw))
-    passes = []
-    if ih != h:
-        passes.append(("rows", ih, h))
-    if iw != w:
-        passes.append(("cols", iw, w))
+    ty, tx = RESIZE_TILE
+    rows = band_tables(ih, h, dev) if ih != h else (None, None)
+    cols = band_tables(iw, w, dev) if iw != w else (None, None)
+    spans, plane = tile_spans(iw, w, tx, dev) if iw != w else (None, 0)
+    row_taps = rows[1].shape[1] if ih != h else 0
+    col_taps = cols[1].shape[1] if iw != w else 0
+    smem = resize_smem_bytes(RESIZE_TILE, plane, row_taps, col_taps, images.element_size())
+    if smem > SMEM_BUDGET:
+        raise ValueError(f"the resize {ih}x{iw} -> {h}x{w} needs {smem} bytes of shared memory "
+                         f"a block, over {SMEM_BUDGET}")
+    out = torch.empty((n, h, w, 3), dtype=images.dtype, device=dev)
     out_boxes = torch.empty_like(boxes) if boxes is not None else None
+    n_box = boxes.numel() if boxes is not None else 0
     lib = _kernels()
-    x, x_kind, rows = images, kind, ih
-    for k, (axis, n_in, n_out) in enumerate(passes):
-        last = k == len(passes) - 1
-        start, weight = band_tables(n_in, n_out, dev)
-        if axis == "rows":
-            outer, inner, shape = n, iw * c, (n, n_out, iw, c)
-            rows = n_out
-        else:
-            outer, inner, shape = n * rows, c, (n, rows, n_out, c)
-        out_kind = kind if last else 0
-        y = torch.empty(shape, dtype=torch.uint8 if out_kind else torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            rc = lib.resize_aa_launch(
-                x.data_ptr(), x_kind, y.data_ptr(), out_kind, start.data_ptr(),
-                weight.data_ptr(), weight.shape[1], outer, n_in, n_out, inner,
-                _ptr(boxes) if last else None, _ptr(out_boxes) if last else None,
-                boxes.numel() if (last and boxes is not None) else 0, sy, sx, _stream(dev),
-            )
-        build.check(rc, lib.image_error_string, "resize_aa_kernel")
-        x, x_kind = y, out_kind
+    with torch.cuda.device(dev):
+        rc = lib.resize_aa_launch(
+            images.data_ptr(), kind, out.data_ptr(), n, ih, iw, h, w,
+            _ptr(rows[0]), _ptr(rows[1]), row_taps, _ptr(cols[0]), _ptr(cols[1]), col_taps,
+            _ptr(spans), plane, ty, tx, *RESIZE_THREADS[images.dtype],
+            _ptr(boxes), _ptr(out_boxes), n_box, -(-n_box // n) if n else 0, sy, sx,
+            _stream(dev))
+    build.check(rc, lib.image_error_string, "resize_aa_kernel")
     global resize_launches
     resize_launches += 1
-    return x, out_boxes
+    return out, out_boxes

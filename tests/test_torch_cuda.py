@@ -785,3 +785,104 @@ def ops_reference():
     from replication_faster_rcnn_tpu_torch import ops
 
     return ops.reference_scope()
+
+
+# -------------------------------------------------------------- image kernels
+
+
+def test_image_kernels_match_plain(dev):
+    """The data path's resize and image pass bitwise their plain versions
+    (the image pass fed the plain fills, so float32 is bitwise too) at odd
+    and non-square sizes, one-axis resizes, strong downsampling, uint8 rows
+    whose byte length is not a multiple of 4 or 16, a cache gather whose
+    idx repeats an image, rows translated to the edge (|dy| = h - 1, |dx| =
+    w - 1) and past it; every flipped row against ``torch.flip`` and the
+    identity gather against ``torch.index_select``; one launch per call."""
+    _resize_cases(dev)
+    _image_pass_cases(dev)
+
+
+def _resize_cases(dev):
+    from replication_faster_rcnn_tpu_torch.ops import image as image_ops
+    from replication_faster_rcnn_tpu_torch.ops.cuda import image_kernel
+
+    rng = np.random.default_rng(17)
+    for n, (ih, iw), (h, w) in [(3, (375, 500), (301, 433)), (2, (600, 600), (600, 480)),
+                                (2, (600, 600), (480, 600)), (2, (600, 600), (240, 240)),
+                                (2, (600, 600), (720, 720)), (1, (37, 41), (53, 19)),
+                                (3, (301, 433), (375, 500))]:
+        for dtype in ("uint8", "float32"):
+            if dtype == "uint8":
+                images = torch.from_numpy(rng.integers(0, 256, (n, ih, iw, 3), dtype=np.uint8))
+            else:
+                images = torch.from_numpy(rng.normal(0, 50, (n, ih, iw, 3)).astype(np.float32))
+            images = images.to(dev)
+            boxes = _boxes(rng, (n, 7), float(min(ih, iw))).to(dev)
+            n0 = image_kernel.resize_launches
+            got, got_boxes = image_kernel.resize_aa_cuda(images, boxes, (h, w))
+            torch.cuda.synchronize()
+            assert image_kernel.resize_launches == n0 + 1
+            with ops_reference():
+                want, want_boxes = image_ops.resize_batch_with_boxes(images, boxes, (h, w))
+            assert got.dtype == want.dtype and torch.equal(got, want), (ih, iw, h, w, dtype)
+            assert torch.equal(got_boxes, want_boxes), (ih, iw, h, w, dtype)
+
+
+def _image_pass_cases(dev):
+    from replication_faster_rcnn_tpu_torch.ops import image as image_ops
+    from replication_faster_rcnn_tpu_torch.ops.cuda import image_kernel as k
+
+    rng = np.random.default_rng(19)
+    dev = torch.empty(0, device=dev).device  # with its index, as the wrappers compare
+
+    def held(images, geom, idx=None, use_fills=True):
+        batch = images[idx.long()] if idx is not None else images
+        with ops_reference():
+            want = image_ops.augment_images_plain(batch, geom)
+            fills = image_ops.image_fills_plain(batch, geom).contiguous()
+        n0 = k.image_launches
+        got = k.augment_image_cuda(images, geom, fills if use_fills else None, idx)
+        torch.cuda.synchronize()
+        assert k.image_launches == n0 + 1
+        assert got.dtype == want.dtype and torch.equal(got, want), (
+            tuple(images.shape), geom.tolist(), float((got.float() - want.float()).abs().max()))
+        return got
+
+    for (h, w), dtype in [((375, 433), "uint8"), ((600, 600), "uint8"), ((41, 37), "uint8"),
+                          ((375, 433), "float32"), ((600, 600), "float32")]:
+        m = 5
+        if dtype == "uint8":
+            cache = torch.from_numpy(rng.integers(0, 256, (m, h, w, 3), dtype=np.uint8)).to(dev)
+        else:
+            cache = torch.from_numpy(rng.normal(0, 50, (m, h, w, 3)).astype(np.float32)).to(dev)
+        n = 4
+        images = cache[:n].contiguous()
+        flip = torch.tensor([True, False, True, True], device=dev)
+        shifts = torch.tensor([[h - 1, 0], [-(h - 1), w - 1], [3, -(w - 1)], [h + 2, -w - 5]],
+                              dtype=torch.int32, device=dev)
+        jitter = torch.tensor([[h, w, 0, 0], [h * 3 // 4, w * 5 // 4, -7, 11],
+                               [h * 5 // 4, w * 3 // 4, h // 3, -(w // 4)], [1, 2, 0, -1]],
+                              dtype=torch.int32, device=dev)
+        for kw in (dict(flip=flip), dict(shifts=shifts), dict(jitter=jitter),
+                   dict(flip=flip, shifts=shifts, jitter=jitter)):
+            *_, geom, _ = k.augment_geometry_cuda(None, None, None, n, h, w, device=dev,
+                                                  resample="all", **kw)
+            held(images, geom)
+        aug = torch.from_numpy(np.stack([rng.integers(0, 5011, n), rng.integers(0, 50, n)],
+                                        -1).astype(np.int32)).to(dev)
+        *_, geom, _ = k.augment_geometry_cuda(None, None, None, n, h, w, aug=aug, seed=5,
+                                              hflip=True, scale_range=(0.75, 1.25),
+                                              translate=0.1, resample="all")
+        held(images, geom)
+        # the cache gather, idx repeating an image
+        idx = torch.tensor([2, 0, 2, 4], dtype=torch.int32, device=dev)
+        *_, geom, _ = k.augment_geometry_cuda(None, None, None, n, h, w, idx=idx, flip=flip,
+                                              jitter=jitter, resample="all", device=dev)
+        held(cache, geom, idx)
+        # every row flipped; the identity gather
+        *_, geom, _ = k.augment_geometry_cuda(None, None, None, n, h, w, device=dev,
+                                              flip=torch.ones(n, dtype=torch.bool, device=dev))
+        assert torch.equal(held(images, geom, use_fills=False), torch.flip(images, [2]))
+        *_, geom, _ = k.augment_geometry_cuda(None, None, None, n, h, w, idx=idx, device=dev)
+        assert torch.equal(held(cache, geom, idx, use_fills=False),
+                           torch.index_select(cache, 0, idx.long()))

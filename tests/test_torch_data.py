@@ -600,6 +600,44 @@ def test_data_path_matches_jax(tmp_path, monkeypatch):
     _case_device_cache(rng)
     _case_loader(rng)
     _case_prefetcher()
+    _case_resize_tile_spans()
+
+
+def _case_resize_tile_spans():
+    """The resize kernel's host table: every tile's staged input span holds
+    each of its outputs' taps ``start[o] .. start[o] + taps - 1``, starts on
+    a vector boundary, ends inside the row and fits the staged channel plane; a
+    resize block and an image-pass block fit the shared-memory budget; the
+    horizontal halo stays under 15% of the rows pass at the buckets."""
+    from replication_faster_rcnn_tpu_torch.ops.cuda import image_kernel as k
+
+    ty, tx = k.RESIZE_TILE
+    for (ih, iw), (h, w) in [((600, 600), (480, 480)), ((600, 600), (720, 720)),
+                             ((480, 480), (600, 600)), ((600, 600), (600, 480)),
+                             ((600, 600), (480, 600)), ((375, 500), (301, 433)),
+                             ((600, 600), (240, 240)), ((301, 433), (375, 500))]:
+        row_taps = col_taps = plane = 0
+        if ih != h:
+            row_taps = t_image.resize_band(ih, h)[1].shape[1]
+        if iw != w:
+            start, weight = t_image.resize_band(iw, w)
+            col_taps = weight.shape[1]
+            spans, plane = k.resize_tile_spans(start, col_taps, iw, tx)
+            align = k.RESIZE_ALIGN
+            assert spans.shape == (-(-w // tx), 2)
+            assert (spans[:, 0] % align == 0).all() and (spans[:, 1] <= iw * 3).all()
+            assert ((-(-spans[:, 1] // 3) - spans[:, 0] // 3) <= plane).all()
+            for o in range(w):
+                first, end = spans[o // tx]
+                assert first <= start[o] * 3 and (start[o] + col_taps) * 3 <= end, (iw, w, o)
+            if (ih, iw) in ((600, 600), (480, 480)) and w == h:
+                halo = float((spans[:, 1] - spans[:, 0]).sum()) / (iw * 3) - 1.0
+                assert halo <= 0.15, (iw, w, halo)
+        for itemsize in (1, 4):
+            assert k.resize_smem_bytes((ty, tx), plane, row_taps, col_taps,
+                                       itemsize) <= k.SMEM_BUDGET
+        for dtype in (torch.uint8, torch.float32):
+            assert k.image_smem_bytes(iw, dtype) <= k.SMEM_BUDGET
 
 
 # ------------------------------------------------------------ trainer cases
