@@ -43,12 +43,15 @@ H100:  ``python3 chip_smoke.py``. It
    outputs overwritten before each replay: bitwise equal to the eager
    launch, and the IoU kernel's column state zero after each replay. Then
    the data path's four kernels (``csrc/image_kernel.cu``) at 600x600, b8
-   and b16, uint8 and float32 (:func:`check_image_kernels`): the geometry,
-   fill and image kernels of ``augment_batch`` on four row mixes (flip
-   beside identity rows, translation +-0.1, scale 0.75-1.25, all three)
-   against their plain versions (geometry, boxes and fills bitwise, the
-   geometry also against the numpy oracle; images bitwise in uint8, within
-   1e-6 relative in float32), the cache gather from a 1,024-image cache
+   and b16, uint8 and float32 (:func:`check_image_kernels`): the prepare
+   launch (geometry + fills, a thread block cluster per image), the
+   geometry alone and the image pass of ``augment_batch`` on four row mixes
+   (flip beside identity rows, translation +-0.1, scale 0.75-1.25, all
+   three) against their plain versions (geometry, boxes and uint8 fills
+   bitwise, float32 fills within 1 ulp and bitwise across launches, the
+   geometry also against the numpy oracle; G = 100 too; images bitwise in
+   uint8, within 1e-6 relative in float32), the cache gather from a
+   1,024-image cache (an idx repeating a row too)
    (the image kernel timed alone and the whole ``materialize_batch``), two
    pure copies bitwise the one PyTorch call that computes each (every row
    flipped: ``torch.flip``; the identity gather: ``torch.index_select``,
@@ -1115,6 +1118,7 @@ IMAGE_SRC = "replication_faster_rcnn_tpu_torch/csrc/image_kernel.cu"
 # the XLA code each data-path kernel replaces (no Pallas kernel: ops/image.py)
 IMAGE_JAX = {
     "augment_geometry": "replication_faster_rcnn_tpu/ops/image.py:275",
+    "augment_prepare": "replication_faster_rcnn_tpu/ops/image.py:275",
     "image_fill": "replication_faster_rcnn_tpu/ops/image.py:58",
     "augment_image": "replication_faster_rcnn_tpu/ops/image.py:31",
     "resize_aa": "replication_faster_rcnn_tpu/ops/image.py:337",
@@ -1222,19 +1226,34 @@ def pure_copy_case(torch, dev, K, I, name, args, source, library, captured):
     return row
 
 
+def fills_ok(torch, dtype, got, want):
+    """uint8 fills bitwise; float32 within 1 float32 ulp (float64 sums in
+    another order)."""
+    if dtype == "uint8":
+        return bitwise(torch, got, want)
+    ulp = torch.from_numpy(np.spacing(want.abs().cpu().numpy())).to(want.device)
+    return bool(((got - want).abs() <= ulp).all())
+
+
 def check_image_kernels(torch, dev):
-    """Phase [3] for the data path's four kernels at 600x600, b8 and b16,
-    uint8 and float32. ``augment_batch`` (geometry + fills + image pass) on
-    four row mixes (flip only: identity rows beside flipped ones; translate
-    +-0.1; scale 0.75-1.25: zoom in and out; all three) against its plain
-    version on the card: boxes, labels, masks and geometry rows bitwise (and
-    the geometry against the numpy oracle ``device_decisions``), the fills
-    bitwise in uint8 and within 1 float32 ulp, the images bitwise in uint8
-    and within 1e-6 relative in float32. The device cache's gather (a
+    """Phase [3] for the data path's kernels at 600x600, b8 and b16, uint8
+    and float32. The prepare launch (geometry + fills) and the geometry
+    alone on four row mixes (flip only: identity rows beside flipped ones;
+    translate +-0.1; scale 0.75-1.25: zoom in and out; all three) against
+    ``augment_prepare_plain`` on the card: boxes, labels, masks and
+    geometry rows bitwise (and the geometry against the numpy oracle
+    ``device_decisions``), the fills bitwise in uint8 and within 1 float32
+    ulp, bitwise across two launches and the fills alone
+    (``image_fill_cuda``); G = 100 (the COCO padding) and the cache's rows
+    by an idx that repeats one the same. The image pass on the prepare
+    launch's geometry and fills against ``augment_images_plain``: bitwise
+    in uint8 and within 1e-6 relative in float32. The prepare launch and
+    the fills alone timed beside ``torch.sum(images, dim=(1, 2))`` in int64
+    / float64 (``library_ms``: the first fill's sum alone). The device cache's gather (a
     1,024-image cache, flip + jitter, the resample in the same pass) against
     the plain ``materialize_batch`` + ``batched_scale_jitter``, the image
-    kernel timed alone (``ms``) and the whole path (``materialize_ms``:
-    geometry, fills, image pass). Every row flipped and the identity gather
+    kernel timed alone (``ms``) and the whole path (``materialize_ms``: the
+    prepare launch and the image pass). Every row flipped and the identity gather
     bitwise the plain version and ``torch.flip`` / ``torch.index_select``
     (``library_ms``). The bucket resample 600->480, 600->720 and 600->240
     bitwise against the plain band passes, with
@@ -1260,7 +1279,7 @@ def check_image_kernels(torch, dev):
             images = t(rng.normal(0, 1, (b, h, w, 3)).astype(np.float32))
         return (images,) + make_boxes(b)
 
-    def make_boxes(b):
+    def make_boxes(b, g=g):
         boxes = rand_boxes(rng, (b, g), 520, 260)
         boxes = np.minimum(boxes, 600).astype(np.float32)
         labels = rng.integers(1, 21, (b, g)).astype(np.int32)
@@ -1270,33 +1289,37 @@ def check_image_kernels(torch, dev):
         aug = np.stack([rng.integers(0, 5011, b), rng.integers(0, 50, b)], -1).astype(np.int32)
         return t(boxes), t(labels), t(mask), aug
 
+    def held_prepare(name, images, boxes, labels, mask, dtype, kw, want_geom=None):
+        """The prepare launch against its plain version, the fills across
+        two launches and against the fills alone; -> (outputs, fill error)."""
+        got = K.augment_prepare_cuda(images, boxes, labels, mask, **kw)
+        again = K.augment_prepare_cuda(images, boxes, labels, mask, **kw)
+        alone = K.image_fill_cuda(images, got[3], kw.get("idx"))
+        with ops.reference_scope():
+            want = I.augment_prepare_plain(images, boxes, labels, mask, **kw)
+        if not (all(bitwise(torch, a, c) for a, c in zip(got[:4], want[:4]))
+                and (want_geom is None or np.array_equal(got[3].cpu().numpy(), want_geom))):
+            raise AssertionError(f"augment_prepare {name}: geometry != plain or oracle")
+        if not (fills_ok(torch, dtype, got[4], want[4]) and bitwise(torch, again[4], got[4])
+                and bitwise(torch, alone, got[4])):
+            raise AssertionError(f"augment_prepare {name}: fills != plain, or not bitwise "
+                                 "across launches and the fills alone")
+        return got, float((got[4] - want[4]).abs().max())
+
     for b in (8, 16):
         for dtype in ("uint8", "float32"):
             images, boxes, labels, mask, aug_np = make(b, dtype)
             aug = t(aug_np)
             for mode, kw in AUG_MODES:
                 key = f"b{b}_{dtype}_{mode}"
-                gb, gl, gm, geom, _ = K.augment_geometry_cuda(
-                    boxes, labels, mask, b, h, w, aug=aug, seed=AUG_SEED, **kw)
-                with ops.reference_scope():
-                    pb, pl, pm, pgeom = I.augment_geometry_plain(
-                        boxes, labels, mask, aug, h, w, seed=AUG_SEED, **kw)
+                kw = dict(aug=aug, seed=AUG_SEED, **kw)
+                gb, gl, gm, ggeom, _ = K.augment_geometry_cuda(boxes, labels, mask, b, h, w, **kw)
                 want_geom = oracle_geometry(aug_np, h, w, kw)
+                (pb, pl, pm, geom, fills), fill_err = held_prepare(
+                    key, images, boxes, labels, mask, dtype, kw, want_geom)
                 if not (bitwise(torch, gb, pb) and bitwise(torch, gl, pl) and bitwise(torch, gm, pm)
-                        and bitwise(torch, geom, pgeom)
-                        and np.array_equal(geom.cpu().numpy(), want_geom)):
-                    raise AssertionError(f"augment_geometry {key}: kernel != plain or oracle")
-                fills = K.image_fill_cuda(images, geom)
-                with ops.reference_scope():
-                    pfills = I.image_fills_plain(images, geom)
-                if dtype == "uint8":
-                    fills_ok = bitwise(torch, fills, pfills)
-                else:
-                    ulp = torch.from_numpy(np.spacing(pfills.abs().cpu().numpy())).to(dev)
-                    fills_ok = bool(((fills - pfills).abs() <= ulp).all())
-                if not fills_ok:
-                    raise AssertionError(f"image_fill {key}: kernel != plain")
-                fill_err = float((fills - pfills).abs().max())
+                        and bitwise(torch, ggeom, geom)):
+                    raise AssertionError(f"augment_geometry {key}: kernel != prepare / plain")
                 out = K.augment_image_cuda(images, geom, fills)
                 with ops.reference_scope():
                     pout = I.augment_images_plain(images, geom)
@@ -1308,16 +1331,32 @@ def check_image_kernels(torch, dev):
                        "translated_rows": int((geom[:, 1:3] != 0).any(1).sum()),
                        "max_abs_err": err, "fill_max_abs_err": fill_err}
                 if mode == "flip+translate+scale":
+                    sum_type = torch.int64 if dtype == "uint8" else torch.float64
+
+                    def yardstick():
+                        return torch.sum(images, dim=(1, 2), dtype=sum_type)
+
+                    row["prepare"] = dict(zip(("ms", "plain_ms", "library_ms"), (
+                        time_ms(torch, lambda: K.augment_prepare_cuda(
+                            images, boxes, labels, mask, **kw), 20),
+                        time_ms(torch, lambda: I.augment_prepare_plain(
+                            images, boxes, labels, mask, **kw), 2, 1, 3),
+                        time_ms(torch, yardstick, 20))))
+                    row["prepare"].update(zip(("bound_ms", "bound_by"), bytes_bound(
+                        images, boxes, labels, mask, aug, pb, pl, pm, geom, fills)))
                     row["geometry"] = dict(zip(("ms", "plain_ms"), (
                         time_ms(torch, lambda: K.augment_geometry_cuda(
-                            boxes, labels, mask, b, h, w, aug=aug, seed=AUG_SEED, **kw), 50),
+                            boxes, labels, mask, b, h, w, **kw), 50),
                         time_ms(torch, lambda: I.augment_geometry_plain(
-                            boxes, labels, mask, aug, h, w, seed=AUG_SEED, **kw), 3, 1, 3))))
+                            boxes, labels, mask, aug, h, w, seed=AUG_SEED,
+                            **{k: v for k, v in kw.items() if k not in ("aug", "seed")}),
+                            3, 1, 3))))
                     row["geometry"].update(zip(("bound_ms", "bound_by"), bytes_bound(
                         boxes, labels, mask, aug, gb, gl, gm, geom)))
-                    row["fill"] = dict(zip(("ms", "plain_ms"), (
+                    row["fill"] = dict(zip(("ms", "plain_ms", "library_ms"), (
                         time_ms(torch, lambda: K.image_fill_cuda(images, geom), 20),
-                        time_ms(torch, lambda: I.image_fills_plain(images, geom), 2, 1, 3))))
+                        time_ms(torch, lambda: I.image_fills_plain(images, geom), 2, 1, 3),
+                        row["prepare"]["library_ms"])))
                     row["fill"].update(zip(("bound_ms", "bound_by"), bytes_bound(images, fills)))
                     row["image"] = dict(zip(("ms", "plain_ms"), (
                         time_ms(torch, lambda: K.augment_image_cuda(images, geom, fills), 20),
@@ -1325,13 +1364,25 @@ def check_image_kernels(torch, dev):
                     row["image"].update(zip(("bound_ms", "bound_by"), bytes_bound(images, out)))
                     if b == 8:
                         for name, fn in (
+                                (f"augment_prepare {key}", lambda: K.augment_prepare_cuda(
+                                    images, boxes, labels, mask, **kw)),
                                 (f"augment_geometry {key}", lambda: K.augment_geometry_cuda(
-                                    boxes, labels, mask, b, h, w, aug=aug, seed=AUG_SEED, **kw)),
+                                    boxes, labels, mask, b, h, w, **kw)),
                                 (f"image_fill {key}", lambda: K.image_fill_cuda(images, geom)),
                                 (f"augment_image {key}", lambda: K.augment_image_cuda(
                                     images, geom, fills))):
                             replays_bitwise(torch, dev, name, fn)
                             captured.append(name)
+                        # G = 100, the COCO presets' padding: prepare and geometry alone
+                        cb, cl, cm, _ = make_boxes(b, 100)
+                        (pb100, pl100, pm100, _, _), _ = held_prepare(
+                            f"{key} G=100", images, cb, cl, cm, dtype, kw, want_geom)
+                        g100 = K.augment_geometry_cuda(cb, cl, cm, b, h, w, **kw)
+                        if not all(bitwise(torch, a, c) for a, c in
+                                   zip(g100[:3], (pb100, pl100, pm100))):
+                            raise AssertionError(f"augment_geometry {key} G=100: != plain")
+                        row["geometry_g100_ms"] = time_ms(torch, lambda: K.augment_geometry_cuda(
+                            cb, cl, cm, b, h, w, **kw), 50)
                 res[key] = row
             # the device cache: gather + flip + jitter (resampled in the same pass)
             if b == 8:
@@ -1359,11 +1410,15 @@ def check_image_kernels(torch, dev):
                 key = f"cache_b8_{dtype}"
                 # the image kernel alone on the cache path's geometry and fills
                 # (ops/image.py::augment_cached); materialize_* is the whole
-                # path: geometry, the two fill launches and the image pass
-                _, _, _, cgeom, _ = K.augment_geometry_cuda(
-                    cb, cl, cm, b, h, w, idx=idx, flip=sel["flip"], jitter=sel["jitter"],
-                    resample="all", device=images.device)
-                cfills = K.image_fill_cuda(cache_images, cgeom, idx)
+                # path: the prepare launch and the image pass
+                ckw = dict(idx=idx, flip=sel["flip"], jitter=sel["jitter"], resample="all")
+                (_, _, _, cgeom, cfills), _ = held_prepare(
+                    f"cache b8 {dtype}", cache_images, cb, cl, cm, dtype, ckw)
+                # the cache's rows by an idx that repeats one
+                ridx = idx.clone()
+                ridx[-1] = ridx[0]
+                held_prepare(f"cache b8 {dtype} repeated idx", cache_images, cb, cl, cm, dtype,
+                             dict(ckw, idx=ridx))
                 alone = K.augment_image_cuda(cache_images, cgeom, cfills, idx)
                 if not bitwise(torch, alone, got["image"]):
                     raise AssertionError(f"cache gather b8 {dtype}: the image kernel alone "
@@ -1432,9 +1487,10 @@ def check_image_kernels(torch, dev):
                                     lambda: K.resize_aa_cuda(images, boxes, out_hw))
                     captured.append(f"resize {key}")
             del images
-    log("  data-path kernels (600x600, b8 / b16, uint8 / float32): augment_batch geometry, "
-        "fills and image pass against the plain versions on four row mixes (geometry and "
-        "boxes bitwise, and against device_decisions), the cache gather (1,024 images; the "
+    log("  data-path kernels (600x600, b8 / b16, uint8 / float32): the prepare launch "
+        "(geometry + fills), the geometry alone and the image pass against the plain versions "
+        "on four row mixes (geometry and boxes bitwise, and against device_decisions; G = 100 "
+        "too), the cache gather (1,024 images, an idx repeating a row too; the "
         "image kernel alone and the whole materialize_batch), every row flipped and the "
         "identity gather (bitwise torch.flip / torch.index_select) and the resample 600->480 / "
         "600->720 / 600->240, all within tolerance; "
@@ -2370,11 +2426,12 @@ COUNTERS = {
     "int8_matmul": ("quant_kernel", "matmul_launches"),
     "dequantize": ("quant_kernel", "dequantize_launches"),
     "augment_geometry": ("image_kernel", "geometry_launches"),
+    "augment_prepare": ("image_kernel", "prepare_launches"),
     "image_fill": ("image_kernel", "fill_launches"),
     "augment_image": ("image_kernel", "image_launches"),
     "resize_aa": ("image_kernel", "resize_launches"),
 }
-IMAGE_NAMES = ("augment_geometry", "image_fill", "augment_image", "resize_aa")
+IMAGE_NAMES = ("augment_geometry", "augment_prepare", "image_fill", "augment_image", "resize_aa")
 
 
 def counter_module(mod):
@@ -3667,8 +3724,8 @@ def phase_data_path(torch, cfg=None, device=None, length=DATA_LENGTH, short=DATA
                     augment_scale=(0.75, 1.25), **uint8),
     }
     image_per_step = {"a": {}, "b": {},
-                      "c": {"augment_geometry": 1, "image_fill": 1, "augment_image": 1},
-                      "d": {"augment_geometry": 1, "image_fill": 1, "augment_image": 1}}
+                      "c": {"augment_prepare": 1, "augment_image": 1},
+                      "d": {"augment_prepare": 1, "augment_image": 1}}
     out, trainers = {}, {}
     steps = 3 * (length // bsz)
     for arm, c in arms.items():
@@ -4834,24 +4891,34 @@ def phase_fpn_bench(torch):
 
 
 def image_kernel_rows(image, by_path):
-    """The ``kernels`` line's rows of the data path's four kernels: [3]'s
+    """The ``kernels`` line's rows of the data path's five kernels: [3]'s
     times at 600x600 b8 uint8 (all four row mixes' main one: flip,
     translation and scale), the other shapes beside them, and [10]'s
-    launches."""
+    launches (the geometry alone and the fills alone are off [10]'s path:
+    its steps take the prepare launch)."""
     timing = ("ms", "plain_ms", "bound_ms", "bound_by")
     main = "b8_uint8_flip+translate+scale"
+    sum_note = ("torch.sum(images, dim=(1, 2), dtype=int64 / float64): the first fill's sum "
+                "alone, no window sum, no geometry")
     rows = []
-    for name, part, parity in (
+    for name, part, parity, library_note in (
+            ("augment_prepare", "prepare",
+             "vs ops/image.py::augment_prepare_plain: geometry, boxes, labels and masks "
+             "bitwise (and vs data/augment.py::device_decisions), uint8 fills bitwise, float32 "
+             "fills within 1 ulp and bitwise across launches, graph replays and the fills alone",
+             sum_note),
             ("augment_geometry", "geometry",
              "bitwise vs ops/image.py::augment_geometry_plain (boxes, labels, masks, geometry "
-             "rows) and vs the numpy oracle data/augment.py::device_decisions"),
+             "rows) and vs the numpy oracle data/augment.py::device_decisions",
+             "torch core has no op for these steps"),
             ("image_fill", "fill",
-             "vs ops/image.py::image_fills_plain: uint8 bitwise (exact int64 sums), float32 "
-             "within 1 ulp (float64 sums in another order)"),
+             "vs ops/image.py::image_fills_plain: uint8 bitwise (exact integer sums), float32 "
+             "within 1 ulp (float64 sums in another order)", sum_note),
             ("augment_image", "image",
              "vs ops/image.py::augment_images_plain and the plain cache gather: uint8 bitwise, "
-             "float32 within 1e-6 of the largest magnitude (the fills' last bit)")):
-        err_key = "fill_max_abs_err" if part == "fill" else "max_abs_err"
+             "float32 within 1e-6 of the largest magnitude (the fills' last bit)",
+             "torch core has no op for these steps")):
+        err_key = "fill_max_abs_err" if part in ("fill", "prepare") else "max_abs_err"
         sites = {k: {f: v[part][f] for f in timing} for k, v in image.items()
                  if isinstance(v, dict) and isinstance(v.get(part), dict) and k != main}
         if part == "image":
@@ -4865,8 +4932,8 @@ def image_kernel_rows(image, by_path):
             "parity": parity,
             "max_abs_err": max(v.get(err_key, 0.0) for k, v in image.items()
                                if isinstance(v, dict) and not k.startswith("resize")),
-            **{f: image[main][part][f] for f in timing}, "library_ms": None,
-            "library_note": "torch core has no op for these steps",
+            **{f: image[main][part][f] for f in timing},
+            "library_ms": image[main][part].get("library_ms"), "library_note": library_note,
             "shape": "600x600 uint8 b8, flip + translate 0.1 + scale 0.75-1.25 (aug draws)",
             "sites": sites,
         })

@@ -11,20 +11,22 @@
 // replication_faster_rcnn_tpu_torch/ops/image.py.
 //
 // Four kernels (wrapper: ops/cuda/image_kernel.py):
-//   * augment_geometry_kernel: one thread per image. The splitmix64 draws of
-//     (seed, epoch, idx) in native uint64 (the plain version runs them on
-//     32-bit limbs), the flip bit, the translation (dy, dx) and the jitter
-//     geometry (ch, cw, shy, shx) in float32 as JAX does, or the host's
-//     flip / shifts / jitter; then the box, label and mask transforms of
-//     flip -> translate -> jitter, in JAX's order. Writes one int32 row of 8
-//     per image: flip, dy, dx, ch, cw, shy, shx, resample.
-//   * image_fill_kernel (two launches, one call): each image's two channel
-//     fills. The translation's is the mean of the (flipped) image; the
+//   * augment_geometry_kernel: a thread per (image, box). The splitmix64
+//     draws of (seed, epoch, idx) in native uint64 (the plain version runs
+//     them on 32-bit limbs), the flip bit, the translation (dy, dx) and the
+//     jitter geometry (ch, cw, shy, shx) in float32 as JAX does, or the
+//     host's flip / shifts / jitter; then the box's, label's and mask's
+//     transforms of flip -> translate -> jitter, in JAX's order. Writes one
+//     int32 row of 8 per image: flip, dy, dx, ch, cw, shy, shx, resample.
+//   * augment_prepare_kernel: the same geometry (with GEOM) and each
+//     image's two channel fills in one launch, a thread block cluster per
+//     image. The translation's fill is the mean of the (flipped) image; the
 //     jitter's is the mean of the translated image, computed as the source's
 //     sum over the translation window plus the fill pixels times the first
-//     fill, without the translated image. Sums in double in a fixed order:
-//     partial sums per row band, then the bands in order. uint8 sums are
-//     exact in double.
+//     fill, without the translated image. uint8 sums are exact integers;
+//     float32 sums double in a fixed order (threads, warps, the cluster's
+//     blocks in rank order). Without GEOM it reads the geometry rows
+//     (image_fill_launch).
 //   * augment_image_kernel: flip -> translate (integer gather, fill) ->
 //     jitter (half-pixel bilinear over the translated image with
 //     edge-clamped taps, fill outside [0, ch) x [0, cw)) of the batch's
@@ -37,7 +39,17 @@
 //
 // What bounds them on the H100: bytes. A 600x600 uint8 batch of 8 is 8.6 MB
 // in and out (2.6 us each way at 3.35 TB/s), float32 four times that; the
-// geometry kernel's work is a few hundred boxes.
+// geometry kernel's work is a few hundred boxes, so its launch is its floor.
+//
+// The first design of the geometry and the fills (the data path's first
+// slice) ran the geometry as one thread per image walking its G boxes in
+// turn (G = 32 or 100), and the fills as two more launches: 16 row bands a
+// block per image, one pixel a thread as three dependent byte loads and a
+// 64-bit division and modulo, float64 partial sums through device memory,
+// and a one-thread-per-image finishing launch summing the bands. The fused
+// prepare kernel makes the step's chain geometry -> fills -> image pass one
+// launch shorter and two launches fewer; its blocks read 16-byte vectors,
+// several in flight a thread, and reduce through distributed shared memory.
 //
 // The first design of the image pass and the resize ran one thread per
 // output pixel (image) or element (resize, one launch per pass). That put
@@ -81,21 +93,22 @@
 //
 // Float arithmetic is strict IEEE (-fmad=false) and repeats the plain
 // versions' operations in their order, so the results are bitwise theirs
-// and the first design's.
+// and the first design's; the float32 fills sum in another order and stay
+// within 1 float32 ulp of them.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
 #include <map>
 #include <mutex>
+#include <set>
 
 namespace {
 
 constexpr unsigned long long GAMMA = 0x9E3779B97F4A7C15ull;
 constexpr unsigned long long MIX_EPOCH = 0xBF58476D1CE4E5B9ull;
 constexpr unsigned long long MIX_IDX = 0x94D049BB133111EBull;
-constexpr int FILL_BANDS = 16;
-constexpr int FILL_THREADS = 256;
 constexpr int GEOM_COLS = 8;  // flip, dy, dx, ch, cw, shy, shx, resample
 
 __device__ __forceinline__ unsigned long long splitmix(unsigned long long z) {
@@ -116,154 +129,186 @@ __device__ __forceinline__ float clipf(float x, float lo, float hi) {
 }
 
 struct Geometry {
-  const float* boxes;          // [M or N, G, 4] (null when g == 0)
-  const int* labels;           // [M or N, G]
-  const unsigned char* mask;   // [M or N, G] or null
-  const int* idx;              // [N] rows of boxes, or null
-  const int* aug;              // [N, 2] (idx, epoch), or null
-  unsigned long long seed_mix; // seed * GAMMA mod 2^64
+  const float* __restrict__ boxes;          // [M or N, G, 4] (null when g == 0)
+  const int* __restrict__ labels;           // [M or N, G]
+  const unsigned char* __restrict__ mask;   // [M or N, G] or null
+  const int* __restrict__ idx;              // [N] rows of boxes (and of images), or null
+  const int* __restrict__ aug;              // [N, 2] (idx, epoch), or null
+  unsigned long long seed_mix;              // seed * GAMMA mod 2^64
   int hflip, do_scale, do_translate;
   float scale_lo, scale_span, amp_y, amp_x;
-  const unsigned char* flip_in;  // [N] or null
-  const int* shifts_in;          // [N, 2] or null
-  const int* jitter_in;          // [N, 4] or null
-  const unsigned char* apply_in; // [N] or null
+  const unsigned char* __restrict__ flip_in;  // [N] or null
+  const int* __restrict__ shifts_in;          // [N, 2] or null
+  const int* __restrict__ jitter_in;          // [N, 4] or null
+  const unsigned char* __restrict__ apply_in; // [N] or null
   int resample_mode;  // image resample: 0 the rows whose boxes jitter, 1 all, 2 none
   int n, g, h, w;
-  float* boxes_out;
-  int* labels_out;
-  unsigned char* mask_out;  // null when mask is null
-  int* geom_out;            // [N, 8]
-  float* draws_out;         // [N, 6] or null
+  float* __restrict__ boxes_out;
+  int* __restrict__ labels_out;
+  unsigned char* __restrict__ mask_out;  // null when mask is null
+  int* __restrict__ geom_out;            // [N, 8]
+  float* __restrict__ draws_out;         // [N, 6] or null
 };
 
-__global__ void augment_geometry_kernel(Geometry p) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.n) return;
-  int flip = 0, dy = 0, dx = 0, ch = p.h, cw = p.w, shy = 0, shx = 0;
-  int jitter = 0, apply_boxes = 0;
-  const bool translate = p.aug != nullptr ? p.do_translate != 0 : p.shifts_in != nullptr;
+// One image's decisions: its geometry row and what its box transforms read.
+struct Decision {
+  int flip, dy, dx, ch, cw, shy, shx, resample;
+  int translate, apply_boxes;
+};
+
+// Image i's decisions from its (idx, epoch) draws or the host's flip /
+// shifts / jitter; the draws go to draws[0..5] when it is not null.
+__device__ __forceinline__ Decision decide(const Geometry& p, int i, float* draws) {
+  Decision d;
+  d.flip = 0;
+  d.dy = 0;
+  d.dx = 0;
+  d.ch = p.h;
+  d.cw = p.w;
+  d.shy = 0;
+  d.shx = 0;
+  d.apply_boxes = 0;
+  d.translate = p.aug != nullptr ? p.do_translate != 0 : p.shifts_in != nullptr;
+  int jitter = 0;
   if (p.aug != nullptr) {
     const unsigned long long idx = static_cast<unsigned int>(p.aug[2 * i]);
     const unsigned long long epoch = static_cast<unsigned int>(p.aug[2 * i + 1]);
     unsigned long long z = splitmix(p.seed_mix + epoch * MIX_EPOCH + idx * MIX_IDX);
     const int bit = static_cast<int>(z & 1ull);
     float u[5];
+#pragma unroll
     for (int k = 0; k < 5; ++k) {
       z = splitmix(z + GAMMA);
       u[k] = uniform24(z);
     }
-    if (p.draws_out != nullptr) {
-      float* d = p.draws_out + 6 * i;
-      d[0] = static_cast<float>(bit);
-      for (int k = 0; k < 5; ++k) d[k + 1] = u[k];
+    if (draws != nullptr) {
+      draws[0] = static_cast<float>(bit);
+#pragma unroll
+      for (int k = 0; k < 5; ++k) draws[k + 1] = u[k];
     }
-    if (p.hflip) flip = bit;
+    if (p.hflip) d.flip = bit;
     if (p.do_translate) {
       // round((2 u - 1) * amp), half to even
-      dy = static_cast<int>(rintf(__fmul_rn(__fsub_rn(__fmul_rn(2.0f, u[3]), 1.0f), p.amp_y)));
-      dx = static_cast<int>(rintf(__fmul_rn(__fsub_rn(__fmul_rn(2.0f, u[4]), 1.0f), p.amp_x)));
+      d.dy = static_cast<int>(rintf(__fmul_rn(__fsub_rn(__fmul_rn(2.0f, u[3]), 1.0f), p.amp_y)));
+      d.dx = static_cast<int>(rintf(__fmul_rn(__fsub_rn(__fmul_rn(2.0f, u[4]), 1.0f), p.amp_x)));
     }
     if (p.do_scale) {
       const float scale = __fadd_rn(p.scale_lo, __fmul_rn(p.scale_span, u[0]));
-      ch = static_cast<int>(fmaxf(1.0f, rintf(__fmul_rn(static_cast<float>(p.h), scale))));
-      cw = static_cast<int>(fmaxf(1.0f, rintf(__fmul_rn(static_cast<float>(p.w), scale))));
-      shy = static_cast<int>(rintf(__fmul_rn(static_cast<float>(ch - p.h), clipf(u[1], 0.0f, 1.0f))));
-      shx = static_cast<int>(rintf(__fmul_rn(static_cast<float>(cw - p.w), clipf(u[2], 0.0f, 1.0f))));
+      d.ch = static_cast<int>(fmaxf(1.0f, rintf(__fmul_rn(static_cast<float>(p.h), scale))));
+      d.cw = static_cast<int>(fmaxf(1.0f, rintf(__fmul_rn(static_cast<float>(p.w), scale))));
+      d.shy = static_cast<int>(
+          rintf(__fmul_rn(static_cast<float>(d.ch - p.h), clipf(u[1], 0.0f, 1.0f))));
+      d.shx = static_cast<int>(
+          rintf(__fmul_rn(static_cast<float>(d.cw - p.w), clipf(u[2], 0.0f, 1.0f))));
       jitter = 1;
-      apply_boxes = ch != p.h || cw != p.w || shy != 0 || shx != 0;
+      d.apply_boxes = d.ch != p.h || d.cw != p.w || d.shy != 0 || d.shx != 0;
     }
   } else {
-    if (p.flip_in != nullptr) flip = p.flip_in[i] != 0;
+    if (p.flip_in != nullptr) d.flip = p.flip_in[i] != 0;
     if (p.shifts_in != nullptr) {
-      dy = p.shifts_in[2 * i];
-      dx = p.shifts_in[2 * i + 1];
+      d.dy = p.shifts_in[2 * i];
+      d.dx = p.shifts_in[2 * i + 1];
     }
     if (p.jitter_in != nullptr) {
-      ch = p.jitter_in[4 * i];
-      cw = p.jitter_in[4 * i + 1];
-      shy = p.jitter_in[4 * i + 2];
-      shx = p.jitter_in[4 * i + 3];
+      d.ch = p.jitter_in[4 * i];
+      d.cw = p.jitter_in[4 * i + 1];
+      d.shy = p.jitter_in[4 * i + 2];
+      d.shx = p.jitter_in[4 * i + 3];
       jitter = 1;
-      apply_boxes = p.apply_in != nullptr
-                        ? p.apply_in[i] != 0
-                        : (ch != p.h || cw != p.w || shy != 0 || shx != 0);
+      d.apply_boxes = p.apply_in != nullptr
+                          ? p.apply_in[i] != 0
+                          : (d.ch != p.h || d.cw != p.w || d.shy != 0 || d.shx != 0);
     }
   }
-  int* geom = p.geom_out + 8 * i;
-  geom[0] = flip;
-  geom[1] = dy;
-  geom[2] = dx;
-  geom[3] = ch;
-  geom[4] = cw;
-  geom[5] = shy;
-  geom[6] = shx;
-  geom[7] = jitter && p.resample_mode != 2 && (p.resample_mode == 1 || apply_boxes);
-  if (p.g == 0) return;
+  d.resample = jitter && p.resample_mode != 2 && (p.resample_mode == 1 || d.apply_boxes);
+  return d;
+}
 
+__device__ __forceinline__ void write_geom(int* __restrict__ row, const Decision& d) {
+  row[0] = d.flip;
+  row[1] = d.dy;
+  row[2] = d.dx;
+  row[3] = d.ch;
+  row[4] = d.cw;
+  row[5] = d.shy;
+  row[6] = d.shx;
+  row[7] = d.resample;
+}
+
+// Box j of image i: flip -> translate -> jitter, in JAX's order. Its loads
+// come before its stores and it shares no address with another thread's.
+__device__ __forceinline__ void transform_box(const Geometry& p, const Decision& d, int i,
+                                              int j) {
   const float hf = static_cast<float>(p.h), wf = static_cast<float>(p.w);
-  const float sy = __fdiv_rn(static_cast<float>(ch), hf);
-  const float sx = __fdiv_rn(static_cast<float>(cw), wf);
-  const float fy = static_cast<float>(shy), fx = static_cast<float>(shx);
-  const float tdy = static_cast<float>(dy), tdx = static_cast<float>(dx);
   const long src = p.idx != nullptr ? p.idx[i] : i;
-  for (int j = 0; j < p.g; ++j) {
-    const long at = src * p.g + j;
-    const float4 in = reinterpret_cast<const float4*>(p.boxes)[at];
-    float b0 = in.x, b1 = in.y, b2 = in.z, b3 = in.w;
-    int label = p.labels[at];
-    unsigned char m = p.mask != nullptr ? p.mask[at] : 0;
-    if (flip && label >= 0) {  // (y1, x1, y2, x2) -> (y1, W - x2, y2, W - x1)
-      const float n1 = __fsub_rn(wf, b3), n3 = __fsub_rn(wf, b1);
-      b1 = n1;
-      b3 = n3;
-    }
-    if (translate && label >= 0) {
-      const float t0 = clipf(__fsub_rn(b0, tdy), 0.0f, hf);
-      const float t1 = clipf(__fsub_rn(b1, tdx), 0.0f, wf);
-      const float t2 = clipf(__fsub_rn(b2, tdy), 0.0f, hf);
-      const float t3 = clipf(__fsub_rn(b3, tdx), 0.0f, wf);
-      if (__fsub_rn(t2, t0) < 1.0f || __fsub_rn(t3, t1) < 1.0f) {
-        b0 = b1 = b2 = b3 = -1.0f;
-        label = -1;
-        m = 0;
-      } else {
-        b0 = t0; b1 = t1; b2 = t2; b3 = t3;
-      }
-    }
-    if (apply_boxes && label >= 0) {
-      const float t0 = clipf(__fsub_rn(__fmul_rn(b0, sy), fy), 0.0f, hf);
-      const float t1 = clipf(__fsub_rn(__fmul_rn(b1, sx), fx), 0.0f, wf);
-      const float t2 = clipf(__fsub_rn(__fmul_rn(b2, sy), fy), 0.0f, hf);
-      const float t3 = clipf(__fsub_rn(__fmul_rn(b3, sx), fx), 0.0f, wf);
-      if (__fsub_rn(t2, t0) < 1.0f || __fsub_rn(t3, t1) < 1.0f) {
-        b0 = b1 = b2 = b3 = -1.0f;
-        label = -1;
-        m = 0;
-      } else {
-        b0 = t0; b1 = t1; b2 = t2; b3 = t3;
-      }
-    }
-    const long out = static_cast<long>(i) * p.g + j;
-    reinterpret_cast<float4*>(p.boxes_out)[out] = make_float4(b0, b1, b2, b3);
-    p.labels_out[out] = label;
-    if (p.mask_out != nullptr) p.mask_out[out] = m;
+  const long at = src * p.g + j;
+  const float4 in = reinterpret_cast<const float4*>(p.boxes)[at];
+  float b0 = in.x, b1 = in.y, b2 = in.z, b3 = in.w;
+  int label = p.labels[at];
+  unsigned char m = p.mask != nullptr ? p.mask[at] : 0;
+  if (d.flip && label >= 0) {  // (y1, x1, y2, x2) -> (y1, W - x2, y2, W - x1)
+    const float n1 = __fsub_rn(wf, b3), n3 = __fsub_rn(wf, b1);
+    b1 = n1;
+    b3 = n3;
   }
+  if (d.translate && label >= 0) {
+    const float tdy = static_cast<float>(d.dy), tdx = static_cast<float>(d.dx);
+    const float t0 = clipf(__fsub_rn(b0, tdy), 0.0f, hf);
+    const float t1 = clipf(__fsub_rn(b1, tdx), 0.0f, wf);
+    const float t2 = clipf(__fsub_rn(b2, tdy), 0.0f, hf);
+    const float t3 = clipf(__fsub_rn(b3, tdx), 0.0f, wf);
+    if (__fsub_rn(t2, t0) < 1.0f || __fsub_rn(t3, t1) < 1.0f) {
+      b0 = b1 = b2 = b3 = -1.0f;
+      label = -1;
+      m = 0;
+    } else {
+      b0 = t0; b1 = t1; b2 = t2; b3 = t3;
+    }
+  }
+  if (d.apply_boxes && label >= 0) {
+    const float sy = __fdiv_rn(static_cast<float>(d.ch), hf);
+    const float sx = __fdiv_rn(static_cast<float>(d.cw), wf);
+    const float fy = static_cast<float>(d.shy), fx = static_cast<float>(d.shx);
+    const float t0 = clipf(__fsub_rn(__fmul_rn(b0, sy), fy), 0.0f, hf);
+    const float t1 = clipf(__fsub_rn(__fmul_rn(b1, sx), fx), 0.0f, wf);
+    const float t2 = clipf(__fsub_rn(__fmul_rn(b2, sy), fy), 0.0f, hf);
+    const float t3 = clipf(__fsub_rn(__fmul_rn(b3, sx), fx), 0.0f, wf);
+    if (__fsub_rn(t2, t0) < 1.0f || __fsub_rn(t3, t1) < 1.0f) {
+      b0 = b1 = b2 = b3 = -1.0f;
+      label = -1;
+      m = 0;
+    } else {
+      b0 = t0; b1 = t1; b2 = t2; b3 = t3;
+    }
+  }
+  const long out = static_cast<long>(i) * p.g + j;
+  reinterpret_cast<float4*>(p.boxes_out)[out] = make_float4(b0, b1, b2, b3);
+  p.labels_out[out] = label;
+  if (p.mask_out != nullptr) p.mask_out[out] = m;
 }
 
-template <typename T>
-__device__ __forceinline__ double as_double(T v) {
-  return static_cast<double>(v);
+// grid (n, box tiles), blockDim.x threads: a thread per (image, box), box j
+// = blockIdx.y * blockDim.x + threadIdx.x. Each thread derives its image's
+// decisions itself (a few dozen dependent operations, no barrier); the
+// thread of box 0 also writes the image's geometry row and draws (G = 0
+// still runs that thread).
+__global__ void augment_geometry_kernel(Geometry p) {
+  const int i = blockIdx.x;
+  const int j = blockIdx.y * blockDim.x + threadIdx.x;
+  if (j > 0 && j >= p.g) return;
+  const Decision d =
+      decide(p, i, j == 0 && p.draws_out != nullptr ? p.draws_out + 6 * i : nullptr);
+  if (j == 0) write_geom(p.geom_out + GEOM_COLS * i, d);
+  if (j < p.g) transform_box(p, d, i, j);
 }
 
-// The translation window of image n in source coordinates: rows [r0, r1),
+// The translation window of an image in source coordinates: rows [r0, r1),
 // columns [c0, c1) of the flipped-and-translated frame's valid reads.
 struct Window {
   int r0, r1, c0, c1;
 };
 
-__device__ __forceinline__ Window window_of(const int* geom, int h, int w) {
-  const int flip = geom[0], dy = geom[1], dx = geom[2];
+__device__ __forceinline__ Window window_of(int flip, int dy, int dx, int h, int w) {
   Window win;
   win.r0 = max(0, dy);
   win.r1 = min(h, h + dy);
@@ -273,68 +318,23 @@ __device__ __forceinline__ Window window_of(const int* geom, int h, int w) {
   return win;
 }
 
-// grid (FILL_BANDS, N): block (band, n) sums rows [band * h / B, (band+1) * h / B)
-// of image n: all pixels, and those inside the translation window. partial is
-// [N, FILL_BANDS, 2, 3] double.
-template <typename T>
-__global__ void image_fill_kernel(const T* images, const int* idx, const int* geom, int h, int w,
-                                  double* partial) {
-  const int band = blockIdx.x, n = blockIdx.y;
-  const long src = idx != nullptr ? idx[n] : n;
-  const T* im = images + src * static_cast<long>(h) * w * 3;
-  const Window win = window_of(geom + 8 * n, h, w);
-  const int r0 = band * h / FILL_BANDS, r1 = (band + 1) * h / FILL_BANDS;
-  double all[3] = {0.0, 0.0, 0.0}, in[3] = {0.0, 0.0, 0.0};
-  const long count = static_cast<long>(r1 - r0) * w;
-  for (long p = threadIdx.x; p < count; p += blockDim.x) {
-    const int y = r0 + static_cast<int>(p / w), x = static_cast<int>(p % w);
-    const T* px = im + (static_cast<long>(y) * w + x) * 3;
-    const bool inside = y >= win.r0 && y < win.r1 && x >= win.c0 && x < win.c1;
-    for (int c = 0; c < 3; ++c) {
-      const double v = as_double(px[c]);
-      all[c] += v;
-      if (inside) in[c] += v;
-    }
-  }
-  __shared__ double red[FILL_THREADS][6];
-  for (int c = 0; c < 3; ++c) {
-    red[threadIdx.x][c] = all[c];
-    red[threadIdx.x][3 + c] = in[c];
-  }
-  __syncthreads();
-  for (int stride = FILL_THREADS / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride)
-      for (int k = 0; k < 6; ++k) red[threadIdx.x][k] += red[threadIdx.x + stride][k];
-    __syncthreads();
-  }
-  if (threadIdx.x < 6) partial[(static_cast<long>(n) * FILL_BANDS + band) * 6 + threadIdx.x] =
-      red[0][threadIdx.x];
-}
-
-// one thread per image: the bands in order, then the two fills ([N, 2, 3]
-// float32). uint8 fills are round-half-even and clipped to [0, 255].
-__global__ void image_fill_finish_kernel(const double* partial, const int* geom, int n, int h,
-                                         int w, int is_u8, float* fills) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Window win = window_of(geom + 8 * i, h, w);
+// One channel's two fills (translation, jitter) from its sums over the
+// image (all) and over the window (in), in double as the plain version:
+// the jitter's fill is the mean of the translated image, the window's sum
+// plus the fill pixels times the first fill. uint8 fills round half to
+// even and clip to [0, 255].
+__device__ __forceinline__ void finish_fills(double all, double in, const Window& win, int h,
+                                             int w, bool is_u8, float* fill1, float* fill2) {
   const double area = static_cast<double>(h) * w;
   const double n_fill =
       area - static_cast<double>(max(0, win.r1 - win.r0)) * max(0, win.c1 - win.c0);
-  for (int c = 0; c < 3; ++c) {
-    double all = 0.0, in = 0.0;
-    for (int b = 0; b < FILL_BANDS; ++b) {
-      all += partial[(static_cast<long>(i) * FILL_BANDS + b) * 6 + c];
-      in += partial[(static_cast<long>(i) * FILL_BANDS + b) * 6 + 3 + c];
-    }
-    double f1 = all / area;
-    if (is_u8) f1 = fmin(fmax(rint(f1), 0.0), 255.0);
-    const float fill1 = static_cast<float>(f1);
-    double f2 = (in + n_fill * static_cast<double>(fill1)) / area;
-    if (is_u8) f2 = fmin(fmax(rint(f2), 0.0), 255.0);
-    fills[6 * i + c] = fill1;
-    fills[6 * i + 3 + c] = static_cast<float>(f2);
-  }
+  double f1 = all / area;
+  if (is_u8) f1 = fmin(fmax(rint(f1), 0.0), 255.0);
+  const float first = static_cast<float>(f1);
+  double f2 = (in + n_fill * static_cast<double>(first)) / area;
+  if (is_u8) f2 = fmin(fmax(rint(f2), 0.0), 255.0);
+  *fill1 = first;
+  *fill2 = static_cast<float>(f2);
 }
 
 template <typename T>
@@ -411,6 +411,227 @@ __device__ __forceinline__ int lane_lo(long g, long a) {
 template <int N>
 __device__ __forceinline__ int lane_hi(long g, long b) {
   return static_cast<int>(max(0L, min(static_cast<long>(N), b - g)));
+}
+
+// ----------------------------------------------------------- the fills
+
+// A block's and a cluster's sums: exact for uint8, double for float32.
+template <typename T>
+struct SumOf;
+
+template <>
+struct SumOf<unsigned char> {
+  using type = unsigned long long;
+};
+
+template <>
+struct SumOf<float> {
+  using type = double;
+};
+
+constexpr int PREPARE_LOADS = 4;  // 16-byte vectors a thread keeps in flight
+
+// 0x01 in the bytes of word q (lanes 4q .. 4q + 3) of a 16-byte vector whose
+// lane holds lane class (lane mod 3) k
+__host__ __device__ constexpr unsigned class_mask(int q, int k) {
+  unsigned m = 0;
+  for (int j = 0; j < 4; ++j)
+    if ((4 * q + j) % 3 == k) m |= 1u << (8 * j);
+  return m;
+}
+
+// A whole vector's sums by lane class: 16 bytes as four dp4a a class (exact
+// 32-bit integers); 4 floats as x0 + x3, x1, x2 in double.
+__device__ __forceinline__ void class_sums(const Group<unsigned char, 16>& v, unsigned (&s)[3]) {
+  const unsigned word[4] = {v.v.x, v.v.y, v.v.z, v.v.w};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    unsigned acc = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc = __dp4a(word[q], class_mask(q, k), acc);
+    s[k] = acc;
+  }
+}
+
+__device__ __forceinline__ void class_sums(const Group<float, 16>& v, double (&s)[3]) {
+  s[0] = static_cast<double>(v.e[0]) + static_cast<double>(v.e[3]);
+  s[1] = static_cast<double>(v.e[1]);
+  s[2] = static_cast<double>(v.e[2]);
+}
+
+template <typename T>
+struct LaneSum;  // a vector's class sums: exact for uint8
+
+template <>
+struct LaneSum<unsigned char> {
+  using type = unsigned;
+};
+
+template <>
+struct LaneSum<float> {
+  using type = double;
+};
+
+// grid (K, n) in clusters of (K, 1, 1): one cluster per image n, blockDim.x
+// a multiple of 96. With GEOM the cluster also computes image n's decisions
+// (as augment_geometry_kernel), writes its geometry row (block 0) and
+// transforms its boxes (box j on block j mod K); without, it reads the row
+// from geom_in. Block r sums rows [r h / K, (r + 1) h / K) of the image
+// (images[idx[n]] with idx) by channel, all of them and those inside the
+// translation window: each thread reads 16-byte vectors at a stride of
+// blockDim.x vectors, PREPARE_LOADS in flight (the first batch issued
+// before thread 0 decides). A vector's lanes hold consecutive elements and
+// 16 = 4 = 1 (mod 3) elements a vector, so with the stride a multiple of 3
+// every vector of a thread starts on the same channel: lane l sums into
+// class l mod 3, mapped to channels once at the end. A vector inside one
+// row sums its classes at once (uint8: a dp4a per 4 bytes and class) and
+// adds them to the window's sums when it lies inside the window, lane by
+// lane only across the window's edge; a vector across a row end or the
+// band's edge walks its lanes' (row, element). uint8 sums are integers
+// (Acc: 32-bit while h w 255 < 2^31), float32 sums double. Then a warp
+// shuffle tree, the warps in order, the cluster barrier,
+// and block 0 reads the K blocks' sums through distributed shared memory in
+// rank order and writes the two fills (finish_fills). No float64 partial
+// goes through device memory; the order is fixed, so a float32 fill is
+// bitwise the same at every launch and replay.
+template <typename T, typename Acc, bool GEOM>
+__global__ void augment_prepare_kernel(Geometry p, const T* __restrict__ images,
+                                       const int* __restrict__ geom_in,
+                                       float* __restrict__ fills) {
+  namespace cg = cooperative_groups;
+  using G = Group<T, 16>;
+  using Sum = typename SumOf<T>::type;
+  constexpr int N = G::N;
+  constexpr int U = PREPARE_LOADS;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 prepare_smem[];
+  const int t = threadIdx.x, nt = blockDim.x, warps = nt / 32;
+  const int rank = blockIdx.x, k = gridDim.x, n = blockIdx.y, h = p.h, w = p.w;
+  Sum* part = reinterpret_cast<Sum*>(prepare_smem);  // [6]: this block's sums
+  Sum* warp_part = part + 8;                         // [warps][6]
+  Decision* dec = reinterpret_cast<Decision*>(warp_part + 6 * warps);
+
+  const int rw = 3 * w;
+  const long src = p.idx != nullptr ? p.idx[n] : n;
+  const int ya = rank * h / k, yb = (rank + 1) * h / k;
+  const long a = (src * h + ya) * rw;  // the band's first element
+  const int len = (yb - ya) * rw;
+  // rel: the element of lane 0 of the thread's next vector, from the band's
+  // first; (row, col) its row and element in the row
+  int rel = static_cast<int>((a / N + t) * N - a);
+  const int q0 = rel >= 0 ? rel / rw : -((rw - 1 - rel) / rw);
+  int row = ya + q0, col = rel - q0 * rw;
+  const int phase = (rel % 3 + 3) % 3;  // the channel of lane 0
+  const int step = nt * N, dq = step / rw, dr = step - dq * rw;
+  G v[U];
+  // the first vectors are in flight while thread 0 decides
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const long g = a + rel + static_cast<long>(u) * step;
+    load_group<T, 16>(images, g, lane_lo<N>(g, a), lane_hi<N>(g, a + len), v[u]);
+  }
+  if (t == 0) {
+    Decision d{};
+    if constexpr (GEOM) {
+      d = decide(p, n, nullptr);
+      if (rank == 0) write_geom(p.geom_out + GEOM_COLS * n, d);
+    } else {
+      const int* row_in = geom_in + GEOM_COLS * n;
+      d.flip = row_in[0];
+      d.dy = row_in[1];
+      d.dx = row_in[2];
+    }
+    *dec = d;
+  }
+  __syncthreads();
+  const Decision d = *dec;
+  const Window win = window_of(d.flip, d.dy, d.dx, h, w);
+  const int e0 = 3 * win.c0, e1 = 3 * win.c1;  // the window's elements of a row
+
+  Acc all[3] = {Acc(0), Acc(0), Acc(0)}, in[3] = {Acc(0), Acc(0), Acc(0)};
+  while (true) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (rel >= 0 && rel + N <= len && col + N <= rw) {  // inside one row of the band
+        const bool row_in = row >= win.r0 && row < win.r1;
+        const int lo = row_in ? min(max(e0 - col, 0), N) : 0;
+        const int hi = row_in ? min(max(e1 - col, 0), N) : 0;
+        typename LaneSum<T>::type s[3];
+        class_sums(v[u], s);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) all[c] += static_cast<Acc>(s[c]);
+        if (lo == 0 && hi == N) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c) in[c] += static_cast<Acc>(s[c]);
+        } else if (lo < hi) {  // across the window's edge
+#pragma unroll
+          for (int l = 0; l < N; ++l)
+            in[l % 3] += (l >= lo && l < hi) ? static_cast<Acc>(v[u].e[l]) : Acc(0);
+        }
+      } else {  // across a row's end or the band's edge: lanes outside the band are 0
+        int r = row, c = col;
+#pragma unroll
+        for (int l = 0; l < N; ++l) {
+          const Acc x = static_cast<Acc>(v[u].e[l]);
+          all[l % 3] += x;
+          in[l % 3] += (r >= win.r0 && r < win.r1 && c >= e0 && c < e1) ? x : Acc(0);
+          if (++c == rw) {
+            c = 0;
+            ++r;
+          }
+        }
+      }
+      rel += step;
+      row += dq;
+      col += dr;
+      if (col >= rw) {
+        col -= rw;
+        ++row;
+      }
+    }
+    if (rel >= len) break;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long g = a + rel + static_cast<long>(u) * step;
+      load_group<T, 16>(images, g, lane_lo<N>(g, a), lane_hi<N>(g, a + len), v[u]);
+    }
+  }
+  if constexpr (GEOM) {
+    for (int j = t * k + rank; j < p.g; j += nt * k) transform_box(p, d, n, j);
+  }
+
+  // channel c holds class (c - phase) mod 3
+  Sum s[6];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    s[c] = static_cast<Sum>(phase == 0 ? all[c] : phase == 1 ? all[(c + 2) % 3] : all[(c + 1) % 3]);
+    s[3 + c] = static_cast<Sum>(phase == 0 ? in[c] : phase == 1 ? in[(c + 2) % 3] : in[(c + 1) % 3]);
+  }
+#pragma unroll
+  for (int q = 0; q < 6; ++q)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s[q] += __shfl_down_sync(0xffffffffu, s[q], off);
+  if ((t & 31) == 0)
+#pragma unroll
+    for (int q = 0; q < 6; ++q) warp_part[(t >> 5) * 6 + q] = s[q];
+  __syncthreads();
+  if (t < 6) {
+    Sum acc = 0;
+    for (int i = 0; i < warps; ++i) acc += warp_part[i * 6 + t];
+    part[t] = acc;
+  }
+  cluster.sync();
+  if (rank == 0 && t < 3) {
+    Sum sa = 0, si = 0;
+    for (int r = 0; r < k; ++r) {
+      const Sum* remote = cluster.map_shared_rank(part, r);
+      sa += remote[t];
+      si += remote[3 + t];
+    }
+    finish_fills(static_cast<double>(sa), static_cast<double>(si), win, h, w, sizeof(T) == 1,
+                 fills + 6L * n + t, fills + 6L * n + 3 + t);
+  }
+  cluster.sync();  // every block's sums stay until block 0 has read them
 }
 
 // The half-pixel source coordinate of content index i: (i + 0.5) * q - 0.5.
@@ -825,18 +1046,101 @@ cudaError_t allow_smem(K* kernel, long bytes) {
   return e;
 }
 
-template <typename T>
-int fill_launch(const void* images, const void* idx, const void* geom, int n, int h, int w,
-                void* partial, void* fills, cudaStream_t s) {
-  image_fill_kernel<T><<<dim3(FILL_BANDS, n), FILL_THREADS, 0, s>>>(
-      static_cast<const T*>(images), static_cast<const int*>(idx),
-      static_cast<const int*>(geom), h, w, static_cast<double*>(partial));
-  const cudaError_t e = cudaGetLastError();
+// Opts a kernel in to clusters of more than 8 blocks, once per kernel.
+template <typename K>
+cudaError_t allow_cluster(K* kernel, int blocks) {
+  if (blocks <= 8) return cudaSuccess;
+  static std::mutex lock;
+  static std::set<const void*> allowed;
+  std::lock_guard<std::mutex> hold(lock);
+  if (allowed.count(reinterpret_cast<const void*>(kernel))) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess) allowed.insert(reinterpret_cast<const void*>(kernel));
+  return e;
+}
+
+// grid (cluster, n) in clusters of (cluster, 1, 1) through cudaLaunchKernelEx.
+template <typename T, typename Acc, bool GEOM>
+int prepare_launch_as(const Geometry& p, const void* images, const void* geom_in, void* fills,
+                      int cluster, int threads, cudaStream_t s) {
+  auto* kernel = augment_prepare_kernel<T, Acc, GEOM>;
+  cudaError_t e = allow_cluster(kernel, cluster);
   if (e != cudaSuccess) return static_cast<int>(e);
-  image_fill_finish_kernel<<<(n + 31) / 32, 32, 0, s>>>(
-      static_cast<const double*>(partial), static_cast<const int*>(geom), n, h, w,
-      sizeof(T) == 1, static_cast<float*>(fills));
+  using Sum = typename SumOf<T>::type;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, p.n, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = (8 + 6 * (threads / 32)) * sizeof(Sum) + sizeof(Decision);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, p, static_cast<const T*>(images),
+                         static_cast<const int*>(geom_in), static_cast<float*>(fills));
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The prepare kernel for uint8 (is_u8) or float32 images: 32-bit uint8 sums
+// while no channel of an image can reach 2^31.
+template <bool GEOM>
+int prepare_launch(const Geometry& p, const void* images, int is_u8, const void* geom_in,
+                   void* fills, int cluster, int threads, cudaStream_t s) {
+  if (p.n > 65535 || cluster < 1 || cluster > 16 || threads < 96 || threads > 1024 ||
+      threads % 96 != 0 || 3LL * p.h * p.w >= (1LL << 31) - 16LL * threads ||
+      static_cast<long long>(p.h) * cluster >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!is_u8)
+    return prepare_launch_as<float, double, GEOM>(p, images, geom_in, fills, cluster, threads, s);
+  if (255LL * p.h * p.w < (1LL << 31))
+    return prepare_launch_as<unsigned char, unsigned int, GEOM>(p, images, geom_in, fills,
+                                                                cluster, threads, s);
+  return prepare_launch_as<unsigned char, unsigned long long, GEOM>(p, images, geom_in, fills,
+                                                                    cluster, threads, s);
+}
+
+// The Geometry of the C interface's arguments (see augment_geometry_launch).
+Geometry geometry_of(const void* boxes, const void* labels, const void* mask, const void* idx,
+                     const void* aug, unsigned long long seed_mix, int hflip, int do_scale,
+                     float scale_lo, float scale_span, int do_translate, float amp_y,
+                     float amp_x, const void* flip_in, const void* shifts_in,
+                     const void* jitter_in, const void* apply_in, int resample_mode, int n,
+                     int g, int h, int w, void* boxes_out, void* labels_out, void* mask_out,
+                     void* geom_out, void* draws_out) {
+  Geometry p;
+  p.boxes = static_cast<const float*>(boxes);
+  p.labels = static_cast<const int*>(labels);
+  p.mask = static_cast<const unsigned char*>(mask);
+  p.idx = static_cast<const int*>(idx);
+  p.aug = static_cast<const int*>(aug);
+  p.seed_mix = seed_mix;
+  p.hflip = hflip;
+  p.do_scale = do_scale;
+  p.do_translate = do_translate;
+  p.scale_lo = scale_lo;
+  p.scale_span = scale_span;
+  p.amp_y = amp_y;
+  p.amp_x = amp_x;
+  p.flip_in = static_cast<const unsigned char*>(flip_in);
+  p.shifts_in = static_cast<const int*>(shifts_in);
+  p.jitter_in = static_cast<const int*>(jitter_in);
+  p.apply_in = static_cast<const unsigned char*>(apply_in);
+  p.resample_mode = resample_mode;
+  p.n = n;
+  p.g = g;
+  p.h = h;
+  p.w = w;
+  p.boxes_out = static_cast<float*>(boxes_out);
+  p.labels_out = static_cast<int*>(labels_out);
+  p.mask_out = static_cast<unsigned char*>(mask_out);
+  p.geom_out = static_cast<int*>(geom_out);
+  p.draws_out = static_cast<float*>(draws_out);
+  return p;
 }
 
 // Column tiles of at most max_tile pixels, as even as 4-pixel steps allow;
@@ -897,7 +1201,8 @@ const char* image_error_string(int code) {
 }
 
 // Returns the CUDA error of the launch (0 = cudaSuccess). Pointers that a
-// mode does not use are null (see Geometry).
+// mode does not use are null (see Geometry). A thread per (image, box): grid
+// (n, box tiles) of up to 128 threads.
 int augment_geometry_launch(const void* boxes, const void* labels, const void* mask,
                             const void* idx, const void* aug, unsigned long long seed_mix,
                             int hflip, int do_scale, float scale_lo, float scale_span,
@@ -907,45 +1212,53 @@ int augment_geometry_launch(const void* boxes, const void* labels, const void* m
                             void* labels_out, void* mask_out, void* geom_out, void* draws_out,
                             void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  Geometry p;
-  p.boxes = static_cast<const float*>(boxes);
-  p.labels = static_cast<const int*>(labels);
-  p.mask = static_cast<const unsigned char*>(mask);
-  p.idx = static_cast<const int*>(idx);
-  p.aug = static_cast<const int*>(aug);
-  p.seed_mix = seed_mix;
-  p.hflip = hflip;
-  p.do_scale = do_scale;
-  p.do_translate = do_translate;
-  p.scale_lo = scale_lo;
-  p.scale_span = scale_span;
-  p.amp_y = amp_y;
-  p.amp_x = amp_x;
-  p.flip_in = static_cast<const unsigned char*>(flip_in);
-  p.shifts_in = static_cast<const int*>(shifts_in);
-  p.jitter_in = static_cast<const int*>(jitter_in);
-  p.apply_in = static_cast<const unsigned char*>(apply_in);
-  p.resample_mode = resample_mode;
-  p.n = n;
-  p.g = g;
-  p.h = h;
-  p.w = w;
-  p.boxes_out = static_cast<float*>(boxes_out);
-  p.labels_out = static_cast<int*>(labels_out);
-  p.mask_out = static_cast<unsigned char*>(mask_out);
-  p.geom_out = static_cast<int*>(geom_out);
-  p.draws_out = static_cast<float*>(draws_out);
-  augment_geometry_kernel<<<(n + 31) / 32, 32, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  if (g < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Geometry p = geometry_of(boxes, labels, mask, idx, aug, seed_mix, hflip, do_scale,
+                                 scale_lo, scale_span, do_translate, amp_y, amp_x, flip_in,
+                                 shifts_in, jitter_in, apply_in, resample_mode, n, g, h, w,
+                                 boxes_out, labels_out, mask_out, geom_out, draws_out);
+  const int jobs = std::max(g, 1);
+  const int threads = std::min(128, (jobs + 31) / 32 * 32);
+  const int tiles = (jobs + threads - 1) / threads;
+  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  augment_geometry_kernel<<<dim3(n, tiles), threads, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// is_u8: images are uint8, else float32. partial: [N, 16, 6] double scratch.
-int image_fill_launch(const void* images, const void* idx, const void* geom, int n, int h, int w,
-                      int is_u8, void* partial, void* fills, void* stream) {
+// One launch: the geometry arguments of augment_geometry_launch (no draws)
+// and the images (is_u8: uint8, else float32; [M, h, w, 3] read by idx, or
+// [n, h, w, 3]) -> the box outputs, geom_out and fills [n, 2, 3]. A cluster
+// of `cluster` blocks of `threads` threads (a multiple of 96) per image.
+int augment_prepare_launch(const void* boxes, const void* labels, const void* mask,
+                           const void* idx, const void* aug, unsigned long long seed_mix,
+                           int hflip, int do_scale, float scale_lo, float scale_span,
+                           int do_translate, float amp_y, float amp_x, const void* flip_in,
+                           const void* shifts_in, const void* jitter_in, const void* apply_in,
+                           int resample_mode, int n, int g, int h, int w, const void* images,
+                           int is_u8, int cluster, int threads, void* boxes_out,
+                           void* labels_out, void* mask_out, void* geom_out, void* fills,
+                           void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_u8 ? fill_launch<unsigned char>(images, idx, geom, n, h, w, partial, fills, s)
-               : fill_launch<float>(images, idx, geom, n, h, w, partial, fills, s);
+  if (g < 0 || h <= 0 || w <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Geometry p = geometry_of(boxes, labels, mask, idx, aug, seed_mix, hflip, do_scale,
+                                 scale_lo, scale_span, do_translate, amp_y, amp_x, flip_in,
+                                 shifts_in, jitter_in, apply_in, resample_mode, n, g, h, w,
+                                 boxes_out, labels_out, mask_out, geom_out, nullptr);
+  return prepare_launch<true>(p, images, is_u8, nullptr, fills, cluster, threads,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// The fills alone from the geometry rows geom [n, 8]: the prepare kernel
+// without its geometry. images as in augment_prepare_launch.
+int image_fill_launch(const void* images, const void* idx, const void* geom, int n, int h, int w,
+                      int is_u8, int cluster, int threads, void* fills, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  if (h <= 0 || w <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Geometry p = geometry_of(nullptr, nullptr, nullptr, idx, nullptr, 0, 0, 0, 0.0f, 0.0f,
+                                 0, 0.0f, 0.0f, nullptr, nullptr, nullptr, nullptr, 2, n, 0, h,
+                                 w, nullptr, nullptr, nullptr, nullptr, nullptr);
+  return prepare_launch<false>(p, images, is_u8, geom, fills, cluster, threads,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // fills may be null when no row reads a fill (flip only). max_tile: the

@@ -7,11 +7,14 @@ versions are in the port's ``ops/image.py``, which dispatches a CUDA tensor
 here; each wrapper takes only CUDA tensors and raises on anything else.
 
 * :func:`augment_geometry_cuda`: the draws, the flip / translation / jitter
-  decisions and the box, label and mask transforms, one thread per image;
-  returns an int32 [N, 8] geometry row per image (flip, dy, dx, ch, cw, shy,
-  shx, resample) for the image kernels.
-* :func:`image_fill_cuda`: the two channel fills per image (two launches, one
-  call): [N, 2, 3] float32.
+  decisions and the box, label and mask transforms, a thread per (image,
+  box); returns an int32 [N, 8] geometry row per image (flip, dy, dx, ch,
+  cw, shy, shx, resample) for the image kernels.
+* :func:`augment_prepare_cuda`: the same geometry and the two channel fills
+  per image ([N, 2, 3] float32) in one launch, a thread block cluster per
+  image; the data path's calls that read fills take it.
+* :func:`image_fill_cuda`: the fills alone from given geometry rows (the
+  prepare kernel without its geometry).
 * :func:`augment_image_cuda`: gather (from the batch, or the cache by
   ``idx``), flip, translation and jitter in one launch, a block per output
   row tile.
@@ -21,7 +24,8 @@ here; each wrapper takes only CUDA tensors and raises on anything else.
   the card by :func:`tile_spans`), then the columns pass; the boxes scaled.
 
 Each counts its calls in its own counter (``geometry_launches``,
-``fill_launches``, ``image_launches``, ``resize_launches``).
+``prepare_launches``, ``fill_launches``, ``image_launches``,
+``resize_launches``).
 """
 
 from __future__ import annotations
@@ -38,13 +42,13 @@ Tensor = torch.Tensor
 
 # calls since the last reset (the caller resets them to 0)
 geometry_launches = 0
+prepare_launches = 0
 fill_launches = 0
 image_launches = 0
 resize_launches = 0
 
 GAMMA = 0x9E3779B97F4A7C15
 MASK64 = 0xFFFFFFFFFFFFFFFF
-FILL_BANDS = 16  # csrc/image_kernel.cu::FILL_BANDS
 GEOM_COLS = 8
 # the resize's block: output rows x output columns, and by dtype its
 # threads (x: along a row, y: rows); its staged spans start and end on
@@ -58,6 +62,13 @@ RESIZE_ALIGN = 8
 IMAGE_TILE = 1024
 IMAGE_ROWS = {torch.uint8: 2, torch.float32: 2}
 IMAGE_PIXELS_PER_THREAD = {torch.uint8: 8, torch.float32: 2}
+# the prepare kernel's (and the fills') launch by dtype: blocks of a
+# cluster (one cluster per image; above 8 a non-portable size) and threads
+# a block (a multiple of 96). The fastest at 600x600 b8 on the H100
+# (tools/image_variants.py); 768 threads of the uint8 geometry
+# instantiation (80 registers) is at the edge of a block's registers.
+PREPARE_CLUSTER = {torch.uint8: 16, torch.float32: 8}
+PREPARE_THREADS = {torch.uint8: 384, torch.float32: 768}
 SMEM_BUDGET = 232448  # bytes of shared memory a block can use on the H100
 
 _fns = None
@@ -75,13 +86,17 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, p, p, p, p, ctypes.c_ulonglong, i, i, f, f, i, f, f, p, p, p, p, i,
         i, i, i, i, p, p, p, p, p, p,
     ]
-    lib.image_fill_launch.argtypes = [p, p, p, i, i, i, i, p, p, p]
+    lib.augment_prepare_launch.argtypes = [
+        p, p, p, p, p, ctypes.c_ulonglong, i, i, f, f, i, f, f, p, p, p, p, i,
+        i, i, i, i, p, i, i, i, p, p, p, p, p, p,
+    ]
+    lib.image_fill_launch.argtypes = [p, p, p, i, i, i, i, i, i, p, p]
     lib.augment_image_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, p]
     lib.resize_aa_launch.argtypes = [
         p, i, p, i, i, i, i, i, p, p, i, p, p, i, p, i, i, i, i, i, p, p,
         ctypes.c_longlong, ctypes.c_longlong, f, f, p,
     ]
-    for fn in (lib.augment_geometry_launch, lib.image_fill_launch,
+    for fn in (lib.augment_geometry_launch, lib.augment_prepare_launch, lib.image_fill_launch,
                lib.augment_image_launch, lib.resize_aa_launch):
         fn.restype = ctypes.c_int
     lib.image_error_string.argtypes = [ctypes.c_int]
@@ -128,6 +143,47 @@ def _image_kind(images: Tensor) -> int:
     raise ValueError(f"images must be uint8 or float32, got {images.dtype}")
 
 
+def _geometry(dev, boxes, labels, mask, n, h, w, idx, aug, seed, hflip, scale_range, translate,
+              flip, shifts, jitter, apply, resample):
+    """The geometry arguments of the C interface, checked, and the box
+    outputs: (arguments up to ``w``, (boxes, labels, mask, geom) outputs)."""
+    g = 0
+    if boxes is not None:
+        rows = boxes.shape[0]
+        g = boxes.shape[1]
+        boxes = _on(dev, "boxes", boxes, torch.float32, (rows, g, 4))
+        labels = _on(dev, "labels", labels, torch.int32, (rows, g))
+        mask = _on(dev, "mask", mask, torch.bool, (rows, g))
+        if idx is None and rows != n:
+            raise ValueError(f"boxes hold {rows} rows for {n} images")
+    idx = _on(dev, "idx", idx, torch.int32, (n,))
+    aug = _on(dev, "aug", aug, torch.int32, (n, 2))
+    flip = _on(dev, "flip", flip, torch.bool, (n,))
+    shifts = _on(dev, "shifts", shifts, torch.int32, (n, 2))
+    jitter = _on(dev, "jitter", jitter, torch.int32, (n, 4))
+    apply = _on(dev, "apply", apply, torch.bool, (n,))
+    modes = {"rows": 0, "all": 1, "none": 2}
+    if resample not in modes:
+        raise ValueError(f"resample must be one of {sorted(modes)}, got {resample!r}")
+    if aug is not None and any(t is not None for t in (flip, shifts, jitter, apply)):
+        raise ValueError("aug draws its decisions: pass no flip, shifts, jitter or apply")
+    out_boxes = out_labels = out_mask = None
+    if g:
+        out_boxes = torch.empty(n, g, 4, dtype=torch.float32, device=dev)
+        out_labels = torch.empty(n, g, dtype=torch.int32, device=dev)
+        out_mask = torch.empty(n, g, dtype=torch.bool, device=dev) if mask is not None else None
+    geom = torch.empty(n, GEOM_COLS, dtype=torch.int32, device=dev)
+    lo, hi = (0.0, 0.0) if scale_range is None else (float(scale_range[0]), float(scale_range[1]))
+    args = (_ptr(boxes), _ptr(labels), _ptr(mask), _ptr(idx), _ptr(aug),
+            (int(seed) * GAMMA) & MASK64, int(bool(hflip)), int(scale_range is not None),
+            float(np.float32(lo)), float(np.float32(hi - lo)), int(bool(translate)),
+            float(np.float32(translate * h)), float(np.float32(translate * w)),
+            _ptr(flip), _ptr(shifts), _ptr(jitter), _ptr(apply), modes[resample], n, g, h, w)
+    # the inputs stay referenced until the launch is queued
+    return args, (boxes, labels, mask, idx, aug, flip, shifts, jitter, apply), \
+        (out_boxes, out_labels, out_mask, geom)
+
+
 def augment_geometry_cuda(
     boxes: Optional[Tensor],
     labels: Optional[Tensor],
@@ -166,49 +222,69 @@ def augment_geometry_cuda(
     dev = device if device is not None else ref.device
     if dev.type != "cuda":
         raise ValueError(f"augment_geometry_cuda takes CUDA tensors, got {dev}")
-    g = 0
-    if boxes is not None:
-        rows = boxes.shape[0]
-        g = boxes.shape[1]
-        boxes = _on(dev, "boxes", boxes, torch.float32, (rows, g, 4))
-        labels = _on(dev, "labels", labels, torch.int32, (rows, g))
-        mask = _on(dev, "mask", mask, torch.bool, (rows, g))
-        if idx is None and rows != n:
-            raise ValueError(f"boxes hold {rows} rows for {n} images")
-    idx = _on(dev, "idx", idx, torch.int32, (n,))
-    aug = _on(dev, "aug", aug, torch.int32, (n, 2))
-    flip = _on(dev, "flip", flip, torch.bool, (n,))
-    shifts = _on(dev, "shifts", shifts, torch.int32, (n, 2))
-    jitter = _on(dev, "jitter", jitter, torch.int32, (n, 4))
-    apply = _on(dev, "apply", apply, torch.bool, (n,))
-    modes = {"rows": 0, "all": 1, "none": 2}
-    if resample not in modes:
-        raise ValueError(f"resample must be one of {sorted(modes)}, got {resample!r}")
-    if aug is not None and any(t is not None for t in (flip, shifts, jitter, apply)):
-        raise ValueError("aug draws its decisions: pass no flip, shifts, jitter or apply")
-    out_boxes = out_labels = out_mask = None
-    if g:
-        out_boxes = torch.empty(n, g, 4, dtype=torch.float32, device=dev)
-        out_labels = torch.empty(n, g, dtype=torch.int32, device=dev)
-        out_mask = torch.empty(n, g, dtype=torch.bool, device=dev) if mask is not None else None
-    geom = torch.empty(n, GEOM_COLS, dtype=torch.int32, device=dev)
+    args, _keep, (out_boxes, out_labels, out_mask, geom) = _geometry(
+        dev, boxes, labels, mask, n, h, w, idx, aug, seed, hflip, scale_range, translate, flip,
+        shifts, jitter, apply, resample)
     out_draws = torch.empty(n, 6, dtype=torch.float32, device=dev) if draws else None
-    lo, hi = (0.0, 0.0) if scale_range is None else (float(scale_range[0]), float(scale_range[1]))
     lib = _kernels()
     with torch.cuda.device(dev):
         rc = lib.augment_geometry_launch(
-            _ptr(boxes), _ptr(labels), _ptr(mask), _ptr(idx), _ptr(aug),
-            (int(seed) * GAMMA) & MASK64, int(bool(hflip)), int(scale_range is not None),
-            float(np.float32(lo)), float(np.float32(hi - lo)), int(bool(translate)),
-            float(np.float32(translate * h)), float(np.float32(translate * w)),
-            _ptr(flip), _ptr(shifts), _ptr(jitter), _ptr(apply), modes[resample],
-            n, g, h, w, _ptr(out_boxes), _ptr(out_labels), _ptr(out_mask), geom.data_ptr(),
-            _ptr(out_draws), _stream(dev),
-        )
+            *args, _ptr(out_boxes), _ptr(out_labels), _ptr(out_mask), geom.data_ptr(),
+            _ptr(out_draws), _stream(dev))
     build.check(rc, lib.image_error_string, "augment_geometry_kernel")
     global geometry_launches
     geometry_launches += 1
     return out_boxes, out_labels, out_mask, geom, out_draws
+
+
+def augment_prepare_cuda(
+    images: Tensor,
+    boxes: Optional[Tensor],
+    labels: Optional[Tensor],
+    mask: Optional[Tensor],
+    *,
+    idx: Optional[Tensor] = None,
+    aug: Optional[Tensor] = None,
+    seed: int = 0,
+    hflip: bool = False,
+    scale_range=None,
+    translate: float = 0.0,
+    flip: Optional[Tensor] = None,
+    shifts: Optional[Tensor] = None,
+    jitter: Optional[Tensor] = None,
+    apply: Optional[Tensor] = None,
+    resample: str = "rows",
+):
+    """One launch: :func:`augment_geometry_cuda`'s geometry (no draws) and
+    the fills of :func:`image_fill_cuda` -> (boxes, labels, mask, geom int32
+    [n, 8], fills float32 [n, 2, 3]). ``images`` [n, H, W, 3] uint8 or
+    float32, or with ``idx`` [n] the cache's [M, H, W, 3] rows (the boxes'
+    too); the other arguments as :func:`augment_geometry_cuda`'s. A cluster of
+    ``PREPARE_CLUSTER`` blocks of ``PREPARE_THREADS`` threads per image."""
+    if not isinstance(images, Tensor) or not images.is_cuda:
+        dev = images.device if isinstance(images, Tensor) else None
+        raise ValueError(f"augment_prepare_cuda takes CUDA tensors, got {dev}")
+    dev = images.device
+    kind = _image_kind(images)
+    if images.dim() != 4 or images.shape[-1] != 3:
+        raise ValueError(f"images must be [N, H, W, 3], got {tuple(images.shape)}")
+    n = idx.shape[0] if idx is not None else images.shape[0]
+    h, w = images.shape[1], images.shape[2]
+    args, _keep, (out_boxes, out_labels, out_mask, geom) = _geometry(
+        dev, boxes, labels, mask, n, h, w, idx, aug, seed, hflip, scale_range, translate, flip,
+        shifts, jitter, apply, resample)
+    images = _on(dev, "images", images)
+    fills = torch.empty(n, 2, 3, dtype=torch.float32, device=dev)
+    lib = _kernels()
+    with torch.cuda.device(dev):
+        rc = lib.augment_prepare_launch(
+            *args, images.data_ptr(), kind, PREPARE_CLUSTER[images.dtype],
+            PREPARE_THREADS[images.dtype], _ptr(out_boxes), _ptr(out_labels), _ptr(out_mask),
+            geom.data_ptr(), fills.data_ptr(), _stream(dev))
+    build.check(rc, lib.image_error_string, "augment_prepare_kernel")
+    global prepare_launches
+    prepare_launches += 1
+    return out_boxes, out_labels, out_mask, geom, fills
 
 
 def _source(images: Tensor, geom: Tensor, idx: Optional[Tensor]):
@@ -227,20 +303,20 @@ def _source(images: Tensor, geom: Tensor, idx: Optional[Tensor]):
 
 
 def image_fill_cuda(images: Tensor, geom: Tensor, idx: Optional[Tensor] = None) -> Tensor:
-    """Two launches (per-band partial sums, then the fills), one call: the
-    [N, 2, 3] float32 fills (translation, jitter) of each row's source
+    """One launch (the prepare kernel reading the geometry rows ``geom``):
+    the [N, 2, 3] float32 fills (translation, jitter) of each row's source
     (``images[idx[n]]`` with ``idx``)."""
     images, geom, idx, n = _source(images, geom, idx)
     dev = images.device
     h, w = images.shape[1], images.shape[2]
-    partial = torch.empty(n, FILL_BANDS, 6, dtype=torch.float64, device=dev)
     fills = torch.empty(n, 2, 3, dtype=torch.float32, device=dev)
     lib = _kernels()
     with torch.cuda.device(dev):
         rc = lib.image_fill_launch(images.data_ptr(), _ptr(idx), geom.data_ptr(), n, h, w,
-                                   _image_kind(images), partial.data_ptr(), fills.data_ptr(),
+                                   _image_kind(images), PREPARE_CLUSTER[images.dtype],
+                                   PREPARE_THREADS[images.dtype], fills.data_ptr(),
                                    _stream(dev))
-    build.check(rc, lib.image_error_string, "image_fill_kernel")
+    build.check(rc, lib.image_error_string, "augment_prepare_kernel (fills)")
     global fill_launches
     fill_launches += 1
     return fills

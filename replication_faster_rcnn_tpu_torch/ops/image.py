@@ -122,10 +122,9 @@ def batched_scale_jitter(images: Tensor, params: Tensor) -> Tensor:
     resampled (an identity row (H, W, 0, 0) passes through exactly)."""
     if _kernel_route(images):
         k = _kernels()
-        n, h, w = images.shape[:3]
-        _, _, _, geom, _ = k.augment_geometry_cuda(None, None, None, n, h, w, jitter=params,
-                                                   resample="all", device=images.device)
-        return k.augment_image_cuda(images, geom, k.image_fill_cuda(images, geom))
+        _, _, _, geom, fills = k.augment_prepare_cuda(images, None, None, None, jitter=params,
+                                                      resample="all")
+        return k.augment_image_cuda(images, geom, fills)
     return torch.stack([_scale_jitter_plain(im, p) for im, p in zip(images, params)])
 
 
@@ -279,10 +278,8 @@ def translate_batch_with_boxes(images: Tensor, boxes: Tensor, labels: Tensor, ma
     padded-row convention (label -1, mask False, -1 geometry)."""
     if _kernel_route(images):
         k = _kernels()
-        n, h, w = images.shape[:3]
-        out_boxes, out_labels, out_mask, geom, _ = k.augment_geometry_cuda(
-            boxes, labels, mask, n, h, w, shifts=shifts, device=images.device)
-        fills = k.image_fill_cuda(images, geom)
+        out_boxes, out_labels, out_mask, geom, fills = k.augment_prepare_cuda(
+            images, boxes, labels, mask, shifts=shifts)
         return k.augment_image_cuda(images, geom, fills), out_boxes, out_labels, out_mask
     return _translate_plain(images, boxes, labels, mask, shifts)
 
@@ -327,10 +324,14 @@ def augment_batch(images: Tensor, boxes: Tensor, labels: Tensor, mask: Tensor, a
     h, w = images.shape[1], images.shape[2]
     if _kernel_route(images):
         k = _kernels()
-        out_boxes, out_labels, out_mask, geom, _ = k.augment_geometry_cuda(
-            boxes, labels, mask, images.shape[0], h, w, aug=aug, seed=seed, hflip=hflip,
-            scale_range=scale_range, translate=translate, device=images.device)
-        fills = k.image_fill_cuda(images, geom) if (translate or scale_range is not None) else None
+        kw = dict(aug=aug, seed=seed, hflip=hflip, scale_range=scale_range, translate=translate)
+        if translate or scale_range is not None:  # rows read fills: one launch for both
+            out_boxes, out_labels, out_mask, geom, fills = k.augment_prepare_cuda(
+                images, boxes, labels, mask, **kw)
+        else:
+            out_boxes, out_labels, out_mask, geom, _ = k.augment_geometry_cuda(
+                boxes, labels, mask, images.shape[0], h, w, device=images.device, **kw)
+            fills = None
         return k.augment_image_cuda(images, geom, fills), out_boxes, out_labels, out_mask
     boxes, labels, mask, geom = augment_geometry_plain(
         boxes, labels, mask, aug, h, w, seed=seed, hflip=hflip, scale_range=scale_range,
@@ -401,6 +402,71 @@ def image_fills_plain(images: Tensor, geom: Tensor) -> Tensor:
         moved = _translate_image(flipped, g[1], g[2])
         out.append(torch.stack([_channel_fill(flipped), _channel_fill(moved)]))
     return torch.stack(out)
+
+
+def _decided_geometry_plain(boxes, labels, mask, n, h, w, flip, shifts, jitter, apply,
+                            resample, device):
+    """The geometry kernel's plain version on the host's decisions: ``flip``
+    [n] bool, ``shifts`` [n, 2] and ``jitter`` [n, 4] (each optional;
+    ``apply`` [n] bool the rows whose boxes jitter, default the
+    non-identity ones); the boxes (None: none) flipped, translated and
+    jittered in JAX's order, and the int32 [n, 8] geometry rows."""
+    zeros = torch.zeros(n, dtype=torch.int32, device=device)
+    if boxes is not None:
+        if flip is not None:
+            boxes = _flip_boxes(boxes, labels, flip, w)
+        if shifts is not None:
+            boxes, labels, mask = _translate_boxes(boxes, labels, mask, shifts, h, w)
+    dy, dx = (shifts[:, 0], shifts[:, 1]) if shifts is not None else (zeros, zeros)
+    ch, cw, shy, shx = (jitter.unbind(dim=1) if jitter is not None
+                        else (zeros + h, zeros + w, zeros, zeros))
+    resampled = torch.zeros(n, dtype=torch.bool, device=device)
+    if jitter is not None:
+        if apply is None:
+            ident = torch.tensor([h, w, 0, 0], dtype=torch.int32, device=jitter.device)
+            apply = torch.any(jitter != ident, dim=-1)
+        if boxes is not None:
+            boxes, labels, mask = _jitter_boxes_plain(boxes, labels, mask, jitter, h, w, apply)
+        resampled = {"rows": apply, "all": ~resampled, "none": resampled}[resample]
+    flip_col = flip.to(torch.int32) if flip is not None else zeros
+    geom = torch.stack([flip_col, dy, dx, ch, cw, shy, shx, resampled.to(torch.int32)], dim=-1)
+    return boxes, labels, mask, geom.to(torch.int32)
+
+
+def augment_prepare_plain(images: Tensor, boxes, labels, mask, *, idx=None, aug=None,
+                          seed: int = 0, hflip: bool = False, scale_range=None,
+                          translate: float = 0.0, flip=None, shifts=None, jitter=None,
+                          apply=None, resample: str = "rows"):
+    """The prepare kernel's plain version: the geometry (from ``aug``'s
+    draws, :func:`augment_geometry_plain`, or from the host's ``flip`` /
+    ``shifts`` / ``jitter``) followed by :func:`image_fills_plain` ->
+    (boxes, labels, mask, geom int32 [n, 8], fills float32 [n, 2, 3]).
+    With ``idx`` [n] the images and boxes are the cache's rows it names;
+    ``boxes`` None transforms no box, ``mask`` None returns none."""
+    if idx is not None:
+        images = images[idx.long()]
+        if boxes is not None:
+            boxes, labels = boxes[idx.long()], labels[idx.long()]
+            mask = mask[idx.long()] if mask is not None else None
+    n, h, w = images.shape[:3]
+    no_mask = mask is None and boxes is not None
+    if no_mask:
+        mask = labels >= 0
+    if aug is not None:
+        b, l, m = ((boxes, labels, mask) if boxes is not None else
+                   (torch.zeros(n, 0, 4, device=images.device),
+                    torch.zeros(n, 0, dtype=torch.int32, device=images.device),
+                    torch.zeros(n, 0, dtype=torch.bool, device=images.device)))
+        b, l, m, geom = augment_geometry_plain(b, l, m, aug, h, w, seed=seed, hflip=hflip,
+                                               scale_range=scale_range, translate=translate)
+        if scale_range is not None and resample != "rows":
+            geom[:, 7] = int(resample == "all")
+        if boxes is not None:
+            boxes, labels, mask = b, l, m
+    else:
+        boxes, labels, mask, geom = _decided_geometry_plain(
+            boxes, labels, mask, n, h, w, flip, shifts, jitter, apply, resample, images.device)
+    return boxes, labels, None if no_mask else mask, geom, image_fills_plain(images, geom)
 
 
 # ------------------------------------------------------------ bucket resample
@@ -488,8 +554,13 @@ def augment_cached(cache, sel, resample: bool) -> Tuple[Tensor, Tensor, Tensor, 
     n = idx.shape[0]
     h, w = images.shape[1], images.shape[2]
     jitter = sel.get("jitter")
-    boxes, labels, mask, geom, _ = k.augment_geometry_cuda(
-        cache["boxes"], cache["labels"], cache["mask"], n, h, w, idx=idx, flip=sel.get("flip"),
-        jitter=jitter, resample="all" if resample else "none", device=images.device)
-    fills = k.image_fill_cuda(images, geom, idx) if (resample and jitter is not None) else None
+    kw = dict(idx=idx, flip=sel.get("flip"), jitter=jitter,
+              resample="all" if resample else "none")
+    if resample and jitter is not None:  # rows read fills: one launch for both
+        boxes, labels, mask, geom, fills = k.augment_prepare_cuda(
+            images, cache["boxes"], cache["labels"], cache["mask"], **kw)
+    else:
+        boxes, labels, mask, geom, _ = k.augment_geometry_cuda(
+            cache["boxes"], cache["labels"], cache["mask"], n, h, w, device=images.device, **kw)
+        fills = None
     return k.augment_image_cuda(images, geom, fills, idx), boxes, labels, mask

@@ -797,9 +797,17 @@ def test_image_kernels_match_plain(dev):
     whose byte length is not a multiple of 4 or 16, a cache gather whose
     idx repeats an image, rows translated to the edge (|dy| = h - 1, |dx| =
     w - 1) and past it; every flipped row against ``torch.flip`` and the
-    identity gather against ``torch.index_select``; one launch per call."""
+    identity gather against ``torch.index_select``; one launch per call. The
+    geometry and the prepare kernel (geometry + fills in one launch) against
+    ``augment_prepare_plain``: odd h and w, w not a multiple of 16, n = 1 and
+    n = 5, G = 0 and G = 100, translations at and past the edge (an empty
+    window), the cache's rows by an idx that repeats one: geometry, boxes,
+    labels and masks bitwise, uint8 fills bitwise, float32 fills within 1
+    ulp and bitwise across launches; the fills alone bitwise the prepare
+    launch's."""
     _resize_cases(dev)
     _image_pass_cases(dev)
+    _prepare_cases(dev)
 
 
 def _resize_cases(dev):
@@ -886,3 +894,68 @@ def _image_pass_cases(dev):
         *_, geom, _ = k.augment_geometry_cuda(None, None, None, n, h, w, idx=idx, device=dev)
         assert torch.equal(held(cache, geom, idx, use_fills=False),
                            torch.index_select(cache, 0, idx.long()))
+
+
+def _prepare_cases(dev):
+    from replication_faster_rcnn_tpu_torch.ops import image as image_ops
+    from replication_faster_rcnn_tpu_torch.ops.cuda import image_kernel as k
+
+    rng = np.random.default_rng(23)
+    dev = torch.empty(0, device=dev).device
+
+    def decisions(kind, n, h, w, rows):
+        if kind == "aug":
+            aug = np.stack([rng.integers(0, 5011, n), rng.integers(0, 50, n)], -1)
+            return dict(aug=torch.from_numpy(aug.astype(np.int32)).to(dev), seed=7, hflip=True,
+                        scale_range=(0.5, 1.5), translate=0.2)
+        edge = [[h - 1, 0], [-(h - 1), w - 1], [h + 2, -w - 5], [3, -(w - 1)], [0, w]]
+        shifts = torch.tensor([edge[i % 5] for i in range(n)], dtype=torch.int32, device=dev)
+        jitter = torch.tensor([[h, w, 0, 0], [h * 3 // 4 + 1, w * 5 // 4, -7, 11],
+                               [h * 5 // 4, w * 3 // 4, h // 3, -(w // 4)], [1, 2, 0, -1],
+                               [h // 2 + 1, w, 0, 0]][:n], dtype=torch.int32, device=dev)
+        flip = torch.from_numpy(rng.uniform(size=n) < 0.5).to(dev)
+        if kind == "host":
+            return dict(flip=flip, shifts=shifts, jitter=jitter)
+        idx = torch.from_numpy(rng.integers(0, rows, n).astype(np.int32)).to(dev)
+        idx[-1] = idx[0]
+        return dict(idx=idx, flip=flip, jitter=jitter, resample="all")
+
+    for (h, w), dtype, n, g in [((375, 433), "uint8", 5, 32), ((41, 37), "uint8", 1, 100),
+                                ((600, 600), "uint8", 5, 0), ((37, 41), "float32", 5, 100),
+                                ((375, 433), "float32", 1, 32), ((600, 600), "float32", 5, 0)]:
+        for kind in ("aug", "host", "cache"):
+            rows = 7 if kind == "cache" else n
+            if dtype == "uint8":
+                images = torch.from_numpy(rng.integers(0, 256, (rows, h, w, 3), dtype=np.uint8))
+            else:
+                images = torch.from_numpy(rng.normal(0, 50, (rows, h, w, 3)).astype(np.float32))
+            images = images.to(dev)
+            boxes = _boxes(rng, (rows, g), float(min(h, w))).to(dev)
+            labels = torch.from_numpy(rng.integers(-1, 20, (rows, g)).astype(np.int32)).to(dev)
+            mask = labels >= 0
+            kw = decisions(kind, n, h, w, rows)
+            with ops_reference():
+                want = image_ops.augment_prepare_plain(images, boxes, labels, mask, **kw)
+            n0, g0 = k.prepare_launches, k.geometry_launches
+            got = k.augment_prepare_cuda(images, boxes, labels, mask, **kw)
+            again = k.augment_prepare_cuda(images, boxes, labels, mask, **kw)
+            alone = k.augment_geometry_cuda(boxes, labels, mask, n, h, w, device=dev, **kw)
+            torch.cuda.synchronize()
+            assert k.prepare_launches == n0 + 2 and k.geometry_launches == g0 + 1
+            case = (h, w, dtype, n, g, kind)
+            for i, what in enumerate(("boxes", "labels", "mask", "geom")):
+                if g or what == "geom":
+                    assert torch.equal(got[i], want[i]), (what,) + case
+                    assert torch.equal(alone[i], want[i]), ("geometry kernel", what) + case
+            fills, plain = got[4], want[4]
+            if dtype == "uint8":
+                assert torch.equal(fills, plain), case
+            else:
+                ulp = torch.from_numpy(np.spacing(plain.abs().cpu().numpy())).to(dev)
+                assert bool(((fills - plain).abs() <= ulp).all()), case
+            assert torch.equal(again[4].view(torch.int32), fills.view(torch.int32)), case
+            f0 = k.fill_launches
+            only = k.image_fill_cuda(images, got[3], kw.get("idx"))
+            torch.cuda.synchronize()
+            assert k.fill_launches == f0 + 1
+            assert torch.equal(only.view(torch.int32), fills.view(torch.int32)), case

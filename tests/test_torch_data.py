@@ -21,6 +21,11 @@ Tolerances, with their reasons:
   contracts the bilinear's products and sums into FMAs; ROADMAP Queue C),
   and the rows whose geometry differs are counted and pinned (it may
   contract ``lo + (hi - lo) * u`` too).
+* ``augment_prepare_plain`` (the prepare kernel's plain version) against
+  the op-by-op JAX ``augment_batch``: boxes, labels and masks bitwise; its
+  fills against JAX's float32 means of the flipped and the translated image
+  within 1 count (uint8) or rtol 1e-6 / atol 1e-6 (float32), the image
+  tolerances' reasons.
 * The bucket resample against ``jax.image.resize``: float32 within 1e-5 of
   the batch's largest magnitude, uint8 within 1 count; boxes bitwise.
 * ``materialize_batch`` against JAX's: bitwise.
@@ -365,7 +370,9 @@ def _fill_free(images, shifts, geom):
 
 def _case_image_ops(rng):
     """ops/image.py's plain versions against JAX ops/image.py, op by op and
-    jitted."""
+    jitted; the prepare kernel's wrapper refuses CPU tensors."""
+    from replication_faster_rcnn_tpu_torch.ops.cuda import image_kernel
+
     differing_rows = 0
     for images, boxes, labels, mask, aug in _augment_inputs(rng):
         n, h, w = images.shape[:3]
@@ -435,6 +442,28 @@ def _case_image_ops(rng):
                 keep = ~rows
                 _image_close(got[0].numpy()[keep], np.asarray(ref[0])[keep],
                              f"augment_batch {kw} {tag}", atol=1e-6 if tag == "op by op" else 2e-5)
+            # the prepare launch's plain version: JAX's boxes, labels and masks
+            # bitwise; its fills (the means of the flipped and of the translated
+            # image) within 1 count / rtol 1e-6 of JAX's float32 means
+            pb, pl, pm, pgeom, pfills = t_image.augment_prepare_plain(
+                ti[0], *ti[1:4], aug=ti[4], seed=seed, **kw)
+            for a, b, what in zip((pb, pl, pm), want[1:], ("boxes", "labels", "mask")):
+                _equal(a, b, f"augment_prepare_plain {what} {kw}")
+            g = pgeom.numpy()
+            flipped = j_image.hflip_batch_with_boxes(ji[0], ji[1], ji[2],
+                                                     jnp.asarray(g[:, 0] != 0))[0]
+            moved = j_image.translate_batch_with_boxes(flipped, *ji[1:4],
+                                                       jnp.asarray(g[:, 1:3]))[0]
+            jfills = np.stack([np.asarray(x.astype(jnp.float32).mean(axis=(1, 2)))
+                               for x in (flipped, moved)], 1)
+            if images.dtype == np.uint8:
+                jfills = np.clip(np.round(jfills), 0, 255)
+                assert np.abs(pfills.numpy() - jfills).max() <= 1, kw
+            else:
+                np.testing.assert_allclose(pfills.numpy(), jfills, rtol=1e-6, atol=1e-6,
+                                           err_msg=f"augment_prepare_plain fills {kw}")
+        with pytest.raises(ValueError, match="CUDA"):
+            image_kernel.augment_prepare_cuda(ti[0], *ti[1:4], aug=ti[4], seed=seed)
         # the bucket resample
         for hw in ((h * 3 // 4, w * 3 // 4), (h, w * 5 // 4), (h, w)):
             got = t_image.resize_batch_with_boxes(ti[0], ti[1], hw)
