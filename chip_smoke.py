@@ -24,12 +24,14 @@ H100:  ``python3 chip_smoke.py``. It
    of the plain scatter (the kernel groups the same terms by bin and sums
    in float32 in another order), from float32 and bfloat16 gradients, and
    bitwise equal across two launches, also with 128 identical rois per
-   image; the int8 GEMM bitwise at the head's cls/reg shapes
-   ([300 or 2400, 512] x [512, 21 or 84]) and the dequantize bitwise on all
+   image; the int8 GEMM bitwise at every int8 preset's cls/reg shapes
+   ([300 or 2400, K] x [K, N], K 512 / 1024 / 2048 / 4096 and N 21 / 84 or
+   81 / 324, ``INT8_HEADS``) and the dequantize bitwise on all
    23 conv weights of the model, into float32 and bfloat16, one by one and
    all at once in one grouped launch (``dequantize_many``, timed beside the
-   per-leaf loop), with the library calls ``torch._int_mm`` and
-   ``torch.mul`` timed beside them; ROIPool forward bitwise against the
+   per-leaf loop; then one flush's weights of ``voc_resnet50_fpn``,
+   ``voc_resnet50`` and ``coco_vgg16``, up to 136,644,288 elements), with
+   the library calls ``torch._int_mm`` and ``torch.mul`` timed beside them; ROIPool forward bitwise against the
    plain masked maxes at serving 8 x 300 and 1 x 300 and training 8 x 128
    rois, float32 and bfloat16, integer-valued features (exact ties) and
    maps with NaN and +-inf, and its backward (8 x 128) bitwise across two
@@ -93,7 +95,12 @@ H100:  ``python3 chip_smoke.py``. It
    flush: int8 GEMM 2 and dequantize 1 (one grouped launch) when every group
    stays int8, NMS 2, ROIAlign 1); the replay through the plain versions must
    give bitwise equal detections; the resident tree must be under 0.4 x the float32
-   weights and the engine's device memory below the bfloat16 engine's;
+   weights and the engine's device memory below the bfloat16 engine's.
+   Then ``voc_resnet50``, ``coco_resnet50`` and ``coco_vgg16``, each
+   calibrated in this process and served in int8 through graphs at 600x600
+   x b1, b8 (:func:`phase_int8_presets`): one b1 and one b8 flush, launches
+   per replay (int8 GEMM 2, dequantize 1, NMS 2, the ROI forward 1), every
+   detection bitwise the plain replay, the resident and pool bytes;
 6. trains ``voc12_resnet18_align``, then ``voc_resnet18``, at 600x600, batch
    8 (bfloat16 compute, float32 parameters, 12000 -> 600 proposals, 256
    anchor and 128 roi samples per image) with two ``Trainer``s on
@@ -228,16 +235,22 @@ H100:  ``python3 chip_smoke.py``. It
    buckets 300 and 600 x b1, b8 with [11]'s checks (each graph bitwise its
    eager flush and the plain replay; per replay NMS 2 and multi-level
    ROIAlign 1; b1 flush ms, b1 latency, b8 images/s, graph against eager);
-   trains it at 600x600 b8 with a captured and an eager ``Trainer``, 4
+   then in int8 (:func:`phase_fpn_int8`): ``python -m
+   replication_faster_rcnn_tpu_torch quantize --synthetic-calib --sweep`` in
+   a subprocess writes the sidecar, whose int8 graphs at the same buckets
+   get the same checks (per replay int8 GEMM 2 and dequantize 1 too), the
+   resident tree under 0.4 x float32 and the device memory below the
+   bfloat16 engine's, a hot-swap to a second int8 version, and ``predict
+   --params-dtype int8`` in a subprocess on a JPEG; trains it at 600x600 b8 with a captured and an eager ``Trainer``, 4
    steps bitwise equal, then 5 timed steps each (per step NMS 1, IoU
    matching 2, multi-level ROIAlign forward 1 and backward 1; step ms and
    peak allocated memory); evaluates the trained weights on 16 VOC-sized
    images (per batch NMS 2, multi-level ROIAlign 1); and runs
    ``benchmark.main`` on it in this process, train and eval at b8
    (images/s, MFU);
-13. prints a ``{"kernels": [...]}`` line (the serving kernels' launches per
-   graph replay beside their counts), the card line, and last
-   ``{"ok": true, "device": {...}}``.
+13. prints every phase's wall time, a ``{"kernels": [...]}`` line (the
+   serving kernels' launches per graph replay beside their counts), the
+   card line, and last ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Without CUDA, or without
 the repository beside it, it exits non-zero at once. Comparisons run with
@@ -780,7 +793,7 @@ def check_dequantize_many(torch, leaves):
                                      "from dequantize_plain")
             if a.data_ptr() % 256:
                 raise AssertionError(f"dequantize_many: leaf {i}'s output is not 256-byte aligned")
-    log(f"  dequantize_many: all {len(leaves)} conv weights in one launch, each output bitwise "
+    log(f"  dequantize_many: all {len(leaves)} weights in one launch, each output bitwise "
         "equal to dequantize_plain (float32 and bfloat16)")
     bf16 = torch.bfloat16
     table = tables[bf16]
@@ -802,10 +815,29 @@ def check_dequantize_many(torch, leaves):
     return res
 
 
+# every int8 preset's head: the cls/reg GEMMs' K (the embedding's width)
+# and the class count (reg is 4 x)
+INT8_HEADS = {"voc12_resnet18_align": (512, 21), "voc_resnet50_fpn": (1024, 21),
+              "voc_resnet50": (2048, 21), "coco_resnet50": (2048, 81), "coco_vgg16": (4096, 81)}
+
+
+def dequantized_leaf_shapes(name):
+    """The state-dict shapes of the weights an int8 flush of ``name``
+    dequantizes (every quantizable weight but the cls/reg GEMMs' under the
+    all-int8 plan)."""
+    from replication_faster_rcnn_tpu_torch import get_config
+    from replication_faster_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN
+
+    model = FasterRCNN(get_config(name), device="meta")
+    return [tuple(v.shape) for k, v in model.state_dict().items()
+            if v.dim() >= 2 and v.is_floating_point()
+            and k not in ("head.cls.weight", "head.reg.weight")]
+
+
 def check_int8_kernels(torch, rng, dev):
-    """Phase [3] for the int8 slice: the GEMM at the head's b1 and b8 cls/reg
-    shapes, the dequantize on every conv weight of the model, and the grouped
-    dequantize of all of them at once."""
+    """Phase [3] for the int8 slice: the GEMM at every preset's b1 and b8
+    cls/reg shapes, the dequantize on every conv weight of the model, and the
+    grouped dequantize of one flush's weights of every int8 preset."""
     from replication_faster_rcnn_tpu_torch.ops.cuda.quant_kernel import dequantize_cuda
     from replication_faster_rcnn_tpu_torch.ops.quant_ops import dequantize_plain
 
@@ -813,11 +845,16 @@ def check_int8_kernels(torch, rng, dev):
         return torch.from_numpy(rng.integers(-128, 128, shape, dtype=np.int8)).to(dev)
 
     res = {}
-    for m in (300, 2400):
-        x = int8((m, 512))
-        for name, n in (("cls", 21), ("reg", 84)):
-            res[f"gemm_b{m // 300}_{name}"] = check_int8_matmul(
-                torch, f"b{m // 300} {name} [{m}, 512] x [512, {n}]", x, int8((n, 512)))
+    for preset, (k, classes) in INT8_HEADS.items():
+        for m in (300, 2400):
+            x = int8((m, k))
+            for name, n in (("cls", classes), ("reg", 4 * classes)):
+                key = f"gemm_b{m // 300}_{name}"
+                if preset != "voc12_resnet18_align":
+                    key = f"{preset} {key}"
+                res[key] = check_int8_matmul(
+                    torch, f"{preset} b{m // 300} {name} [{m}, {k}] x [{k}, {n}]", x,
+                    int8((n, k)))
     leaves = []
     for shape in conv_weight_shapes(torch):
         w_q = int8(shape)
@@ -834,6 +871,16 @@ def check_int8_kernels(torch, rng, dev):
     res["dequant_f32"] = check_dequantize(torch, name, *largest, "float32")
     res["dequant_bf16"] = check_dequantize(torch, name, *largest, "bfloat16")
     res["dequant_flush"] = check_dequantize_many(torch, leaves)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for preset in ("voc_resnet50_fpn", "voc_resnet50", "coco_vgg16"):
+        shapes = dequantized_leaf_shapes(preset)
+        leaves = [(torch.randint(-128, 128, shape, dtype=torch.int8, device=dev, generator=gen),
+                   torch.rand(shape[0], device=dev, generator=gen) * 0.05 + 1e-4)
+                  for shape in shapes]
+        log(f"  {preset}: one int8 flush dequantizes {len(leaves)} weights")
+        res[f"dequant_flush {preset}"] = check_dequantize_many(torch, leaves)
+        del leaves
+        torch.cuda.empty_cache()
     return res
 
 
@@ -2154,6 +2201,18 @@ def expected_int8_launches(artifact):
     return gemm, int(len(planned) > gemm)
 
 
+def allocated_by(torch, make):
+    """(``make()``, the device bytes allocated while it ran and still held)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    obj = make()
+    torch.cuda.synchronize()
+    return obj, torch.cuda.memory_allocated() - base
+
+
 def phase_int8_serve(torch, bf16, cfg=None, device=None):
     """``bf16``: phase [4]'s serving numbers, printed beside these.
     ``cfg``/``device`` default to the full configuration on the card (a CPU
@@ -2209,20 +2268,13 @@ def phase_int8_serve(torch, bf16, cfg=None, device=None):
     del model
     gc.collect()
 
-    def allocated_by(make):
-        gc.collect()
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        obj = make()
-        torch.cuda.synchronize()
-        return obj, torch.cuda.memory_allocated() - base
-
     bf16_cfg = cfg.replace(serving=dataclasses.replace(cfg.serving, params_dtype="bfloat16"))
-    eng, bf16_alloc = allocated_by(lambda: InferenceEngine(bf16_cfg, device=dev, state_dict=state))
+    eng, bf16_alloc = allocated_by(
+        torch, lambda: InferenceEngine(bf16_cfg, device=dev, state_dict=state))
     eng.close()
     del eng
     engine, int8_alloc = allocated_by(
-        lambda: InferenceEngine(cfg, device=dev, state_dict=state, artifact_path=str(path)))
+        torch, lambda: InferenceEngine(cfg, device=dev, state_dict=state, artifact_path=str(path)))
     with engine:
         log(f"  engine on {engine.device}: resident int8 tree {engine.params_bytes} bytes "
             f"({engine.params_bytes / f32_bytes:.4f} of the float32 weights' {f32_bytes}); "
@@ -2302,6 +2354,119 @@ def phase_int8_serve(torch, bf16, cfg=None, device=None):
         f"{serve['b8_images_per_s']:.1f} images/s (bf16 {bf16['b8_images_per_s']:.1f}), b8 flush "
         f"{serve['b8_flush_ms']:.2f} ms (bf16 {bf16['b8_flush_ms']:.2f})")
     return launches, serve
+
+
+INT8_PRESETS_DIR = REPO / "build" / "chip_smoke_int8_presets"
+
+
+def phase_int8_presets(torch, device=None, size=None):
+    """Phase [5] for ``voc_resnet50``, ``coco_resnet50`` and ``coco_vgg16``:
+    each calibrated in this process on its seeded float32 weights (all-int8
+    plan), served in int8 through ``InferenceEngine`` graphs at one bucket x
+    b1, b8: one b1 and one b8 flush, their launches counted as replays
+    (int8 GEMM 2, dequantize 1, NMS 2, the preset's ROI forward 1), every
+    detection bitwise the plain replay; the resident bytes (under 0.4 x
+    float32), the graphs' pool bytes and the flush times; and the int8
+    forward's outputs (rois, valid, cls, reg) on the b1 image bitwise under
+    ``ops.reference_scope()``, since an 81-class head with random weights may
+    score no detection. ``device``/``size``: a CPU rehearsal passes
+    ``"cpu"`` and a small size."""
+    import dataclasses
+    import gc
+
+    from replication_faster_rcnn_tpu_torch import get_config, ops, quant
+    from replication_faster_rcnn_tpu_torch.data.native_ops import resize_normalize
+    from replication_faster_rcnn_tpu_torch.models.faster_rcnn import (
+        build_model,
+        functional_forward,
+    )
+    from replication_faster_rcnn_tpu_torch.quant.apply import build_infer_variables
+    from replication_faster_rcnn_tpu_torch.serving.engine import InferenceEngine
+
+    dev = torch.device(device or "cuda")
+    root = fresh_dir(INT8_PRESETS_DIR)
+    launches, out = {}, {}
+    for name in NEW_PRESETS:
+        t0 = time.perf_counter()
+        cfg = get_config(name)
+        if size is not None:
+            cfg = cfg.replace(data=dataclasses.replace(cfg.data, image_size=size))
+        res = cfg.data.image_size
+        cfg = cfg.replace(serving=dataclasses.replace(
+            cfg.serving, resolutions=(res,), batch_sizes=(1, 8), params_dtype="int8"))
+        model = build_model(cfg, device=dev, seed=0)
+        state = model.state_dict()
+        qc = cfg.quant
+        batches = quant.synthetic_calibration_batches(cfg, qc.calib_batches, qc.calib_batch_size)
+        artifact = quant.calibrate(model, state, batches, cfg)
+        path = root / f"{name}.json"
+        quant.save_artifact(str(path), artifact)
+        f32_bytes = sum(t.numel() * 4 for t in state.values())
+        state = {k: v.cpu() for k, v in state.items()}
+        del model
+        gc.collect()
+        gemm, deq = expected_int8_launches(artifact)
+        roi = f"roi_{cfg.model.roi_op}"
+        want = {"int8_matmul": gemm, "dequantize": deq, "nms": 2, roi: 1}
+        if (gemm, deq) != (2, 1):
+            raise AssertionError(f"{name}: the plan {artifact['plan']} runs {gemm} GEMMs and "
+                                 f"{deq} dequantizes a flush, not 2 and 1")
+        names = tuple(want)
+        rng = np.random.default_rng(5)
+        one = rng.integers(0, 256, res + (3,), dtype=np.uint8)
+        eight = [rng.integers(0, 256, res + (3,), dtype=np.uint8) for _ in range(8)]
+        with InferenceEngine(cfg, device=dev, state_dict=state, artifact_path=str(path)) as eng:
+            pool = graph_memory(torch, eng) if eng.capture else 0
+            REPLAYS.reset(names)
+            r1 = eng.submit(one).result(timeout=300)
+            per_b1 = REPLAYS.read(names)
+            REPLAYS.reset(names)
+            r8 = eng.predict(eight)
+            per_b8 = REPLAYS.read(names)
+            if eng.capture and (per_b1 != want or per_b8 != want):
+                raise AssertionError(f"{name} int8: expected per replay {want}, got {per_b1} "
+                                     f"and {per_b8}")
+            flush_ms = [t * 1e3 for t in list(eng.flush_seconds)[-2:]]
+            n_det = check_served([r1] + r8, [one] + eight, cfg, require_detections=False)
+            same_results([r1] + r8, [eng.submit(one, reference=True).result(timeout=600)]
+                         + eng.predict(eight, reference=True), f"{name} int8")
+            # a random 81-class head may score no class above
+            # eval.score_thresh: the int8 forward's outputs too, kernels
+            # against plain versions
+            qvars = eng._resident[eng.model_version].infer[res].args[0]
+            image = torch.from_numpy(resize_normalize(
+                one, res, cfg.data.pixel_mean, cfg.data.pixel_std))[None].to(dev)
+            outs = []
+            for reference in (False, True):
+                with ops.reference_scope(reference):
+                    v = build_infer_variables(qvars, cfg)
+                    outs.append(functional_forward(eng.model, v["params"], image, v["quant"]))
+            for what, a, b in zip(("rpn_logits", "rpn_deltas", "rois", "roi_valid", "cls",
+                                   "reg"), *outs):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name} int8: {what} differs between kernel and "
+                                         "plain passes")
+            if not eng.params_bytes < 0.4 * f32_bytes:
+                raise AssertionError(f"{name}: int8 params {eng.params_bytes} >= 0.4 x "
+                                     f"{f32_bytes}")
+            out[name] = {"params_bytes": eng.params_bytes, "f32_params_bytes": f32_bytes,
+                         "graph_pool_bytes": pool, "b1_flush_ms": flush_ms[0],
+                         "b8_flush_ms": flush_ms[1], "detections": n_det,
+                         "embed_range": artifact["activation_ranges"][quant.EMBED_RANGE_KEY],
+                         "launches_per_flush": want, "seconds": time.perf_counter() - t0}
+        for k in names:
+            launches[k] = launches.get(k, 0) + per_b1[k] + per_b8[k]
+        log(f"[5] preset {name} int8 {res} x b1, b8: launches per replay {per_b1}; every "
+            f"detection bitwise the plain replay; resident {out[name]['params_bytes']} bytes "
+            f"({out[name]['params_bytes'] / f32_bytes:.4f} of float32), graph pool "
+            f"{pool / 2**20:.1f} MiB, flush b1 {flush_ms[0]:.2f} ms, b8 {flush_ms[1]:.2f} ms; "
+            f"{out[name]['seconds']:.1f} s")
+        del state
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return launches, out
 
 
 class StageTimer:
@@ -4775,6 +4940,152 @@ def phase_fpn_serve(torch, device=None, size=None, reps=REPS):
     return launches, serve
 
 
+FPN_INT8_DIR = REPO / "build" / "chip_smoke_fpn_int8"
+
+
+def cli_subprocess(args, timeout=SERVE_TIMEOUT_S):
+    """``python -m replication_faster_rcnn_tpu_torch ARGS`` as a user runs
+    it (none of this script's TF32 and cuDNN settings): (stdout, seconds);
+    a non-zero exit raises with its stderr's tail."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "replication_faster_rcnn_tpu_torch", *args],
+                          cwd=REPO, capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{args[0]} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+def phase_fpn_int8(torch, bf16, device=None, size=None, reps=REPS):
+    """Phase [12], int8: ``voc_resnet50_fpn`` calibrated and swept by
+    ``python -m replication_faster_rcnn_tpu_torch quantize --synthetic-calib
+    --sweep`` in a subprocess (its seeded init, as ``load_eval_variables``
+    gives it with no checkpoint), its sidecar served through int8 graphs at
+    buckets 300 and 600 x b1, b8 with [11]'s checks (:func:`stack_engines`:
+    each replay bitwise its eager flush and the plain replay; per replay
+    int8 GEMM 2, dequantize 1, NMS 2, multi-level ROIAlign 1); the resident
+    tree under 0.4 x float32 and the engine's device memory below the
+    bfloat16 engine's; a hot-swap to a second int8 version (its graphs
+    captured before the flip, one replay of each bitwise the plain replay,
+    the reserved bytes it adds); then ``predict --params-dtype int8`` in a
+    subprocess on a JPEG. ``bf16``: [12]'s bfloat16 serving numbers, printed
+    beside these."""
+    from replication_faster_rcnn_tpu_torch import quant
+    from replication_faster_rcnn_tpu_torch.models.faster_rcnn import build_model
+    from replication_faster_rcnn_tpu_torch.serving.engine import InferenceEngine
+
+    dev = torch.device(device or "cuda")
+    root = fresh_dir(FPN_INT8_DIR)
+    t_phase = time.perf_counter()
+    cfg = stack_config(FPN_NAME, "int8", size)
+    log(f"[12] main path: quantize {FPN_NAME} through the command line, serve it in int8 at "
+        f"buckets {cfg.serving.bucket_resolutions(cfg.data.image_size)} x "
+        f"{cfg.serving.batch_sizes}")
+    extra = (["--image-size", str(size)] if size is not None else []) + (
+        ["--device", device] if device is not None else [])
+    path = root / "quant_artifact.json"
+    printed, quant_s = cli_subprocess(["quantize", "--config", FPN_NAME, "--workdir", str(root),
+                                       "--synthetic-calib", "--sweep", *extra])
+    printed = json.loads(printed)
+    artifact = quant.load_artifact(str(path))
+    if printed["artifact"] != str(path) or artifact["plan"] != printed["plan"]:
+        raise AssertionError(f"quantize printed {printed['artifact']} {printed['plan']}")
+    gemm, deq = expected_int8_launches(artifact)
+    if (gemm, deq) != (2, 1):
+        raise AssertionError(f"the sweep's plan {artifact['plan']} runs {gemm} GEMMs and {deq} "
+                             "dequantizes a flush, not 2 and 1")
+    recon = {g: round(r["recon_rel_err"], 5) for g, r in artifact["sensitivity"].items()}
+    log(f"  quantize subprocess: {quant_s:.1f} s; groups {printed['groups']}; plan "
+        f"{artifact['plan']}; recon rel err {recon}; fc7 range "
+        f"{artifact['activation_ranges']}")
+    state = build_model(cfg, device=dev, seed=0).state_dict()
+    f32_bytes = sum(t.numel() * 4 for t in state.values())
+    state = {k: v.cpu() for k, v in state.items()}
+    bf16_cfg = stack_config(FPN_NAME, "bfloat16", size)
+    eng, bf16_alloc = allocated_by(
+        torch, lambda: InferenceEngine(bf16_cfg, device=dev, state_dict=state))
+    eng.close()
+    del eng
+    eng, int8_alloc = allocated_by(
+        torch, lambda: InferenceEngine(cfg, device=dev, state_dict=state,
+                                       artifact_path=str(path)))
+    eng.close()
+    del eng
+    log(f"  device memory after construction: int8 engine {int8_alloc} bytes, bfloat16 "
+        f"engine {bf16_alloc}")
+    if not int8_alloc < bf16_alloc:
+        raise AssertionError(f"int8 FPN engine holds {int8_alloc} bytes, bf16 {bf16_alloc}")
+    want = dict(FPN_SERVE_WANT, int8_matmul=gemm, dequantize=deq)
+    images = stack_images(np.random.default_rng(12), cfg)
+    big = max(images)
+    serve = stack_engines(torch, FPN_NAME, "int8", dev, state, str(path), size, images, want,
+                          reps)
+    if not serve["params_bytes"] < 0.4 * f32_bytes:
+        raise AssertionError(f"int8 FPN params {serve['params_bytes']} >= 0.4 x {f32_bytes}")
+    serve.update({"f32_params_bytes": f32_bytes, "device_bytes_after_construction": int8_alloc,
+                  "bf16_device_bytes_after_construction": bf16_alloc,
+                  "quantize_subprocess_s": quant_s, "plan": artifact["plan"],
+                  "recon_rel_err": recon,
+                  "fc7_range": artifact["activation_ranges"][quant.EMBED_RANGE_KEY],
+                  "bf16_same_run": {k: bf16["graph"][k] for k in bf16["graph"]},
+                  "bf16_graph_pool_bytes": bf16["graph_pool_bytes"]})
+    launches = {k: 0 for k in want}
+    for counts in serve.get("launches_per_replay", {}).values():
+        for k, v in counts.items():
+            launches[k] += v
+
+    # a hot-swap to a second int8 version (the same weights and sidecar as
+    # version "1"): captured before the flip, each replay bitwise
+    with InferenceEngine(cfg, device=dev, state_dict=state, artifact_path=str(path),
+                         warmup=True) as engine:
+        if engine.capture:
+            torch.cuda.synchronize()
+            reserved = torch.cuda.memory_reserved()
+        prior = engine.swap_params(state, "1", artifact_path=str(path))
+        if prior != "0" or engine.model_version != "1" or set(engine.resident_versions()) \
+                != {"0", "1"}:
+            raise AssertionError(f"swap: prior {prior}, now {engine.model_version}, "
+                                 f"resident {engine.resident_versions()}")
+        added, per = 0, {}
+        if engine.capture:
+            torch.cuda.synchronize()
+            added = torch.cuda.memory_reserved() - reserved
+            per = check_stack_graphs(torch, engine, images, want)
+        else:
+            same_results(engine.predict(images[big]), engine.predict(images[big], reference=True),
+                         "int8 FPN version 1")
+        for counts in per.values():
+            for k, v in counts.items():
+                launches[k] += v
+        serve["swap"] = {"second_version_reserved_bytes": added, "launches_per_replay": per}
+        log(f"  hot-swap to int8 version 1: captured before the flip, adds {added / 2**20:.1f} "
+            f"MiB reserved beside version 0; every replay bitwise the plain replay")
+
+    # predict on a JPEG from the sidecar, as a user runs it
+    from PIL import Image
+
+    jpeg = root / "image.jpg"
+    Image.fromarray(images[big][0]).save(jpeg, quality=95)
+    printed, predict_s = cli_subprocess(["predict", "--config", FPN_NAME, "--workdir",
+                                         str(root), "--image", str(jpeg), "--params-dtype",
+                                         "int8", "--score-thresh", "0.0", *extra])
+    dets = json.loads(printed)
+    if not isinstance(dets, list) or any(
+            sorted(d) != ["box", "class_id", "class_name", "score"] for d in dets):
+        raise AssertionError(f"predict printed {printed[:500]}")
+    serve["predict_subprocess"] = {"seconds": predict_s, "detections": len(dets)}
+    shutil.rmtree(root, ignore_errors=True)
+    serve["phase_s"] = time.perf_counter() - t_phase
+    g, b = serve["graph"], bf16["graph"]
+    log(f"  int8 FPN: b1 flush {g['b1_flush_ms']:.2f} ms (bf16 {b['b1_flush_ms']:.2f}), b1 "
+        f"latency {g['b1_latency_ms']:.2f} ms (bf16 {b['b1_latency_ms']:.2f}), b8 "
+        f"{g['b8_images_per_s']:.1f} images/s (bf16 {b['b8_images_per_s']:.1f}); graph pool "
+        f"{serve['graph_pool_bytes'] / 2**20:.1f} MiB (bf16 {bf16['graph_pool_bytes'] / 2**20:.1f});"
+        f" resident {serve['params_bytes']} bytes ({serve['params_bytes'] / f32_bytes:.4f} of "
+        f"float32); predict subprocess {predict_s:.1f} s, {len(dets)} detections; "
+        f"[12] int8 took {serve['phase_s']:.1f} s")
+    return launches, serve
+
+
 def phase_fpn_train(torch, cfg=None, device=None):
     """Phase [12], training: two ``Trainer``s of ``voc_resnet50_fpn`` at b8
     from one seed, one capturing its step as a CUDA graph, one eager: the
@@ -4992,31 +5303,51 @@ def main():
                     log(f"    {src}: {line.strip()}")
 
     REPLAYS.install()
-    res = phase_kernels(torch)
-    graph_replays = check_graph_replays(torch, torch.device("cuda"))
-    image = check_image_kernels(torch, torch.device("cuda"))
-    launches, serve = phase_serve(torch)
-    plaunches, serve_pool = phase_serve(torch, "voc_resnet18")
-    slaunches, presets = phase_presets(torch)
-    qlaunches, serve_int8 = phase_int8_serve(torch, serve)
-    tlaunches, tlaunches_eager, train = phase_train(torch)
-    ptlaunches, ptlaunches_eager, train_pool = phase_train(torch, "voc_resnet18")
-    elaunches, evaluate = phase_evaluate(torch)
-    olaunches, overfit = phase_overfit(torch)
+    walls = {}
+
+    def timed_phase(tag, fn, *args, **kwargs):
+        """Run one phase and print its wall time."""
+        t = time.perf_counter()
+        result = fn(*args, **kwargs)
+        walls[tag] = round(time.perf_counter() - t, 1)
+        log(f"  ({tag} wall {walls[tag]} s, {time.perf_counter() - t_start:.1f} s since start)")
+        return result
+
+    t_start = t0
+    walls["[1]-[2] build"] = round(time.perf_counter() - t0, 1)
+    res = timed_phase("[3] kernels", phase_kernels, torch)
+    graph_replays = timed_phase("[3] graph replays", check_graph_replays, torch,
+                                torch.device("cuda"))
+    image = timed_phase("[3] image kernels", check_image_kernels, torch, torch.device("cuda"))
+    launches, serve = timed_phase("[4] serve align", phase_serve, torch)
+    plaunches, serve_pool = timed_phase("[4] serve pool", phase_serve, torch, "voc_resnet18")
+    slaunches, presets = timed_phase("[4] presets", phase_presets, torch)
+    qlaunches, serve_int8 = timed_phase("[5] int8 align", phase_int8_serve, torch, serve)
+    iplaunches, int8_presets = timed_phase("[5] int8 presets", phase_int8_presets, torch)
+    tlaunches, tlaunches_eager, train = timed_phase("[6] train align", phase_train, torch)
+    ptlaunches, ptlaunches_eager, train_pool = timed_phase("[6] train pool", phase_train, torch,
+                                                           "voc_resnet18")
+    elaunches, evaluate = timed_phase("[7] evaluate", phase_evaluate, torch)
+    olaunches, overfit = timed_phase("[7] overfit", phase_overfit, torch)
     evaluate["overfit"] = overfit
-    rlaunches, resume = phase_resume(torch)
-    blaunches, bench = phase_bench(torch)
-    dlaunches, data_path = phase_data_path(torch)
-    klaunches, stack = phase_serving_stack(torch, int8_artifact=REPO / "build" /
-                                           "quant_artifact.json")
-    flaunches, fpn_serve = phase_fpn_serve(torch)
-    ftlaunches, ftlaunches_eager, fpn_train = phase_fpn_train(torch)
-    fpn_bench = phase_fpn_bench(torch)
+    rlaunches, resume = timed_phase("[8] resume", phase_resume, torch)
+    blaunches, bench = timed_phase("[9] bench", phase_bench, torch)
+    dlaunches, data_path = timed_phase("[10] data path", phase_data_path, torch)
+    klaunches, stack = timed_phase("[11] serving stack", phase_serving_stack, torch,
+                                   int8_artifact=REPO / "build" / "quant_artifact.json")
+    flaunches, fpn_serve = timed_phase("[12] FPN serve", phase_fpn_serve, torch)
+    fqlaunches, fpn_int8 = timed_phase("[12] FPN int8", phase_fpn_int8, torch, fpn_serve)
+    ftlaunches, ftlaunches_eager, fpn_train = timed_phase("[12] FPN train", phase_fpn_train,
+                                                          torch)
+    fpn_bench = timed_phase("[12] FPN bench", phase_fpn_bench, torch)
+    log(f"phase walls (s): {json.dumps(walls)}")
     paths = {"serve": launches, "serve_pool": plaunches, "serve_presets": slaunches,
-             "serve_int8": qlaunches, "train": tlaunches, "train_eager": tlaunches_eager,
+             "serve_int8": qlaunches, "serve_int8_presets": iplaunches, "train": tlaunches,
+             "train_eager": tlaunches_eager,
              "train_pool": ptlaunches, "train_pool_eager": ptlaunches_eager,
              "evaluate": elaunches, "overfit_train": olaunches, **rlaunches, **blaunches,
              **dlaunches, "serve_stack": klaunches, "serve_fpn": flaunches,
+             "serve_int8_fpn": fqlaunches,
              "train_fpn": ftlaunches, "train_fpn_eager": ftlaunches_eager}
 
     def by_path(key):
@@ -5207,38 +5538,45 @@ def main():
         },
         {
             "name": "int8_matmul", "route": "cuda", "source": QUANT_SRC, "replaces": GEMM_TPU,
-            "launches": qlaunches["int8_matmul"],
-            "launches_by_path": {"serve_int8": qlaunches["int8_matmul"]},
-            "parity": "bitwise vs ops/quant_ops.py::int8_matmul_plain (exact float64 product)",
+            "launches": sum(by_path("int8_matmul").values()),
+            "launches_by_path": by_path("int8_matmul"),
+            "parity": "bitwise vs ops/quant_ops.py::int8_matmul_plain (exact float64 product) "
+                      "at every int8 preset's b1 and b8 cls/reg shapes (K 512 to 4096, N up to "
+                      "324)",
             "max_abs_err": 0.0,
             **{k: gemm[k] for k in timing + ("library_ms",)},
-            "library_note": "torch._int_mm with the weight padded to N = 24 (it needs N a "
-                            "multiple of 8); the padding is outside the timed call",
+            "library_note": "torch._int_mm with the weight padded to N a multiple of 8 (it "
+                            "needs one); the padding is outside the timed call",
             "shape": "b8 cls: [2400, 512] x [512, 21] int8 -> int32",
             "sites": {k: {f: res[k][f] for f in timing + ("library_ms",)}
-                      for k in ("gemm_b8_reg", "gemm_b1_cls", "gemm_b1_reg")},
+                      for k in res if "gemm_" in k and k != "gemm_b8_cls"},
         },
         {
             "name": "dequantize", "route": "cuda", "source": QUANT_SRC, "replaces": DEQUANT_TPU,
-            "launches": qlaunches["dequantize"],
-            "launches_by_path": {"serve_int8": qlaunches["dequantize"]},
+            "launches": sum(by_path("dequantize").values()),
+            "launches_by_path": by_path("dequantize"),
             "parity": "bitwise vs ops/quant_ops.py::dequantize_plain on all 23 conv weights, "
                       "float32 and bfloat16 outputs, through dequantize_cuda and through "
-                      "dequantize_many (one launch per call)",
+                      "dequantize_many (one launch per call); dequantize_many also over one "
+                      "flush's weights of voc_resnet50_fpn, voc_resnet50 and coco_vgg16",
             "max_abs_err": 0.0,
             **{k: deq[k] for k in timing + ("library_ms",)},
             "library_note": "torch.mul(w_q, scale) (int8 x float32 promotes to float32)",
             "shape": "layer4 conv [512, 512, 3, 3] int8 -> float32 (the Pallas kernel's output)",
             "main_path_bfloat16": {k: res["dequant_bf16"][k] for k in timing},
             "per_flush_bfloat16": res["dequant_flush"],
+            "per_flush_bfloat16_by_preset": {k.split(" ", 1)[1]: v for k, v in res.items()
+                                             if k.startswith("dequant_flush ")},
             "note": "the int8 flush runs the grouped launch (dequantize_many_kernel, 1 per "
-                    "flush); per_leaf_kernels_ms is the same flush as 23 dequantize_cuda calls",
+                    "flush); per_leaf_kernels_ms is the same flush as one dequantize_cuda "
+                    "call per weight",
         },
     ]
     kernels += image_kernel_rows(image, by_path)
     per_replay = {"serve_bf16 voc_resnet18": stack["bf16"]["launches_per_replay"],
                   "serve_int8 voc12_resnet18_align": stack["int8"]["launches_per_replay"],
-                  "serve_bf16 voc_resnet50_fpn": fpn_serve["launches_per_replay"]}
+                  "serve_bf16 voc_resnet50_fpn": fpn_serve["launches_per_replay"],
+                  "serve_int8 voc_resnet50_fpn": fpn_int8["launches_per_replay"]}
     counter_of = {"nms_mask_walk": "nms", "roi_align_fwd": "roi_align", "roi_pool_fwd": "roi_pool",
                   "multilevel_roi_align_fwd": "roi_multilevel",
                   "int8_matmul": "int8_matmul", "dequantize": "dequantize"}
@@ -5256,8 +5594,9 @@ def main():
                     "serve_int8": serve_int8, "train": train, "train_pool": train_pool,
                     "evaluate": evaluate, "resume": resume, "bench": bench,
                     "data_path": data_path, "serving_stack": stack,
-                    "fpn": {"serve": fpn_serve, "train": fpn_train, "bench": fpn_bench},
-                    "card": card}))
+                    "fpn": {"serve": fpn_serve, "serve_int8": fpn_int8, "train": fpn_train,
+                            "bench": fpn_bench},
+                    "int8_presets": int8_presets, "phase_walls_s": walls, "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,5 +1,5 @@
-"""``python -m replication_faster_rcnn_tpu_torch serve ...`` — the port's
-command line (``cli.py``)."""
+"""``python -m replication_faster_rcnn_tpu_torch {train,eval,quantize,predict,
+serve,bench,telemetry} ...`` — the port's command line (``cli.py``)."""
 
 import sys
 

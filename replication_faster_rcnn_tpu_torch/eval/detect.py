@@ -12,7 +12,9 @@
   union of both passes' candidates through that one NMS, so duplicates
   across the passes suppress each other.
 
-Every function is batched: rois [N, R, 4] -> detections [N, D, ...].
+The batched functions take rois [N, R, 4] -> detections [N, D, ...];
+:func:`decode_detections` and :func:`decode_detections_tta` are their
+one-image forms.
 """
 
 from __future__ import annotations
@@ -142,5 +144,30 @@ def decode_detections(
     [R, C*4] -> dict of [D, ...] (see :func:`batched_decode`)."""
     return _one_image(batched_decode(
         rois[None], roi_valid[None], cls_logits[None], reg_out[None],
+        img_h, img_w, eval_cfg, roi_cfg,
+    ))
+
+
+def decode_detections_tta(
+    rois: Tensor,
+    roi_valid: Tensor,
+    cls_logits: Tensor,
+    reg_out: Tensor,
+    rois_f: Tensor,
+    roi_valid_f: Tensor,
+    cls_logits_f: Tensor,
+    reg_out_f: Tensor,
+    img_h: float,
+    img_w: float,
+    eval_cfg: EvalConfig,
+    roi_cfg: ROITargetConfig,
+) -> Dict[str, Tensor]:
+    """One image's flip test-time augmentation: the plain pass's rois
+    [R, 4], roi_valid [R], cls_logits [R, C], reg_out [R, C*4] and the
+    mirrored pass's (``*_f``, still in the mirrored frame) -> dict of
+    [D, ...] (see :func:`batched_decode_tta`)."""
+    return _one_image(batched_decode_tta(
+        (rois[None], roi_valid[None], cls_logits[None], reg_out[None]),
+        (rois_f[None], roi_valid_f[None], cls_logits_f[None], reg_out_f[None]),
         img_h, img_w, eval_cfg, roi_cfg,
     ))

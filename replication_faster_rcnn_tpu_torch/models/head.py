@@ -7,7 +7,9 @@ the head's regression loss.
 In training mode the ResNet tail's BatchNorm uses the batch statistics of
 the N * R crops, and the ROI kernels (ROIAlign or ROIPool) pass the
 gradient back to the features (``ops/cuda/roi_kernel.py``). In int8
-serving the cls/reg layers run as true int8 GEMMs (:func:`_head_dense`)."""
+serving the cls/reg layers of both heads run as true int8 GEMMs
+(:func:`_head_dense`), and every other weight arrives dequantized in the
+compute dtype."""
 
 from __future__ import annotations
 
@@ -93,9 +95,14 @@ class FPNDetectionHead(nn.Module):
     forward(feats [P2..P6 NHWC], rois [N, R, 4] image coords, img_h, img_w,
     quant=None, generator=None) -> (cls [N, R, num_classes], reg
     [N, R, num_classes * 4]). The crops are flattened in (row, column,
-    channel) order, the order of flax's ``fc6`` kernel rows. ``quant`` and
-    ``generator`` keep the single-scale head's call: int8 FPN is not ported
-    and the head draws nothing."""
+    channel) order, the order of flax's ``fc6`` kernel rows. ``quant`` is
+    the single-scale head's: cls/reg named there run as int8 GEMMs on
+    fc7's ReLU output cast to float32. ``generator`` keeps the single-scale
+    head's call; this head draws nothing.
+
+    ``fc7_out`` (an identity) sees fc7's output before its ReLU, in the
+    features' dtype: the int8 calibration hooks it there, as the JAX
+    package captures ``fc7`` and folds the ReLU into the range."""
 
     def __init__(self, in_channels: int = 256, num_classes: int = 21, roi_size: int = 7,
                  sampling_ratio: int = 2, mlp_dim: int = 1024, device=None):
@@ -104,24 +111,24 @@ class FPNDetectionHead(nn.Module):
         self.sampling_ratio = sampling_ratio
         self.fc6 = nn.Linear(roi_size * roi_size * in_channels, mlp_dim, device=device)
         self.fc7 = nn.Linear(mlp_dim, mlp_dim, device=device)
+        self.fc7_out = nn.Identity()
         self.cls = nn.Linear(mlp_dim, num_classes, device=device)
         self.reg = nn.Linear(mlp_dim, num_classes * 4, device=device)
 
     def forward(self, feats, rois: Tensor, img_h: float, img_w: float,
                 quant: Optional[Dict[str, Any]] = None,
                 generator: Optional[torch.Generator] = None) -> Tuple[Tensor, Tensor]:
-        if quant:
-            raise ValueError("int8 serving of the FPN head is not ported yet")
         n, r = rois.shape[0], rois.shape[1]
         dtype = feats[0].dtype
         crops = multilevel_roi_align(feats, rois, img_h, img_w, self.roi_size,
                                      self.sampling_ratio, out_dtype=dtype)  # [N, R, s, s, C]
         x = crops.reshape(n * r, -1)
-        for fc in (self.fc6, self.fc7):
-            x = F.relu(F.linear(x, fc.weight.to(dtype), fc.bias.to(dtype)))
-        x = x.float()  # cls/reg logits in float32
-        cls = _head_dense(self.cls, x, None)
-        reg = _head_dense(self.reg, x, None)
+        x = F.relu(F.linear(x, self.fc6.weight.to(dtype), self.fc6.bias.to(dtype)))
+        x = F.linear(x, self.fc7.weight.to(dtype), self.fc7.bias.to(dtype))
+        x = F.relu(self.fc7_out(x)).float()  # cls/reg logits in float32
+        quant = quant or {}
+        cls = _head_dense(self.cls, x, quant.get("cls"))
+        reg = _head_dense(self.reg, x, quant.get("reg"))
         return cls.reshape(n, r, -1), reg.reshape(n, r, -1)
 
 

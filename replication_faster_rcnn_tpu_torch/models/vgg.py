@@ -60,13 +60,19 @@ class VGG16Tail(nn.Module):
     In training mode each dropout keeps a value with probability 0.5 and
     doubles it, the keep mask drawn from ``generator`` (flax's
     ``nn.Dropout``; the draws differ from JAX's, which PyTorch cannot
-    reproduce). In inference mode dropout is the identity."""
+    reproduce). In inference mode dropout is the identity.
+
+    ``dense_out`` (an identity) sees fc6's and then fc7's output before its
+    ReLU: the int8 calibration hooks it there, as the JAX package's capture
+    of the tail's ``fc6`` / ``fc7`` intermediates does
+    (``quant/calibrate.py::activation_ranges``)."""
 
     def __init__(self, roi_size: int = 7, device=None):
         super().__init__()
         self.fc6 = nn.Linear(roi_size * roi_size * VGG16_TRUNK_CHANNELS, VGG16_TAIL_CHANNELS,
                              device=device)
         self.fc7 = nn.Linear(VGG16_TAIL_CHANNELS, VGG16_TAIL_CHANNELS, device=device)
+        self.dense_out = nn.Identity()
 
     def forward(self, x: Tensor, generator: Optional[torch.Generator] = None) -> Tensor:
         if self.training and generator is None:
@@ -75,7 +81,7 @@ class VGG16Tail(nn.Module):
         x = x.reshape(x.shape[0], -1)
         keep = 1.0 - DROPOUT_RATE
         for fc in (self.fc6, self.fc7):
-            x = F.relu(F.linear(x, fc.weight.to(x.dtype), fc.bias.to(x.dtype)))
+            x = F.relu(self.dense_out(F.linear(x, fc.weight.to(x.dtype), fc.bias.to(x.dtype))))
             if self.training:
                 mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
                 x = torch.where(mask, x / keep, x.new_zeros(()))

@@ -10,14 +10,16 @@ sidecar. Every reduction is an abs-max, exactly associative in IEEE
 arithmetic, so the scales are bit-identical however the work is split.
 
 Activation ranges come from a small calibration sweep: the inference
-forward over a few batches with a forward hook on ``head.tail``, whose
-output feeds the cls/reg GEMMs. That range becomes the static ``x_scale``
-of ``ops/quant_ops.py::quant_dense``.
+forward over a few batches with forward hooks on the module whose output
+feeds the cls/reg GEMMs (the ResNet or VGG16 ``tail``, or the FPN two-fc
+head's ``fc7`` with its ReLU folded in; :func:`embed_capture_points`). That
+range becomes the static ``x_scale`` of ``ops/quant_ops.py::quant_dense``.
 
 Layer groups follow arXiv:1806.00370's granularity: backbone stages
-(``trunk.stem``, ``trunk.layer1`` ...), the RPN head (``rpn``) and the
-detection head (``head``), each independently quantizable so the
-sensitivity sweep can keep one group in bf16.
+(``trunk.stem``, ``trunk.layer1`` ...), the FPN laterals and outputs
+(``neck``), the RPN head (``rpn``) and the detection head (``head``), each
+independently quantizable so the sensitivity sweep can keep one group in
+bf16.
 """
 
 from __future__ import annotations
@@ -120,21 +122,31 @@ def quantize_weight(w: np.ndarray, scale: np.ndarray) -> np.ndarray:
     return np.clip(q, -INT8_MAX, INT8_MAX).astype(np.int8)
 
 
-FPN_NOT_PORTED = ("int8 serving of an FPN model is not ported yet (the JAX package calibrates "
-                  "it from the two-fc head's fc7)")
-
-
-def refuse_fpn(variables: Dict[str, Any]) -> None:
-    """Raise ValueError for an FPN model's state dict (its ``neck``
-    parameters), which the int8 path does not take yet."""
-    if any(k.startswith("neck.") for k in variables):
-        raise ValueError(FPN_NOT_PORTED)
-
-
 def to_device_batch(images: Any, variables: Dict[str, torch.Tensor]) -> torch.Tensor:
     """A numpy NHWC batch as a float32 tensor on the variables' device."""
     device = next(iter(variables.values())).device
     return torch.from_numpy(np.asarray(images, dtype=np.float32)).to(device)
+
+
+def embed_capture_points(model) -> List[Tuple[Any, bool]]:
+    """The modules whose outputs set the cls/reg input's range, each with
+    whether the head applies a ReLU to it before cls/reg: the points the JAX
+    package's ``capture_intermediates`` filter (``tail``, ``fc6``, ``fc7``)
+    reaches through ``tree.get("fc7") or tree.get("tail")``.
+
+    * The FPN head: ``fc7``'s output before its ReLU (``head.fc7_out``),
+      the ReLU folded in; ``fc6`` is captured by JAX but not read.
+    * A single-scale head: the ``tail``'s output, and for the VGG16 tail
+      also its own ``fc6`` and ``fc7`` outputs before their ReLUs
+      (``tail.dense_out``), which JAX's filter captures under ``tail`` and
+      counts without a ReLU."""
+    head = model.head
+    if hasattr(head, "fc7_out"):
+        return [(head.fc7_out, True)]
+    points = [(head.tail, False)]
+    if hasattr(head.tail, "dense_out"):
+        points.append((head.tail.dense_out, False))
+    return points
 
 
 def activation_ranges(model, variables: Dict[str, torch.Tensor],
@@ -142,25 +154,31 @@ def activation_ranges(model, variables: Dict[str, torch.Tensor],
     """Run the calibration sweep, returning abs-max activation ranges.
 
     ``batches`` is a sequence of NHWC image arrays as the engine feeds them;
-    ``variables`` the float state dict the forward runs with. Captures the
-    output of ``head.tail`` (the input of the cls/reg GEMMs) with a forward
-    hook. An FPN model raises ValueError: int8 FPN is not ported yet."""
-    refuse_fpn(variables)
-    captured: List[torch.Tensor] = []
-    hook = model.head.tail.register_forward_hook(
-        lambda _mod, _inp, out: captured.append(out)
-    )
+    ``variables`` the float state dict the forward runs with. Forward hooks
+    on :func:`embed_capture_points` see the values in the dtype the head
+    computes them in; each is read as float32, ReLU'd where the head does,
+    and its abs-max taken."""
+    captured: List[Tuple[torch.Tensor, bool]] = []
+    hooks = [
+        module.register_forward_hook(
+            lambda _mod, _inp, out, relu=relu: captured.append((out, relu)))
+        for module, relu in embed_capture_points(model)
+    ]
     amax = 0.0
     try:
         for images in batches:
             captured.clear()
             functional_forward(model, variables, to_device_batch(images, variables))
             if not captured:
-                raise ValueError("calibration captured no head tail output")
-            for out in captured:
-                amax = max(amax, float(out.detach().float().abs().amax()))
+                raise ValueError("calibration captured no head tail/fc7 output")
+            for out, relu in captured:
+                a = out.detach().float()
+                if relu:
+                    a = torch.clamp_min(a, 0.0)  # the head applies relu before cls/reg
+                amax = max(amax, float(a.abs().amax()))
     finally:
-        hook.remove()
+        for hook in hooks:
+            hook.remove()
     return {EMBED_RANGE_KEY: amax}
 
 
@@ -223,8 +241,6 @@ def calibrate(
     model that holds its weights). Weight scales for every quantizable leaf,
     activation ranges from the sweep, layer-group membership, and an
     all-int8 default plan the sensitivity sweep may later demote per group.
-    An FPN model raises ValueError in :func:`activation_ranges` (int8 FPN is
-    not ported yet).
     """
     params = to_flax_variables(variables)["params"]
     scales = weight_scales(params)

@@ -1,5 +1,6 @@
 """Summarize a telemetry run directory into a phase-time + health report
-(after the JAX package's ``telemetry/report.py``, for one process).
+(after the JAX package's ``telemetry/report.py``, for one process), and one
+request's hop timeline from the traces of several (``telemetry --trace-id``).
 
 Input is whatever a telemetry-enabled run left behind:
 ``trace.json`` (Chrome-trace spans), ``metrics.jsonl`` (MetricLogger
@@ -13,14 +14,38 @@ report goes on without it.
 
 from __future__ import annotations
 
+import glob
 import json
 import os
-from typing import Any, Dict, List, Optional
+import re
+from typing import Any, Dict, List, Optional, Tuple
 
 TRACE_FILE = "trace.json"
 METRICS_FILE = "metrics.jsonl"
 WATCHDOG_FILE = "watchdog.jsonl"
 PROGRESS_FILE = "progress.json"
+
+# Replicas write their request traces under ``<stem>.rank<N>.<ext>``
+# (``serve --replica-id``: ``trace.rank<N>.json``) beside the plain name;
+# ``telemetry --trace-id`` merges them.
+_RANK_RE = re.compile(r"\.rank(\d+)\.[^.]+$")
+
+
+def rank_variants(run_dir: str, name: str) -> List[Tuple[int, str]]:
+    """(rank, path) for every per-rank variant of ``name`` present in
+    ``run_dir``: the plain file is rank 0 (the coordinator), plus any
+    ``stem.rankN.ext`` siblings, sorted by rank."""
+    out: List[Tuple[int, str]] = []
+    base = os.path.join(run_dir, name)
+    if os.path.exists(base):
+        out.append((0, base))
+    stem, ext = os.path.splitext(name)
+    for path in glob.glob(os.path.join(run_dir, f"{stem}.rank*{ext}")):
+        m = _RANK_RE.search(path)
+        if m:
+            out.append((int(m.group(1)), path))
+    out.sort()
+    return out
 
 # Health/throughput keys worth surfacing from the JSONL, in display order.
 _HEALTH_KEYS = (
@@ -96,6 +121,107 @@ def phase_table(events: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
         )
     out.sort(key=lambda r: -r["total_ms"])
     return out
+
+
+def trace_timeline(
+    events: List[Dict[str, Any]], trace_id: str
+) -> Optional[Dict[str, Any]]:
+    """One request's hop timeline from the merged Chrome trace.
+
+    Every hop span the serving stack emits (``fleet/request``,
+    ``fleet/attempt``, ``serve/request``, ``serve/queue_wait``,
+    ``serve/dispatch``) stamps its ``trace_id``/``span_id``/
+    ``parent_span_id`` into the event args; filtering on one trace id
+    reconstructs the request's path across router and replicas —
+    including hedged and abandoned attempts, which share the trace id
+    with distinct span ids.  For each ``fleet/attempt`` whose replica-
+    side ``serve/request`` child is present, the non-replica remainder
+    is reported as ``network_ms``.  Returns None when the trace id
+    matches nothing."""
+    spans = [
+        ev
+        for ev in events
+        if ev.get("ph") == "X"
+        and isinstance(ev.get("args"), dict)
+        and ev["args"].get("trace_id") == trace_id
+    ]
+    if not spans:
+        return None
+    t0 = min(float(ev.get("ts", 0.0)) for ev in spans)
+    rows: List[Dict[str, Any]] = []
+    for ev in sorted(spans, key=lambda e: float(e.get("ts", 0.0))):
+        args = ev["args"]
+        row: Dict[str, Any] = {
+            "name": ev.get("name", "?"),
+            "start_ms": round((float(ev.get("ts", 0.0)) - t0) / 1e3, 3),
+            "dur_ms": round(float(ev.get("dur", 0.0)) / 1e3, 3),
+            "span_id": args.get("span_id"),
+            "parent_span_id": args.get("parent_span_id"),
+            "pid": ev.get("pid"),
+            "tid": ev.get("tid"),
+        }
+        for key in ("replica", "hedge", "ok", "key", "program"):
+            if key in args:
+                row[key] = args[key]
+        rows.append(row)
+    for row in rows:
+        if row["name"] != "fleet/attempt":
+            continue
+        child = next(
+            (
+                r
+                for r in rows
+                if r["name"] == "serve/request"
+                and r["parent_span_id"] == row["span_id"]
+            ),
+            None,
+        )
+        if child is not None:
+            row["network_ms"] = round(row["dur_ms"] - child["dur_ms"], 3)
+    end = max(r["start_ms"] + r["dur_ms"] for r in rows)
+    return {
+        "trace_id": trace_id,
+        "spans": rows,
+        "total_ms": round(end, 3),
+        "replicas": sorted(
+            {r["replica"] for r in rows if "replica" in r}
+        ),
+    }
+
+
+def format_trace_timeline(timeline: Dict[str, Any]) -> str:
+    """Human-readable rendering of :func:`trace_timeline`."""
+    lines = [
+        f"trace {timeline['trace_id']}: {len(timeline['spans'])} span(s), "
+        f"{timeline['total_ms']:.2f} ms end-to-end"
+        + (
+            f", replicas: {', '.join(timeline['replicas'])}"
+            if timeline["replicas"]
+            else ""
+        )
+    ]
+    header = (
+        f"  {'start_ms':>9}{'dur_ms':>10}  {'span':<18}"
+        f"{'span_id':<18}{'detail'}"
+    )
+    lines.append(header)
+    for row in timeline["spans"]:
+        detail = []
+        if "replica" in row:
+            detail.append(f"replica={row['replica']}")
+        if row.get("hedge"):
+            detail.append("hedge")
+        if "ok" in row:
+            detail.append("ok" if row["ok"] else "FAILED")
+        if "network_ms" in row:
+            detail.append(f"network={row['network_ms']:.2f}ms")
+        if "key" in row:
+            detail.append(f"bucket={row['key']}")
+        lines.append(
+            f"  {row['start_ms']:>9.2f}{row['dur_ms']:>10.2f}  "
+            f"{row['name']:<18}{str(row['span_id']):<18}{' '.join(detail)}"
+        )
+    return "\n".join(lines)
 
 
 def overlap_summary(events: List[Dict[str, Any]]) -> Optional[Dict[str, Any]]:

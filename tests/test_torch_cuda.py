@@ -642,7 +642,8 @@ def test_int8_kernels_bitwise(dev):
     around the 8-column MMA tile and the head's 21 and 84, and K not a
     multiple of 16 (byte-filled tiles), a multiple (cp.async copies) or
     longer than the 512 bytes staged at once (the two-stage ring), over the
-    whole int8 range; non-contiguous operands (copied by the wrapper) and a
+    whole int8 range; every preset's head shape (K up to 4096, N up to
+    324); non-contiguous operands (copied by the wrapper) and a
     base that is not 16-byte aligned; and the dequantize on rank-1 to rank-4
     weights along either end axis, into float32 and bfloat16."""
     from replication_faster_rcnn_tpu_torch.ops import quant_ops
@@ -664,6 +665,17 @@ def test_int8_kernels_bitwise(dev):
                 torch.cuda.synchronize()
                 assert quant_kernel.matmul_launches == n0 + 1
                 assert got.dtype == torch.int32 and got.shape == (m, n)
+                assert torch.equal(got, quant_ops.int8_matmul_plain(x, w)), (m, n, k)
+    # every preset's int8 head: K = 1024 (FPN fc7), 2048 (ResNet50 layer4),
+    # 4096 (VGG16 fc7), N = 21 / 84 and 81 / 324 (three 128-column blocks),
+    # b1 and b8 rois, as the head calls it (a Linear weight [N, K] seen as
+    # [K, N])
+    for m in (300, 2400):
+        for k in (1024, 2048, 4096):
+            x = int8((m, k))
+            for n in (21, 81, 84, 324):
+                w = int8((n, k)).t()
+                got = quant_kernel.int8_matmul_cuda(x, w)
                 assert torch.equal(got, quant_ops.int8_matmul_plain(x, w)), (m, n, k)
     # contiguous operands whose base is one byte past a 16-byte boundary
     buf_x, buf_w = int8((33 * 512 + 1,)), int8((24 * 512 + 1,))

@@ -287,6 +287,18 @@ def _case_tta_decode(tcfg, jcfg):
     np.testing.assert_allclose(got["scores"].numpy(), np.asarray(want["scores"]), rtol=0,
                                atol=1e-6)
     assert np.asarray(want["valid"]).sum() > 20
+    # the one-image form, image by image, against JAX's decode_detections_tta
+    for i in range(n):
+        args = [a[i] for a in plain + mirrored]
+        want = j_detect.decode_detections_tta(*map(jnp.asarray, args), h, w, jcfg.eval,
+                                              jcfg.roi_targets)
+        got = detect.decode_detections_tta(*t(args), h, w, tcfg.eval, tcfg.roi_targets)
+        np.testing.assert_array_equal(got["valid"].numpy(), np.asarray(want["valid"]))
+        np.testing.assert_array_equal(got["classes"].numpy(), np.asarray(want["classes"]))
+        np.testing.assert_allclose(got["boxes"].numpy(), np.asarray(want["boxes"]), rtol=0,
+                                   atol=1e-3)
+        np.testing.assert_allclose(got["scores"].numpy(), np.asarray(want["scores"]), rtol=0,
+                                   atol=1e-6)
 
 
 def _near_threshold(dets, gts, thresholds):

@@ -118,9 +118,13 @@ def test_stages_match(models):
         )
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=1e-4, atol=1e-4)
+    # the proposal and decode stages on shared inputs (one test id: each id
+    # costs the fast tier's budget)
+    _case_propose_exact_when_decode_is_exact(models)
+    _case_decode_on_shared_inputs(models)
 
 
-def test_propose_exact_when_decode_is_exact(models):
+def _case_propose_exact_when_decode_is_exact(models):
     """Zero deltas decode to the anchors themselves, so both frameworks see
     the same boxes: rois and valid are bitwise equal."""
     jcfg, tcfg, *_ = models
@@ -153,7 +157,7 @@ def _case_propose_on_model_outputs(models):
     np.testing.assert_allclose(trois.numpy(), np.asarray(jrois), rtol=0, atol=1e-3)
 
 
-def test_decode_on_shared_inputs(models):
+def _case_decode_on_shared_inputs(models):
     jcfg, tcfg, jmodel, jvars, tmodel, images = models
     _, _, jrois, jvalid, jc, jr, _ = jmodel.apply(jvars, jnp.asarray(images))
     want = j_detect.batched_decode(jrois, jvalid, jc, jr, 96.0, 96.0, jcfg.eval, jcfg.roi_targets)

@@ -19,7 +19,14 @@ Tolerances, with their reasons:
   arithmetic on the same bits); the activation range rtol 1e-5 (the trunk's
   convolutions sum in other orders in oneDNN and XLA:CPU).
 * The int8 forward: rois to 1e-3 px and ``valid`` equal, as in
-  ``test_torch_model.py``. cls/reg within 1e-4 plus two activation
+  ``test_torch_model.py``. The tiny FPN's: ``valid`` equal, RPN deltas
+  within rtol 1e-4 and atol 1e-5 of the largest (``test_torch_fpn.py``'s
+  stage tolerance), rois within 1e-3 px plus rtol 1e-3: its randomised RPN
+  weights give deltas up to ~440, which agree to ~2e-6 of that, and the
+  decode scales them by anchors of up to 512 px (measured: 0.025 px on a
+  32 px coordinate). Its detection boxes, decoded from those rois, carry
+  the same rtol 1e-3 beside the single-scale head's atol 1e-2 (measured:
+  0.0247 px on a 22 px coordinate); valid, classes and scores as there. cls/reg within 1e-4 plus two activation
   quantization steps: the embeddings differ by convolution summation order,
   so an element on a rounding boundary of ``x / x_scale`` can quantize one
   step apart, which moves an output by at most
@@ -39,8 +46,12 @@ import torch
 
 from replication_faster_rcnn_tpu import config as jconfig
 from replication_faster_rcnn_tpu import quant as jquant
+from replication_faster_rcnn_tpu.models.faster_rcnn import FasterRCNN as JFasterRCNN
 from replication_faster_rcnn_tpu.models.faster_rcnn import init_variables
 from replication_faster_rcnn_tpu.ops import quant_ops as jquant_ops
+from replication_faster_rcnn_tpu.quant.calibrate import activation_ranges as j_activation_ranges
+from replication_faster_rcnn_tpu.quant.calibrate import group_paths as j_group_paths
+from replication_faster_rcnn_tpu.quant.calibrate import quantize_weight as j_quantize_weight
 from replication_faster_rcnn_tpu.quant.sensitivity import sweep as j_sweep
 from replication_faster_rcnn_tpu.train.warmup import make_int8_infer_fn as j_make_int8_infer_fn
 from replication_faster_rcnn_tpu_torch import config as tconfig
@@ -61,6 +72,7 @@ from replication_faster_rcnn_tpu_torch.ops import quant_ops
 from replication_faster_rcnn_tpu_torch.quant.calibrate import (
     activation_ranges,
     flatten_params,
+    group_paths,
     path_key,
     state_key,
 )
@@ -214,7 +226,143 @@ def tiny():
             "tmodel": tmodel, "batches": batches, "artifact": artifact}
 
 
-def test_calibration_and_sidecar_match_jax(tiny, tmp_path):
+def _fpn_configs(jcfg, tcfg):
+    """The tiny FPN: ``voc_resnet50_fpn``'s model and anchors on a ResNet18
+    trunk, float32, at the single-scale slice's size and serving settings."""
+    jf, tf = jconfig.get_config("voc_resnet50_fpn"), tconfig.get_config("voc_resnet50_fpn")
+    return (jcfg.replace(model=dataclasses.replace(jf.model, backbone="resnet18",
+                                                   compute_dtype="float32"), anchors=jf.anchors),
+            tcfg.replace(model=dataclasses.replace(tf.model, backbone="resnet18",
+                                                   compute_dtype="float32"), anchors=tf.anchors))
+
+
+@pytest.fixture(scope="module")
+def tiny_fpn(tiny):
+    """The tiny FPN's weights: the port's seeded init as a flax tree (the
+    JAX init's forward is skipped, as in test_torch_fpn.py), randomised with
+    numpy, in both models; the JAX calibration artifact over the first of the
+    single-scale slice's synthetic batches."""
+    jcfg, tcfg = _fpn_configs(tiny["jcfg"], tiny["tcfg"])
+    variables = _randomise(to_flax_variables(build_model(tcfg, device="cpu").state_dict()),
+                           np.random.default_rng(2))
+    jmodel = JFasterRCNN(jcfg)
+    jvars = jax.tree_util.tree_map(jnp.asarray, variables)
+    state = from_flax_variables(variables)
+    batches = tiny["batches"][:1]
+    artifact = jquant.calibrate(jmodel, jvars, batches, jcfg)
+    return {"jcfg": jcfg, "tcfg": tcfg, "jmodel": jmodel, "jvars": jvars, "state": state,
+            "tmodel": build_model(tcfg, device="cpu", state_dict=state),
+            "batches": batches, "artifact": artifact}
+
+
+def _same_resident(jres, tres):
+    """The JAX and the port resident trees: every int8 leaf (transposed into
+    the flax layout), its scale and the cls/reg quant entries bitwise.
+    Returns (int8 leaves, of them dequantized per flush)."""
+    jflat = dict(flatten_params(jax.tree_util.tree_map(np.asarray, jres["params"])))
+    n_int8 = 0
+    for path, leaf in jflat.items():
+        if leaf.dtype == np.int8:
+            n_int8 += 1
+            got = tres["params"][state_key(path)]
+            assert got.dtype == torch.int8
+            np.testing.assert_array_equal(kernel_to_flax(got.numpy()), leaf)
+            if path[-2] in ("cls", "reg"):
+                entry = tres["quant"]["head"][path[-2]]
+                jentry = jres["quant"]["head"][path[-2]]
+                np.testing.assert_array_equal(entry["w_scale"].numpy(), np.asarray(jentry["w_scale"]))
+                assert entry["x_scale"].dtype == torch.float32
+                assert float(entry["x_scale"]) == float(jentry["x_scale"])
+            else:
+                np.testing.assert_array_equal(tres["qscales"][state_key(path)].numpy(),
+                                              np.asarray(jres["qscales"][path_key(path)]))
+    assert len(tres["qscales"]) == n_int8 - 2
+    back = to_flax_variables({k: v.float() for k, v in tres["params"].items()})
+    for collection in ("params", "batch_stats"):
+        want = dict(flatten_params(
+            jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), jres[collection])))
+        got = dict(flatten_params(back[collection]))
+        assert sorted(got) == sorted(want)
+        for path, leaf in want.items():
+            np.testing.assert_array_equal(got[path], leaf)
+    assert all(v.dtype in (torch.int8, torch.bfloat16) for v in tres["params"].values())
+    return n_int8
+
+
+def _full_width_weights_match_jax(name, tmp_path):
+    """``name`` at full width, numpy only: seeded weights of the shapes
+    ``jax.eval_shape`` gives the JAX model's init (no forward runs), and the
+    weight scales, groups, int8 leaves and sidecar bytes of both packages."""
+    jcfg = jconfig.get_config(name)
+    jmodel = JFasterRCNN(jcfg)
+    shapes = jax.eval_shape(lambda: jmodel.init({"params": jax.random.PRNGKey(0)},
+                                                jnp.zeros((1, 64, 64, 3)), train=False))
+    rng = np.random.default_rng(3)
+    variables = jax.tree_util.tree_map(
+        lambda a: (rng.random(a.shape, dtype=np.float32) - np.float32(0.5)).astype(a.dtype),
+        dict(shapes))
+    params = variables["params"]
+    jscales = jquant.weight_scales(params)
+    jgroups = j_group_paths(params)
+    state = from_flax_variables(variables)
+    tparams = to_flax_variables(state)["params"]
+    tscales = tquant.weight_scales(tparams)
+    assert sorted(tscales) == sorted(jscales)
+    for key, scale in jscales.items():
+        np.testing.assert_array_equal(tscales[key], scale)
+    assert group_paths(tparams) == jgroups
+    artifact = {"weight_scales": jscales, "activation_ranges": {tquant.EMBED_RANGE_KEY: 6.5},
+                "groups": jgroups, "plan": {g: "int8" for g in jgroups},
+                "calib": {"batches": 0, "batch_size": 0}}
+    tres = tquant.quantize_variables(state, artifact)
+    for path, leaf in flatten_params(params):
+        if path_key(path) not in jscales:
+            continue
+        got = tres["params"][state_key(path)]
+        assert got.dtype == torch.int8, path
+        np.testing.assert_array_equal(
+            kernel_to_flax(got.numpy()), j_quantize_weight(leaf, jscales[path_key(path)]))
+    j_path, t_path = tmp_path / f"{name}.jax.json", tmp_path / f"{name}.port.json"
+    jquant.save_artifact(str(j_path), artifact)
+    tquant.save_artifact(str(t_path), dict(artifact, weight_scales=tscales,
+                                           groups=group_paths(tparams)))
+    assert j_path.read_bytes() == t_path.read_bytes()
+    f32_bytes = sum(v.numel() * 4 for v in state.values())
+    assert tquant.quantized_params_bytes(tres) < 0.4 * f32_bytes
+
+
+def _vgg16_range_matches_jax(tiny, monkeypatch):
+    """The calibrated range of a VGG16 head against JAX's, with both tails
+    narrowed to 64 features (a module constant in both packages, patched
+    here): JAX's capture filter also catches the tail's ``fc6`` and ``fc7``
+    outputs before their ReLUs, which the port hooks at ``tail.dense_out``."""
+    from replication_faster_rcnn_tpu.models import vgg as jvgg
+    from replication_faster_rcnn_tpu_torch.models import head as thead
+    from replication_faster_rcnn_tpu_torch.models import vgg as tvgg
+
+    for mod in (jvgg, tvgg, thead):
+        monkeypatch.setattr(mod, "VGG16_TAIL_CHANNELS", 64)
+    jcfg, tcfg = (c.replace(model=dataclasses.replace(c.model, backbone="vgg16", roi_op="pool"))
+                  for c in (tiny["jcfg"], tiny["tcfg"]))
+    variables = _randomise(to_flax_variables(build_model(tcfg, device="cpu").state_dict()),
+                           np.random.default_rng(4))
+    state = from_flax_variables(variables)
+    tmodel = build_model(tcfg, device="cpu", state_dict=state)
+    assert tmodel.head.tail.fc6.weight.shape == (64, 7 * 7 * 512)
+    want = j_activation_ranges(JFasterRCNN(jcfg), jax.tree_util.tree_map(jnp.asarray, variables),
+                               tiny["batches"][:1])
+    got = activation_ranges(tmodel, state, tiny["batches"][:1])
+    np.testing.assert_allclose(got[tquant.EMBED_RANGE_KEY], want[tquant.EMBED_RANGE_KEY],
+                               rtol=1e-5)
+    # the tail's own (ReLU'd) output alone gives a smaller range
+    hook_out = []
+    handle = tmodel.head.tail.register_forward_hook(lambda m, i, o: hook_out.append(o))
+    functional_forward(tmodel, state, torch.from_numpy(tiny["batches"][0]))
+    handle.remove()
+    assert float(hook_out[0].abs().max()) < got[tquant.EMBED_RANGE_KEY]
+
+
+def test_calibration_and_sidecar_match_jax(tiny, tiny_fpn, tmp_path, monkeypatch):
     state, artifact = tiny["state"], tiny["artifact"]
     # weight scales and the calibration artifact: the JAX package's keys and bits
     params = to_flax_variables(state)["params"]
@@ -236,33 +384,7 @@ def test_calibration_and_sidecar_match_jax(tiny, tmp_path):
     # other float leaves rounded to bfloat16 as the JAX tree is
     jres = jquant.quantize_variables(tiny["jvars"], artifact)
     tres = tquant.quantize_variables(state, artifact)
-    jflat = dict(flatten_params(jax.tree_util.tree_map(np.asarray, jres["params"])))
-    n_int8 = 0
-    for path, leaf in jflat.items():
-        if leaf.dtype == np.int8:
-            n_int8 += 1
-            got = tres["params"][state_key(path)]
-            assert got.dtype == torch.int8
-            np.testing.assert_array_equal(kernel_to_flax(got.numpy()), leaf)
-            if path[-2] in ("cls", "reg"):
-                entry = tres["quant"]["head"][path[-2]]
-                jentry = jres["quant"]["head"][path[-2]]
-                np.testing.assert_array_equal(entry["w_scale"].numpy(), np.asarray(jentry["w_scale"]))
-                assert entry["x_scale"].dtype == torch.float32
-                assert float(entry["x_scale"]) == float(jentry["x_scale"])
-            else:
-                np.testing.assert_array_equal(tres["qscales"][state_key(path)].numpy(),
-                                              np.asarray(jres["qscales"][path_key(path)]))
-    assert n_int8 == 25 and len(tres["qscales"]) == 23
-    back = to_flax_variables({k: v.float() for k, v in tres["params"].items()})
-    for collection in ("params", "batch_stats"):
-        want = dict(flatten_params(
-            jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), jres[collection])))
-        got = dict(flatten_params(back[collection]))
-        assert sorted(got) == sorted(want)
-        for path, leaf in want.items():
-            np.testing.assert_array_equal(got[path], leaf)
-    assert all(v.dtype in (torch.int8, torch.bfloat16) for v in tres["params"].values())
+    assert _same_resident(jres, tres) == 25 and len(tres["qscales"]) == 23
     f32_bytes = sum(v.numel() * 4 for v in state.values())
     assert tquant.quantized_params_bytes(tres) == jquant.quantized_params_bytes(jres)
     assert tquant.quantized_params_bytes(tres) < 0.4 * f32_bytes
@@ -291,23 +413,88 @@ def test_calibration_and_sidecar_match_jax(tiny, tmp_path):
         with pytest.raises(tquant.QuantArtifactError):
             InferenceEngine(tiny["tcfg"], device="cpu", state_dict=state, artifact_path=str(path))
 
-    # int8 FPN is not ported: calibration, quantize and the int8 engine of an
-    # FPN model refuse it by name (the model has no head.tail to hook)
-    fcfg = tiny["tcfg"].replace(model=dataclasses.replace(
-        tconfig.get_config("voc_resnet50_fpn").model, backbone="resnet18",
-        compute_dtype="float32"), anchors=tconfig.get_config("voc_resnet50_fpn").anchors)
-    fpn = build_model(fcfg, device="cpu")
-    fstate = fpn.state_dict()
-    for refused in (lambda: tquant.calibrate(fpn, fstate, tiny["batches"][:1], fcfg),
-                    lambda: activation_ranges(fpn, fstate, tiny["batches"][:1]),
-                    lambda: tquant.quantize_variables(fstate, artifact),
-                    lambda: InferenceEngine(fcfg, device="cpu", state_dict=fstate,
-                                            artifact_path=str(t_path))):
-        with pytest.raises(ValueError, match="int8 serving of an FPN model is not ported"):
-            refused()
+    # the tiny FPN: fc7's range (ReLU folded in), weight scales, groups, the
+    # resident tree and the sidecar bytes against JAX's; the sweep's plan
+    # against JAX sweep's with one group's scales poisoned
+    fpn, fart = tiny_fpn, tiny_fpn["artifact"]
+    port_fart = tquant.calibrate(fpn["tmodel"], fpn["state"], fpn["batches"], fpn["tcfg"])
+    assert sorted(fart["groups"]) == ["head", "neck", "rpn", "trunk.layer1", "trunk.layer2",
+                                      "trunk.layer3", "trunk.layer4", "trunk.stem"]
+    assert port_fart["groups"] == fart["groups"] and port_fart["plan"] == fart["plan"]
+    assert "head/fc7/kernel" in fart["groups"]["head"]
+    assert sorted(port_fart["weight_scales"]) == sorted(fart["weight_scales"])
+    for key, s in port_fart["weight_scales"].items():
+        np.testing.assert_array_equal(s, fart["weight_scales"][key])
+    np.testing.assert_allclose(port_fart["activation_ranges"][key := tquant.EMBED_RANGE_KEY],
+                               fart["activation_ranges"][key], rtol=1e-5)
+    jres = jquant.quantize_variables(fpn["jvars"], fart)
+    tres = tquant.quantize_variables(fpn["state"], fart)
+    assert _same_resident(jres, tres) == sum(len(v) for v in fart["groups"].values()) == 35
+    assert tres["params"]["head.fc6.weight"].shape == (1024, 7 * 7 * 256)
+    assert tres["qscales"]["head.fc6.weight"].shape == (1024,)
+    assert tquant.quantized_params_bytes(tres) == jquant.quantized_params_bytes(jres)
+    assert tquant.quantized_params_bytes(tres) < 0.4 * sum(
+        v.numel() * 4 for v in fpn["state"].values())
+    j_path, t_path = tmp_path / "fpn.jax.json", tmp_path / "fpn.port.json"
+    jquant.save_artifact(str(j_path), fart)
+    tquant.save_artifact(str(t_path), dict(port_fart, activation_ranges=fart["activation_ranges"]))
+    assert j_path.read_bytes() == t_path.read_bytes()
+    hostile = dict(fart, weight_scales=dict(fart["weight_scales"]))
+    for p in hostile["groups"]["neck"]:
+        hostile["weight_scales"][p] = hostile["weight_scales"][p] * 1000.0
+    jplan = j_sweep(fpn["jmodel"], fpn["jvars"], dict(hostile), fpn["batches"], fpn["jcfg"])
+    tplan = tquant.sweep(fpn["tmodel"], fpn["state"], dict(hostile), fpn["batches"],
+                         fpn["tcfg"])
+    assert tplan["plan"] == jplan["plan"] and tplan["plan"]["neck"] == "bfloat16"
+    assert sorted(tplan["sensitivity"]) == sorted(jplan["sensitivity"])
+    for group, rec in jplan["sensitivity"].items():
+        np.testing.assert_allclose(tplan["sensitivity"][group]["recon_rel_err"],
+                                   rec["recon_rel_err"], rtol=1e-3)
+
+    # voc_resnet50 and coco_vgg16 at full width: weights only, numpy
+    for name in ("voc_resnet50", "coco_vgg16"):
+        _full_width_weights_match_jax(name, tmp_path)
+    _vgg16_range_matches_jax(tiny, monkeypatch)
 
 
-def test_int8_slice_matches_jax(tiny, tmp_path):
+def _int8_program_matches_jax(jmodel, jcfg, tcfg, jres, tres, images, box_rtol=0.0):
+    """The int8 inference function against the JAX ``make_int8_infer_fn``:
+    valid and classes equal, boxes within 1e-2 (plus ``box_rtol``), scores
+    within 1e-4."""
+    want = jax.jit(j_make_int8_infer_fn(jmodel, jcfg))(jres, jnp.asarray(images))
+    infer = make_int8_infer_fn(FasterRCNN(tcfg, device="meta"), tcfg)
+    got = infer(tres, torch.from_numpy(images))
+    np.testing.assert_array_equal(got["valid"].numpy(), np.asarray(want["valid"]))
+    np.testing.assert_array_equal(got["classes"].numpy(), np.asarray(want["classes"]))
+    np.testing.assert_allclose(got["boxes"].numpy(), np.asarray(want["boxes"]), rtol=box_rtol,
+                               atol=1e-2)
+    np.testing.assert_allclose(got["scores"].numpy(), np.asarray(want["scores"]), rtol=0, atol=1e-4)
+    assert np.asarray(want["valid"]).sum() > 0
+    return infer
+
+
+def _int8_engine_matches(tcfg, state, tres, path, images, infer):
+    """The engine's int8 mode: the resident tree, params_bytes under 0.4 x
+    float32, and the same detections as the inference function on the same
+    padded batch and as the plain replay."""
+    size = tcfg.data.image_size
+    with InferenceEngine(tcfg, device="cpu", state_dict=state, artifact_path=str(path)) as eng:
+        assert eng.params_dtype == "int8" and eng.model.trunk.conv1.weight.is_meta
+        assert eng.params_bytes == tquant.quantized_params_bytes(tres)
+        assert eng.params_bytes < 0.4 * sum(v.numel() * 4 for v in state.values())
+        served = eng.predict(list(images))
+        ref = eng.predict(list(images), reference=True)
+    assert [n for _, n in eng.flush_log] == [2, 2]
+    batch = np.stack([resize_normalize(img, size, tcfg.data.pixel_mean, tcfg.data.pixel_std)
+                      for img in images])
+    direct = infer(tres, torch.from_numpy(batch))
+    for i, (res, plain) in enumerate(zip(served, ref)):
+        for k in ("boxes", "scores", "classes", "valid"):
+            np.testing.assert_array_equal(res[k], direct[k][i].numpy())
+            np.testing.assert_array_equal(plain[k], res[k])
+
+
+def test_int8_slice_matches_jax(tiny, tiny_fpn, tmp_path):
     jcfg, tcfg, state, artifact = tiny["jcfg"], tiny["tcfg"], tiny["state"], tiny["artifact"]
     rng = np.random.default_rng(1)
     images = rng.integers(0, 256, (2,) + SIZE + (3,), dtype=np.uint8)
@@ -336,34 +523,35 @@ def test_int8_slice_matches_jax(tiny, tmp_path):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 + 2 * step)
         assert np.mean(np.abs(got - want) > 1e-4) < 0.01, name
 
-    # the whole program against the JAX make_int8_infer_fn
-    want = jax.jit(j_make_int8_infer_fn(tiny["jmodel"], jcfg))(jres, jnp.asarray(images))
-    infer = make_int8_infer_fn(meta, tcfg)
-    got = infer(tres, torch.from_numpy(images))
-    np.testing.assert_array_equal(got["valid"].numpy(), np.asarray(want["valid"]))
-    np.testing.assert_array_equal(got["classes"].numpy(), np.asarray(want["classes"]))
-    np.testing.assert_allclose(got["boxes"].numpy(), np.asarray(want["boxes"]), rtol=0, atol=1e-2)
-    np.testing.assert_allclose(got["scores"].numpy(), np.asarray(want["scores"]), rtol=0, atol=1e-4)
-    assert np.asarray(want["valid"]).sum() > 0
-
-    # the engine's int8 mode: the resident tree, params_bytes, and the same
-    # detections as the inference function on the same padded batch
+    # the whole program against the JAX make_int8_infer_fn, and the engine
+    infer = _int8_program_matches_jax(tiny["jmodel"], jcfg, tcfg, jres, tres, images)
     path = tmp_path / "quant_artifact.json"
     jquant.save_artifact(str(path), artifact)
-    with InferenceEngine(tcfg, device="cpu", state_dict=state, artifact_path=str(path)) as eng:
-        assert eng.params_dtype == "int8" and eng.model.trunk.conv1.weight.is_meta
-        assert eng.params_bytes == tquant.quantized_params_bytes(tres)
-        assert eng.params_bytes < 0.4 * sum(v.numel() * 4 for v in state.values())
-        served = eng.predict(list(images))
-        ref = eng.predict(list(images), reference=True)
-    assert [n for _, n in eng.flush_log] == [2, 2]
-    batch = np.stack([resize_normalize(img, SIZE, tcfg.data.pixel_mean, tcfg.data.pixel_std)
-                      for img in images])
-    direct = infer(tres, torch.from_numpy(batch))
-    for i, (res, plain) in enumerate(zip(served, ref)):
-        for k in ("boxes", "scores", "classes", "valid"):
-            np.testing.assert_array_equal(res[k], direct[k][i].numpy())
-            np.testing.assert_array_equal(plain[k], res[k])
+    _int8_engine_matches(tcfg, state, tres, path, images, infer)
+
+    # the tiny FPN in int8: fc6 / fc7 dequantized, cls / reg int8 GEMMs on
+    # fc7's ReLU output, the same checks
+    fpn = tiny_fpn
+    fres = tquant.quantize_variables(fpn["state"], fpn["artifact"])
+    fjres = jquant.quantize_variables(fpn["jvars"], fpn["artifact"])
+    assert sorted(fres["quant"]["head"]) == ["cls", "reg"]
+    jout = jax.jit(lambda v, x: fpn["jmodel"].apply(v, x, train=False))(
+        jquant.build_infer_variables(fjres, fpn["jcfg"]), jnp.asarray(images))
+    fvars = tquant.build_infer_variables(fres, fpn["tcfg"])
+    assert all(v.dtype != torch.int8 or k in ("head.cls.weight", "head.reg.weight")
+               for k, v in fvars["params"].items())
+    tout = functional_forward(FasterRCNN(fpn["tcfg"], device="meta"), fvars["params"],
+                              torch.from_numpy(images), fvars["quant"])
+    np.testing.assert_array_equal(tout[3].numpy(), np.asarray(jout[3]))
+    want = np.asarray(jout[1])
+    np.testing.assert_allclose(tout[1].numpy(), want, rtol=1e-4,
+                               atol=1e-5 * float(np.abs(want).max()))
+    np.testing.assert_allclose(tout[2].numpy(), np.asarray(jout[2]), rtol=1e-3, atol=1e-3)
+    finfer = _int8_program_matches_jax(fpn["jmodel"], fpn["jcfg"], fpn["tcfg"], fjres, fres,
+                                       images, box_rtol=1e-3)
+    fpath = tmp_path / "fpn_quant_artifact.json"
+    jquant.save_artifact(str(fpath), fpn["artifact"])
+    _int8_engine_matches(fpn["tcfg"], fpn["state"], fres, fpath, images, finfer)
 
     # the sensitivity sweep: the same plan as JAX's, the hostile head (its
     # calibrated scales poisoned x1000, the JAX test's injection) to bfloat16

@@ -276,11 +276,12 @@ def _run_contract(make, engine, fp, paths, tmp_path):
     return out
 
 
-def test_http_and_serve_match_jax(engines, tmp_path):
+def test_http_and_serve_match_jax(engines, tmp_path, capsys, monkeypatch):
     """Both HTTP servers on port 0 answer the same requests with the same
     status codes, JSON keys and metric names; then ``python -m
     replication_faster_rcnn_tpu_torch serve`` on the CPU: start-up JSON, one
-    /predict, and a SIGTERM drain that exits 0."""
+    /predict, and a SIGTERM drain that exits 0; then the other subcommands
+    in-process (:func:`_cli_matches_jax`)."""
     jeng, teng, _ = engines
     paths = _write_pngs(tmp_path, _images(np.random.default_rng(1), [(32, 32), (24, 30)]))
     want = _run_contract(j_make_server, jeng, j_failpoints, paths, tmp_path)
@@ -322,6 +323,156 @@ def test_http_and_serve_match_jax(engines, tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+    _cli_matches_jax(tmp_path, capsys, monkeypatch, engines, paths)
+
+
+CLI_COMMON = ["--config", "voc12_resnet18_align", "--device", "cpu", "--dataset", "synthetic",
+              "--image-size", "96"]
+
+
+def _cli(main, argv, capsys):
+    """(exit code, stdout) of one in-process command (argparse errors exit 2)."""
+    try:
+        rc = main(argv)
+    except SystemExit as e:
+        rc = e.code
+    return rc, capsys.readouterr()
+
+
+def _trace_dir(root):
+    """Two replicas' traces (``trace.json`` and ``trace.rank2.json``) of one
+    request: a fleet attempt and the replica's request, queue wait and
+    dispatch under one trace id."""
+    tid = "ab" * 16
+    spans = [("fleet/request", 0, 900, "f1", None, {"ok": True}),
+             ("fleet/attempt", 10, 880, "f2", "f1", {"replica": "r1"}),
+             ("serve/request", 40, 800, "s1", "f2", {"replica": "r1"}),
+             ("serve/queue_wait", 40, 300, "s2", "s1", {"key": "32x32"}),
+             ("serve/dispatch", 350, 480, "s3", "s1", {"program": "serve_32x32_b1"})]
+    root.mkdir()
+    for name, rows in (("trace.json", spans[:2]), ("trace.rank2.json", spans[2:])):
+        events = [{"ph": "X", "name": n, "ts": ts, "dur": dur, "pid": 1, "tid": 1,
+                   "args": {"trace_id": tid, "span_id": sid, "parent_span_id": parent, **extra}}
+                  for n, ts, dur, sid, parent, extra in rows]
+        (root / name).write_text(json.dumps({"traceEvents": events}))
+    return tid
+
+
+def _cli_matches_jax(tmp_path, capsys, monkeypatch, engines, paths):
+    """The port's command line in-process at 96x96 on the CPU: train (bounded
+    steps with telemetry, then a preempted run's emergency save), eval with the
+    per-class table, quantize with the sweep (its JSON keys and groups
+    against the JAX command's), predict in bfloat16 and from the int8
+    sidecar (the sidecar ``serve --params-dtype int8`` loads), bench,
+    telemetry (the report, and a request's timeline against the JAX
+    command's), and the JAX flags that are not ported yet as argparse
+    errors naming their ROADMAP item. Also ``eval/predict.py`` against the
+    JAX module on the fixture's engines, and the ``FRCNN`` facade."""
+    from replication_faster_rcnn_tpu import cli as jcli
+    from replication_faster_rcnn_tpu.eval.predict import predict_images as j_predict_images
+    from replication_faster_rcnn_tpu_torch import cli
+    from replication_faster_rcnn_tpu_torch.eval.predict import draw_detections, predict_images
+    from replication_faster_rcnn_tpu_torch.frcnn import FRCNN
+
+    wd, tel = tmp_path / "cli_wd", tmp_path / "cli_tel"
+    rc, out = _cli(cli.main, ["train", *CLI_COMMON, "--workdir", str(wd), "--steps", "2",
+                              "--batch-size", "2", "--telemetry", str(tel)], capsys)
+    assert rc == 0 and "[step      0]" in out.out, out
+    assert {"trace.json", "metrics.jsonl"} <= {p.name for p in tel.iterdir()}
+    # a shutdown request after the first step: a verified emergency
+    # checkpoint (the one the other commands load) and exit 75
+    from replication_faster_rcnn_tpu_torch.train import fault
+
+    monkeypatch.setattr(fault.GracefulShutdown, "requested", property(lambda self: True))
+    rc, out = _cli(cli.main, ["train", *CLI_COMMON, "--workdir", str(wd), "--steps", "4",
+                              "--batch-size", "2", "--resume"], capsys)
+    monkeypatch.undo()
+    assert rc == fault.EXIT_PREEMPTED == 75 and "preempted" in out.err, out
+    assert sorted(p.name for p in wd.iterdir()) == ["1", "manifests"]
+    rc, out = _cli(cli.main, ["eval", *CLI_COMMON, "--workdir", str(wd), "--max-images", "2",
+                              "--batch-size", "2", "--per-class"], capsys)
+    lines = out.out.splitlines()
+    assert rc == 0 and lines[0].startswith("mAP@0.5: ") and len(lines) == 21, out
+    assert lines[1].split()[:2] == ["aeroplane", "AP"]
+
+    quant_args = ["--synthetic-calib", "--calib-batches", "1", "--calib-batch-size", "1"]
+    rc, out = _cli(cli.main, ["quantize", *CLI_COMMON, "--workdir", str(wd), "--sweep",
+                              *quant_args], capsys)
+    got = json.loads(out.out)
+    # the JAX command at 32x32 (its keys do not depend on the size; its
+    # init compiles for ~25 s at 96x96)
+    rc_j, out_j = _cli(jcli.main, ["quantize", *CLI_COMMON[:-1], "32", "--workdir",
+                                   str(tmp_path / "none"), "--output",
+                                   str(tmp_path / "jax_quant.json"), *quant_args], capsys)
+    want = json.loads(out_j.out)
+    assert (rc, rc_j) == (0, 0) and sorted(got) == sorted(want)
+    assert got["groups"] == want["groups"] and sorted(got["plan"]) == sorted(want["plan"])
+    assert got["calib"] == want["calib"] and sorted(got["sensitivity"]) == got["groups"]
+    sidecar = json.loads((wd / "quant_artifact.json").read_text())
+    assert got["artifact"] == str(wd / "quant_artifact.json") and sidecar["config_hash"]
+
+    for dtype, images in (("bfloat16", paths[:1]), ("int8", paths)):
+        rc, out = _cli(cli.main, ["predict", *CLI_COMMON, "--workdir", str(wd), "--image",
+                                  *images, "--score-thresh", "0.0", "--params-dtype", dtype],
+                       capsys)
+        dets = json.loads(out.out)
+        dets = [dets] if len(images) == 1 else [dets[p] for p in images]
+        assert rc == 0 and all(d for d in dets), (dtype, out)
+        assert all(sorted(x) == ["box", "class_id", "class_name", "score"] for d in dets
+                   for x in d)
+
+    monkeypatch.setenv("BENCH_MODE", "eval")
+    monkeypatch.setenv("BENCH_STEPS", "1")
+    monkeypatch.setenv("BENCH_EVAL_BATCH", "1")
+    rc, out = _cli(cli.main, ["bench", *CLI_COMMON], capsys)
+    line = json.loads(out.out.strip().splitlines()[-1])
+    assert rc == 0 and line["metric"] == "eval_images_per_sec_96x96" and line["value"] > 0
+
+    rc, out = _cli(cli.main, ["telemetry", str(tel)], capsys)
+    rc_j, out_j = _cli(jcli.main, ["telemetry", str(tel)], capsys)
+    assert (rc, rc_j) == (0, 0) and "step/dispatch" in out.out
+    tid = _trace_dir(tmp_path / "traces")
+    for argv in (["--trace-id", tid], ["--trace-id", "cd" * 16]):
+        rc, out = _cli(cli.main, ["telemetry", str(tmp_path / "traces"), *argv], capsys)
+        rc_j, out_j = _cli(jcli.main, ["telemetry", str(tmp_path / "traces"), *argv], capsys)
+        assert (rc, out.out) == (rc_j, out_j.out) and rc == (0 if tid in argv else 1)
+    assert "network=0.08ms" in _cli(cli.main, ["telemetry", str(tmp_path / "traces"),
+                                                "--trace-id", tid], capsys)[1].out
+
+    for argv, item in ((["train", "--elastic"], "item 8"), (["train", "--strict"], "item 7"),
+                       (["eval", "--mesh-shape", "2,4"], "item 8"),
+                       (["quantize", "--loader-mode", "process"], "item 2"),
+                       (["bench", "--backbone", "resnext50_32x4d"], "item 6"),
+                       (["train", "--pretrained-backbone", "r.pth"], "item 9"),
+                       (["predict", "--image", paths[0], "--output", "o.png"], "item 9")):
+        rc, out = _cli(cli.main, argv, capsys)
+        assert rc == 2 and "not ported yet" in out.err and item in out.err, (argv, out.err)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        draw_detections(paths[0], [], str(tmp_path / "o.png"))
+
+    # eval/predict.py against the JAX module on the same engines and weights
+    jeng, teng, variables = engines
+    cfg = _cfg(tconfig)
+    want = j_predict_images(_cfg(jconfig), None, None, paths, 0.0, engine=jeng)
+    got = predict_images(cfg, None, paths, 0.0, engine=teng)
+    for g, w in zip(got, want):
+        assert [d["class_name"] for d in g] == [d["class_name"] for d in w] and g
+        np.testing.assert_allclose([d["box"] for d in g], [d["box"] for d in w], rtol=0,
+                                   atol=BOX_ATOL)
+        np.testing.assert_allclose([d["score"] for d in g], [d["score"] for d in w], rtol=0,
+                                   atol=SCORE_ATOL)
+
+    # the FRCNN facade on the CPU
+    with pytest.raises(ValueError, match="train or test"):
+        FRCNN("serve")
+    net = FRCNN("test", cfg, device="cpu")
+    model, state = net.get_network()
+    assert model.device.type == "cpu" and set(state) == set(model.state_dict())
+    batch = next(iter(FRCNN("train", cfg.replace(data=dataclasses.replace(
+        cfg.data, dataset="synthetic")), device="cpu").get_data_loader(batch_size=2)))
+    assert batch["image"].shape == (2, 32, 32, 3)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        net.load_param("resnet18.pth")
 
 
 class _Clock:
