@@ -150,7 +150,12 @@ H100:  ``python3 chip_smoke.py``. It
    ``Trainer`` that ``restore()``s must score the final val mAP within
    1e-9; the same weights calibrated as in [5] (and, beside it, on the
    training images, with the sweep's plan and with every group int8) are
-   scored in int8;
+   scored in int8. Then the cached evaluation (:func:`phase_cached_evaluate`):
+   ``voc_resnet18`` over the same kind of 64 images with the loader feed and
+   with ``data.cache_device`` (the set on the card, each batch gathered by
+   the image kernels): both results equal entry by entry, the launches per
+   batch counted (NMS 2, ROIPool 1; the cached feed's gather geometry 1 and
+   image pass 1), and images/s of both feeds;
 8. kills and resumes the flagship ``voc_resnet18`` at 600x600, batch 8, 24
    synthetic images (3 steps an epoch), 3 epochs, one sample of step 3's
    batch poisoned with a NaN (the step is skipped): (a) uninterrupted, twice,
@@ -191,7 +196,7 @@ H100:  ``python3 chip_smoke.py``. It
    reset just before and read just after (per step NMS 1, IoU matching 2,
    ROIPool 1 and its backward 1; per eval batch NMS 2 and ROIPool 1);
 10. drives the training data path (:func:`phase_data_path`):
-   ``voc_resnet18`` 600x600 b8 through ``Trainer.train`` on 256 synthetic
+   ``voc_resnet18`` 600x600 b8 through ``Trainer.train`` on 192 synthetic
    images, four feeds, each with 2 timed epochs and a profiled third: (a)
    float32 without prefetch, (b) uint8 with ``prefetch_device=2``, (c) (b)
    with ``augment_device`` (flip, scale, translation), (d) ``cache_device``
@@ -200,7 +205,14 @@ H100:  ``python3 chip_smoke.py``. It
    loader-fed ``augment_scale_device`` run, K=2 with prefetch bitwise K=1, a
    SIGTERM resumed with prefetch bitwise; the resolution buckets (480, 600,
    720) at K=1 and K=2 in ``bucket_index``'s order, captured bitwise eager,
-   launches counted per replay; the cache's bytes against their formula;
+   launches counted per replay; the cache's bytes against their formula.
+   A fifth arm, (e), is (b) fed by the process loader (``loader_mode=
+   "process"``, forked workers): bitwise (b)'s state, its epoch's batches
+   bitwise the thread loader's, with its images/s and ``data/build`` ms
+   beside (b)'s. Then an ``ioerror`` armed at the ``loader.fetch``
+   failpoint on two samples (:func:`check_loader_faults`): two
+   substitutions by the next index, and with a skip budget of 1 the
+   budget's error;
 11. drives the serving stack (:func:`phase_serving_stack`): ``voc_resnet18``
    in bfloat16 and ``voc12_resnet18_align`` in int8 ([5]'s sidecar), buckets
    300x300 and 600x600 x b1, b8, every graph captured up front with its
@@ -248,9 +260,24 @@ H100:  ``python3 chip_smoke.py``. It
    images (per batch NMS 2, multi-level ROIAlign 1); and runs
    ``benchmark.main`` on it in this process, train and eval at b8
    (images/s, MFU);
-13. prints every phase's wall time, a ``{"kernels": [...]}`` line (the
-   serving kernels' launches per graph replay beside their counts), the
-   card line, and last ``{"ok": true, "device": {...}}``.
+13. trains ``voc_resnet50`` (b8, ROIPool on the 1024-channel C4 map),
+   ``coco_resnet50`` (b32, ROIAlign, 81 classes, 100 gt slots) and
+   ``coco_vgg16`` (b8, ROIPool on 512 channels, 12 anchors, the 512-wide RPN
+   conv, dropout) at their own configurations (600x600, bfloat16 compute)
+   (:func:`phase_preset_train`): first each kernel at the preset's shapes
+   against its plain version (:func:`check_preset_kernels`: the ROI op's
+   forward and backward, IoU matching against ``max_boxes`` gt columns, the
+   proposal NMS at the batch), then ``2 + TRAIN_REPS`` captured steps and the
+   same steps eager, bitwise equal, launches asserted per step (NMS 1, IoU
+   matching 2, the ROI op's forward and backward 1), step ms, images/s, the
+   idle share of 3 profiled steps, the peak allocated memory and the graph
+   pool; one step's forward and backward replayed under
+   ``ops.reference_scope()`` with the same draws (VGG16's dropout masks
+   included): targets and losses bitwise;
+14. prints every phase's wall time, a ``{"kernels": [...]}`` line (the
+   serving kernels' launches per graph replay beside their counts; [13]'s
+   shapes under ``preset_training_sites``), the card line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Without CUDA, or without
 the repository beside it, it exits non-zero at once. Comparisons run with
@@ -3280,6 +3307,81 @@ def phase_evaluate(torch, cfg=None, device=None, n_images=64):
     return launches, {"resize": resize, "sweeps": sweeps}
 
 
+CACHED_EVAL_SWEEPS = 3  # timed sweeps per feed, the feeds alternating
+
+
+def phase_cached_evaluate(torch, cfg=None, device=None, n_images=64):
+    """Phase [7]'s cached evaluation: ``voc_resnet18`` (``cfg``; seeded
+    weights) over 64 VOC-sized images at batch 8 through ``Evaluator`` with
+    the loader feed and with ``data.cache_device`` (the set uploaded to the
+    card once, each batch gathered there by the image kernels, the ground
+    truth from ``host_meta``): the two results equal exactly, launches per
+    batch counted (NMS 2, ROIPool 1; the cached feed also the gather's
+    geometry and image launches, 1 each), then images/s of both feeds over
+    ``CACHED_EVAL_SWEEPS`` sweeps each, the feeds alternating."""
+    import dataclasses
+
+    from replication_faster_rcnn_tpu_torch import get_config
+    from replication_faster_rcnn_tpu_torch.eval.evaluator import Evaluator
+    from replication_faster_rcnn_tpu_torch.models.faster_rcnn import build_model
+
+    cfg = cfg or get_config("voc_resnet18")
+    dev = torch.device(device or "cuda")
+    ds = VOCLikeDataset(cfg.data, n_images)
+    n_batches = -(-len(ds) // EVAL_BATCH)
+    log(f"[7] cached evaluation: voc_resnet18 {cfg.data.image_size} over {len(ds)} images, "
+        f"batch {EVAL_BATCH}, the loader feed against cache_device")
+    model = build_model(cfg, device=dev, seed=0)
+    names = ("nms", "iou_match") + ROI_NAMES + IMAGE_NAMES
+    feeds = {"loader": cfg, "device_cache": cfg.replace(
+        data=dataclasses.replace(cfg.data, cache_device=True))}
+    per_batch = {
+        "loader": {"nms": 2, **roi_launches(cfg.model.roi_op, 1, 0)},
+        "device_cache": {"nms": 2, **roi_launches(cfg.model.roi_op, 1, 0),
+                         "augment_geometry": 1, "augment_image": 1},
+    }
+    evaluators, results, out = {}, {}, {}
+    for feed, c in feeds.items():
+        ev = evaluators[feed] = Evaluator(c, device=dev)
+        REPLAYS.reset(names)
+        t0 = time.perf_counter()
+        results[feed] = ev.evaluate(model, ds, batch_size=EVAL_BATCH)
+        first_s = time.perf_counter() - t0
+        launches = {k: v for k, v in REPLAYS.read(names).items() if v}
+        want = {k: v * n_batches for k, v in per_batch[feed].items() if v}
+        if launches != want:
+            raise AssertionError(f"cached evaluation {feed}: launches {launches}, expected "
+                                 f"{want}")
+        out[feed] = {"mAP": results[feed]["mAP"], "launches": launches,
+                     "launches_per_batch": per_batch[feed], "first_sweep_s": first_s,
+                     "sweep_s": []}
+    if evaluators["device_cache"]._device_cache is None:
+        raise AssertionError("the cache_device evaluation did not build its device cache")
+    a, b = results["loader"], results["device_cache"]
+    same = set(a) == set(b) and all(np.array_equal(np.asarray(a[k]), np.asarray(b[k]),
+                                                   equal_nan=True) for k in a)
+    if not same:
+        raise AssertionError(f"cache_device mAP {b['mAP']} differs from the loader feed's "
+                             f"{a['mAP']}")
+    for _ in range(CACHED_EVAL_SWEEPS):
+        for feed, ev in evaluators.items():
+            t0 = time.perf_counter()
+            ev.evaluate(model, ds, batch_size=EVAL_BATCH)
+            out[feed]["sweep_s"].append(time.perf_counter() - t0)
+    for feed, rec in out.items():
+        rec["images_per_s"] = CACHED_EVAL_SWEEPS * len(ds) / sum(rec["sweep_s"])
+    cache = evaluators["device_cache"]._device_cache
+    out["device_cache"]["cache_bytes"] = cache.nbytes
+    log(f"  loader feed {out['loader']['images_per_s']:.1f} images/s, cache_device "
+        f"{out['device_cache']['images_per_s']:.1f} images/s (over {CACHED_EVAL_SWEEPS} sweeps "
+        f"each, alternating; the cache's upload {out['device_cache']['first_sweep_s']:.2f} s "
+        f"with the first sweep, {cache.nbytes} bytes); mAP@0.5 {a['mAP']:.6f} from both, every "
+        f"entry equal; launches per batch {per_batch}")
+    del evaluators, cache, model
+    torch.cuda.empty_cache()
+    return {f"evaluate_{feed}": rec["launches"] for feed, rec in out.items()}, out
+
+
 def overfit_config():
     """The recipe of the JAX package's ``benchmarks/map_overfit.py``:
     ``voc_resnet18`` with the ROIAlign head, anchor scales (1, 2, 4), float32,
@@ -3365,14 +3467,17 @@ def int8_map(torch, state, dataset, calibration, cfg, dev, sweep=True):
             "plan": artifact["plan"]}
 
 
-def phase_overfit(torch, cfg=None, device=None, length=48):
+def phase_overfit(torch, cfg=None, device=None, length=48, jax_record=JAX_OVERFIT_MAP):
     """Phase [7], quality: the JAX package's overfit recipe run as
     ``benchmarks/map_overfit.py`` runs it, with the port's ``Trainer``:
     ``train(log_every=5)`` (the val split evaluated every 2 epochs, a save
     every 15), ``save()``, the train-set mAP@0.5 (at least
     ``OVERFIT_MAP_FLOOR``), then a fresh ``Trainer`` that ``restore()``s must
     score the final val mAP within 1e-9; then the same weights in int8.
-    ``cfg``/``device`` default to the recipe on the card."""
+    ``cfg``/``device`` default to the recipe on the card; an FPN ``cfg``
+    counts the multi-level ROIAlign's launches (``tools/fpn_overfit.py``),
+    printed beside ``jax_record``, the JAX package's train-set mAP of the
+    same recipe."""
     from replication_faster_rcnn_tpu_torch import quant
     from replication_faster_rcnn_tpu_torch.data.loader import make_dataset
     from replication_faster_rcnn_tpu_torch.data.synthetic import SyntheticDataset
@@ -3393,7 +3498,8 @@ def phase_overfit(torch, cfg=None, device=None, length=48):
     trainer.logger = quiet_logger(root / "curve.jsonl")
     save_ms = []
     trainer.save = timed(save_ms, trainer.save)
-    names = ("nms", "iou_match", "roi_align", "roi_align_bwd")
+    roi = "roi_multilevel" if cfg.model.fpn else "roi_align"
+    names = ("nms", "iou_match", roi, f"{roi}_bwd")
     REPLAYS.reset(names)
     t0 = time.perf_counter()
     last = trainer.train(log_every=5)
@@ -3401,9 +3507,9 @@ def phase_overfit(torch, cfg=None, device=None, length=48):
     launches = REPLAYS.read(names)
     evals = tc.n_epoch // tc.eval_every_epochs
     eval_batches = evals * -(-len(make_dataset(cfg.data, "val")) // tc.batch_size)
-    # per train step NMS 1, IoU matching 2, ROIAlign 1 + 1; per eval batch NMS 2, ROIAlign 1
+    # per train step NMS 1, IoU matching 2, the ROI op 1 + 1; per eval batch NMS 2, the ROI op 1
     want = {"nms": steps + 2 * eval_batches, "iou_match": 2 * steps,
-            "roi_align": steps + eval_batches, "roi_align_bwd": steps}
+            roi: steps + eval_batches, f"{roi}_bwd": steps}
     if launches != want:
         raise AssertionError(f"expected {want} over {steps} steps and {eval_batches} eval "
                              f"batches, got {launches}")
@@ -3425,7 +3531,7 @@ def phase_overfit(torch, cfg=None, device=None, length=48):
     result = Evaluator(cfg, device=dev).evaluate(trainer.model, ds, batch_size=EVAL_BATCH)
     f32 = result["mAP"]
     log(f"  train-set mAP@0.5 {f32:.4f} (port, float32, on {dev}) beside the JAX package's "
-        f"{JAX_OVERFIT_MAP:.4f} (benchmarks/map_overfit_result.json, a CPU float32 run)")
+        f"{jax_record:.4f} (benchmarks/map_overfit_result*.json, a CPU float32 run)")
     if not f32 >= OVERFIT_MAP_FLOOR:
         raise AssertionError(f"train-set mAP {f32} < {OVERFIT_MAP_FLOOR}: the port did not "
                              "learn the planted rectangles")
@@ -3462,7 +3568,7 @@ def phase_overfit(torch, cfg=None, device=None, length=48):
                       "logged_loss_first_last": [losses[0], losses[-1]],
                       "val_mAP_first_last": [val_curve[0], val_curve[-1]],
                       "final_val_mAP": final_map, "restored_val_mAP": restored_map,
-                      "train_set_mAP": f32, "jax_cpu_record_mAP": JAX_OVERFIT_MAP,
+                      "train_set_mAP": f32, "jax_cpu_record_mAP": jax_record,
                       "int8": int8}
 
 
@@ -3722,7 +3828,7 @@ def phase_resume(torch, name="voc_resnet18", cfg=None, device=None, length=24):
         "step_ms_median": med, "preempted_at": preempted}
 
 
-DATA_LENGTH = 256  # images of [10]'s arms (32 b8 steps an epoch)
+DATA_LENGTH = 192  # images of [10]'s arms (24 b8 steps an epoch)
 DATA_SHORT = 48  # images of [10]'s bitwise and bucket runs (6 steps an epoch)
 DATA_SPANS = ("data/fetch", "data/build", "data/device_put", "step/dispatch", "data/cache_upload")
 BUCKETS = ((480, 480), (600, 600), (720, 720))
@@ -3810,6 +3916,61 @@ def sync_checked(torch, trainer, after=2):
     return trainer
 
 
+def check_loader_faults(dataset, bsz):
+    """[10]'s sample-fault containment on the host: an ``ioerror`` armed at
+    ``loader.fetch`` on two indices (each read and its retry fail, two rules
+    of ``max_fires=2``) through the thread loader, one worker, in order: two
+    substitutions by the next index, the epoch's other batches untouched;
+    with ``sample_skip_budget=1`` the same faults raise the budget's
+    error."""
+    from replication_faster_rcnn_tpu_torch.data.loader import DataLoader
+    from replication_faster_rcnn_tpu_torch.faultlib import failpoints
+
+    # the reads in order: index 0 (hits 0-1 fail, index 1 substitutes it at
+    # hit 2), indices 1..bsz (hits 3..), then the first index of the second
+    # batch + 1 fails twice (hits after = bsz + 3, + 4) and the next one
+    # substitutes it
+    second = bsz + 1
+    spec = f"loader.fetch:ioerror:1.0:1:0:2:0,loader.fetch:ioerror:1.0:2:0:2:{bsz + 3}"
+    out = {}
+    for budget in (2, 1):
+        loader = DataLoader(dataset, batch_size=bsz, shuffle=False, prefetch=1, num_workers=1,
+                            sample_skip_budget=budget)
+        events = []
+        failpoints.configure(spec, sink=events.append)
+        try:
+            got = []
+            error = None
+            try:
+                for batch in loader:
+                    got.append(batch)
+                    if len(got) == 2:
+                        break
+            except RuntimeError as e:
+                error = str(e)
+        finally:
+            failpoints.disarm()
+        out[budget] = {"batches": len(got), "error": error,
+                       "faults": [(e["seq"], e["index"]) for e in events]}
+        if budget == 2:
+            if error is not None or len(got) != 2:
+                raise AssertionError(f"loader.fetch faults with budget 2: {error}")
+            want = [1] + list(range(1, bsz)), [bsz] + [second + 1] + list(range(bsz + 2, 2 * bsz))
+            for b, idxs in zip(got, want):
+                for j, i in enumerate(idxs):
+                    if not np.array_equal(b["image"][j], dataset[i]["image"]):
+                        raise AssertionError(f"loader.fetch faults: slot {j} is not sample {i}")
+            faulted = sorted({i for _, i in out[budget]["faults"]})
+            if faulted != [0, second]:
+                raise AssertionError(f"loader.fetch faults landed on {faulted}")
+        elif error is None or "sample-skip budget exhausted: 2 failed samples" not in error:
+            raise AssertionError(f"loader.fetch faults with budget 1 did not raise: {error}")
+    log(f"  loader.fetch ioerror on samples 0 and {second} (each read and its retry): two "
+        f"substitutions by the next index with budget 2; budget 1 raises "
+        f"'{out[1]['error'][:60]}...'")
+    return out
+
+
 def phase_data_path(torch, cfg=None, device=None, length=DATA_LENGTH, short=DATA_SHORT):
     """Phase [10], the training data path: ``voc_resnet18`` (``cfg``) at
     600x600 b8 through ``Trainer.train`` on synthetic data, four feeds
@@ -3847,7 +4008,7 @@ def phase_data_path(torch, cfg=None, device=None, length=DATA_LENGTH, short=DATA
     per_step = {"nms": 1, "iou_match": 2, **roi_launches(cfg.model.roi_op, 1, 1)}
     log(f"[10] the data path: {cfg.data.image_size} batch {bsz}, {length} synthetic images, "
         "arms (a) float32 no prefetch, (b) uint8 + prefetch 2, (c) (b) + augment_device, "
-        "(d) cache_device uint8 flip + scale")
+        "(d) cache_device uint8 flip + scale, (e) (b) fed by the process loader")
 
     def config(epochs, **data):
         base = dict(dataset="synthetic", augment_hflip=False)
@@ -3887,10 +4048,11 @@ def phase_data_path(torch, cfg=None, device=None, length=DATA_LENGTH, short=DATA
                     augment_scale=(0.75, 1.25), augment_translate=0.1, **uint8),
         "d": config(3, prefetch_device=2, cache_device=True, augment_hflip=True,
                     augment_scale=(0.75, 1.25), **uint8),
+        "e": config(3, prefetch_device=2, loader_mode="process", **uint8),
     }
     image_per_step = {"a": {}, "b": {},
                       "c": {"augment_prepare": 1, "augment_image": 1},
-                      "d": {"augment_prepare": 1, "augment_image": 1}}
+                      "d": {"augment_prepare": 1, "augment_image": 1}, "e": {}}
     out, trainers = {}, {}
     steps = 3 * (length // bsz)
     for arm, c in arms.items():
@@ -3942,10 +4104,25 @@ def phase_data_path(torch, cfg=None, device=None, length=DATA_LENGTH, short=DATA
     diff = state_differences(torch, trainers["d"], ref_d)
     if diff:
         raise AssertionError(f"(d) cache-fed differs from the loader-fed run: {diff[:5]}")
-    del trainers, ref_b, ref_d
+    diff = state_differences(torch, trainers["e"], trainers["b"])
+    if diff:
+        raise AssertionError(f"(e) fed by the process loader differs from (b): {diff[:5]}")
+    # the process loader's batches against the thread loader's, one epoch
+    from replication_faster_rcnn_tpu_torch.data.loader import DataLoader
+
+    ds8 = dataset(arms["b"], length)
+    thread_b, process_b = (list(DataLoader(ds8, bsz, seed=0, worker_mode=mode,
+                                           num_workers=4))
+                           for mode in ("thread", "process"))
+    if len(thread_b) != len(process_b) or not all(
+            np.array_equal(a[k], b[k]) for a, b in zip(thread_b, process_b) for k in a):
+        raise AssertionError("the process loader's batches differ from the thread loader's")
+    del trainers, ref_b, ref_d, thread_b, process_b
     log(f"  (b) bitwise its run with prefetch off; (d) bitwise the loader-fed "
-        "augment_scale_device run; the prefetching arms' dispatches after the first two ran "
-        "under sync-debug 'error'")
+        "augment_scale_device run; (e) (the process loader, 4 forked workers) bitwise (b), its "
+        f"{length // bsz} batches of an epoch bitwise the thread loader's; the prefetching "
+        "arms' dispatches after the first two ran under sync-debug 'error'")
+    out["loader_faults"] = check_loader_faults(ds8, bsz)
 
     # K=2 with prefetch against K=1, and kill + resume with prefetch
     short_cfg = config(2, prefetch_device=2, augment_hflip=True, **uint8)
@@ -4031,13 +4208,13 @@ def phase_data_path(torch, cfg=None, device=None, length=DATA_LENGTH, short=DATA
         f"largest and replayed after it, captured bitwise eager, per step NMS 1, IoU 2, "
         f"ROIPool 1 + 1, the resample 1 off the base canvas: {buckets}")
     shutil.rmtree(root, ignore_errors=True)
-    launches = {f"data_{arm}": out[arm]["launches"] for arm in out}
+    launches = {f"data_{arm}": out[arm]["launches"] for arm in arms}
     launches.update({f"data_buckets_{k}": v["launches"] for k, v in buckets.items()})
     out["buckets"] = buckets
     return launches, out
 
 
-BENCH_RUNS = 3  # benchmark runs per mode, train and eval alternating
+BENCH_RUNS = 2  # benchmark runs per mode, train and eval alternating
 BENCH_COUNT_STEPS = 3  # BENCH_STEPS of the in-process runs that count launches
 # the JAX benchmark's breakdown keys
 BREAKDOWN_KEYS = ("trunk_ms", "rpn_heads_ms", "proposal_nms_ms", "targets_ms", "head_loss_ms",
@@ -5201,6 +5378,238 @@ def phase_fpn_bench(torch):
     return lines
 
 
+PRESET_ROIS = 128  # sampled rois an image in training (roi_targets.n_sample)
+
+
+def check_preset_kernels(torch, name, cfg, dev):
+    """[13]'s kernel sites at one preset's training shapes, held against
+    the plain versions as [3] holds them: the ROI op's forward and backward
+    on a bfloat16 38x38 map of the trunk's channels (1024 for ResNet50, 512
+    for VGG16), b x 128 rois; IoU matching at the anchor site (the preset's
+    anchors x ``max_boxes`` gt columns, column argmax) and the proposal site
+    (600 proposals + the gt); the proposal NMS b x 12000 -> 600."""
+    from replication_faster_rcnn_tpu_torch.models.resnet import trunk_channels
+    from replication_faster_rcnn_tpu_torch.models.vgg import VGG16_TRUNK_CHANNELS
+    from replication_faster_rcnn_tpu_torch.ops.anchors import make_anchors
+
+    b, g = cfg.train.batch_size, cfg.data.max_boxes
+    channels = (VGG16_TRUNK_CHANNELS if cfg.model.backbone == "vgg16"
+                else trunk_channels(cfg.model.backbone))
+    shape = (b,) + FEAT[:2] + (channels,)
+    rng = np.random.default_rng(20)
+    bf16 = torch.bfloat16
+    res = {}
+    feat = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(dev).to(bf16)
+    rois = torch.from_numpy(rand_boxes(rng, (b, PRESET_ROIS), 600, 300)
+                            * (FEAT[0] / 600)).to(dev)
+    tag = f"{name} bf16 {b}x{PRESET_ROIS} {list(shape[1:])}"
+    grad = torch.from_numpy(rng.normal(0, 1, (b, PRESET_ROIS, 7, 7, channels))
+                            .astype(np.float32)).to(dev).to(bf16)
+    if cfg.model.roi_op == "align":
+        res["roi_fwd"] = check_roi(torch, f"{tag} -> bf16", feat, rois, bf16)
+        res["roi_bwd"] = check_roi_bwd(torch, f"bf16 grad {tag}", grad, rois, shape, bf16)
+    else:
+        res["roi_fwd"] = check_roi_pool(torch, tag, feat, rois)
+        res["roi_bwd"] = check_roi_pool_bwd(torch, tag, grad, feat, rois)
+    del feat, grad
+    anchors = torch.from_numpy(make_anchors(cfg.anchors, FEAT[:2])).to(dev)[None]
+    gt = torch.from_numpy(rand_boxes(rng, (b, g), 450, 300)).to(dev)
+    counts = torch.from_numpy(rng.integers(0, g + 1, b)).to(dev)
+    counts[0] = g  # one image with every gt slot real
+    gmask = torch.arange(g, device=dev)[None, :] < counts[:, None]
+    res["iou_anchor"] = check_iou(torch, f"{name} anchors {b}x{anchors.shape[1]}x{g} + column "
+                                  "argmax", anchors, gt, gmask, True)
+    cand = torch.cat([torch.from_numpy(rand_boxes(rng, (b, 600), 500, 250)).to(dev), gt], dim=1)
+    res["iou_proposal"] = check_iou(torch, f"{name} proposals {b}x{600 + g}x{g}", cand, gt, gmask,
+                                    False)
+    boxes = torch.from_numpy(clustered_boxes(rng, b, 12000)).to(dev)
+    scores = torch.from_numpy(-np.sort(-rng.uniform(0, 1, (b, 12000)), axis=1)
+                              .astype(np.float32)).to(dev)
+    res["nms_train"] = check_nms(torch, f"{name} clustered {b}x12000->600 thr 0.7", boxes, scores,
+                                 0.7, 600, mask=torch.isfinite(scores), assume_sorted=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_preset_train(torch, name, cfg=None, device=None):
+    """Phase [13] for one preset: ``name`` trained at its own configuration
+    (``cfg`` defaults to it: 600x600, bfloat16 compute, the preset's
+    anchors, ``max_boxes`` and batch) on ``SyntheticDataset``, first the
+    kernels at its shapes (:func:`check_preset_kernels`). Then a captured
+    ``Trainer`` and, after it is freed, an eager one from the same seed,
+    each ``2 + TRAIN_REPS`` steps on the same two staged batches (the
+    captured trainer's first call captures, then replays), the last
+    ``TRAIN_REPS`` timed under sync debug "error" with the launch counters
+    reset just before and read just after (per step NMS 1, IoU matching 2,
+    the preset's ROI forward and backward 1); both runs bitwise equal in
+    every step's metrics and in the parameters, BatchNorm statistics and
+    optimizer state they end with. Each prints its step ms and images/s,
+    the profiler's idle share over 3 more steps, the peak allocated memory
+    and (captured) the graph pool: the reserved memory the capture keeps
+    after ``empty_cache()``. Then one forward and backward replayed under
+    ``ops.reference_scope()`` with the eager pass's draws (the VGG16 tail's
+    dropout masks included): targets and losses bitwise, gradients within
+    ``GRAD_RTOL``."""
+    import dataclasses
+    import gc
+
+    from replication_faster_rcnn_tpu_torch import get_config, ops
+    from replication_faster_rcnn_tpu_torch.data.synthetic import SyntheticDataset
+    from replication_faster_rcnn_tpu_torch.models.resnet import BatchNorm
+    from replication_faster_rcnn_tpu_torch.train.train_step import (
+        KEEP_MASK_NAMES, compute_losses, make_train_step)
+    from replication_faster_rcnn_tpu_torch.train.trainer import Trainer
+
+    cfg = cfg or get_config(name)
+    dev = torch.device(device or "cuda")
+    bsz, op = cfg.train.batch_size, cfg.model.roi_op
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, dataset="synthetic"))
+    log(f"[13] main path: train {name} {cfg.data.image_size} batch {bsz} ({cfg.model.backbone}, "
+        f"ROI op {op}, {cfg.model.num_classes} classes, "
+        f"{len(cfg.anchors.ratios) * len(cfg.anchors.scales)} anchors, max_boxes "
+        f"{cfg.data.max_boxes}), compute {cfg.model.compute_dtype}; captured, then eager")
+    kernels = check_preset_kernels(torch, name, cfg, dev)
+    dataset = SyntheticDataset(cfg.data, length=2 * bsz)
+    names = ("nms", "iou_match") + ROI_NAMES
+    want = {"nms": 1, "iou_match": 2, **roi_launches(op, 1, 1)}
+    gib = 2**-30
+    runs, ends = {}, {}
+    for tag in ("captured", "eager"):
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        allocated0 = torch.cuda.memory_allocated(dev)
+        tr = Trainer(cfg, dataset, device=dev, seed=0)
+        if tag == "eager":
+            tr.step_fn = make_train_step(cfg, capture=False)
+        tr.loader.set_epoch(0)
+        batches = [tr.stage_batch(b) for b in tr.loader]
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved(dev)
+        REPLAYS.reset(names)
+        rows = [tr.train_one_batch(staged=batches[i]) for i in range(2)]
+        first = REPLAYS.read(names)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        pool = torch.cuda.memory_reserved(dev) - reserved0
+        if first != {k: 2 * v for k, v in want.items()}:
+            raise AssertionError(f"{name} {tag}: first 2 steps launched {first}, expected "
+                                 f"{want} a step")
+        REPLAYS.reset(names)
+
+        def step(i, tr=tr, rows=rows, batches=batches):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                rows.append(tr.train_one_batch(staged=batches[i % 2]))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        ms = timed_steps(torch, step, TRAIN_REPS)
+        launches = REPLAYS.read(names)
+        if launches != {k: v * TRAIN_REPS for k, v in want.items()}:
+            raise AssertionError(f"{name} {tag}: expected per step {want}, got {launches} over "
+                                 f"{TRAIN_REPS} steps")
+        host = [{k: float(v) for k, v in m.items()} for m in rows]
+        bad = [i for i, r in enumerate(host) if r["skipped"] != 0.0 or not all(
+            np.isfinite(r[k]) for k in ("loss", "head_cls_loss", "head_reg_loss", "grad_norm"))]
+        if bad:
+            raise AssertionError(f"{name} {tag}: non-finite or withheld steps {bad}: "
+                                 f"{host[bad[0]]}")
+        ends[tag] = (rows, {k: v.detach().cpu() for k, v in tr.model.state_dict().items()},
+                     {k: v.cpu() for k, v in tr.state.optimizer.state_dict().items()})
+        peak = (torch.cuda.max_memory_allocated(dev) - allocated0) * gib
+        REPLAYS.reset(names)
+        timeline = device_timeline(torch, lambda: [tr.train_one_batch(staged=batches[i % 2])
+                                                   for i in range(3)], 3, op)
+        profiled = REPLAYS.read(names)
+        if profiled != {k: v * 3 for k, v in want.items()}:
+            raise AssertionError(f"{name} {tag}: expected per step {want}, got {profiled} over "
+                                 "the 3 profiled steps")
+        idle = None if timeline is None else timeline["device_idle_share"]
+        med = statistics.median(ms)
+        runs[tag] = {"step_ms": med, "step_ms_all": ms, "images_per_s": bsz / med * 1e3,
+                     "launches": launches, "peak_allocated_gib": peak,
+                     "graph_pool_gib": pool * gib if tag == "captured" else None,
+                     "reserved_after_first_steps_gib": pool * gib,
+                     "device_idle_share": idle, "device_timeline": timeline,
+                     "losses_first_last": [host[0]["loss"], host[-1]["loss"]]}
+        log(f"  {name} {tag}: {med:.2f} ms a step (median of {TRAIN_REPS}, CUDA events), "
+            f"{bsz / med * 1e3:.1f} images/s, launches {launches} in {TRAIN_REPS} steps, idle "
+            f"share {'not measured' if idle is None else round(idle, 4)}, peak allocated "
+            f"{peak:.2f} GiB, reserved kept after the first 2 steps {pool * gib:.3f} GiB, loss "
+            f"{host[0]['loss']:.4f} -> {host[-1]['loss']:.4f}")
+        if tag == "captured":  # freed before the eager trainer is built
+            del tr, rows, batches
+    # the captured and the eager runs, bitwise
+    (cap_rows, cap_sd, cap_opt), (eag_rows, eag_sd, eag_opt) = ends["captured"], ends["eager"]
+    mdiff = metrics_differences(torch, [{k: v.cpu() for k, v in m.items()} for m in cap_rows],
+                                [{k: v.cpu() for k, v in m.items()} for m in eag_rows])
+    sdiff = [k for k in eag_sd if not bitwise(torch, cap_sd[k], eag_sd[k])]
+    odiff = [k for k in eag_opt if not bitwise(torch, cap_opt[k], eag_opt[k])]
+    if mdiff or sdiff or odiff:
+        raise AssertionError(f"{name}: captured vs eager differ in metrics {mdiff[:5]}, state "
+                             f"{sdiff[:5]}, optimizer {odiff[:5]}")
+    del ends, cap_sd, eag_sd
+    log(f"  {name}: {2 + TRAIN_REPS} captured steps bitwise the same steps eager (every "
+        "metric, the parameters, BatchNorm statistics, mu, nu, count)")
+
+    # one step's forward + backward on the eager trainer, kernels against
+    # plain, the same draws
+    model, state = tr.model, tr.state
+    params = list(model.parameters())
+
+    def pass_(reference, draws):
+        model.zero_grad(set_to_none=True)
+        record = {}
+        with ops.reference_scope(reference):
+            total, (metrics, _) = compute_losses(model, cfg, batches[1], state.generator, draws,
+                                                 record)
+            total.backward()
+        grads = [None if p.grad is None else p.grad.detach().clone() for p in params]
+        for mod in model.modules():
+            if isinstance(mod, BatchNorm):
+                mod.pending_stats = None
+        return metrics, record, grads
+
+    km, krec, kgrads = pass_(False, None)
+    masks = sorted(k for k in krec["draws"] if k in KEEP_MASK_NAMES)
+    if (cfg.model.backbone == "vgg16") != bool(masks):
+        raise AssertionError(f"{name}: dropout masks recorded {masks}")
+    before = read_counters()
+    pm, prec, pgrads = pass_(True, krec["draws"])
+    if before != read_counters():
+        raise AssertionError(f"{name}: a kernel launched inside reference_scope")
+    for k, v in krec["targets"].items():
+        if not torch.equal(v, prec["targets"][k]):
+            raise AssertionError(f"{name}: target {k!r} differs between the kernel and plain "
+                                 "passes")
+    for k in ("loss", "rpn_cls_loss", "rpn_reg_loss", "head_cls_loss", "head_reg_loss",
+              "n_pos_rpn", "n_pos_head"):
+        if not torch.equal(km[k], pm[k]):
+            raise AssertionError(f"{name}: {k} differs: kernel {float(km[k])} plain "
+                                 f"{float(pm[k])}")
+    grad_err = 0.0
+    for a, c in zip(kgrads, pgrads):
+        if (a is None) != (c is None):
+            raise AssertionError(f"{name}: a parameter has a gradient in one pass only")
+        if a is not None:
+            grad_err = max(grad_err, float((a.float() - c.float()).norm())
+                           / max(float(c.float().norm()), 1e-30))
+    if grad_err > GRAD_RTOL:
+        raise AssertionError(f"{name}: gradients differ by relative L2 {grad_err} > {GRAD_RTOL}")
+    model.zero_grad(set_to_none=True)
+    log(f"  {name}: kernel pass == plain pass (same state and draws{', dropout masks ' + str(masks) if masks else ''}): targets and 4 "
+        f"losses bitwise; gradients max relative L2 error {grad_err:.3e} (tolerance {GRAD_RTOL})")
+    del tr, batches, model, state, params, kgrads, pgrads
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"config": name, "batch": bsz, "captured": runs["captured"], "eager": runs["eager"],
+           "kernels": kernels, "grad_max_rel_l2_err_vs_plain": grad_err, "dropout_masks": masks}
+    return ({"captured": runs["captured"]["launches"], "eager": runs["eager"]["launches"]}, out)
+
+
 def image_kernel_rows(image, by_path):
     """The ``kernels`` line's rows of the data path's five kernels: [3]'s
     times at 600x600 b8 uint8 (all four row mixes' main one: flip,
@@ -5328,6 +5737,8 @@ def main():
     ptlaunches, ptlaunches_eager, train_pool = timed_phase("[6] train pool", phase_train, torch,
                                                            "voc_resnet18")
     elaunches, evaluate = timed_phase("[7] evaluate", phase_evaluate, torch)
+    celaunches, evaluate["cached"] = timed_phase("[7] cached evaluate", phase_cached_evaluate,
+                                                 torch)
     olaunches, overfit = timed_phase("[7] overfit", phase_overfit, torch)
     evaluate["overfit"] = overfit
     rlaunches, resume = timed_phase("[8] resume", phase_resume, torch)
@@ -5340,6 +5751,12 @@ def main():
     ftlaunches, ftlaunches_eager, fpn_train = timed_phase("[12] FPN train", phase_fpn_train,
                                                           torch)
     fpn_bench = timed_phase("[12] FPN bench", phase_fpn_bench, torch)
+    preset_launches, preset_train = {}, {}
+    for preset in NEW_PRESETS:
+        got, preset_train[preset] = timed_phase(f"[13] train {preset}", phase_preset_train,
+                                                torch, preset)
+        preset_launches[f"train_{preset}"] = got["captured"]
+        preset_launches[f"train_{preset}_eager"] = got["eager"]
     log(f"phase walls (s): {json.dumps(walls)}")
     paths = {"serve": launches, "serve_pool": plaunches, "serve_presets": slaunches,
              "serve_int8": qlaunches, "serve_int8_presets": iplaunches, "train": tlaunches,
@@ -5348,7 +5765,8 @@ def main():
              "evaluate": elaunches, "overfit_train": olaunches, **rlaunches, **blaunches,
              **dlaunches, "serve_stack": klaunches, "serve_fpn": flaunches,
              "serve_int8_fpn": fqlaunches,
-             "train_fpn": ftlaunches, "train_fpn_eager": ftlaunches_eager}
+             "train_fpn": ftlaunches, "train_fpn_eager": ftlaunches_eager, **celaunches,
+             **preset_launches}
 
     def by_path(key):
         """A counter's launches on every main path that reads it."""
@@ -5572,6 +5990,34 @@ def main():
                     "call per weight",
         },
     ]
+    # [13]'s sites: each preset's training shapes, and its steps' device ms
+    from replication_faster_rcnn_tpu_torch import get_config
+
+    site_keys = {"nms_mask_walk": ("nms_train", "nms_device_ms_per_step", None),
+                 "roi_align_fwd": ("roi_fwd", "roi_device_ms_per_step", "forward"),
+                 "roi_align_bwd": ("roi_bwd", "roi_device_ms_per_step", "backward"),
+                 "roi_pool_fwd": ("roi_fwd", "roi_device_ms_per_step", "forward"),
+                 "roi_pool_bwd": ("roi_bwd", "roi_device_ms_per_step", "backward"),
+                 "iou_match": ("iou_anchor", "iou_match_device_ms_per_step", None)}
+    for row in kernels:
+        if row["name"] not in site_keys:
+            continue
+        key, step_key, part = site_keys[row["name"]]
+        sites = {}
+        for preset, rec in preset_train.items():
+            op = get_config(preset).model.roi_op
+            if row["name"].startswith("roi_") and not row["name"].startswith(f"roi_{op}"):
+                continue
+            site = {k: rec["kernels"][key][k] for k in timing}
+            if row["name"] == "iou_match":
+                site["proposal_site"] = {k: rec["kernels"]["iou_proposal"][k] for k in timing}
+            for tag in ("captured", "eager"):
+                timeline = rec[tag]["device_timeline"] or {}
+                value = timeline.get(step_key)
+                site[f"train_step_device_ms_{tag}"] = (
+                    value if part is None or value is None else value[part])
+            sites[preset] = site
+        row["preset_training_sites"] = sites
     kernels += image_kernel_rows(image, by_path)
     per_replay = {"serve_bf16 voc_resnet18": stack["bf16"]["launches_per_replay"],
                   "serve_int8 voc12_resnet18_align": stack["int8"]["launches_per_replay"],
@@ -5596,7 +6042,8 @@ def main():
                     "data_path": data_path, "serving_stack": stack,
                     "fpn": {"serve": fpn_serve, "serve_int8": fpn_int8, "train": fpn_train,
                             "bench": fpn_bench},
-                    "int8_presets": int8_presets, "phase_walls_s": walls, "card": card}))
+                    "int8_presets": int8_presets, "preset_train": preset_train,
+                    "phase_walls_s": walls, "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

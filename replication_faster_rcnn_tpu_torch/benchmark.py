@@ -197,7 +197,7 @@ def _sync(device: torch.device) -> None:
 
 
 def _capture_trace(profile_dir, run: Callable[[], Any], device: torch.device,
-                   n_steps=TRACE_STEPS) -> str:
+                   n_steps: Optional[int] = None) -> str:
     """Short ``torch.profiler`` capture of ``n_steps`` more calls of the
     already-warm ``run`` (after ``TRACE_WARMUP_STEPS`` uncaptured ones under
     the profiler), after the measurement. Each call is waited for before the
@@ -207,6 +207,7 @@ def _capture_trace(profile_dir, run: Callable[[], Any], device: torch.device,
     reason (the metric is kept)."""
     from replication_faster_rcnn_tpu_torch.utils.profiling import trace
 
+    n_steps = TRACE_STEPS if n_steps is None else n_steps
     try:
         with trace(profile_dir, warmup_steps=TRACE_WARMUP_STEPS) as step:
             for _ in range(TRACE_WARMUP_STEPS + n_steps):

@@ -25,7 +25,7 @@ error naming the ROADMAP Queue A item that brings it (never silently
 ignored): ``--strict``, ``--threadsan`` (item 7); the mesh, process and
 ZeRO flags and ``train --elastic`` (item 8); ``--remat``,
 ``--frozen-bn``, ``--norm`` and the ResNeXt / wide backbones (item 6);
-``--loader-mode process`` (item 2); ``train --pretrained-backbone``,
+``train --pretrained-backbone``,
 ``train --debug-nans`` and ``predict --output`` (item 9). The
 ``fleet``, ``chaos``, ``rollout`` (item 5), ``check``, ``audit`` (item 7),
 ``warmup`` and ``viz`` (item 9) subcommands are not ported yet.
@@ -52,7 +52,6 @@ from typing import List, Optional
 
 __all__ = ["main"]
 
-ITEM_2 = "ROADMAP Queue A item 2 (the loader's process workers)"
 ITEM_6 = "ROADMAP Queue A item 6 (backbones and model knobs)"
 ITEM_7 = "ROADMAP Queue A item 7 (fault injection and static gates)"
 ITEM_8 = "ROADMAP Queue A item 8 (distributed: parallel/)"
@@ -74,16 +73,6 @@ class _NotPorted(argparse.Action):
 
     def __call__(self, parser, namespace, values, option_string=None):
         parser.error(f"{option_string} is not ported yet: {self.item}")
-
-
-class _LoaderMode(argparse.Action):
-    """``--loader-mode``: ``thread`` is the port's loader; ``process`` is
-    not ported yet."""
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        if values == "process":
-            parser.error(f"{option_string} process is not ported yet: {ITEM_2}")
-        setattr(namespace, self.dest, values)
 
 
 class _Backbone(argparse.Action):
@@ -127,6 +116,8 @@ def _build_config(args):
         data_kw["image_size"] = (args.image_size, args.image_size)
     if arg("loader_workers") is not None:
         data_kw["loader_workers"] = args.loader_workers
+    if arg("loader_mode"):
+        data_kw["loader_mode"] = args.loader_mode
     if arg("augment_hflip"):
         data_kw["augment_hflip"] = True
     elif arg("no_augment_hflip"):
@@ -654,8 +645,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--loader-workers", type=int, default=None,
                    help="host input-pipeline worker threads")
     p.add_argument("--loader-mode", default=None, choices=[None, "thread", "process"],
-                   action=_LoaderMode, help="'thread' (the port's loader); 'process' is not "
-                                            "ported yet")
+                   help="'thread' (GIL-releasing decode) or 'process' (forked workers)")
     p.add_argument("--device-normalize", action="store_true",
                    help="ship uint8 images and normalize on the card")
     p.add_argument("--cache-ram", action="store_true",

@@ -4,9 +4,8 @@ training and evaluation paths read.
 Field names, defaults and presets mirror ``replication_faster_rcnn_tpu.config``
 so a reader can hold the two side by side; knobs the port does not implement
 yet (group norm, frozen BN, the mesh's optimizer fields ``backend``,
-``shard_opt_state`` and ``grad_allreduce_dtype``, the loader's
-``loader_mode="process"`` workers) are left out rather than accepted and
-ignored. ``FleetConfig`` holds the fields the port reads: the engine's
+``shard_opt_state`` and ``grad_allreduce_dtype``) are left out rather than
+accepted and ignored. ``FleetConfig`` holds the fields the port reads: the engine's
 ``slo_*`` and ``serve``'s ``drain_grace_s``; the fleet router's fields come
 with the router. The data path is the JAX package's: the uint8 feed
 (``device_normalize``), the RAM cache, the host and on-device augmentations,
@@ -144,8 +143,11 @@ class DataConfig:
     use_difficult: bool = False
     pixel_mean: Tuple[float, float, float] = (0.485, 0.456, 0.406)
     pixel_std: Tuple[float, float, float] = (0.229, 0.224, 0.225)
-    # threaded loader (data/loader.py): -1 = min(4, the cores this process may use)
+    # loader workers (data/loader.py): -1 = min(4, the cores this process may use)
     loader_workers: int = -1
+    # "thread" scales the decode that releases the interpreter lock (the host
+    # library's); "process" (forked workers) scales sample work that holds it
+    loader_mode: str = "thread"  # thread | process
     loader_prefetch: int = 2  # batches built ahead of the consumer
     # memoize decoded samples in host RAM (data/cache.py): the first epoch
     # pays the decode, later ones a copy

@@ -3,13 +3,20 @@ package's ``eval/evaluator.py`` and of ``train/warmup.py::make_int8_infer_fn``).
 
 :func:`make_infer_fn` is forward + decode as one function, with flip
 test-time augmentation when ``eval.tta_hflip`` is set; the serving engine
-builds one per bucket. :class:`Evaluator` runs it over a dataset (the
-threaded loader builds the batches on the host) and scores the detections
-on the host: VOC mAP@``eval.iou_thresh`` or the COCO summary.
+builds one per bucket. :class:`Evaluator` runs it over a dataset and scores
+the detections on the host: VOC mAP@``eval.iou_thresh`` or the COCO
+summary. Its feed is chosen as the JAX evaluator's: with
+``data.cache_device`` the evaluation set is uploaded to the card once per
+dataset (``data/device_cache.py::DeviceCache`` with ``keep_host_meta``) and
+each batch gathers its images there (the image kernels), the ground truth
+read from the host copy of the boxes and labels; otherwise the thread
+loader builds the batches on the host, over a ``data/cache.py::CachedView``
+kept across calls when ``data.loader_cache_ram`` is set. Evaluation always
+uses thread workers, as JAX's does: forking a process that holds a CUDA
+context in the middle of training is what ``data/loader.py`` warns about.
 :func:`summary_scalars` flattens a result into the scalars the trainer logs.
 
-Not ported: the data-parallel eval mesh, the strict-mode gate and the
-device and RAM caches of the evaluation set.
+Not ported: the data-parallel eval mesh and the strict-mode gate.
 """
 
 from __future__ import annotations
@@ -141,6 +148,9 @@ class Evaluator:
         self.config = config
         self.device = resolve_device(device)
         self.model = model
+        # the evaluation set's caches, kept across calls for the same dataset
+        self._device_cache_base = self._device_cache = None
+        self._cached_base = self._cached_view = None
 
     def _model(self, model_or_params: ModelOrParams) -> nn.Module:
         if isinstance(model_or_params, nn.Module):
@@ -162,17 +172,22 @@ class Evaluator:
         finally:
             model.train(was_training)
 
-    def _predict(self, model: nn.Module, images: np.ndarray,
-                 reference: bool = False) -> Dict[str, np.ndarray]:
+    def _predict(self, model: nn.Module, images, reference: bool = False
+                 ) -> Dict[str, np.ndarray]:
+        """Detections of an NHWC batch: a numpy array (uint8 images are
+        normalized by the model, as on the JAX side) or a tensor on the
+        model's device."""
         dev = next(model.parameters()).device
-        batch = torch.from_numpy(np.ascontiguousarray(images, np.float32)).to(dev)
+        batch = images if isinstance(images, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(images)).to(dev)
         h, w = batch.shape[1:3]
         out = make_infer_fn(model, self.config, (h, w))(batch, reference=reference)
         return {k: v.cpu().numpy() for k, v in out.items()}
 
     def predict_batch(self, model_or_params: ModelOrParams, images: np.ndarray,
                       reference: bool = False) -> Dict[str, np.ndarray]:
-        """Detections of one NHWC float32 batch, as numpy arrays of [N, D, ...]."""
+        """Detections of one NHWC batch (float32, or uint8 normalized by the
+        model), as numpy arrays of [N, D, ...]."""
         with self._inference(model_or_params) as model:
             return self._predict(model, images, reference)
 
@@ -185,16 +200,76 @@ class Evaluator:
                       iou_thresh=self.config.eval.iou_thresh,
                       use_07_metric=self.config.eval.use_07_metric)
 
+    def _evaluate_cached(self, model: nn.Module, dataset, batch_size: int,
+                         max_images: Optional[int]) -> Dict[str, Any]:
+        """The device-resident sweep (JAX ``_evaluate_cached``): the images
+        go to the card once per dataset, then each batch costs the host an
+        index vector; the gather runs on the card (the image kernels through
+        ``materialize_batch``). The tail is padded to ``batch_size`` with
+        its last index, as JAX pads it, and only its real rows are scored.
+        Ground truth comes from the cache's ``host_meta``."""
+        from replication_faster_rcnn_tpu_torch.data.device_cache import (
+            DeviceCache,
+            materialize_batch,
+        )
+
+        if self._device_cache_base is not dataset:
+            self._device_cache_base = dataset
+            self._device_cache = DeviceCache(dataset, device=self.device, keep_host_meta=True)
+        cache = self._device_cache
+        meta = cache.host_meta
+        dev = cache.arrays["image"].device
+        tracer = tspans.current_tracer()
+        detections: List[Dict[str, np.ndarray]] = []
+        gts: List[Dict[str, np.ndarray]] = []
+        for start in range(0, len(cache), batch_size):
+            idxs = np.arange(start, min(start + batch_size, len(cache)), dtype=np.int32)
+            k = len(idxs)
+            if k < batch_size:  # pad the tail to the batch
+                idxs = np.concatenate([idxs, np.full(batch_size - k, idxs[-1], np.int32)])
+            with tracer.span("eval/infer", cat="eval", feed="device_cache"):
+                sel = {"idx": torch.from_numpy(idxs).to(dev)}
+                out = self._predict(model, materialize_batch(cache.arrays, sel)["image"])
+            for i in range(k):
+                j = start + i
+                valid = out["valid"][i]
+                detections.append({key: out[key][i][valid] for key in ("boxes", "scores",
+                                                                        "classes")})
+                lab = meta["labels"][j]
+                diff = meta.get("difficult")
+                diff = diff[j] if diff is not None else np.zeros_like(lab, bool)
+                real = lab >= 0
+                gts.append({"boxes": meta["boxes"][j][real], "labels": lab[real],
+                            "ignore": diff[real]})
+            if max_images is not None and len(detections) >= max_images:
+                break
+        return self._score(detections, gts)
+
     def evaluate(self, model_or_params: ModelOrParams, dataset, batch_size: int = 8,
                  max_images: Optional[int] = None) -> Dict[str, Any]:
         """Detect over ``dataset`` in order and score against its ground
         truth: ``{'mAP', 'ap_per_class', ...}`` as the JAX evaluator returns
-        it. A short tail batch runs at its own size (the outputs of an image
-        do not depend on the others in its batch, so nothing is padded).
-        Difficult objects are ground truth marked ``ignore``."""
+        it. The feed follows the config (the module docstring): the device
+        cache, or the loader over the dataset or its RAM cache. In the
+        loader feed a short tail batch runs at its own size (the outputs of
+        an image do not depend on the others in its batch, so nothing is
+        padded). Difficult objects are ground truth marked ``ignore``."""
         data = self.config.data
+        if data.cache_device:
+            with self._inference(model_or_params) as model:
+                return self._evaluate_cached(model, dataset, batch_size, max_images)
+        if data.loader_cache_ram:
+            # kept across calls: in-training evaluation passes the same
+            # dataset every time, and a cache made per call saves nothing
+            if self._cached_base is not dataset:
+                from replication_faster_rcnn_tpu_torch.data.cache import CachedView
+
+                self._cached_base = dataset
+                self._cached_view = CachedView(dataset)
+            dataset = self._cached_view
         loader = DataLoader(dataset, batch_size=batch_size, shuffle=False, drop_last=False,
-                            prefetch=data.loader_prefetch, num_workers=data.loader_workers)
+                            prefetch=data.loader_prefetch, num_workers=data.loader_workers,
+                            worker_mode="thread")
         detections: List[Dict[str, np.ndarray]] = []
         gts: List[Dict[str, np.ndarray]] = []
         tracer = tspans.current_tracer()

@@ -1,6 +1,6 @@
 """Deterministic, seeded failpoint registry (a copy of the JAX package's
-``faultlib/failpoints.py``, with the two sites the port fires:
-``batcher.flush`` and ``http.handler``).
+``faultlib/failpoints.py``, with the three sites the port fires:
+``loader.fetch``, ``batcher.flush`` and ``http.handler``).
 
 Every fault-tolerance path in this repo (retry-then-substitute loading,
 scheduled-save containment, verified-restore walk-back, per-flush error
@@ -32,6 +32,7 @@ Design constraints, in order:
   which applies them where only it can (the saved file, the batch).
 
 Sites (see the README failpoint table):
+  loader.fetch         data/loader.py::fetch_sample (every dataset access)
   batcher.flush        serving/batcher.py::MicroBatcher._flush
   http.handler         serving/server.py POST handler
 
@@ -58,6 +59,8 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
+import numpy as np
+
 from replication_faster_rcnn_tpu_torch.telemetry import tracecontext
 
 __all__ = [
@@ -72,13 +75,15 @@ __all__ = [
     "event_log",
     "fire",
     "parse_spec",
+    "poison_batch",
     "set_sink",
 ]
 
-# the sites the port fires; the JAX package's others (loader, checkpoint,
-# prefetch, collective, heartbeat, router, rollout) come with the code that
-# fires them, and ``configure`` rejects them until then
+# the sites the port fires; the JAX package's others (checkpoint, prefetch,
+# collective, heartbeat, router, rollout) come with the code that fires them,
+# and ``configure`` rejects them until then
 SITES = (
+    "loader.fetch",
     "batcher.flush",
     "http.handler",
 )
@@ -354,3 +359,18 @@ def fire(site: str, **ctx: Any) -> Optional[Fault]:
             f"injected IOError at failpoint {site!r} (hit {fault.seq})"
         )
     return fault
+
+
+def poison_batch(batch: Dict[str, Any]) -> Dict[str, Any]:
+    """The ``nan`` fault: a copy of a sample/batch dict whose float
+    ``image`` is all-NaN (the exact poison the guarded-update tests
+    inject by hand) — non-float images pass through untouched."""
+    out = dict(batch)
+    img = out.get("image")
+    if img is None:
+        return out
+    img = np.array(img, copy=True)
+    if img.dtype.kind == "f":
+        img.fill(np.nan)
+        out["image"] = img
+    return out

@@ -141,11 +141,15 @@ class FasterRCNN(nn.Module):
 
     def head_forward(self, feat: Features, rois: Tensor, img_h: float, img_w: float,
                      quant: Optional[dict] = None,
-                     generator: Optional[torch.Generator] = None) -> Tuple[Tensor, Tensor]:
+                     generator: Optional[torch.Generator] = None,
+                     masks: Optional[dict] = None) -> Tuple[Tensor, Tensor]:
         """(cls [N, R, num_classes], reg [N, R, num_classes * 4]); ``quant``:
         the int8 serving path's ``{"head": {"cls"|"reg": ...}}``;
-        ``generator``: the VGG16 tail's dropout draws in training mode."""
-        return self.head(feat, rois, img_h, img_w, (quant or {}).get("head"), generator)
+        ``generator`` / ``masks``: the VGG16 tail's dropout keep masks in
+        training mode, drawn from the generator into ``masks`` unless
+        ``masks`` holds them (``models/vgg.py::VGG16Tail``)."""
+        return self.head(feat, rois, img_h, img_w, (quant or {}).get("head"), generator,
+                         masks)
 
     def forward(self, images: Tensor, quant: Optional[dict] = None):
         """Inference pass -> (rpn_logits, rpn_deltas, rois, roi_valid, cls,

@@ -42,13 +42,15 @@ def _head_dense(layer: nn.Linear, x: Tensor, qinfo: Optional[Dict[str, Any]]) ->
 
 class DetectionHead(nn.Module):
     """forward(feat NHWC [N, H, W, C], rois [N, R, 4] image coords, img_h, img_w,
-    quant=None, generator=None) -> (cls [N, R, num_classes], reg
+    quant=None, generator=None, masks=None) -> (cls [N, R, num_classes], reg
     [N, R, num_classes * 4]) float32.
 
     The tail runs in the feature's dtype; cls/reg run in float32 on the
     embedding cast to float32, as int8 GEMMs for the layers named in
-    ``quant`` (``{"cls": {"w_scale", "x_scale"}, ...}``). ``generator``
-    draws the VGG16 tail's dropout in training mode."""
+    ``quant`` (``{"cls": {"w_scale", "x_scale"}, ...}``). In training mode
+    the VGG16 tail's dropout takes its keep masks from ``masks`` or draws
+    them from ``generator`` into it (``models/vgg.py::VGG16Tail``); the
+    ResNet tail ignores both."""
 
     def __init__(self, arch: str = "resnet18", num_classes: int = 21,
                  roi_size: int = 7, roi_op: str = "align", sampling_ratio: int = 2,
@@ -68,7 +70,8 @@ class DetectionHead(nn.Module):
 
     def forward(self, feat: Tensor, rois: Tensor, img_h: float, img_w: float,
                 quant: Optional[Dict[str, Any]] = None,
-                generator: Optional[torch.Generator] = None) -> Tuple[Tensor, Tensor]:
+                generator: Optional[torch.Generator] = None,
+                masks: Optional[Dict[str, Tensor]] = None) -> Tuple[Tensor, Tensor]:
         n, r = rois.shape[0], rois.shape[1]
         fh, fw = feat.shape[1], feat.shape[2]
         # image -> feature coordinates; the ratios are Python floats
@@ -79,7 +82,7 @@ class DetectionHead(nn.Module):
             sampling_ratio=self.sampling_ratio, out_dtype=feat.dtype,
         )  # [N, R, s, s, C] in the feature's dtype (the kernel stores it directly)
         crops = crops.reshape((n * r,) + crops.shape[2:]).to(feat.dtype)
-        embed = self.tail(crops, generator).float()  # [N*R, C_tail]
+        embed = self.tail(crops, generator, masks).float()  # [N*R, C_tail]
         quant = quant or {}
         cls = _head_dense(self.cls, embed, quant.get("cls"))
         reg = _head_dense(self.reg, embed, quant.get("reg"))
@@ -93,12 +96,12 @@ class FPNDetectionHead(nn.Module):
     float32 through :func:`_head_dense`.
 
     forward(feats [P2..P6 NHWC], rois [N, R, 4] image coords, img_h, img_w,
-    quant=None, generator=None) -> (cls [N, R, num_classes], reg
+    quant=None, generator=None, masks=None) -> (cls [N, R, num_classes], reg
     [N, R, num_classes * 4]). The crops are flattened in (row, column,
     channel) order, the order of flax's ``fc6`` kernel rows. ``quant`` is
     the single-scale head's: cls/reg named there run as int8 GEMMs on
-    fc7's ReLU output cast to float32. ``generator`` keeps the single-scale
-    head's call; this head draws nothing.
+    fc7's ReLU output cast to float32. ``generator`` and ``masks`` keep the
+    single-scale head's call; this head draws nothing.
 
     ``fc7_out`` (an identity) sees fc7's output before its ReLU, in the
     features' dtype: the int8 calibration hooks it there, as the JAX
@@ -117,7 +120,8 @@ class FPNDetectionHead(nn.Module):
 
     def forward(self, feats, rois: Tensor, img_h: float, img_w: float,
                 quant: Optional[Dict[str, Any]] = None,
-                generator: Optional[torch.Generator] = None) -> Tuple[Tensor, Tensor]:
+                generator: Optional[torch.Generator] = None,
+                masks: Optional[Dict[str, Tensor]] = None) -> Tuple[Tensor, Tensor]:
         n, r = rois.shape[0], rois.shape[1]
         dtype = feats[0].dtype
         crops = multilevel_roi_align(feats, rois, img_h, img_w, self.roi_size,

@@ -221,14 +221,15 @@ def stage_channels(arch: str) -> Tuple[int, ...]:
 
 class ResNetTail(nn.Module):
     """layer4 + global average pool: pooled ROI crops NHWC [R, h, w, C] ->
-    [R, C_out]. ``generator`` is unused (the tail draws nothing); it keeps
-    the head's one call for every tail."""
+    [R, C_out]. ``generator`` and ``masks`` are unused (the tail draws
+    nothing); they keep the head's one call for every tail."""
 
     def __init__(self, arch: str = "resnet18", device=None):
         super().__init__()
         self.layer4 = _stage(arch, _WIDTHS[2] * _block(arch).expansion, 3, 2, device)
 
-    def forward(self, x: Tensor, generator: Optional[torch.Generator] = None) -> Tensor:
+    def forward(self, x: Tensor, generator: Optional[torch.Generator] = None,
+                masks: Optional[dict] = None) -> Tensor:
         x = x.permute(0, 3, 1, 2)
         for block in self.layer4:
             x = block(x)

@@ -17,7 +17,7 @@ Module names are the flax tree's (``conv1_1`` ... ``conv5_3``, ``fc6``,
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +32,8 @@ VGG16_BLOCKS = ((1, 2, 64), (2, 2, 128), (3, 3, 256), (4, 3, 512), (5, 3, 512))
 VGG16_TRUNK_CHANNELS = 512
 VGG16_TAIL_CHANNELS = 4096
 DROPOUT_RATE = 0.5
+# the tail's two dropout keep masks, in the order they are drawn
+KEEP_MASK_NAMES = ("fc6_keep", "fc7_keep")
 
 
 class VGG16Trunk(nn.Module):
@@ -58,9 +60,12 @@ class VGG16Tail(nn.Module):
     """Pooled ROI crops NHWC [R, s, s, 512] -> [R, 4096] in the crops' dtype.
 
     In training mode each dropout keeps a value with probability 0.5 and
-    doubles it, the keep mask drawn from ``generator`` (flax's
-    ``nn.Dropout``; the draws differ from JAX's, which PyTorch cannot
-    reproduce). In inference mode dropout is the identity.
+    doubles it (flax's ``nn.Dropout``). Its keep mask ([R, 4096] bool) is
+    ``masks[name]`` when the caller's dict ``masks`` holds it
+    (:data:`KEEP_MASK_NAMES`), else drawn from ``generator`` (the draws
+    differ from JAX's, which PyTorch cannot reproduce) and stored in
+    ``masks`` when one is given: a step records its masks, and a replay or
+    a parity test injects them. In inference mode dropout is the identity.
 
     ``dense_out`` (an identity) sees fc6's and then fc7's output before its
     ReLU: the int8 calibration hooks it there, as the JAX package's capture
@@ -74,15 +79,24 @@ class VGG16Tail(nn.Module):
         self.fc7 = nn.Linear(VGG16_TAIL_CHANNELS, VGG16_TAIL_CHANNELS, device=device)
         self.dense_out = nn.Identity()
 
-    def forward(self, x: Tensor, generator: Optional[torch.Generator] = None) -> Tensor:
-        if self.training and generator is None:
-            raise ValueError("VGG16Tail draws its dropout from an explicit torch.Generator in "
-                             "training mode; pass generator=")
+    def forward(self, x: Tensor, generator: Optional[torch.Generator] = None,
+                masks: Optional[Dict[str, Tensor]] = None) -> Tensor:
         x = x.reshape(x.shape[0], -1)
         keep = 1.0 - DROPOUT_RATE
-        for fc in (self.fc6, self.fc7):
+        for fc, name in zip((self.fc6, self.fc7), KEEP_MASK_NAMES):
             x = F.relu(self.dense_out(F.linear(x, fc.weight.to(x.dtype), fc.bias.to(x.dtype))))
             if self.training:
-                mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+                mask = None if masks is None else masks.get(name)
+                if mask is None:
+                    if generator is None:
+                        raise ValueError(
+                            "VGG16Tail draws its dropout from an explicit torch.Generator in "
+                            f"training mode; pass generator= or masks[{name!r}]")
+                    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+                    if masks is not None:
+                        masks[name] = mask
+                elif tuple(mask.shape) != tuple(x.shape) or mask.dtype != torch.bool:
+                    raise ValueError(f"{name}: want a bool mask of {tuple(x.shape)}, got "
+                                     f"{mask.dtype} {tuple(mask.shape)}")
                 x = torch.where(mask, x / keep, x.new_zeros(()))
         return x

@@ -10,9 +10,11 @@ with ``train.loss_weights``.
 Random draws. The JAX step keys its sampling with threefry, which PyTorch
 cannot reproduce; here every uniform the targets consume is drawn from the
 state's device ``torch.Generator``, in a fixed order (:data:`DRAW_NAMES`),
-unless the caller injects them. The parity tests inject the JAX step's own
-draws; ``chip_smoke.py`` replays one step's draws under
-``ops.reference_scope()``.
+and after them the VGG16 tail's two dropout keep masks
+(:data:`KEEP_MASK_NAMES`), unless the caller injects them. The parity tests
+inject the JAX step's own draws and masks; ``chip_smoke.py`` replays one
+step's draws and masks under ``ops.reference_scope()``. A captured step
+given no draws draws fresh uniforms and masks at every replay.
 
 The optimizer is optax's chain as the JAX package builds it
 (:func:`make_optimizer`), computed with plain tensor operations on flat
@@ -56,6 +58,7 @@ from replication_faster_rcnn_tpu_torch.device import DeviceLike, resolve_device
 from replication_faster_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN, build_model
 from replication_faster_rcnn_tpu_torch.models.head import select_class_deltas
 from replication_faster_rcnn_tpu_torch.models.resnet import BatchNorm
+from replication_faster_rcnn_tpu_torch.models.vgg import KEEP_MASK_NAMES  # noqa: F401 (re-exported)
 from replication_faster_rcnn_tpu_torch.targets import (
     batched_anchor_targets,
     batched_proposal_targets,
@@ -66,7 +69,8 @@ from replication_faster_rcnn_tpu_torch.train import fault, losses
 Tensor = torch.Tensor
 
 # the targets' uniform draws, in the order they are taken from the generator:
-# anchor positives/negatives [N, A], roi positives/negatives/pack [N, R + G]
+# anchor positives/negatives [N, A], roi positives/negatives/pack [N, R + G];
+# a VGG16 head draws its keep masks (KEEP_MASK_NAMES, [N * R, 4096] bool) after them
 DRAW_NAMES = ("rpn_pos", "rpn_neg", "roi_pos", "roi_neg", "roi_pack")
 
 # stage(name) -> context manager around one stage (timing hooks); the
@@ -328,9 +332,10 @@ def compute_losses(
     ``aug`` from the augmenting feeds). Returns (total, (metrics, new
     BatchNorm statistics)).
 
-    ``draws`` injects the uniforms by name (:data:`DRAW_NAMES`); missing
-    ones come from ``generator``. ``record``, when given, receives the
-    draws used and the targets (``rpn_reg``, ``rpn_labels``,
+    ``draws`` injects the uniforms by name (:data:`DRAW_NAMES`) and a VGG16
+    tail's keep masks (:data:`KEEP_MASK_NAMES`); missing ones come from
+    ``generator``. ``record``, when given, receives the draws used (masks
+    included) and the targets (``rpn_reg``, ``rpn_labels``,
     ``sample_rois``, ``roi_reg``, ``roi_labels``). ``train_resolution``
     resamples the batch to one multi-scale bucket (:func:`augment_prologue`)."""
     with stage("augment"):
@@ -370,7 +375,7 @@ def compute_losses(
         )
     with stage("head"):
         cls_out, reg_out = model.head_forward(feat, sample_rois, img_h, img_w,
-                                              generator=generator)
+                                              generator=generator, masks=used)
     with stage("losses"):
         reg_sel = select_class_deltas(reg_out, lab_t2)
         head_reg_loss = losses.loc_loss(reg_sel, reg_t2, lab_t2, sigma)

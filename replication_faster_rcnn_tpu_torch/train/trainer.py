@@ -53,8 +53,12 @@ count. A resumed run therefore repeats the uninterrupted run's steps bit
 for bit. A checkpoint of the earlier ``torch.optim.Adam`` + ``LambdaLR``
 layout is refused with a message that says so.
 
-Not ported yet: the mesh and data parallelism, the loader's process
-workers, fault injection and the pretrained-backbone graft.
+With ``data.loader_mode="process"`` the loader builds batches in forked
+worker processes (``data/loader.py``); the loader's sample-fault
+containment runs in both modes.
+
+Not ported yet: the mesh and data parallelism, the checkpoint and prefetch
+failpoints and the pretrained-backbone graft.
 """
 
 from __future__ import annotations
@@ -230,6 +234,7 @@ class Trainer:
                 seed=self.seed,
                 prefetch=data.loader_prefetch,
                 num_workers=data.loader_workers,
+                worker_mode=data.loader_mode,
                 augment_hflip=data.augment_hflip,
                 augment_scale=data.augment_scale,
                 augment_scale_device=data.augment_scale_device,

@@ -59,9 +59,16 @@ CPU_PEAK = "1e11"  # FRCNN_CPU_PEAK_FLOPS on both sides: a fixed MFU basis
 
 
 def _tiny(mod):
-    """``tests/test_cli.py``'s bench config: 64x64, proposals 128 -> 32, batch 2."""
-    cfg = mod.get_config("voc_resnet18").replace(
+    """``tests/test_cli.py``'s bench config: 64x64, proposals 128 -> 32, batch 2,
+    computed in float32 (bfloat16 convolutions cost the CPU seconds a step,
+    and no assert on these lines reads the compute dtype). The bench's
+    bfloat16 step is held against JAX by the flagship FLOP count in
+    ``test_benchmark_matches_jax``: one step of ``_flagship_cfg`` (600x600,
+    b1, bfloat16) through ``benchmark._step_flops``."""
+    cfg = mod.get_config("voc_resnet18")
+    cfg = cfg.replace(
         data=mod.DataConfig(dataset="synthetic", image_size=(64, 64), max_boxes=8),
+        model=dataclasses.replace(cfg.model, compute_dtype="float32"),
         proposals=mod.ProposalConfig(pre_nms_train=128, post_nms_train=32),
         train=mod.TrainConfig(batch_size=2),
     )
@@ -77,6 +84,11 @@ def test_benchmark_matches_jax(monkeypatch, capsys, tmp_path):
         monkeypatch.delenv(var, raising=False)
     monkeypatch.setenv("BENCH_STEPS", "2")
     monkeypatch.setenv("FRCNN_CPU_PEAK_FLOPS", CPU_PEAK)
+    # the port's lines take one warm-up step, one stage-timed step and one
+    # captured step here (3, 5 and 3 on the card): a CPU step of the tiny
+    # config costs seconds, and no assert reads the repetitions
+    for name in ("WARMUP_STEPS", "STAGE_STEPS", "TRACE_STEPS"):
+        monkeypatch.setattr(benchmark, name, 1)
 
     # the lines: same keys, metric names and breakdown keys
     j_bench._measure(_tiny(jconfig))
@@ -109,7 +121,8 @@ def test_benchmark_matches_jax(monkeypatch, capsys, tmp_path):
     # JAX lines' keys and breakdown keys; the trunk stage times the list of
     # levels; the FLOP count holds the neck's convolutions as XLA counts them
     fpn = _tiny(tconfig).replace(model=dataclasses.replace(
-        tconfig.get_config("voc_resnet50_fpn").model, backbone="resnet18"),
+        tconfig.get_config("voc_resnet50_fpn").model, backbone="resnet18",
+        compute_dtype="float32"),
         anchors=tconfig.get_config("voc_resnet50_fpn").anchors)
     benchmark.main(fpn, device="cpu")
     t_fpn = _last_line(capsys)
@@ -169,14 +182,16 @@ def test_benchmark_matches_jax(monkeypatch, capsys, tmp_path):
     j_flops = j_bench._flops_of_config(
         j_bench._flagship_cfg(1).replace(train=jconfig.TrainConfig(batch_size=1)))
     cfg = benchmark._flagship_cfg().replace(train=tconfig.TrainConfig(batch_size=1))
+    assert cfg.model.compute_dtype == "bfloat16"  # the bench's bfloat16 step, counted
     state = create_train_state(cfg, 100, "cpu", 0)
     step = make_train_step(cfg)
     batch = benchmark._synthetic_batch(cfg, 1)
     dbatch = {k: torch.from_numpy(batch[k]) for k in ("image", "boxes", "labels", "mask")}
-    t_flops = benchmark._step_flops(step, state, dbatch)
+    # one step counted both ways: the in-bounds count inside PyTorch's stock
+    # full-window formulas (each mode sees every operator)
+    with FlopCounterMode(display=False) as stock:
+        t_flops = benchmark._step_flops(step, state, dbatch)
     assert 0.95 <= t_flops / j_flops <= 1.0, (t_flops, j_flops)
-    with FlopCounterMode(display=False) as stock:  # PyTorch's full-window formulas
-        step(state, dbatch)
     assert stock.get_total_flops() / j_flops > 1.15, (stock.get_total_flops(), j_flops)
 
     # the ResNet tail alone on the 128 7x7 crops of an image: forward and

@@ -40,7 +40,8 @@ def _nms_cases(dev):
     for case in [(1, 1, 1, 0.5), (3, 255, 50, 0.5), (2, 257, 300, 0.3), (4, 700, 5, 0.7),
                  (2, 63, 63, 0.5), (2, 64, 64, 0.5), (2, 65, 65, 0.5),
                  (2, 3000, 3000, 0.7), (2, 4097, 4097, 0.6),
-                 (1, 15000, 700, 0.7)]:  # rows beyond the walk's shared-memory window
+                 (1, 15000, 700, 0.7),  # rows beyond the walk's shared-memory window
+                 (32, 12000, 600, 0.7)]:  # coco_resnet50's training proposals, batch 32
         _nms_case(dev, *case)
     _nms_walk_cases(dev)
     _nms_empty_and_all_masked(dev)
@@ -122,8 +123,37 @@ def test_roi_align_kernels_match_plain(dev):
     FPN's multi-level forward and backward against their plain versions."""
     _roi_forward_cases(dev)
     _roi_backward_cases(dev)
+    _roi_preset_cases(dev)
     _training_reaches_the_trunk_through_roi_align_cuda(dev)
     _multilevel_cases(dev)
+
+
+def _roi_preset_cases(dev):
+    """The single-scale presets' training shapes: 38x38 maps of 512 (VGG16)
+    and 1024 channels (the ResNet50 C4 map), b8 and b32 x 128 rois (edge
+    cases included), float32 and bfloat16: the forward bitwise its gather
+    twin (and its bfloat16 store), the backward from float32 and bfloat16
+    gradients within tolerance of the plain scatter, bitwise across two
+    launches."""
+    from replication_faster_rcnn_tpu_torch.ops.cuda.roi_kernel import roi_align_cuda
+    from replication_faster_rcnn_tpu_torch.ops.roi_ops import roi_align
+
+    for n, c in ((8, 512), (8, 1024), (32, 1024)):
+        rng = np.random.default_rng(n + c)
+        rois = _roi_bwd_rois(rng, n, 128, 38, 38).to(dev)
+        feat32 = torch.from_numpy(rng.normal(0, 1, (n, 38, 38, c)).astype(np.float32)).to(dev)
+        g = torch.from_numpy(rng.normal(0, 1, (n, 128, 7, 7, c)).astype(np.float32)).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            feat = feat32.to(dtype)
+            want = roi_align(feat, rois, 7, 2, method="gather")
+            assert torch.equal(roi_align_cuda(feat, rois, 7, 2), want)
+            got16 = roi_align_cuda(feat, rois, 7, 2, out_dtype=torch.bfloat16)
+            assert torch.equal(got16, want.to(torch.bfloat16))
+            del want, got16
+            for grad_dtype in (torch.float32, torch.bfloat16):
+                _roi_bwd_check(dev, g.to(grad_dtype), rois, (n, 38, 38, c), dtype, 7, 2)
+        del feat32, g
+        torch.cuda.empty_cache()
 
 
 def _roi_forward_cases(dev):
@@ -199,6 +229,11 @@ def test_roi_pool_kernels_match_plain(dev):
                                      (256, 7, 1.0 / 16, (38, 38), 2), (256, 5, 1.0, (38, 38), 1),
                                      (264, 7, 1.0, (20, 70), 1)]:
             _pool_case(dev, dtype, c, out, scale, n=n, hw=hw)
+        # the presets' training shapes: VGG16's 512 and ResNet50's 1024
+        # channels at 38x38, b8 x 128 rois
+        for c in (512, 1024):
+            _pool_case(dev, dtype, c, 7, 1.0 / 16, n=8, r=128, hw=(38, 38))
+            torch.cuda.empty_cache()
     _pool_edge_cases(dev)
 
 
@@ -331,7 +366,10 @@ def _iou_cases(dev):
                  (2, 800, 40, False, "lane_warp_block_ties"),
                  (2, 300, 35, True, "nonfinite"),
                  (8, 12996, 32, True, "few_gt"),     # the train step's 1-4 objects, one image none
-                 (3, 700, 70, False, "few_gt")]:     # unpadded columns spread over three chunks
+                 (3, 700, 70, False, "few_gt"),      # unpadded columns spread over three chunks
+                 (32, 12996, 100, True, "random"),   # coco_resnet50's anchor site: 100 gt slots
+                 (32, 700, 100, False, "random"),    # and its proposal site, batch 32
+                 (8, 17328, 100, True, "few_gt")]:   # coco_vgg16's 12 anchors a cell
         _iou_case(dev, *case)
 
 

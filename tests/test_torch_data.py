@@ -29,9 +29,13 @@ Tolerances, with their reasons:
 * The bucket resample against ``jax.image.resize``: float32 within 1e-5 of
   the batch's largest magnitude, uint8 within 1 count; boxes bitwise.
 * ``materialize_batch`` against JAX's: bitwise.
+* The loader's process workers (``worker_mode="process"``) against the
+  thread loader and JAX's process loader, and ``fetch_sample``'s retry,
+  substitution and skip budget against JAX's: the same batches bitwise, the
+  same ``on_skip`` calls and error texts.
 * Trainer runs on the CPU: prefetch on and off, a resume with prefetch, the
-  cached and the loader-fed ``augment_scale_device`` runs: bitwise in the
-  whole state. The ``augment_device`` step against JAX's jitted step on the
+  cached and the loader-fed ``augment_scale_device`` runs, the process and
+  the thread loader: bitwise in the whole state. The ``augment_device`` step against JAX's jitted step on the
   same batch with the JAX step's draws injected: the losses within rtol
   1e-5, the step tolerance of ``tests/test_torch_train.py``.
 """
@@ -59,6 +63,8 @@ from replication_faster_rcnn_tpu.data.device_cache import materialize_batch as j
 from replication_faster_rcnn_tpu.data.device_cache import stack_selections as j_stack
 from replication_faster_rcnn_tpu.data.loader import DataLoader as JDataLoader
 from replication_faster_rcnn_tpu.data.loader import collate as j_collate
+from replication_faster_rcnn_tpu.data.loader import fetch_sample as j_fetch_sample
+from replication_faster_rcnn_tpu.faultlib import failpoints as j_failpoints
 from replication_faster_rcnn_tpu.data.prefetch_device import DevicePrefetcher as JPrefetcher
 from replication_faster_rcnn_tpu.data.synthetic import SyntheticDataset as JSyntheticDataset
 from replication_faster_rcnn_tpu.data.voc import VOCDataset as JVOCDataset
@@ -80,7 +86,13 @@ from replication_faster_rcnn_tpu_torch.data.device_cache import (
     materialize_batch,
     stack_selections,
 )
-from replication_faster_rcnn_tpu_torch.data.loader import DataLoader, collate, make_dataset
+from replication_faster_rcnn_tpu_torch.data.loader import (
+    DataLoader,
+    collate,
+    fetch_sample,
+    make_dataset,
+)
+from replication_faster_rcnn_tpu_torch.faultlib import failpoints
 from replication_faster_rcnn_tpu_torch.data.synthetic import SyntheticDataset
 from replication_faster_rcnn_tpu_torch.data.voc import VOCDataset
 from replication_faster_rcnn_tpu_torch.models.convert import from_flax_variables
@@ -542,15 +554,122 @@ def _case_loader(rng):
                           train_resolutions=((32, 40), (64, 80), (48, 60)), bucket_chunk=2, **mode)
             loader = DataLoader(ds, **common)
             jloader = JDataLoader(jds, sample_skip_budget=0, **common)
+            # process mode (forked workers) on both sides: the thread loader's batches
+            loaders = [loader, jloader, DataLoader(ds, worker_mode="process", **common),
+                       JDataLoader(jds, worker_mode="process", **common)]
             for epoch, start in ((0, 0), (1, 1)):
-                loader.set_epoch(epoch, start)
-                jloader.set_epoch(epoch, start)
-                got, want = list(loader), list(jloader)
-                assert len(got) == len(want) == len(loader) - start
-                for a, b in zip(got, want):
-                    _same_sample(a, b, f"loader {mode}")
+                outs = []
+                for one in loaders:
+                    one.set_epoch(epoch, start)
+                    outs.append(list(one))
+                assert all(len(out) == len(loader) - start for out in outs)
+                for other in outs[1:]:
+                    for a, b in zip(outs[0], other):
+                        _same_sample(a, b, f"loader {mode}")
                 assert [loader.bucket_of(b) for b in range(5)] == [
                     jloader.bucket_of(b) for b in range(5)]
+
+
+class _Faulty:
+    """A map-style dataset whose reads raise at chosen indices: ``permanent``
+    always, ``transient`` on the first read only (the retry succeeds)."""
+
+    def __init__(self, base, permanent=(), transient=(), exc=OSError):
+        self.base, self.permanent, self.exc = base, set(permanent), exc
+        self.pending = set(transient)
+
+    def __len__(self):
+        return len(self.base)
+
+    def __getitem__(self, i):
+        i = int(i)
+        if i in self.permanent:
+            raise self.exc(f"unreadable sample {i}")
+        if i in self.pending:
+            self.pending.discard(i)
+            raise self.exc(f"transient read error at {i}")
+        return self.base[i]
+
+
+def _case_fetch_sample():
+    """``fetch_sample`` against JAX's on a dataset that raises at chosen
+    indices: the same samples, the same ``on_skip`` calls; the epoch's skip
+    budget in thread and process modes (the same error); a worker's
+    exception re-raised with its traceback; ``ioerror`` faults injected at
+    ``loader.fetch`` ride the same containment on both sides (the same
+    faults, the same substitution)."""
+    kw = dict(image_size=(32, 40), max_boxes=3, device_normalize=True)
+    ds = SyntheticDataset(tconfig.DataConfig(**kw), length=8)
+    jds = JSyntheticDataset(jconfig.DataConfig(**kw), length=8)
+    faults = dict(permanent=(2, 3, 7), transient=(5,))
+    skips, jskips = [], []
+    tf, jf = _Faulty(ds, **faults), _Faulty(jds, **faults)
+    for i in range(8):
+        got = fetch_sample(tf, i, lambda idx, e: skips.append((idx, str(e))))
+        want = j_fetch_sample(jf, i, lambda idx, e: jskips.append((idx, str(e))))
+        _same_sample(got, want, f"fetch_sample {i}")
+    assert skips == jskips and [i for i, _ in skips] == [2, 3, 7]
+    for mod in (fetch_sample, j_fetch_sample):  # every index fails: the last error
+        with pytest.raises(OSError, match="unreadable"):
+            mod(_Faulty(ds, permanent=range(8)), 1)
+
+    for mode in ("thread", "process"):
+        # one thread builds the samples in order, so the budget's error names
+        # the same index on both sides; process mode forks two workers
+        common = dict(batch_size=4, shuffle=False, prefetch=1,
+                      num_workers=1 if mode == "thread" else 2)
+        # within the budget: the substituted epoch, as JAX's
+        for budget in (3, 1):
+            got, want = [], []
+            for cls, base, out in ((DataLoader, ds, got), (JDataLoader, jds, want)):
+                loader = cls(_Faulty(base, permanent=(2, 3, 7)), sample_skip_budget=budget,
+                             worker_mode=mode, **common)
+                try:
+                    out.extend(loader)
+                except RuntimeError as e:
+                    out.append(str(e).splitlines()[-1] if mode == "process" else str(e))
+            assert len(got) == len(want), (mode, budget)
+            for a, b in zip(got, want):
+                if isinstance(b, str):
+                    assert a == b and "sample-skip budget exhausted" in a, (a, b)
+                else:
+                    _same_sample(a, b, f"{mode} budget {budget}")
+            assert isinstance(got[-1], str) == (budget == 1), (mode, budget, got[-1])
+        # containment off: the worker's own exception, with its traceback
+        for cls, base in ((DataLoader, ds), (JDataLoader, jds)):
+            loader = cls(_Faulty(base, permanent=(1,), exc=ValueError), sample_skip_budget=0,
+                         worker_mode=mode, **common)
+            with pytest.raises((RuntimeError, ValueError)) as e:
+                list(loader)
+            if mode == "process":
+                assert e.type is RuntimeError and "Traceback" in str(e.value)
+                assert "ValueError: unreadable sample 1" in str(e.value)
+            else:
+                assert e.type is ValueError
+    # the thread loader's budget is per epoch (set_epoch resets it)
+    loader = DataLoader(_Faulty(ds, permanent=(2,)), sample_skip_budget=1, batch_size=4,
+                        shuffle=False)
+    for epoch in range(3):
+        loader.set_epoch(epoch)
+        assert len(list(loader)) == 2
+    # the failpoint: an ioerror on the first three reads (index 0, its retry,
+    # the probe of index 1) rides the containment in both packages: index 0
+    # costs one substitution, by index 2
+    results = []
+    for mod, fp, base in ((fetch_sample, failpoints, ds), (j_fetch_sample, j_failpoints, jds)):
+        events = []
+        fp.configure("loader.fetch:ioerror:1.0:3:0:3:0", sink=events.append)
+        calls = []
+        try:
+            out = [mod(base, i, lambda idx, e: calls.append(idx)) for i in (0, 4)]
+        finally:
+            fp.disarm()
+        results.append((out, calls, [(e["seq"], e["index"]) for e in events]))
+    (got, gcalls, gevents), (want, wcalls, wevents) = results
+    for a, b in zip(got, want):
+        _same_sample(a, b, "loader.fetch ioerror")
+    assert gcalls == wcalls == [0] and gevents == wevents == [(0, 0), (1, 0), (2, 1)]
+    _same_sample(got[0], ds[2], "substituted by the next index that loads")
 
 
 def _case_prefetcher():
@@ -628,6 +747,7 @@ def test_data_path_matches_jax(tmp_path, monkeypatch):
     _case_image_ops(rng)
     _case_device_cache(rng)
     _case_loader(rng)
+    _case_fetch_sample()
     _case_prefetcher()
     _case_resize_tile_spans()
 
@@ -844,7 +964,29 @@ def _case_span_names(tmp_path):
         n for n in names["jax"] if n.startswith("data/")}, names
 
 
+def _case_process_loader_trainer(tmp_path):
+    """A trainer fed by the process loader (``loader_mode="process"``, two
+    forked workers) bitwise the thread-fed run over 2 steps (two epochs of
+    one batch, the workers forked anew each epoch), losses included."""
+    ds = SyntheticDataset(tconfig.DataConfig(image_size=(96, 96), max_boxes=4,
+                                             device_normalize=True), length=2)
+    runs = {}
+    for mode in ("thread", "process"):
+        tr = _trainer(tmp_path, f"mode_{mode}", ds, device_normalize=True, augment_hflip=True,
+                      loader_mode=mode, loader_workers=2)
+        assert tr.loader.worker_mode == mode
+        rows = []
+        step = tr.train_one_batch
+        tr.train_one_batch = lambda *a, **k: rows.append(step(*a, **k)) or rows[-1]
+        tr.train(log_every=5)
+        runs[mode] = (tr, [{k: float(v) for k, v in r.items()} for r in rows])
+    assert runs["process"][0].state.step == 2 and len(runs["process"][1]) == 2
+    assert runs["process"][1] == runs["thread"][1]
+    _state_equal(runs["process"][0], runs["thread"][0], "process vs thread loader")
+
+
 def test_data_path_trainer_matches_jax(tmp_path):
+    _case_process_loader_trainer(tmp_path)
     _case_prefetch_and_resume(tmp_path)
     _case_cached_vs_fed(tmp_path)
     _case_augment_device_losses()

@@ -30,6 +30,10 @@ Tolerances, with their reasons:
   tolerances above, classes and valid equal; then every score of the
   result within 1e-6. A detection whose IoU lies within 1e-2 of a
   threshold, where a match may flip, is listed in the failure message.
+* The evaluator's cached feeds (``cache_device``, ``loader_cache_ram``) and
+  a uint8 set: every score within 1e-6 of the loader feed's and JAX's
+  (``_evaluate_cached`` for the device cache); a second call with the same
+  dataset equal to the first and reusing the cache.
 """
 
 import dataclasses
@@ -248,7 +252,7 @@ def _case_loader():
         assert len(orders) == 3  # each epoch its own order
     with pytest.raises(ValueError):
         loader.set_epoch(0, start_batch=-1)
-    # a failing sample raises on the consumer's thread
+    # a failing sample raises on the consumer's thread when the containment is off
     class Broken:
         def __len__(self):
             return 4
@@ -259,7 +263,10 @@ def _case_loader():
             return ds[i]
 
     with pytest.raises(OSError, match="truncated"):
-        list(DataLoader(Broken(), batch_size=2, num_workers=2))
+        list(DataLoader(Broken(), batch_size=2, num_workers=2, sample_skip_budget=0))
+    # with the default containment (JAX's): retried, then the next index
+    got = list(DataLoader(Broken(), batch_size=2, num_workers=2, shuffle=False))
+    assert np.array_equal(got[1]["image"][0], ds[3]["image"])
 
 
 def _case_tta_decode(tcfg, jcfg):
@@ -387,6 +394,63 @@ def _case_evaluator(root):
         fresh = Evaluator(tev.config, device="cpu")
         assert fresh.model is None
         _same(fresh.evaluate(tmodel.state_dict(), tds, batch_size=2), got, f"tta={tta} state dict")
+    _case_cached_feeds(jcfg, tcfg, jmodel, jvars, tmodel, jds, tds)
+
+
+def _case_cached_feeds(jcfg, tcfg, jmodel, jvars, tmodel, jds, tds):
+    """The evaluator's cached feeds on the same weights: ``cache_device``
+    (the set on the device once, a gather per batch, the 3-image set's tail
+    padded to the batch of 2) and ``loader_cache_ram`` (the view kept across
+    calls) against the loader-fed evaluation and JAX's ``_evaluate_cached``,
+    and a uint8 (``device_normalize``) set through both port feeds against
+    JAX's loader feed:
+    every score within 1e-6 (the padded tail runs at batch 2 where the
+    loader feed runs it at 1, and the CPU's convolutions may sum a batch of
+    another size in another order)."""
+    def with_data(cfg, **data):
+        return cfg.replace(data=dataclasses.replace(cfg.data, **data))
+
+    fed = Evaluator(tcfg, device="cpu").evaluate(tmodel, tds, batch_size=2)
+    jev = JEvaluator(with_data(jcfg, cache_device=True), jmodel)
+    want = jev.evaluate(jvars, jds, batch_size=2)
+    assert jev._device_cache is not None  # JAX's _evaluate_cached ran
+    tev = Evaluator(with_data(tcfg, cache_device=True), device="cpu")
+    gathered = []
+    t_predict = tev._predict
+    tev._predict = lambda model, images, *a: gathered.append(images.shape) or t_predict(
+        model, images, *a)
+    got = tev.evaluate(tmodel, tds, batch_size=2)
+    cache = tev._device_cache
+    assert cache is not None and cache.host_meta is not None and gathered == [(2,) + SIZE + (3,)] * 2
+    again = tev.evaluate(tmodel, tds, batch_size=2)
+    assert tev._device_cache is cache  # uploaded once per dataset
+    _same(again, got, "cache_device, second call")
+    ram = Evaluator(with_data(tcfg, loader_cache_ram=True), device="cpu")
+    got_ram = ram.evaluate(tmodel, tds, batch_size=2)
+    view = ram._cached_view
+    assert view is not None and view.nbytes > 0
+    _same(ram.evaluate(tmodel, tds, batch_size=2), got_ram, "loader_cache_ram, second call")
+    assert ram._cached_view is view
+    _same(got_ram, fed, "loader_cache_ram vs loader-fed")
+    # a uint8 set (device_normalize): the model normalizes the batch, as on
+    # the JAX side, through the loader feed and through the device cache
+    u8 = dict(device_normalize=True)
+    tds8 = VOCDataset(with_data(tcfg, **u8).data, "val")
+    jds8 = JVOCDataset(with_data(jcfg, **u8).data, "val")
+    assert tds8[0]["image"].dtype == np.uint8
+    want8 = JEvaluator(with_data(jcfg, **u8), jmodel).evaluate(jvars, jds8, batch_size=2)
+    fed8 = Evaluator(with_data(tcfg, **u8), device="cpu").evaluate(tmodel, tds8, batch_size=2)
+    got8 = Evaluator(with_data(tcfg, cache_device=True, **u8), device="cpu").evaluate(
+        tmodel, tds8, batch_size=2)
+    for name, a, b in (("cache_device vs loader-fed", got, fed),
+                       ("cache_device vs JAX cached", got, want),
+                       ("JAX cached vs loader-fed", want, fed),
+                       ("uint8 loader-fed vs JAX", fed8, want8),
+                       ("uint8 cache_device vs JAX", got8, want8)):
+        assert set(a) == set(b), name
+        for k in b:
+            x, y = np.asarray(a[k], np.float64), np.asarray(b[k], np.float64)
+            assert np.allclose(x, y, rtol=0, atol=1e-6, equal_nan=True), (name, k, x, y)
 
 
 def test_eval_slice_matches_jax(tmp_path, monkeypatch):

@@ -78,6 +78,9 @@ from replication_faster_rcnn_tpu_torch.quant.calibrate import (
 )
 from replication_faster_rcnn_tpu_torch.serving.engine import InferenceEngine
 from tests.test_torch_model import _randomise
+from tests.torch_threads import share_cores_among_xdist_workers
+
+share_cores_among_xdist_workers()  # test_int8_slice_matches_jax needs two threads or more
 
 REPO = Path(__file__).resolve().parents[1]
 SIZE = (64, 64)
@@ -495,6 +498,11 @@ def _int8_engine_matches(tcfg, state, tres, path, images, infer):
 
 
 def test_int8_slice_matches_jax(tiny, tiny_fpn, tmp_path):
+    """The tiny FPN's roi check depends on the convolutions' summation order:
+    at one torch thread one roi lies 0.0358 px from JAX's on a 32 px
+    coordinate, past the stated 0.033; at two, four and eight threads it
+    holds. ``share_cores_among_xdist_workers`` (``tests/torch_threads.py``)
+    keeps two or more threads under xdist."""
     jcfg, tcfg, state, artifact = tiny["jcfg"], tiny["tcfg"], tiny["state"], tiny["artifact"]
     rng = np.random.default_rng(1)
     images = rng.integers(0, 256, (2,) + SIZE + (3,), dtype=np.uint8)

@@ -441,7 +441,6 @@ def _cli_matches_jax(tmp_path, capsys, monkeypatch, engines, paths):
 
     for argv, item in ((["train", "--elastic"], "item 8"), (["train", "--strict"], "item 7"),
                        (["eval", "--mesh-shape", "2,4"], "item 8"),
-                       (["quantize", "--loader-mode", "process"], "item 2"),
                        (["bench", "--backbone", "resnext50_32x4d"], "item 6"),
                        (["train", "--pretrained-backbone", "r.pth"], "item 9"),
                        (["predict", "--image", paths[0], "--output", "o.png"], "item 9")):
@@ -449,6 +448,13 @@ def _cli_matches_jax(tmp_path, capsys, monkeypatch, engines, paths):
         assert rc == 2 and "not ported yet" in out.err and item in out.err, (argv, out.err)
     with pytest.raises(NotImplementedError, match="item 9"):
         draw_detections(paths[0], [], str(tmp_path / "o.png"))
+    # --loader-mode process (the forked loader workers) reaches the config
+    seen = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cli, "cmd_train", lambda args: seen.append(cli._build_config(args)) or 0)
+        for mode in ("process", "thread"):
+            rc, out = _cli(cli.main, ["train", *CLI_COMMON, "--loader-mode", mode], capsys)
+            assert rc == 0 and seen[-1].data.loader_mode == mode, (mode, out.err)
 
     # eval/predict.py against the JAX module on the same engines and weights
     jeng, teng, variables = engines
@@ -621,8 +627,15 @@ def test_host_modules_and_loadgen_match_jax():
     assert got == want
     # the port registers the sites it fires, each one of JAX's, and rejects
     # the others until the code that fires them is ported
-    assert set(failpoints.SITES) == {"batcher.flush", "http.handler"}
+    assert set(failpoints.SITES) == {"loader.fetch", "batcher.flush", "http.handler"}
     assert set(failpoints.SITES) <= set(j_failpoints.SITES)
+    # the nan fault's poison, as JAX's: a float image all NaN, a uint8 one untouched
+    for image in (np.ones((2, 3, 3), np.float32), np.ones((2, 3, 3), np.uint8)):
+        sample = {"image": image, "labels": np.arange(3)}
+        got_p, want_p = failpoints.poison_batch(sample), j_failpoints.poison_batch(sample)
+        assert got_p.keys() == want_p.keys() and sample["image"] is image
+        for k in want_p:
+            np.testing.assert_array_equal(got_p[k], want_p[k])
     with pytest.raises(ValueError, match="unknown failpoint site"):
         failpoints.configure("checkpoint.write:ioerror:1.0:0")
     assert not failpoints.armed()

@@ -1,16 +1,32 @@
 """Parity of the PyTorch port's training path with the JAX package at a small
 size, on the CPU: ResNet18 at 96x96 (the ROIAlign and the ROIPool presets),
-batch 2, compute float32, the budgets of
+and in ``test_train_step_losses_match_jax`` also ``coco_resnet50``
+(Bottlenecks, train-mode BatchNorm, 81 classes, ROIAlign) and
+``coco_vgg16`` (ROIPool, 12 anchors, dropout), batch 2, compute float32,
+the budgets of
 ``__graft_entry__._dryrun_body`` (pre_nms_train 192 -> 48, RPN n_sample 64,
 ROI n_sample 16, max_boxes 4).
 
 The JAX step keys its sampling with threefry; the port's step takes the same
 uniforms, computed here in JAX from the step's own keys
 (``fold_in(rng, step)`` -> split in 3 -> ``fold_in(key, image)`` -> split ->
-``uniform``) and injected. Tolerances, with their reasons:
+``uniform``) and injected; the VGG16 tail's two dropout keep masks are the
+JAX step's too (``_RecordDropout`` hands flax's masks to the host). Tolerances,
+with their reasons:
 
 * The four losses: rtol 1e-5 (observed ~5e-7). XLA:CPU and PyTorch sum the
   convolutions and BatchNorm statistics in different orders.
+* ``coco_resnet50`` and ``coco_vgg16``: the losses, the gradient's norm and
+  (VGG16) its leaves within twice the port's own float32 noise band where it
+  exceeds those rtols (``_float32_band``: the same step at images scaled by
+  1 -+ 1e-7; measured 5.1e-4 to 6.5e-4 of the ResNet50 norm, 2.3e-5 of its
+  ``head_reg_loss``, 1.4e-4 of a VGG16 leaf's largest entry, at one to
+  eight threads: ReLU masks flip on last-bit changes; JAX's value, the same
+  in one program and in two, lies 7.0e-4 from the port's ResNet50 norm, and
+  each VGG16 leaf's distance equals its band). The band itself is capped
+  (``BAND_CEILING``: 1e-4 of a loss, 1e-3 of the norm, 3e-4 of a leaf's
+  largest entry), so a noisier port fails instead of widening its own
+  tolerance.
 * The gradient's global norm: rtol 1e-4. For the ROIPool preset
   (``voc_resnet18``) it is held against the JAX gradient computed in two
   jitted programs that meet at the trunk's features
@@ -80,6 +96,7 @@ from replication_faster_rcnn_tpu_torch.models.convert import (
 from replication_faster_rcnn_tpu_torch.models.faster_rcnn import build_model
 from replication_faster_rcnn_tpu_torch.models.head import select_class_deltas
 from replication_faster_rcnn_tpu_torch.models.resnet import BatchNorm
+from replication_faster_rcnn_tpu_torch.models.vgg import KEEP_MASK_NAMES
 from replication_faster_rcnn_tpu_torch.ops import roi_ops
 from replication_faster_rcnn_tpu_torch.ops.roi_ops import extract_roi_features
 from replication_faster_rcnn_tpu_torch.train import losses
@@ -94,10 +111,16 @@ from replication_faster_rcnn_tpu_torch.train.train_step import (
     make_optimizer,
     make_train_step,
 )
+from tests.torch_threads import share_cores_among_xdist_workers
+
+share_cores_among_xdist_workers()  # xdist workers' steps share the cores
 
 SIZE = (96, 96)
 LR = 1e-4
 LOSSES = ("loss", "rpn_cls_loss", "rpn_reg_loss", "head_cls_loss", "head_reg_loss")
+# the most _float32_band may reach, relative to the value it bands (see the
+# module docstring: about twice the largest band measured)
+BAND_CEILING = {"losses": 1e-4, "grad_norm": 1e-3, "leaves": 3e-4}
 
 
 def t(x):
@@ -195,6 +218,38 @@ def _jax_grad_meeting_at_features(jmodel, jcfg, state, jbatch):
     return from_flax_variables(_np_vars(state.replace(params=total)))
 
 
+class _RecordDropout:
+    """Within the block, every flax ``nn.Dropout`` draws its keep mask from
+    the key it would draw anyway and hands the mask to the host
+    (``jax.debug.callback``, so it works inside ``jax.jit`` and
+    ``jax.grad``) by the port's names: the VGG16 tail's ``Dropout_0`` is
+    fc6's, ``Dropout_1`` fc7's. The JAX package's source is not touched."""
+
+    def __init__(self):
+        self.masks = {}
+        self._orig = fnn.Dropout.__call__
+
+    def __enter__(self):
+        orig, masks = self._orig, self.masks
+
+        def call(mod, inputs, deterministic=None, rng=None):
+            det = fnn.module.merge_param("deterministic", mod.deterministic, deterministic)
+            if det or mod.rate == 0.0:
+                return orig(mod, inputs, deterministic, rng)
+            rng = mod.make_rng(mod.rng_collection) if rng is None else rng
+            name = KEEP_MASK_NAMES[int(mod.name.split("_")[-1])]
+            keep = jax.random.bernoulli(rng, p=1.0 - mod.rate, shape=inputs.shape)
+            jax.debug.callback(lambda m, name=name: masks.__setitem__(name, np.asarray(m)),
+                               keep)
+            return orig(mod, inputs, deterministic, rng)
+
+        fnn.Dropout.__call__ = call
+        return self
+
+    def __exit__(self, *exc):
+        fnn.Dropout.__call__ = self._orig
+
+
 def _one_step(name):
     jcfg = small(jconfig, jconfig.get_config(name))
     jcfg = jcfg.replace(data=dataclasses.replace(jcfg.data, dataset="synthetic"))
@@ -204,15 +259,21 @@ def _one_step(name):
     jbatch = j_collate([JSyntheticDataset(jcfg.data, length=2)[i] for i in range(2)])
     batch = collate([SyntheticDataset(tcfg.data, length=2)[i] for i in range(2)])
     assert all(np.array_equal(batch[k], jbatch[k]) for k in batch)
-    new_state, jmetrics = jax.jit(j_make_train_step(jmodel, jcfg, tx))(state, jbatch)
-    split = None
-    if jcfg.model.roi_op == "pool":
-        split = _jax_grad_meeting_at_features(jmodel, jcfg, state, jbatch)
+    with _RecordDropout() as dropout:  # the VGG16 tail's masks, as the JAX step draws them
+        new_state, jmetrics = jax.jit(j_make_train_step(jmodel, jcfg, tx))(state, jbatch)
+        jax.block_until_ready(jmetrics)
+        split = None
+        if jcfg.model.roi_op == "pool":
+            split = _jax_grad_meeting_at_features(jmodel, jcfg, state, jbatch)
+    assert set(dropout.masks) == (set(KEEP_MASK_NAMES) if jcfg.model.backbone == "vgg16"
+                                  else set())
 
     model = build_model(tcfg, device="cpu", state_dict=from_flax_variables(_np_vars(state)))
     optimizer, _ = make_optimizer(tcfg, model.parameters(), 1)
     ts = TrainState(model, optimizer, torch.Generator().manual_seed(0))
-    draws = jax_step_draws(state, 2, 6 * 6 * 9, 48 + 4)
+    anchors = len(tcfg.anchors.ratios) * len(tcfg.anchors.scales)
+    draws = jax_step_draws(state, 2, 6 * 6 * anchors, 48 + 4)
+    draws.update({k: t(m) for k, m in dropout.masks.items()})
     tbatch = {k: t(batch[k]) for k in ("image", "boxes", "labels", "mask")}
     record = {}
     metrics = make_train_step(tcfg)(ts, tbatch, draws=draws, record=record)
@@ -223,6 +284,7 @@ def _one_step(name):
         "jstep": jax.jit(j_make_train_step(jmodel, jcfg, tx)),
         "metrics": {k: float(v) for k, v in metrics.items()},
         "state": ts, "record": record, "draws": draws, "batch": tbatch, "tcfg": tcfg,
+        "init": from_flax_variables(_np_vars(state)),
         "grads": {k: p.grad.clone() for k, p in model.named_parameters()},
         "jgrad_split": split,
     }
@@ -307,30 +369,75 @@ def _case_carried_optax_state(step):
                 train_state_from_flax(carried, tcfg_small(), "cpu")
 
 
+def _float32_band(step, rel=1e-7):
+    """The spread of the port's four losses, gradient norm and gradient
+    leaves over the step's batch with its images scaled by 1, 1 - ``rel``
+    and 1 + ``rel`` (the same weights and draws): the float32 noise floor of
+    those values, where ReLU masks flip on last-bit changes. Measured at
+    96x96: in the ResNet50 step ~6.5e-4 of the gradient norm and ~3e-5 of
+    ``head_reg_loss`` (layer4's train-mode blocks), in the VGG16 step 1.4e-4
+    of ``trunk.conv2_1.bias``'s largest entry, above rtol 1e-4 / 1e-5; the
+    port's distance to JAX equals the band leaf by leaf. The ResNet18 steps
+    are held at the plain rtols."""
+    vals, grads = [], []
+    for eps in (0.0, -rel, rel):
+        model = build_model(step["tcfg"], device="cpu", state_dict=step["init"]).train()
+        batch = dict(step["batch"], image=step["batch"]["image"] * (1 + eps))
+        total, (metrics, _) = compute_losses(model, step["tcfg"], batch, draws=step["draws"])
+        total.backward()
+        row = {k: float(metrics[k]) for k in LOSSES}
+        row["grad_norm"] = float(np.sqrt(sum(float((p.grad.double() ** 2).sum())
+                                             for p in model.parameters())))
+        vals.append(row)
+        grads.append({k: p.grad for k, p in model.named_parameters()})
+    band = {k: max(r[k] for r in vals) - min(r[k] for r in vals) for k in vals[0]}
+    band["leaves"] = {k: max(float((g[k] - grads[0][k]).abs().max()) for g in grads[1:])
+                      for k in grads[0]}
+    return band
+
+
 def test_train_step_losses_match_jax(one_step, tmp_path):
     _case_jax_checkpoint_into_port(one_step, tmp_path / "orbax")
     _case_carried_optax_state(one_step)
-    for step in (one_step, one_step["pool"]):
+    # coco_resnet50 (Bottlenecks, train-mode BatchNorm, 81 classes, ROIAlign)
+    # and coco_vgg16 (ROIPool, 12 anchors, dropout with JAX's masks injected)
+    for step in (one_step, one_step["pool"], _one_step("coco_resnet50"),
+                 _one_step("coco_vgg16")):
         got, want = step["metrics"], step["jmetrics"]
+        # the ResNet50 and VGG16 steps: JAX within twice the port's float32
+        # noise band where that band is above the rtol (_float32_band)
+        band = (_float32_band(step) if step["tcfg"].model.backbone in ("resnet50", "vgg16")
+                else {**dict.fromkeys(LOSSES + ("grad_norm",), 0.0), "leaves": {}})
         for k in LOSSES:
-            np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)
+            assert band[k] <= BAND_CEILING["losses"] * abs(want[k]), (k, band[k], want[k])
+            assert abs(got[k] - want[k]) <= max(1e-5 * abs(want[k]), 2 * band[k]), (
+                k, got[k], want[k], band[k])
         for k in ("n_pos_rpn", "n_pos_head", "nonfinite_count", "skipped"):
             assert got[k] == want[k], k
         assert got["n_pos_rpn"] > 0 and got["n_pos_head"] > 0
         np.testing.assert_allclose(got["param_norm"], want["param_norm"], rtol=1e-6)
         jgrad = step["jgrad_split"]  # see _jax_grad_meeting_at_features
         if jgrad is None:
-            np.testing.assert_allclose(got["grad_norm"], want["grad_norm"], rtol=1e-4)
+            assert band["grad_norm"] <= BAND_CEILING["grad_norm"] * abs(want["grad_norm"]), (
+                band["grad_norm"], want["grad_norm"])
+            assert abs(got["grad_norm"] - want["grad_norm"]) <= max(
+                1e-4 * abs(want["grad_norm"]), 2 * band["grad_norm"]), (
+                got["grad_norm"], want["grad_norm"], band["grad_norm"])
         else:
             grads = step["grads"]
             norm = np.sqrt(sum(float((jgrad[k].double() ** 2).sum()) for k in grads))
             np.testing.assert_allclose(got["grad_norm"], norm, rtol=1e-4)
             for k, g in grads.items():  # leaf by leaf (measured: 8e-6 of the largest entry)
                 w = jgrad[k]
-                assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max()), k
+                err = float((g - w).abs().max())
+                leaf_band = band["leaves"].get(k, 0.0)
+                assert leaf_band <= BAND_CEILING["leaves"] * float(w.abs().max()), (k, leaf_band)
+                assert err <= max(1e-4 * float(w.abs().max()),
+                                  2 * leaf_band), (k, err)
         np.testing.assert_allclose(got["update_norm"], want["update_norm"], rtol=1e-3)
         assert step["record"]["draws"] is not step["draws"]
-        assert all(torch.equal(step["record"]["draws"][k], step["draws"][k]) for k in DRAW_NAMES)
+        assert set(step["record"]["draws"]) == set(step["draws"])
+        assert all(torch.equal(step["record"]["draws"][k], v) for k, v in step["draws"].items())
 
 
 def test_train_step_params_within_adam_bound(one_step):
