@@ -274,10 +274,30 @@ H100:  ``python3 chip_smoke.py``. It
    pool; one step's forward and backward replayed under
    ``ops.reference_scope()`` with the same draws (VGG16's dropout masks
    included): targets and losses bitwise;
-14. prints every phase's wall time, a ``{"kernels": [...]}`` line (the
+14. drives the grouped and wide backbones and the model knobs
+   (:func:`phase_backbones`, :func:`phase_knobs`): ``resnext50_32x4d``,
+   ``resnext101_32x8d``, ``wide_resnet50_2`` and ``wide_resnet101_2`` at
+   full width and depth on ``voc_resnet50``'s configuration (600x600, b8,
+   bfloat16, ROIPool on the 1024-channel C4 map, seeded weights): the
+   kernels at their shapes, ``2 + KNOB_REPS`` captured steps and the same
+   steps eager bitwise with launches per step (NMS 1, IoU matching 2,
+   ROIPool forward and backward 1), step ms, images/s, peak and graph
+   pool, and bfloat16 serving graphs at b1 and b8, each replay bitwise its
+   eager flush and the plain replay, b1 flush ms and b8 images/s. Then
+   ``coco_resnet50`` b32: ``remat`` bitwise the steps without it (peaks
+   beside [13]'s), ``frozen_bn``'s running statistics bitwise unchanged,
+   ``norm="group"`` captured bitwise eager; ``remat`` on
+   ``voc_resnet50_fpn`` b8 and ``coco_vgg16`` b8 bitwise their steps
+   without it. Then ``TRACE_STEPS`` eager ``coco_resnet50`` b32 steps with
+   BatchNorm, frozen BatchNorm and GroupNorm, each under
+   ``utils/profiling.py::trace``, read by ``python -m
+   replication_faster_rcnn_tpu_torch trace-summary`` in a subprocess (JSON
+   under ``build/``): the top kernels and launching operators printed, the
+   operators' ms equal to the kernels' within 1%;
+15. prints every phase's wall time, a ``{"kernels": [...]}`` line (the
    serving kernels' launches per graph replay beside their counts; [13]'s
-   shapes under ``preset_training_sites``), the card line, and last
-   ``{"ok": true, "device": {...}}``.
+   and [14]'s shapes under ``preset_training_sites``), the card line, and
+   last ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Without CUDA, or without
 the repository beside it, it exits non-zero at once. Comparisons run with
@@ -5437,10 +5457,11 @@ def phase_preset_train(torch, name, cfg=None, device=None):
     anchors, ``max_boxes`` and batch) on ``SyntheticDataset``, first the
     kernels at its shapes (:func:`check_preset_kernels`). Then a captured
     ``Trainer`` and, after it is freed, an eager one from the same seed,
-    each ``2 + TRAIN_REPS`` steps on the same two staged batches (the
-    captured trainer's first call captures, then replays), the last
-    ``TRAIN_REPS`` timed under sync debug "error" with the launch counters
-    reset just before and read just after (per step NMS 1, IoU matching 2,
+    each ``2 + TRAIN_REPS`` steps on the same two staged batches
+    (:func:`train_run`: the captured trainer's first call captures, then
+    replays), the last ``TRAIN_REPS`` timed under sync debug "error" with the
+    launch counters reset just before and read just after (per step NMS 1,
+    IoU matching 2,
     the preset's ROI forward and backward 1); both runs bitwise equal in
     every step's metrics and in the parameters, BatchNorm statistics and
     optimizer state they end with. Each prints its step ms and images/s,
@@ -5454,11 +5475,9 @@ def phase_preset_train(torch, name, cfg=None, device=None):
     import gc
 
     from replication_faster_rcnn_tpu_torch import get_config, ops
-    from replication_faster_rcnn_tpu_torch.data.synthetic import SyntheticDataset
     from replication_faster_rcnn_tpu_torch.models.resnet import BatchNorm
     from replication_faster_rcnn_tpu_torch.train.train_step import (
-        KEEP_MASK_NAMES, compute_losses, make_train_step)
-    from replication_faster_rcnn_tpu_torch.train.trainer import Trainer
+        KEEP_MASK_NAMES, compute_losses)
 
     cfg = cfg or get_config(name)
     dev = torch.device(device or "cuda")
@@ -5469,92 +5488,27 @@ def phase_preset_train(torch, name, cfg=None, device=None):
         f"{len(cfg.anchors.ratios) * len(cfg.anchors.scales)} anchors, max_boxes "
         f"{cfg.data.max_boxes}), compute {cfg.model.compute_dtype}; captured, then eager")
     kernels = check_preset_kernels(torch, name, cfg, dev)
-    dataset = SyntheticDataset(cfg.data, length=2 * bsz)
     names = ("nms", "iou_match") + ROI_NAMES
     want = {"nms": 1, "iou_match": 2, **roi_launches(op, 1, 1)}
-    gib = 2**-30
-    runs, ends = {}, {}
+    runs = {}
     for tag in ("captured", "eager"):
-        gc.collect()
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        allocated0 = torch.cuda.memory_allocated(dev)
-        tr = Trainer(cfg, dataset, device=dev, seed=0)
-        if tag == "eager":
-            tr.step_fn = make_train_step(cfg, capture=False)
-        tr.loader.set_epoch(0)
-        batches = [tr.stage_batch(b) for b in tr.loader]
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved0 = torch.cuda.memory_reserved(dev)
-        REPLAYS.reset(names)
-        rows = [tr.train_one_batch(staged=batches[i]) for i in range(2)]
-        first = REPLAYS.read(names)
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        pool = torch.cuda.memory_reserved(dev) - reserved0
-        if first != {k: 2 * v for k, v in want.items()}:
-            raise AssertionError(f"{name} {tag}: first 2 steps launched {first}, expected "
-                                 f"{want} a step")
-        REPLAYS.reset(names)
-
-        def step(i, tr=tr, rows=rows, batches=batches):
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                rows.append(tr.train_one_batch(staged=batches[i % 2]))
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-
-        ms = timed_steps(torch, step, TRAIN_REPS)
-        launches = REPLAYS.read(names)
-        if launches != {k: v * TRAIN_REPS for k, v in want.items()}:
-            raise AssertionError(f"{name} {tag}: expected per step {want}, got {launches} over "
-                                 f"{TRAIN_REPS} steps")
-        host = [{k: float(v) for k, v in m.items()} for m in rows]
-        bad = [i for i, r in enumerate(host) if r["skipped"] != 0.0 or not all(
-            np.isfinite(r[k]) for k in ("loss", "head_cls_loss", "head_reg_loss", "grad_norm"))]
-        if bad:
-            raise AssertionError(f"{name} {tag}: non-finite or withheld steps {bad}: "
-                                 f"{host[bad[0]]}")
-        ends[tag] = (rows, {k: v.detach().cpu() for k, v in tr.model.state_dict().items()},
-                     {k: v.cpu() for k, v in tr.state.optimizer.state_dict().items()})
-        peak = (torch.cuda.max_memory_allocated(dev) - allocated0) * gib
-        REPLAYS.reset(names)
-        timeline = device_timeline(torch, lambda: [tr.train_one_batch(staged=batches[i % 2])
-                                                   for i in range(3)], 3, op)
-        profiled = REPLAYS.read(names)
-        if profiled != {k: v * 3 for k, v in want.items()}:
-            raise AssertionError(f"{name} {tag}: expected per step {want}, got {profiled} over "
-                                 "the 3 profiled steps")
-        idle = None if timeline is None else timeline["device_idle_share"]
-        med = statistics.median(ms)
-        runs[tag] = {"step_ms": med, "step_ms_all": ms, "images_per_s": bsz / med * 1e3,
-                     "launches": launches, "peak_allocated_gib": peak,
-                     "graph_pool_gib": pool * gib if tag == "captured" else None,
-                     "reserved_after_first_steps_gib": pool * gib,
-                     "device_idle_share": idle, "device_timeline": timeline,
-                     "losses_first_last": [host[0]["loss"], host[-1]["loss"]]}
-        log(f"  {name} {tag}: {med:.2f} ms a step (median of {TRAIN_REPS}, CUDA events), "
-            f"{bsz / med * 1e3:.1f} images/s, launches {launches} in {TRAIN_REPS} steps, idle "
-            f"share {'not measured' if idle is None else round(idle, 4)}, peak allocated "
-            f"{peak:.2f} GiB, reserved kept after the first 2 steps {pool * gib:.3f} GiB, loss "
-            f"{host[0]['loss']:.4f} -> {host[-1]['loss']:.4f}")
-        if tag == "captured":  # freed before the eager trainer is built
-            del tr, rows, batches
+        runs[tag] = run = train_run(torch, cfg, dev, names, want, capture=tag == "captured",
+                                    reps=TRAIN_REPS, timeline=True, keep=tag == "eager")
+        idle = run["device_idle_share"]
+        log(f"  {name} {tag}: {run['step_ms']:.2f} ms a step (median of {TRAIN_REPS}, CUDA events), "
+            f"{run['images_per_s']:.1f} images/s, launches {run['launches']} in {TRAIN_REPS} steps, "
+            f"idle share {'not measured' if idle is None else round(idle, 4)}, peak allocated "
+            f"{run['peak_allocated_gib']:.2f} GiB, reserved kept after the first 2 steps "
+            f"{run['reserved_after_first_steps_gib']:.3f} GiB, loss "
+            f"{run['losses_first_last'][0]:.4f} -> {run['losses_first_last'][1]:.4f}")
     # the captured and the eager runs, bitwise
-    (cap_rows, cap_sd, cap_opt), (eag_rows, eag_sd, eag_opt) = ends["captured"], ends["eager"]
-    mdiff = metrics_differences(torch, [{k: v.cpu() for k, v in m.items()} for m in cap_rows],
-                                [{k: v.cpu() for k, v in m.items()} for m in eag_rows])
-    sdiff = [k for k in eag_sd if not bitwise(torch, cap_sd[k], eag_sd[k])]
-    odiff = [k for k in eag_opt if not bitwise(torch, cap_opt[k], eag_opt[k])]
-    if mdiff or sdiff or odiff:
-        raise AssertionError(f"{name}: captured vs eager differ in metrics {mdiff[:5]}, state "
-                             f"{sdiff[:5]}, optimizer {odiff[:5]}")
-    del ends, cap_sd, eag_sd
+    same_runs(torch, runs["captured"], runs["eager"], f"{name}: captured vs eager")
+    tr, batches = runs["eager"].pop("trainer"), runs["eager"].pop("batches")
+    runs = {tag: summary_of(run) for tag, run in runs.items()}
+    del run
+    runs["captured"]["graph_pool_gib"] = runs["captured"]["reserved_after_first_steps_gib"]
     log(f"  {name}: {2 + TRAIN_REPS} captured steps bitwise the same steps eager (every "
         "metric, the parameters, BatchNorm statistics, mu, nu, count)")
-
     # one step's forward + backward on the eager trainer, kernels against
     # plain, the same draws
     model, state = tr.model, tr.state
@@ -5605,9 +5559,370 @@ def phase_preset_train(torch, name, cfg=None, device=None):
     del tr, batches, model, state, params, kgrads, pgrads
     gc.collect()
     torch.cuda.empty_cache()
-    out = {"config": name, "batch": bsz, "captured": runs["captured"], "eager": runs["eager"],
-           "kernels": kernels, "grad_max_rel_l2_err_vs_plain": grad_err, "dropout_masks": masks}
+    out = {"config": name, "roi_op": op, "batch": bsz, "captured": runs["captured"],
+           "eager": runs["eager"], "kernels": kernels, "grad_max_rel_l2_err_vs_plain": grad_err,
+           "dropout_masks": masks}
     return ({"captured": runs["captured"]["launches"], "eager": runs["eager"]["launches"]}, out)
+
+
+# ------------------------------------------ [14] backbones, model knobs, trace-summary
+
+KNOB_BACKBONES = ("resnext50_32x4d", "resnext101_32x8d", "wide_resnet50_2", "wide_resnet101_2")
+KNOB_REPS = 4  # [14]'s timed steps a run (after 2 untimed ones, the first captures)
+KNOB_PRESET = "coco_resnet50"  # [13]'s b32 ROIAlign configuration
+TRACE_STEPS = 3  # eager steps in each trace-summary capture
+TRACE_TOP = 15
+TRACE_DIR = REPO / "build" / "chip_smoke_traces"
+
+
+def backbone_config(backbone, size=None):
+    """``voc_resnet50`` (600x600, b8, bfloat16, ROIPool on the 1024-channel
+    C4 map) on another ResNet trunk and tail (``size`` shrinks the image
+    for a CPU rehearsal)."""
+    import dataclasses
+
+    from replication_faster_rcnn_tpu_torch import get_config
+
+    cfg = get_config("voc_resnet50")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, backbone=backbone),
+                      data=dataclasses.replace(cfg.data, dataset="synthetic"))
+    if size is not None:
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, image_size=(size, size)))
+    return cfg
+
+
+def serve_backbone(torch, cfg, dev, reps=REPS):
+    """One backbone served in bfloat16 through ``InferenceEngine`` graphs at
+    its bucket, b1 and b8 (seeded weights): each graph's replay bitwise its
+    eager flush and the plain replay, launches per replay (NMS 2, ROIPool
+    1), then the b1 flush ms and b8 images/s over ``reps`` flushes."""
+    import dataclasses
+
+    from replication_faster_rcnn_tpu_torch.serving.engine import InferenceEngine
+
+    size = cfg.data.image_size
+    cfg = cfg.replace(serving=dataclasses.replace(
+        cfg.serving, resolutions=(size,), batch_sizes=(1, 8), params_dtype="bfloat16"))
+    rng = np.random.default_rng(14)
+    images = {size: [rng.integers(0, 256, size + (3,), dtype=np.uint8) for _ in range(8)]}
+    want = {"nms": 2, **roi_launches(cfg.model.roi_op)}
+    with InferenceEngine(cfg, device=dev, seed=0, warmup=True) as engine:
+        per_replay = check_stack_graphs(torch, engine, images, want)
+        engine.predict(images[size])  # the callers' paths warm
+        engine.submit(images[size][0]).result(timeout=300)
+        timings = timed_flushes(engine, images[size][0], images[size], reps)
+        out = {"launches_per_replay": per_replay, "capture_seconds": dict(engine.compile_seconds),
+               "params_bytes": engine.params_bytes, **timings}
+    log(f"  [14] serve {cfg.model.backbone} {size} bfloat16: graphs b1, b8 bitwise their eager "
+        f"flushes and the plain replays, per replay {per_replay}; b1 flush "
+        f"{timings['b1_flush_ms']:.2f} ms, b8 {timings['b8_images_per_s']:.1f} images/s")
+    return out
+
+
+def phase_backbones(torch, device=None, size=None, reps=KNOB_REPS):
+    """Phase [14] (a): ``resnext50_32x4d``, ``resnext101_32x8d``,
+    ``wide_resnet50_2`` and ``wide_resnet101_2`` at full width and depth on
+    ``voc_resnet50``'s configuration (:func:`backbone_config`): each one's
+    kernels at its shapes (:func:`check_preset_kernels`), ``2 + reps``
+    captured train steps and the same steps eager (:func:`train_run`, per
+    step NMS 1, IoU matching 2, ROIPool forward 1 and backward 1), bitwise
+    equal (:func:`same_runs`), and serving (:func:`serve_backbone`)."""
+    dev = torch.device(device or "cuda")
+    names = ("nms", "iou_match") + ROI_NAMES
+    launches, out = {}, {}
+    for backbone in KNOB_BACKBONES:
+        cfg = backbone_config(backbone, size)
+        name, op = f"voc_resnet50/{backbone}", cfg.model.roi_op
+        log(f"[14] main path: train {name} {cfg.data.image_size} batch {cfg.train.batch_size}, "
+            f"ROI op {op}, compute {cfg.model.compute_dtype}; captured, then eager")
+        kernels = check_preset_kernels(torch, name, cfg, dev)
+        want = {"nms": 1, "iou_match": 2, **roi_launches(op, 1, 1)}
+        runs = {tag: train_run(torch, cfg, dev, names, want, capture=tag == "captured", reps=reps)
+                for tag in ("captured", "eager")}
+        same_runs(torch, runs["captured"], runs["eager"], f"{name}: captured vs eager")
+        runs = {tag: summary_of(run) for tag, run in runs.items()}
+        runs["captured"]["graph_pool_gib"] = runs["captured"]["reserved_after_first_steps_gib"]
+        for tag, run in runs.items():
+            log(f"  {name} {tag}: {run['step_ms']:.2f} ms a step (median of {reps}, CUDA "
+                f"events), {run['images_per_s']:.1f} images/s, launches {run['launches']} in "
+                f"{reps} steps, peak allocated {run['peak_allocated_gib']:.2f} GiB, reserved "
+                f"kept after the first 2 steps {run['reserved_after_first_steps_gib']:.3f} GiB")
+        log(f"  {name}: {2 + reps} captured steps bitwise the same steps eager (every metric, "
+            "the parameters, BatchNorm statistics, mu, nu, count)")
+        launches[f"train_{backbone}"] = runs["captured"]["launches"]
+        launches[f"train_{backbone}_eager"] = runs["eager"]["launches"]
+        out[backbone] = {"config": name, "backbone": backbone, "roi_op": op,
+                         "batch": cfg.train.batch_size, **runs, "kernels": kernels,
+                         "serve": serve_backbone(torch, cfg, dev)}
+    return launches, out
+
+
+def train_run(torch, cfg, dev, names, want, capture=True, reps=KNOB_REPS, timeline=False,
+              profile=None, keep=False):
+    """``2 + reps`` steps of a seeded ``Trainer`` of ``cfg`` on two staged
+    synthetic batches (captured: the first call captures, then replays; or
+    eager), the last ``reps`` timed under sync debug "error" with the
+    launch counters reset just before and read just after (``want`` a
+    step). ``timeline``: 3 more steps under :func:`device_timeline` (the
+    same launches a step); ``profile`` (a directory): ``TRACE_STEPS`` more
+    steps under ``utils/profiling.py::trace``, after one warm-up step kept
+    out of the capture. Returns the step ms, images/s, launches, the peak
+    allocated GiB and the reserved GiB the first 2 steps keep (a captured
+    run's graph pool), both above the start, the idle share, and on the
+    host every step's metrics, the model's and the optimizer's state and
+    the running statistics before the first step; ``keep`` adds the
+    trainer and its staged batches (freed otherwise)."""
+    import gc
+
+    from replication_faster_rcnn_tpu_torch.data.synthetic import SyntheticDataset
+    from replication_faster_rcnn_tpu_torch.train.train_step import make_train_step
+    from replication_faster_rcnn_tpu_torch.train.trainer import Trainer
+    from replication_faster_rcnn_tpu_torch.utils.profiling import trace
+
+    bsz, gib = cfg.train.batch_size, 2**-30
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    allocated0 = torch.cuda.memory_allocated(dev)
+    tr = Trainer(cfg, SyntheticDataset(cfg.data, length=2 * bsz), device=dev, seed=0)
+    if not capture:
+        tr.step_fn = make_train_step(cfg, capture=False)
+    tr.loader.set_epoch(0)
+    batches = [tr.stage_batch(b) for b in tr.loader]
+    running0 = {k: v.detach().to("cpu", copy=True) for k, v in tr.model.state_dict().items()
+                if "running" in k}
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved(dev)
+    REPLAYS.reset(names)
+    rows = [tr.train_one_batch(staged=batches[i]) for i in range(2)]
+    first = REPLAYS.read(names)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    pool = torch.cuda.memory_reserved(dev) - reserved0
+    if first != {k: 2 * v for k, v in want.items()}:
+        raise AssertionError(f"first 2 steps launched {first}, expected {want} a step")
+    REPLAYS.reset(names)
+
+    def step(i):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rows.append(tr.train_one_batch(staged=batches[i % 2]))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    ms = timed_steps(torch, step, reps)
+    launches = REPLAYS.read(names)
+    if launches != {k: v * reps for k, v in want.items()}:
+        raise AssertionError(f"expected per step {want}, got {launches} over {reps} steps")
+    host = [{k: float(v) for k, v in m.items()} for m in rows]
+    bad = [i for i, r in enumerate(host) if r["skipped"] != 0.0 or not all(
+        np.isfinite(r[k]) for k in ("loss", "head_cls_loss", "head_reg_loss", "grad_norm"))]
+    if bad:
+        raise AssertionError(f"non-finite or withheld steps {bad}: {host[bad[0]]}")
+    med = statistics.median(ms)
+    out = {"step_ms": med, "step_ms_all": ms, "images_per_s": bsz / med * 1e3,
+           "launches": launches,
+           "peak_allocated_gib": (torch.cuda.max_memory_allocated(dev) - allocated0) * gib,
+           "reserved_after_first_steps_gib": pool * gib,
+           "losses_first_last": [host[0]["loss"], host[-1]["loss"]],
+           "rows": [{k: v.cpu() for k, v in m.items()} for m in rows],
+           "state": {k: v.detach().to("cpu", copy=True)
+                     for k, v in tr.model.state_dict().items()},
+           "optimizer": {k: v.to("cpu", copy=True)
+                         for k, v in tr.state.optimizer.state_dict().items()},
+           "running_before": running0, "device_timeline": None, "device_idle_share": None}
+    if timeline:
+        REPLAYS.reset(names)
+        out["device_timeline"] = device_timeline(
+            torch, lambda: [tr.train_one_batch(staged=batches[i % 2]) for i in range(3)], 3,
+            cfg.model.roi_op)
+        profiled = REPLAYS.read(names)
+        if profiled != {k: v * 3 for k, v in want.items()}:
+            raise AssertionError(f"expected per step {want}, got {profiled} over the 3 "
+                                 "profiled steps")
+        if out["device_timeline"] is not None:
+            out["device_idle_share"] = out["device_timeline"]["device_idle_share"]
+    if profile is not None:
+        fresh_dir(Path(profile))
+        with trace(str(profile), warmup_steps=1) as prof_step:
+            for i in range(1 + TRACE_STEPS):
+                tr.train_one_batch(staged=batches[i % 2])
+                torch.cuda.synchronize(dev)
+                prof_step()
+    if keep:
+        out["trainer"], out["batches"] = tr, batches
+    del tr, batches, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def same_runs(torch, got, want, what):
+    """Two :func:`train_run` results bitwise: every step's metrics, the
+    parameters and buffers, the optimizer's state."""
+    mdiff = metrics_differences(torch, got["rows"], want["rows"])
+    sdiff = [k for k in want["state"] if not bitwise(torch, got["state"][k], want["state"][k])]
+    odiff = [k for k in want["optimizer"]
+             if not bitwise(torch, got["optimizer"][k], want["optimizer"][k])]
+    if mdiff or sdiff or odiff or set(got["state"]) != set(want["state"]):
+        raise AssertionError(f"{what}: differ in metrics {mdiff[:5]}, state {sdiff[:5]}, "
+                             f"optimizer {odiff[:5]}")
+
+
+def summary_of(run):
+    """A :func:`train_run` result's numbers (no tensors)."""
+    return {k: v for k, v in run.items() if k not in ("rows", "state", "optimizer",
+                                                      "running_before", "trainer", "batches")}
+
+
+def with_model(cfg, **model):
+    import dataclasses
+
+    return cfg.replace(model=dataclasses.replace(cfg.model, **model))
+
+
+def trace_summary(torch, trace_dir, tag, dev):
+    """``python -m replication_faster_rcnn_tpu_torch trace-summary`` over
+    one capture as a subprocess, every row into ``build/`` as JSON: prints
+    the top kernels and launching operators. Of the kernels that are not a
+    graph replay, those launched outside any ``cpu_op`` (the row
+    ``NO_OPERATOR``) hold under 1% of the ms, and the named operators' ms
+    sum to the kernels' ms within 1%."""
+    from replication_faster_rcnn_tpu_torch.utils.profiling import (
+        GRAPH_REPLAY_OPERATOR, NO_OPERATOR, format_table)
+
+    path = REPO / "build" / f"trace_summary_{tag}.json"
+    proc = subprocess.run([sys.executable, "-m", "replication_faster_rcnn_tpu_torch",
+                           "trace-summary", str(trace_dir), "--top", "1000000", "--json",
+                           str(path)], cwd=str(REPO), capture_output=True, text=True,
+                          timeout=SERVE_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"trace-summary {tag} exited {proc.returncode}: {proc.stderr}")
+    tables = json.loads(path.read_text())
+    kernels = [r for r in tables["ops"] if not r.get("graph_replay")]
+    operators = [r for r in tables["operators"]
+                 if r["op"] not in (GRAPH_REPLAY_OPERATOR, NO_OPERATOR)]
+    if not kernels or not operators:
+        raise AssertionError(f"trace-summary {tag}: no eager kernels ({len(kernels)}) or "
+                             f"operators ({len(operators)}) in the capture")
+    k_ms = sum(r["total_ms"] for r in kernels)
+    o_ms = sum(r["total_ms"] for r in operators)
+    none_ms = sum(r["total_ms"] for r in tables["operators"] if r["op"] == NO_OPERATOR)
+    if none_ms > 0.01 * k_ms:
+        raise AssertionError(f"trace-summary {tag}: {none_ms} of {k_ms} kernel ms launched "
+                             "outside any cpu_op")
+    if abs(o_ms - k_ms) > 0.01 * k_ms:
+        raise AssertionError(f"trace-summary {tag}: named operators sum to {o_ms} ms, kernels "
+                             f"to {k_ms} ms")
+    log(f"  [14] trace-summary {tag} ({TRACE_STEPS} eager steps; {path.relative_to(REPO)}): "
+        f"kernels {k_ms:.3f} ms, named operators {o_ms:.3f} ms, outside any cpu_op "
+        f"{none_ms:.3f} ms ({len(kernels)} kernel names, {len(operators)} operators)")
+    log("  top kernels:\n" + format_table(tables["ops"][:TRACE_TOP]))
+    log("  top launching operators:\n" + format_table(tables["operators"][:TRACE_TOP]))
+    return {"json": str(path.relative_to(REPO)), "kernels_ms": k_ms, "operators_ms": o_ms,
+            "outside_any_cpu_op_ms": none_ms,
+            "kernels_ms_per_step": k_ms / TRACE_STEPS,
+            "top_kernels": tables["ops"][:TRACE_TOP],
+            "top_operators": tables["operators"][:TRACE_TOP]}
+
+
+def phase_knobs(torch, preset_train=None, device=None, cfgs=None, reps=KNOB_REPS):
+    """Phase [14] (b) and (c). ``coco_resnet50`` b32 (:data:`KNOB_PRESET`,
+    [13]'s configuration): ``remat`` captured steps bitwise the same steps
+    without it (metrics, parameters, statistics, optimizer) with both peaks
+    beside [13]'s (``preset_train``); ``frozen_bn`` captured, the running
+    statistics bitwise what they were; ``norm="group"`` captured bitwise
+    eager. ``remat`` on ``voc_resnet50_fpn`` b8 and ``coco_vgg16`` b8 bitwise
+    their steps without it, with peaks. Then (c): ``TRACE_STEPS`` eager
+    steps of ``coco_resnet50`` b32 with BatchNorm, frozen BatchNorm and
+    GroupNorm each profiled and read by ``trace-summary``
+    (:func:`trace_summary`). ``cfgs`` maps the three configurations' names
+    to smaller ones for a CPU rehearsal."""
+    from replication_faster_rcnn_tpu_torch import get_config
+
+    dev = torch.device(device or "cuda")
+    cfgs = cfgs or {}
+    cfg_of = lambda name: cfgs.get(name) or (fpn_config() if name == FPN_NAME  # noqa: E731
+                                             else get_config(name))
+    names = ("nms", "iou_match") + ROI_NAMES
+    out, launches = {}, {}
+
+    def want_of(cfg):
+        if cfg.model.fpn:
+            return dict(FPN_TRAIN_WANT)
+        return {"nms": 1, "iou_match": 2, **roi_launches(cfg.model.roi_op, 1, 1)}
+
+    def run(cfg, tag, **kw):
+        w = want_of(cfg)
+        r = train_run(torch, cfg, dev, tuple(w) if cfg.model.fpn else names, w, reps=reps, **kw)
+        log(f"  [14] {tag}: {r['step_ms']:.2f} ms a step (median of {reps}, CUDA events), "
+            f"{r['images_per_s']:.1f} images/s, peak allocated {r['peak_allocated_gib']:.2f} "
+            f"GiB, launches {r['launches']}")
+        launches[f"train_{tag.replace(' ', '_')}"] = r["launches"]
+        return r
+
+    coco = cfg_of(KNOB_PRESET)
+    log(f"[14] main path: the model knobs on {KNOB_PRESET} {coco.data.image_size} batch "
+        f"{coco.train.batch_size} (remat, frozen_bn, norm='group'), remat on {FPN_NAME} and "
+        "coco_vgg16 b8; then trace-summary over eager steps")
+    base = run(coco, f"{KNOB_PRESET} captured")
+    remat = run(with_model(coco, remat=True), f"{KNOB_PRESET} remat captured")
+    same_runs(torch, remat, base, f"{KNOB_PRESET} remat vs not")
+    peak13 = None
+    if preset_train and KNOB_PRESET in preset_train:
+        peak13 = preset_train[KNOB_PRESET]["captured"]["peak_allocated_gib"]
+    log(f"  [14] {KNOB_PRESET} remat: {2 + reps} captured steps bitwise the same steps without "
+        f"remat; peak allocated {remat['peak_allocated_gib']:.2f} GiB against "
+        f"{base['peak_allocated_gib']:.2f} without ([13]'s captured run: "
+        f"{'n/a' if peak13 is None else f'{peak13:.2f}'} GiB)")
+    out["remat"] = {"remat": summary_of(remat), "plain": summary_of(base),
+                    "peak_allocated_gib_13": peak13}
+    del base, remat
+
+    frozen = run(with_model(coco, frozen_bn=True), f"{KNOB_PRESET} frozen_bn captured")
+    moved = [k for k, v in frozen["running_before"].items()
+             if not bitwise(torch, frozen["state"][k], v)]
+    if not frozen["running_before"] or moved:
+        raise AssertionError(f"frozen_bn: running statistics moved: {moved[:5]}")
+    log(f"  [14] {KNOB_PRESET} frozen_bn: {len(frozen['running_before'])} running statistics "
+        f"bitwise unchanged after {2 + reps} steps")
+    out["frozen_bn"] = summary_of(frozen)
+    del frozen
+
+    group_cfg = with_model(coco, norm="group")
+    group = run(group_cfg, f"{KNOB_PRESET} group captured")
+    group_eager = run(group_cfg, f"{KNOB_PRESET} group eager", capture=False,
+                      profile=TRACE_DIR / "group")
+    same_runs(torch, group, group_eager, f"{KNOB_PRESET} group captured vs eager")
+    if group["running_before"]:
+        raise AssertionError("a GroupNorm model holds running statistics")
+    log(f"  [14] {KNOB_PRESET} norm='group': {2 + reps} captured steps bitwise the same steps "
+        "eager")
+    out["group"] = {"captured": summary_of(group), "eager": summary_of(group_eager)}
+    del group, group_eager
+
+    for name in (FPN_NAME, "coco_vgg16"):
+        cfg = cfg_of(name)
+        plain = run(cfg, f"{name} captured")
+        rem = run(with_model(cfg, remat=True), f"{name} remat captured")
+        same_runs(torch, rem, plain, f"{name} remat vs not")
+        log(f"  [14] {name} remat: {2 + reps} captured steps bitwise the same steps without; "
+            f"peak allocated {rem['peak_allocated_gib']:.2f} GiB against "
+            f"{plain['peak_allocated_gib']:.2f}")
+        out[f"remat_{name}"] = {"remat": summary_of(rem), "plain": summary_of(plain)}
+        del plain, rem
+
+    # (c) eager steps profiled, read back by the command line
+    for tag, cfg in (("batch", coco), ("frozen_bn", with_model(coco, frozen_bn=True))):
+        r = run(cfg, f"{KNOB_PRESET} {tag} eager", capture=False, profile=TRACE_DIR / tag)
+        out.setdefault("eager", {})[tag] = summary_of(r)
+        del r
+    out["trace_summary"] = {tag: trace_summary(torch, TRACE_DIR / tag, tag, dev)
+                            for tag in ("batch", "frozen_bn", "group")}
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    return launches, out
 
 
 def image_kernel_rows(image, by_path):
@@ -5757,6 +6072,9 @@ def main():
                                                 torch, preset)
         preset_launches[f"train_{preset}"] = got["captured"]
         preset_launches[f"train_{preset}_eager"] = got["eager"]
+    backbone_launches, backbones = timed_phase("[14] backbones", phase_backbones, torch)
+    knob_launches, knobs = timed_phase("[14] knobs and trace-summary", phase_knobs, torch,
+                                       preset_train)
     log(f"phase walls (s): {json.dumps(walls)}")
     paths = {"serve": launches, "serve_pool": plaunches, "serve_presets": slaunches,
              "serve_int8": qlaunches, "serve_int8_presets": iplaunches, "train": tlaunches,
@@ -5766,7 +6084,7 @@ def main():
              **dlaunches, "serve_stack": klaunches, "serve_fpn": flaunches,
              "serve_int8_fpn": fqlaunches,
              "train_fpn": ftlaunches, "train_fpn_eager": ftlaunches_eager, **celaunches,
-             **preset_launches}
+             **preset_launches, **backbone_launches, **knob_launches}
 
     def by_path(key):
         """A counter's launches on every main path that reads it."""
@@ -5990,9 +6308,8 @@ def main():
                     "call per weight",
         },
     ]
-    # [13]'s sites: each preset's training shapes, and its steps' device ms
-    from replication_faster_rcnn_tpu_torch import get_config
-
+    # [13]'s sites: each preset's training shapes, and its steps' device ms;
+    # [14]'s backbones beside them
     site_keys = {"nms_mask_walk": ("nms_train", "nms_device_ms_per_step", None),
                  "roi_align_fwd": ("roi_fwd", "roi_device_ms_per_step", "forward"),
                  "roi_align_bwd": ("roi_bwd", "roi_device_ms_per_step", "backward"),
@@ -6004,8 +6321,8 @@ def main():
             continue
         key, step_key, part = site_keys[row["name"]]
         sites = {}
-        for preset, rec in preset_train.items():
-            op = get_config(preset).model.roi_op
+        for preset, rec in {**preset_train, **{r["config"]: r for r in backbones.values()}}.items():
+            op = rec["roi_op"]
             if row["name"].startswith("roi_") and not row["name"].startswith(f"roi_{op}"):
                 continue
             site = {k: rec["kernels"][key][k] for k in timing}
@@ -6043,6 +6360,7 @@ def main():
                     "fpn": {"serve": fpn_serve, "serve_int8": fpn_int8, "train": fpn_train,
                             "bench": fpn_bench},
                     "int8_presets": int8_presets, "preset_train": preset_train,
+                    "backbones": backbones, "knobs": knobs,
                     "phase_walls_s": walls, "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -16,6 +16,10 @@ command's flags, defaults, printed output and exit codes:
                eval line)
   telemetry  — the report of a ``--telemetry`` run directory, or one
                request's hop timeline (``--trace-id``)
+  trace-summary — the device ms of each kernel and of each operator that
+               launched kernels, from a ``--profile`` directory's
+               ``torch.profiler`` capture (the CPU's ``cpu_op`` rows when it
+               holds no device kernels)
 
 ``--config`` selects a preset (``config.CONFIGS``); flags override its
 fields. Everything runs on the card unless ``--device cpu`` is given.
@@ -23,14 +27,13 @@ fields. Everything runs on the card unless ``--device cpu`` is given.
 A JAX flag whose machinery the port does not have yet is an argparse
 error naming the ROADMAP Queue A item that brings it (never silently
 ignored): ``--strict``, ``--threadsan`` (item 7); the mesh, process and
-ZeRO flags and ``train --elastic`` (item 8); ``--remat``,
-``--frozen-bn``, ``--norm`` and the ResNeXt / wide backbones (item 6);
-``train --pretrained-backbone``,
+ZeRO flags and ``train --elastic`` (item 8); ``train --pretrained-backbone``,
 ``train --debug-nans`` and ``predict --output`` (item 9). The
 ``fleet``, ``chaos``, ``rollout`` (item 5), ``check``, ``audit`` (item 7),
 ``warmup`` and ``viz`` (item 9) subcommands are not ported yet.
 ``--compile-cache`` has no counterpart: the CUDA kernels build once into
-``build/``.
+``build/``; nor has ``trace-summary --plane``: a ``torch.profiler`` capture
+has no XPlane planes.
 
 ``predict`` takes ``--params-dtype`` as ``serve`` does, so it can serve the
 int8 sidecar too; the JAX command has no such flag.
@@ -52,15 +55,13 @@ from typing import List, Optional
 
 __all__ = ["main"]
 
-ITEM_6 = "ROADMAP Queue A item 6 (backbones and model knobs)"
 ITEM_7 = "ROADMAP Queue A item 7 (fault injection and static gates)"
 ITEM_8 = "ROADMAP Queue A item 8 (distributed: parallel/)"
 ITEM_9 = "ROADMAP Queue A item 9 (pretrain, warm-up, debug and viz utilities)"
 NO_COMPILE_CACHE = ("no counterpart in the port: there is no XLA compile cache, the CUDA "
                     "kernels build once into build/")
-# the JAX package's backbones that the port's BACKBONES lacks
-JAX_ONLY_BACKBONES = ("resnext50_32x4d", "resnext101_32x8d", "wide_resnet50_2",
-                      "wide_resnet101_2")
+NO_PLANE = ("no counterpart in the port: a torch.profiler capture has no XPlane planes; the "
+            "table reads its kernel events and the cpu_op that launched each")
 
 
 class _NotPorted(argparse.Action):
@@ -73,16 +74,6 @@ class _NotPorted(argparse.Action):
 
     def __call__(self, parser, namespace, values, option_string=None):
         parser.error(f"{option_string} is not ported yet: {self.item}")
-
-
-class _Backbone(argparse.Action):
-    """``--backbone``: the port's ``BACKBONES``; the JAX package's grouped
-    and wide ResNets are not ported yet."""
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        if values in JAX_ONLY_BACKBONES:
-            parser.error(f"{option_string} {values} is not ported yet: {ITEM_6}")
-        setattr(namespace, self.dest, values)
 
 
 def _device(args) -> Optional[str]:
@@ -167,6 +158,12 @@ def _build_config(args):
         model_kw["backbone"] = args.backbone
     if arg("roi_op"):
         model_kw["roi_op"] = args.roi_op
+    if arg("remat"):
+        model_kw["remat"] = True
+    if arg("frozen_bn"):
+        model_kw["frozen_bn"] = True
+    if arg("norm"):
+        model_kw["norm"] = args.norm
     if model_kw:
         cfg = cfg.replace(model=dataclasses.replace(cfg.model, **model_kw))
     eval_kw = {}
@@ -410,9 +407,10 @@ def cmd_bench(args) -> int:
         "dataset", "data_root", "image_size", "backbone", "roi_op", "batch_size", "lr",
         "epochs", "seed", "mu_dtype", "loader_workers", "augment_scale",
         "steps_per_dispatch", "nonfinite_policy", "max_consecutive_skips",
-        "prefetch_device", "augment_translate")) or any(getattr(args, name) for name in (
+        "prefetch_device", "augment_translate", "norm")) or any(getattr(args, name) for name in (
             "augment_hflip", "no_augment_hflip", "augment_scale_device", "augment_device",
-            "cache_ram", "cache_device", "device_normalize", "async_checkpoint")) or (
+            "cache_ram", "cache_device", "device_normalize", "async_checkpoint", "remat",
+            "frozen_bn")) or (
         args.config != "voc_resnet18")
     bench_main(_build_config(args) if flagged else None, profile_dir=args.profile,
                device=_device(args))
@@ -595,6 +593,39 @@ def cmd_telemetry(args) -> int:
     return 0 if summary["artifacts"] else 1
 
 
+# ---------------------------------------------------------- trace-summary
+
+
+def cmd_trace_summary(args) -> int:
+    """Device ms per kernel and per launching operator from a ``--profile``
+    directory's capture (pure host-side parsing, no device needed); exit 1
+    when the directory holds none."""
+    from replication_faster_rcnn_tpu_torch.utils.profiling import (
+        TRACE_SUFFIX,
+        find_traces,
+        format_table,
+        op_tables,
+    )
+
+    if not find_traces(args.trace_dir):
+        print(f"no *{TRACE_SUFFIX} under {args.trace_dir}", file=sys.stderr)
+        return 1
+    tables = op_tables(args.trace_dir, top=args.top)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump({"trace_dir": args.trace_dir, **tables}, f, indent=2)
+        print(f"op table written to {args.json}")
+    if tables["operators"]:
+        print("kernels (device ms):")
+        print(format_table(tables["ops"]))
+        print("\nlaunching operators (device ms of the kernels each launched):")
+        print(format_table(tables["operators"]))
+    else:
+        print("no device kernels in the capture: cpu_op rows (host ms, inclusive):")
+        print(format_table(tables["ops"]))
+    return 0
+
+
 # ----------------------------------------------------------------- parser
 
 
@@ -614,8 +645,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--dataset", default=None, choices=[None, "voc", "coco", "synthetic"])
     p.add_argument("--data-root", default=None)
     p.add_argument("--image-size", type=int, default=None)
-    p.add_argument("--backbone", default=None, action=_Backbone,
-                   choices=[None, *BACKBONES, *JAX_ONLY_BACKBONES])
+    p.add_argument("--backbone", default=None, choices=[None, *BACKBONES])
     p.add_argument("--roi-op", default=None, choices=[None, "align", "pool"])
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
@@ -680,10 +710,14 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                  "--grad-allreduce-dtype", "--num-model", "--mesh-shape"):
         p.add_argument(flag, action=_NotPorted, item=ITEM_8, nargs=1,
                        help=f"not ported yet: {ITEM_8}")
-    for flag in ("--remat", "--frozen-bn"):
-        p.add_argument(flag, action=_NotPorted, item=ITEM_6, help=f"not ported yet: {ITEM_6}")
-    p.add_argument("--norm", action=_NotPorted, item=ITEM_6, nargs=1,
-                   help=f"not ported yet: {ITEM_6}")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each trunk block in the backward pass (less peak memory)")
+    p.add_argument("--frozen-bn", action="store_true",
+                   help="BatchNorm applies its running statistics in training too; its "
+                        "affine stays trainable")
+    p.add_argument("--norm", default=None, choices=[None, "batch", "group"],
+                   help="backbone normalization: 'batch' or 'group' (GroupNorm(32), no "
+                        "running statistics)")
     p.add_argument("--compile-cache", action=_NotPorted, item=NO_COMPILE_CACHE, nargs=1,
                    help=NO_COMPILE_CACHE)
 
@@ -823,6 +857,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     p_quant.add_argument("--sweep-map-images", type=int, default=None, metavar="N",
                          help="with --sweep: also measure each group's mAP drop on N images")
     p_quant.set_defaults(fn=cmd_quantize)
+
+    p_trace = sub.add_parser(
+        "trace-summary",
+        help="per-kernel and per-operator device time table from a --profile trace dir")
+    p_trace.add_argument("trace_dir")
+    p_trace.add_argument("--top", type=int, default=25)
+    p_trace.add_argument("--plane", action=_NotPorted, item=NO_PLANE, nargs=1,
+                         help=NO_PLANE)
+    p_trace.add_argument("--json", default=None, metavar="PATH",
+                         help="also write the tables as JSON")
+    p_trace.set_defaults(fn=cmd_trace_summary)
 
     p_tel = sub.add_parser(
         "telemetry", help="phase-time + train-health report from a --telemetry run dir")

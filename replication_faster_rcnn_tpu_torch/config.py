@@ -3,9 +3,8 @@ training and evaluation paths read.
 
 Field names, defaults and presets mirror ``replication_faster_rcnn_tpu.config``
 so a reader can hold the two side by side; knobs the port does not implement
-yet (group norm, frozen BN, the mesh's optimizer fields ``backend``,
-``shard_opt_state`` and ``grad_allreduce_dtype``) are left out rather than
-accepted and ignored. ``FleetConfig`` holds the fields the port reads: the engine's
+yet (``bn_axis``, the mesh's optimizer fields ``backend``, ``shard_opt_state``
+and ``grad_allreduce_dtype``) are left out rather than accepted and ignored. ``FleetConfig`` holds the fields the port reads: the engine's
 ``slo_*`` and ``serve``'s ``drain_grace_s``; the fleet router's fields come
 with the router. The data path is the JAX package's: the uint8 feed
 (``device_normalize``), the RAM cache, the host and on-device augmentations,
@@ -50,8 +49,10 @@ COCO_CLASSES: Tuple[str, ...] = (
 )
 COCO_NUM_CLASSES = len(COCO_CLASSES)  # 80 COCO-2017 categories + background
 
-# ResNet trunks (models/resnet.py) and the VGG16 trunk (models/vgg.py)
-BACKBONES = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152", "vgg16")
+# ResNet trunks (models/resnet.py: the plain, grouped and wide ResNets of
+# torchvision's constructor table) and the VGG16 trunk (models/vgg.py)
+BACKBONES = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152", "resnext50_32x4d",
+             "resnext101_32x8d", "wide_resnet50_2", "wide_resnet101_2", "vgg16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,12 +122,30 @@ class ModelConfig:
     fpn: bool = False  # FPN neck over C2-C5, shared multi-level RPN, two-fc head
     fpn_channels: int = 256  # P-level width (FPN paper)
     compute_dtype: str = "bfloat16"  # float32 | bfloat16
+    # recompute each residual block of the trunk (each conv block of VGG16)
+    # in the backward pass instead of keeping its activations: more work,
+    # less peak memory; the parameter names do not change
+    remat: bool = False
+    # every BatchNorm of the trunk and the tail applies its running
+    # statistics in training too (no batch statistics, nothing to commit);
+    # its affine stays trainable, as in the JAX package
+    frozen_bn: bool = False
+    # the backbone's norm at the BatchNorm sites: "batch", or "group"
+    # (GroupNorm(32), no running statistics); VGG16 has no norm layers
+    norm: str = "batch"
 
     def __post_init__(self):
         if self.backbone not in BACKBONES:
             raise ValueError(f"backbone must be one of {BACKBONES}, got {self.backbone!r}")
         if self.roi_op not in ("align", "pool"):
             raise ValueError(f"roi_op must be 'align' or 'pool', got {self.roi_op!r}")
+        if self.norm not in ("batch", "group"):
+            raise ValueError(f"norm must be 'batch' or 'group', got {self.norm!r}")
+        if self.norm == "group" and self.frozen_bn:
+            raise ValueError(
+                "frozen_bn freezes BatchNorm statistics; GroupNorm has none "
+                "— the combination is meaningless, pick one"
+            )
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(
                 f"compute_dtype must be float32|bfloat16, got {self.compute_dtype!r}"

@@ -6,9 +6,13 @@ outputs are numpy arrays, so the bridge needs neither framework's runtime
 objects:
 
   * flax conv kernel [kh, kw, I, O] (HWIO)   <-> weight [O, I, kh, kw] (OIHW)
+    (a grouped conv's [kh, kw, I/g, O] <-> [O, I/g, kh, kw], the same transpose)
   * flax Dense kernel [in, out]              <-> Linear weight [out, in]
-  * params ``scale`` / ``bias``              <-> BatchNorm ``weight`` / ``bias``
+  * params ``scale`` / ``bias``              <-> BatchNorm / GroupNorm ``weight`` / ``bias``
   * batch_stats ``mean`` / ``var``           <-> ``running_mean`` / ``running_var``
+
+A GroupNorm model has no batch statistics: its flax tree's ``batch_stats``
+is empty (flax omits the collection) and so is :func:`to_flax_variables`'.
 
 Module paths are the flax tree's keys joined by dots (flax's ``layer1.0``
 key is the ``layer1`` ModuleList's block 0), so the mapping is by name.
@@ -83,7 +87,9 @@ def from_flax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
 def to_flax_variables(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """State dict -> ``{"params", "batch_stats"}`` nested dicts of numpy
     arrays (the flax tree layout). BatchNorm modules are recognised by
-    their running statistics."""
+    their running statistics; any other rank-1 ``weight`` is a GroupNorm's
+    (conv and Linear weights are rank 4 and 2), so it maps to ``scale`` at
+    its site too."""
     bn_modules = {k.rsplit(".", 1)[0] for k in state if k.endswith(".running_mean")}
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
@@ -110,6 +116,8 @@ def to_flax_variables(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
                 raise ValueError(f"unexpected BatchNorm entry {key!r}")
         elif leaf == "weight" and value.ndim in (2, 4):
             put(params, f"{module}.kernel", kernel_to_flax(value))
+        elif leaf == "weight" and value.ndim == 1:
+            put(params, f"{module}.scale", value.copy())
         elif leaf == "bias":
             put(params, f"{module}.bias", value.copy())
         else:

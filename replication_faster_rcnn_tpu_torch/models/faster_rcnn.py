@@ -8,7 +8,10 @@ method boundary. With ``model.fpn`` the trunk is :class:`ResNetFeatures`, the
 ``neck`` an :class:`FPNNeck`, the features the list ``[P2..P6]``, the RPN one
 head shared by every level and the head :class:`FPNDetectionHead`.
 ``nn.Module.training`` switches every BatchNorm between its running and its
-batch statistics (the JAX methods' ``train`` argument); the training step
+batch statistics (the JAX methods' ``train`` argument; a ``model.frozen_bn``
+BatchNorm keeps its running ones); ``model.norm`` picks BatchNorm or
+GroupNorm at the backbone's norm sites and ``model.remat`` recomputes the
+trunk's blocks in the backward pass (``models/resnet.py``). The training step
 (``train/train_step.py``) calls the stages one by one with
 ``propose(train=True)``.
 """
@@ -28,6 +31,7 @@ from replication_faster_rcnn_tpu_torch.models.fpn import FPN_STRIDES, FPNNeck
 from replication_faster_rcnn_tpu_torch.models.head import DetectionHead, FPNDetectionHead
 from replication_faster_rcnn_tpu_torch.models.resnet import (
     BatchNorm,
+    GroupNorm,
     ResNetFeatures,
     ResNetTrunk,
     stage_channels,
@@ -57,8 +61,9 @@ class FasterRCNN(nn.Module):
         self.config = cfg
         self.compute_dtype = getattr(torch, cfg.model.compute_dtype)
         m = cfg.model
+        knobs = dict(norm=m.norm, frozen_bn=m.frozen_bn)
         if m.fpn:
-            self.trunk = ResNetFeatures(m.backbone, device=dev)
+            self.trunk = ResNetFeatures(m.backbone, device=dev, remat=m.remat, **knobs)
             self.neck = FPNNeck(stage_channels(m.backbone), m.fpn_channels, device=dev)
             self.rpn = RPNHead(m.fpn_channels, cfg.anchors.num_base_anchors, m.fpn_channels,
                                device=dev)
@@ -66,15 +71,15 @@ class FasterRCNN(nn.Module):
                                          m.roi_sampling_ratio, device=dev)
         else:
             if m.backbone == "vgg16":
-                self.trunk = VGG16Trunk(device=dev)
+                self.trunk = VGG16Trunk(device=dev, remat=m.remat)
                 feat_channels = VGG16_TRUNK_CHANNELS
             else:
-                self.trunk = ResNetTrunk(m.backbone, device=dev)
+                self.trunk = ResNetTrunk(m.backbone, device=dev, remat=m.remat, **knobs)
                 feat_channels = trunk_channels(m.backbone)
             self.rpn = RPNHead(feat_channels, cfg.anchors.num_base_anchors, m.rpn_mid_channels,
                                device=dev)
             self.head = DetectionHead(m.backbone, m.num_classes, m.roi_size, m.roi_op,
-                                      m.roi_sampling_ratio, device=dev)
+                                      m.roi_sampling_ratio, device=dev, **knobs)
         self._anchors: Dict[Tuple, Tensor] = {}
         self.eval()
 
@@ -178,7 +183,8 @@ def init_parameters(model: FasterRCNN, seed: int = 0) -> FasterRCNN:
     schemes: trunk/tail and FPN neck convs and the FPN head's fc6/fc7
     lecun-normal (truncated, fan-in), RPN convs N(0, 0.01), head cls
     N(0, 0.01) and reg N(0, 0.001), zero biases,
-    BatchNorm identity (weight 1, bias 0, mean 0, var 1)."""
+    BatchNorm identity (weight 1, bias 0, mean 0, var 1), GroupNorm weight 1
+    and bias 0 (flax's ones and zeros)."""
     gen = torch.Generator(device=model.device).manual_seed(seed)
 
     def lecun(w: Tensor) -> None:
@@ -187,11 +193,12 @@ def init_parameters(model: FasterRCNN, seed: int = 0) -> FasterRCNN:
 
     with torch.no_grad():
         for name, mod in model.named_modules():
-            if isinstance(mod, BatchNorm):
+            if isinstance(mod, (BatchNorm, GroupNorm)):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
-                mod.running_mean.zero_()
-                mod.running_var.fill_(1.0)
+                if isinstance(mod, BatchNorm):
+                    mod.running_mean.zero_()
+                    mod.running_var.fill_(1.0)
             elif isinstance(mod, (nn.Conv2d, nn.Linear)):
                 if name.startswith("rpn."):
                     mod.weight.normal_(0.0, 0.01, generator=gen)

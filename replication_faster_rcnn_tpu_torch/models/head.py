@@ -50,11 +50,12 @@ class DetectionHead(nn.Module):
     ``quant`` (``{"cls": {"w_scale", "x_scale"}, ...}``). In training mode
     the VGG16 tail's dropout takes its keep masks from ``masks`` or draws
     them from ``generator`` into it (``models/vgg.py::VGG16Tail``); the
-    ResNet tail ignores both."""
+    ResNet tail ignores both. ``norm`` and ``frozen_bn`` reach the ResNet
+    tail (``models/resnet.py``)."""
 
     def __init__(self, arch: str = "resnet18", num_classes: int = 21,
                  roi_size: int = 7, roi_op: str = "align", sampling_ratio: int = 2,
-                 device=None):
+                 device=None, norm: str = "batch", frozen_bn: bool = False):
         super().__init__()
         self.roi_size = roi_size
         self.roi_op = roi_op
@@ -63,7 +64,7 @@ class DetectionHead(nn.Module):
             self.tail = VGG16Tail(roi_size, device=device)
             ch = VGG16_TAIL_CHANNELS
         else:
-            self.tail = ResNetTail(arch, device=device)
+            self.tail = ResNetTail(arch, device=device, norm=norm, frozen_bn=frozen_bn)
             ch = tail_channels(arch)
         self.cls = nn.Linear(ch, num_classes, device=device)
         self.reg = nn.Linear(ch, num_classes * 4, device=device)

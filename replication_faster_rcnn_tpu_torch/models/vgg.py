@@ -11,6 +11,9 @@ the py-faster-rcnn backbone of the ``coco_vgg16`` preset.
 
 Convolutions and the fc layers run in the input's dtype with weights cast
 per call, as the flax modules compute in ``dtype`` with float32 parameters.
+``model.remat`` recomputes each conv block of the trunk in the backward
+pass (the JAX trunk's ``nn.remat`` of its block method); ``model.norm`` and
+``model.frozen_bn`` do nothing here: VGG16 has no norm layers.
 Module names are the flax tree's (``conv1_1`` ... ``conv5_3``, ``fc6``,
 ``fc7``), so ``models/convert.py`` maps them by name.
 """
@@ -22,6 +25,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from replication_faster_rcnn_tpu_torch.models.resnet import Conv2d
 
@@ -37,22 +41,33 @@ KEEP_MASK_NAMES = ("fc6_keep", "fc7_keep")
 
 
 class VGG16Trunk(nn.Module):
-    """NCHW [N, 3, H, W] -> [N, 512, ceil(H/16), ceil(W/16)]."""
+    """NCHW [N, 3, H, W] -> [N, 512, ceil(H/16), ceil(W/16)]. With ``remat``
+    (and autograd recording) each conv block runs under
+    ``torch.utils.checkpoint``; the parameter names do not change."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, remat: bool = False):
         super().__init__()
+        self.remat = remat
         in_ch = 3
         for block, n_convs, ch in VGG16_BLOCKS:
             for i in range(1, n_convs + 1):
                 self.add_module(f"conv{block}_{i}", Conv2d(in_ch, ch, 3, 1, 1, device=device))
                 in_ch = ch
 
+    def _block(self, x: Tensor, block: int, n_convs: int) -> Tensor:
+        for i in range(1, n_convs + 1):
+            x = F.relu(getattr(self, f"conv{block}_{i}")(x))
+        return x
+
     def forward(self, x: Tensor) -> Tensor:
         for block, n_convs, _ in VGG16_BLOCKS:
             if block > 1:
                 x = F.max_pool2d(x, kernel_size=2, stride=2, ceil_mode=True)
-            for i in range(1, n_convs + 1):
-                x = F.relu(getattr(self, f"conv{block}_{i}")(x))
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(self._block, x, block, n_convs, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = self._block(x, block, n_convs)
         return x
 
 

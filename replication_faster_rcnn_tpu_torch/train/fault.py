@@ -110,8 +110,9 @@ def guarded_update(
     nonfinite_count == 0``, feeding selects: the parameters, the optimizer's
     moments and count and the BatchNorm running statistics each take the new
     value where ``ok`` and keep the old one bitwise otherwise, and
-    ``skipped = 1 - ok``. Nothing is read on the host, so the step can be
-    captured in a CUDA graph. A withheld step reports ``update_norm`` and
+    ``skipped = 1 - ok``. With no new statistics (a GroupNorm model, or
+    ``frozen_bn``) nothing of the kind is committed. Nothing is read on the
+    host, so the step can be captured in a CUDA graph. A withheld step reports ``update_norm`` and
     ``update_ratio`` as NaN (the JAX package's Adam update of a non-finite
     gradient). Under ``apply`` every update is committed."""
     if policy not in NONFINITE_POLICIES:

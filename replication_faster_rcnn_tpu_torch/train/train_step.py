@@ -282,7 +282,10 @@ def create_train_state(
 
 
 def pending_batch_stats(model: torch.nn.Module) -> fault.PendingStats:
-    """The new BatchNorm running statistics the last training forward left."""
+    """The new BatchNorm running statistics the last training forward left:
+    none for a GroupNorm model (no BatchNorm) or a ``frozen_bn`` one (its
+    BatchNorms apply their running statistics), so the update commits no
+    statistics and the buffers stay bitwise."""
     return [
         (m, m.pending_stats)
         for m in model.modules()
@@ -445,8 +448,10 @@ class CapturedSteps:
     The kernel wrappers count a launch when Python calls them: the capture's
     calls count once, and a replay, which calls no Python, counts nothing.
 
-    A capture that fails raises; nothing falls back to eager steps. One
-    that fails so: a loss the caller still holds from an eager backward on
+    A ``model.remat`` step captures like any other: the recomputation of
+    each checkpointed block runs inside the captured backward (no RNG state
+    is saved, ``models/resnet.py::run_blocks``). A capture that fails
+    raises; nothing falls back to eager steps. One that fails so: a loss the caller still holds from an eager backward on
     another stream keeps the parameters' gradient accumulators, made on
     that stream, alive, and the capture's backward may not wait on it."""
 

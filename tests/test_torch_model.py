@@ -122,6 +122,82 @@ def test_stages_match(models):
     # costs the fast tier's budget)
     _case_propose_exact_when_decode_is_exact(models)
     _case_decode_on_shared_inputs(models)
+    # the grouped and wide backbones and GroupNorm, stage by stage
+    _case_backbones_and_group_norm()
+
+
+def _strict(got, want, name):
+    """This test's stage tolerance, rtol 1e-4 / atol 1e-4."""
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+def _flax_shapes(tree):
+    """A flax variables tree's leaves as the port's state-dict names and
+    shapes (``models/convert.py``'s layouts), from shapes alone."""
+    leaf_names = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+                  "var": "running_var"}
+    out = {}
+    for path, leaf in jax.tree_util.tree_leaves_with_path(tree):
+        keys = [k.key for k in path][1:]  # drop the collection
+        shape = tuple(leaf.shape)
+        if keys[-1] == "kernel":
+            name = "weight"
+            shape = shape[::-1] if len(shape) == 2 else (shape[3], shape[2], shape[0], shape[1])
+        else:
+            name = leaf_names[keys[-1]]
+        out[".".join(keys[:-1] + [name])] = shape
+    return out
+
+
+def _case_backbones_and_group_norm(size=(64, 64)):
+    """``resnext50_32x4d`` and ``wide_resnet50_2`` (the ``voc_resnet50``
+    preset's ROIPool head on them) and ResNet18 with ``norm="group"``
+    (``voc12_resnet18_align``'s ROIAlign head), float32 at 64x64, from the
+    port's seeded init as a flax tree randomised with numpy (the JAX
+    ``init``'s forward is skipped; its tree comes from ``jax.eval_shape``):
+    trunk and head stage by stage at rtol 1e-4 / atol 1e-4, the RPN at
+    ``_close`` (the 1024-channel maps of the Bottleneck trunks give RPN
+    outputs up to ~450 with the randomised RPN weights, whose summation
+    noise is up to 7.5e-4, as for ``voc_resnet50`` in
+    ``test_presets_match_jax``), and the weight bridge both ways bitwise
+    (a GroupNorm tree has no
+    ``batch_stats``). ``resnext101_32x8d`` and ``wide_resnet101_2``: the
+    port's parameter names and shapes (built on the meta device) against
+    the JAX init's tree."""
+    from replication_faster_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN
+
+    rng = np.random.default_rng(11)
+    images = rng.integers(0, 256, (2,) + size + (3,), dtype=np.uint8)
+    cases = (("voc_resnet50", {"backbone": "resnext50_32x4d"}, True),
+             ("voc_resnet50", {"backbone": "wide_resnet50_2"}, True),
+             ("voc12_resnet18_align", {"norm": "group"}, True),
+             ("voc_resnet50", {"backbone": "resnext101_32x8d"}, False),
+             ("voc_resnet50", {"backbone": "wide_resnet101_2"}, False))
+    for preset, model_kw, stages in cases:
+        jcfg, tcfg = (mod.get_config(preset) for mod in (jconfig, tconfig))
+        jcfg, tcfg = (c.replace(model=dataclasses.replace(c.model, compute_dtype="float32",
+                                                          **model_kw),
+                                data=dataclasses.replace(c.data, image_size=size))
+                      for c in (jcfg, tcfg))
+        jmodel = JFasterRCNN(jcfg)
+        want = jax.eval_shape(lambda: jmodel.init({"params": jax.random.PRNGKey(0)},
+                                                  jnp.zeros((1,) + size + (3,)), train=False))
+        name = f"{preset} {model_kw}"
+        assert ("batch_stats" in want) == (tcfg.model.norm == "batch"), name
+        shapes = {k: tuple(v.shape)
+                  for k, v in FasterRCNN(tcfg, device="meta").state_dict().items()}
+        assert shapes == _flax_shapes(dict(want)), name
+        if not stages:
+            continue
+        seeded = to_flax_variables(build_model(tcfg, device="cpu").state_dict())
+        variables = _randomise(seeded, rng)
+        if tcfg.model.norm == "group":
+            assert variables["batch_stats"] == {}
+            variables = {"params": variables["params"]}  # flax's tree has no such collection
+        _assert_round_trip(variables, name)
+        tmodel = build_model(tcfg, device="cpu", state_dict=from_flax_variables(variables))
+        jvars = jax.tree_util.tree_map(jnp.asarray, variables)
+        _assert_stages(jmodel, jvars, tmodel, images, name, close=_strict, rpn_close=_close)
 
 
 def _case_propose_exact_when_decode_is_exact(models):
@@ -233,26 +309,31 @@ def _close(got, want, name):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=atol, err_msg=name)
 
 
-def _assert_stages(jmodel, jvars, tmodel, images, name):
-    """Each stage fed the JAX stage's own output, compared with ``_close``."""
+def _assert_stages(jmodel, jvars, tmodel, images, name, close=None, rpn_close=None):
+    """Each stage fed the JAX stage's own output, compared with ``close``
+    (default ``_close``; the RPN's outputs with ``rpn_close``, default
+    ``close``)."""
+    close = close or _close
+    rpn_close = rpn_close or close
+    img_h, img_w = float(images.shape[1]), float(images.shape[2])
     jfeat = _apply(jmodel, jvars, jnp.asarray(images), method=JFasterRCNN.extract_features)
     with torch.inference_mode():
         tfeat = tmodel.extract_features(torch.from_numpy(images))
-    _close(tfeat.numpy(), jfeat, name)
+    close(tfeat.numpy(), jfeat, name)
     jl, jd, ja = _apply(jmodel, jvars, jfeat, method=JFasterRCNN.rpn_forward)
     feat_np = np.array(jfeat)
     with torch.inference_mode():
         tl, td, ta = tmodel.rpn_forward(torch.from_numpy(feat_np))
-    _close(tl.numpy(), jl, name)
-    _close(td.numpy(), jd, name)
+    rpn_close(tl.numpy(), jl, name)
+    rpn_close(td.numpy(), jd, name)
     np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
-    jrois, _ = j_batched_proposals(ja, jl, jd, 96.0, 96.0, jmodel.config.proposals, False)
-    jc, jr = _apply(jmodel, jvars, jfeat, jrois, 96.0, 96.0, method=JFasterRCNN.head_forward)
+    jrois, _ = j_batched_proposals(ja, jl, jd, img_h, img_w, jmodel.config.proposals, False)
+    jc, jr = _apply(jmodel, jvars, jfeat, jrois, img_h, img_w, method=JFasterRCNN.head_forward)
     with torch.inference_mode():
         tc, tr = tmodel.head_forward(torch.from_numpy(feat_np), torch.from_numpy(np.array(jrois)),
-                                     96.0, 96.0)
-    _close(tc.numpy(), jc, name)
-    _close(tr.numpy(), jr, name)
+                                     img_h, img_w)
+    close(tc.numpy(), jc, name)
+    close(tr.numpy(), jr, name)
     return tc
 
 
@@ -271,6 +352,7 @@ def test_presets_match_jax():
     mode."""
     rng = np.random.default_rng(7)
     images = rng.integers(0, 256, (2,) + SIZE + (3,), dtype=np.uint8)
+    _case_backbones_and_knobs_config()
     # voc_resnet50_fpn: every section equals JAX's over the port's fields
     # (its model is held against JAX's in tests/test_torch_fpn.py)
     for section in ("model", "anchors", "data", "serving", "fleet", "telemetry"):
@@ -315,6 +397,27 @@ def test_presets_match_jax():
         del jmodel, raw, variables, tmodel
     assert heads["coco_resnet50"].shape[-1] == 81 and heads["coco_vgg16"].shape[-1] == 81
     assert heads["voc_resnet50"].shape[-1] == 21
+
+
+def _case_backbones_and_knobs_config():
+    """``BACKBONES`` is the JAX ``_SPECS`` table's archs plus ``vgg16``;
+    ``remat``, ``frozen_bn`` and ``norm`` default as JAX's, and each value
+    JAX rejects is rejected with JAX's message."""
+    from replication_faster_rcnn_tpu.models.resnet import _SPECS
+
+    assert tconfig.BACKBONES == tuple(_SPECS) + ("vgg16",)
+    tm, jm = tconfig.ModelConfig(), jconfig.ModelConfig()
+    for field in ("remat", "frozen_bn", "norm"):
+        assert getattr(tm, field) == getattr(jm, field), field
+    for kw in ({"norm": "layer"}, {"norm": "group", "frozen_bn": True}):
+        with pytest.raises(ValueError) as want:
+            jconfig.ModelConfig(**kw)
+        with pytest.raises(ValueError) as got:
+            tconfig.ModelConfig(**kw)
+        assert str(got.value) == str(want.value), kw
+    for kw in ({"norm": "group"}, {"frozen_bn": True, "remat": True},
+               {"backbone": "resnext101_32x8d", "remat": True}):
+        assert tconfig.ModelConfig(**kw) == dataclasses.replace(tm, **kw)
 
 
 def _assert_vgg_dropout(tail):

@@ -19,14 +19,19 @@ Tolerances, with their reasons:
   arithmetic on the same bits); the activation range rtol 1e-5 (the trunk's
   convolutions sum in other orders in oneDNN and XLA:CPU).
 * The int8 forward: rois to 1e-3 px and ``valid`` equal, as in
-  ``test_torch_model.py``. The tiny FPN's: ``valid`` equal, RPN deltas
-  within rtol 1e-4 and atol 1e-5 of the largest (``test_torch_fpn.py``'s
-  stage tolerance), rois within 1e-3 px plus rtol 1e-3: its randomised RPN
-  weights give deltas up to ~440, which agree to ~2e-6 of that, and the
-  decode scales them by anchors of up to 512 px (measured: 0.025 px on a
-  32 px coordinate). Its detection boxes, decoded from those rois, carry
-  the same rtol 1e-3 beside the single-scale head's atol 1e-2 (measured:
-  0.0247 px on a 22 px coordinate); valid, classes and scores as there. cls/reg within 1e-4 plus two activation
+  ``test_torch_model.py``. The tiny FPN's: ``valid`` equal, RPN logits and
+  deltas within rtol 1e-4 and atol 1e-5 of the largest
+  (``test_torch_fpn.py``'s stage tolerance), and each later stage fed
+  JAX's outputs of the stage before, so the RPN's summation order (which
+  depends on torch's thread count) does not reach them: rois decoded from
+  JAX's RPN outputs within 1e-3 px plus rtol 1e-3 (its randomised RPN
+  weights give deltas up to ~440 and the decode scales them by anchors of
+  up to 512 px; from the port's own RPN outputs one roi lay 0.0358 px from
+  JAX's on a 32 px coordinate at one thread), the int8 head's cls/reg on
+  JAX's features and rois as the single-scale head's below, and detection
+  boxes decoded from JAX's rois, cls and reg with the same rtol 1e-3
+  beside the single-scale head's atol 1e-2; valid, classes and scores end
+  to end as there. cls/reg within 1e-4 plus two activation
   quantization steps: the embeddings differ by convolution summation order,
   so an element on a rounding boundary of ``x / x_scale`` can quantize one
   step apart, which moves an output by at most
@@ -57,6 +62,7 @@ from replication_faster_rcnn_tpu.train.warmup import make_int8_infer_fn as j_mak
 from replication_faster_rcnn_tpu_torch import config as tconfig
 from replication_faster_rcnn_tpu_torch import quant as tquant
 from replication_faster_rcnn_tpu_torch.data.native_ops import resize_normalize
+from replication_faster_rcnn_tpu_torch.eval.detect import batched_decode
 from replication_faster_rcnn_tpu_torch.eval.evaluator import make_int8_infer_fn
 from replication_faster_rcnn_tpu_torch.models.convert import (
     from_flax_variables,
@@ -80,7 +86,7 @@ from replication_faster_rcnn_tpu_torch.serving.engine import InferenceEngine
 from tests.test_torch_model import _randomise
 from tests.torch_threads import share_cores_among_xdist_workers
 
-share_cores_among_xdist_workers()  # test_int8_slice_matches_jax needs two threads or more
+share_cores_among_xdist_workers()  # xdist workers' forwards share the cores
 
 REPO = Path(__file__).resolve().parents[1]
 SIZE = (64, 64)
@@ -460,16 +466,48 @@ def test_calibration_and_sidecar_match_jax(tiny, tiny_fpn, tmp_path, monkeypatch
     _vgg16_range_matches_jax(tiny, monkeypatch)
 
 
-def _int8_program_matches_jax(jmodel, jcfg, tcfg, jres, tres, images, box_rtol=0.0):
+def _int8_head_matches(tres, got, want):
+    """cls and reg within 1e-4 plus two activation quantization steps, and
+    fewer than 1% of their elements more than 1e-4 apart."""
+    for name, g, w_ in zip(("cls", "reg"), got, want):
+        q = tres["quant"]["head"][name]
+        w = tres["params"][f"head.{name}.weight"].float() * q["w_scale"][:, None]
+        step = float(q["x_scale"]) * float(w.abs().max())
+        np.testing.assert_allclose(g, w_, rtol=0, atol=1e-4 + 2 * step)
+        assert np.mean(np.abs(g - w_) > 1e-4) < 0.01, name
+
+
+class _HeadOn(torch.nn.Module):
+    """The model's ``head_forward`` as a module's forward, for
+    ``functional_call`` with the int8 resident tree."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, feat, rois, img_h, img_w, quant):
+        return self.model.head_forward(feat, rois, img_h, img_w, quant)
+
+
+def _int8_program_matches_jax(jmodel, jcfg, tcfg, jres, tres, images, box_rtol=0.0,
+                              decode_from=None):
     """The int8 inference function against the JAX ``make_int8_infer_fn``:
     valid and classes equal, boxes within 1e-2 (plus ``box_rtol``), scores
-    within 1e-4."""
+    within 1e-4. With ``decode_from`` (the JAX model's int8 forward on the
+    same images: rpn logits, deltas, rois, valid, cls, reg, anchors) the
+    boxes are the port's decode of those rois, cls and reg: the decode
+    stage held on its own, as the caller holds the rois."""
     want = jax.jit(j_make_int8_infer_fn(jmodel, jcfg))(jres, jnp.asarray(images))
     infer = make_int8_infer_fn(FasterRCNN(tcfg, device="meta"), tcfg)
     got = infer(tres, torch.from_numpy(images))
     np.testing.assert_array_equal(got["valid"].numpy(), np.asarray(want["valid"]))
     np.testing.assert_array_equal(got["classes"].numpy(), np.asarray(want["classes"]))
-    np.testing.assert_allclose(got["boxes"].numpy(), np.asarray(want["boxes"]), rtol=box_rtol,
+    boxes = got["boxes"]
+    if decode_from is not None:
+        h, w = (float(x) for x in images.shape[1:3])
+        boxes = batched_decode(*(torch.from_numpy(np.array(decode_from[i])) for i in (2, 3, 4, 5)),
+                               h, w, tcfg.eval, tcfg.roi_targets)["boxes"]
+    np.testing.assert_allclose(boxes.numpy(), np.asarray(want["boxes"]), rtol=box_rtol,
                                atol=1e-2)
     np.testing.assert_allclose(got["scores"].numpy(), np.asarray(want["scores"]), rtol=0, atol=1e-4)
     assert np.asarray(want["valid"]).sum() > 0
@@ -498,11 +536,15 @@ def _int8_engine_matches(tcfg, state, tres, path, images, infer):
 
 
 def test_int8_slice_matches_jax(tiny, tiny_fpn, tmp_path):
-    """The tiny FPN's roi check depends on the convolutions' summation order:
-    at one torch thread one roi lies 0.0358 px from JAX's on a 32 px
-    coordinate, past the stated 0.033; at two, four and eight threads it
-    holds. ``share_cores_among_xdist_workers`` (``tests/torch_threads.py``)
-    keeps two or more threads under xdist."""
+    """The tiny FPN's rois are held as a stage of their own: the port's
+    proposals decoded from JAX's RPN logits, deltas and anchors, within
+    1e-3 px plus rtol 1e-3 (0.033 px at a 32 px coordinate), with the RPN
+    outputs held at the stage tolerance, and its int8 head (fc6 / fc7, the
+    cls / reg GEMMs) on JAX's features and rois. Decoded from the port's own
+    RPN outputs, one roi lay 0.0358 px from JAX's at one torch thread (the
+    convolutions' summation order moves a delta of ~440 by its last bits,
+    and the decode scales it by an anchor of up to 512 px); this way the
+    checks do not depend on the thread count."""
     jcfg, tcfg, state, artifact = tiny["jcfg"], tiny["tcfg"], tiny["state"], tiny["artifact"]
     rng = np.random.default_rng(1)
     images = rng.integers(0, 256, (2,) + SIZE + (3,), dtype=np.uint8)
@@ -523,13 +565,7 @@ def test_int8_slice_matches_jax(tiny, tiny_fpn, tmp_path):
     _, _, trois, tvalid, tcls, treg, _ = (a.numpy() for a in tout)
     np.testing.assert_array_equal(tvalid, jvalid)
     np.testing.assert_allclose(trois, jrois, rtol=0, atol=1e-3)
-    x_scale = float(tres["quant"]["head"]["cls"]["x_scale"])
-    for name, got, want in (("cls", tcls, jcls), ("reg", treg, jreg)):
-        q = tres["quant"]["head"][name]
-        w = tres["params"][f"head.{name}.weight"].float() * q["w_scale"][:, None]
-        step = x_scale * float(w.abs().max())
-        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 + 2 * step)
-        assert np.mean(np.abs(got - want) > 1e-4) < 0.01, name
+    _int8_head_matches(tres, (tcls, treg), (jcls, jreg))
 
     # the whole program against the JAX make_int8_infer_fn, and the engine
     infer = _int8_program_matches_jax(tiny["jmodel"], jcfg, tcfg, jres, tres, images)
@@ -543,20 +579,40 @@ def test_int8_slice_matches_jax(tiny, tiny_fpn, tmp_path):
     fres = tquant.quantize_variables(fpn["state"], fpn["artifact"])
     fjres = jquant.quantize_variables(fpn["jvars"], fpn["artifact"])
     assert sorted(fres["quant"]["head"]) == ["cls", "reg"]
+    jinfer_fpn = jquant.build_infer_variables(fjres, fpn["jcfg"])
     jout = jax.jit(lambda v, x: fpn["jmodel"].apply(v, x, train=False))(
-        jquant.build_infer_variables(fjres, fpn["jcfg"]), jnp.asarray(images))
+        jinfer_fpn, jnp.asarray(images))
     fvars = tquant.build_infer_variables(fres, fpn["tcfg"])
     assert all(v.dtype != torch.int8 or k in ("head.cls.weight", "head.reg.weight")
                for k, v in fvars["params"].items())
     tout = functional_forward(FasterRCNN(fpn["tcfg"], device="meta"), fvars["params"],
                               torch.from_numpy(images), fvars["quant"])
     np.testing.assert_array_equal(tout[3].numpy(), np.asarray(jout[3]))
-    want = np.asarray(jout[1])
-    np.testing.assert_allclose(tout[1].numpy(), want, rtol=1e-4,
-                               atol=1e-5 * float(np.abs(want).max()))
-    np.testing.assert_allclose(tout[2].numpy(), np.asarray(jout[2]), rtol=1e-3, atol=1e-3)
+    for i in (0, 1):  # the RPN's logits and deltas, at the stage tolerance
+        want = np.asarray(jout[i])
+        np.testing.assert_allclose(tout[i].numpy(), want, rtol=1e-4,
+                                   atol=1e-5 * float(np.abs(want).max()))
+    # the proposal stage on its own: the port's rois decoded from JAX's RPN
+    # outputs and anchors, so the RPN's summation order (which depends on
+    # torch's thread count) does not reach the decode's check
+    jl, jd, janchors = (torch.from_numpy(np.array(jout[i])) for i in (0, 1, 6))
+    rois, valid = FasterRCNN(fpn["tcfg"], device="meta").propose(
+        jl, jd, janchors, float(SIZE[0]), float(SIZE[1]))
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(jout[3]))
+    np.testing.assert_allclose(rois.numpy(), np.asarray(jout[2]), rtol=1e-3, atol=1e-3)
+    # the int8 head on its own: JAX's features and rois through the port's
+    # fc6 / fc7 and int8 cls / reg GEMMs, against JAX's cls and reg
+    jfeat = fpn["jmodel"].apply(jinfer_fpn, jnp.asarray(images),
+                                method=JFasterRCNN.extract_features)
+    with torch.inference_mode():
+        head = torch.func.functional_call(
+            _HeadOn(FasterRCNN(fpn["tcfg"], device="meta")),
+            {f"model.{k}": v for k, v in fvars["params"].items()},
+            ([torch.from_numpy(np.array(f)) for f in jfeat], torch.from_numpy(np.array(jout[2])),
+             float(SIZE[0]), float(SIZE[1]), fvars["quant"]), strict=True)
+    _int8_head_matches(fres, [a.numpy() for a in head], [np.asarray(jout[i]) for i in (4, 5)])
     finfer = _int8_program_matches_jax(fpn["jmodel"], fpn["jcfg"], fpn["tcfg"], fjres, fres,
-                                       images, box_rtol=1e-3)
+                                       images, box_rtol=1e-3, decode_from=jout)
     fpath = tmp_path / "fpn_quant_artifact.json"
     jquant.save_artifact(str(fpath), fpn["artifact"])
     _int8_engine_matches(fpn["tcfg"], fpn["state"], fres, fpath, images, finfer)

@@ -358,6 +358,121 @@ def _trace_dir(root):
     return tid
 
 
+def _model_knob_flags(cli, jcli, capsys):
+    """``--backbone resnext50_32x4d --remat --frozen-bn`` and ``--norm
+    group`` (the ported model knobs and backbones) give the config JAX's
+    ``_build_config`` gives, over the port's fields; ``--norm group
+    --frozen-bn`` is refused with JAX's error."""
+    def built(mod, argv):
+        seen = []
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(mod, "cmd_train", lambda args: seen.append(mod._build_config(args)) or 0)
+            rc, out = _cli(mod.main, ["train", "--config", "voc12_resnet18_align", *argv],
+                           capsys)
+        assert rc == 0 and len(seen) == 1, (argv, out.err)
+        return seen[0]
+
+    for argv in (["--backbone", "resnext50_32x4d", "--remat", "--frozen-bn"],
+                 ["--norm", "group"], ["--backbone", "wide_resnet101_2", "--norm", "batch"]):
+        got, want = built(cli, argv), built(jcli, argv)
+        for section in dataclasses.fields(got):
+            tsec, jsec = getattr(got, section.name), getattr(want, section.name)
+            if not dataclasses.is_dataclass(tsec):
+                continue
+            for field in dataclasses.fields(tsec):
+                assert getattr(tsec, field.name) == getattr(jsec, field.name), (
+                    argv, section.name, field.name)
+    assert got.model.backbone == "wide_resnet101_2" and not got.model.remat
+    with pytest.raises(ValueError) as want:
+        built(jcli, ["--norm", "group", "--frozen-bn"])
+    with pytest.raises(ValueError) as got:
+        built(cli, ["--norm", "group", "--frozen-bn"])
+    assert str(got.value) == str(want.value)
+
+
+def _chrome_trace(root):
+    """A capture in ``torch.profiler``'s Chrome layout: on thread 10,
+    ``aten::conv2d`` encloses ``aten::cudnn_convolution``, whose
+    ``cudaLaunchKernel`` (correlation 1) launches ``conv_k``; two
+    ``aten::mul`` and one ``aten::add`` launch ``elem_k``; thread 11
+    launches ``elem_k`` inside no operator of its own (thread 10's enclose
+    its time); one ``cudaGraphLaunch`` replays ``conv_k`` and ``elem_k``; a
+    memcpy is not a kernel. Times in microseconds."""
+    def op(name, ts, dur, tid=10):
+        return {"ph": "X", "cat": "cpu_op", "name": name, "pid": 1, "tid": tid, "ts": ts,
+                "dur": dur, "args": {}}
+
+    def launch(name, ts, corr, tid=10):
+        return {"ph": "X", "cat": "cuda_runtime", "name": name, "pid": 1, "tid": tid,
+                "ts": ts, "dur": 2, "args": {"correlation": corr}}
+
+    def kernel(name, ts, dur, corr):
+        return {"ph": "X", "cat": "kernel", "name": name, "pid": 0, "tid": 7, "ts": ts,
+                "dur": dur, "args": {"correlation": corr, "device": 0, "stream": 7}}
+
+    events = [op("aten::conv2d", 0, 100), op("aten::cudnn_convolution", 10, 50),
+              launch("cudaLaunchKernel", 20, 1), kernel("conv_k", 200, 30, 1),
+              op("aten::mul", 120, 20), launch("cudaLaunchKernel", 125, 2),
+              kernel("elem_k", 240, 10, 2), op("aten::mul", 150, 20),
+              launch("cudaLaunchKernel", 155, 3), kernel("elem_k", 260, 12, 3),
+              op("aten::add", 180, 10), launch("cudaLaunchKernel", 182, 4),
+              kernel("elem_k", 280, 8, 4), launch("cudaLaunchKernel", 25, 6, tid=11),
+              kernel("elem_k", 300, 5, 6), launch("cudaGraphLaunch", 400, 5),
+              kernel("conv_k", 410, 40, 5), kernel("elem_k", 450, 6, 5),
+              {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD", "pid": 0, "tid": 7,
+               "ts": 500, "dur": 50, "args": {"correlation": 7}},
+              {"ph": "s", "cat": "ac2g", "name": "ac2g", "id": 1, "pid": 1, "tid": 10, "ts": 20}]
+    root.mkdir()
+    (root / "host_1.pt.trace.json").write_text(json.dumps({"traceEvents": events}))
+
+
+def _trace_summary_cases(cli, prof, tmp_path, capsys):
+    """``trace-summary`` over ``train --profile``'s CPU capture (no device
+    kernels: the ``cpu_op`` rows) and over :func:`_chrome_trace` (per-kernel
+    rows, each kernel under the innermost operator enclosing its launch on
+    the launch's thread, graph replays labelled and not attributed), with
+    ``--top`` and ``--json`` (JAX's keys, JAX's ``format_table``); a
+    directory without a capture exits 1, ``--plane`` exits 2."""
+    from replication_faster_rcnn_tpu.utils import xplane as jxplane
+    from replication_faster_rcnn_tpu_torch.utils import profiling
+
+    keys = ["count", "op", "pct", "total_ms"]
+    rc, out = _cli(cli.main, ["trace-summary", str(prof), "--top", "5", "--json",
+                              str(tmp_path / "cpu.json")], capsys)
+    table = json.loads((tmp_path / "cpu.json").read_text())
+    assert rc == 0 and sorted(table) == ["operators", "ops", "trace_dir"], out
+    assert table["operators"] == [] and len(table["ops"]) == 5
+    assert all(sorted(r) == keys for r in table["ops"])
+    assert "no device kernels" in out.out and jxplane.format_table(table["ops"]) in out.out
+
+    _chrome_trace(tmp_path / "synthetic")
+    rc, out = _cli(cli.main, ["trace-summary", str(tmp_path / "synthetic"), "--json",
+                              str(tmp_path / "gpu.json")], capsys)
+    table = json.loads((tmp_path / "gpu.json").read_text())
+    assert rc == 0, out
+    ops = {r["op"]: (r["total_ms"], r["count"], r["graph_replay"]) for r in table["ops"]}
+    replay = profiling.GRAPH_REPLAY
+    assert ops == {"conv_k": (0.03, 1, False), "elem_k": (0.035, 4, False),
+                   f"conv_k {replay}": (0.04, 1, True), f"elem_k {replay}": (0.006, 1, True)}
+    assert [r["op"] for r in table["ops"]][:2] == [f"conv_k {replay}", "elem_k"]
+    operators = {r["op"]: (r["total_ms"], r["count"]) for r in table["operators"]}
+    assert operators == {"aten::cudnn_convolution": (0.03, 1), "aten::mul": (0.022, 2),
+                         "aten::add": (0.008, 1), profiling.NO_OPERATOR: (0.005, 1),
+                         profiling.GRAPH_REPLAY_OPERATOR: (0.046, 2)}
+    assert sum(r["pct"] for r in table["ops"]) == pytest.approx(100.0, abs=0.05)
+    for name in ("ops", "operators"):
+        assert sum(r["total_ms"] for r in table[name]) == pytest.approx(0.111)
+        assert jxplane.format_table([{k: r[k] for k in keys} for r in table[name]]) in out.out
+    rc, out = _cli(cli.main, ["trace-summary", str(tmp_path / "synthetic"), "--top", "2"],
+                   capsys)
+    assert rc == 0 and out.out.count("\n") == 9, out.out
+
+    rc, out = _cli(cli.main, ["trace-summary", str(tmp_path / "none")], capsys)
+    assert rc == 1 and "no *.pt.trace.json" in out.err
+    rc, out = _cli(cli.main, ["trace-summary", str(prof), "--plane", "GPU"], capsys)
+    assert rc == 2 and "--plane" in out.err and "no counterpart" in out.err
+
+
 def _cli_matches_jax(tmp_path, capsys, monkeypatch, engines, paths):
     """The port's command line in-process at 96x96 on the CPU: train (bounded
     steps with telemetry, then a preempted run's emergency save), eval with the
@@ -365,8 +480,9 @@ def _cli_matches_jax(tmp_path, capsys, monkeypatch, engines, paths):
     against the JAX command's), predict in bfloat16 and from the int8
     sidecar (the sidecar ``serve --params-dtype int8`` loads), bench,
     telemetry (the report, and a request's timeline against the JAX
-    command's), and the JAX flags that are not ported yet as argparse
-    errors naming their ROADMAP item. Also ``eval/predict.py`` against the
+    command's), ``trace-summary`` (:func:`_trace_summary_cases`), the model
+    knobs' flags (:func:`_model_knob_flags`), and the JAX flags that are not
+    ported yet as argparse errors naming their ROADMAP item. Also ``eval/predict.py`` against the
     JAX module on the fixture's engines, and the ``FRCNN`` facade."""
     from replication_faster_rcnn_tpu import cli as jcli
     from replication_faster_rcnn_tpu.eval.predict import predict_images as j_predict_images
@@ -374,11 +490,13 @@ def _cli_matches_jax(tmp_path, capsys, monkeypatch, engines, paths):
     from replication_faster_rcnn_tpu_torch.eval.predict import draw_detections, predict_images
     from replication_faster_rcnn_tpu_torch.frcnn import FRCNN
 
-    wd, tel = tmp_path / "cli_wd", tmp_path / "cli_tel"
+    wd, tel, prof = tmp_path / "cli_wd", tmp_path / "cli_tel", tmp_path / "cli_prof"
     rc, out = _cli(cli.main, ["train", *CLI_COMMON, "--workdir", str(wd), "--steps", "2",
-                              "--batch-size", "2", "--telemetry", str(tel)], capsys)
+                              "--batch-size", "2", "--telemetry", str(tel), "--profile",
+                              str(prof)], capsys)
     assert rc == 0 and "[step      0]" in out.out, out
     assert {"trace.json", "metrics.jsonl"} <= {p.name for p in tel.iterdir()}
+    _trace_summary_cases(cli, prof, tmp_path, capsys)
     # a shutdown request after the first step: a verified emergency
     # checkpoint (the one the other commands load) and exit 75
     from replication_faster_rcnn_tpu_torch.train import fault
@@ -441,7 +559,6 @@ def _cli_matches_jax(tmp_path, capsys, monkeypatch, engines, paths):
 
     for argv, item in ((["train", "--elastic"], "item 8"), (["train", "--strict"], "item 7"),
                        (["eval", "--mesh-shape", "2,4"], "item 8"),
-                       (["bench", "--backbone", "resnext50_32x4d"], "item 6"),
                        (["train", "--pretrained-backbone", "r.pth"], "item 9"),
                        (["predict", "--image", paths[0], "--output", "o.png"], "item 9")):
         rc, out = _cli(cli.main, argv, capsys)
@@ -455,6 +572,7 @@ def _cli_matches_jax(tmp_path, capsys, monkeypatch, engines, paths):
         for mode in ("process", "thread"):
             rc, out = _cli(cli.main, ["train", *CLI_COMMON, "--loader-mode", mode], capsys)
             assert rc == 0 and seen[-1].data.loader_mode == mode, (mode, out.err)
+    _model_knob_flags(cli, jcli, capsys)
 
     # eval/predict.py against the JAX module on the same engines and weights
     jeng, teng, variables = engines

@@ -250,10 +250,13 @@ class _RecordDropout:
         fnn.Dropout.__call__ = self._orig
 
 
-def _one_step(name):
+def _one_step(name, **model_kw):
+    """``model_kw``: ``ModelConfig`` overrides on both sides (the knobs)."""
     jcfg = small(jconfig, jconfig.get_config(name))
-    jcfg = jcfg.replace(data=dataclasses.replace(jcfg.data, dataset="synthetic"))
+    jcfg = jcfg.replace(data=dataclasses.replace(jcfg.data, dataset="synthetic"),
+                        model=dataclasses.replace(jcfg.model, **model_kw))
     tcfg = tcfg_small(name)
+    tcfg = tcfg.replace(model=dataclasses.replace(tcfg.model, **model_kw))
     tx, _ = j_make_optimizer(jcfg, steps_per_epoch=1)
     jmodel, state = create_train_state(jcfg, jax.random.PRNGKey(0), tx)
     jbatch = j_collate([JSyntheticDataset(jcfg.data, length=2)[i] for i in range(2)])
@@ -396,17 +399,57 @@ def _float32_band(step, rel=1e-7):
     return band
 
 
+def _case_knob_steps(knobs, group):
+    """The knob steps beside JAX's (held in the caller's loop): with
+    ``remat`` and ``frozen_bn`` the running buffers end bitwise as they
+    began (JAX's ``batch_stats`` too), and the step is bitwise the same step
+    without ``remat`` (metrics, gradients, parameters); with ``norm="group"``
+    the model has no BatchNorm buffers and JAX no ``batch_stats``."""
+    init, end = knobs["init"], knobs["state"].model.state_dict()
+    running = [k for k in init if "running" in k]
+    assert running and all(torch.equal(end[k], init[k]) for k in running)
+    assert all(torch.equal(knobs["jnew"][k], init[k]) for k in running)
+    plain = _port_step(knobs, remat=False)
+    assert plain["metrics"] == knobs["metrics"]
+    assert all(torch.equal(plain["grads"][k], g) for k, g in knobs["grads"].items())
+    assert all(torch.equal(plain["end"][k], v) for k, v in end.items())
+    assert not any("running" in k for k in group["init"])
+    assert not jax.tree_util.tree_leaves(group["jnew_state"].batch_stats)
+
+
+def _port_step(step, **model_kw):
+    """The port's step of ``step`` again from its initial weights, draws and
+    batch, with ``model_kw`` overriding its model config."""
+    tcfg = step["tcfg"].replace(model=dataclasses.replace(step["tcfg"].model, **model_kw))
+    model = build_model(tcfg, device="cpu", state_dict=step["init"])
+    optimizer, _ = make_optimizer(tcfg, model.parameters(), 1)
+    ts = TrainState(model, optimizer, torch.Generator().manual_seed(0))
+    metrics = make_train_step(tcfg)(ts, step["batch"], draws=step["draws"])
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": {k: p.grad.clone() for k, p in model.named_parameters()},
+            "end": model.state_dict()}
+
+
 def test_train_step_losses_match_jax(one_step, tmp_path):
     _case_jax_checkpoint_into_port(one_step, tmp_path / "orbax")
     _case_carried_optax_state(one_step)
+    # the model knobs on the ResNet18 ROIAlign preset: remat with frozen
+    # BatchNorm, and GroupNorm
+    knobs = _one_step("voc12_resnet18_align", remat=True, frozen_bn=True)
+    group = _one_step("voc12_resnet18_align", norm="group")
+    _case_knob_steps(knobs, group)
     # coco_resnet50 (Bottlenecks, train-mode BatchNorm, 81 classes, ROIAlign)
     # and coco_vgg16 (ROIPool, 12 anchors, dropout with JAX's masks injected)
-    for step in (one_step, one_step["pool"], _one_step("coco_resnet50"),
+    # and coco_resnet50 on the ResNeXt trunk and tail (grouped 3x3s)
+    for step in (one_step, one_step["pool"], knobs, group, _one_step("coco_resnet50"),
+                 _one_step("coco_resnet50", backbone="resnext50_32x4d"),
                  _one_step("coco_vgg16")):
         got, want = step["metrics"], step["jmetrics"]
-        # the ResNet50 and VGG16 steps: JAX within twice the port's float32
-        # noise band where that band is above the rtol (_float32_band)
-        band = (_float32_band(step) if step["tcfg"].model.backbone in ("resnet50", "vgg16")
+        # the ResNet50, ResNeXt50 and VGG16 steps: JAX within twice the
+        # port's float32 noise band where that band is above the rtol
+        # (_float32_band)
+        band = (_float32_band(step) if step["tcfg"].model.backbone in (
+                    "resnet50", "resnext50_32x4d", "vgg16")
                 else {**dict.fromkeys(LOSSES + ("grad_norm",), 0.0), "leaves": {}})
         for k in LOSSES:
             assert band[k] <= BAND_CEILING["losses"] * abs(want[k]), (k, band[k], want[k])
@@ -490,6 +533,89 @@ def test_trunk_gets_a_gradient_through_roi_align(one_step):
 def test_batchnorm_train_matches_flax():
     for dtype in ("float32", "bfloat16"):
         _batchnorm_case(dtype)
+        _frozen_batchnorm_case(dtype)
+        _groupnorm_case(dtype)
+
+
+def _norm_tol(dtype):
+    """The BatchNorm case's tolerances: rtol/atol 1e-5 in float32, one
+    bfloat16 ulp (2**-7) in bfloat16; gradients rtol 1e-4 / atol 1e-5 in
+    float32."""
+    return (dict(rtol=1e-5, atol=1e-5) if dtype == "float32"
+            else dict(rtol=2**-7, atol=2**-7))
+
+
+def _grad_pair(fmod, variables, x, dtype, tmod, rng):
+    """The input gradients of ``sum(norm(x) * gy)`` through flax's module
+    (``x`` cast to ``dtype`` inside) and the port's, both as NHWC float32."""
+    jdt = jnp.dtype(dtype)
+    gy = rng.normal(0, 1, x.shape).astype(np.float32)
+    gx = jax.grad(lambda v: jnp.sum(fmod.apply(variables, v.astype(jdt)).astype(jnp.float32)
+                                    * gy))(jnp.asarray(x))
+    xt = t(x).permute(0, 3, 1, 2).requires_grad_()
+    (tmod(xt.to(getattr(torch, dtype))).float() * t(gy).permute(0, 3, 1, 2)).sum().backward()
+    return xt.grad.permute(0, 2, 3, 1).numpy(), np.asarray(gx)
+
+
+def _frozen_batchnorm_case(dtype):
+    """A frozen BatchNorm in training mode is flax's
+    ``use_running_average=True``: forward and input gradient, no
+    ``pending_stats``, buffers untouched."""
+    rng = np.random.default_rng(4)
+    x = rng.normal(0.5, 2.0, (3, 5, 4, 6)).astype(np.float32)
+    scale, bias = rng.uniform(0.5, 1.5, 6).astype(np.float32), rng.normal(0, 0.3, 6)
+    mean0, var0 = rng.normal(0, 0.1, 6), rng.uniform(0.5, 1.5, 6)
+    bias, mean0, var0 = (a.astype(np.float32) for a in (bias, mean0, var0))
+    jdt = jnp.dtype(dtype)
+    bn = fnn.BatchNorm(use_running_average=True, momentum=0.9, epsilon=1e-5, dtype=jdt,
+                       param_dtype=jnp.float32)
+    variables = {"params": {"scale": scale, "bias": bias},
+                 "batch_stats": {"mean": mean0, "var": var0}}
+    want = bn.apply(variables, jnp.asarray(x).astype(jdt))
+    mod = BatchNorm(6, frozen=True).train()
+    with torch.no_grad():
+        for buf, v in ((mod.weight, scale), (mod.bias, bias), (mod.running_mean, mean0),
+                       (mod.running_var, var0)):
+            buf.copy_(t(v))
+    got = mod(t(x).to(getattr(torch, dtype)).permute(0, 3, 1, 2))
+    assert mod.training and mod.pending_stats is None and got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(got.detach().float().permute(0, 2, 3, 1).numpy(),
+                               np.asarray(want.astype(jnp.float32)), **_norm_tol(dtype))
+    if dtype == "float32":
+        got_g, want_g = _grad_pair(bn, variables, x, dtype, mod, rng)
+        np.testing.assert_allclose(got_g, want_g, rtol=1e-4, atol=1e-5)
+    assert torch.equal(mod.running_mean, t(mean0)) and torch.equal(mod.running_var, t(var0))
+    assert mod.pending_stats is None
+
+
+def _groupnorm_case(dtype):
+    """``models/resnet.py::GroupNorm`` against flax ``nn.GroupNorm(32,
+    epsilon=1e-5)`` (the JAX ``_norm(kind="group")``): forward in float32
+    and bfloat16, and the input gradient (float32 within rtol 1e-4 / atol
+    1e-5, bfloat16 within its ulp), on 64 channels (2 a group)."""
+    from replication_faster_rcnn_tpu_torch.models.resnet import GroupNorm
+
+    rng = np.random.default_rng(5)
+    x = rng.normal(0.5, 2.0, (3, 5, 4, 64)).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, 64).astype(np.float32)
+    bias = rng.normal(0, 0.3, 64).astype(np.float32)
+    jdt = jnp.dtype(dtype)
+    gn = fnn.GroupNorm(num_groups=32, epsilon=1e-5, dtype=jdt, param_dtype=jnp.float32)
+    variables = {"params": {"scale": scale, "bias": bias}}
+    want = gn.apply(variables, jnp.asarray(x).astype(jdt))
+    mod = GroupNorm(64)
+    with torch.no_grad():
+        mod.weight.copy_(t(scale))
+        mod.bias.copy_(t(bias))
+    assert not list(mod.buffers())
+    for training in (True, False):  # the same in both modes
+        got = mod.train(training)(t(x).to(getattr(torch, dtype)).permute(0, 3, 1, 2))
+        assert got.dtype == getattr(torch, dtype)
+        np.testing.assert_allclose(got.detach().float().permute(0, 2, 3, 1).numpy(),
+                                   np.asarray(want.astype(jnp.float32)), **_norm_tol(dtype))
+    got_g, want_g = _grad_pair(gn, variables, x, dtype, mod.train(), rng)
+    gtol = dict(rtol=1e-4, atol=1e-5) if dtype == "float32" else _norm_tol(dtype)
+    np.testing.assert_allclose(got_g, want_g, **gtol)
 
 
 def _batchnorm_case(dtype):
@@ -692,11 +818,34 @@ def _case_trainer_three_steps_finite(trainer, history, last):
     assert trainer.steps_per_epoch == 3 and trainer.model.training
 
 
-def test_guarded_update_on_a_nan_gradient(trainer_and_batches):
+def test_guarded_update_on_a_nan_gradient(trainer_and_batches, tmp_path):
     trainer, history, last = trainer_and_batches
     _case_trainer_three_steps_finite(trainer, history, last)
     for policy in ("skip", "halt", "apply"):
         _nan_step(trainer, policy)
+    _case_group_norm_trainer(tmp_path)
+
+
+def _case_group_norm_trainer(workdir):
+    """A GroupNorm model (no BatchNorm statistics) through the trainer: a
+    withheld NaN step leaves the state bitwise, a clean step moves it, and a
+    checkpoint saves, restores verified into a fresh trainer and resumes
+    bitwise (the next step equal on both)."""
+    cfg = tcfg_small()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, norm="group"))
+    trainer = Trainer(cfg, SyntheticDataset(cfg.data, length=4), device="cpu",
+                      workdir=str(workdir))
+    assert not any("running" in k for k in trainer.model.state_dict())
+    _nan_step(trainer, "skip")
+    assert trainer.save(kind="scheduled")
+    resumed = Trainer(cfg, SyntheticDataset(cfg.data, length=4), device="cpu",
+                      workdir=str(workdir))
+    assert resumed.restore() == trainer.state.step == 2
+    assert _same(_state_snapshot(trainer), _state_snapshot(resumed))
+    batch = _epoch_batch(trainer, 9)
+    got, want = resumed.train_one_batch(dict(batch)), trainer.train_one_batch(dict(batch))
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    assert _same(_state_snapshot(trainer), _state_snapshot(resumed))
 
 
 def _epoch_batch(trainer, epoch):
