@@ -294,10 +294,34 @@ H100:  ``python3 chip_smoke.py``. It
    replication_faster_rcnn_tpu_torch trace-summary`` in a subprocess (JSON
    under ``build/``): the top kernels and launching operators printed, the
    operators' ms equal to the kernels' within 1%;
-15. prints every phase's wall time, a ``{"kernels": [...]}`` line (the
+15. drives the serving fleet (:func:`phase_fleet`): three replicas, each an
+   ``InferenceEngine`` of ``voc_resnet18`` at 600x600 x b1, b8 in bfloat16
+   with its graphs, behind a ``FleetRouter`` (3 attempts) fed by a
+   ``Prober``; ``run_fleet_loop`` with 8 clients over 256 requests drawn
+   from a seed (about one in eight repeats an earlier image: cache hits)
+   under a ``router.dispatch`` drop a quarter of the way in (the router's
+   kill hook kills a replica mid-request; it is revived), unhedged and then
+   hedged with the hedge delay pinned at half the unhedged p50 (at least one
+   hedge must fire): availability 1.0 and every answer bitwise a standalone engine's
+   eager flush of its image at b1 or b8 (``FLEET_TOLERANCE``). Then
+   ``RolloutWatcher.poll_once`` rolls the fleet from version 1 to 2 (two
+   checkpoints the port's ``Trainer`` saved, with manifests and feed lines,
+   eligible under the full config checks) through ``swap_params`` under the
+   same load, canary first: promoted, every replica at 2, every answer one
+   version's; a second wave with a ``rollout.swap`` drop aborts and the
+   fleet reconverges on 2; the load after the waves answers from 2 only.
+   Then ``make_fleet_server`` over ``HTTPReplicaClient``s of three
+   ``serving/server.py`` listeners (/predict equal to ``submit_path``, a
+   missing file's 400, /healthz, /stats, /metrics), and ``python -m
+   replication_faster_rcnn_tpu_torch chaos --smoke --json`` as a subprocess
+   (exit 0, six legs). The launches of the whole run are its flushes'
+   replays (NMS 2, ROIPool 1 each). Every number is printed beside the
+   card's name and power limit;
+16. prints every phase's wall time, a ``{"kernels": [...]}`` line (the
    serving kernels' launches per graph replay beside their counts; [13]'s
-   and [14]'s shapes under ``preset_training_sites``), the card line, and
-   last ``{"ok": true, "device": {...}}``.
+   and [14]'s shapes under ``preset_training_sites``; the fleet's run under
+   ``launches_by_path["serve_fleet"]``), the card line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Without CUDA, or without
 the repository beside it, it exits non-zero at once. Comparisons run with
@@ -2674,7 +2698,11 @@ class GraphReplays:
     holds these counts against the kernels the profiler saw the card run."""
 
     def __init__(self):
+        import threading
+
         self.counts = {}
+        # [15]'s replicas replay on three flush workers at once
+        self.lock = threading.Lock()
         # while set, every serving flush call (staging, input copy, replay,
         # output copy, event wait) runs under sync debug mode "error": an
         # implicit host sync raises
@@ -2734,8 +2762,9 @@ class GraphReplays:
             finally:
                 if checked:
                     torch.cuda.set_sync_debug_mode(0)
-            for k, n in graph.per_replay.items():
-                replays.counts[k] = replays.counts.get(k, 0) + n
+            with replays.lock:
+                for k, n in graph.per_replay.items():
+                    replays.counts[k] = replays.counts.get(k, 0) + n
             return out
 
         graph_cls._capture, graph_cls.__call__ = counted_capture, counted_call
@@ -5925,6 +5954,434 @@ def phase_knobs(torch, preset_train=None, device=None, cfgs=None, reps=KNOB_REPS
     return launches, out
 
 
+# ----------------------------------------------------------- [15] fleet
+
+FLEET_DIR = REPO / "build" / "chip_smoke_fleet"
+FLEET_REPLICAS = 3
+FLEET_REQUESTS = 256
+FLEET_CLIENTS = 8
+FLEET_REPEAT = 1 / 8  # the share of requests that repeat an earlier request's image
+FLEET_SEED = 15
+FLEET_WANT = {"nms": 2, **roi_launches("pool")}
+FLEET_TOLERANCE = ("bitwise: each answer equals a standalone engine's eager flush of the image "
+                   "at b1 or at b8 (its flush's batch size), as [11] holds graph replays")
+
+
+def fleet_config(size=None):
+    """``voc_resnet18`` as each of [15]'s replicas serves it: one bucket
+    (600x600, or ``size`` for a CPU rehearsal), batches 1 and 8, bfloat16
+    resident; the router with 3 attempts, hedging off (the hedged run turns
+    it on), probes every 50 ms, a 1 s lease and a 0.5 s breaker cooldown; the
+    rollout's waits cut to the phase's scale."""
+    import dataclasses
+
+    from replication_faster_rcnn_tpu_torch import config as tconfig
+
+    side = size or 600
+    cfg = tconfig.get_config("voc_resnet18")
+    return cfg.replace(
+        data=dataclasses.replace(cfg.data, image_size=(side, side)),
+        serving=dataclasses.replace(cfg.serving, resolutions=((side, side),),
+                                    batch_sizes=(1, 8), params_dtype="bfloat16"),
+        fleet=tconfig.FleetConfig(max_attempts=3, hedge=False, probe_interval_s=0.05,
+                                  lease_timeout_s=1.0, rejoin_probes=2, breaker_cooldown_s=0.5,
+                                  cache_entries=FLEET_REQUESTS),
+        rollout=tconfig.RolloutConfig(drain_timeout_s=5.0, swap_timeout_s=120.0,
+                                      rejoin_timeout_s=10.0, canary_hold_s=0.5))
+
+
+def fleet_requests(rng, side, n):
+    """``n`` requests drawn from ``rng``: (image index, content hash) with a
+    fresh side x side uint8 image, or about one time in eight an earlier
+    request's image. Returns (images, requests)."""
+    from replication_faster_rcnn_tpu_torch.serving.fleet.router import content_key
+
+    images, requests = [], []
+    for _ in range(n):
+        if images and rng.random() < FLEET_REPEAT:
+            k = int(rng.integers(len(images)))
+        else:
+            images.append(rng.integers(0, 256, (side, side, 3), dtype=np.uint8))
+            k = len(images) - 1
+        requests.append((k, content_key(images[k].tobytes())))
+    return images, requests
+
+
+def fleet_references(torch, cfg, state, images, dev):
+    """Per image, the two answers a replica's flush can give it: a standalone
+    engine's eager flush of it at b1, and its row of an eager b8 flush (the
+    images eight at a time; [11]'s swap check holds a b8 row independent of
+    the flush's other rows)."""
+    from replication_faster_rcnn_tpu_torch.serving.engine import InferenceEngine
+
+    with InferenceEngine(cfg, device=dev, state_dict=state, capture=False) as ref:
+        bucket = ref.buckets[-1]
+        infer = ref._resident[ref.model_version].infer[bucket]
+        refs = []
+        for i, img in enumerate(images):
+            b1 = flush_outputs(torch, infer, padded(cfg, [img], bucket, 1), dev)
+            refs.append([{k: v[0] for k, v in b1.items()}])
+        for at in range(0, len(images), 8):
+            group = images[at:at + 8]
+            b8 = flush_outputs(torch, infer, padded(cfg, group, bucket, 8), dev)
+            for i in range(len(group)):
+                refs[at + i].append({k: v[i] for k, v in b8.items()})
+    return refs
+
+
+def fleet_version_of(answer, refs, i):
+    """The versions whose reference answers for image ``i`` equal ``answer``
+    bit for bit (the images are at the bucket's size: no box rescale)."""
+    return [v for v, by_image in refs.items()
+            if any(all(np.array_equal(answer[k], r[k]) for k in ("boxes", "scores", "classes",
+                                                                  "valid"))
+                   for r in by_image[i])]
+
+
+def fleet_load(router, images, requests, refs, versions, drop=False):
+    """``run_fleet_loop`` with ``FLEET_CLIENTS`` clients over ``requests``
+    through ``router`` (with ``drop``, a ``router.dispatch`` drop a quarter of
+    the way in, at hit 64 of 256, kills the replica it picks mid-request): availability
+    1.0, and every answer bit for bit one of ``versions``' reference
+    answers. Returns the summary with the answers' versions counted."""
+    from replication_faster_rcnn_tpu_torch.faultlib import failpoints
+    from replication_faster_rcnn_tpu_torch.serving import loadgen
+
+    answers = [None] * len(requests)
+
+    def dispatch(j, content_hash):
+        answers[j] = router.dispatch(images[requests[j][0]], content_hash=content_hash)
+
+    run = [(j, h) for j, (_, h) in enumerate(requests)]
+    fired = []
+    if drop:
+        failpoints.configure([failpoints.Rule("router.dispatch", "drop", 1.0, FLEET_SEED,
+                                              max_fires=1, after=len(requests) // 4)])
+        try:
+            summary = loadgen.run_fleet_loop(dispatch, run, concurrency=FLEET_CLIENTS)
+            fired = [e for e in failpoints.event_log() if e["site"] == "router.dispatch"]
+        finally:
+            failpoints.disarm()
+    else:
+        summary = loadgen.run_fleet_loop(dispatch, run, concurrency=FLEET_CLIENTS)
+    if summary["availability"] != 1.0 or summary["errors"] or any(a is None for a in answers):
+        raise AssertionError(f"fleet load: availability {summary['availability']}, errors "
+                             f"{summary['errors']}, trace ids {summary['failed_trace_ids']}")
+    if drop and len(fired) != 1:
+        raise AssertionError(f"the dispatch drop fired {len(fired)} times")
+    seen = {}
+    for j, answer in enumerate(answers):
+        match = fleet_version_of(answer, {v: refs[v] for v in versions}, requests[j][0])
+        if len(match) != 1:
+            raise AssertionError(f"request {j}: its answer matches {match} of versions "
+                                 f"{versions}' reference answers")
+        seen[match[0]] = seen.get(match[0], 0) + 1
+    summary["answers_by_version"] = seen
+    return summary
+
+
+def fleet_revive(registry, clients, router, timeout_s=30.0):
+    """Revive every killed client, then wait until every replica is in
+    rotation and the router's breakers admit it again."""
+    killed = sorted(rid for rid, c in clients.items() if c.killed)
+    for c in clients.values():
+        c.revive()
+    deadline = time.perf_counter() + timeout_s
+    while (len(registry.in_rotation()) < len(clients)
+           or any(router.breaker(rid).state == "open" for rid in clients)):
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"the fleet did not heal: {registry.snapshot()}")
+        time.sleep(0.05)
+    return killed
+
+
+def fleet_wave(run_wave, router, images, requests, refs, versions):
+    """``run_wave()`` on this thread while the fleet load runs over and over
+    on another until it returns. Returns (the wave's result, its seconds,
+    the load passes' summaries)."""
+    import threading
+
+    stop, passes, errors = threading.Event(), [], []
+
+    def load():
+        while not stop.is_set():
+            try:
+                passes.append(fleet_load(router, images, requests, refs, versions))
+            except Exception as e:  # noqa: BLE001 - raised on the phase's thread
+                errors.append(e)
+                return
+
+    thread = threading.Thread(target=load)
+    thread.start()
+    try:
+        t0 = time.perf_counter()
+        result = run_wave()
+        wave_s = time.perf_counter() - t0
+    finally:
+        stop.set()
+        thread.join(600)
+    if errors:
+        raise errors[0]
+    return result, wave_s, passes
+
+
+def fleet_http(engines, cfg, images, root):
+    """The HTTP front: ``make_fleet_server`` over ``HTTPReplicaClient``s of
+    three ``serving/server.py`` listeners on the replicas' engines. /predict
+    on three JPEG files (200, each answered with the detections the engine
+    gives ``submit_path``), a missing file (400), /healthz (all three in
+    rotation), /stats and /metrics."""
+    import threading
+
+    from replication_faster_rcnn_tpu_torch.serving import fleet as fleet_mod
+    from replication_faster_rcnn_tpu_torch.serving.server import make_server
+
+    paths = write_jpegs(images[:3], root)
+    replicas = [make_server(eng, port=0, score_thresh=0.0, replica_id=f"r{i}")
+                for i, eng in enumerate(engines)]
+    threads = [threading.Thread(target=r.serve_forever, daemon=True) for r in replicas]
+    for t in threads:
+        t.start()
+    registry = fleet_mod.ReplicaRegistry(cfg.fleet)
+    for r in replicas:
+        url = f"http://127.0.0.1:{r.server_address[1]}"
+        registry.add(url, fleet_mod.HTTPReplicaClient(url, url))
+    router = fleet_mod.FleetRouter(registry, cfg.fleet)
+    prober = fleet_mod.Prober(registry, cfg.fleet.probe_interval_s).start()
+    front = fleet_mod.make_fleet_server(router, port=0)
+    threading.Thread(target=front.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{front.server_address[1]}"
+    out = {}
+    try:
+        deadline = time.perf_counter() + 30
+        while len(registry.in_rotation()) < len(replicas):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"HTTP replicas never joined: {registry.snapshot()}")
+            time.sleep(0.05)
+        t0 = time.perf_counter()
+        status, _, body = http_call(f"{base}/predict", {"paths": paths})
+        out["predict_ms"] = (time.perf_counter() - t0) * 1e3
+        if status != 200 or sorted(body["detections"]) != sorted(paths):
+            raise AssertionError(f"fleet /predict: {status} {str(body)[:300]}")
+        for p in paths:
+            want = int(engines[0].submit_path(p).result(timeout=300)["valid"].sum())
+            if len(body["detections"][p]) != want:
+                raise AssertionError(f"fleet /predict {p}: {len(body['detections'][p])} "
+                                     f"detections, submit_path {want}")
+        out["predict"] = {"status": status,
+                          "detections": [len(body["detections"][p]) for p in paths]}
+        out["missing_file"] = http_call(f"{base}/predict",
+                                        {"paths": [str(root / "missing.jpg")]})[0]
+        status, _, health = http_call(f"{base}/healthz")
+        status_s, _, stats = http_call(f"{base}/stats")
+        status_m, _, metrics = http_call(f"{base}/metrics")
+        if (out["missing_file"] != 400 or status != 200 or not health["ok"]
+                or len(health["in_rotation"]) != len(replicas) or status_s != 200
+                or stats.get("schema") != "frcnn-stats/v1" or status_m != 200
+                or "fleet_requests_total" not in metrics):
+            raise AssertionError(f"fleet HTTP: missing file {out['missing_file']}, /healthz "
+                                 f"{status} {health}, /stats {status_s}, /metrics {status_m}")
+        out.update(healthz=status, in_rotation=len(health["in_rotation"]), stats=status_s,
+                   metrics=status_m, router=stats["router"])
+    finally:
+        front.shutdown()
+        front.server_close()
+        prober.stop()
+        router.close()
+        for r in replicas:
+            r.shutdown()
+            r.server_close()
+    return out
+
+
+def fleet_chaos():
+    """``python -m replication_faster_rcnn_tpu_torch chaos --smoke --json``
+    as a user runs it: exit 0, the six legs, the injected events."""
+    stdout, seconds = cli_subprocess(["chaos", "--smoke", "--json"])
+    result = json.loads(stdout)
+    legs = ["loader", "checkpoint", "batcher", "fleet", "fleet_router", "rollout"]
+    if not result["ok"] or list(result["legs"]) != legs:
+        raise AssertionError(f"chaos smoke: {stdout[-2000:]}")
+    return {"exit_code": 0, "legs": list(result["legs"]),
+            "injected_events": result["injected_events"], "subprocess_s": seconds}
+
+
+def phase_fleet(torch, device=None, size=None, n_requests=FLEET_REQUESTS):
+    """Phase [15]: the serving fleet on the card. Three replicas, each an
+    ``InferenceEngine`` of ``voc_resnet18`` with its graphs, behind a
+    ``FleetRouter`` (3 attempts), serve ``n_requests`` through
+    ``run_fleet_loop`` with 8 clients, a replica killed mid-request by a
+    ``router.dispatch`` drop and revived, first unhedged, then hedged (the
+    delay at half the unhedged p50, so that hedges fire); a
+    ``RolloutWatcher`` poll rolls the fleet from version "1" to "2" (two
+    checkpoints the port's ``Trainer`` saved, with manifests and feed lines)
+    under the same load, canary first, and a second wave with a
+    ``rollout.swap`` drop aborts and reconverges on "2"; the load after the
+    waves answers from "2" only; the HTTP front over three replica
+    listeners; the chaos smoke as a subprocess. ``device``/``size``: a CPU
+    rehearsal (no graphs, so no launches to count). Returns (launches of
+    its main-path run, numbers)."""
+    import dataclasses
+
+    from replication_faster_rcnn_tpu_torch.data.synthetic import SyntheticDataset
+    from replication_faster_rcnn_tpu_torch.faultlib import failpoints
+    from replication_faster_rcnn_tpu_torch.serving import fleet as fleet_mod
+    from replication_faster_rcnn_tpu_torch.serving.engine import InferenceEngine
+    from replication_faster_rcnn_tpu_torch.serving.rollout import (
+        RolloutController,
+        RolloutWatcher,
+        VersionFeed,
+    )
+    from replication_faster_rcnn_tpu_torch.train.trainer import Trainer, load_eval_variables
+
+    dev = torch.device(device or "cuda")
+    root = fresh_dir(FLEET_DIR)
+    t_phase = time.perf_counter()
+    card = card_line() if dev.type == "cuda" else "cpu"  # printed beside every number
+    cfg = fleet_config(size)
+    side = cfg.data.image_size[0]
+    log(f"[15] fleet: {FLEET_REPLICAS} voc_resnet18 replicas, {side}x{side} x b1, b8, "
+        f"bfloat16, {n_requests} requests from {FLEET_CLIENTS} clients")
+    wd = root / "ckpt"
+    for step in (1, 2):
+        trainer = Trainer(cfg, SyntheticDataset(cfg.data, length=8), device=dev, seed=step,
+                          workdir=str(wd))
+        trainer.save(step=step, kind="final")
+        del trainer
+    feed = VersionFeed(str(wd), config=cfg)
+    verdicts = [feed.validate(s) for s in feed.poll()]
+    if [v.step for v in verdicts] != [1, 2] or not all(v.eligible for v in verdicts):
+        raise AssertionError(f"the feed: {[(v.step, v.reasons) for v in verdicts]}")
+    states = {v: load_eval_variables(cfg, str(wd), int(v), device=dev).state_dict()
+              for v in ("1", "2")}
+    images, requests = fleet_requests(np.random.default_rng(FLEET_SEED), side, n_requests)
+    t0 = time.perf_counter()
+    refs = {v: fleet_references(torch, cfg, states[v], images, dev) for v in states}
+    out = {"unique_images": len(images), "references_s": time.perf_counter() - t0}
+
+    engines = [InferenceEngine(cfg, device=dev, state_dict=states["1"], warmup=True,
+                               model_version="1") for _ in range(FLEET_REPLICAS)]
+    out["capture_seconds"] = dict(engines[0].compile_seconds)
+    swap_ms = {}
+    for i, eng in enumerate(engines):
+        def timed_swap(state, version, real=eng.swap_params, rid=f"r{i}", **kw):
+            t = time.perf_counter()
+            prior = real(state, version, **kw)
+            swap_ms.setdefault(rid, []).append((time.perf_counter() - t) * 1e3)
+            return prior
+
+        eng.swap_params = timed_swap
+    clients = {f"r{i}": fleet_mod.engine_client(
+        f"r{i}", eng,
+        loader=lambda v: load_eval_variables(cfg, str(wd), int(v), device=dev).state_dict())
+        for i, eng in enumerate(engines)}
+    registry = fleet_mod.ReplicaRegistry(cfg.fleet)
+    for rid, client in clients.items():
+        registry.add(rid, client)
+    prober = fleet_mod.Prober(registry, cfg.fleet.probe_interval_s).start()
+
+    def router(**fleet):
+        return fleet_mod.FleetRouter(registry, dataclasses.replace(cfg.fleet, **fleet),
+                                     kill_hook=lambda rid: clients[rid].kill())
+
+    names = tuple(FLEET_WANT)
+    routers = []
+    try:
+        deadline = time.perf_counter() + 30
+        while len(registry.in_rotation()) < FLEET_REPLICAS:
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"the replicas never joined: {registry.snapshot()}")
+            time.sleep(0.05)
+        # the main-path run: every load, both waves and the HTTP front
+        flushes0 = [len(e.flush_log) for e in engines]
+        REPLAYS.reset(names)
+        for tag, hedge in (("unhedged", False), ("hedged", True)):
+            if hedge:
+                # the hedge delay pinned at half the unhedged run's p50, so
+                # that hedges fire: a slow attempt is copied to the next candidate
+                delay_ms = out["unhedged"]["p50_ms"] / 2
+                routers.append(router(hedge=True, hedge_floor_ms=delay_ms,
+                                      hedge_ceiling_ms=delay_ms))
+            else:
+                routers.append(router(hedge=False))
+            load = fleet_load(routers[-1], images, requests, refs, ("1",), drop=True)
+            load.update(routers[-1].stats, victims=fleet_revive(registry, clients, routers[-1]))
+            if hedge:
+                load["hedge_delay_ms"] = delay_ms
+                if not load["hedges"]:
+                    raise AssertionError(f"the hedged run sent no hedge: {routers[-1].stats}")
+            out[tag] = load
+            log(f"  [{card}] {tag}: {load['images_per_sec']:.1f} images/s, p50 {load['p50_ms']:.2f} ms, "
+                f"p99 {load['p99_ms']:.2f} ms, availability {load['availability']}, failovers "
+                f"{load['failovers']}, hedges {load['hedges']} (won {load['hedge_wins']}"
+                + (f", after {load['hedge_delay_ms']:.2f} ms" if hedge else "") + "), "
+                f"cache hits {load['cache_hits']}, killed {load['victims']}")
+        # the waves' load bypasses the router's cache: every request reaches a replica
+        routers.append(router(cache_entries=0))
+        controller = RolloutController(registry, routers[-1], cfg, feed=feed)
+        watcher = RolloutWatcher(feed, controller)
+        wave, wave_s, passes = fleet_wave(watcher.poll_once, routers[-1], images, requests,
+                                          refs, ("1", "2"))
+        versions = registry.model_versions()
+        if (wave is None or wave.outcome != "promoted" or sorted(wave.swapped) != sorted(clients)
+                or set(versions.values()) != {"2"}
+                or "canary_promoted" not in [e["event"] for e in wave.events]):
+            raise AssertionError(f"wave 1: {wave and wave.to_dict()}, versions {versions}")
+        out["wave"] = {**wave.to_dict(), "wall_s": wave_s, "swap_ms": dict(swap_ms),
+                       "load_passes": len(passes),
+                       "answers_by_version": [p["answers_by_version"] for p in passes]}
+        log(f"  [{card}] wave 1 -> 2 under load: {wave.outcome} in {wave_s:.2f} s, swap ms {swap_ms}, "
+            f"{len(passes)} load passes, answers by version "
+            f"{out['wave']['answers_by_version']}")
+        failpoints.configure([failpoints.Rule("rollout.swap", "drop", 1.0, FLEET_SEED,
+                                              max_fires=1)])
+        try:
+            back, back_s, back_passes = fleet_wave(lambda: controller.rollout("1"), routers[-1],
+                                                   images, requests, refs, ("1", "2"))
+        finally:
+            failpoints.disarm()
+        fleet_revive(registry, clients, routers[-1])
+        versions = registry.model_versions()
+        if (back.outcome != "aborted" or "injected mid-swap kill" not in (back.reason or "")
+                or set(versions.values()) != {"2"}):
+            raise AssertionError(f"wave 2: {back.to_dict()}, versions {versions}")
+        out["rollback_wave"] = {**back.to_dict(), "wall_s": back_s,
+                                "load_passes": len(back_passes)}
+        log(f"  [{card}] wave 2 -> 1 with a rollout.swap drop: {back.outcome} ({back.reason}), "
+            f"rolled back {back.rolled_back}, {back_s:.2f} s; versions {versions}")
+        routers.append(router())
+        out["after_waves"] = fleet_load(routers[-1], images, requests, refs, ("2",))
+        out["after_waves"].update(routers[-1].stats)
+        out["http"] = fleet_http(engines, cfg, images, root)
+        flushes = sum(len(e.flush_log) - n for e, n in zip(engines, flushes0))
+        launches = REPLAYS.read(names)
+        replayed = {k: REPLAYS.counts.get(k, 0) for k in names}
+    finally:
+        prober.stop()
+        for r in routers:
+            r.close()
+        for eng in engines:
+            eng.close()
+    if engines[0].capture:
+        if replayed != {k: flushes * FLEET_WANT[k] for k in names}:
+            raise AssertionError(f"{flushes} flushes of {FLEET_WANT} each, replays counted "
+                                 f"{replayed}")
+        if not (launches["nms"] and launches["roi_pool"]):
+            raise AssertionError(f"the fleet's run launched no NMS or ROIPool: {launches}")
+    out["flushes"] = flushes
+    out["chaos"] = fleet_chaos()
+    shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  [{card}] after the waves: {out['after_waves']['images_per_sec']:.1f} images/s, p50 "
+        f"{out['after_waves']['p50_ms']:.2f} ms, p99 {out['after_waves']['p99_ms']:.2f} ms")
+    log(f"  [{card}] HTTP front: {json.dumps(out['http'])}; chaos smoke: "
+        f"{json.dumps(out['chaos'])}")
+    log(f"  [{card}] [15] took {out['phase_s']:.1f} s; {flushes} flushes; launches in the "
+        f"main-path run {launches}")
+    out["card"] = card
+    return launches, out
+
+
 def image_kernel_rows(image, by_path):
     """The ``kernels`` line's rows of the data path's five kernels: [3]'s
     times at 600x600 b8 uint8 (all four row mixes' main one: flip,
@@ -6075,6 +6532,7 @@ def main():
     backbone_launches, backbones = timed_phase("[14] backbones", phase_backbones, torch)
     knob_launches, knobs = timed_phase("[14] knobs and trace-summary", phase_knobs, torch,
                                        preset_train)
+    fleet_launches, fleet = timed_phase("[15] fleet", phase_fleet, torch)
     log(f"phase walls (s): {json.dumps(walls)}")
     paths = {"serve": launches, "serve_pool": plaunches, "serve_presets": slaunches,
              "serve_int8": qlaunches, "serve_int8_presets": iplaunches, "train": tlaunches,
@@ -6084,7 +6542,8 @@ def main():
              **dlaunches, "serve_stack": klaunches, "serve_fpn": flaunches,
              "serve_int8_fpn": fqlaunches,
              "train_fpn": ftlaunches, "train_fpn_eager": ftlaunches_eager, **celaunches,
-             **preset_launches, **backbone_launches, **knob_launches}
+             **preset_launches, **backbone_launches, **knob_launches,
+             "serve_fleet": fleet_launches}
 
     def by_path(key):
         """A counter's launches on every main path that reads it."""
@@ -6360,7 +6819,7 @@ def main():
                     "fpn": {"serve": fpn_serve, "serve_int8": fpn_int8, "train": fpn_train,
                             "bench": fpn_bench},
                     "int8_presets": int8_presets, "preset_train": preset_train,
-                    "backbones": backbones, "knobs": knobs,
+                    "backbones": backbones, "knobs": knobs, "fleet": fleet,
                     "phase_walls_s": walls, "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)

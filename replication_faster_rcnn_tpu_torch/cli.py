@@ -16,6 +16,12 @@ command's flags, defaults, printed output and exit codes:
                eval line)
   telemetry  — the report of a ``--telemetry`` run directory, or one
                request's hop timeline (``--trace-id``)
+  fleet      — the multi-replica router's HTTP front over ``serve`` replicas
+               (registry, breakers, failover, hedging, canary, shadow)
+  chaos      — ``--smoke``: the seeded six-leg fault schedule, run twice
+               (exit 1 when a recovery invariant fails)
+  rollout    — version eligibility (``--validate-only``) and rolling weight
+               waves over ``serve`` replicas (exit 1 unless promoted)
   trace-summary — the device ms of each kernel and of each operator that
                launched kernels, from a ``--profile`` directory's
                ``torch.profiler`` capture (the CPU's ``cpu_op`` rows when it
@@ -26,10 +32,10 @@ fields. Everything runs on the card unless ``--device cpu`` is given.
 
 A JAX flag whose machinery the port does not have yet is an argparse
 error naming the ROADMAP Queue A item that brings it (never silently
-ignored): ``--strict``, ``--threadsan`` (item 7); the mesh, process and
-ZeRO flags and ``train --elastic`` (item 8); ``train --pretrained-backbone``,
-``train --debug-nans`` and ``predict --output`` (item 9). The
-``fleet``, ``chaos``, ``rollout`` (item 5), ``check``, ``audit`` (item 7),
+ignored): ``--strict``, ``--threadsan`` (also ``fleet --threadsan``; item 7);
+the mesh, process and ZeRO flags and ``train --elastic`` (item 8);
+``train --pretrained-backbone``, ``train --debug-nans`` and ``predict
+--output`` (item 9). The ``check``, ``audit`` (item 7),
 ``warmup`` and ``viz`` (item 9) subcommands are not ported yet.
 ``--compile-cache`` has no counterpart: the CUDA kernels build once into
 ``build/``; nor has ``trace-summary --plane``: a ``torch.profiler`` capture
@@ -626,6 +632,219 @@ def cmd_trace_summary(args) -> int:
     return 0
 
 
+# ------------------------------------------------ fleet, chaos, rollout
+
+
+def cmd_fleet(args) -> int:
+    """Self-healing multi-replica serving front (serving/fleet/): a
+    health-checked registry probes every ``serve`` replica's /healthz on a
+    lease, and the router consistent-hashes requests over the live rotation
+    with per-replica circuit breakers, failover re-dispatch, p99-hedged
+    retries, a content-hash result cache, and canary/shadow traffic splits.
+    Host-side routing only — no model; the replicas own the card."""
+    from replication_faster_rcnn_tpu_torch.config import FleetConfig, TelemetryConfig
+    from replication_faster_rcnn_tpu_torch.serving import fleet as fleet_mod
+    from replication_faster_rcnn_tpu_torch.telemetry import spans as tspans
+
+    if not args.replica:
+        print("fleet: need at least one --replica URL", file=sys.stderr)
+        return 2
+    overrides = {
+        k: v
+        for k, v in {
+            "probe_interval_s": args.probe_interval_s,
+            "lease_timeout_s": args.lease_timeout_s,
+            "breaker_threshold": args.breaker_threshold,
+            "max_attempts": args.max_attempts,
+            "request_timeout_s": args.request_timeout_s,
+            "cache_entries": args.cache_entries,
+            "canary_fraction": args.canary_fraction,
+        }.items()
+        if v is not None
+    }
+    if args.no_hedge:
+        overrides["hedge"] = False
+    fleet_cfg = dataclasses.replace(FleetConfig(), **overrides)
+    _configure_chaos(args)
+
+    tracer = None
+    if args.telemetry:
+        os.makedirs(args.telemetry, exist_ok=True)
+        tracer = tspans.SpanTracer(os.path.join(args.telemetry, "trace.json"),
+                                   max_events=TelemetryConfig().trace_max_events)
+        tspans.set_tracer(tracer)
+
+    registry = fleet_mod.ReplicaRegistry(fleet_cfg)
+    for url in args.replica:
+        registry.add(url, fleet_mod.HTTPReplicaClient(url, url))
+    for url in args.canary or []:
+        registry.add(url, fleet_mod.HTTPReplicaClient(url, url), role="canary")
+    for url in args.shadow or []:
+        registry.add(url, fleet_mod.HTTPReplicaClient(url, url), role="shadow")
+    router = fleet_mod.FleetRouter(registry, fleet_cfg)
+    prober = fleet_mod.Prober(registry, fleet_cfg.probe_interval_s).start()
+    server = fleet_mod.make_fleet_server(router, args.host, args.port)
+    host, port = server.server_address[:2]
+    print(json.dumps({
+        "replicas": list(args.replica),
+        "canaries": list(args.canary or []),
+        "shadows": list(args.shadow or []),
+        "hedge": fleet_cfg.hedge,
+        "probe_interval_s": fleet_cfg.probe_interval_s,
+        "lease_timeout_s": fleet_cfg.lease_timeout_s,
+    }, indent=2))
+    print(f"fleet router on http://{host}:{port}/ "
+          "(POST /predict {\"paths\": [...]}, GET /healthz, GET /stats)", flush=True)
+
+    # the replicas' drain discipline: /healthz says draining first, the
+    # listener answers for the grace window, then the accept loop stops and
+    # the prober and the hedge pool are joined
+    def _drain(signum, frame):  # noqa: ARG001 - signal signature
+        print(f"SIGTERM: draining fleet front (grace {fleet_cfg.drain_grace_s}s)...",
+              file=sys.stderr)
+        server.draining = True
+
+        def _stop() -> None:
+            if fleet_cfg.drain_grace_s > 0:
+                time.sleep(fleet_cfg.drain_grace_s)
+            server.shutdown()
+
+        threading.Thread(target=_stop, daemon=True).start()
+
+    prev_term = signal.signal(signal.SIGTERM, _drain)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        signal.signal(signal.SIGTERM, prev_term)
+        server.server_close()
+        prober.stop()
+        router.close()
+        if args.telemetry:
+            path = os.path.join(args.telemetry, "fleet.jsonl")
+            with open(path, "a") as fh:
+                fh.write(json.dumps(router.snapshot()) + "\n")
+            print(f"fleet telemetry appended to {path}", file=sys.stderr)
+            if tracer is not None:
+                tracer.flush()
+    return 0
+
+
+def cmd_chaos(args) -> int:
+    """Chaos acceptance harness (faultlib/chaos.py): a tiny seeded fault
+    schedule against the real loader, checkpoint store + manifest,
+    micro-batcher, elastic agent, fleet router and rollout controller,
+    asserting the recovery invariants and that two runs under the same seed
+    log the identical fault sequence. Exit 0 = all invariants held."""
+    if not args.smoke:
+        print("chaos: pass --smoke (the only implemented mode)", file=sys.stderr)
+        return 2
+    import shutil
+    import tempfile
+
+    from replication_faster_rcnn_tpu_torch.faultlib import chaos
+
+    workdir = args.workdir
+    cleanup = workdir is None
+    if workdir is None:
+        workdir = tempfile.mkdtemp(prefix="frcnn-torch-chaos-")
+    try:
+        result = chaos.run_smoke(workdir, seed=args.seed)
+    except chaos.ChaosSmokeError as e:
+        print(f"chaos smoke FAILED: {e}", file=sys.stderr)
+        return 1
+    if args.json:
+        print(json.dumps(result, indent=2))
+    else:
+        print(f"chaos smoke ok: seed={result['seed']} "
+              f"injected_events={result['injected_events']} "
+              f"elapsed_s={result['elapsed_s']}")
+        for leg, detail in result["legs"].items():
+            print(f"  {leg}: {detail}")
+    if cleanup:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return 0
+
+
+def cmd_rollout(args) -> int:
+    """Rolling weight rollout (serving/rollout/): discover the checkpoint
+    versions the trainer published to WORKDIR/manifests/ (feed.jsonl + a
+    manifest scan), validate eligibility BEFORE any replica drains (manifest
+    CRC fields, topology, config hash, int8 quant sidecar), then drive a
+    rolling upgrade over --replica URLs: hold/drain one replica, POST /swap,
+    rejoin-gate at the new version, canary-gate the first swapped replica on
+    burn-rate and shadow-diff windows, promote the wave or roll it back."""
+    from replication_faster_rcnn_tpu_torch.config import get_config
+    from replication_faster_rcnn_tpu_torch.serving import fleet as fleet_mod
+    from replication_faster_rcnn_tpu_torch.serving.rollout import (
+        RolloutController,
+        RolloutWatcher,
+        VersionFeed,
+    )
+
+    cfg = get_config(args.config)
+    if args.probe_interval_s is not None:
+        cfg = cfg.replace(fleet=dataclasses.replace(
+            cfg.fleet, probe_interval_s=args.probe_interval_s))
+    if args.poll_interval_s is not None:
+        cfg = cfg.replace(rollout=dataclasses.replace(
+            cfg.rollout, poll_interval_s=args.poll_interval_s))
+    _configure_chaos(args)
+    feed = VersionFeed(args.workdir, config=None if args.no_config_checks else cfg)
+
+    if args.validate_only:
+        verdicts = [feed.validate(step) for step in feed.poll()]
+        print(json.dumps({
+            "workdir": feed.workdir,
+            "versions": [
+                {"step": v.step, "eligible": v.eligible, "reasons": v.reasons}
+                for v in verdicts
+            ],
+        }, indent=2))
+        return 0
+
+    if not args.replica:
+        print("rollout: need at least one --replica URL", file=sys.stderr)
+        return 2
+    registry = fleet_mod.ReplicaRegistry(cfg.fleet)
+    for url in args.replica:
+        registry.add(url, fleet_mod.HTTPReplicaClient(url, url))
+    router = fleet_mod.FleetRouter(registry, cfg.fleet)
+    prober = fleet_mod.Prober(registry, cfg.fleet.probe_interval_s).start()
+    controller = RolloutController(registry, router, cfg, feed=feed)
+    try:
+        if args.watch:
+            log_path = os.path.join(feed.workdir, "rollout.jsonl")
+            watcher = RolloutWatcher(feed, controller, log_path=log_path)
+            watcher.start()
+            print(f"watching {feed.workdir} every {cfg.rollout.poll_interval_s}s for "
+                  f"eligible versions (wave log: {log_path}); ctrl-c to stop", flush=True)
+            try:
+                while True:
+                    time.sleep(60)
+            except KeyboardInterrupt:
+                pass
+            finally:
+                watcher.stop()
+            return 0
+        # one-shot wave (--once is the default mode)
+        if args.step is not None:
+            result = controller.rollout(str(args.step))
+        else:
+            verdict = feed.latest_eligible()
+            if verdict is None:
+                print("rollout: no eligible version published under "
+                      f"{feed.workdir} (try --validate-only for reasons)", file=sys.stderr)
+                return 1
+            result = controller.rollout(verdict.version, verdict=verdict)
+        print(json.dumps(result.to_dict(), indent=2))
+        return 0 if result.outcome in ("promoted", "noop") else 1
+    finally:
+        prober.stop()
+        router.close()
+
+
 # ----------------------------------------------------------------- parser
 
 
@@ -857,6 +1076,122 @@ def main(argv: Optional[List[str]] = None) -> int:
     p_quant.add_argument("--sweep-map-images", type=int, default=None, metavar="N",
                          help="with --sweep: also measure each group's mAP drop on N images")
     p_quant.set_defaults(fn=cmd_quantize)
+
+    p_fleet = sub.add_parser(
+        "fleet",
+        help="self-healing multi-replica serving front: health-checked replica registry "
+             "(lease-staleness probes), consistent-hash routing with a content-hash result "
+             "cache, per-replica circuit breakers, failover, p99-hedged retries, canary + "
+             "shadow traffic (serving/fleet/)",
+    )
+    p_fleet.add_argument("--replica", action="append", metavar="URL",
+                         help="serving replica base URL (repeatable), e.g. "
+                              "http://127.0.0.1:8008 — start each with `serve --replica-id ...`")
+    p_fleet.add_argument("--canary", action="append", metavar="URL",
+                         help="canary replica URL: a deterministic fleet.canary_fraction "
+                              "slice of the content-hash space tries it first")
+    p_fleet.add_argument("--shadow", action="append", metavar="URL",
+                         help="shadow replica URL: mirrored traffic, responses diffed "
+                              "(never returned)")
+    p_fleet.add_argument("--host", default="127.0.0.1")
+    p_fleet.add_argument("--port", type=int, default=8010,
+                         help="TCP port (0 = pick a free one)")
+    p_fleet.add_argument("--probe-interval-s", type=float, default=None,
+                         help="/healthz probe cadence per replica (fleet.probe_interval_s)")
+    p_fleet.add_argument("--lease-timeout-s", type=float, default=None,
+                         help="probe-staleness horizon before a replica is declared dead "
+                              "(fleet.lease_timeout_s)")
+    p_fleet.add_argument("--breaker-threshold", type=int, default=None,
+                         help="consecutive dispatch failures that open a replica's circuit "
+                              "breaker (fleet.breaker_threshold)")
+    p_fleet.add_argument("--max-attempts", type=int, default=None,
+                         help="primary + failover attempts per request (fleet.max_attempts)")
+    p_fleet.add_argument("--request-timeout-s", type=float, default=None,
+                         help="per-attempt replica call deadline (fleet.request_timeout_s)")
+    p_fleet.add_argument("--cache-entries", type=int, default=None,
+                         help="content-hash result cache size, 0 disables "
+                              "(fleet.cache_entries)")
+    p_fleet.add_argument("--canary-fraction", type=float, default=None,
+                         help="fraction of the content-hash space routed to the canary first "
+                              "(fleet.canary_fraction)")
+    p_fleet.add_argument("--no-hedge", action="store_true",
+                         help="disable hedged retries (fleet.hedge=False): dispatch becomes "
+                              "strictly sequential failover")
+    p_fleet.add_argument("--chaos-spec", default=None, metavar="SPEC",
+                         help="arm failpoints (site:kind:prob:seed[:arg]) — the fleet sites "
+                              "are router.dispatch and router.probe, plus http.handler on the "
+                              "front itself")
+    p_fleet.add_argument("--threadsan", action=_NotPorted, item=ITEM_7,
+                         help=f"not ported yet: {ITEM_7}")
+    p_fleet.add_argument("--telemetry", default=None, metavar="DIR",
+                         help="append a final router/registry snapshot to DIR/fleet.jsonl on "
+                              "shutdown and write the router's request/attempt spans to "
+                              "DIR/trace.json — point the replicas' `serve --telemetry` at "
+                              "the same DIR for the merged `telemetry --trace-id` timeline")
+    p_fleet.set_defaults(fn=cmd_fleet)
+
+    p_chaos = sub.add_parser(
+        "chaos",
+        help="deterministic fault-injection acceptance harness (faultlib): a seeded "
+             "failpoint schedule against the real loader, checkpoint, micro-batcher, elastic "
+             "agent, fleet router and rollout controller; asserts the fault-tolerance "
+             "invariants hold and that the same seed reproduces the identical fault sequence",
+    )
+    p_chaos.add_argument("--smoke", action="store_true",
+                         help="tiny seeded schedule on synthetic data (finishes in seconds); "
+                              "currently the only mode, so required")
+    p_chaos.add_argument("--seed", type=int, default=0,
+                         help="schedule seed; the run is a pure function of it")
+    p_chaos.add_argument("--workdir", default=None, metavar="DIR",
+                         help="scratch dir for checkpoint legs (default: a fresh temp dir, "
+                              "removed on success)")
+    p_chaos.add_argument("--json", action="store_true",
+                         help="print the full result record as JSON")
+    p_chaos.set_defaults(fn=cmd_chaos)
+
+    p_roll = sub.add_parser(
+        "rollout",
+        help="rolling weight rollout: validate checkpoint versions published to "
+             "WORKDIR/manifests/ (pre-drain eligibility gate), then drive a rolling fleet "
+             "upgrade over --replica URLs — drain → hot-swap (POST /swap) → rejoin-gate → "
+             "gated canary promote, with first-class rollback (serving/rollout/)",
+    )
+    p_roll.add_argument("--workdir", required=True, metavar="DIR",
+                        help="trainer workdir whose manifests/ feed is the version source "
+                             "(the replicas must serve from the same workdir so POST /swap "
+                             "can load the step)")
+    p_roll.add_argument("--config", default="voc_resnet18",
+                        help="preset the fleet serves (eligibility checks the manifest "
+                             "config hash and, for int8, the quant sidecar against it)")
+    p_roll.add_argument("--no-config-checks", action="store_true",
+                        help="skip the config-hash and int8-sidecar eligibility checks "
+                             "(manifest integrity + topology still judged)")
+    p_roll.add_argument("--replica", action="append", metavar="URL",
+                        help="serving replica base URL (repeatable); each must run `serve "
+                             "--replica-id ... --workdir ...` so /swap is enabled")
+    p_roll.add_argument("--validate-only", action="store_true",
+                        help="print every published version's eligibility verdict as JSON "
+                             "and exit — no replica is touched")
+    p_roll.add_argument("--once", action="store_true",
+                        help="run exactly one rollout wave to the newest eligible version "
+                             "(or --step) and exit; this is the default mode")
+    p_roll.add_argument("--step", type=int, default=None,
+                        help="with --once: roll to this checkpoint step instead of the newest "
+                             "eligible one (still validated first)")
+    p_roll.add_argument("--watch", action="store_true",
+                        help="poll the manifest feed forever (rollout.poll_interval_s) and "
+                             "run a wave per newly eligible version; wave results append to "
+                             "WORKDIR/rollout.jsonl")
+    p_roll.add_argument("--probe-interval-s", type=float, default=None,
+                        help="/healthz probe cadence (fleet.probe_interval_s)")
+    p_roll.add_argument("--poll-interval-s", type=float, default=None,
+                        help="manifest feed poll cadence for --watch "
+                             "(rollout.poll_interval_s)")
+    p_roll.add_argument("--chaos-spec", default=None, metavar="SPEC",
+                        help="arm failpoints (site:kind:prob:seed[:arg]) — the rollout sites "
+                             "are rollout.swap (before each per-replica swap RPC) and "
+                             "rollout.promote (at the promote decision)")
+    p_roll.set_defaults(fn=cmd_rollout)
 
     p_trace = sub.add_parser(
         "trace-summary",

@@ -514,23 +514,123 @@ class ServingConfig:
 
 @dataclasses.dataclass(frozen=True)
 class FleetConfig:
-    """The fields of the JAX package's ``FleetConfig`` that the port reads,
-    with its validation: ``slo_*`` (the engine's burn-rate tracker) and
-    ``drain_grace_s`` (``serve --replica-id``'s SIGTERM drain). The router,
-    registry, breaker, hedging and canary fields come with the fleet
-    router."""
+    """Multi-replica serving fleet (serving/fleet/, the ``fleet`` subcommand).
 
-    # how long a SIGTERMed ``serve --replica-id`` advertises draining in
-    # /healthz before it stops accepting connections
+    A front router owns a health-checked replica registry (periodic
+    ``/healthz`` probes with lease-style staleness, the elastic trainer's heartbeat
+    discipline applied to serving), dispatches by consistent hash over
+    (content-hash, bucket), and self-heals: per-replica circuit breakers,
+    failover re-dispatch, hedged retries after a p99-derived delay, and
+    probe-driven drain/rejoin so a restarted replica re-enters rotation
+    without dropped traffic. The fields and their validation are the JAX
+    package's; the engine reads the ``slo_*`` fields too.
+    """
+
+    # ---- registry / prober
+    probe_interval_s: float = 0.5  # /healthz probe cadence per replica
+    # a replica whose last successful probe is older than this is DEAD
+    # (lease staleness — missing probes age the lease out, exactly like
+    # parallel/elastic.py's lease ages out training heartbeats)
+    lease_timeout_s: float = 3.0
+    # consecutive successful probes a DEAD/JOINING replica needs before
+    # it re-enters rotation (a flapping replica can't bounce in and out)
+    rejoin_probes: int = 2
+    # ---- circuit breaker (per replica)
+    breaker_threshold: int = 3  # consecutive dispatch failures to open
+    breaker_cooldown_s: float = 1.0  # open -> half-open probe delay
+    # ---- dispatch
+    max_attempts: int = 3  # primary + failover re-dispatches per request
+    request_timeout_s: float = 30.0  # per-attempt replica call deadline
+    vnodes: int = 64  # consistent-hash ring points per replica
+    # content-hash result cache entries (duplicate images are answered
+    # from the router without touching a replica; 0 disables)
+    cache_entries: int = 256
+    # ---- hedging: after hedge_multiplier x observed p99 (clamped to
+    # [hedge_floor_ms, hedge_ceiling_ms]) with no primary response, a
+    # second copy goes to the next ring replica; first result wins
+    hedge: bool = True
+    hedge_multiplier: float = 1.5
+    hedge_floor_ms: float = 5.0
+    hedge_ceiling_ms: float = 2000.0
+    latency_window: int = 128  # per-router latency samples for the p99
+    # ---- canary / shadow
+    # fraction of requests routed to the canary replica first (decided
+    # by content hash, so the split is deterministic per image)
+    canary_fraction: float = 0.05
+    # ---- replica-side drain: how long a SIGTERMed ``serve
+    # --replica-id`` advertises draining=true in /healthz (so the router
+    # stops routing to it) before it stops accepting connections
     drain_grace_s: float = 1.0
-    # SLO error-budget burn rate (telemetry/slo_burn.py): the alarm (burn
-    # > 1 on both windows) is a path into the engine's ``degraded``
+    # ---- SLO error-budget burn-rate (telemetry/slo_burn.py): every
+    # dispatch ATTEMPT outcome (not just final request outcomes — with
+    # failover a dying replica barely dents request availability, but
+    # its failed attempts are the leading indicator) feeds multi-window
+    # burn accounting; the alarm (burn > 1 on BOTH windows) surfaces in
+    # /stats and auto-demotes an alarming canary back to serving role
     slo_availability_target: float = 0.999  # error budget = 1 - target
     slo_latency_target_ms: float = 0.0  # 0 = availability-only budget
-    slo_short_window_s: float = 300.0
-    slo_long_window_s: float = 3600.0
+    slo_short_window_s: float = 300.0  # alarm-clearing window (5 m)
+    slo_long_window_s: float = 3600.0  # alarm-meaning window (1 h)
 
     def __post_init__(self):
+        if self.probe_interval_s <= 0:
+            raise ValueError(
+                f"fleet.probe_interval_s must be > 0, got {self.probe_interval_s}"
+            )
+        if self.lease_timeout_s <= self.probe_interval_s:
+            raise ValueError(
+                "fleet.lease_timeout_s must exceed probe_interval_s "
+                f"({self.probe_interval_s}), got {self.lease_timeout_s}"
+            )
+        if self.rejoin_probes < 1:
+            raise ValueError(
+                f"fleet.rejoin_probes must be >= 1, got {self.rejoin_probes}"
+            )
+        if self.breaker_threshold < 1:
+            raise ValueError(
+                "fleet.breaker_threshold must be >= 1, got "
+                f"{self.breaker_threshold}"
+            )
+        if self.breaker_cooldown_s <= 0:
+            raise ValueError(
+                "fleet.breaker_cooldown_s must be > 0, got "
+                f"{self.breaker_cooldown_s}"
+            )
+        if self.max_attempts < 1:
+            raise ValueError(
+                f"fleet.max_attempts must be >= 1, got {self.max_attempts}"
+            )
+        if self.request_timeout_s <= 0:
+            raise ValueError(
+                "fleet.request_timeout_s must be > 0, got "
+                f"{self.request_timeout_s}"
+            )
+        if self.vnodes < 1:
+            raise ValueError(f"fleet.vnodes must be >= 1, got {self.vnodes}")
+        if self.cache_entries < 0:
+            raise ValueError(
+                f"fleet.cache_entries must be >= 0, got {self.cache_entries}"
+            )
+        if self.hedge_multiplier <= 0:
+            raise ValueError(
+                "fleet.hedge_multiplier must be > 0, got "
+                f"{self.hedge_multiplier}"
+            )
+        if not 0 < self.hedge_floor_ms <= self.hedge_ceiling_ms:
+            raise ValueError(
+                "fleet hedge bounds need 0 < hedge_floor_ms <= "
+                f"hedge_ceiling_ms, got floor={self.hedge_floor_ms} "
+                f"ceiling={self.hedge_ceiling_ms}"
+            )
+        if self.latency_window < 1:
+            raise ValueError(
+                f"fleet.latency_window must be >= 1, got {self.latency_window}"
+            )
+        if not 0.0 <= self.canary_fraction <= 1.0:
+            raise ValueError(
+                "fleet.canary_fraction must be in [0, 1], got "
+                f"{self.canary_fraction}"
+            )
         if self.drain_grace_s < 0:
             raise ValueError(
                 f"fleet.drain_grace_s must be >= 0, got {self.drain_grace_s}"
@@ -634,6 +734,65 @@ class TelemetryConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RolloutConfig:
+    """Rolling weight rollout control plane (serving/rollout/).
+
+    The trainer's ``workdir/manifests/`` feed publishes CRC-manifested
+    checkpoint versions; the rollout controller validates eligibility
+    (manifest CRC + topology + quant sidecar, *before* any replica
+    drains), then drives a rolling fleet upgrade through the registry:
+    drain one replica (DRAINING keeps the lease), hot-swap its params,
+    re-admit on `fleet.rejoin_probes` consecutive OKs at the new
+    version. The first upgraded replica lands as CANARY; a windowed
+    burn-rate + shadow-diff gate decides promote vs rollback, and
+    rollback is a first-class reverse rollout.
+    """
+
+    # watcher poll interval over workdir/manifests/
+    poll_interval_s: float = 2.0
+    # how long the controller waits for a held replica's queues to
+    # drain before swapping (simulated clocks make this cheap in tests)
+    drain_timeout_s: float = 10.0
+    # per-replica budget for the swap RPC itself
+    swap_timeout_s: float = 30.0
+    # budget for a swapped replica to re-reach HEALTHY at the new
+    # version before the wave is declared failed and rolled back
+    rejoin_timeout_s: float = 10.0
+    # canary gate: minimum routed canary requests before the windowed
+    # decision may *promote* (rollback triggers need no minimum)
+    canary_min_requests: int = 0
+    # how long the new version must hold CANARY before promotion
+    canary_hold_s: float = 5.0
+    # rollback if shadow_diffs / shadow_requests exceeds this fraction
+    # during the hold window (only when shadow traffic exists)
+    max_shadow_diff_fraction: float = 0.25
+    # require the manifest's config hash to match the serving config
+    # (disable when rolling between intentionally different configs)
+    require_config_hash: bool = True
+    # auto-reverse the wave on canary alarm/demotion; False = hold as
+    # CANARY and leave the decision to the operator
+    auto_rollback: bool = True
+
+    def __post_init__(self):
+        for name in ("poll_interval_s", "drain_timeout_s",
+                     "swap_timeout_s", "rejoin_timeout_s",
+                     "canary_hold_s"):
+            v = getattr(self, name)
+            if v <= 0:
+                raise ValueError(f"rollout.{name} must be > 0, got {v}")
+        if self.canary_min_requests < 0:
+            raise ValueError(
+                "rollout.canary_min_requests must be >= 0, got "
+                f"{self.canary_min_requests}"
+            )
+        if not (0.0 <= self.max_shadow_diff_fraction <= 1.0):
+            raise ValueError(
+                "rollout.max_shadow_diff_fraction must be in [0, 1], "
+                f"got {self.max_shadow_diff_fraction}"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
 class FasterRCNNConfig:
     anchors: AnchorConfig = dataclasses.field(default_factory=AnchorConfig)
     proposals: ProposalConfig = dataclasses.field(default_factory=ProposalConfig)
@@ -647,6 +806,7 @@ class FasterRCNNConfig:
     fleet: FleetConfig = dataclasses.field(default_factory=FleetConfig)
     quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
     telemetry: TelemetryConfig = dataclasses.field(default_factory=TelemetryConfig)
+    rollout: RolloutConfig = dataclasses.field(default_factory=RolloutConfig)
 
     def replace(self, **kwargs) -> "FasterRCNNConfig":
         return dataclasses.replace(self, **kwargs)

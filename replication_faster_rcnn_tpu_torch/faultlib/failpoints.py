@@ -1,6 +1,6 @@
 """Deterministic, seeded failpoint registry (a copy of the JAX package's
-``faultlib/failpoints.py``, with the three sites the port fires:
-``loader.fetch``, ``batcher.flush`` and ``http.handler``).
+``faultlib/failpoints.py``, with the sites the port fires; ``prefetch.stage``
+comes with the device prefetcher's wiring, ROADMAP Queue A item 7).
 
 Every fault-tolerance path in this repo (retry-then-substitute loading,
 scheduled-save containment, verified-restore walk-back, per-flush error
@@ -33,8 +33,33 @@ Design constraints, in order:
 
 Sites (see the README failpoint table):
   loader.fetch         data/loader.py::fetch_sample (every dataset access)
+  checkpoint.write     train/trainer.py sync + async save bodies
+  checkpoint.manifest  train/fault.py::write_manifest
   batcher.flush        serving/batcher.py::MicroBatcher._flush
+  collective.init      faultlib/chaos.py fleet leg (the bring-up-time rank
+                       loss; the port has no multi-process bring-up yet)
   http.handler         serving/server.py POST handler
+  heartbeat.beat       parallel/elastic.py::ElasticAgent.beat, per lease
+                       renewal; a ``drop`` whose ``arg`` equals this
+                       rank's index kills the rank (seeded rank loss —
+                       ``prob=1.0, after=k, max_fires=1`` lands it on
+                       exactly the k-th beat)
+  router.dispatch      serving/fleet/router.py::FleetRouter, per replica
+                       attempt; ``drop`` kills the selected replica
+                       mid-request (the router's kill hook takes it out
+                       of the fleet, then the attempt fails with a
+                       dropped connection — failover/hedging must absorb
+                       it), ``ioerror``/``delay`` fault just the attempt
+  router.probe         serving/fleet/registry.py per /healthz probe;
+                       ``ioerror`` fails the probe (lease keeps aging),
+                       ``delay`` stalls it
+  rollout.swap         serving/rollout/controller.py, fired before each
+                       per-replica swap RPC; ``drop``/``ioerror`` abort
+                       the wave mid-swap — the controller must roll the
+                       drained replica back to the prior version
+  rollout.promote      serving/rollout/controller.py, fired at the
+                       windowed promote decision; ``drop``/``ioerror``
+                       force the rollback path instead of promotion
 
 Kinds:
   ioerror      raise ChaosError (an OSError) at the site
@@ -55,6 +80,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import os
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
@@ -67,25 +93,34 @@ __all__ = [
     "SITES",
     "KINDS",
     "ChaosError",
+    "apply_file_fault",
     "Fault",
     "Rule",
     "armed",
     "configure",
     "disarm",
     "event_log",
+    "find_step_dir",
     "fire",
     "parse_spec",
     "poison_batch",
     "set_sink",
 ]
 
-# the sites the port fires; the JAX package's others (checkpoint, prefetch,
-# collective, heartbeat, router, rollout) come with the code that fires them,
-# and ``configure`` rejects them until then
+# the sites the port fires: the JAX package's, but ``prefetch.stage``, which
+# ``configure`` rejects until the device prefetcher fires it
 SITES = (
     "loader.fetch",
+    "checkpoint.write",
+    "checkpoint.manifest",
     "batcher.flush",
+    "collective.init",
     "http.handler",
+    "heartbeat.beat",
+    "router.dispatch",
+    "router.probe",
+    "rollout.swap",
+    "rollout.promote",
 )
 
 KINDS = ("ioerror", "torn_write", "crc_corrupt", "nan", "delay", "drop")
@@ -361,6 +396,47 @@ def fire(site: str, **ctx: Any) -> Optional[Fault]:
     return fault
 
 
+# ------------------------------------------------------- fault appliers
+#
+# Call-site helpers for the data faults fire() returns. Kept here so
+# every site applies "torn write" / "CRC corrupt" / "NaN batch" the same
+# way and the chaos tests pin one behavior.
+
+
+def _target_files(path: str) -> List[str]:
+    if os.path.isfile(path):
+        return [path]
+    out = []
+    for root, _, names in os.walk(path):
+        out.extend(os.path.join(root, n) for n in names)
+    return sorted(out)
+
+
+def apply_file_fault(fault: Fault, path: str) -> List[str]:
+    """Apply ``torn_write`` (truncate after ``arg`` bytes) or
+    ``crc_corrupt`` (flip one mid-file byte, length preserved) to a file
+    or to every file under a directory. Returns the files touched."""
+    touched = []
+    for f in _target_files(path):
+        size = os.path.getsize(f)
+        if fault.kind == "torn_write":
+            keep = min(int(fault.arg), size)
+            with open(f, "r+b") as fh:
+                fh.truncate(keep)
+            touched.append(f)
+        elif fault.kind == "crc_corrupt":
+            if size == 0:
+                continue
+            pos = size // 2
+            with open(f, "r+b") as fh:
+                fh.seek(pos)
+                b = fh.read(1)
+                fh.seek(pos)
+                fh.write(bytes([b[0] ^ 0xFF]))
+            touched.append(f)
+    return touched
+
+
 def poison_batch(batch: Dict[str, Any]) -> Dict[str, Any]:
     """The ``nan`` fault: a copy of a sample/batch dict whose float
     ``image`` is all-NaN (the exact poison the guarded-update tests
@@ -374,3 +450,23 @@ def poison_batch(batch: Dict[str, Any]) -> Dict[str, Any]:
         img.fill(np.nan)
         out["image"] = img
     return out
+
+
+def find_step_dir(
+    workdir: str, step: int, exclude: Sequence[str] = ()
+) -> Optional[str]:
+    """The checkpoint step directory for ``step`` under ``workdir`` (the dir
+    whose digit content equals the step number), for file-fault targets."""
+    want = str(int(step))
+    try:
+        names = os.listdir(workdir)
+    except OSError:
+        return None
+    for name in sorted(names):
+        full = os.path.join(workdir, name)
+        if not os.path.isdir(full) or name in exclude:
+            continue
+        digits = "".join(c for c in name if c.isdigit())
+        if digits and str(int(digits)) == want:
+            return full
+    return None

@@ -1,6 +1,5 @@
-"""In-process load generator for the serving engine (a copy of the JAX
-package's ``serving/loadgen.py`` without ``run_fleet_loop``, which goes with
-the fleet router).
+"""In-process load generator for the serving engine and the fleet router (a
+copy of the JAX package's ``serving/loadgen.py``).
 
 Two canonical load shapes (the serving-benchmark literature's pair):
 
@@ -42,10 +41,12 @@ from replication_faster_rcnn_tpu_torch.serving.overload import (
     DeadlineExceeded,
     backoff_delays,
 )
+from replication_faster_rcnn_tpu_torch.telemetry import tracecontext
 
 __all__ = [
     "percentile_ms",
     "run_closed_loop",
+    "run_fleet_loop",
     "run_open_loop",
 ]
 
@@ -230,6 +231,85 @@ def _closed_loop_clients(engine, images, n_requests, timeout_s, admission, seed,
         counters.latencies, wall, n_requests, mode="closed", concurrency=concurrency,
         **_extra(counters, n_requests),
     )
+
+
+def run_fleet_loop(
+    dispatch,
+    requests: Sequence,
+    concurrency: int = 4,
+    timeout_s: float = DEFAULT_TIMEOUT_S,
+) -> Dict[str, Any]:
+    """Closed-loop load over a fleet router: ``concurrency`` client
+    threads each walk their static share of ``requests`` (worker ``k``
+    takes indices ``k, k+K, ...`` — deterministic partition, no shared
+    iterator) calling ``dispatch(payload, content_hash)`` synchronously.
+
+    The headline number is **availability** — the fraction of requests
+    that returned a result, which is what the fleet's failover/hedging
+    machinery is supposed to hold through a replica kill; throughput and
+    latency percentiles ride along.  ``timeout_s`` bounds each worker
+    join, so a wedged fleet costs the run a bounded wait (workers still
+    stuck at the deadline are counted as hung and their remaining
+    requests as failures).
+
+    Each request runs under its own root trace context (the way a real
+    client front door would mint one), so with a tracer installed the
+    router's attempt spans group per request in the merged timeline;
+    the first few failed requests' trace ids come back under
+    ``failed_trace_ids`` — paste one into
+    the ``telemetry --trace-id`` subcommand to see where the request died.
+    """
+    if concurrency < 1:
+        raise ValueError(f"concurrency must be >= 1, got {concurrency}")
+    counters = _Counters()
+    n = len(requests)
+    failed_traces: List[str] = []
+
+    def _worker(start: int) -> None:
+        for i in range(start, n, concurrency):
+            payload, content_hash = requests[i]
+            trace = tracecontext.new_trace_context()
+            t0 = time.monotonic()
+            try:
+                with tracecontext.bind(trace):
+                    dispatch(payload, content_hash)
+            except Exception:  # noqa: BLE001 - tallied as unavailability
+                with counters.lock:
+                    counters.errors += 1
+                    if len(failed_traces) < 16:
+                        failed_traces.append(trace.trace_id)
+                continue
+            dt = time.monotonic() - t0
+            with counters.lock:
+                counters.latencies.append(dt)
+
+    threads = [
+        threading.Thread(
+            target=_worker, args=(k,), name=f"fleet-loadgen-{k}"
+        )
+        for k in range(concurrency)
+    ]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    hung = 0
+    for t in threads:
+        t.join(timeout=timeout_s)
+        if t.is_alive():
+            hung += 1
+    wall = time.monotonic() - t0
+    with counters.lock:
+        ok = len(counters.latencies)
+        errors = counters.errors
+    summary = _summarize(
+        list(counters.latencies), wall, n, mode="fleet",
+        concurrency=concurrency, errors=errors, hung_workers=hung,
+    )
+    summary["ok"] = ok
+    summary["availability"] = round(ok / n, 6) if n else 0.0
+    with counters.lock:
+        summary["failed_trace_ids"] = list(failed_traces)
+    return summary
 
 
 def run_open_loop(

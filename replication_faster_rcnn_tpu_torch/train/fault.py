@@ -12,7 +12,8 @@ and verified checkpoints with a latest-good fallback.
 * **Torn checkpoints** — every save writes a sidecar manifest (step, config
   hash, leaf count, per-leaf CRC32) to ``<workdir>/manifests/<step>.json``;
   :func:`verified_restore` checks the restored tree against it and walks
-  back to the newest step that verifies.
+  back to the newest step that verifies. The ``checkpoint.write`` and
+  ``checkpoint.manifest`` failpoints tear or corrupt them on purpose.
 
 The store (:class:`CheckpointStore`) plays the part of the orbax
 ``CheckpointManager`` the JAX package uses: one directory per step,
@@ -51,6 +52,7 @@ from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Seque
 import numpy as np
 import torch
 
+from replication_faster_rcnn_tpu_torch.faultlib import failpoints
 from replication_faster_rcnn_tpu_torch.telemetry import spans as tspans
 from replication_faster_rcnn_tpu_torch.telemetry.health import (
     flat,
@@ -63,6 +65,10 @@ Tensor = torch.Tensor
 # "preempted with a verified emergency checkpoint; restart me with resume":
 # EX_TEMPFAIL in sysexits.h, so a supervisor can requeue instead of paging
 EXIT_PREEMPTED = 75
+
+# "a peer rank was lost; re-form the fleet at the surviving world size and
+# resume me": the code parallel/elastic.py's watchdog exits with
+EXIT_FLEET_SHRINK = 76
 
 NONFINITE_POLICIES = ("apply", "skip", "halt")
 
@@ -423,11 +429,17 @@ def write_manifest(
         "leaf_count": len(leaves),
         "leaves": leaves,
     }
+    # failpoint: ioerror raises before any bytes land; torn_write /
+    # crc_corrupt hit the tmp file so the published manifest is damaged
+    # (load_manifest treats unreadable JSON as missing: the step is discarded)
+    inj = failpoints.fire("checkpoint.manifest", step=int(step), kind=kind)
     path = manifest_path(workdir, step)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.tmp.{os.getpid()}"
     with open(tmp, "w") as f:
         json.dump(manifest, f, indent=1)
+    if inj is not None and inj.kind in ("torn_write", "crc_corrupt"):
+        failpoints.apply_file_fault(inj, tmp)
     os.replace(tmp, path)
     return manifest
 

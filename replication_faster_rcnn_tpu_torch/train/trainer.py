@@ -57,8 +57,10 @@ With ``data.loader_mode="process"`` the loader builds batches in forked
 worker processes (``data/loader.py``); the loader's sample-fault
 containment runs in both modes.
 
-Not ported yet: the mesh and data parallelism, the checkpoint and prefetch
-failpoints and the pretrained-backbone graft.
+Saves fire the ``checkpoint.write`` failpoint as the JAX trainer's do.
+
+Not ported yet: the mesh and data parallelism, the prefetch failpoint and
+the pretrained-backbone graft.
 """
 
 from __future__ import annotations
@@ -82,6 +84,7 @@ from replication_faster_rcnn_tpu_torch.data.prefetch_device import (
     consume,
 )
 from replication_faster_rcnn_tpu_torch.device import DeviceLike, resolve_device
+from replication_faster_rcnn_tpu_torch.faultlib import failpoints
 from replication_faster_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN, build_model
 from replication_faster_rcnn_tpu_torch.telemetry import spans as tspans
 from replication_faster_rcnn_tpu_torch.telemetry.watchdog import StallWatchdog
@@ -110,6 +113,14 @@ def _to_host(tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_host(v) for v in tree)
     return tree
+
+
+def _apply_write_fault(inj, workdir: str, step: int) -> None:
+    """A ``checkpoint.write`` torn_write / crc_corrupt fault, applied to the
+    step directory that was just written."""
+    if inj is not None and inj.kind in ("torn_write", "crc_corrupt"):
+        failpoints.apply_file_fault(
+            inj, failpoints.find_step_dir(workdir, step, exclude=(fault.MANIFEST_DIRNAME,)))
 
 
 def load_eval_variables(
@@ -376,6 +387,10 @@ class Trainer:
         tracer = self.tracer
 
         def _write() -> None:
+            # failpoint: an ioerror raises on the writer thread and surfaces
+            # at the next drain; torn_write / crc_corrupt damage the finished
+            # step directory, so restore's verification must walk back past it
+            inj = failpoints.fire("checkpoint.write", step=step, writer="async")
             mgr.save(step, snapshot)
             mgr.wait_until_finished()
             with tracer.span("checkpoint/manifest", cat="checkpoint"):
@@ -384,6 +399,7 @@ class Trainer:
             # the rollout feed announces the version once its manifest is durable
             fault.publish_manifest_event(workdir, step, kind="scheduled", writer="async")
             fault.prune_manifests(workdir, mgr.all_steps())
+            _apply_write_fault(inj, workdir, step)
 
         self._handle_async_error(writer.submit(step, _write))
         return True
@@ -417,6 +433,10 @@ class Trainer:
             mgr = self.checkpoint_manager
             if mgr.latest_step() == step:
                 return True  # already checkpointed
+            # failpoint: an ioerror raises here, inside the containment below
+            # (or the required save's raise); torn_write / crc_corrupt damage
+            # the finished step directory after the write
+            inj = failpoints.fire("checkpoint.write", step=step, writer="sync")
             host_state = self._host_state()
             mgr.save(step, host_state)
             mgr.wait_until_finished()
@@ -424,6 +444,7 @@ class Trainer:
                 fault.write_manifest(self.workdir, step, host_state, self.config, kind=kind)
             fault.publish_manifest_event(self.workdir, step, kind=kind, writer="sync")
             fault.prune_manifests(self.workdir, mgr.all_steps())
+            _apply_write_fault(inj, self.workdir, step)
         except Exception as e:
             if required:
                 raise

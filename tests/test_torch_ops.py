@@ -61,6 +61,9 @@ def test_iou_bitwise():
     np.testing.assert_array_equal(got, want)
     _case_clip_bitwise()
     _case_decode_encode_close()
+    # cases folded into this id (each test id costs the fast tier's budget 2 s)
+    _case_anchors_bitwise()
+    _case_cpu_dispatch_runs_plain_versions()
 
 
 def _case_clip_bitwise():
@@ -87,7 +90,7 @@ def _case_decode_encode_close():
     )
 
 
-def test_anchors_bitwise():
+def _case_anchors_bitwise():
     # the feature sizes are cases of one id (each test id costs the fast
     # tier's budget)
     cfg = AnchorConfig()
@@ -126,9 +129,14 @@ def test_nms_tiled_matches_jax():
             for thresh in (0.3, 0.7):
                 want = _jax_nms(boxes, scores, thresh, 50, tile=tile)
                 _assert_same(nms_fixed_tiled(t(boxes), t(scores), thresh, 50, tile=tile), want)
+    # cases folded into this id (each test id costs the fast tier's budget 2 s)
+    _case_nms_mask_ties_nonfinite_and_sorted()
+    _case_nms_main_path_budgets_batched()
+    _case_nms_loop_matches_jax_loop_and_tiled()
+    _case_batched_nms_class_offsets_match_jax()
 
 
-def test_nms_mask_ties_nonfinite_and_sorted():
+def _case_nms_mask_ties_nonfinite_and_sorted():
     rng = np.random.default_rng(5)
     boxes = rand_boxes(300, rng, size=50.0)
     scores = (rng.integers(0, 6, 300) / 6.0).astype(np.float32)  # many ties
@@ -158,7 +166,7 @@ def _case_nms_all_invalid_and_max_out_exceeds_n():
                  _jax_nms(boxes, scores, 0.5, 20))
 
 
-def test_nms_main_path_budgets_batched():
+def _case_nms_main_path_budgets_batched():
     """The two serving call sites (proposal 3000 -> 300, detection 6300 ->
     100), three images at once against the JAX version image by image."""
     for n, max_out, thresh, sorted_ in [(3000, 300, 0.7, True), (6300, 100, 0.3, False)]:
@@ -184,7 +192,7 @@ def _case_nms_budget(n, max_out, thresh, sorted_):
         assert want[1].sum() > 10  # suppression leaves real selections
 
 
-def test_nms_loop_matches_jax_loop_and_tiled():
+def _case_nms_loop_matches_jax_loop_and_tiled():
     rng = np.random.default_rng(8)
     boxes = rand_boxes(200, rng, size=40.0)
     scores = rng.uniform(0, 1, 200).astype(np.float32)
@@ -197,7 +205,7 @@ def test_nms_loop_matches_jax_loop_and_tiled():
                  (np.asarray(jidx), np.asarray(jvalid)))
 
 
-def test_batched_nms_class_offsets_match_jax():
+def _case_batched_nms_class_offsets_match_jax():
     rng = np.random.default_rng(9)
     r, c = 40, 5
     boxes = np.repeat(rand_boxes(r, rng, size=80.0)[:, None], c, axis=1).reshape(r * c, 4)
@@ -213,7 +221,7 @@ def test_batched_nms_class_offsets_match_jax():
     _assert_same(got, (np.asarray(jidx), np.asarray(jvalid)))
 
 
-def test_cpu_dispatch_runs_plain_versions():
+def _case_cpu_dispatch_runs_plain_versions():
     """On CPU tensors the kernel wrappers run the plain versions and count
     no launch; inside reference_scope the dispatch skips the wrappers."""
     from replication_faster_rcnn_tpu_torch.ops.cuda import nms_kernel, roi_kernel
@@ -275,6 +283,9 @@ def test_roi_align_matches_jax_einsum():
     # tier's budget)
     for method in ["einsum", "gather"]:
         _case_roi_align_method(method)
+    # cases folded into this id (each test id costs the fast tier's budget 2 s)
+    _case_roi_align_bf16_features_promote_to_f32()
+    _case_roi_pool_bitwise()
 
 
 def _case_roi_align_method(method):
@@ -312,7 +323,7 @@ def _case_roi_align_method(method):
                 assert np.abs(got[i] - j_bf16).max() > 1e-3
 
 
-def test_roi_align_bf16_features_promote_to_f32():
+def _case_roi_align_bf16_features_promote_to_f32():
     rng = np.random.default_rng(12)
     feat = rng.normal(0, 1, (1, 8, 8, 4)).astype(np.float32)
     rois = _rois_with_edge_cases(rng, 8, 8, 4)[None]
@@ -340,7 +351,7 @@ def _bf16_ulp(x):
     return np.where(x != 0, np.ldexp(np.float32(1), e - 8), np.float32(2.0**-133))
 
 
-def test_roi_pool_bitwise():
+def _case_roi_pool_bitwise():
     """ROIPool forward bitwise against the JAX ``roi_pool``: float32 and
     bfloat16 features, integer-valued features (exact ties), NaN and +-inf
     in the map, empty, degenerate and out-of-map rois, spatial scales 1/2 and

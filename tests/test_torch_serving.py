@@ -61,6 +61,8 @@ def test_select_bucket_matches_jax():
                      ((64, 64), (64, 64)), ((90, 40), (64, 64))]:
         assert select_bucket(BUCKETS, *hw) == want == j_select_bucket(BUCKETS, *hw), hw
     _case_select_bucket_reject()
+    # cases folded into this id (each test id costs the fast tier's budget 2 s)
+    _case_resize_normalize_matches_jax_spec()
 
 
 def _case_select_bucket_reject():
@@ -68,7 +70,7 @@ def _case_select_bucket_reject():
         select_bucket(BUCKETS, 65, 10, oversize="reject")
 
 
-def test_resize_normalize_matches_jax_spec():
+def _case_resize_normalize_matches_jax_spec():
     rng = np.random.default_rng(0)
     img = rng.integers(0, 256, (37, 53, 3), dtype=np.uint8)
     mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
@@ -150,6 +152,8 @@ def test_engine_bf16_residency():
         assert np.isfinite(res["boxes"]).all() and np.isfinite(res["scores"]).all()
     finally:
         eng.close()
+    # cases folded into this id (each test id costs the fast tier's budget 2 s)
+    _case_bridge_round_trip_bitwise()
 
 
 # ------------------------------------------------------------- batcher
@@ -222,7 +226,7 @@ def _case_batcher_threaded_close_drains():
 # --------------------------------------------------------------- bridge
 
 
-def test_bridge_round_trip_bitwise():
+def _case_bridge_round_trip_bitwise():
     """flax -> torch -> flax numpy is bitwise, and the torch side loads
     strictly into the port's model (every name and shape matches)."""
     jcfg = jconfig.get_config("voc12_resnet18_align")

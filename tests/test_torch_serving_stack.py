@@ -1,10 +1,12 @@
 """Parity of the PyTorch port's serving stack with the JAX package's, on the
 CPU at 32x32: the engine (detections, ``submit_path``, hot-swap), the HTTP
 server, the pure host modules (metrics, SLO burn rate, trace context,
-overload, the deadline controller, failpoints, the batcher's hooks) and the
-load generator. One JAX engine and one port engine, module-scoped, serve the
-same bridged weights (``voc12_resnet18_align``, float32 compute, bucket
-32x32, batch sizes 1 and 2).
+overload, the deadline controller, failpoints, the batcher's hooks), the
+load generator, and a fleet of three engines under a replica kill and a
+rollout wave (last: it builds engines of its own). One JAX engine and one
+port engine, module-scoped, serve the same bridged weights
+(``voc12_resnet18_align``, float32 compute, bucket 32x32, batch sizes 1 and
+2).
 
 Tolerances, with their reasons:
 
@@ -15,6 +17,8 @@ Tolerances, with their reasons:
 * Pure modules: equal outputs (plain Python float math on scripted inputs
   and an injected clock).
 * Load generator: equal summary keys and counts (times differ run to run).
+* Fleet: availability equal (1.0), detections as above, the wave's result
+  equal.
 """
 
 import dataclasses
@@ -41,6 +45,8 @@ from replication_faster_rcnn_tpu.serving import overload as j_overload
 from replication_faster_rcnn_tpu.serving.batcher import MicroBatcher as JMicroBatcher
 from replication_faster_rcnn_tpu.serving.engine import InferenceEngine as JInferenceEngine
 from replication_faster_rcnn_tpu.serving.server import make_server as j_make_server
+from replication_faster_rcnn_tpu.serving import fleet as j_fleet
+from replication_faster_rcnn_tpu.serving import rollout as j_rollout
 from replication_faster_rcnn_tpu.serving.slo import DeadlineController as JDeadlineController
 from replication_faster_rcnn_tpu.telemetry import metrics as j_metrics
 from replication_faster_rcnn_tpu.telemetry import slo_burn as j_slo_burn
@@ -49,7 +55,7 @@ from replication_faster_rcnn_tpu_torch import config as tconfig
 from replication_faster_rcnn_tpu_torch.faultlib import failpoints
 from replication_faster_rcnn_tpu_torch.models.convert import from_flax_variables, to_flax_variables
 from replication_faster_rcnn_tpu_torch.models.faster_rcnn import build_model
-from replication_faster_rcnn_tpu_torch.serving import loadgen, overload
+from replication_faster_rcnn_tpu_torch.serving import fleet, loadgen, overload, rollout
 from replication_faster_rcnn_tpu_torch.serving.batcher import MicroBatcher
 from replication_faster_rcnn_tpu_torch.serving.engine import InferenceEngine
 from replication_faster_rcnn_tpu_torch.serving.server import make_server
@@ -473,6 +479,96 @@ def _trace_summary_cases(cli, prof, tmp_path, capsys):
     assert rc == 2 and "--plane" in out.err and "no counterpart" in out.err
 
 
+def _fleet_cli_run(mod, cli_main, replica_url, paths, capsys, monkeypatch):
+    """``fleet`` in-process over one replica URL: a thread waits for the
+    front to admit the replica, sends /predict, /healthz and /stats, then
+    stops it (the command runs in this, the main, thread: it installs a
+    SIGTERM handler). Returns the exit code and the replies' shapes."""
+    made, replies = [], {}
+    real = mod.make_fleet_server
+    monkeypatch.setattr(mod, "make_fleet_server",
+                        lambda *a, **k: made.append(real(*a, **k)) or made[-1])
+
+    def drive():
+        try:
+            for _ in range(3000):
+                if made:
+                    break
+                time.sleep(0.01)
+            url = "http://%s:%d" % made[0].server_address[:2]
+            for _ in range(500):
+                if _http(f"{url}/healthz")[2].get("in_rotation"):
+                    break
+                time.sleep(0.02)
+            status, _, body = _http(f"{url}/predict", {"paths": [paths[0]]})
+            replies["predict"] = (status, sorted(body), sorted(body.get("detections", {})))
+            status, _, body = _http(f"{url}/predict", {"paths": "x"})
+            replies["bad"] = (status, sorted(body))
+            for path in ("healthz", "stats"):
+                status, _, body = _http(f"{url}/{path}")
+                # the replica's URL names it: the same shape under one name
+                body = json.loads(json.dumps(body).replace(replica_url, "replica"))
+                replies[path] = (status, _shape(body))
+        finally:
+            while not made:
+                time.sleep(0.01)
+            made[0].shutdown()
+
+    requester = threading.Thread(target=drive)
+    requester.start()
+    rc, out = _cli(cli_main, ["fleet", "--replica", replica_url, "--port", "0", "--no-hedge",
+                              "--probe-interval-s", "0.05", "--lease-timeout-s", "5"], capsys)
+    requester.join(timeout=120)
+    monkeypatch.undo()
+    return rc, sorted(json.loads(out.out[:out.out.index("fleet router on")])), replies
+
+
+def _fleet_cli_cases(cli, jcli, wd, engines, paths, tmp_path, capsys, monkeypatch):
+    """``chaos --smoke --json``, ``rollout --validate-only`` over the train
+    workdir and ``fleet`` in-process over a replica server of each package's
+    engine: the JAX commands' exit codes and keys; the unported flag's exit
+    2; missing arguments' exit 2."""
+    got = [_cli(m.main, ["chaos", "--smoke", "--json", "--seed", "1"], capsys)
+           for m in (cli, jcli)]
+    (rc, out), (rc_j, out_j) = got
+    res, res_j = json.loads(out.out), json.loads(out_j.out)
+    assert (rc, rc_j) == (0, 0) and sorted(res) == sorted(res_j)
+    assert (res["legs"], res["events"]) == (res_j["legs"], res_j["events"])
+    assert len(res["legs"]) == 6
+    for argv in (["chaos"], ["fleet"], ["rollout", "--workdir", str(wd)]):
+        assert _cli(cli.main, argv, capsys)[0] == _cli(jcli.main, argv, capsys)[0] == 2, argv
+    rc, out = _cli(cli.main, ["fleet", "--threadsan"], capsys)
+    assert rc == 2 and "not ported yet" in out.err and "item 7" in out.err
+    argv = ["rollout", "--workdir", str(wd), "--validate-only", "--no-config-checks"]
+    (rc, out), (rc_j, out_j) = (_cli(m.main, argv, capsys) for m in (cli, jcli))
+    assert (rc, rc_j) == (0, 0) and json.loads(out.out) == json.loads(out_j.out)
+    assert [v["eligible"] for v in json.loads(out.out)["versions"]] == [True]
+    # with the config checks, against a preset the checkpoint was not trained under
+    rc, out = _cli(cli.main, argv[:-1] + ["--config", "voc_resnet18"], capsys)
+    verdict = json.loads(out.out)["versions"][0]
+    assert rc == 0 and not verdict["eligible"] and "config hash" in verdict["reasons"][0]
+
+    jeng, teng, _ = engines
+    runs = []
+    for make, eng, mod, main in ((make_server, teng, fleet, cli.main),
+                                 (j_make_server, jeng, j_fleet, jcli.main)):
+        replica = make(eng, port=0, replica_id="r0")
+        thread = threading.Thread(target=replica.serve_forever)
+        thread.start()
+        try:
+            runs.append(_fleet_cli_run(mod, main, "http://%s:%d" % replica.server_address[:2],
+                                       paths, capsys, monkeypatch))
+        finally:
+            replica.shutdown()
+            replica.server_close()
+            thread.join()
+    assert runs[0] == runs[1]
+    rc, startup, replies = runs[0]
+    assert rc == 0 and "replicas" in startup
+    assert replies["predict"][0] == 200 and replies["predict"][2] == [paths[0]]
+    assert replies["bad"][0] == 400 and replies["healthz"][0] == replies["stats"][0] == 200
+
+
 def _cli_matches_jax(tmp_path, capsys, monkeypatch, engines, paths):
     """The port's command line in-process at 96x96 on the CPU: train (bounded
     steps with telemetry, then a preempted run's emergency save), eval with the
@@ -481,7 +577,8 @@ def _cli_matches_jax(tmp_path, capsys, monkeypatch, engines, paths):
     sidecar (the sidecar ``serve --params-dtype int8`` loads), bench,
     telemetry (the report, and a request's timeline against the JAX
     command's), ``trace-summary`` (:func:`_trace_summary_cases`), the model
-    knobs' flags (:func:`_model_knob_flags`), and the JAX flags that are not
+    knobs' flags (:func:`_model_knob_flags`), ``chaos``, ``rollout`` and
+    ``fleet`` (:func:`_fleet_cli_cases`), and the JAX flags that are not
     ported yet as argparse errors naming their ROADMAP item. Also ``eval/predict.py`` against the
     JAX module on the fixture's engines, and the ``FRCNN`` facade."""
     from replication_faster_rcnn_tpu import cli as jcli
@@ -573,6 +670,7 @@ def _cli_matches_jax(tmp_path, capsys, monkeypatch, engines, paths):
             rc, out = _cli(cli.main, ["train", *CLI_COMMON, "--loader-mode", mode], capsys)
             assert rc == 0 and seen[-1].data.loader_mode == mode, (mode, out.err)
     _model_knob_flags(cli, jcli, capsys)
+    _fleet_cli_cases(cli, jcli, wd, engines, paths, tmp_path, capsys, monkeypatch)
 
     # eval/predict.py against the JAX module on the same engines and weights
     jeng, teng, variables = engines
@@ -727,6 +825,17 @@ def _script_loadgen(lg):
             lg.run_closed_loop(_StubEngine(shed=3), images, 6, admission=True, seed=2),
             lg.run_open_loop(_StubEngine(), images, 500.0, n_requests=8),
             lg.run_open_loop(_StubEngine(), images, 400.0, duration_s=0.02)]
+    # the fleet loop over a dispatch that fails one request in three
+    requests = [(i, f"h{i}") for i in range(9)]
+
+    def dispatch(payload, content_hash):
+        if payload % 3 == 0:
+            raise ConnectionError(f"no replica for {content_hash}")
+        return payload
+
+    fleet_run = lg.run_fleet_loop(dispatch, requests, concurrency=2)
+    assert len(fleet_run.pop("failed_trace_ids")) == 3
+    runs.append(fleet_run)
     timed = ("wall_s", "images_per_sec", "p50_ms", "p99_ms", "mean_ms")
     return [{k: v for k, v in r.items() if k not in timed} for r in runs], \
         [sorted(r) for r in runs], lg.percentile_ms([0.001, 0.002, 0.010], 50)
@@ -743,10 +852,9 @@ def test_host_modules_and_loadgen_match_jax():
     want = _script_pure((j_metrics, j_slo_burn, j_tracecontext, j_overload,
                          JDeadlineController, j_failpoints))
     assert got == want
-    # the port registers the sites it fires, each one of JAX's, and rejects
-    # the others until the code that fires them is ported
-    assert set(failpoints.SITES) == {"loader.fetch", "batcher.flush", "http.handler"}
-    assert set(failpoints.SITES) <= set(j_failpoints.SITES)
+    # the port registers the sites it fires: JAX's, but prefetch.stage, which
+    # it rejects until the device prefetcher fires it
+    assert set(failpoints.SITES) == set(j_failpoints.SITES) - {"prefetch.stage"}
     # the nan fault's poison, as JAX's: a float image all NaN, a uint8 one untouched
     for image in (np.ones((2, 3, 3), np.float32), np.ones((2, 3, 3), np.uint8)):
         sample = {"image": image, "labels": np.arange(3)}
@@ -755,7 +863,7 @@ def test_host_modules_and_loadgen_match_jax():
         for k in want_p:
             np.testing.assert_array_equal(got_p[k], want_p[k])
     with pytest.raises(ValueError, match="unknown failpoint site"):
-        failpoints.configure("checkpoint.write:ioerror:1.0:0")
+        failpoints.configure("prefetch.stage:ioerror:1.0:0")
     assert not failpoints.armed()
     assert _script_loadgen(loadgen) == _script_loadgen(j_loadgen)
     images = [np.zeros((4, 4, 3), np.uint8)]
@@ -766,3 +874,116 @@ def test_host_modules_and_loadgen_match_jax():
         == {k: v for k, v in plain.items() if k in ("n_requests", "errors", "shed", "timeouts")}
     with pytest.raises(ValueError):
         loadgen.run_closed_loop(_StubEngine(), images, 2, concurrency=0)
+
+
+def _engine_fleet(side, engines, loader, passes):
+    """Three engine replicas behind a router (hedging off, 3 attempts) on a
+    fake clock: ``run_fleet_loop`` with 4 clients over each of ``passes``
+    (requests) in turn under a ``router.dispatch`` drop that kills a replica
+    mid-request; the victim revived; a ``swap_params`` wave to version "B"
+    through the rollout controller; the same passes again through a fresh
+    router (a fresh cache: the first one holds version A's answers)."""
+    fleet_mod, rollout_mod, fp, cfg_mod = side
+    now = [0.0]
+    fcfg = cfg_mod.FleetConfig(hedge=False, max_attempts=3, rejoin_probes=1,
+                               lease_timeout_s=600.0, canary_fraction=0.0)
+    clients = {f"r{i}": fleet_mod.engine_client(f"r{i}", eng, loader=loader)
+               for i, eng in enumerate(engines)}
+    reg = fleet_mod.ReplicaRegistry(fcfg, clock=lambda: now[0])
+    for rid, client in clients.items():
+        reg.add(rid, client)
+    reg.probe_once()
+    routers = [fleet_mod.FleetRouter(reg, fcfg, clock=lambda: now[0],
+                                     kill_hook=lambda rid: clients[rid].kill())]
+    answers = [{}, {}]
+
+    def dispatch(k):
+        def _dispatch(payload, content_hash):
+            out = routers[-1].dispatch(payload, content_hash=content_hash)
+            answers[k][content_hash] = out
+            return out
+        return _dispatch
+
+    fp.configure([fp.Rule("router.dispatch", "drop", 1.0, 5, max_fires=1, after=5)])
+    try:
+        loads = [[loadgen_of(side).run_fleet_loop(dispatch(0), requests, concurrency=4)
+                  for requests in passes]]
+    finally:
+        fp.disarm()
+    killed = sorted(rid for rid, c in clients.items() if c.killed)
+    for client in clients.values():
+        client.revive()
+    rcfg = cfg_mod.FasterRCNNConfig().replace(
+        fleet=fcfg, rollout=cfg_mod.RolloutConfig(canary_hold_s=1.0, drain_timeout_s=2.0,
+                                                  rejoin_timeout_s=5.0))
+    ctl = rollout_mod.RolloutController(reg, routers[0], rcfg, clock=lambda: now[0],
+                                        sleep=lambda s: now.__setitem__(0, now[0] + s))
+    wave = ctl.rollout("B")
+    routers.append(fleet_mod.FleetRouter(reg, fcfg, clock=lambda: now[0]))
+    loads.append([loadgen_of(side).run_fleet_loop(dispatch(1), requests, concurrency=4)
+                  for requests in passes])
+    stats = [r.stats for r in routers]
+    for r in routers:
+        r.close()
+    return {"loads": loads, "killed": killed, "wave": wave.to_dict(), "answers": answers,
+            "stats": stats, "versions": reg.model_versions()}
+
+
+def loadgen_of(side):
+    return loadgen if side[0] is fleet else j_loadgen
+
+
+def test_fleet_over_engines_matches_jax(engines):
+    """A 3-replica fleet of port engines on the CPU against one of JAX
+    engines, from the fixture's bridged weights (batch size 1 here, so each
+    JAX engine compiles one program): the loaded run under a dispatch drop
+    answers every request on both sides, and after a ``swap_params`` wave
+    every replica serves version B. Detections equal within the file's
+    tolerance, before and after the wave."""
+    from replication_faster_rcnn_tpu.serving.fleet.router import content_key as j_content_key
+    from replication_faster_rcnn_tpu_torch.serving.fleet.router import content_key
+
+    _, _, variables = engines
+    rng = np.random.default_rng(7)
+    images = _images(rng, [(32, 32)] * 21)
+    images += [images[i] for i in (0, 5, 9)]  # one in eight repeats: cache hits
+    requests = [(img, content_key(img.tobytes())) for img in images]
+    assert [j_content_key(img.tobytes()) for img in images] == [h for _, h in requests]
+    # the repeats go in a pass of their own: in one pass a repeat can reach
+    # the router while its first request is still in flight (a cache miss)
+    passes = [requests[:21], requests[21:]]
+
+    def one_batch(mod):  # and 64 -> 32 proposals: a 2x2 map has 36 anchors
+        cfg = _cfg(mod)
+        return cfg.replace(serving=dataclasses.replace(cfg.serving, batch_sizes=(1,),
+                                                       queue_depth=8),
+                           proposals=dataclasses.replace(cfg.proposals, pre_nms_test=64,
+                                                         post_nms_test=32))
+
+    teng = [InferenceEngine(one_batch(tconfig), device="cpu", model_version="A",
+                            state_dict=from_flax_variables(variables[0])) for _ in range(3)]
+    jeng = [JInferenceEngine(one_batch(jconfig), None,
+                             jax.tree_util.tree_map(jnp.asarray, variables[0]),
+                             model_version="A") for _ in range(3)]
+    try:
+        got = _engine_fleet((fleet, rollout, failpoints, tconfig), teng,
+                            lambda v: from_flax_variables(variables[1]), passes)
+        want = _engine_fleet((j_fleet, j_rollout, j_failpoints, jconfig), jeng,
+                             lambda v: jax.tree_util.tree_map(jnp.asarray, variables[1]),
+                             passes)
+    finally:
+        for eng in teng + jeng:
+            eng.close()
+    for run in (got, want):
+        assert [[p["availability"] for p in load] for load in run["loads"]] == [[1.0, 1.0]] * 2
+        assert len(run["killed"]) == 1 and run["stats"][0]["failovers"] >= 1
+        assert run["stats"][0]["cache_hits"] == 3 and run["stats"][1]["cache_hits"] == 3
+        assert run["wave"]["outcome"] == "promoted" and len(run["wave"]["swapped"]) == 3
+        assert run["versions"] == {"r0": "B", "r1": "B", "r2": "B"}
+    assert got["wave"] == want["wave"]
+    for k, when in enumerate(("before", "after")):
+        assert got["answers"][k].keys() == want["answers"][k].keys()
+        for h, det in got["answers"][k].items():
+            _assert_detections(det, want["answers"][k][h], f"{when} the wave, {h[:8]}")
+    assert any(not np.allclose(got["answers"][0][h]["scores"], got["answers"][1][h]["scores"])
+               for h in got["answers"][0])

@@ -114,6 +114,10 @@ def test_match_boxes_bitwise():
     # one test id walks the cases (each test id costs the fast tier's budget)
     for case in ("random", "no_gt", "all_padded", "ties", "g1", "zero_area"):
         _assert_match_case(case)
+    # cases folded into this id (each test id costs the fast tier's budget 2 s)
+    _case_random_subset_mask_bitwise()
+    _case_anchor_targets_bitwise()
+    _case_proposal_targets_bitwise()
 
 
 def _assert_match_case(case):
@@ -146,7 +150,7 @@ def _uniform(key, shape):
     return np.asarray(jax.random.uniform(key, shape))
 
 
-def test_random_subset_mask_bitwise():
+def _case_random_subset_mask_bitwise():
     for k, k_max in [(0, None), (3, None), (7, 10), (40, 64), (10, 10)]:
         rng = np.random.default_rng(k)
         member = rng.uniform(size=(4, 50)) > 0.4
@@ -235,7 +239,7 @@ def _anchor_targets_case(n_sample):
     assert (lab == 1).sum() > 0 and (lab == 0).sum() > 0
 
 
-def test_anchor_targets_bitwise():
+def _case_anchor_targets_bitwise():
     for n_sample in (64, 256):
         _anchor_targets_case(n_sample)
 
@@ -270,7 +274,7 @@ def _proposal_targets_case(strategy):
     assert lab.shape == (n, 16) and (lab[0] > 0).sum() > 0 and (lab[2] <= 0).all()
 
 
-def test_proposal_targets_bitwise():
+def _case_proposal_targets_bitwise():
     for strategy in ("random", "topk_iou"):
         _proposal_targets_case(strategy)
 

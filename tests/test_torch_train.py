@@ -498,9 +498,11 @@ def test_train_step_params_within_adam_bound(one_step):
                 moved += int((g != w).sum())
         assert moved > 0
         assert step["state"].step == 1 and int(step["state"].optimizer.count) == 1
+    # cases folded into this id (each test id costs the fast tier's budget 2 s)
+    _case_trunk_gets_a_gradient_through_roi_align(one_step)
 
 
-def test_trunk_gets_a_gradient_through_roi_align(one_step):
+def _case_trunk_gets_a_gradient_through_roi_align(one_step):
     """The head's loss reaches the trunk through the ROIAlign Function."""
     st, cfg = one_step["state"], one_step["tcfg"]
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, loss_weights=(0.0, 0.0, 1.0, 1.0)))
@@ -535,6 +537,9 @@ def test_batchnorm_train_matches_flax():
         _batchnorm_case(dtype)
         _frozen_batchnorm_case(dtype)
         _groupnorm_case(dtype)
+    # cases folded into this id (each test id costs the fast tier's budget 2 s)
+    _case_losses_match_jax()
+    _case_schedule_matches_jax()
 
 
 def _norm_tol(dtype):
@@ -668,7 +673,7 @@ def _batchnorm_case(dtype):
 # -------------------------------------------------------------------- losses
 
 
-def test_losses_match_jax():
+def _case_losses_match_jax():
     rng = np.random.default_rng(1)
     pred = rng.normal(0, 1.5, (2, 30, 4)).astype(np.float32)
     target = rng.normal(0, 1.5, (2, 30, 4)).astype(np.float32)
@@ -718,7 +723,7 @@ def _option_cfgs(**train):
             tconfig.get_config("voc12_resnet18_align").replace(train=tconfig.TrainConfig(**train)))
 
 
-def test_schedule_matches_jax():
+def _case_schedule_matches_jax():
     for option in OPTIONS + ({"warmup_epochs": 1.5, "lr_scaling": "linear", "batch_size": 4},):
         jcfg, cfg = _option_cfgs(**option)
         want = j_host_schedule(jcfg, 3)
